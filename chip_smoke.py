@@ -1,0 +1,388 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. holds each kernel against its plain PyTorch twin on the card at K in
+   {10, 200} clients and the paper DNN's D = 535,818 parameters: agreement
+   within a stated tolerance, bit-identical reruns, and times of the kernel,
+   the twin and one PyTorch library call, beside the least time the card
+   could take (``bound_ms``);
+4. runs the paper's experiment through ``repro_torch.fed.api.run`` at full
+   width (784 x 512 x 256 x 10 DNN, K = 10, 3 byzantine clients, 8 rounds)
+   on each AFA kernel route, and checks that every byzantine client is
+   blocked in round ``min_rounds_to_block()`` (= 6), no good client is
+   blocked, the final test error is below 5 %, and the route's kernels were
+   launched;
+5. traces three rounds of the gram/fused route with ``torch.profiler``
+   (device busy share, the kernels that take the time);
+6. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+
+Any failure raises and exits non-zero.  Without CUDA, or without the repo's
+``src/repro_torch`` beside it, the script exits 1 before printing a result.
+Everything it measured also goes to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+D_PAPER = 784 * 512 + 512 + 512 * 256 + 256 + 256 * 10 + 10   # 535,818
+KS = (10, 200)
+MAIN_K = 10
+RTOL = 1e-5      # kernel vs twin, each float output on its own scale:
+                 # max |diff| <= RTOL * max |twin| of that output (f32 sums
+                 # over ~5e5 terms taken in different orders)
+N_TIMED = 20
+SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock: longer than any wrapper's host work
+SOURCE = "src/repro_torch/kernels/csrc/afa_kernels.cu"
+REPLACES = {
+    "weighted_sum": "src/repro/kernels/weighted_sum.py:30",
+    "cosine_sim": "src/repro/kernels/cosine_sim.py:49",
+    "gram": "src/repro/kernels/gram.py:56",
+    "afa_screen": "src/repro/kernels/afa_screen.py:223",
+}
+OUTPUTS = {"afa_screen": ("agg", "good", "rounds", "sims")}  # else one output
+ROUTES = {  # label -> (afa_variant, kernel_launch, kernels the route launches)
+    "iterative": ("iterative", "fused", ("cosine_sim", "weighted_sum")),
+    "gram/chained": ("gram", "chained", ("gram", "weighted_sum")),
+    "gram/fused": ("gram", "fused", ("afa_screen",)),
+}
+# device-side names of the kernels in SOURCE
+OUR_KERNEL_NAMES = ("weighted_sum_kernel", "cosine_parts_kernel", "cosine_reduce_kernel",
+                    "gram_parts_kernel", "gram_reduce_kernel", "afa_screen_kernel")
+# published peaks: (HBM bytes/s, FP32 non-tensor FLOP/s), NVIDIA data sheets
+PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "SXM": (3.35e12, 67e12)}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def card_peaks(name: str):
+    for key in ("PCIe", "NVL"):
+        if key in name:
+            return key, PEAKS[key]
+    return "SXM", PEAKS["SXM"]
+
+
+def bound_ms(nbytes: float, flops: float, peaks):
+    t_bytes = nbytes / peaks[0] * 1e3
+    t_ops = flops / peaks[1] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(torch, fns: dict, flush) -> dict:
+    """Median device time of each function over N_TIMED turns; every turn
+    times each function once, in order, after an L2 flush (the main path
+    finds the (K, D) operand mostly cold).  The flush reads a 256 MB buffer,
+    which leaves no dirty lines to write back; a device-side spin after it
+    keeps the card busy while the host enqueues the timed call, so the
+    events see the call's device time and not its host overhead.  A
+    function that synchronises inside (the plain screening loop) still
+    shows its host time: that is part of its cost."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(N_TIMED):
+        for name, fn in fns.items():
+            flush.sum()
+            torch.cuda._sleep(SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+
+
+def float_parts(torch, name, outs, refs):
+    """The float outputs of one kernel as (label, kernel, twin) triples, each
+    held to its own largest magnitude.  The Gram matrix's diagonal (~D) and
+    its off-diagonal entries (~sqrt(D) for unrelated rows) go apart, so the
+    small entries are not judged on the diagonal's scale."""
+    parts = []
+    for label, o, r in zip(OUTPUTS.get(name, (name,)), outs, refs):
+        if o.dtype == torch.bool or o.dtype == torch.int32:
+            if not torch.equal(o.cpu(), r.to(o.dtype).cpu()):
+                raise AssertionError(f"{name}: {label} differs from the twin's")
+            continue
+        o, r = o.float(), r.float()
+        if name == "gram":
+            off = ~torch.eye(o.shape[0], dtype=torch.bool, device=o.device)
+            parts += [("diagonal", o.diagonal(), r.diagonal()), ("off-diagonal", o[off], r[off])]
+        else:
+            parts.append((label, o, r))
+    return parts
+
+
+def check_kernel(torch, name, K, kern, plain, library, nbytes, flops, peaks, flush):
+    """Parity, run-to-run identity and times of one kernel at one shape."""
+    out = kern()
+    ref = plain()
+    out_t = out if isinstance(out, tuple) else (out,)
+    ref_t = ref if isinstance(ref, tuple) else (ref,)
+    err, checks = 0.0, []
+    for label, o, r in float_parts(torch, name, out_t, ref_t):
+        e, scale = float((o - r).abs().max()), float(r.abs().max())
+        checks.append({"part": label, "max_abs_err": e, "twin_max_abs": scale,
+                       "tol": RTOL * scale})
+        if e > RTOL * scale:
+            raise AssertionError(f"{name} K={K} {label}: max |kernel - twin| = {e} > "
+                                 f"{RTOL} * {scale}")
+        err = max(err, e)
+    again = kern()
+    again_t = again if isinstance(again, tuple) else (again,)
+    if not all(torch.equal(a, b) for a, b in zip(out_t, again_t)):
+        raise AssertionError(f"{name} K={K}: two launches are not bit-identical")
+    b_ms, b_by = bound_ms(nbytes, flops, peaks)
+    fns = {"ms": kern, "plain_ms": plain}
+    if library is not None:
+        fns["library_ms"] = library
+    row = {
+        "name": name, "K": K, "D": D_PAPER, "max_abs_err": err, "checks": checks,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **time_ms(torch, fns, flush),
+    }
+    print(f"kernel {name:12s} K={K:3d}: kernel_ms={row['ms']:.4f} plain_ms="
+          f"{row['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms="
+          f"{row['library_ms']} bit-identical")
+    for c in checks:
+        print(f"  {c['part']:12s} max_abs_err={c['max_abs_err']:.3e} tol={c['tol']:.3e} "
+              f"(twin max {c['twin_max_abs']:.3e})")
+    return row
+
+
+def kernel_phase(torch, ops, ref, peaks):
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
+    # bring the clocks up before the first timing
+    a = torch.randn((8192, 8192), device=dev)
+    for _ in range(20):
+        a @ a
+    torch.cuda.synchronize()
+    del a
+    rows = []
+    for K in KS:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1000 + K)
+        D = D_PAPER
+        U = torch.randn((K, D), generator=gen, device=dev)
+        w = torch.randn((D,), generator=gen, device=dev)
+        c = torch.rand((K,), generator=gen, device=dev)
+        # screening inputs: a benign cluster and 30 % byzantine rows
+        base = torch.randn((D,), generator=gen, device=dev)
+        Us = base + 0.3 * torch.randn((K, D), generator=gen, device=dev)
+        n_bad = (3 * K) // 10
+        Us[:n_bad] = base + 20.0 * torch.randn((n_bad, D), generator=gen, device=dev)
+        Us = Us.contiguous()
+        pn = torch.rand((K,), generator=gen, device=dev) * 100 + 50
+        mask0 = torch.ones((K,), dtype=torch.bool, device=dev)
+        mask0[-1] = False
+        kw = dict(xi0=2.0, delta_xi=0.5, max_rounds=8, ddof=0)
+        kd, f = K * D, 4
+        rows.append(check_kernel(
+            torch, "weighted_sum", K, lambda: ops.weighted_sum(c, U),
+            lambda: ref.weighted_sum_ref(U, c), lambda: c @ U,
+            (kd + K + D) * f, 2 * kd, peaks, flush))
+        rows.append(check_kernel(
+            torch, "cosine_sim", K, lambda: ops.cosine_sim(U, w),
+            lambda: ref.cosine_sim_ref(U, w), lambda: F.cosine_similarity(U, w[None]),
+            (kd + D + K) * f, 4 * kd + 2 * D, peaks, flush))
+        rows.append(check_kernel(
+            torch, "gram", K, lambda: ops.gram(U), lambda: ref.gram_ref(U),
+            lambda: U @ U.T, (kd + K * K) * f, K * (K + 1) * D, peaks, flush))
+        rows.append(check_kernel(
+            torch, "afa_screen", K, lambda: ops.afa_screen(Us, pn, mask0, **kw),
+            lambda: ref.afa_screen_ref(Us, pn, mask0, **kw), None,
+            (kd + 2 * K + D + 3 * K + 1) * f, K * (K + 1) * D + 2 * kd, peaks, flush))
+    return rows
+
+
+def main_path_phase(torch, ops, min_rounds_to_block):
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import ServerConfig, SimConfig, run
+    from repro_torch.kernels.policy import resolve_kernel_plan
+
+    data = make_mnist_like()
+    n_min = min_rounds_to_block()
+    # one untimed round first, so the first route does not pay for library
+    # initialisation on the card
+    run(None, SimConfig(num_clients=MAIN_K, rounds=1, local_epochs=1), data=data,
+        device="cuda")
+    launches = {name: 0 for name in ops.LAUNCH_COUNTS}
+    runs = []
+    cases = [(label, v, l, True, names) for label, (v, l, names) in ROUTES.items()]
+    cases.append(("iterative/plain-torch", "iterative", "fused", False, ()))
+    for label, variant, launch, kernels, names in cases:
+        sim = SimConfig(num_clients=MAIN_K, bad_frac=0.3, scenario="byzantine", rounds=8,
+                        local_epochs=2, batch_size=200, hidden=(512, 256), seed=0)
+        server = ServerConfig(num_clients=MAIN_K, afa_variant=variant,
+                              kernel_plan=resolve_kernel_plan(kernels, kernel_launch=launch))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run(None, sim, server, data=data, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCH_COUNTS)
+        good = [k for k in range(MAIN_K) if k not in set(res.bad_clients.tolist())]
+        print(f"main path [{label}]: wall_s={wall:.3f} blocked_round="
+              f"{res.blocked_round.tolist()} test_error={[round(e, 3) for e in res.test_error]}")
+        print(f"  round_ms={[round(t * 1e3, 3) for t in res.round_times]} "
+              f"train_ms/round={res.train_time * 1e3:.3f} agg_ms/round={res.agg_time * 1e3:.3f} "
+              f"launches={counts}")
+        if list(res.blocked_round[res.bad_clients]) != [n_min] * len(res.bad_clients):
+            raise AssertionError(f"{label}: bad clients blocked at "
+                                 f"{res.blocked_round[res.bad_clients]}, expected {n_min}")
+        if any(res.blocked_round[k] != -1 for k in good):
+            raise AssertionError(f"{label}: a good client was blocked: {res.blocked_round}")
+        if not res.test_error[-1] < 5.0:
+            raise AssertionError(f"{label}: final test error {res.test_error[-1]} % >= 5 %")
+        for name in names:
+            if counts[name] <= 0:
+                raise AssertionError(f"{label}: kernel {name} was never launched")
+        if not kernels and any(counts.values()):
+            raise AssertionError(f"{label}: the plain route launched kernels {counts}")
+        for name in names:
+            launches[name] += counts[name]
+        runs.append({
+            "route": label, "wall_s": wall, "round_ms": [t * 1e3 for t in res.round_times],
+            "train_ms": res.train_time * 1e3, "agg_ms": res.agg_time * 1e3,
+            "test_error": res.test_error, "blocked_round": res.blocked_round.tolist(),
+            "launches": counts,
+        })
+    return runs, launches
+
+
+def profile_phase(torch, data_rounds: int = 3):
+    """Trace ``data_rounds`` rounds of the gram/fused route with
+    ``torch.profiler``: the device's busy share of the wall time and the
+    kernels that fill it.  Informational: the launch counts of the main
+    path come from ``main_path_phase``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import ServerConfig, SimConfig, run
+    from repro_torch.kernels.policy import resolve_kernel_plan
+
+    data = make_mnist_like()
+    sim = SimConfig(num_clients=MAIN_K, bad_frac=0.3, scenario="byzantine",
+                    rounds=data_rounds, local_epochs=2, batch_size=200, seed=0)
+    server = ServerConfig(num_clients=MAIN_K, afa_variant="gram",
+                          kernel_plan=resolve_kernel_plan(True, kernel_launch="fused"))
+    run(None, sim, server, data=data, device="cuda")  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run(None, sim, server, data=data, device="cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end_us = 0.0, float("-inf")
+    for start, end, _ in spans:
+        busy_us += max(0.0, end - max(start, end_us))
+        end_us = max(end_us, end)
+    by_name: dict = {}
+    for start, end, name in spans:
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + end - start, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    ours = sorted((n, tc) for n, tc in by_name.items()
+                  if any(k in n for k in OUR_KERNEL_NAMES))
+    out = {
+        "rounds": data_rounds, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+        "device_events": len(spans), "train_ms": res.train_time * 1e3,
+        "agg_ms": res.agg_time * 1e3,
+        "top": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in top],
+        "ours": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in ours],
+    }
+    if not spans:
+        print("profile: the profiler recorded no device events (device busy share not measured)")
+        return out
+    print(f"profile [gram/fused, {data_rounds} rounds]: wall_ms={wall_ms:.3f} device_busy_ms="
+          f"{busy_us / 1e3:.3f} busy_share={busy_us / 1e3 / wall_ms:.3f} device_events="
+          f"{len(spans)} train_ms/round={out['train_ms']:.3f} agg_ms/round={out['agg_ms']:.3f}")
+    for item in out["top"]:
+        print(f"  {item['ms']:9.3f} ms  x{item['count']:5d}  {item['name']}")
+    print("  this repository's kernels on the route:")
+    for item in out["ours"]:
+        print(f"  {item['ms']:9.3f} ms  x{item['count']:5d}  {item['name']}")
+    return out
+
+
+def main() -> None:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    sys.path.insert(0, str(SRC))
+    from repro_torch import resolve_device
+    from repro_torch.core import min_rounds_to_block
+    from repro_torch.kernels import build, ops, ref
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    name = torch.cuda.get_device_name(0)
+    resolve_device("cuda")  # TF32 off: the reference computes in full f32
+    peak_key, peaks = card_peaks(name)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; peaks used ({peak_key}): "
+          f"{peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} FP32 TFLOP/s")
+
+    t0 = time.perf_counter()
+    path, log = build.build_library()
+    print(f"build: {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "warning" in line.lower():
+            print("  " + line.strip())
+    build.load_library()
+
+    kernel_rows = kernel_phase(torch, ops, ref, peaks)
+    runs, launches = main_path_phase(torch, ops, min_rounds_to_block)
+    trace = profile_phase(torch)
+
+    kernels = []
+    for row in kernel_rows:
+        if row["K"] != MAIN_K:
+            continue
+        kernels.append({
+            "name": row["name"], "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[row["name"]], "launches": launches[row["name"]],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps({
+        "nvidia_smi": smi, "device": name, "torch": torch.__version__,
+        "peaks": {"key": peak_key, "bytes_per_s": peaks[0], "fp32_flops": peaks[1]},
+        "kernel_checks": kernel_rows, "main_path": runs, "profile": trace,
+    }, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,126 @@
+"""The paper's bad-client behaviours plus two beyond-paper attacks.
+
+Counterpart of ``repro/attacks/attacks.py``:
+
+* data poisoning, applied to a client's shard before training (numpy copies
+  of the JAX package's, consuming the same numpy stream):
+  ``flip_labels`` and ``noisy_features``;
+* update poisoning on stacked proposals (every leaf has a leading client
+  axis), selected by (K,) bool masks: ``byzantine_update_tree`` (w_t +
+  N(0, 20^2 I)), ``alie_update_tree`` and ``ipm_update_tree``, dispatched by
+  ``apply_update_attack``.
+
+Byzantine noise is drawn from a ``torch.Generator`` seeded by (attack seed,
+leaf index, ORIGINAL client id), never by row position, so compacting the
+stack later is a change of layout only.  torch cannot replay ``jax.random``,
+so the noise differs from the JAX package's in value, not in distribution.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.utils.trees import tree_leaves, tree_map, tree_structure, tree_unflatten
+
+UPDATE_ATTACK_SCENARIOS = ("byzantine", "alie", "ipm")
+
+# stream tag separating attack noise from the other seeded torch streams
+_ATTACK_STREAM = 0xA77AC4
+
+
+def flip_labels(x: np.ndarray, y: np.ndarray, rng=None, target: int = 0):
+    return x, np.full_like(y, target)
+
+
+def noisy_features(x: np.ndarray, y: np.ndarray, rng=None, *, binary: bool | None = None):
+    rng = rng or np.random.default_rng(0)
+    binary = bool(((x == 0) | (x == 1)).all()) if binary is None else binary
+    if binary:
+        flip = rng.uniform(size=x.shape) < 0.30
+        return np.where(flip, 1.0 - x, x).astype(x.dtype), y
+    eps = rng.uniform(-1.4, 1.4, size=x.shape).astype(x.dtype)
+    return np.clip(x + eps, -1.0, 1.0), y
+
+
+def stream_seed(*keys: int) -> int:
+    """A 63-bit generator seed derived from a tuple of non-negative ints."""
+    state = np.random.SeedSequence([int(k) for k in keys]).generate_state(2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
+def _row(mask, leaf):
+    return mask.reshape((-1,) + (1,) * (leaf.ndim - 1))
+
+
+def byzantine_update_tree(proposals, w_prev, bad_mask, seed: int, *,
+                          scale: float = 20.0, client_ids=None):
+    """Bad rows <- w_t + N(0, scale^2 I).
+
+    Row k's noise on leaf i comes from a generator seeded by ``(seed, i,
+    client_ids[k])``; ``client_ids`` None means the identity layout."""
+    leaves = tree_leaves(proposals)
+    prev = tree_leaves(w_prev)
+    K = leaves[0].shape[0]
+    ids = list(range(K)) if client_ids is None else [int(c) for c in client_ids]
+    rows = torch.nonzero(bad_mask).flatten().tolist()
+    if not rows:
+        return proposals
+    out = []
+    for i, (l, p) in enumerate(zip(leaves, prev)):
+        l = l.clone()
+        for k in rows:
+            gen = torch.Generator(device=l.device)
+            gen.manual_seed(stream_seed(_ATTACK_STREAM, seed, i, ids[k]))
+            noise = torch.randn(tuple(l.shape[1:]), generator=gen,
+                                dtype=torch.float32, device=l.device)
+            l[k] = (p.float() + scale * noise).to(l.dtype)
+        out.append(l)
+    return tree_unflatten(tree_structure(proposals), out)
+
+
+def _benign_count(benign_mask):
+    return torch.clamp(benign_mask.float().sum(), min=1.0)
+
+
+def alie_update_tree(proposals, bad_mask, benign_mask, *, z_max: float = 1.2):
+    """Bad rows <- mean - z_max * std of the benign rows (coordinate-wise)."""
+    cnt = _benign_count(benign_mask)
+
+    def leaf(l):
+        w = _row(benign_mask, l).float()
+        lf = l.float()
+        mu = (w * lf).sum(dim=0) / cnt
+        var = (w * (lf - mu[None]) ** 2).sum(dim=0) / cnt
+        adv = (mu - z_max * torch.sqrt(var)).to(l.dtype)
+        return torch.where(_row(bad_mask, l), adv[None], l)
+
+    return tree_map(leaf, proposals)
+
+
+def ipm_update_tree(proposals, bad_mask, benign_mask, *, eps: float = 0.5):
+    """Bad rows <- -eps * mean(benign rows): inner-product manipulation."""
+    cnt = _benign_count(benign_mask)
+
+    def leaf(l):
+        w = _row(benign_mask, l).float()
+        mu = (w * l.float()).sum(dim=0) / cnt
+        return torch.where(_row(bad_mask, l), (-eps * mu).to(l.dtype)[None], l)
+
+    return tree_map(leaf, proposals)
+
+
+def apply_update_attack(scenario: str, proposals, w_prev, bad_mask, benign_mask,
+                        seed: int, *, byzantine_scale: float = 20.0,
+                        z_max: float = 1.2, eps: float = 0.5, client_ids=None):
+    """Dispatch the update-level attacks on stacked proposals; data-level
+    scenarios (clean/flipping/noisy) are a no-op here.  ``seed`` is the
+    round's attack seed (``fed.engine.attack_seed``)."""
+    if scenario == "byzantine":
+        return byzantine_update_tree(proposals, w_prev, bad_mask, seed,
+                                     scale=byzantine_scale, client_ids=client_ids)
+    if scenario == "alie":
+        return alie_update_tree(proposals, bad_mask, benign_mask, z_max=z_max)
+    if scenario == "ipm":
+        return ipm_update_tree(proposals, bad_mask, benign_mask, eps=eps)
+    return proposals

@@ -1,0 +1,26 @@
+"""Robust aggregation: AFA (Algorithm 1), Federated Averaging, reputation.
+
+Importing the package registers every ported rule in ``RULES``.
+"""
+
+from repro_torch.core.baselines import (
+    RULES,
+    AggResult,
+    RuleOptions,
+    RuleSpec,
+    dispatch_rule,
+    dispatch_rule_tree,
+    fa_aggregate,
+    register_rule,
+)
+from repro_torch.core.afa import AFAConfig, AFAResult, afa_aggregate
+from repro_torch.core.reputation import (
+    ReputationState,
+    betainc,
+    init_reputation,
+    mark_blocked_round,
+    min_rounds_to_block,
+    p_good,
+    update_reputation,
+)
+from repro_torch.core.stats import masked_mean, masked_median, masked_std

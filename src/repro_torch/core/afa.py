@@ -1,0 +1,175 @@
+"""Adaptive Federated Averaging — the paper's Algorithm 1, in PyTorch.
+
+Counterpart of the matrix form of ``repro/core/afa.py``: updates as a dense
+``(K, d)`` matrix, the form the packed dispatch runs (the tree form and the
+client-sharded form are not ported yet).
+
+Two variants:
+
+* ``variant="iterative"`` — paper-faithful: every screening pass recomputes
+  the aggregate and touches the full update set.
+* ``variant="gram"`` — the K x K Gram matrix once, then O(K^2) passes:
+  <w_agg, u_k> = (G c)_k and |w_agg|^2 = c^T G c.
+
+Kernel routes (``AFAConfig.use_kernels`` resolving to ``cuda``):
+
+* iterative: ``cosine_sim`` against ``weighted_sum`` each pass, and a final
+  ``weighted_sum``;
+* gram, ``kernel_launch="chained"``: ``gram`` and a final ``weighted_sum``;
+* gram, ``kernel_launch="fused"``: ``afa_screen``, all of Algorithm 1.
+
+Each route keeps its own EPS placement, as in the JAX package: the plain
+iterative route clamps the norms, the kernel iterative route clamps the
+squared norms before the square root, the gram route clamps c^T G c.
+
+Direction convention follows the paper's algorithm box: when mean >= median
+the high-similarity tail is removed, otherwise the low tail.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.stats import masked_mean, masked_median, masked_std
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.policy import resolve_kernel_mode
+
+EPS = 1e-12
+
+
+class AFAConfig(NamedTuple):
+    xi0: float = 2.0
+    delta_xi: float = 0.5
+    max_rounds: int = 8
+    ddof: int = 0
+    variant: str = "iterative"  # "iterative" | "gram"
+    # bool for selection by $REPRO_TORCH_KERNELS, or a pinned mode string
+    # "torch" / "cuda" (repro_torch.kernels.policy)
+    use_kernels: bool | str = False
+    # "fused" (one afa_screen call, gram variant only) | "chained"
+    kernel_launch: str = "fused"
+
+
+class AFAResult(NamedTuple):
+    aggregate: torch.Tensor        # (d,) vector
+    good_mask: torch.Tensor        # (K,) bool — True = kept
+    rounds: torch.Tensor           # () int32 — outlier-removal rounds run
+    similarities: torch.Tensor     # (K,) final-round cosine similarities
+    # set by dispatch_rule: True when the participation mask was empty, in
+    # which case the aggregate is a zero update
+    all_blocked: torch.Tensor | bool = False
+
+
+def _weights(mask, p, n):
+    c = torch.where(mask, p * n, 0.0)
+    return c / torch.clamp(c.sum(), min=EPS)
+
+
+def _mark_bad(s, mask, xi, ddof):
+    """One Algorithm-1 screening pass: returns the newly-bad mask."""
+    mu_hat = masked_mean(s, mask)
+    mu_bar = masked_median(s, mask)
+    sigma = masked_std(s, mask, ddof=ddof)
+    low_tail = mask & (s < mu_bar - xi * sigma)
+    high_tail = mask & (s > mu_bar + xi * sigma)
+    bad = torch.where(mu_hat < mu_bar, low_tail, high_tail)
+    # never remove below 2 survivors — the similarity stats stop being defined
+    keep_floor = (mask & ~bad).sum() >= 2
+    return bad & keep_floor
+
+
+def afa_aggregate(
+    updates: torch.Tensor,          # (K, d)
+    n_k: torch.Tensor,              # (K,) data-point counts
+    p_k: torch.Tensor,              # (K,) reputation means
+    mask0: torch.Tensor | None = None,  # (K,) initial participation
+    config: AFAConfig = AFAConfig(),
+) -> AFAResult:
+    if config.kernel_launch not in ("fused", "chained"):
+        raise ValueError(
+            f"AFAConfig.kernel_launch={config.kernel_launch!r} invalid; "
+            "expected 'fused' or 'chained'"
+        )
+    if config.variant not in ("iterative", "gram"):
+        raise ValueError(
+            f"AFAConfig.variant={config.variant!r} invalid; "
+            "expected 'iterative' or 'gram'"
+        )
+    K = updates.shape[0]
+    dev = updates.device
+    mask0 = torch.ones((K,), dtype=torch.bool, device=dev) if mask0 is None else mask0.bool()
+    upd32 = updates.float().contiguous()
+    n32 = n_k.float()
+    p32 = p_k.float()
+    kernels = resolve_kernel_mode(config.use_kernels) == "cuda"
+
+    if config.variant == "gram" and kernels and config.kernel_launch == "fused":
+        agg, good, rounds, sims = kernel_ops.afa_screen(
+            upd32, (p32 * n32).contiguous(), mask0,
+            xi0=config.xi0, delta_xi=config.delta_xi,
+            max_rounds=config.max_rounds, ddof=config.ddof,
+        )
+        return AFAResult(agg.to(updates.dtype), good, rounds, sims)
+
+    if config.variant == "gram":
+        gram = kernel_ops.gram(upd32) if kernels else upd32 @ upd32.T
+        row_norms = torch.linalg.vector_norm(upd32, dim=1)
+
+        def sims(c):
+            gc = gram @ c
+            agg_norm = torch.sqrt(torch.clamp(c @ gc, min=EPS))
+            return gc / (torch.clamp(row_norms, min=EPS) * agg_norm)
+
+    elif kernels:
+
+        def sims(c):
+            return kernel_ops.cosine_sim(upd32, kernel_ops.weighted_sum(c, upd32))
+
+    else:
+        row_norms = torch.linalg.vector_norm(upd32, dim=1)
+
+        def sims(c):
+            agg = c @ upd32
+            agg_norm = torch.linalg.vector_norm(agg)
+            return (upd32 @ agg) / (
+                torch.clamp(row_norms, min=EPS) * torch.clamp(agg_norm, min=EPS)
+            )
+
+    mask = mask0
+    # round-0 similarities, not zeros, when max_rounds=0: the loop never runs
+    s = (sims(_weights(mask, p32, n32)) if config.max_rounds == 0
+         else torch.zeros((K,), dtype=torch.float32, device=dev))
+    xi = torch.tensor(config.xi0, dtype=torch.float32, device=dev)
+    rounds, changed = 0, True
+    while changed and rounds < config.max_rounds:
+        s = sims(_weights(mask, p32, n32))
+        bad = _mark_bad(s, mask, xi, config.ddof)
+        mask = mask & ~bad
+        xi = xi + config.delta_xi
+        changed = bool(bad.any())
+        rounds += 1
+    w = _weights(mask, p32, n32)
+    agg = kernel_ops.weighted_sum(w, upd32) if kernels else w @ upd32
+    return AFAResult(
+        aggregate=agg.to(updates.dtype), good_mask=mask,
+        rounds=torch.tensor(rounds, dtype=torch.int32, device=dev), similarities=s,
+    )
+
+
+def _default_p(p_k, K, device):
+    return torch.full((K,), 0.5, dtype=torch.float32, device=device) if p_k is None else p_k
+
+
+def _afa_matrix_rule(updates, n_k, p_k, mask, opts):
+    cfg = opts.afa if opts.afa is not None else AFAConfig(use_kernels=opts.use_kernels)
+    return afa_aggregate(
+        updates, n_k, _default_p(p_k, updates.shape[0], updates.device),
+        mask0=mask, config=cfg,
+    )
+
+
+from repro_torch.core.baselines import register_rule  # noqa: E402  (baselines does not import afa)
+
+register_rule("afa", _afa_matrix_rule, updates_reputation=True)

@@ -1,0 +1,148 @@
+"""Beta-Bernoulli client reputation (the paper's "Hidden Markov Model").
+
+Counterpart of ``repro/core/reputation.py``.  Each client k carries a
+Beta(alpha_k, beta_k) posterior over "provides good updates".  The posterior
+mean weights the aggregation (eq. 3/5); the Beta CDF at 0.5 drives blocking
+(eq. 6):
+
+    block_k  <=>  Pr(G_k <= 0.5) = I_{0.5}(alpha_k, beta_k) > delta
+
+torch has no ``betainc``, so :func:`betainc` evaluates the regularized
+incomplete beta by Lentz's continued fraction, in float64, on the K scalars
+moved to the host CPU (a few hundred tiny tensor ops; on the card each would
+be a kernel launch).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+_CF_TINY = 1e-300
+_CF_EPS = 1e-15
+_CF_MAX_ITER = 1000
+
+
+class ReputationState(NamedTuple):
+    alpha: torch.Tensor    # (K,) float32 — alpha0 + n_good
+    beta: torch.Tensor     # (K,) float32 — beta0  + n_bad
+    blocked: torch.Tensor  # (K,) bool
+
+
+def init_reputation(num_clients: int, alpha0: float = 3.0, beta0: float = 3.0, *,
+                    device="cpu") -> ReputationState:
+    return ReputationState(
+        alpha=torch.full((num_clients,), float(alpha0), dtype=torch.float32, device=device),
+        beta=torch.full((num_clients,), float(beta0), dtype=torch.float32, device=device),
+        blocked=torch.zeros((num_clients,), dtype=torch.bool, device=device),
+    )
+
+
+def p_good(state: ReputationState) -> torch.Tensor:
+    """Posterior mean E[G_k | o_{1:t}] = alpha / (alpha + beta)  (eq. 5)."""
+    return state.alpha / (state.alpha + state.beta)
+
+
+def _guard(v):
+    return torch.where(v.abs() < _CF_TINY, torch.full_like(v, _CF_TINY), v)
+
+
+def _betacf(a, b, x):
+    """Continued fraction of I_x(a, b) by the modified Lentz method; every
+    argument a float64 tensor of one shape."""
+    qab, qap, qam = a + b, a + 1.0, a - 1.0
+    c = torch.ones_like(x)
+    d = 1.0 / _guard(1.0 - qab * x / qap)
+    h = d.clone()
+    for m in range(1, _CF_MAX_ITER + 1):
+        m2 = 2.0 * m
+        num = m * (b - m) * x / ((qam + m2) * (a + m2))
+        d = 1.0 / _guard(1.0 + num * d)
+        c = _guard(1.0 + num / c)
+        h = h * d * c
+        num = -(a + m) * (qab + m) * x / ((a + m2) * (qap + m2))
+        d = 1.0 / _guard(1.0 + num * d)
+        c = _guard(1.0 + num / c)
+        step = d * c
+        h = h * step
+        if bool(((step - 1.0).abs() < _CF_EPS).all()):
+            break
+    return h
+
+
+def betainc(a, b, x) -> torch.Tensor:
+    """Regularized incomplete beta ``I_x(a, b)`` in float64 on the CPU.
+
+    ``a``, ``b``, ``x`` broadcast against each other (tensors on any device
+    or Python numbers); the result is a float64 CPU tensor.
+    """
+    a, b, x = torch.broadcast_tensors(
+        *(torch.as_tensor(v).detach().to("cpu", torch.float64) for v in (a, b, x))
+    )
+    # the fraction converges fast for x < (a + 1) / (a + b + 2); use the
+    # symmetry I_x(a, b) = 1 - I_{1-x}(b, a) elsewhere
+    swap = x > (a + 1.0) / (a + b + 2.0)
+    aa, bb = torch.where(swap, b, a), torch.where(swap, a, b)
+    xx = torch.where(swap, 1.0 - x, x)
+    inner = (xx > 0) & (xx < 1)
+    xs = torch.where(inner, xx, torch.full_like(xx, 0.5))
+    log_front = (torch.lgamma(aa + bb) - torch.lgamma(aa) - torch.lgamma(bb)
+                 + aa * torch.log(xs) + bb * torch.log1p(-xs))
+    val = torch.exp(log_front) * _betacf(aa, bb, xs) / aa
+    val = torch.where(inner, val, torch.where(xx <= 0, 0.0, 1.0))
+    return torch.where(swap, 1.0 - val, val)
+
+
+def _blocked_after(state_blocked, alpha, beta, delta: float):
+    over = (betainc(alpha, beta, 0.5) > delta).to(state_blocked.device)
+    return state_blocked | over
+
+
+def update_reputation(
+    state: ReputationState,
+    good_mask: torch.Tensor,
+    participated: torch.Tensor,
+    *,
+    delta: float = 0.95,
+) -> ReputationState:
+    """Bayesian update from one round's aggregation outcome.
+
+    Only participating, un-blocked clients get their posterior touched.
+    Blocking is monotone: once blocked, always blocked.
+    """
+    participated = participated & ~state.blocked
+    good = participated & good_mask
+    bad = participated & ~good_mask
+    alpha = state.alpha + good.float()
+    beta = state.beta + bad.float()
+    return ReputationState(alpha, beta, _blocked_after(state.blocked, alpha, beta, delta))
+
+
+def mark_blocked_round(
+    rounds_blocked: torch.Tensor,
+    blocked_before: torch.Tensor,
+    blocked_after: torch.Tensor,
+    round_index,
+) -> torch.Tensor:
+    """Record *when* each client was blocked, 1-indexed.
+
+    ``round_index`` is the 0-based index of the round being absorbed; a client
+    blocked during the first round gets 1.  Entries stay -1 until their client
+    is blocked and are never overwritten afterwards.
+    """
+    newly = blocked_after & ~blocked_before & (rounds_blocked < 0)
+    stamp = torch.as_tensor(round_index, dtype=torch.int32, device=rounds_blocked.device) + 1
+    return torch.where(newly, stamp, rounds_blocked)
+
+
+def min_rounds_to_block(alpha0: float = 3.0, beta0: float = 3.0, delta: float = 0.95) -> int:
+    """Smallest n with I_{0.5}(alpha0, beta0 + n) > delta.
+
+    With the paper's alpha0 = beta0 = 3 and delta = 0.95 this returns 6:
+    I_{0.5}(3, 8) = 0.94531 < 0.95 and I_{0.5}(3, 9) = 0.96729.
+    """
+    for n in range(1, 10_000):
+        if float(betainc(alpha0, beta0 + n, 0.5)) > delta:
+            return n
+    raise ValueError("delta unreachable")

@@ -1,0 +1,25 @@
+from repro_torch.fed.api import run
+from repro_torch.fed.client import local_sgd
+from repro_torch.fed.dnn import dnn_error, dnn_logits, dnn_loss, init_dnn
+from repro_torch.fed.engine import (
+    EngineConfig,
+    attack_seed,
+    client_seeds,
+    make_train_attack_step,
+)
+from repro_torch.fed.server import (
+    FedServer,
+    ServerConfig,
+    ServerState,
+    init_server_state,
+    make_rule_options,
+    resolve_server_plan,
+    server_step,
+)
+from repro_torch.fed.simulator import SimConfig, SimResult, detection_stats, simulate
+from repro_torch.fed.workload import (
+    IDENTITY_CODEC,
+    ClientWorkload,
+    DnnWorkload,
+    ProposalCodec,
+)

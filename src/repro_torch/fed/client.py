@@ -1,0 +1,40 @@
+"""Client-side local training: SGD with momentum over prebuilt minibatches.
+
+Counterpart of ``local_sgd`` in ``repro/fed/client.py``, written for K
+clients at once: parameters stacked with a leading client axis, batches
+``(K, S, b, ...)``.  Backpropagating the SUM over clients of each client's
+mean loss gives every client exactly its own gradient, since no parameter is
+shared between rows.  Momentum starts from zero every call (every round).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.optim import sgd_momentum
+
+
+def local_sgd(loss_fn, params, batches, *, lr: float = 0.1, momentum: float = 0.9,
+              dropout_keep=None):
+    """Run S SGD steps on stacked client params; returns the proposals.
+
+    ``loss_fn(params, minibatch, dropout_keep=...)`` returns (K,) losses;
+    ``batches`` is a dict of ``(K, S, b, ...)`` tensors; ``dropout_keep`` is
+    None or a list (one per hidden layer) of ``(K, S, b, width)`` bool masks.
+    """
+    opt = sgd_momentum(lr, momentum)
+    p = {k: v.detach().clone(memory_format=torch.contiguous_format)
+         for k, v in params.items()}
+    state = opt.init(p)
+    names = sorted(p)
+    steps = next(iter(batches.values())).shape[1]
+    for t in range(steps):
+        mb = {k: v[:, t] for k, v in batches.items()}
+        keep = None if dropout_keep is None else [m[:, t] for m in dropout_keep]
+        leaves = [p[k].requires_grad_(True) for k in names]
+        with torch.enable_grad():
+            loss = loss_fn(p, mb, dropout_keep=keep).sum()
+            grads = torch.autograd.grad(loss, leaves)
+        upd, state = opt.update(dict(zip(names, grads)), state, p)
+        p = {k: (p[k].detach() + upd[k]) for k in names}
+    return p

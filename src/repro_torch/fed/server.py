@@ -1,0 +1,176 @@
+"""Server-side aggregation: registry rule dispatch plus the AFA reputation
+and blocking state.
+
+Counterpart of ``repro/fed/server.py``: a pure core (``ServerState`` and
+``server_step``) wrapped by the stateful ``FedServer`` shell the batched
+engine drives.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import (
+    RULES,
+    AFAConfig,
+    ReputationState,
+    RuleOptions,
+    dispatch_rule,
+    dispatch_rule_tree,
+    init_reputation,
+    mark_blocked_round,
+    p_good,
+    update_reputation,
+)
+from repro_torch.kernels.policy import KernelPlan, resolve_kernel_plan
+
+
+@dataclasses.dataclass
+class ServerConfig:
+    rule: str = "afa"            # a key of repro_torch.core.RULES: afa | fa
+    num_clients: int = 10
+    # AFA
+    alpha0: float = 3.0
+    beta0: float = 3.0
+    xi0: float = 2.0
+    delta_xi: float = 0.5
+    delta_block: float = 0.95
+    afa_variant: str = "iterative"
+    # the kernel decision (repro_torch.kernels.policy.KernelPlan); None =
+    # resolve_kernel_plan(), which reads $REPRO_TORCH_KERNELS
+    kernel_plan: KernelPlan | None = None
+
+
+def resolve_server_plan(cfg: ServerConfig) -> KernelPlan:
+    """The config's KernelPlan, or the default plan when it has none."""
+    return cfg.kernel_plan if cfg.kernel_plan is not None else resolve_kernel_plan()
+
+
+class ServerState(NamedTuple):
+    """Complete server-side round state."""
+
+    reputation: ReputationState   # Beta posteriors + blocked set, (K,) leaves
+    rounds_blocked: torch.Tensor  # (K,) int32 — 1-indexed round of first
+                                  # blocking, -1 = never blocked
+    round: int                    # completed rounds
+
+
+def init_server_state(num_clients: int, alpha0: float = 3.0, beta0: float = 3.0, *,
+                      device="cpu") -> ServerState:
+    return ServerState(
+        reputation=init_reputation(num_clients, alpha0, beta0, device=device),
+        rounds_blocked=torch.full((num_clients,), -1, dtype=torch.int32, device=device),
+        round=0,
+    )
+
+
+def make_rule_options(cfg: ServerConfig) -> RuleOptions:
+    """Knob bundle for the registry, from the config's resolved plan."""
+    plan = resolve_server_plan(cfg)
+    return RuleOptions(
+        use_kernels=plan.mode,
+        afa=AFAConfig(
+            xi0=cfg.xi0, delta_xi=cfg.delta_xi, variant=cfg.afa_variant,
+            use_kernels=plan.mode, kernel_launch=plan.launch,
+        ),
+    )
+
+
+def _absorb(state: ServerState, good_mask, mask0, *, delta: float) -> ServerState:
+    """Fold one round's screening outcome into the Beta posteriors, the
+    blocked set and the 1-indexed ``rounds_blocked`` bookkeeping."""
+    rep = update_reputation(state.reputation, good_mask, mask0, delta=delta)
+    rounds_blocked = mark_blocked_round(
+        state.rounds_blocked, state.reputation.blocked, rep.blocked, state.round
+    )
+    return ServerState(rep, rounds_blocked, state.round + 1)
+
+
+def server_step(
+    state: ServerState,
+    proposals,
+    n_k,
+    mask0: torch.Tensor,
+    *,
+    rule: str,
+    opts: RuleOptions,
+    delta_block: float = 0.95,
+    layout: str = "tree",
+):
+    """One server round: dispatch the rule, then (for reputation-driven
+    rules) absorb the screening outcome.  ``proposals`` is a stacked tree
+    (``layout="tree"``, packed inside the dispatch) or a ``(K, D)`` matrix
+    (``"matrix"``).  Returns ``(state', result)``."""
+    dev = state.rounds_blocked.device
+    n32 = torch.as_tensor(n_k, dtype=torch.float32, device=dev)
+    mask0 = torch.as_tensor(mask0, device=dev)
+    if layout == "matrix":
+        res = dispatch_rule(rule, proposals, n32, p_good(state.reputation), mask0, opts)
+    elif layout == "tree":
+        res = dispatch_rule_tree(rule, proposals, n32, p_good(state.reputation), mask0, opts)
+    else:
+        raise ValueError(f"unknown layout {layout!r}; expected tree | matrix")
+    if RULES[rule].updates_reputation:
+        state = _absorb(state, res.good_mask, mask0, delta=delta_block)
+    else:
+        state = state._replace(round=state.round + 1)
+    return state, res
+
+
+class FedServer:
+    """Stateful wrapper over ``server_step``: holds a ``ServerState`` on
+    ``device`` and swaps it for the step's output each round."""
+
+    def __init__(self, config: ServerConfig, *, device="cuda"):
+        self.cfg = config
+        self.device = resolve_device(device)
+        self.state = init_server_state(
+            config.num_clients, config.alpha0, config.beta0, device=self.device
+        )
+
+    @property
+    def blocked(self) -> np.ndarray:
+        return self.state.reputation.blocked.cpu().numpy()
+
+    @property
+    def rounds_blocked(self) -> np.ndarray:
+        return self.state.rounds_blocked.cpu().numpy()
+
+    def select(self) -> np.ndarray:
+        """Per-round client selection: every un-blocked client."""
+        return np.nonzero(~self.blocked)[0]
+
+    def participation_mask(self, selected: np.ndarray) -> np.ndarray:
+        mask0 = np.zeros(self.cfg.num_clients, bool)
+        mask0[selected] = True
+        mask0 &= ~self.blocked
+        return mask0
+
+    def aggregate_tree(self, stacked, n_k, selected: np.ndarray):
+        """One round over a stacked tree of proposals, packed into one
+        (K, D) buffer; rows outside ``selected`` are ignored."""
+        mask0 = self.participation_mask(selected)
+        self.state, res = server_step(
+            self.state, stacked, n_k, torch.from_numpy(mask0).to(self.device),
+            rule=self.cfg.rule, opts=make_rule_options(self.cfg),
+            delta_block=self.cfg.delta_block, layout="tree",
+        )
+        info = {
+            "good_mask": res.good_mask.cpu().numpy(),
+            # empty participation round: the aggregate is a zero update and
+            # the engine keeps the previous parameters
+            "all_blocked": bool(res.all_blocked),
+        }
+        if RULES[self.cfg.rule].updates_reputation:
+            info.update(
+                rounds=int(res.rounds),
+                similarities=res.similarities.cpu().numpy(),
+                blocked=self.blocked.copy(),
+                p_good=p_good(self.state.reputation).cpu().numpy(),
+            )
+        return res.aggregate, info

@@ -1,0 +1,106 @@
+"""Build and load the hand-written CUDA kernels.
+
+``nvcc`` compiles ``csrc/afa_kernels.cu`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs at
+first use, from the sources in this checkout only, into
+``<repo>/build/repro_torch_kernels/<source hash>/`` (listed in
+``.gitignore``), so a changed source builds anew and an unchanged one loads
+the library already built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("afa_kernels.cu",)
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C signatures of the library (csrc/afa_kernels.cu): name -> argtypes
+SIGNATURES = {
+    "repro_cosine_nsplit": (_L,),
+    "repro_gram_nsplit": (_I, _L),
+    "repro_screen_max_k": (),
+    "repro_weighted_sum": (_P, _P, _P, _I, _L, _P),
+    "repro_cosine_sim": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P),
+    "repro_gram": (_P, _P, _P, _I, _L, _I, _P),
+    "repro_afa_screen": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _L, _I, _F, _F, _I, _I, _P),
+}
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found: the repro_torch CUDA kernels are built from "
+        "src/repro_torch/kernels/csrc at first use and need the CUDA toolkit"
+    )
+
+
+def build_library() -> tuple[Path, str]:
+    """Compile the kernels unless this source hash is built already.
+
+    Returns ``(library path, compiler log)``; the log is empty when the
+    library was already there."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / "libafa_kernels.so"
+    if lib.exists():
+        return lib, ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    return lib, proc.stdout + proc.stderr
+
+
+def bind(path) -> ctypes.CDLL:
+    """Load a library built from ``csrc`` and declare every C signature."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The bound kernel library, built at first use."""
+    path, _ = build_library()
+    return bind(path)

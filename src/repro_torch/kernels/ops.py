@@ -1,0 +1,211 @@
+"""Wrappers of the hand-written CUDA kernels (``csrc/afa_kernels.cu``).
+
+Counterpart of ``repro/kernels/ops.py``.  Every wrapper checks device, dtype,
+shape and contiguity, then
+
+* for a CPU tensor takes the kernel's plain twin (``kernels/ref.py``);
+* for a CUDA tensor launches the kernel on the current stream, or raises.
+
+There is no fallback from the kernel to the twin.  ``LAUNCH_COUNTS`` holds
+one plain integer per kernel, raised by one where its wrapper launches it
+(CPU calls do not count), so a run can show that it went through the
+kernels.  Scratch for the split-D partial sums is allocated here with
+``torch.empty``; the kernels allocate nothing.  The scratch is released
+when a wrapper returns, possibly before its kernels ran: PyTorch's caching
+allocator hands that memory out again only to later work on the same
+stream, which runs after them.  The ``_*_cuda`` functions take the bound
+library and the stream explicitly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import load_library
+
+LAUNCH_COUNTS = {"weighted_sum": 0, "cosine_sim": 0, "gram": 0, "afa_screen": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[name] = 0
+
+
+def _check_tensor(op: str, what: str, t, ndim: int) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{op}: {what} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{op}: {what} must be torch.float32, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{op}: {what} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{op}: {what} must be contiguous")
+
+
+def _on_card(op: str, *tensors) -> bool:
+    """True for CUDA operands (launch the kernel), False for CPU ones (take
+    the twin); anything else raises."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{op}: operands on {dev} and {t.device}")
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"{op}: no kernel for device {dev}")
+
+
+def _check_rc(op: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{op}: CUDA kernel launch failed with cudaError {rc}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# weighted sum  (replaces repro/kernels/weighted_sum.py:30 weighted_sum)
+# ---------------------------------------------------------------------------
+
+
+def weighted_sum(weights: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
+    """(K,), (K, d) -> (d,) reputation-weighted aggregate (f32)."""
+    _check_tensor("weighted_sum", "updates", updates, 2)
+    _check_tensor("weighted_sum", "weights", weights, 1)
+    if weights.shape[0] != updates.shape[0]:
+        raise ValueError(
+            f"weighted_sum: {weights.shape[0]} weights for {updates.shape[0]} rows"
+        )
+    if not _on_card("weighted_sum", weights, updates):
+        return ref.weighted_sum_ref(updates, weights)
+    out = _weighted_sum_cuda(load_library(), _stream(updates), weights, updates)
+    LAUNCH_COUNTS["weighted_sum"] += 1
+    return out
+
+
+def _weighted_sum_cuda(lib, stream, weights, updates):
+    K, D = updates.shape
+    out = torch.empty((D,), dtype=torch.float32, device=updates.device)
+    _check_rc("weighted_sum", lib.repro_weighted_sum(
+        weights.data_ptr(), updates.data_ptr(), out.data_ptr(), K, D, stream))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# cosine similarity  (replaces repro/kernels/cosine_sim.py:49 cosine_sim_parts)
+# ---------------------------------------------------------------------------
+
+
+def cosine_sim(updates: torch.Tensor, agg: torch.Tensor) -> torch.Tensor:
+    """(K, d), (d,) -> (K,) cosine similarities (f32); the divide clamps the
+    SQUARED norms at EPS, as ``repro/kernels/ops.py`` does."""
+    _check_tensor("cosine_sim", "updates", updates, 2)
+    _check_tensor("cosine_sim", "agg", agg, 1)
+    if agg.shape[0] != updates.shape[1]:
+        raise ValueError(
+            f"cosine_sim: agg width {agg.shape[0]} != updates width {updates.shape[1]}"
+        )
+    if not _on_card("cosine_sim", updates, agg):
+        return ref.cosine_sim_ref(updates, agg)
+    out = _cosine_sim_cuda(load_library(), _stream(updates), updates, agg)
+    LAUNCH_COUNTS["cosine_sim"] += 1
+    return out
+
+
+def _cosine_sim_cuda(lib, stream, updates, agg):
+    K, D = updates.shape
+    nsplit = lib.repro_cosine_nsplit(D)
+    f32 = dict(dtype=torch.float32, device=updates.device)
+    pdot = torch.empty((K, nsplit), **f32)
+    pun = torch.empty((K, nsplit), **f32)
+    pwn = torch.empty((nsplit,), **f32)
+    sims = torch.empty((K,), **f32)
+    _check_rc("cosine_sim", lib.repro_cosine_sim(
+        updates.data_ptr(), agg.data_ptr(), pdot.data_ptr(), pun.data_ptr(),
+        pwn.data_ptr(), sims.data_ptr(),
+        K, D, nsplit, stream))
+    return sims
+
+
+# ---------------------------------------------------------------------------
+# Gram matrix  (replaces repro/kernels/gram.py:56 gram)
+# ---------------------------------------------------------------------------
+
+
+def gram(updates: torch.Tensor) -> torch.Tensor:
+    """(K, d) -> (K, K) Gram matrix U U^T (f32)."""
+    _check_tensor("gram", "updates", updates, 2)
+    if not _on_card("gram", updates):
+        return ref.gram_ref(updates)
+    out = _gram_cuda(load_library(), _stream(updates), updates)
+    LAUNCH_COUNTS["gram"] += 1
+    return out
+
+
+def _gram_cuda(lib, stream, updates):
+    K, D = updates.shape
+    nsplit = lib.repro_gram_nsplit(K, D)
+    pg = torch.empty((K, K, nsplit), dtype=torch.float32, device=updates.device)
+    g = torch.empty((K, K), dtype=torch.float32, device=updates.device)
+    _check_rc("gram", lib.repro_gram(
+        updates.data_ptr(), pg.data_ptr(), g.data_ptr(), K, D, nsplit, stream))
+    return g
+
+
+# ---------------------------------------------------------------------------
+# fused AFA screening  (replaces repro/kernels/afa_screen.py:223 afa_screen_call)
+# ---------------------------------------------------------------------------
+
+
+def afa_screen(updates: torch.Tensor, pn: torch.Tensor, mask0: torch.Tensor, *,
+               xi0: float, delta_xi: float, max_rounds: int, ddof: int = 0):
+    """Algorithm 1 through the screening kernel -> ``(aggregate (d,),
+    good_mask (K,) bool, rounds () int32, sims (K,))``.
+
+    ``pn`` is the (K,) weight vector ``p_k * n_k``, ``mask0`` the (K,)
+    initial participation (bool or integer)."""
+    _check_tensor("afa_screen", "updates", updates, 2)
+    _check_tensor("afa_screen", "pn", pn, 1)
+    if mask0.ndim != 1 or mask0.dtype not in (torch.bool, torch.int32, torch.int64):
+        raise TypeError(f"afa_screen: mask0 must be a 1-D bool/int tensor, got "
+                        f"{mask0.dtype} {tuple(mask0.shape)}")
+    K = updates.shape[0]
+    if pn.shape[0] != K or mask0.shape[0] != K:
+        raise ValueError(f"afa_screen: pn/mask0 lengths {pn.shape[0]}/"
+                         f"{mask0.shape[0]} != K={K}")
+    kw = dict(xi0=float(xi0), delta_xi=float(delta_xi),
+              max_rounds=int(max_rounds), ddof=int(ddof))
+    if not _on_card("afa_screen", updates, pn, mask0):
+        return ref.afa_screen_ref(updates, pn, mask0, **kw)
+    out = _afa_screen_cuda(load_library(), _stream(updates), updates, pn, mask0, **kw)
+    LAUNCH_COUNTS["afa_screen"] += 1
+    return out
+
+
+def _afa_screen_cuda(lib, stream, updates, pn, mask0, *, xi0, delta_xi,
+                     max_rounds, ddof):
+    K, D = updates.shape
+    max_k = lib.repro_screen_max_k()
+    if K > max_k:
+        raise ValueError(
+            f"afa_screen: K={K} clients exceed the {max_k} the one-CTA screen "
+            "holds in shared memory"
+        )
+    nsplit = lib.repro_gram_nsplit(K, D)
+    dev = updates.device
+    # one float and one int buffer, carved into the kernel's scratch and outputs
+    sizes = (nsplit * K * K, nsplit * K, K * K, K, D, K)
+    buf = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    pg, pun, G, weights, agg, sims = torch.split(buf, sizes)
+    ibuf = torch.empty((2 * K + 1,), dtype=torch.int32, device=dev)
+    m0, good, rounds = torch.split(ibuf, (K, K, 1))
+    m0.copy_(mask0)
+    _check_rc("afa_screen", lib.repro_afa_screen(
+        updates.data_ptr(), pn.data_ptr(), m0.data_ptr(), pg.data_ptr(), pun.data_ptr(),
+        G.data_ptr(), weights.data_ptr(), agg.data_ptr(), good.data_ptr(), rounds.data_ptr(),
+        sims.data_ptr(),
+        K, D, nsplit, xi0, delta_xi, max_rounds, ddof, stream))
+    return agg, good != 0, rounds[0], sims

@@ -1,0 +1,112 @@
+"""Plain PyTorch twins of the hand-written kernels.
+
+Each twin computes the same function as the JAX package's ``kernels/ops.py``
+wrapper of the corresponding Pallas kernel, EPS rules included.  The ops
+wrappers take the twin for CPU tensors; ``chip_smoke.py`` holds each CUDA
+kernel against its twin on the card.  The module imports nothing else of the
+port, as ``repro/kernels/afa_screen.py`` keeps its own mirrors of the
+screening statistics.
+"""
+
+from __future__ import annotations
+
+import torch
+
+EPS = 1e-12
+
+
+def weighted_sum_ref(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """(K, d), (K,) -> (d,) weighted sum in f32 (``ops.weighted_sum``)."""
+    return weights.float() @ updates.float()
+
+
+def cosine_sim_ref(updates: torch.Tensor, agg: torch.Tensor) -> torch.Tensor:
+    """(K, d), (d,) -> (K,) cosine similarities (``ops.cosine_sim``): the
+    EPS clamp is on the SQUARED norms."""
+    u = updates.float()
+    w = agg.float()
+    un = torch.sqrt(torch.clamp((u * u).sum(dim=1), min=EPS))
+    wn = torch.sqrt(torch.clamp((w * w).sum(), min=EPS))
+    return (u @ w) / (un * wn)
+
+
+def gram_ref(updates: torch.Tensor) -> torch.Tensor:
+    """(K, d) -> (K, K) Gram matrix in f32 (``ops.gram``)."""
+    u = updates.float()
+    return u @ u.T
+
+
+def _masked_mean(x, mask):
+    m = mask.sum()
+    mean = torch.where(mask, x, 0.0).sum() / torch.clamp(m, min=1)
+    return torch.where(m > 0, mean, 0.0)
+
+
+def _masked_std(x, mask, ddof):
+    m = mask.sum()
+    mu = _masked_mean(x, mask)
+    var = torch.where(mask, (x - mu) ** 2, 0.0).sum() / torch.clamp(m - ddof, min=1)
+    return torch.sqrt(torch.clamp(var, min=0.0))
+
+
+def masked_median_cc(x, mask):
+    """Masked median by compare-count rank selection (ties broken by client
+    index), as the fused screening kernel computes it: the same two order
+    statistics a sort picks, so the value equals the sort-based median."""
+    K = x.shape[0]
+    m = mask.sum()
+    live = mask[None, :]
+    lt = (x[None, :] < x[:, None]) & live
+    idx = torch.arange(K, device=x.device)
+    eq = (x[None, :] == x[:, None]) & (idx[:, None] > idx[None, :]) & live
+    rank = (lt.int() + eq.int()).sum(dim=1)
+    lo = torch.clamp(torch.div(m - 1, 2, rounding_mode="floor"), min=0)
+    hi = torch.clamp(torch.div(m, 2, rounding_mode="floor"), min=0)
+    v_lo = torch.where(mask & (rank == lo), x, 0.0).sum()
+    v_hi = torch.where(mask & (rank == hi), x, 0.0).sum()
+    return torch.where(m > 0, 0.5 * (v_lo + v_hi), 0.0)
+
+
+def afa_screen_ref(updates, pn, mask0, *, xi0: float, delta_xi: float,
+                   max_rounds: int, ddof: int = 0):
+    """Algorithm 1 on the Gram matrix (``ops.afa_screen``): returns
+    ``(aggregate (d,), good_mask (K,) bool, rounds () int32, sims (K,))``."""
+    u = updates.float()
+    pn = pn.float()
+    gram = u @ u.T
+    row_norms = torch.sqrt((u * u).sum(dim=1))
+    K = u.shape[0]
+
+    def weights(m):
+        c = torch.where(m, pn, 0.0)
+        return c / torch.clamp(c.sum(), min=EPS)
+
+    def sims(c):
+        gc = gram @ c
+        agg_norm = torch.sqrt(torch.clamp(c @ gc, min=EPS))
+        return gc / (torch.clamp(row_norms, min=EPS) * agg_norm)
+
+    def mark_bad(s, m, xi):
+        mu_hat = _masked_mean(s, m)
+        mu_bar = masked_median_cc(s, m)
+        sigma = _masked_std(s, m, ddof)
+        low_tail = m & (s < mu_bar - xi * sigma)
+        high_tail = m & (s > mu_bar + xi * sigma)
+        bad = torch.where(mu_hat < mu_bar, low_tail, high_tail)
+        keep_floor = (m & ~bad).sum() >= 2
+        return bad & keep_floor
+
+    mask = mask0.bool()
+    s = (sims(weights(mask)) if max_rounds == 0
+         else torch.zeros((K,), dtype=torch.float32, device=u.device))
+    xi = torch.tensor(xi0, dtype=torch.float32, device=u.device)
+    rounds, changed = 0, True
+    while changed and rounds < max_rounds:
+        s = sims(weights(mask))
+        bad = mark_bad(s, mask, xi)
+        mask = mask & ~bad
+        xi = xi + delta_xi
+        changed = bool(bad.any())
+        rounds += 1
+    agg = weights(mask) @ u
+    return agg, mask, torch.tensor(rounds, dtype=torch.int32, device=u.device), s

@@ -1,0 +1,155 @@
+"""The port's kernel wrappers against the JAX package's Pallas wrappers.
+
+On the CPU each wrapper of ``repro_torch.kernels.ops`` takes its kernel's
+plain twin; the JAX side runs its Pallas kernels in interpret mode, as the
+JAX package's own tests do.  Same numpy inputs for both; floats agree to
+rtol 1e-5 (f32, different summation orders), discrete outputs exactly.
+The CUDA kernels themselves are held against these twins on the card by
+``chip_smoke.py``.
+"""
+
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+
+RTOL = 1e-5
+SHAPES = [(1, 7), (8, 300), (13, 517)]
+
+
+def _inputs(K, D, seed):
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(K, D)).astype(np.float32)
+    w = rng.normal(size=D).astype(np.float32)
+    c = rng.random(K).astype(np.float32)
+    return u, w, c
+
+
+def _close(got, want, rtol=RTOL):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale)
+
+
+@pytest.mark.parametrize("K,D", SHAPES)
+def test_weighted_sum_twin_matches_pallas(K, D):
+    u, _, c = _inputs(K, D, 0)
+    got = ops.weighted_sum(torch.from_numpy(c), torch.from_numpy(u))
+    _close(got, jops.weighted_sum(c, u, interpret=True))
+
+
+@pytest.mark.parametrize("K,D", SHAPES)
+def test_cosine_sim_twin_matches_pallas(K, D):
+    u, w, _ = _inputs(K, D, 1)
+    got = ops.cosine_sim(torch.from_numpy(u), torch.from_numpy(w))
+    _close(got, jops.cosine_sim(u, w, interpret=True))
+
+
+def test_cosine_sim_clamps_squared_norms_like_ops():
+    """A zero row: the EPS clamp on the squared norm gives sim 0, not NaN."""
+    u = np.zeros((3, 40), np.float32)
+    u[1] = 1.0
+    w = np.ones(40, np.float32)
+    got = ops.cosine_sim(torch.from_numpy(u), torch.from_numpy(w))
+    _close(got, jops.cosine_sim(u, w, interpret=True))
+    assert np.isfinite(got.numpy()).all()
+
+
+@pytest.mark.parametrize("K,D", SHAPES)
+def test_gram_twin_matches_pallas(K, D):
+    u, _, _ = _inputs(K, D, 2)
+    _close(ops.gram(torch.from_numpy(u)), jops.gram(u, interpret=True))
+
+
+def _screen_inputs(K, D, n_bad, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=D).astype(np.float32)
+    u = base + 0.3 * rng.normal(size=(K, D)).astype(np.float32)
+    u[:n_bad] = base + 20.0 * rng.normal(size=(n_bad, D)).astype(np.float32)
+    pn = (rng.random(K) * 100 + 50).astype(np.float32)
+    mask0 = np.ones(K, bool)
+    mask0[-1] = False
+    return u.astype(np.float32), pn, mask0
+
+
+@pytest.mark.parametrize("K,D,n_bad,max_rounds,seed", [
+    (10, 400, 3, 8, 0), (12, 257, 4, 8, 1), (16, 300, 0, 8, 2), (10, 200, 3, 0, 3),
+    (9, 128, 2, 1, 4),
+])
+def test_afa_screen_twin_matches_pallas(K, D, n_bad, max_rounds, seed):
+    u, pn, mask0 = _screen_inputs(K, D, n_bad, seed)
+    kw = dict(xi0=2.0, delta_xi=0.5, max_rounds=max_rounds, ddof=0)
+    agg, good, rounds, sims = ops.afa_screen(
+        torch.from_numpy(u), torch.from_numpy(pn), torch.from_numpy(mask0), **kw)
+    jagg, jgood, jrounds, jsims = jops.afa_screen(u, pn, mask0, interpret=True, **kw)
+    np.testing.assert_array_equal(good.numpy(), np.asarray(jgood))
+    assert int(rounds) == int(jrounds)
+    _close(agg, jagg)
+    _close(sims, jsims)
+
+
+def test_median_by_compare_count_equals_sort():
+    rng = np.random.default_rng(5)
+    from repro_torch.core.stats import masked_median
+
+    for _ in range(20):
+        x = torch.from_numpy(rng.integers(0, 4, size=9).astype(np.float32))
+        m = torch.from_numpy(rng.random(9) < 0.7)
+        assert float(ref.masked_median_cc(x, m)) == float(masked_median(x, m))
+
+
+def test_cpu_calls_do_not_count_as_launches():
+    ops.reset_launch_counts()
+    u, w, c = (torch.from_numpy(a) for a in _inputs(4, 50, 6))
+    ops.weighted_sum(c, u)
+    ops.cosine_sim(u, w)
+    ops.gram(u)
+    ops.afa_screen(u, c, torch.ones(4, dtype=torch.bool), xi0=2.0, delta_xi=0.5,
+                   max_rounds=2)
+    assert ops.LAUNCH_COUNTS == {"weighted_sum": 0, "cosine_sim": 0, "gram": 0,
+                                 "afa_screen": 0}
+
+
+def test_wrappers_check_their_operands():
+    u = torch.ones((3, 8))
+    with pytest.raises(TypeError, match="float32"):
+        ops.gram(u.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.gram(torch.ones((8, 3)).T)
+    with pytest.raises(ValueError, match="2-D"):
+        ops.gram(torch.ones(8))
+    with pytest.raises(ValueError, match="weights"):
+        ops.weighted_sum(torch.ones(2), u)
+    with pytest.raises(ValueError, match="width"):
+        ops.cosine_sim(u, torch.ones(7))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.gram(torch.ones((3, 8), device="meta"))
+    with pytest.raises(ValueError, match="K="):
+        ops.afa_screen(u, torch.ones(2), torch.ones(3, dtype=torch.bool), xi0=2.0,
+                       delta_xi=0.5, max_rounds=1)
+
+
+def test_ctypes_signatures_match_the_cuda_source():
+    """Every C function the wrappers bind exists in the source with the
+    declared number of parameters (a mismatch would pass garbage pointers)."""
+    src = (build.CSRC / "afa_kernels.cu").read_text()
+    found = {
+        name: params for name, params in re.findall(
+            r"^int (repro_\w+)\(([^)]*)\)", src, flags=re.MULTILINE | re.DOTALL)
+    }
+    assert set(found) == set(build.SIGNATURES)
+    for name, params in found.items():
+        n = 0 if not params.strip() else params.count(",") + 1
+        assert n == len(build.SIGNATURES[name]), name
+
+
+def test_build_key_follows_the_source():
+    assert build.source_hash() == build.source_hash()
+    assert len(build.source_hash()) == 16
+    assert "sm_90a" in " ".join(build.NVCC_FLAGS)
