@@ -7,18 +7,25 @@
 2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch twin on the card at K in
    {10, 200} clients and the paper DNN's D = 535,818 parameters: agreement
-   within a stated tolerance, bit-identical reruns, and times of the kernel,
-   the twin and one PyTorch library call, beside the least time the card
-   could take (``bound_ms``);
+   within a stated tolerance (exact for the median, which only selects),
+   bit-identical reruns, and times of the kernel, the twin and one PyTorch
+   library call, beside the least time the card could take (``bound_ms``);
 4. runs the paper's experiment through ``repro_torch.fed.api.run`` at full
    width (784 x 512 x 256 x 10 DNN, K = 10, 3 byzantine clients, 8 rounds)
    on each AFA kernel route, and checks that every byzantine client is
    blocked in round ``min_rounds_to_block()`` (= 6), no good client is
    blocked, the final test error is below 5 %, and the route's kernels were
    launched;
-5. traces three rounds of the gram/fused route with ``torch.profiler``
+5. runs the same experiment once for every baseline rule on the kernel
+   route (and comed and trimmed_mean on the plain route too), and checks
+   that the robust rules end below 5 % test error, FA above 50 % (the attack
+   is live), MKRUM and Bulyan never select a byzantine client, and each
+   route launched exactly its kernels; then aggregates one (K, D) matrix
+   with every rule without a participation mask, as the paper's Fig. 3
+   times them (the unmasked median kernel), against the plain route;
+6. traces three rounds of the gram/fused route with ``torch.profiler``
    (device busy share, the kernels that take the time);
-6. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+7. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, the script exits 1 before printing a result.
@@ -39,27 +46,54 @@ SRC = ROOT / "src"
 D_PAPER = 784 * 512 + 512 + 512 * 256 + 256 + 256 * 10 + 10   # 535,818
 KS = (10, 200)
 MAIN_K = 10
+# the main path's run: the paper DNN at full width, 3 of 10 clients byzantine
+MAIN_SIM = dict(num_clients=MAIN_K, bad_frac=0.3, scenario="byzantine", rounds=8,
+                local_epochs=2, batch_size=200, hidden=(512, 256), seed=0)
 RTOL = 1e-5      # kernel vs twin, each float output on its own scale:
                  # max |diff| <= RTOL * max |twin| of that output (f32 sums
                  # over ~5e5 terms taken in different orders)
 N_TIMED = 20
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock: longer than any wrapper's host work
-SOURCE = "src/repro_torch/kernels/csrc/afa_kernels.cu"
+AFA_SOURCE = "src/repro_torch/kernels/csrc/afa_kernels.cu"
+RANK_SOURCE = "src/repro_torch/kernels/csrc/rank_kernels.cu"
+# kernel -> (TPU kernel it replaces, CUDA source)
 REPLACES = {
-    "weighted_sum": "src/repro/kernels/weighted_sum.py:30",
-    "cosine_sim": "src/repro/kernels/cosine_sim.py:49",
-    "gram": "src/repro/kernels/gram.py:56",
-    "afa_screen": "src/repro/kernels/afa_screen.py:223",
+    "weighted_sum": ("src/repro/kernels/weighted_sum.py:30", AFA_SOURCE),
+    "cosine_sim": ("src/repro/kernels/cosine_sim.py:49", AFA_SOURCE),
+    "gram": ("src/repro/kernels/gram.py:56", AFA_SOURCE),
+    "afa_screen": ("src/repro/kernels/afa_screen.py:223", AFA_SOURCE),
+    "coord_median": ("src/repro/kernels/coord_median.py:37", RANK_SOURCE),
+    "coord_median_masked": ("src/repro/kernels/coord_median.py:51", RANK_SOURCE),
+    "trimmed_mean": ("src/repro/kernels/trimmed_mean.py:33", RANK_SOURCE),
 }
+EXACT = ("coord_median", "coord_median_masked")  # pure selection: the twin's bits
+TRIM = 3         # trimmed_mean's trim, as ServerConfig.trim
+DEAD = 3         # dead rows of the masked rank kernels' inputs
 OUTPUTS = {"afa_screen": ("agg", "good", "rounds", "sims")}  # else one output
 ROUTES = {  # label -> (afa_variant, kernel_launch, kernels the route launches)
     "iterative": ("iterative", "fused", ("cosine_sim", "weighted_sum")),
     "gram/chained": ("gram", "chained", ("gram", "weighted_sum")),
     "gram/fused": ("gram", "fused", ("afa_screen",)),
 }
-# device-side names of the kernels in SOURCE
+# baseline runs: (rule, kernel route?) -> the kernels the route launches, and
+# no others
+BASELINES = {
+    ("fa", True): ("weighted_sum",),
+    ("mkrum", True): ("gram", "weighted_sum"),
+    ("comed", True): ("coord_median_masked",),
+    ("trimmed_mean", True): ("trimmed_mean",),
+    ("bulyan", True): ("gram", "weighted_sum", "coord_median_masked"),
+    ("norm_clip", True): ("weighted_sum",),
+    ("geomed", True): (),
+    ("centered_clip", True): (),
+    ("comed", False): (),
+    ("trimmed_mean", False): (),
+}
+SELECTING = ("mkrum", "bulyan")  # rules whose good_mask is a selection
+# device-side names of this repository's kernels
 OUR_KERNEL_NAMES = ("weighted_sum_kernel", "cosine_parts_kernel", "cosine_reduce_kernel",
-                    "gram_parts_kernel", "gram_reduce_kernel", "afa_screen_kernel")
+                    "gram_parts_kernel", "gram_reduce_kernel", "afa_screen_kernel",
+                    "rank_select_kernel")
 # published peaks: (HBM bytes/s, FP32 non-tensor FLOP/s), NVIDIA data sheets
 PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "SXM": (3.35e12, 67e12)}
 
@@ -136,13 +170,14 @@ def check_kernel(torch, name, K, kern, plain, library, nbytes, flops, peaks, flu
     out_t = out if isinstance(out, tuple) else (out,)
     ref_t = ref if isinstance(ref, tuple) else (ref,)
     err, checks = 0.0, []
+    rtol = 0.0 if name in EXACT else RTOL
     for label, o, r in float_parts(torch, name, out_t, ref_t):
         e, scale = float((o - r).abs().max()), float(r.abs().max())
         checks.append({"part": label, "max_abs_err": e, "twin_max_abs": scale,
-                       "tol": RTOL * scale})
-        if e > RTOL * scale:
+                       "tol": rtol * scale})
+        if e > rtol * scale:
             raise AssertionError(f"{name} K={K} {label}: max |kernel - twin| = {e} > "
-                                 f"{RTOL} * {scale}")
+                                 f"{rtol} * {scale}")
         err = max(err, e)
     again = kern()
     again_t = again if isinstance(again, tuple) else (again,)
@@ -157,7 +192,7 @@ def check_kernel(torch, name, K, kern, plain, library, nbytes, flops, peaks, flu
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         **time_ms(torch, fns, flush),
     }
-    print(f"kernel {name:12s} K={K:3d}: kernel_ms={row['ms']:.4f} plain_ms="
+    print(f"kernel {name:19s} K={K:3d}: kernel_ms={row['ms']:.4f} plain_ms="
           f"{row['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms="
           f"{row['library_ms']} bit-identical")
     for c in checks:
@@ -211,6 +246,29 @@ def kernel_phase(torch, ops, ref, peaks):
             torch, "afa_screen", K, lambda: ops.afa_screen(Us, pn, mask0, **kw),
             lambda: ref.afa_screen_ref(Us, pn, mask0, **kw), None,
             (kd + 2 * K + D + 3 * K + 1) * f, K * (K + 1) * D + 2 * kd, peaks, flush))
+        # rank kernels: the masked median's inputs hold multiples of 1/4, so
+        # most columns have tied values and the tie-break by client index
+        # decides; the trimmed mean takes the normal values, whose sums show
+        # the summation order.  Operations counted as one per element (a
+        # selection needs no more), not the K^2 compares per column the
+        # kernel makes ("compares")
+        live = torch.ones((K,), dtype=torch.bool, device=dev)
+        live[torch.randperm(K, generator=gen, device=dev)[:DEAD]] = False
+        Uq = torch.round(4.0 * U) / 4.0
+        rows.append(check_kernel(
+            torch, "coord_median", K, lambda: ops.coord_median(U),
+            lambda: ref.coord_median_ref(U), lambda: torch.quantile(U, 0.5, dim=0),
+            (kd + D) * f, kd, peaks, flush))
+        rows.append(check_kernel(
+            torch, "coord_median_masked", K, lambda: ops.coord_median(Uq, live),
+            lambda: ref.coord_median_ref(Uq, live), None,
+            (kd + D + K) * f, kd, peaks, flush))
+        rows.append(check_kernel(
+            torch, "trimmed_mean", K, lambda: ops.trimmed_mean(U, live, trim=TRIM),
+            lambda: ref.trimmed_mean_ref(U, live, trim=TRIM), None,
+            (kd + D + K) * f, kd, peaks, flush))
+        for row in rows[-3:]:
+            row["compares"] = K * K * D
     return rows
 
 
@@ -230,8 +288,7 @@ def main_path_phase(torch, ops, min_rounds_to_block):
     cases = [(label, v, l, True, names) for label, (v, l, names) in ROUTES.items()]
     cases.append(("iterative/plain-torch", "iterative", "fused", False, ()))
     for label, variant, launch, kernels, names in cases:
-        sim = SimConfig(num_clients=MAIN_K, bad_frac=0.3, scenario="byzantine", rounds=8,
-                        local_epochs=2, batch_size=200, hidden=(512, 256), seed=0)
+        sim = SimConfig(**MAIN_SIM)
         server = ServerConfig(num_clients=MAIN_K, afa_variant=variant,
                               kernel_plan=resolve_kernel_plan(kernels, kernel_launch=launch))
         ops.reset_launch_counts()
@@ -266,6 +323,108 @@ def main_path_phase(torch, ops, min_rounds_to_block):
             "launches": counts,
         })
     return runs, launches
+
+
+def baselines_phase(torch, ops):
+    """Every baseline rule through ``run`` at the main path's configuration,
+    with its gates; returns the runs and the launches of each kernel."""
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import ServerConfig, SimConfig, run
+    from repro_torch.kernels.policy import resolve_kernel_plan
+
+    data = make_mnist_like()
+    launches = {name: 0 for name in ops.LAUNCH_COUNTS}
+    runs = []
+    for (rule, kernels), names in BASELINES.items():
+        label = f"{rule}/{'cuda' if kernels else 'plain-torch'}"
+        sim = SimConfig(**MAIN_SIM)
+        server = ServerConfig(rule=rule, num_clients=MAIN_K,
+                              kernel_plan=resolve_kernel_plan(kernels))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run(None, sim, server, data=data, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCH_COUNTS)
+        bad = res.bad_clients.tolist()
+        picked_bad = [int(g[bad].sum()) for g in res.good_mask_history]
+        print(f"baseline [{label}]: wall_s={wall:.3f} test_error="
+              f"{[round(e, 3) for e in res.test_error]} byzantine_selected={picked_bad}")
+        print(f"  round_ms={[round(t * 1e3, 3) for t in res.round_times]} "
+              f"train_ms/round={res.train_time * 1e3:.3f} agg_ms/round={res.agg_time * 1e3:.3f} "
+              f"launches={counts}")
+        final = res.test_error[-1]
+        if rule == "fa":
+            if not final > 50.0:
+                raise AssertionError(f"{label}: final test error {final} % <= 50 %: the "
+                                     "byzantine attack did not reach FA")
+        elif not final < 5.0:
+            raise AssertionError(f"{label}: final test error {final} % >= 5 %")
+        if rule in SELECTING and any(picked_bad):
+            raise AssertionError(f"{label}: selected byzantine clients {picked_bad}")
+        for name, count in counts.items():
+            if (name in names) != (count > 0):
+                raise AssertionError(f"{label}: kernel {name} launched {count} times, "
+                                     f"expected {'some' if name in names else 'none'}")
+            launches[name] += count
+        runs.append({
+            "rule": rule, "route": "cuda" if kernels else "plain-torch", "wall_s": wall,
+            "round_ms": [t * 1e3 for t in res.round_times], "train_ms": res.train_time * 1e3,
+            "agg_ms": res.agg_time * 1e3, "test_error": res.test_error,
+            "byzantine_selected": picked_bad, "launches": counts,
+        })
+    return runs, launches
+
+
+def unmasked_phase(torch, ops):
+    """Every rule aggregates one (K, D) matrix through ``dispatch_rule``
+    without a participation mask, as the paper's Fig. 3 calls them, on the
+    kernel and on the plain route.  The matrix holds 3 byzantine rows (base +
+    N(0, 20^2 I)) among benign ones (base + N(0, 0.3^2 I)).  A rule whose
+    result involves no decision must give the same aggregate on both routes
+    (exactly for comed); afa, mkrum and bulyan decide on distances the two
+    routes round differently, so each route must leave out the 3 byzantine
+    rows.  Returns the rows and the launches of the kernel-route calls."""
+    from repro_torch.core import RULES, AFAConfig, RuleOptions, dispatch_rule
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    K, n_bad = MAIN_K, 3
+    base = torch.randn((D_PAPER,), generator=gen, device=dev)
+    U = base + 0.3 * torch.randn((K, D_PAPER), generator=gen, device=dev)
+    U[:n_bad] = base + 20.0 * torch.randn((n_bad, D_PAPER), generator=gen, device=dev)
+    n_k = torch.full((K,), 100.0, device=dev)
+    p_k = torch.full((K,), 0.5, device=dev)
+    opts = {kern: RuleOptions(use_kernels=kern, afa=AFAConfig(use_kernels=kern))
+            for kern in (True, False)}
+    ops.reset_launch_counts()
+    results = {rule: dispatch_rule(rule, U, n_k, p_k, opts=opts[True]) for rule in sorted(RULES)}
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCH_COUNTS)
+    if launches["coord_median"] <= 0:
+        raise AssertionError(f"unmasked comed did not launch coord_median: {launches}")
+    rows = []
+    for rule, kres in results.items():
+        pres = dispatch_rule(rule, U, n_k, p_k, opts=opts[False])
+        for res in (kres, pres):
+            if res.aggregate.shape != (D_PAPER,) or not torch.isfinite(res.aggregate).all():
+                raise AssertionError(f"unmasked {rule}: aggregate not finite of shape (D,)")
+        e = float((kres.aggregate - pres.aggregate).abs().max())
+        if rule in ("afa",) + SELECTING:
+            for route, res in (("cuda", kres), ("plain", pres)):
+                if res.good_mask[:n_bad].any():
+                    raise AssertionError(f"unmasked {rule} [{route}]: kept a byzantine row "
+                                         f"{res.good_mask.tolist()}")
+        else:
+            scale = float(pres.aggregate.abs().max())
+            if e > (0.0 if rule == "comed" else RTOL) * scale:
+                raise AssertionError(f"unmasked {rule}: max |kernel - plain| = {e} "
+                                     f"(scale {scale})")
+        rows.append({"rule": rule, "K": K, "D": D_PAPER, "max_abs_err": e,
+                     "good_mask": kres.good_mask.tolist()})
+        print(f"unmasked [{rule}] K={K}: max |kernel - plain|={e:.3e} "
+              f"good_mask={kres.good_mask.int().tolist()}")
+    return rows, launches
 
 
 def profile_phase(torch, data_rounds: int = 3):
@@ -359,15 +518,21 @@ def main() -> None:
 
     kernel_rows = kernel_phase(torch, ops, ref, peaks)
     runs, launches = main_path_phase(torch, ops, min_rounds_to_block)
+    baseline_runs, baseline_launches = baselines_phase(torch, ops)
+    unmasked_rows, unmasked_launches = unmasked_phase(torch, ops)
     trace = profile_phase(torch)
+    for more in (baseline_launches, unmasked_launches):
+        for kernel, count in more.items():
+            launches[kernel] += count
 
     kernels = []
     for row in kernel_rows:
         if row["K"] != MAIN_K:
             continue
+        replaces, source = REPLACES[row["name"]]
         kernels.append({
-            "name": row["name"], "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[row["name"]], "launches": launches[row["name"]],
+            "name": row["name"], "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
@@ -377,7 +542,8 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": name, "torch": torch.__version__,
         "peaks": {"key": peak_key, "bytes_per_s": peaks[0], "fp32_flops": peaks[1]},
-        "kernel_checks": kernel_rows, "main_path": runs, "profile": trace,
+        "kernel_checks": kernel_rows, "main_path": runs, "baselines": baseline_runs,
+        "unmasked": unmasked_rows, "launches": launches, "profile": trace,
     }, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

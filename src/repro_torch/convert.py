@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import ReputationState
 from repro_torch.fed.server import ServerState
 
@@ -21,17 +22,21 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def params_from_numpy(tree, *, device="cpu") -> dict:
-    """Nested dict of numpy arrays -> the same dict of tensors on ``device``."""
+def params_from_numpy(tree, *, device="cuda") -> dict:
+    """Nested dict of numpy arrays -> the same dict of tensors on ``device``
+    (the card unless ``device="cpu"``; raises without CUDA)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device=device) for k, v in tree.items()}
     return _tensor(tree, device)
 
 
-def server_state_from_numpy(state, *, device="cpu") -> ServerState:
+def server_state_from_numpy(state, *, device="cuda") -> ServerState:
     """An object shaped like the JAX ``ServerState`` (``.reputation.alpha /
     .beta / .blocked``, ``.rounds_blocked``, ``.round``) with numpy leaves ->
-    the port's ``ServerState``."""
+    the port's ``ServerState`` on ``device`` (the card unless
+    ``device="cpu"``; raises without CUDA)."""
+    device = resolve_device(device)
     rep = state.reputation
     return ServerState(
         reputation=ReputationState(

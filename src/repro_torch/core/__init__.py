@@ -1,4 +1,4 @@
-"""Robust aggregation: AFA (Algorithm 1), Federated Averaging, reputation.
+"""Robust aggregation: AFA (Algorithm 1), the baseline rules, reputation.
 
 Importing the package registers every ported rule in ``RULES``.
 """
@@ -8,12 +8,23 @@ from repro_torch.core.baselines import (
     AggResult,
     RuleOptions,
     RuleSpec,
+    bulyan_aggregate,
+    comed_aggregate,
     dispatch_rule,
     dispatch_rule_tree,
     fa_aggregate,
+    mkrum_aggregate,
+    norm_clip_aggregate,
+    pairwise_sq_dists,
     register_rule,
+    trimmed_mean_aggregate,
 )
 from repro_torch.core.afa import AFAConfig, AFAResult, afa_aggregate
+from repro_torch.core.extra_rules import (
+    centered_clip_aggregate,
+    geometric_median_aggregate,
+    zeno_aggregate,
+)
 from repro_torch.core.reputation import (
     ReputationState,
     betainc,

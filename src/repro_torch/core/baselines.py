@@ -1,11 +1,30 @@
-"""The rule registry the server dispatches through, and Federated Averaging.
+"""The baseline aggregation rules the paper compares against, and the rule
+registry the server dispatches through.
 
-Counterpart of ``repro/core/baselines.py``.  Every dispatchable rule
-registers a :class:`RuleSpec` whose matrix form is ``(updates (K, d), n_k,
-p_k, mask, opts) -> result``; :func:`dispatch_rule` (a matrix) and
+Counterpart of ``repro/core/baselines.py``:
+
+* ``fa``           — Federated Averaging (McMahan et al. 2017)
+* ``mkrum``        — Multi-KRUM (Blanchard et al. 2017)
+* ``comed``        — coordinate-wise median (Yin et al. 2018)
+* ``trimmed_mean`` — coordinate-wise trimmed mean (Yin et al. 2018)
+* ``bulyan``       — MKRUM selection, then per coordinate the mean of the
+  values closest to the median (Mhamdi et al. 2018)
+* ``norm_clip``    — norm-clipped mean
+
+``afa`` registers from ``core/afa.py``, ``geomed`` and ``centered_clip``
+from ``core/extra_rules.py``.  Every dispatchable rule registers a
+:class:`RuleSpec` whose matrix form is ``(updates (K, d), n_k, p_k, mask,
+opts) -> result``; :func:`dispatch_rule` (a matrix) and
 :func:`dispatch_rule_tree` (a stacked tree, packed ONCE into a ``(K, D)``
-buffer) are the entry points.  Ported so far: ``fa`` here and ``afa``
-(``core/afa.py``); the other baselines are not.
+buffer) are the entry points.
+
+On the kernel route (``use_kernels`` resolving to ``cuda``) the hot ops go
+through ``repro_torch.kernels.ops``: ``weighted_sum`` (fa, mkrum,
+norm_clip), ``gram`` (the distances of mkrum and bulyan), ``coord_median``
+(comed, bulyan's median) and ``trimmed_mean``.  The plain route keeps the
+JAX package's jnp semantics, comed's balanced +-inf fill of dead rows
+included.  Every sort or argsort whose order decides a result is stable, as
+``jnp.sort`` and ``jnp.argsort`` are.
 """
 
 from __future__ import annotations
@@ -14,6 +33,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core.stats import masked_median
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.policy import resolve_kernel_mode
 from repro_torch.utils.trees import pack_spec, pack_stack, unpack_stack
@@ -34,23 +54,159 @@ def _norm_weights(mask, w):
     return c / torch.clamp(c.sum(), min=EPS)
 
 
+def _kernels(use_kernels: bool | str) -> bool:
+    return resolve_kernel_mode(use_kernels) == "cuda"
+
+
+def _all_live(updates):
+    return torch.ones((updates.shape[0],), dtype=torch.bool, device=updates.device)
+
+
+def _weighted_rows(c, u32, kernels: bool):
+    """(K,) @ (K, d) -> (d,): the weighted_sum kernel or a plain product."""
+    return kernel_ops.weighted_sum(c, u32) if kernels else c @ u32
+
+
 def fa_aggregate(updates, n_k, p_k=None, mask=None, *,
                  use_kernels: bool | str = False) -> AggResult:
     """Federated Averaging: the n_k-weighted mean of the live rows."""
-    K = updates.shape[0]
-    mask = torch.ones((K,), dtype=torch.bool, device=updates.device) if mask is None else mask
+    mask = _all_live(updates) if mask is None else mask
     c = _norm_weights(mask, n_k.float())
-    u32 = updates.float().contiguous()
-    if resolve_kernel_mode(use_kernels) == "cuda":
-        agg = kernel_ops.weighted_sum(c, u32)
-    else:
-        agg = c @ u32
+    agg = _weighted_rows(c, updates.float().contiguous(), _kernels(use_kernels))
     return AggResult(agg.to(updates.dtype), mask)
 
 
-class RuleOptions(NamedTuple):
-    """Per-call rule knobs.  ``afa`` holds an ``AFAConfig`` when rule == afa."""
+def pairwise_sq_dists(updates, *, use_kernels: bool | str = False):
+    """K x K squared euclidean distances through the Gram identity (the gram
+    kernel on the kernel route)."""
+    u = updates.float().contiguous()
+    g = kernel_ops.gram(u) if _kernels(use_kernels) else u @ u.T
+    return kernel_ops.pairwise_sq_dists_from_gram(g)
 
+
+def _ranks(order):
+    """Inverse permutation along dim 0: ``ranks[order[r]] = r``."""
+    pos = torch.arange(order.shape[0], dtype=torch.int32, device=order.device)
+    pos = pos.reshape((-1,) + (1,) * (order.ndim - 1)).expand(order.shape)
+    return torch.empty_like(pos).scatter_(0, order, pos)
+
+
+def mkrum_aggregate(updates, n_k=None, p_k=None, mask=None, *, num_byzantine: int,
+                    num_selected: int, use_kernels: bool | str = False) -> AggResult:
+    """Multi-KRUM: score_k = sum of the K-f-2 smallest distances to the other
+    live rows; average the ``num_selected`` lowest-scoring updates."""
+    K = updates.shape[0]
+    mask = _all_live(updates) if mask is None else mask
+    kernels = _kernels(use_kernels)
+    d2 = pairwise_sq_dists(updates, use_kernels=use_kernels)
+    big = 3.4e38
+    eye = torch.eye(K, dtype=torch.bool, device=updates.device)
+    # self-distance and masked-out columns excluded from neighbour sets
+    off = torch.where(eye | ~mask[None, :], big, d2)
+    n_neigh = torch.clamp(mask.sum() - num_byzantine - 2, min=1)
+    srt = torch.sort(off, dim=1).values
+    idx = torch.arange(K, device=updates.device)[None, :]
+    scores = torch.where(idx < n_neigh, srt, 0.0).sum(dim=1)
+    scores = torch.where(mask, scores, big)
+    m = torch.clamp(mask.sum(), max=num_selected)
+    sel = (_ranks(torch.argsort(scores, stable=True)) < m) & mask
+    c = _norm_weights(sel, torch.ones((K,), dtype=torch.float32, device=updates.device))
+    agg = _weighted_rows(c, updates.float().contiguous(), kernels)
+    return AggResult(agg.to(updates.dtype), sel)
+
+
+def comed_aggregate(updates, n_k=None, p_k=None, mask=None, *,
+                    use_kernels: bool | str = False) -> AggResult:
+    """Coordinate-wise median across the live rows.
+
+    The kernel ranks each live row among the live rows only.  The plain route
+    pushes dead rows to +-inf in balanced pairs, so they never shift the
+    median of the live subset."""
+    if _kernels(use_kernels):
+        med = kernel_ops.coord_median(updates.float().contiguous(), mask)
+        return AggResult(med.to(updates.dtype), _all_live(updates) if mask is None else mask)
+    mask = _all_live(updates) if mask is None else mask
+    u = updates.float()
+    m = mask.sum()
+    dead = ~mask
+    dead_rank = torch.cumsum(dead.int(), dim=0) - 1  # rank among dead rows, valid where dead
+    fill = torch.where(dead_rank % 2 == 0, torch.inf, -torch.inf)[:, None]
+    u = torch.where(mask[:, None], u, fill)
+    srt = torch.sort(u, dim=0).values
+    n_dead_lo = torch.div(dead.sum(), 2, rounding_mode="floor")
+    lo_i = n_dead_lo + torch.clamp(torch.div(m - 1, 2, rounding_mode="floor"), min=0)
+    hi_i = n_dead_lo + torch.clamp(torch.div(m, 2, rounding_mode="floor"), min=0)
+    med = 0.5 * (srt[lo_i] + srt[hi_i])
+    return AggResult(med.to(updates.dtype), mask)
+
+
+def trimmed_mean_aggregate(updates, n_k=None, p_k=None, mask=None, *, trim: int,
+                           use_kernels: bool | str = False) -> AggResult:
+    """Coordinate-wise mean after dropping ``trim`` extremes at both ends.
+
+    When the live count ``m <= 2 trim`` the trim window is empty and the rule
+    gives the masked mean, not a zero aggregate; the kernel does the same."""
+    K = updates.shape[0]
+    mask = _all_live(updates) if mask is None else mask
+    u32 = updates.float()
+    if _kernels(use_kernels):
+        out = kernel_ops.trimmed_mean(u32.contiguous(), mask, trim=trim)
+        return AggResult(out.to(updates.dtype), mask)
+    srt = torch.sort(torch.where(mask[:, None], u32, torch.inf), dim=0).values
+    m = mask.sum()
+    i = torch.arange(K, device=updates.device)[:, None]
+    live = (i >= trim) & (i < m - trim)
+    cnt = torch.clamp(live.sum(), min=1)
+    trimmed = torch.where(live, srt, 0.0).sum(dim=0) / cnt
+    w = mask.float()[:, None]
+    masked_mean = (u32 * w).sum(dim=0) / torch.clamp(w.sum(), min=1.0)
+    mean = torch.where(m > 2 * trim, trimmed, masked_mean)
+    return AggResult(mean.to(updates.dtype), mask)
+
+
+def bulyan_aggregate(updates, n_k=None, p_k=None, mask=None, *, num_byzantine: int,
+                     use_kernels: bool | str = False) -> AggResult:
+    """Bulyan: MKRUM-style selection of theta = K-2f updates, then per
+    coordinate the mean of the beta = theta-2f values closest to their
+    median."""
+    K = updates.shape[0]
+    mask = _all_live(updates) if mask is None else mask
+    theta = max(K - 2 * num_byzantine, 1)
+    sel = mkrum_aggregate(
+        updates, mask=mask, num_byzantine=num_byzantine, num_selected=theta,
+        use_kernels=use_kernels,
+    ).good_mask
+    med = comed_aggregate(updates, mask=sel, use_kernels=use_kernels).aggregate.float()
+    u32 = updates.float()
+    dist = torch.where(sel[:, None], (u32 - med[None]).abs(), torch.inf)
+    beta = max(theta - 2 * num_byzantine, 1)
+    use = _ranks(torch.argsort(dist, dim=0, stable=True)) < beta
+    out = torch.where(use, u32, 0.0).sum(dim=0) / beta
+    return AggResult(out.to(updates.dtype), sel)
+
+
+def norm_clip_aggregate(updates, n_k, p_k=None, mask=None, clip=None, *,
+                        use_kernels: bool | str = False) -> AggResult:
+    """Clip each update to the masked-median norm (or ``clip``), then take
+    the n_k-weighted mean."""
+    mask = _all_live(updates) if mask is None else mask
+    u = updates.float()
+    norms = torch.linalg.vector_norm(u, dim=1)
+    c = masked_median(norms, mask) if clip is None else clip
+    scale = torch.clamp(c / torch.clamp(norms, min=EPS), max=1.0)
+    u = (u * scale[:, None]).contiguous()
+    w = _norm_weights(mask, n_k.float())
+    return AggResult(_weighted_rows(w, u, _kernels(use_kernels)).to(updates.dtype), mask)
+
+
+class RuleOptions(NamedTuple):
+    """Per-call rule knobs.  ``afa`` holds an ``AFAConfig`` when rule == afa;
+    ``num_selected`` (MKRUM) comes from the participation count on the host
+    (``fed.server.make_rule_options``)."""
+
+    num_byzantine: int = 3
+    trim: int = 3
+    num_selected: int | None = None
     use_kernels: bool | str = False
     afa: Any = None  # AFAConfig | None (typed Any to avoid an import cycle)
 
@@ -114,6 +270,32 @@ def dispatch_rule_tree(name: str, stacked, n_k, p_k=None, mask=None,
     return res._replace(aggregate=unpack_stack(res.aggregate, pspec))
 
 
+def _mkrum_rule(u, n_k, p_k, mask, o: RuleOptions):
+    m_sel = o.num_selected
+    if m_sel is None:  # no participation count given: assume every client
+        m_sel = max(u.shape[0] - o.num_byzantine - 2, 1)
+    return mkrum_aggregate(u, mask=mask, num_byzantine=o.num_byzantine, num_selected=m_sel,
+                           use_kernels=o.use_kernels)
+
+
 register_rule(
     "fa", lambda u, n, p, m, o: fa_aggregate(u, n, mask=m, use_kernels=o.use_kernels)
+)
+register_rule("mkrum", _mkrum_rule)
+register_rule(
+    "comed", lambda u, n, p, m, o: comed_aggregate(u, mask=m, use_kernels=o.use_kernels)
+)
+register_rule(
+    "trimmed_mean",
+    lambda u, n, p, m, o: trimmed_mean_aggregate(u, mask=m, trim=o.trim,
+                                                 use_kernels=o.use_kernels),
+)
+register_rule(
+    "bulyan",
+    lambda u, n, p, m, o: bulyan_aggregate(u, mask=m, num_byzantine=o.num_byzantine,
+                                           use_kernels=o.use_kernels),
+)
+register_rule(
+    "norm_clip",
+    lambda u, n, p, m, o: norm_clip_aggregate(u, n, mask=m, use_kernels=o.use_kernels),
 )

@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import resolve_device
+
 _CF_TINY = 1e-300
 _CF_EPS = 1e-15
 _CF_MAX_ITER = 1000
@@ -31,7 +33,10 @@ class ReputationState(NamedTuple):
 
 
 def init_reputation(num_clients: int, alpha0: float = 3.0, beta0: float = 3.0, *,
-                    device="cpu") -> ReputationState:
+                    device="cuda") -> ReputationState:
+    """Prior Beta(alpha0, beta0) for every client, none blocked, on
+    ``device`` (the card unless ``device="cpu"``; raises without CUDA)."""
+    device = resolve_device(device)
     return ReputationState(
         alpha=torch.full((num_clients,), float(alpha0), dtype=torch.float32, device=device),
         beta=torch.full((num_clients,), float(beta0), dtype=torch.float32, device=device),

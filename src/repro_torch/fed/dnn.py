@@ -19,9 +19,13 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 
-def init_dnn(generator: torch.Generator, sizes: Sequence[int], *, device="cpu"):
-    """He-normal weights, zero biases."""
+
+def init_dnn(generator: torch.Generator, sizes: Sequence[int], *, device="cuda"):
+    """He-normal weights, zero biases, on ``device`` (the card unless
+    ``device="cpu"``; raises without CUDA)."""
+    device = resolve_device(device)
     params = {}
     for i, (fan_in, fan_out) in enumerate(zip(sizes[:-1], sizes[1:])):
         w = torch.randn((fan_in, fan_out), generator=generator, dtype=torch.float32,

@@ -32,7 +32,9 @@ from repro_torch.kernels.policy import KernelPlan, resolve_kernel_plan
 
 @dataclasses.dataclass
 class ServerConfig:
-    rule: str = "afa"            # a key of repro_torch.core.RULES: afa | fa
+    rule: str = "afa"            # any key of repro_torch.core.RULES:
+                                 # afa | fa | mkrum | comed | trimmed_mean
+                                 # | bulyan | norm_clip | geomed | centered_clip
     num_clients: int = 10
     # AFA
     alpha0: float = 3.0
@@ -41,6 +43,9 @@ class ServerConfig:
     delta_xi: float = 0.5
     delta_block: float = 0.95
     afa_variant: str = "iterative"
+    # baselines
+    num_byzantine: int = 3       # f for mkrum/bulyan
+    trim: int = 3                # for trimmed_mean
     # the kernel decision (repro_torch.kernels.policy.KernelPlan); None =
     # resolve_kernel_plan(), which reads $REPRO_TORCH_KERNELS
     kernel_plan: KernelPlan | None = None
@@ -61,7 +66,10 @@ class ServerState(NamedTuple):
 
 
 def init_server_state(num_clients: int, alpha0: float = 3.0, beta0: float = 3.0, *,
-                      device="cpu") -> ServerState:
+                      device="cuda") -> ServerState:
+    """Round-0 server state on ``device`` (the card unless
+    ``device="cpu"``; raises without CUDA)."""
+    device = resolve_device(device)
     return ServerState(
         reputation=init_reputation(num_clients, alpha0, beta0, device=device),
         rounds_blocked=torch.full((num_clients,), -1, dtype=torch.int32, device=device),
@@ -69,10 +77,18 @@ def init_server_state(num_clients: int, alpha0: float = 3.0, beta0: float = 3.0,
     )
 
 
-def make_rule_options(cfg: ServerConfig) -> RuleOptions:
-    """Knob bundle for the registry, from the config's resolved plan."""
+def make_rule_options(cfg: ServerConfig, num_participants: int) -> RuleOptions:
+    """Knob bundle for the registry, from the config's resolved plan.
+
+    ``num_selected`` is set only for the rule that reads it (MKRUM), from
+    the round's live participant count."""
     plan = resolve_server_plan(cfg)
     return RuleOptions(
+        num_byzantine=cfg.num_byzantine,
+        trim=cfg.trim,
+        num_selected=(
+            max(num_participants - cfg.num_byzantine - 2, 1) if cfg.rule == "mkrum" else None
+        ),
         use_kernels=plan.mode,
         afa=AFAConfig(
             xi0=cfg.xi0, delta_xi=cfg.delta_xi, variant=cfg.afa_variant,
@@ -151,13 +167,16 @@ class FedServer:
         mask0 &= ~self.blocked
         return mask0
 
+    def rule_options(self, mask0: np.ndarray) -> RuleOptions:
+        return make_rule_options(self.cfg, int(mask0.sum()))
+
     def aggregate_tree(self, stacked, n_k, selected: np.ndarray):
         """One round over a stacked tree of proposals, packed into one
         (K, D) buffer; rows outside ``selected`` are ignored."""
         mask0 = self.participation_mask(selected)
         self.state, res = server_step(
             self.state, stacked, n_k, torch.from_numpy(mask0).to(self.device),
-            rule=self.cfg.rule, opts=make_rule_options(self.cfg),
+            rule=self.cfg.rule, opts=self.rule_options(mask0),
             delta_block=self.cfg.delta_block, layout="tree",
         )
         info = {

@@ -1,6 +1,6 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles ``csrc/afa_kernels.cu`` for ``sm_90a`` into a shared
+``nvcc`` compiles the sources in ``csrc/`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs at
 first use, from the sources in this checkout only, into
 ``<repo>/build/repro_torch_kernels/<source hash>/`` (listed in
@@ -20,7 +20,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("afa_kernels.cu",)
+SOURCES = ("afa_kernels.cu", "rank_kernels.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,7 +32,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-# C signatures of the library (csrc/afa_kernels.cu): name -> argtypes
+# C signatures of the library (the SOURCES in csrc/): name -> argtypes
 SIGNATURES = {
     "repro_cosine_nsplit": (_L,),
     "repro_gram_nsplit": (_I, _L),
@@ -42,6 +42,9 @@ SIGNATURES = {
     "repro_gram": (_P, _P, _P, _I, _L, _I, _P),
     "repro_afa_screen": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _L, _I, _F, _F, _I, _I, _P),
+    "repro_rank_max_k": (),
+    "repro_coord_median": (_P, _P, _P, _I, _L, _P),
+    "repro_trimmed_mean": (_P, _P, _P, _I, _L, _I, _P),
 }
 
 

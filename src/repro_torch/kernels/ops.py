@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written CUDA kernels (``csrc/afa_kernels.cu``).
+"""Wrappers of the hand-written CUDA kernels (``csrc/*.cu``).
 
 Counterpart of ``repro/kernels/ops.py``.  Every wrapper checks device, dtype,
 shape and contiguity, then
@@ -24,7 +24,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load_library
 
-LAUNCH_COUNTS = {"weighted_sum": 0, "cosine_sim": 0, "gram": 0, "afa_screen": 0}
+LAUNCH_COUNTS = {"weighted_sum": 0, "cosine_sim": 0, "gram": 0, "afa_screen": 0,
+                 "coord_median": 0, "coord_median_masked": 0, "trimmed_mean": 0}
 
 
 def reset_launch_counts() -> None:
@@ -41,6 +42,16 @@ def _check_tensor(op: str, what: str, t, ndim: int) -> None:
         raise ValueError(f"{op}: {what} must be {ndim}-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{op}: {what} must be contiguous")
+
+
+def _check_mask(op: str, what: str, mask, K: int) -> None:
+    if not isinstance(mask, torch.Tensor):
+        raise TypeError(f"{op}: {what} must be a torch.Tensor, got {type(mask).__name__}")
+    if mask.ndim != 1 or mask.dtype not in (torch.bool, torch.int32, torch.int64):
+        raise TypeError(f"{op}: {what} must be a 1-D bool/int tensor, got "
+                        f"{mask.dtype} {tuple(mask.shape)}")
+    if mask.shape[0] != K:
+        raise ValueError(f"{op}: {what} length {mask.shape[0]} != K={K}")
 
 
 def _on_card(op: str, *tensors) -> bool:
@@ -169,13 +180,10 @@ def afa_screen(updates: torch.Tensor, pn: torch.Tensor, mask0: torch.Tensor, *,
     initial participation (bool or integer)."""
     _check_tensor("afa_screen", "updates", updates, 2)
     _check_tensor("afa_screen", "pn", pn, 1)
-    if mask0.ndim != 1 or mask0.dtype not in (torch.bool, torch.int32, torch.int64):
-        raise TypeError(f"afa_screen: mask0 must be a 1-D bool/int tensor, got "
-                        f"{mask0.dtype} {tuple(mask0.shape)}")
     K = updates.shape[0]
-    if pn.shape[0] != K or mask0.shape[0] != K:
-        raise ValueError(f"afa_screen: pn/mask0 lengths {pn.shape[0]}/"
-                         f"{mask0.shape[0]} != K={K}")
+    _check_mask("afa_screen", "mask0", mask0, K)
+    if pn.shape[0] != K:
+        raise ValueError(f"afa_screen: pn length {pn.shape[0]} != K={K}")
     kw = dict(xi0=float(xi0), delta_xi=float(delta_xi),
               max_rounds=int(max_rounds), ddof=int(ddof))
     if not _on_card("afa_screen", updates, pn, mask0):
@@ -209,3 +217,76 @@ def _afa_screen_cuda(lib, stream, updates, pn, mask0, *, xi0, delta_xi,
         sims.data_ptr(),
         K, D, nsplit, xi0, delta_xi, max_rounds, ddof, stream))
     return agg, good != 0, rounds[0], sims
+
+
+# ---------------------------------------------------------------------------
+# coordinate-wise median  (replaces repro/kernels/coord_median.py:37
+# _coord_median_kernel and :51 _coord_median_masked_kernel)
+# ---------------------------------------------------------------------------
+
+
+def coord_median(updates: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(K, d) [+ (K,) mask] -> (d,) coordinate-wise median (f32).
+
+    The median of the live rows, by compare-count rank with ties broken by
+    client index; 0 where no row is live.  K is never padded.  A call without
+    a mask counts as a ``coord_median`` launch, one with a mask as
+    ``coord_median_masked``."""
+    _check_tensor("coord_median", "updates", updates, 2)
+    operands = (updates,)
+    if mask is not None:
+        _check_mask("coord_median", "mask", mask, updates.shape[0])
+        operands = (updates, mask)
+    if not _on_card("coord_median", *operands):
+        return ref.coord_median_ref(updates, mask)
+    out = _rank_cuda("coord_median", load_library(), _stream(updates), updates, mask)
+    LAUNCH_COUNTS["coord_median" if mask is None else "coord_median_masked"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# coordinate-wise trimmed mean  (replaces repro/kernels/trimmed_mean.py:33
+# _trimmed_mean_kernel)
+# ---------------------------------------------------------------------------
+
+
+def trimmed_mean(updates: torch.Tensor, mask: torch.Tensor, *, trim: int) -> torch.Tensor:
+    """(K, d), (K,) mask -> (d,) coordinate-wise trimmed mean (f32): the live
+    values of rank ``trim <= r < m - trim`` averaged, or the masked mean when
+    the live count ``m <= 2 trim``."""
+    _check_tensor("trimmed_mean", "updates", updates, 2)
+    _check_mask("trimmed_mean", "mask", mask, updates.shape[0])
+    trim = int(trim)
+    if trim < 0:
+        raise ValueError(f"trimmed_mean: trim={trim} must be >= 0")
+    if not _on_card("trimmed_mean", updates, mask):
+        return ref.trimmed_mean_ref(updates, mask, trim=trim)
+    out = _rank_cuda("trimmed_mean", load_library(), _stream(updates), updates, mask, trim=trim)
+    LAUNCH_COUNTS["trimmed_mean"] += 1
+    return out
+
+
+def _rank_cuda(op, lib, stream, updates, mask, *, trim=None):
+    """Launch the median (``trim`` None) or the trimmed mean; ``mask`` None
+    passes a null pointer (every row live)."""
+    K, D = updates.shape
+    max_k = lib.repro_rank_max_k()
+    if K > max_k:
+        raise ValueError(f"{op}: K={K} clients exceed the {max_k} a 32-column "
+                         "shared-memory tile holds")
+    out = torch.empty((D,), dtype=torch.float32, device=updates.device)
+    m32 = None if mask is None else mask.to(torch.int32).contiguous()
+    mptr = None if m32 is None else m32.data_ptr()
+    if trim is None:
+        rc = lib.repro_coord_median(updates.data_ptr(), mptr, out.data_ptr(), K, D, stream)
+    else:
+        rc = lib.repro_trimmed_mean(updates.data_ptr(), mptr, out.data_ptr(), K, D, trim,
+                                    stream)
+    _check_rc(op, rc)
+    return out
+
+
+def pairwise_sq_dists_from_gram(g: torch.Tensor) -> torch.Tensor:
+    """(K, K) Gram matrix -> (K, K) squared euclidean distances, clamped at 0."""
+    sq = torch.diagonal(g)
+    return torch.clamp(sq[:, None] + sq[None, :] - 2.0 * g, min=0.0)

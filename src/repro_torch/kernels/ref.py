@@ -36,6 +36,45 @@ def gram_ref(updates: torch.Tensor) -> torch.Tensor:
     return u @ u.T
 
 
+def _live_order_stats(updates: torch.Tensor, mask):
+    """Each column of ``updates`` sorted with the dead rows pushed to +inf,
+    and the live count ``m`` (a 0-d tensor).  The sort is stable, so equal
+    values keep client-index order: position r holds the row of rank r under
+    the kernels' compare-count rank with ties broken by client index."""
+    u = updates.float()
+    if mask is None:
+        mask = torch.ones(u.shape[0], dtype=torch.bool, device=u.device)
+    live = mask.bool()
+    srt = torch.sort(torch.where(live[:, None], u, torch.inf), dim=0, stable=True).values
+    return srt, live.sum()
+
+
+def coord_median_ref(updates: torch.Tensor, mask=None) -> torch.Tensor:
+    """(K, d) [+ (K,) mask] -> (d,) coordinate-wise median
+    (``ops.coord_median``): the mean of the live order statistics
+    ``(m-1)//2`` and ``m//2``, and 0 where no row is live.  Pure selection, so
+    it equals the compare-count kernel bit for bit."""
+    srt, m = _live_order_stats(updates, mask)
+    lo = torch.clamp(torch.div(m - 1, 2, rounding_mode="floor"), min=0)
+    hi = torch.clamp(torch.div(m, 2, rounding_mode="floor"), min=0)
+    med = 0.5 * (srt[lo] + srt[hi])
+    return torch.where(m > 0, med, 0.0)
+
+
+def trimmed_mean_ref(updates: torch.Tensor, mask, *, trim: int) -> torch.Tensor:
+    """(K, d), (K,) mask -> (d,) coordinate-wise trimmed mean
+    (``ops.trimmed_mean``): the live values of rank ``trim <= r < m - trim``
+    over ``max(m - 2 trim, 1)``; the masked mean over ``max(m, 1)`` when
+    ``m <= 2 trim``."""
+    srt, m = _live_order_stats(updates, mask)
+    pos = torch.arange(srt.shape[0], device=srt.device)[:, None]
+    keep = (pos >= trim) & (pos < m - trim)
+    trimmed = torch.where(keep, srt, 0.0).sum(dim=0) / torch.clamp(m - 2 * trim, min=1)
+    live = mask.bool()[:, None]
+    mean = torch.where(live, updates.float(), 0.0).sum(dim=0) / torch.clamp(m, min=1)
+    return torch.where(m > 2 * trim, trimmed, mean)
+
+
 def _masked_mean(x, mask):
     m = mask.sum()
     mean = torch.where(mask, x, 0.0).sum() / torch.clamp(m, min=1)

@@ -142,7 +142,7 @@ def test_all_blocked_round_is_a_zero_update():
     assert bool(res.all_blocked)
     assert torch.equal(res.aggregate, torch.zeros(5))
     with pytest.raises(ValueError, match="unknown rule"):
-        dispatch_rule("mkrum", u, torch.ones(3))
+        dispatch_rule("no_such_rule", u, torch.ones(3))
 
 
 @pytest.mark.parametrize("variant,launch,tk,jk", [ROUTES[1], ROUTES[3], ROUTES[5]])
@@ -154,7 +154,7 @@ def test_server_step_matches_jax_over_rounds(variant, launch, tk, jk):
     tcfg = ServerConfig(num_clients=K, afa_variant=variant,
                         kernel_plan=resolve_kernel_plan(tk, kernel_launch=launch))
     jstate = jax_init_state(K)
-    tstate = init_server_state(K)
+    tstate = init_server_state(K, device="cpu")
     for t in range(T):
         u = _proposals(K, D, 3, 50 + t, scale=100.0)
         jmask = ~np.asarray(jstate.reputation.blocked)
@@ -165,7 +165,7 @@ def test_server_step_matches_jax_over_rounds(variant, launch, tk, jk):
             opts=jax_rule_options(jcfg, int(jmask.sum())), layout="matrix")
         tstate, tres = server_step(
             tstate, torch.from_numpy(u), torch.from_numpy(n_k), torch.from_numpy(tmask),
-            rule="afa", opts=make_rule_options(tcfg), layout="matrix")
+            rule="afa", opts=make_rule_options(tcfg, int(tmask.sum())), layout="matrix")
         np.testing.assert_array_equal(tres.good_mask.numpy(), np.asarray(jres.good_mask))
         np.testing.assert_array_equal(tstate.reputation.blocked.numpy(),
                                       np.asarray(jstate.reputation.blocked))
@@ -179,7 +179,8 @@ def test_server_step_matches_jax_over_rounds(variant, launch, tk, jk):
 def test_server_state_carries_over_from_numpy():
     jstate = jax_init_state(4)
     state = server_state_from_numpy(jstate._replace(
-        rounds_blocked=np.asarray([2, -1, -1, -1], np.int32), round=np.int32(3)))
+        rounds_blocked=np.asarray([2, -1, -1, -1], np.int32), round=np.int32(3)),
+        device="cpu")
     assert state.round == 3
     assert state.rounds_blocked.dtype == torch.int32
     assert state.reputation.blocked.dtype == torch.bool

@@ -94,6 +94,69 @@ def test_afa_screen_twin_matches_pallas(K, D, n_bad, max_rounds, seed):
     _close(sims, jsims)
 
 
+# (K, live count m): m = 0, 1, even and odd, every row live
+MASKED = [(1, 0), (1, 1), (2, 0), (2, 1), (2, 2), (7, 0), (7, 1), (7, 4), (7, 7),
+          (10, 0), (10, 1), (10, 6), (10, 7), (10, 10)]
+
+
+def _rank_inputs(K, D, m, ties, seed):
+    """Updates (integers in [-2, 2] when ``ties``, so most columns hold equal
+    values) and a mask with ``m`` live rows at random positions."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        u = rng.integers(-2, 3, size=(K, D)).astype(np.float32)
+    else:
+        u = rng.normal(size=(K, D)).astype(np.float32)
+    mask = np.zeros(K, bool)
+    mask[rng.permutation(K)[:m]] = True
+    return u, mask
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("K,D", [(1, 5), (2, 130), (7, 300), (10, 600)])
+def test_coord_median_twin_equals_pallas(K, D, ties):
+    """Without a mask: pure selection, so the twin equals the kernel exactly."""
+    u, _ = _rank_inputs(K, D, K, ties, K)
+    got = ops.coord_median(torch.from_numpy(u))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jops.coord_median(u, interpret=True)))
+    np.testing.assert_array_equal(got.numpy(), np.median(u, axis=0))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("K,m", MASKED)
+def test_masked_coord_median_twin_equals_pallas(K, m, ties):
+    """Ranks among the live rows only, 0 where none is live: exact."""
+    u, mask = _rank_inputs(K, 257, m, ties, 10 * K + m)
+    got = ops.coord_median(torch.from_numpy(u), torch.from_numpy(mask))
+    want = np.asarray(jops.coord_median(u, mask, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if m == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("trim", [0, 1, 3])
+@pytest.mark.parametrize("K,m", [(1, 1), (2, 2), (7, 0), (7, 4), (7, 7), (10, 6), (10, 7),
+                                 (10, 10)])
+def test_trimmed_mean_twin_matches_pallas(K, m, trim, ties):
+    """Includes m <= 2 trim, where both take the masked mean."""
+    u, mask = _rank_inputs(K, 257, m, ties, 100 * K + 10 * m + trim)
+    got = ops.trimmed_mean(torch.from_numpy(u), torch.from_numpy(mask), trim=trim)
+    _close(got, jops.trimmed_mean(u, mask, trim=trim, interpret=True))
+
+
+def test_rank_wrappers_check_their_operands():
+    u = torch.ones((3, 8))
+    with pytest.raises(ValueError, match="K=3"):
+        ops.coord_median(u, torch.ones(2, dtype=torch.bool))
+    with pytest.raises(TypeError, match="1-D bool/int"):
+        ops.trimmed_mean(u, torch.ones(3), trim=1)
+    with pytest.raises(ValueError, match="trim"):
+        ops.trimmed_mean(u, torch.ones(3, dtype=torch.bool), trim=-1)
+    with pytest.raises(ValueError, match="operands on"):
+        ops.coord_median(u, torch.ones(3, dtype=torch.bool, device="meta"))
+
+
 def test_median_by_compare_count_equals_sort():
     rng = np.random.default_rng(5)
     from repro_torch.core.stats import masked_median
@@ -112,8 +175,13 @@ def test_cpu_calls_do_not_count_as_launches():
     ops.gram(u)
     ops.afa_screen(u, c, torch.ones(4, dtype=torch.bool), xi0=2.0, delta_xi=0.5,
                    max_rounds=2)
+    m = torch.tensor([True, False, True, True])
+    ops.coord_median(u)
+    ops.coord_median(u, m)
+    ops.trimmed_mean(u, m, trim=1)
     assert ops.LAUNCH_COUNTS == {"weighted_sum": 0, "cosine_sim": 0, "gram": 0,
-                                 "afa_screen": 0}
+                                 "afa_screen": 0, "coord_median": 0,
+                                 "coord_median_masked": 0, "trimmed_mean": 0}
 
 
 def test_wrappers_check_their_operands():
@@ -136,9 +204,9 @@ def test_wrappers_check_their_operands():
 
 
 def test_ctypes_signatures_match_the_cuda_source():
-    """Every C function the wrappers bind exists in the source with the
+    """Every C function the wrappers bind exists in the sources with the
     declared number of parameters (a mismatch would pass garbage pointers)."""
-    src = (build.CSRC / "afa_kernels.cu").read_text()
+    src = "".join((build.CSRC / name).read_text() for name in build.SOURCES)
     found = {
         name: params for name, params in re.findall(
             r"^int (repro_\w+)\(([^)]*)\)", src, flags=re.MULTILINE | re.DOTALL)

@@ -10,7 +10,8 @@
     gap between the two packages measured at most 3.6e-7 over 16 runs.)
 (b) byzantine with the port's own RNG: bad clients blocked in round
     ``min_rounds_to_block()`` (= 6), good clients never;
-plus the import hygiene of the package and the device contract of ``run``.
+plus the import hygiene of the package and the device contract of ``run``
+and of the public constructors.
 """
 
 import os
@@ -32,12 +33,20 @@ from repro.fed import ServerConfig as JServerConfig  # noqa: E402
 from repro.fed import SimConfig as JSimConfig  # noqa: E402
 from repro.fed import run as jax_run  # noqa: E402
 from repro.fed.workload import DnnWorkload as JDnnWorkload  # noqa: E402
-from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro.fed import init_server_state as jax_init_state  # noqa: E402
+from repro_torch.convert import params_from_numpy, server_state_from_numpy  # noqa: E402
 from repro_torch.core import afa as tafa  # noqa: E402
-from repro_torch.core import min_rounds_to_block  # noqa: E402
+from repro_torch.core import init_reputation, min_rounds_to_block  # noqa: E402
 from repro_torch.core.stats import masked_median, masked_std  # noqa: E402
 from repro_torch.data import make_mnist_like  # noqa: E402
-from repro_torch.fed import DnnWorkload, ServerConfig, SimConfig, run  # noqa: E402
+from repro_torch.fed import (  # noqa: E402
+    DnnWorkload,
+    ServerConfig,
+    SimConfig,
+    init_dnn,
+    init_server_state,
+    run,
+)
 from repro_torch.kernels.policy import resolve_kernel_plan  # noqa: E402
 
 ERR_TOL_PP = 0.5      # percentage points: one test sample of 200
@@ -160,6 +169,20 @@ def test_run_on_cuda_raises_without_cuda(monkeypatch):
     data = make_mnist_like(n_train=100, n_test=20, dim=8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run(None, SimConfig(num_clients=2, rounds=1, hidden=(4,)), data=data)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: init_server_state(3),
+    lambda: init_reputation(3),
+    lambda: params_from_numpy({"w0": np.ones((2, 2), np.float32)}),
+    lambda: server_state_from_numpy(jax_init_state(3)),
+    lambda: init_dnn(torch.Generator(), (4, 3, 2)),
+], ids=["init_server_state", "init_reputation", "params_from_numpy",
+        "server_state_from_numpy", "init_dnn"])
+def test_constructors_default_to_cuda_and_raise_without_it(monkeypatch, build):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
 
 
 def test_unported_routes_raise():
