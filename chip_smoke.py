@@ -23,9 +23,27 @@
    route launched exactly its kernels; then aggregates one (K, D) matrix
    with every rule without a participation mask, as the paper's Fig. 3
    times them (the unmasked median kernel), against the plain route;
-6. traces three rounds of the gram/fused route with ``torch.profiler``
-   (device busy share, the kernels that take the time);
-7. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+6. holds the flash-attention kernel against its exact-softmax twin at the
+   smollm-135m shape (B = 4, L = 2048, Hq = 9, Hkv = 3, D = 64, causal) in f32
+   and bf16, at the JAX package's test shapes (causal and full, Lq != Lk
+   included) and at one more causal Lq != Lk case: f32 within 2e-4, bf16
+   within 2e-2, bit-identical reruns, times beside the bound and
+   ``F.scaled_dot_product_attention``;
+7. runs a forward of smollm-135m at full width and depth (30 layers, B = 4 x
+   L = 2048 tokens, random weights from a seed) through
+   ``repro_torch.models.build_model`` with the flash kernel and with the
+   plain blocked attention, in f32 and in the published bf16: f32 logits of
+   the two routes within 2e-3, 30 kernel launches per forward on the kernel
+   route and none on the plain one, finite bf16 logits;
+8. runs federated LoRA fine-tuning of smollm-135m (rank 4 on wq/wk/wv/wo,
+   D_adapter = 460,800; 6 clients, 2 byzantine, 8 rounds) through
+   ``repro_torch.fed.api.run`` on the AFA gram/fused kernel route and on the
+   plain route: both byzantine clients blocked in round 6, no benign client
+   blocked, the same decisions on both routes;
+9. traces three rounds of the paper DNN's gram/fused route and two rounds
+   of the LoRA phase's with ``torch.profiler`` (device busy share, the
+   kernels that take the time);
+10. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, the script exits 1 before printing a result.
@@ -56,6 +74,7 @@ N_TIMED = 20
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock: longer than any wrapper's host work
 AFA_SOURCE = "src/repro_torch/kernels/csrc/afa_kernels.cu"
 RANK_SOURCE = "src/repro_torch/kernels/csrc/rank_kernels.cu"
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/attn_kernels.cu"
 # kernel -> (TPU kernel it replaces, CUDA source)
 REPLACES = {
     "weighted_sum": ("src/repro/kernels/weighted_sum.py:30", AFA_SOURCE),
@@ -65,6 +84,7 @@ REPLACES = {
     "coord_median": ("src/repro/kernels/coord_median.py:37", RANK_SOURCE),
     "coord_median_masked": ("src/repro/kernels/coord_median.py:51", RANK_SOURCE),
     "trimmed_mean": ("src/repro/kernels/trimmed_mean.py:33", RANK_SOURCE),
+    "flash_attn": ("src/repro/kernels/flash_attn.py:76", ATTN_SOURCE),
 }
 EXACT = ("coord_median", "coord_median_masked")  # pure selection: the twin's bits
 TRIM = 3         # trimmed_mean's trim, as ServerConfig.trim
@@ -93,9 +113,30 @@ SELECTING = ("mkrum", "bulyan")  # rules whose good_mask is a selection
 # device-side names of this repository's kernels
 OUR_KERNEL_NAMES = ("weighted_sum_kernel", "cosine_parts_kernel", "cosine_reduce_kernel",
                     "gram_parts_kernel", "gram_reduce_kernel", "afa_screen_kernel",
-                    "rank_select_kernel")
-# published peaks: (HBM bytes/s, FP32 non-tensor FLOP/s), NVIDIA data sheets
-PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "SXM": (3.35e12, 67e12)}
+                    "rank_select_kernel", "flash_attn_kernel")
+# published peaks: (HBM bytes/s, FP32 non-tensor FLOP/s, dense bf16 tensor
+# FLOP/s), NVIDIA data sheets
+PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
+         "SXM": (3.35e12, 67e12, 989e12)}
+# flash attention: (B, Lq, Lk, Hq, Hkv, D) of the main path, smollm-135m at
+# the forward phase's B x L, and the shapes checked against the twin
+ATTN_MAIN = (4, 2048, 2048, 9, 3, 64)
+ATTN_SHAPES = [  # the JAX package's tests/test_kernels.py:200-205, then Lq > Lk
+    ((2, 64, 64, 4, 2, 32), (True, False)),
+    ((1, 100, 100, 2, 1, 64), (True, False)),
+    ((2, 33, 65, 4, 4, 16), (True, False)),
+    ((1, 256, 256, 8, 2, 128), (True, False)),
+    ((1, 300, 130, 6, 2, 64), (True,)),
+]
+ATTN_TOL = {"float32": 2e-4,   # tests/test_kernels.py:219 holds the Pallas kernel to it
+            "bfloat16": 2e-2}  # bf16 output rounding (8 mantissa bits)
+FWD_B, FWD_L = 4, 2048
+FWD_TOL = 2e-3   # tests/test_models.py:256 holds the JAX Pallas route to it
+# the LoRA phase's run: smollm-135m at full width, 2 of 6 clients byzantine
+LORA_SIM = dict(num_clients=6, bad_frac=2 / 6, scenario="byzantine", rounds=8,
+                local_epochs=2, batch_size=2, seed=0, lr=0.2)
+LORA_EXTRA = dict(samples_per_client=16, seq=256, n_test=16)
+LORA_D = 30 * (4 * 576 * 4 + 4 * (576 + 192 + 192 + 576))  # 460,800
 
 
 def fail(msg: str) -> None:
@@ -427,28 +468,19 @@ def unmasked_phase(torch, ops):
     return rows, launches
 
 
-def profile_phase(torch, data_rounds: int = 3):
-    """Trace ``data_rounds`` rounds of the gram/fused route with
-    ``torch.profiler``: the device's busy share of the wall time and the
-    kernels that fill it.  Informational: the launch counts of the main
-    path come from ``main_path_phase``."""
+def trace(torch, label: str, fn, rounds: int):
+    """Run ``fn`` (which returns the run's train and aggregation ms per
+    round) once to warm up, then once under ``torch.profiler``: the device's
+    busy share of the wall time and the kernels that fill it.
+    Informational: the launch counts of each path come from its phase."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data import make_mnist_like
-    from repro_torch.fed import ServerConfig, SimConfig, run
-    from repro_torch.kernels.policy import resolve_kernel_plan
-
-    data = make_mnist_like()
-    sim = SimConfig(num_clients=MAIN_K, bad_frac=0.3, scenario="byzantine",
-                    rounds=data_rounds, local_epochs=2, batch_size=200, seed=0)
-    server = ServerConfig(num_clients=MAIN_K, afa_variant="gram",
-                          kernel_plan=resolve_kernel_plan(True, kernel_launch="fused"))
-    run(None, sim, server, data=data, device="cuda")  # warm
+    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = run(None, sim, server, data=data, device="cuda")
+        train_ms, agg_ms = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -465,24 +497,275 @@ def profile_phase(torch, data_rounds: int = 3):
     ours = sorted((n, tc) for n, tc in by_name.items()
                   if any(k in n for k in OUR_KERNEL_NAMES))
     out = {
-        "rounds": data_rounds, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-        "device_events": len(spans), "train_ms": res.train_time * 1e3,
-        "agg_ms": res.agg_time * 1e3,
+        "label": label, "rounds": rounds, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+        "device_events": len(spans), "train_ms": train_ms, "agg_ms": agg_ms,
         "top": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in top],
         "ours": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in ours],
     }
     if not spans:
-        print("profile: the profiler recorded no device events (device busy share not measured)")
+        print(f"profile [{label}]: the profiler recorded no device events (device busy "
+              "share not measured)")
         return out
-    print(f"profile [gram/fused, {data_rounds} rounds]: wall_ms={wall_ms:.3f} device_busy_ms="
+    print(f"profile [{label}, {rounds} rounds]: wall_ms={wall_ms:.3f} device_busy_ms="
           f"{busy_us / 1e3:.3f} busy_share={busy_us / 1e3 / wall_ms:.3f} device_events="
-          f"{len(spans)} train_ms/round={out['train_ms']:.3f} agg_ms/round={out['agg_ms']:.3f}")
+          f"{len(spans)} train_ms/round={train_ms:.3f} agg_ms/round={agg_ms:.3f}")
     for item in out["top"]:
         print(f"  {item['ms']:9.3f} ms  x{item['count']:5d}  {item['name']}")
     print("  this repository's kernels on the route:")
     for item in out["ours"]:
         print(f"  {item['ms']:9.3f} ms  x{item['count']:5d}  {item['name']}")
     return out
+
+
+def profile_phase(torch, data_rounds: int = 3):
+    """Trace ``data_rounds`` rounds of the paper DNN's gram/fused route."""
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import ServerConfig, SimConfig, run
+    from repro_torch.kernels.policy import resolve_kernel_plan
+
+    data = make_mnist_like()
+    sim = SimConfig(num_clients=MAIN_K, bad_frac=0.3, scenario="byzantine",
+                    rounds=data_rounds, local_epochs=2, batch_size=200, seed=0)
+    server = ServerConfig(num_clients=MAIN_K, afa_variant="gram",
+                          kernel_plan=resolve_kernel_plan(True, kernel_launch="fused"))
+
+    def fn():
+        res = run(None, sim, server, data=data, device="cuda")
+        return res.train_time * 1e3, res.agg_time * 1e3
+
+    return trace(torch, "gram/fused", fn, data_rounds)
+
+
+def lora_profile_phase(torch, rounds: int = 2):
+    """Trace ``rounds`` rounds of the LoRA phase's gram/fused route."""
+    from repro_torch.fed import ServerConfig, SimConfig, get_workload, make_llm_fused_data, run
+    from repro_torch.kernels.policy import resolve_kernel_plan
+
+    workload = get_workload("lora", arch="smollm-135m", reduced=False, rank=4)
+    K = LORA_SIM["num_clients"]
+    data = make_llm_fused_data(workload.model_cfg, clients=K, seed=LORA_SIM["seed"],
+                               samples_per_client=LORA_EXTRA["samples_per_client"],
+                               seq=LORA_EXTRA["seq"], n_test=LORA_EXTRA["n_test"])
+    sim = SimConfig(**{**LORA_SIM, "rounds": rounds})
+    server = ServerConfig(rule="afa", num_clients=K, afa_variant="gram",
+                          kernel_plan=resolve_kernel_plan(True, kernel_launch="fused"))
+
+    def fn():
+        res = run(workload, sim, server, data=data, device="cuda", **LORA_EXTRA)
+        return res["train_time"] * 1e3, res["agg_time"] * 1e3
+
+    return trace(torch, "lora gram/fused", fn, rounds)
+
+
+def visible_pairs(lq: int, lk: int, causal: bool) -> int:
+    """(query, key) pairs the flash kernel's mask leaves visible: causal keys
+    kpos <= qpos, aligned top-left."""
+    if not causal:
+        return lq * lk
+    return sum(min(i + 1, lk) for i in range(lq))
+
+
+def flash_attn_phase(torch, ops, ref, peaks):
+    """The flash-attention kernel against its twin: every ``ATTN_SHAPES``
+    case once in f32, the main path's shape in f32 and bf16 with times.
+    Returns the rows."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    cases = [(shape, causal, torch.float32, False)
+             for shape, causals in ATTN_SHAPES for causal in causals]
+    cases += [(ATTN_MAIN, True, dt, True) for dt in (torch.float32, torch.bfloat16)]
+    rows = []
+    for (B, Lq, Lk, Hq, Hkv, D), causal, dt, timed in cases:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2000 + Lq + D)
+        q = torch.randn((B, Lq, Hq, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Lk, Hkv, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Lk, Hkv, D), generator=gen, device=dev).to(dt)
+        kern = lambda: ops.flash_attention(q, k, v, causal=causal)
+        plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal)
+        out, want = kern(), plain()
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[str(dt).split(".")[-1]]
+        diff = (out.float() - want.float()).abs()
+        err = float(diff.max())
+        excess = float((diff - tol * want.float().abs()).max())
+        label = f"flash_attn {str(dt).split('.')[-1]} {(B, Lq, Lk, Hq, Hkv, D)} causal={causal}"
+        if not torch.isfinite(out).all() or excess > tol:
+            raise AssertionError(f"{label}: max |kernel - twin| = {err}, beyond "
+                                 f"atol = rtol = {tol}")
+        if not torch.equal(out, kern()):
+            raise AssertionError(f"{label}: two launches are not bit-identical")
+        pairs = visible_pairs(Lq, Lk, causal)
+        flops = 4 * B * Hq * D * pairs
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
+        b_ms, b_by = bound_ms(nbytes, flops, peaks)
+        row = {"name": "flash_attn", "dtype": str(dt).split(".")[-1],
+               "shape": [B, Lq, Lk, Hq, Hkv, D], "causal": causal, "max_abs_err": err,
+               "tol": tol, "visible_pairs": pairs, "flops": flops, "bytes": nbytes,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if dt == torch.bfloat16:  # the same work on the dense bf16 tensor cores
+            row["bound_ms_bf16_tensor"] = max(nbytes / peaks[0], flops / peaks[2]) * 1e3
+        if timed:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            library = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            row.update(time_ms(torch, {"ms": kern, "plain_ms": plain,
+                                       "library_ms": library}, flush))
+            print(f"kernel {label}: kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                  f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})"
+                  + (f" bf16-tensor bound_ms={row['bound_ms_bf16_tensor']:.4f}"
+                     if "bound_ms_bf16_tensor" in row else "")
+                  + f" max_abs_err={err:.3e} bit-identical")
+        else:
+            print(f"kernel {label}: max_abs_err={err:.3e} (tol {tol}) bit-identical")
+        rows.append(row)
+    return rows
+
+
+def forward_phase(torch, ops):
+    """smollm-135m at full width and depth: one B x L forward per route and
+    dtype through ``build_model(cfg).forward``; returns the rows and the
+    flash-attention launches of the kernel route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    cfg16 = get_config("smollm-135m")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    p16 = build_model(cfg16).init(gen, dev)
+    tgen = torch.Generator(device=dev)
+    tgen.manual_seed(1)
+    tokens = torch.randint(0, cfg16.vocab_size, (FWD_B, FWD_L), generator=tgen, device=dev)
+
+    def cast(tree, dt):
+        return {k: cast(v, dt) if isinstance(v, dict) else v.to(dt) for k, v in tree.items()}
+
+    variants = {
+        "float32": (cfg16.with_(param_dtype="float32", compute_dtype="float32"),
+                    cast(p16, torch.float32)),
+        "bfloat16": (cfg16, p16),
+    }
+    rows, launches = [], 0
+    for dname, (cfg, params) in variants.items():
+        logits = {}
+        for route, pallas in (("kernel", True), ("plain", False)):
+            model = build_model(cfg.with_(use_pallas_attention=pallas))
+            times, counts = [], []
+            with torch.no_grad():
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    ops.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    out = model.forward(params, {"tokens": tokens})
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    counts.append(ops.LAUNCH_COUNTS["flash_attn"])
+                    others = {n: c for n, c in ops.LAUNCH_COUNTS.items()
+                              if c and n != "flash_attn"}
+                    if others:
+                        raise AssertionError(f"forward {dname}/{route} launched {others}")
+            want = cfg.num_layers if pallas else 0
+            if counts != [want] * len(counts):
+                raise AssertionError(f"forward {dname}/{route}: flash_attn launches {counts} "
+                                     f"per forward, expected {want}")
+            if pallas:
+                launches += sum(counts)
+            if out.shape != (FWD_B, FWD_L, cfg.vocab_size) or not torch.isfinite(out).all():
+                raise AssertionError(f"forward {dname}/{route}: logits not finite of shape "
+                                     f"{(FWD_B, FWD_L, cfg.vocab_size)}")
+            ms = sorted(times)[len(times) // 2] * 1e3
+            logits[route] = out
+            rows.append({"dtype": dname, "route": route, "ms": ms,
+                         "tokens_per_s": FWD_B * FWD_L / (ms / 1e3),
+                         "launches_per_forward": counts[-1]})
+            print(f"forward [{dname}/{route}] smollm-135m {cfg.num_layers} layers "
+                  f"B={FWD_B} L={FWD_L}: ms={ms:.2f} tokens/s={FWD_B * FWD_L / (ms / 1e3):.0f} "
+                  f"flash_attn launches/forward={counts[-1]}")
+        a, b = logits["kernel"], logits["plain"]
+        diff = float((a - b).abs().max())
+        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        rows[-2].update(max_abs_diff=diff, argmax_agreement=agree)
+        print(f"forward [{dname}] kernel vs plain: max |logit diff|={diff:.3e} "
+              f"argmax agreement={agree:.5f}")
+        if dname == "float32":
+            excess = float(((a - b).abs() - FWD_TOL * b.abs()).max())
+            if excess > FWD_TOL:
+                raise AssertionError(f"forward f32: kernel-route logits beyond atol = rtol = "
+                                     f"{FWD_TOL} of the plain route's (max diff {diff})")
+        del logits, a, b
+    return rows, launches
+
+
+def lora_phase(torch, ops, min_rounds_to_block):
+    """Federated LoRA fine-tuning of smollm-135m through ``run`` on the AFA
+    kernel route and the plain route, with the gates; returns the runs and
+    the launches of the kernel route."""
+    import numpy as np
+
+    from repro_torch.fed import ServerConfig, SimConfig, get_workload, make_llm_fused_data, run
+    from repro_torch.kernels.policy import resolve_kernel_plan
+
+    workload = get_workload("lora", arch="smollm-135m", reduced=False, rank=4)
+    K = LORA_SIM["num_clients"]
+    n_bad = int(round(LORA_SIM["bad_frac"] * K))
+    n_min = min_rounds_to_block()
+    data = make_llm_fused_data(workload.model_cfg, clients=K, seed=LORA_SIM["seed"],
+                               samples_per_client=LORA_EXTRA["samples_per_client"],
+                               seq=LORA_EXTRA["seq"], n_test=LORA_EXTRA["n_test"])
+    routes = {"gram/fused": (resolve_kernel_plan(True, kernel_launch="fused"), ("afa_screen",)),
+              "gram/plain-torch": (resolve_kernel_plan(False), ())}
+    runs, launches, decisions = [], {}, {}
+    for label, (plan, names) in routes.items():
+        server = ServerConfig(rule="afa", num_clients=K, afa_variant="gram", kernel_plan=plan)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run(workload, SimConfig(**LORA_SIM), server, data=data, device="cuda",
+                  **LORA_EXTRA)
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCH_COUNTS)
+        rb, err = res["rounds_blocked"], res["test_error"]
+        print(f"lora [{label}]: wall_s={wall:.3f} rounds_blocked={rb.tolist()} good_frac="
+              f"{[round(float(g), 4) for g in res['good_frac']]} test_error="
+              f"{[round(float(e), 4) for e in err]}")
+        print(f"  round_ms={[round(t * 1e3, 3) for t in res['round_times']]} "
+              f"train_ms/round={res['train_time'] * 1e3:.3f} "
+              f"agg_ms/round={res['agg_time'] * 1e3:.3f} adapter_dim={res['adapter_dim']} "
+              f"adapter_fraction={res['adapter_fraction']:.5f} launches={counts}")
+        if list(rb[:n_bad]) != [n_min] * n_bad:
+            raise AssertionError(f"lora {label}: byzantine clients blocked at {rb[:n_bad]}, "
+                                 f"expected round {n_min}")
+        if (rb[n_bad:] != -1).any() or res["blocked"][:, n_bad:].any():
+            raise AssertionError(f"lora {label}: a benign client was blocked: {rb}")
+        if (res["good_frac"] > (K - n_bad) / K + 1e-6).any():
+            raise AssertionError(f"lora {label}: good_frac {res['good_frac']} above "
+                                 f"{K - n_bad}/{K}")
+        if res["adapter_dim"] != LORA_D or not res["adapter_fraction"] < 0.05:
+            raise AssertionError(f"lora {label}: adapter_dim {res['adapter_dim']} (expected "
+                                 f"{LORA_D}), fraction {res['adapter_fraction']}")
+        if not (np.isfinite(err).all() and (err >= 0).all() and (err <= 1).all()):
+            raise AssertionError(f"lora {label}: test error {err} not finite in [0, 1]")
+        for name, count in counts.items():
+            if (name in names) != (count > 0):
+                raise AssertionError(f"lora {label}: kernel {name} launched {count} times, "
+                                     f"expected {'some' if name in names else 'none'}")
+        if names:
+            launches = counts
+        decisions[label] = (rb.tolist(), res["blocked"].tolist())
+        runs.append({
+            "route": label, "wall_s": wall, "round_ms": [t * 1e3 for t in res["round_times"]],
+            "train_ms": res["train_time"] * 1e3, "agg_ms": res["agg_time"] * 1e3,
+            "test_error": err.tolist(), "good_frac": res["good_frac"].tolist(),
+            "rounds_blocked": rb.tolist(), "adapter_dim": res["adapter_dim"],
+            "param_dim": res["param_dim"], "adapter_fraction": res["adapter_fraction"],
+            "launches": counts,
+        })
+    first, *rest = decisions.values()
+    if any(d != first for d in rest):
+        raise AssertionError(f"lora: the routes' blocking decisions differ: {decisions}")
+    return runs, launches
 
 
 def main() -> None:
@@ -506,7 +789,8 @@ def main() -> None:
     resolve_device("cuda")  # TF32 off: the reference computes in full f32
     peak_key, peaks = card_peaks(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; peaks used ({peak_key}): "
-          f"{peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} FP32 TFLOP/s")
+          f"{peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} FP32 TFLOP/s, "
+          f"{peaks[2] / 1e12} dense bf16 TFLOP/s")
 
     t0 = time.perf_counter()
     path, log = build.build_library()
@@ -520,8 +804,11 @@ def main() -> None:
     runs, launches = main_path_phase(torch, ops, min_rounds_to_block)
     baseline_runs, baseline_launches = baselines_phase(torch, ops)
     unmasked_rows, unmasked_launches = unmasked_phase(torch, ops)
-    trace = profile_phase(torch)
-    for more in (baseline_launches, unmasked_launches):
+    attn_rows = flash_attn_phase(torch, ops, ref, peaks)
+    forward_rows, launches["flash_attn"] = forward_phase(torch, ops)
+    lora_runs, lora_launches = lora_phase(torch, ops, min_rounds_to_block)
+    traces = [profile_phase(torch), lora_profile_phase(torch)]
+    for more in (baseline_launches, unmasked_launches, lora_launches):
         for kernel, count in more.items():
             launches[kernel] += count
 
@@ -537,13 +824,25 @@ def main() -> None:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    attn_main = next(r for r in attn_rows
+                     if r["shape"] == list(ATTN_MAIN) and r["dtype"] == "float32")
+    replaces, source = REPLACES["flash_attn"]
+    kernels.append({
+        "name": "flash_attn", "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches["flash_attn"], "max_abs_err": attn_main["max_abs_err"],
+        "ms": attn_main["ms"], "plain_ms": attn_main["plain_ms"],
+        "bound_ms": attn_main["bound_ms"], "bound_by": attn_main["bound_by"],
+        "library_ms": attn_main["library_ms"],
+    })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": name, "torch": torch.__version__,
-        "peaks": {"key": peak_key, "bytes_per_s": peaks[0], "fp32_flops": peaks[1]},
+        "peaks": {"key": peak_key, "bytes_per_s": peaks[0], "fp32_flops": peaks[1],
+                  "bf16_tensor_flops": peaks[2]},
         "kernel_checks": kernel_rows, "main_path": runs, "baselines": baseline_runs,
-        "unmasked": unmasked_rows, "launches": launches, "profile": trace,
+        "unmasked": unmasked_rows, "flash_attn_checks": attn_rows, "forward": forward_rows,
+        "lora": lora_runs, "launches": launches, "profile": traces,
     }, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

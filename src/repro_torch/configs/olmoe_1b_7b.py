@@ -1,0 +1,23 @@
+"""olmoe-1b-7b [moe]: 16L d_model=2048 16H (kv=16) d_ff=1024 vocab=50304,
+64 experts top-8 [arXiv:2409.02060]."""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b",
+    family="moe",
+    num_layers=16,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=16,
+    d_ff=1024,
+    vocab_size=50304,
+    num_experts=64,
+    top_k=8,
+    activation="swiglu",
+    sliding_window=8192,
+    param_dtype="bfloat16",
+    compute_dtype="bfloat16",
+    fed_mode="vmap",
+    fed_clients=16,
+)

@@ -2,9 +2,15 @@
 
 ``params_from_numpy`` takes the JAX package's DNN parameters as numpy
 arrays (``{"w0": ..., "b0": ..., ...}``, e.g. ``jax.tree.map(np.asarray,
-params)``) and returns the port's parameters; ``server_state_from_numpy``
-does the same for a server state whose leaves were turned into numpy.  The
-module takes numpy and imports nothing of JAX.
+params)``) and returns the port's parameters; ``model_params_from_numpy``
+and ``lora_params_from_numpy`` do the same for a transformer's parameter
+tree and a LoRA workload's ``{"base", "adapters"}``;
+``server_state_from_numpy`` does it for a server state whose leaves were
+turned into numpy.  The module takes numpy and imports nothing of JAX.
+
+A bfloat16 leaf arrives as numpy's ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` rejects: it goes through float32 (exact) and is cast
+to ``torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -18,7 +24,11 @@ from repro_torch.fed.server import ServerState
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
-    t = torch.from_numpy(np.array(a, copy=True))
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: widen exactly, then narrow in torch
+        return torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                          dtype=dtype or torch.bfloat16)
+    t = torch.from_numpy(a)
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
@@ -29,6 +39,20 @@ def params_from_numpy(tree, *, device="cuda") -> dict:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device=device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def model_params_from_numpy(tree, *, device="cuda") -> dict:
+    """A transformer's parameter tree (``repro.models.build_model(cfg).init``,
+    leaves as numpy) -> the port's tree for ``repro_torch.models``, leaf for
+    leaf: the layer stack keeps its leading L axis, bf16 stays bf16."""
+    return params_from_numpy(tree, device=device)
+
+
+def lora_params_from_numpy(tree, *, device="cuda") -> dict:
+    """A LoRA workload's ``{"base": model params, "adapters": adapter tree}``
+    (leaves as numpy) -> the port's, on ``device``."""
+    return {"base": model_params_from_numpy(tree["base"], device=device),
+            "adapters": params_from_numpy(tree["adapters"], device=device)}
 
 
 def server_state_from_numpy(state, *, device="cuda") -> ServerState:

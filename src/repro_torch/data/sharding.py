@@ -1,6 +1,7 @@
 """Client shard construction: IID (the paper's equal split) and Dirichlet
-non-IID.  A numpy copy of the shard builders of ``repro/data/sharding.py``;
-the same seed gives the same shards."""
+non-IID, and the padded ``(K, n_max, ...)`` stacking of ragged shards.  A
+numpy copy of those functions of ``repro/data/sharding.py``; the same seed
+gives the same shards."""
 
 from __future__ import annotations
 
@@ -35,3 +36,28 @@ def dirichlet_shards(
         rng.shuffle(b)
         out.append((x[b], y[b]))
     return out
+
+
+def _stack_dtype(a: np.ndarray):
+    """Stacked dtype of a shard: integer features (token ids) stay int32,
+    everything else is float32."""
+    return np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
+
+
+def padded_stack(shards):
+    """Ragged client shards -> ``(x (K, n_max, *feat), y (K, n_max, *lab),
+    lengths (K,) int32)``; shard k occupies rows ``[0, lengths[k])``, the
+    tail is zero."""
+    K = len(shards)
+    n_max = max(len(x) for x, _ in shards)
+    x0 = np.asarray(shards[0][0])
+    y0 = np.asarray(shards[0][1])
+    x_pad = np.zeros((K, n_max) + x0.shape[1:], _stack_dtype(x0))
+    y_pad = np.zeros((K, n_max) + y0.shape[1:], np.int32)
+    lengths = np.zeros((K,), np.int32)
+    for k, (x, y) in enumerate(shards):
+        n = len(x)
+        x_pad[k, :n] = x
+        y_pad[k, :n] = y
+        lengths[k] = n
+    return x_pad, y_pad, lengths

@@ -1,8 +1,8 @@
-"""Synthetic datasets standing in for the paper's MNIST and Spambase.
+"""Synthetic datasets standing in for the paper's MNIST and Spambase, and
+for LLM token streams.
 
-A numpy copy of ``repro/data/synthetic.py`` (classification part): the same
-seed gives the same bytes, so the port and the JAX package train on
-identical data.  A gaussian mixture with matched dimensionality (784
+A numpy copy of ``repro/data/synthetic.py``: the same seed gives the same
+bytes, so the port and the JAX package train on identical data.  A gaussian mixture with matched dimensionality (784
 features and 10 classes, or 54 binary features and 2 classes), inputs
 normalized to [-1, 1] as in the paper.
 """
@@ -63,3 +63,31 @@ def make_spambase_like(
     xtr, ytr = _sample(rng, protos, n_train, True)
     xte, yte = _sample(rng, protos, n_test, True)
     return SyntheticClassification(xtr, ytr, xte, yte, 2)
+
+
+class TokenStream(NamedTuple):
+    """Synthetic LM corpus: a bigram-markov source so next-token prediction is
+    learnable (per-token optimum is the markov conditional)."""
+
+    tokens: np.ndarray  # (n,) int32
+
+    def batches(self, rng, batch: int, seq: int, n_batches: int):
+        n = len(self.tokens) - seq - 1
+        for _ in range(n_batches):
+            idx = rng.integers(0, n, size=batch)
+            tok = np.stack([self.tokens[i : i + seq] for i in idx])
+            lab = np.stack([self.tokens[i + 1 : i + seq + 1] for i in idx])
+            yield {"tokens": tok.astype(np.int32), "labels": lab.astype(np.int32)}
+
+
+def make_token_stream(seed: int = 0, vocab: int = 256, n: int = 200_000) -> TokenStream:
+    rng = np.random.default_rng(seed)
+    # sparse random bigram transition table
+    trans = rng.dirichlet(np.full(16, 0.5), size=vocab)  # (V, 16)
+    nxt = rng.integers(0, vocab, size=(vocab, 16))
+    toks = np.empty(n, np.int32)
+    toks[0] = rng.integers(0, vocab)
+    for i in range(1, n):
+        row = toks[i - 1]
+        toks[i] = nxt[row, rng.choice(16, p=trans[row])]
+    return TokenStream(toks)

@@ -1,8 +1,9 @@
 from repro_torch.fed.api import run
-from repro_torch.fed.client import local_sgd
+from repro_torch.fed.client import local_sgd, local_sgd_frozen
 from repro_torch.fed.dnn import dnn_error, dnn_logits, dnn_loss, init_dnn
 from repro_torch.fed.engine import (
     EngineConfig,
+    FusedData,
     attack_seed,
     client_seeds,
     make_train_attack_step,
@@ -18,8 +19,16 @@ from repro_torch.fed.server import (
 )
 from repro_torch.fed.simulator import SimConfig, SimResult, detection_stats, simulate
 from repro_torch.fed.workload import (
+    ADAPTER_CODEC,
     IDENTITY_CODEC,
+    WORKLOADS,
     ClientWorkload,
     DnnWorkload,
     ProposalCodec,
+    TransformerLoraWorkload,
+    get_workload,
+    init_lora_adapters,
+    make_llm_fused_data,
+    merge_lora,
+    simulate_llm,
 )

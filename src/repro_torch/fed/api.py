@@ -1,55 +1,100 @@
 """repro_torch.fed.api — the front door of the port's federated experiments.
 
-Counterpart of ``repro/fed/api.py``, classification route only:
+Counterpart of ``repro/fed/api.py``:
 
     from repro_torch.fed.api import run
+
+    # the paper's classification experiments (workload=None -> the paper DNN)
     result = run(None, sim, server, data=data)              # on the card
     result = run(None, sim, server, data=data, device="cpu")
 
-``workload`` is ``None`` (the paper DNN sized from ``sim.hidden`` and the
-dataset) or a ``DnnWorkload``.  Seed sweeps and the LLM/LoRA route are not
-ported and raise ``NotImplementedError``.
+    # federated LoRA fine-tuning (any non-classification ClientWorkload)
+    out = run(get_workload("lora", arch="smollm-135m"), sim, server, seq=256)
+
+``workload`` is ``None``, a ``ClientWorkload`` or a registry name
+(``"dnn"`` / ``"lora"``, built by ``get_workload`` with ``workload_kwargs``).
+``None`` / ``DnnWorkload`` go to the classification simulator; any other
+workload to ``simulate_llm``, with extra keyword arguments (``local_steps``,
+``samples_per_client``, ``seq``, ``n_test``, ...) passed through.  Seed
+sweeps are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterable, Optional
+from typing import Any, Iterable, Optional, Union
 
 from repro_torch.fed.server import ServerConfig
 from repro_torch.fed.simulator import SimConfig, SimResult, simulate
-from repro_torch.fed.workload import DnnWorkload
+from repro_torch.fed.workload import ClientWorkload, DnnWorkload, get_workload, simulate_llm
+
+WorkloadLike = Union[None, str, ClientWorkload]
+
+
+def _resolve_workload(workload: WorkloadLike, workload_kwargs: dict | None):
+    if isinstance(workload, str):
+        return get_workload(workload, **(workload_kwargs or {}))
+    if workload_kwargs:
+        raise ValueError("workload_kwargs only applies when `workload` is a registry name")
+    return workload
 
 
 def run(
-    workload,
+    workload: WorkloadLike,
     sim: SimConfig,
     server: Optional[ServerConfig] = None,
     *,
     data: Any = None,
     seeds: Optional[Iterable[int]] = None,
     eval_every: int = 1,
+    workload_kwargs: Optional[dict] = None,
     device="cuda",
-) -> SimResult:
-    """Run a federated classification simulation on ``device``.
+    **extra,
+) -> Union[SimResult, dict]:
+    """Run a federated experiment on ``device``.
 
     ``device="cuda"`` (the default) raises when CUDA is missing; pass
-    ``device="cpu"`` to run on the CPU."""
+    ``device="cpu"`` to run on the CPU.  On the LLM route the ``SimConfig``
+    maps as in the JAX package (``num_clients`` -> clients, byzantine =
+    round(``bad_frac`` K), ``local_epochs`` -> local steps, ``batch_size`` ->
+    batch, ``rounds``, ``seed``, ``lr``, ``scenario``); the server's ``rule``,
+    ``afa_variant`` and ``kernel_plan`` pick the aggregation route.  Returns a
+    ``SimResult`` or the LLM route's result dict."""
     if seeds is not None:
         raise NotImplementedError(
             "seed sweeps need the fused engine, which is not ported to "
             "repro_torch yet (ROADMAP queue A); loop over sim.seed instead"
         )
-    if workload is not None and not isinstance(workload, DnnWorkload):
-        raise NotImplementedError(
-            f"workload {workload!r}: only the paper DNN (None or DnnWorkload) "
-            "is ported to repro_torch so far (ROADMAP queue A: the LLM path)"
-        )
-    if data is None:
-        raise ValueError(
-            "the classification route needs `data` (a SyntheticClassification); "
-            "build one with repro_torch.data"
-        )
+    workload = _resolve_workload(workload, workload_kwargs)
     if server is None:
         server = ServerConfig(num_clients=sim.num_clients)
-    return simulate(data, sim, server, eval_every=eval_every, workload=workload,
-                    device=device)
+
+    if workload is None or isinstance(workload, DnnWorkload):
+        if extra:
+            raise TypeError(
+                f"unexpected keyword arguments for the classification route: {sorted(extra)}"
+            )
+        if data is None:
+            raise ValueError(
+                "the classification route needs `data` (a SyntheticClassification); "
+                "build one with repro_torch.data"
+            )
+        return simulate(data, sim, server, eval_every=eval_every, workload=workload,
+                        device=device)
+
+    llm_kwargs = dict(
+        clients=sim.num_clients,
+        byzantine=int(round(sim.bad_frac * sim.num_clients)),
+        rounds=sim.rounds,
+        local_steps=sim.local_epochs,
+        batch=sim.batch_size,
+        seed=sim.seed,
+        lr=sim.lr,
+        scenario=sim.scenario,
+        rule=server.rule,
+        afa_variant=server.afa_variant,
+        kernel_plan=server.kernel_plan,
+        data=data,
+        device=device,
+    )
+    llm_kwargs.update(extra)  # samples_per_client / seq / n_test / overrides
+    return simulate_llm(workload, **llm_kwargs)

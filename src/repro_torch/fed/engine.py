@@ -1,9 +1,11 @@
-"""The batched round engine's proposal pipeline.
+"""The round engines' proposal pipeline.
 
-Counterpart of the round pieces of ``repro/fed/engine.py``: all K clients
-train at once on stacked parameters, non-trainers are reset to ``w_t``, and
-the update-level attacks run on the stacked proposals.  The fused and
-segmented scan engines are not ported.
+Counterpart of the round pieces of ``repro/fed/engine.py``: the K clients
+train (``workload.local_update``), non-trainers are reset to ``w_t``, and
+the update-level attacks run on the stacked proposals.  ``FusedData`` holds
+the device-resident inputs of the LLM workload's round loop
+(``fed/workload.simulate_llm``).  The fused and segmented scan engines are
+not ported.
 
 Seeded torch streams replace ``jax.random`` keys: client k's dropout masks in
 round r come from ``client_seeds(seed, r, ids)[k]``, keyed by (seed, round,
@@ -15,11 +17,24 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import torch
+
 from repro_torch.attacks import apply_update_attack, stream_seed
 from repro_torch.utils.trees import tree_broadcast_clients, tree_select_rows
 
 _CLIENT_STREAM = 0xC11E47
 _ROUND_ATTACK_STREAM = 0xA7
+
+
+class FusedData(NamedTuple):
+    """Device-resident inputs of a round loop over padded client shards."""
+
+    x: torch.Tensor        # (K, n_max, *feat) zero-padded client shards
+    y: torch.Tensor        # (K, n_max, *lab) int32 labels
+    lengths: torch.Tensor  # (K,) int32 live rows per shard
+    n_k: torch.Tensor      # (K,) float32 aggregation data weights
+    x_test: torch.Tensor   # (n_test, *feat)
+    y_test: torch.Tensor   # (n_test, *lab) int32
 
 
 class EngineConfig(NamedTuple):
@@ -50,7 +65,7 @@ def _train_and_attack(workload, cfg: EngineConfig, params, batch, seeds, train_m
     proposal-space point ``w_t``, update-level attacks applied by mask."""
     K = train_mask.shape[0]
     w_prev = workload.codec.proposal_of(params)
-    proposals = workload.local_update(cfg, params, batch, seeds)
+    proposals = workload.local_update(cfg, params, batch, seeds, train_mask=train_mask)
     # non-trainers hold w_t until the attack layer overwrites their row
     proposals = tree_select_rows(train_mask, proposals, tree_broadcast_clients(w_prev, K))
     return apply_update_attack(

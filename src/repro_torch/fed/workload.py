@@ -1,23 +1,39 @@
 """ClientWorkload — the pluggable client-training layer.
 
-Counterpart of ``repro/fed/workload.py`` (``ClientWorkload``, the proposal
-codec and ``DnnWorkload``; the LoRA workload is not ported).  A workload
-builds the model (``init_params``), runs local training for all K clients at
-once (``local_update``, returning a stacked proposal tree), maps params to
+Counterpart of ``repro/fed/workload.py``.  A workload builds the model
+(``init_params``), runs local training for all K clients of a round
+(``local_update``, returning a stacked proposal tree), maps params to
 proposal space and back (``codec``) and scores the model (``eval_metric``).
+``DnnWorkload`` is the paper's DNN; ``TransformerLoraWorkload`` fine-tunes a
+frozen transformer base through LoRA adapters, so the packed aggregation
+buffer is ``(K, D_adapter)`` with ``D_adapter`` far below the model size.
+``simulate_llm`` drives the LoRA workload round by round.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
+import time
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
-from repro_torch.attacks import stream_seed
-from repro_torch.fed.client import local_sgd
+from repro_torch import resolve_device
+from repro_torch.attacks import UPDATE_ATTACK_SCENARIOS, stream_seed
+from repro_torch.fed.client import local_sgd, local_sgd_frozen
 from repro_torch.fed.dnn import dnn_error, dnn_loss, init_dnn
-from repro_torch.utils.trees import tree_broadcast_clients
+from repro_torch.utils.trees import (
+    PackSpec,
+    pack_spec,
+    pack_stack,
+    tree_broadcast_clients,
+    tree_size,
+    tree_stack,
+    unpack_stack,
+)
 
 
 class ProposalCodec(NamedTuple):
@@ -40,6 +56,19 @@ def _identity_apply(params, aggregate):
 IDENTITY_CODEC = ProposalCodec(_identity_proposal, _identity_apply)
 
 
+def _adapter_proposal(params):
+    return params["adapters"]
+
+
+def _adapter_apply(params, aggregate):
+    return {"base": params["base"], "adapters": aggregate}
+
+
+#: low-rank-delta proposals: clients send only the adapter tree; the server
+#: swaps the aggregated adapters in against the frozen base
+ADAPTER_CODEC = ProposalCodec(_adapter_proposal, _adapter_apply)
+
+
 class ClientWorkload:
     """Protocol base (subclasses are frozen dataclasses)."""
 
@@ -49,15 +78,29 @@ class ClientWorkload:
     def init_params(self, generator: torch.Generator, device):
         raise NotImplementedError
 
-    def local_update(self, cfg, params, batches, client_seeds):
+    def local_update(self, cfg, params, batches, client_seeds, train_mask=None):
         """Local training of K clients from the global ``params`` ->
         stacked proposal tree.  ``batches`` leaves are ``(K, S, b, ...)``;
-        ``client_seeds`` holds one torch-generator seed per row."""
+        ``client_seeds`` holds one torch-generator seed per row.  Rows where
+        the (K,) ``train_mask`` is False may be left untrained: the caller
+        resets them to ``w_t``."""
         raise NotImplementedError
 
     def eval_metric(self, params, x_test, y_test):
         """Scalar error in [0, 1] on the held-out set."""
         raise NotImplementedError
+
+    def delta_spec(self, params) -> PackSpec:
+        """PackSpec of one proposal row — the ``(K, D)`` buffer layout."""
+        return pack_spec(self.codec.proposal_of(params))
+
+    def proposal_dim(self, params) -> int:
+        """D: flattened size of one proposal row."""
+        return tree_size(self.codec.proposal_of(params))
+
+    def param_dim(self, params) -> int:
+        """Total model size (frozen + trainable)."""
+        return tree_size(params)
 
 
 # stream tag of the dropout masks
@@ -93,7 +136,8 @@ class DnnWorkload(ClientWorkload):
         keep = torch.stack(rows)
         return list(torch.split(keep, list(widths), dim=-1))
 
-    def local_update(self, cfg, params, batches, client_seeds):
+    def local_update(self, cfg, params, batches, client_seeds, train_mask=None):
+        # every row trains: one batched pass costs no more than a masked one
         K = len(client_seeds)
         x = batches["x"]
         keep = (self.dropout_keep(client_seeds, x.shape[1], x.shape[2], x.device)
@@ -105,3 +149,379 @@ class DnnWorkload(ClientWorkload):
 
     def eval_metric(self, params, x_test, y_test):
         return dnn_error(params, x_test, y_test)
+
+
+# ---------------------------------------------------------------------------
+# TransformerLoraWorkload — federated LLM fine-tuning on low-rank deltas
+# ---------------------------------------------------------------------------
+#
+# Clients hold a frozen transformer base (repro_torch.models, stacked layer
+# leaves with a leading L axis) and train only LoRA adapters on the stacked
+# attention projections: for each target matrix W (L, d_in, d_out) an A
+# (L, d_in, r) / B (L, r, d_out) pair with B zero-initialised, merged as
+# W + (alpha/r) * A @ B per layer.  The proposal space is the adapter tree.
+
+
+@functools.lru_cache(maxsize=8)
+def _lora_model(model_cfg):
+    from repro_torch.models import build_model
+
+    return build_model(model_cfg)
+
+
+def _adapter_sites(layers, targets):
+    """(path, leaf) of every stacked ``(L, d_in, d_out)`` leaf whose final
+    key names a LoRA target, in dict order (as the JAX package walks it)."""
+    sites = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        elif path and path[-1] in targets and node.ndim == 3:
+            sites.append((path, node))
+
+    walk(layers, ())
+    return sites
+
+
+def init_lora_adapters(generator: torch.Generator | None, layers, targets, rank: int):
+    """Adapter tree mirroring ``layers``: at each target leaf a ``{"a": (L,
+    d_in, r), "b": (L, r, d_out)}`` pair in f32, A ~ N(0, 1/d_in), B = 0, so
+    the initial delta is exactly zero.  A is drawn from ``generator`` on the
+    layers' device (nothing is drawn on ``meta``)."""
+    sites = _adapter_sites(layers, targets)
+    if not sites:
+        raise ValueError(f"no LoRA target leaves {targets!r} found in the layer stack")
+    adapters: dict = {}
+    for path, leaf in sites:
+        L, d_in, d_out = leaf.shape
+        a = torch.empty((L, d_in, rank), dtype=torch.float32, device=leaf.device)
+        if leaf.device.type != "meta":
+            a.normal_(generator=generator)
+        node = adapters
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = {
+            "a": a / math.sqrt(d_in),
+            "b": torch.zeros((L, rank, d_out), dtype=torch.float32, device=leaf.device),
+        }
+    return adapters
+
+
+def merge_lora(layers, adapters, scaling: float):
+    """Effective layer stack: target leaves get ``W + scaling * A @ B``
+    (batched over the layer axis, in f32, cast back to W's dtype), everything
+    else passes through."""
+
+    def walk(node, anode):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            sub = anode.get(k) if isinstance(anode, dict) else None
+            if isinstance(sub, dict) and set(sub) == {"a", "b"} and not isinstance(v, dict):
+                delta = torch.einsum("lir,lro->lio", sub["a"], sub["b"]) * scaling
+                out[k] = (v.float() + delta).to(v.dtype)
+            else:
+                out[k] = walk(v, sub)
+        return out
+
+    return walk(layers, adapters)
+
+
+def _merged_params(base, adapters, scaling: float):
+    eff = dict(base)
+    eff["layers"] = merge_lora(base["layers"], adapters, scaling)
+    return eff
+
+
+@functools.lru_cache(maxsize=8)
+def _lora_loss_fn(model_cfg, targets, scaling: float):
+    """Loss over (frozen base, adapters) with the engine's ``{"x","y"}``
+    batch convention mapped to the LM's ``{"tokens","labels"}``."""
+    model = _lora_model(model_cfg)
+
+    def loss(base, adapters, mb):
+        eff = _merged_params(base, adapters, scaling)
+        return model.loss_fn(eff, {"tokens": mb["x"], "labels": mb["y"]})[0]
+
+    return loss
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerLoraWorkload(ClientWorkload):
+    """Federated LLM fine-tuning: clients propose LoRA deltas on a frozen
+    transformer base (see the section comment above)."""
+
+    model_cfg: Any  # repro_torch.models.ModelConfig (frozen dataclass, hashable)
+    rank: int = 4
+    alpha: float = 8.0
+    targets: tuple = ("wq", "wk", "wv", "wo")
+
+    name = "lora"
+    codec = ADAPTER_CODEC
+
+    def __post_init__(self):
+        object.__setattr__(self, "targets", tuple(self.targets))
+
+    @property
+    def scaling(self) -> float:
+        return float(self.alpha) / float(self.rank)
+
+    def init_params(self, generator: torch.Generator | None, device="cuda"):
+        base = _lora_model(self.model_cfg).init(generator, device)
+        adapters = init_lora_adapters(generator, base["layers"], self.targets, self.rank)
+        return {"base": base, "adapters": adapters}
+
+    def local_update(self, cfg, params, batches, client_seeds, train_mask=None):
+        """SGD with momentum on each trained row's adapters, one client after
+        the other, the base frozen; untrained rows hold the current adapters.
+        The LM stack is deterministic, so the seeds are not used."""
+        del client_seeds
+        loss = _lora_loss_fn(self.model_cfg, self.targets, self.scaling)
+        K = batches["x"].shape[0]
+        train = [True] * K if train_mask is None else [bool(t) for t in train_mask.tolist()]
+        rows = []
+        for k in range(K):
+            if not train[k]:
+                rows.append(params["adapters"])
+                continue
+            rows.append(local_sgd_frozen(
+                loss, params["base"], params["adapters"],
+                {"x": batches["x"][k], "y": batches["y"][k]},
+                lr=cfg.lr, momentum=cfg.momentum,
+            ))
+        return tree_stack(rows)
+
+    @torch.no_grad()
+    def eval_metric(self, params, x_test, y_test):
+        """Masked next-token error: fraction of (label >= 0) positions where
+        the greedy prediction misses."""
+        model = _lora_model(self.model_cfg)
+        logits = model.forward(self.merged_params(params), {"tokens": x_test})
+        pred = torch.argmax(logits, dim=-1)
+        mask = y_test >= 0
+        wrong = torch.sum(((pred != y_test) & mask).float())
+        return wrong / torch.clamp(torch.sum(mask.float()), min=1.0)
+
+    def merged_params(self, params):
+        """Full effective model (base + scaled deltas) — inference/export."""
+        return _merged_params(params["base"], params["adapters"], self.scaling)
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+
+def _build_dnn(*, sizes, **_ignored) -> DnnWorkload:
+    return DnnWorkload(sizes=tuple(sizes))
+
+
+def _build_lora(
+    *, arch: str = "smollm-135m", reduced: bool = True, rank: int = 4,
+    alpha: float = 8.0, model_cfg=None, clients: int | None = None, **_ignored,
+) -> TransformerLoraWorkload:
+    if model_cfg is None:
+        from repro_torch.configs import get_config
+
+        model_cfg = get_config(arch)
+        if reduced:
+            model_cfg = model_cfg.reduced().with_(
+                param_dtype="float32", compute_dtype="float32"
+            )
+    if clients is not None:
+        model_cfg = model_cfg.with_(fed_clients=int(clients))
+    return TransformerLoraWorkload(model_cfg=model_cfg, rank=rank, alpha=alpha)
+
+
+WORKLOADS: dict[str, Callable[..., ClientWorkload]] = {
+    "dnn": _build_dnn,
+    "lora": _build_lora,
+}
+
+
+def get_workload(name: str, **kwargs) -> ClientWorkload:
+    """Build a registered workload: ``get_workload("dnn", sizes=(...))`` or
+    ``get_workload("lora", arch="smollm-135m", reduced=True, rank=4)``."""
+    if name not in WORKLOADS:
+        raise ValueError(f"unknown workload {name!r}; expected {sorted(WORKLOADS)}")
+    return WORKLOADS[name](**kwargs)
+
+
+# ---------------------------------------------------------------------------
+# the LLM workload's simulation, round by round
+# ---------------------------------------------------------------------------
+
+# stream tag of the minibatch draws (the JAX package's BATCH_STREAM)
+_BATCH_STREAM = 0x0B47C4
+
+
+def make_llm_fused_data(model_cfg, *, clients: int, samples_per_client: int = 16,
+                        seq: int = 32, n_test: int = 16, seed: int = 0, device="cuda"):
+    """:class:`~repro_torch.fed.engine.FusedData` on ``device`` over the
+    synthetic bigram-markov token stream: per-client ``(n, seq)`` int32
+    token/label shards stacked to ``(K, n, seq)`` plus a held-out batch.  The
+    tokens equal the JAX package's ``make_llm_fused_data`` exactly."""
+    from repro_torch.data import make_token_stream, padded_stack
+    from repro_torch.fed.engine import FusedData
+
+    dev = resolve_device(device)
+    need = (clients * samples_per_client + n_test) * (seq + 1)
+    stream = make_token_stream(seed=seed, vocab=model_cfg.vocab_size, n=max(4 * need, 8_192))
+    rng = np.random.default_rng(seed)
+    shards = []
+    for _ in range(clients):
+        b = next(iter(stream.batches(rng, batch=samples_per_client, seq=seq, n_batches=1)))
+        shards.append((np.asarray(b["tokens"], np.int32), np.asarray(b["labels"], np.int32)))
+    x, y, lengths = padded_stack(shards)
+    tb = next(iter(stream.batches(rng, batch=n_test, seq=seq, n_batches=1)))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return FusedData(
+        x=t(x), y=t(y), lengths=t(lengths), n_k=t(lengths.astype(np.float32)),
+        x_test=t(tb["tokens"]), y_test=t(tb["labels"]),
+    )
+
+
+def _draw_minibatches(data, seed: int, rnd: int, steps: int, batch: int) -> dict:
+    """Round ``rnd``'s minibatches ``{"x", "y"}`` of shape ``(K, S, b, ...)``,
+    gathered on the data's device.  Client k's indices come from a numpy
+    generator keyed by (seed, round, original client id), drawn below its
+    shard length; they do not replay the JAX package's ``jax.random`` draw."""
+    lengths = data.lengths.tolist()
+    K = len(lengths)
+    idx = np.stack([
+        np.random.default_rng(stream_seed(_BATCH_STREAM, seed, rnd * K + k))
+        .integers(0, max(n, 1), size=(steps, batch))
+        for k, n in enumerate(lengths)
+    ])
+    ix = torch.from_numpy(idx).to(data.x.device)
+    rows = torch.arange(K, device=data.x.device)[:, None, None]
+    return {"x": data.x[rows, ix], "y": data.y[rows, ix]}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def simulate_llm(
+    workload: TransformerLoraWorkload,
+    *,
+    clients: int = 6,
+    byzantine: int = 2,
+    rounds: int = 6,
+    local_steps: int = 2,
+    batch: int = 2,
+    samples_per_client: int = 16,
+    seq: int = 32,
+    n_test: int = 16,
+    seed: int = 0,
+    lr: float = 0.2,
+    scenario: str = "byzantine",
+    rule: str = "afa",
+    afa_variant: str = "iterative",
+    kernel_plan=None,
+    data=None,
+    device="cuda",
+):
+    """Run the T-round simulation of the LLM workload and summarize.
+
+    The round is the JAX package's fused round body with
+    ``agg_layout="packed"``, run as a Python loop: draw the minibatches,
+    train the live non-attacking clients, reset the other rows to the current
+    adapters ``w_t``, run the update-level attack ``scenario`` of the first
+    ``byzantine`` clients on the adapter proposals, pack them into the
+    ``(K, D_adapter)`` buffer, ``server_step`` (screening, reputation,
+    blocking), keep ``w_t`` when no client is live, swap the aggregate in and
+    score the model.  The server config is built here from ``rule`` as in
+    the JAX package; ``afa_variant`` and ``kernel_plan`` pick the AFA route.
+    Returns the JAX package's dict of host results plus the per-round wall
+    times (``round_times``) and the mean train and aggregation times per
+    round (``train_time``, ``agg_time``), in seconds.
+    """
+    from repro_torch.fed.engine import EngineConfig, _train_and_attack, attack_seed, client_seeds
+    from repro_torch.fed.server import (
+        ServerConfig,
+        init_server_state,
+        make_rule_options,
+        server_step,
+    )
+
+    dev = resolve_device(device)
+    if data is None:
+        data = make_llm_fused_data(
+            workload.model_cfg, clients=clients, samples_per_client=samples_per_client,
+            seq=seq, n_test=n_test, seed=seed, device=dev,
+        )
+    bad = np.zeros((clients,), bool)
+    bad[:byzantine] = True
+    bad_t = torch.from_numpy(bad).to(dev)
+
+    cfg = EngineConfig(scenario=scenario, lr=lr, momentum=0.9, dropout=False)
+    scfg = ServerConfig(
+        rule=rule, num_clients=clients, num_byzantine=max(byzantine, 1),
+        trim=max(min(byzantine, (clients - 1) // 2), 1), afa_variant=afa_variant,
+        kernel_plan=kernel_plan,
+    )
+    opts = make_rule_options(scfg, clients)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = workload.init_params(gen, dev)
+    d_adapter = workload.proposal_dim(params)
+    d_total = workload.param_dim(params)
+    spec = workload.delta_spec(params)
+    state = init_server_state(clients, scfg.alpha0, scfg.beta0, device=dev)
+    skip_bad = scenario in UPDATE_ATTACK_SCENARIOS
+
+    errs, goods, blocked_hist, round_times = [], [], [], []
+    t_train = t_agg = 0.0
+    for rnd in range(rounds):
+        t_start = time.perf_counter()
+        mask0 = ~state.reputation.blocked
+        train_mask = mask0 & ~bad_t if skip_bad else mask0
+        mb = _draw_minibatches(data, seed, rnd, local_steps, batch)
+        _sync(dev)
+        t0 = time.perf_counter()
+        proposals = _train_and_attack(
+            workload, cfg, params, mb, client_seeds(seed, rnd, range(clients)), train_mask,
+            bad_t & mask0, mask0 & ~bad_t, attack_seed(seed, rnd),
+        )
+        _sync(dev)
+        t_train += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        state, res = server_step(
+            state, pack_stack(proposals, spec), data.n_k, mask0, rule=rule, opts=opts,
+            delta_block=scfg.delta_block, layout="matrix",
+        )
+        # empty-participation guard: keep the current adapters
+        if not bool(res.all_blocked):
+            params = workload.codec.apply(params, unpack_stack(res.aggregate, spec))
+        _sync(dev)
+        t_agg += time.perf_counter() - t0
+
+        errs.append(float(workload.eval_metric(params, data.x_test, data.y_test)))
+        goods.append(res.good_mask.cpu().numpy())
+        blocked_hist.append(state.reputation.blocked.cpu().numpy())
+        round_times.append(time.perf_counter() - t_start)
+
+    good_mask = np.asarray(goods, bool).reshape(rounds, clients)
+    return {
+        "test_error": np.asarray(errs, np.float32),
+        "good_frac": good_mask.astype(np.float32).mean(axis=1),
+        "blocked": np.asarray(blocked_hist, bool).reshape(rounds, clients),
+        "rounds_blocked": state.rounds_blocked.cpu().numpy(),
+        "bad_mask": bad,
+        "adapter_dim": int(d_adapter),
+        "param_dim": int(d_total),
+        "adapter_fraction": float(d_adapter) / float(d_total),
+        "params": params,
+        "round_times": round_times,
+        "train_time": t_train / max(rounds, 1),
+        "agg_time": t_agg / max(rounds, 1),
+    }

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles the sources in ``csrc/`` for ``sm_90a`` into one shared
+``nvcc`` compiles each source in ``csrc/`` for ``sm_90a`` to an object, all
+sources at once in parallel processes, and links the objects into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs at
 first use, from the sources in this checkout only, into
 ``<repo>/build/repro_torch_kernels/<source hash>/`` (listed in
@@ -20,11 +21,11 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("afa_kernels.cu", "rank_kernels.cu")
+SOURCES = ("afa_kernels.cu", "rank_kernels.cu", "attn_kernels.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -45,6 +46,8 @@ SIGNATURES = {
     "repro_rank_max_k": (),
     "repro_coord_median": (_P, _P, _P, _I, _L, _P),
     "repro_trimmed_mean": (_P, _P, _P, _I, _L, _I, _P),
+    "repro_flash_attn_max_d": (),
+    "repro_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 
@@ -79,17 +82,31 @@ def build_library() -> tuple[Path, str]:
     if lib.exists():
         return lib, ""
     out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [out_dir / (Path(name).stem + f".{os.getpid()}.o") for name in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, obj in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(name, p.returncode, log) for name, p, log in zip(SOURCES, procs, logs)
+              if p.returncode != 0]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode, link.stdout + link.stderr))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"[{name}] exit {rc}\n{log}" for name, rc, log in failed))
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return lib, proc.stdout + proc.stderr
+    return lib, "".join(logs)
 
 
 def bind(path) -> ctypes.CDLL:

@@ -25,7 +25,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import load_library
 
 LAUNCH_COUNTS = {"weighted_sum": 0, "cosine_sim": 0, "gram": 0, "afa_screen": 0,
-                 "coord_median": 0, "coord_median_masked": 0, "trimmed_mean": 0}
+                 "coord_median": 0, "coord_median_masked": 0, "trimmed_mean": 0,
+                 "flash_attn": 0}
 
 
 def reset_launch_counts() -> None:
@@ -283,6 +284,76 @@ def _rank_cuda(op, lib, stream, updates, mask, *, trim=None):
         rc = lib.repro_trimmed_mean(updates.data_ptr(), mptr, out.data_ptr(), K, D, trim,
                                     stream)
     _check_rc(op, rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# flash attention  (replaces repro/kernels/flash_attn.py:76 flash_attention_bh
+# and its body :33 _flash_attn_kernel, through repro/kernels/ops.py:319)
+# ---------------------------------------------------------------------------
+
+# kernel dtype codes of repro_flash_attn
+_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ATTN_MAX_D = 128
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """(B, Lq, Hq, D), (B, Lk, Hkv, D) x2 -> (B, Lq, Hq, D) attention, scale
+    1/sqrt(D), computed in f32 and returned in q's dtype.
+
+    The mask is the TPU kernel's: causal keys ``kpos <= qpos`` aligned
+    top-left, so ``Lq != Lk`` is allowed; query head h reads kv head
+    ``h // (Hq / Hkv)``.  ``block_q``/``block_k`` are the JAX wrapper's tile
+    hints, checked and otherwise unused: the CUDA kernel's tiles are 64 x 64.
+    There is no backward (the JAX package has none either): the call raises
+    when grad is enabled and any operand requires grad."""
+    op = "flash_attention"
+    for what, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{op}: {what} must be a torch.Tensor, got {type(t).__name__}")
+        if t.dtype not in _ATTN_DTYPES:
+            raise TypeError(f"{op}: {what} must be float32, bfloat16 or float16, got {t.dtype}")
+        if t.ndim != 4:
+            raise ValueError(f"{op}: {what} must be 4-D (B, L, H, D), got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {what} must be contiguous")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"{op}: q, k, v dtypes differ ({q.dtype}, {k.dtype}, {v.dtype})")
+    B, Lq, Hq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"{op}: k {tuple(k.shape)} and v {tuple(v.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    Lk, Hkv = k.shape[1], k.shape[2]
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"{op}: Hq={Hq} query heads are not a multiple of Hkv={Hkv}")
+    if not 1 <= D <= ATTN_MAX_D:
+        raise ValueError(f"{op}: head dim D={D} outside the kernel's 1..{ATTN_MAX_D}")
+    if Lk < 1:
+        raise ValueError(f"{op}: no keys (Lk=0)")
+    if int(block_q) < 1 or int(block_k) < 1:
+        raise ValueError(f"{op}: block hints must be positive, got {block_q}, {block_k}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            f"{op}: the kernel has no backward, as the JAX package's Pallas kernel has "
+            "none; run it under torch.no_grad() or train through the plain blocked "
+            "attention (use_pallas_attention=False)"
+        )
+    if not _on_card(op, q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    out = _flash_attention_cuda(load_library(), _stream(q), q, k, v, causal=causal)
+    LAUNCH_COUNTS["flash_attn"] += 1
+    return out
+
+
+def _flash_attention_cuda(lib, stream, q, k, v, *, causal):
+    B, Lq, Hq, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    _check_rc("flash_attention", lib.repro_flash_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ATTN_DTYPES[q.dtype],
+        B, Lq, Lk, Hq, Hkv, D, 1.0 / D ** 0.5, int(bool(causal)), stream))
     return out
 
 

@@ -149,3 +149,23 @@ def afa_screen_ref(updates, pn, mask0, *, xi0: float, delta_xi: float,
         rounds += 1
     agg = weights(mask) @ u
     return agg, mask, torch.tensor(rounds, dtype=torch.int32, device=u.device), s
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """(B, Lq, Hq, D), (B, Lk, Hkv, D) x2 -> (B, Lq, Hq, D): exact softmax in
+    f32 with the TPU kernel's mask (``ops.flash_attention``), cast to q's
+    dtype.  The causal mask is ``kpos <= qpos`` aligned top-left, as in
+    ``repro/kernels/flash_attn.py``; the JAX package's own oracle aligns it
+    bottom-right, which agrees only when Lq == Lk.  A masked score is -1e30."""
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    g = hq // hkv
+    qs = q.float().reshape(b, lq, hkv, g, d)
+    s = torch.einsum("blhgd,bmhd->bhglm", qs, k.float()) * (1.0 / d ** 0.5)
+    if causal:
+        mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhglm,bmhd->blhgd", p, v.float())
+    return o.reshape(b, lq, hq, d).to(q.dtype)

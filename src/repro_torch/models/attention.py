@@ -1,0 +1,83 @@
+"""Memory-efficient attention in plain PyTorch (flash-style online softmax).
+
+Counterpart of ``repro/models/attention.py:51 flash_attention``: full /
+causal / prefix-LM masked attention, doubly blocked (a loop over query
+blocks, an inner loop over key blocks), so the score tensor never grows
+beyond ``(B, Hkv, G, BQ, BK)``.  GQA: q heads grouped over kv heads.
+Shapes: q (B, Lq, Hq, D), k, v (B, Lk, Hkv, D), G = Hq // Hkv.  It runs under
+autograd, so the LoRA workload trains through it.  ``sliding_window_attention``
+and ``decode_attention`` come with the serving slice (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _block_attend(qb, kb, vb, mask, scale):
+    """One (BQ x BK) tile. qb: (B,BQ,Hk,G,D); kb/vb: (B,BK,Hk,D);
+    mask: broadcastable to (B,Hk,G,BQ,BK).  Returns (m, l, o) stats."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qb.float(), kb.float())
+    s = s * scale + torch.where(mask, 0.0, NEG_INF)
+    m = torch.amax(s, dim=-1)  # (B,Hk,G,BQ)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, vb.float())
+    return m, l, o
+
+
+def _merge(m1, l1, o1, m2, l2, o2):
+    m = torch.maximum(m1, m2)
+    a1 = torch.exp(m1 - m)
+    a2 = torch.exp(m2 - m)
+    return m, l1 * a1 + l2 * a2, o1 * a1[..., None] + o2 * a2[..., None]
+
+
+def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0, q_offset: int = 0,
+                    block_q: int = 512, block_k: int = 512, parallel_q: bool = False):
+    """Blocked attention with online softmax.  ``prefix_len`` makes the first
+    ``prefix_len`` key positions visible to every query (prefix-LM / VLM);
+    ``q_offset`` shifts the query positions of the causal mask; padded keys
+    are masked.  ``parallel_q`` (the JAX package's sequence-parallel lever)
+    has no effect on one card."""
+    del parallel_q
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    g = hq // hkv
+    block_q = min(block_q, lq)
+    block_k = min(block_k, lk)
+    nq, nk = -(-lq // block_q), -(-lk // block_k)
+    scale = 1.0 / (d ** 0.5)
+    dev = q.device
+    qs = q.reshape(b, lq, hkv, g, d)
+    outs = []
+    for iq in range(nq):
+        q0 = iq * block_q
+        qb = qs[:, q0 : q0 + block_q]
+        if qb.shape[1] < block_q:  # zero-pad the last block, as the reference pads
+            qb = torch.cat([qb, qb.new_zeros((b, block_q - qb.shape[1], hkv, g, d))], dim=1)
+        qpos = q_offset + q0 + torch.arange(block_q, device=dev)
+        m = torch.full((b, hkv, g, block_q), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, hkv, g, block_q), dtype=torch.float32, device=dev)
+        o = torch.zeros((b, hkv, g, block_q, d), dtype=torch.float32, device=dev)
+        for ik in range(nk):
+            k0 = ik * block_k
+            kb, vb = k[:, k0 : k0 + block_k], v[:, k0 : k0 + block_k]
+            if kb.shape[1] < block_k:
+                pad = kb.new_zeros((b, block_k - kb.shape[1], hkv, d))
+                kb, vb = torch.cat([kb, pad], dim=1), torch.cat([vb, pad], dim=1)
+            kpos = k0 + torch.arange(block_k, device=dev)
+            mask = (kpos < lk)[None, :]
+            if causal:
+                allowed = kpos[None, :] <= qpos[:, None]
+                if prefix_len:
+                    allowed = allowed | (kpos[None, :] < prefix_len)
+                mask = mask & allowed
+            m2, l2, o2 = _block_attend(qb, kb, vb, mask[None, None, None], scale)
+            m, l, o = _merge(m, l, o, m2, l2, o2)
+        outs.append(o / torch.clamp(l, min=1e-30)[..., None])  # (B,Hk,G,BQ,D)
+    # (nq, b, hk, g, bq, d) -> (b, nq, bq, hk, g, d) -> (b, l, hq, d)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, nq * block_q, hq, d)
+    return out[:, :lq].to(q.dtype)

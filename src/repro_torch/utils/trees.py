@@ -58,6 +58,11 @@ def tree_map(fn: Callable, tree, *rest):
     )
 
 
+def tree_size(tree) -> int:
+    """Total number of elements over the leaves."""
+    return sum(l.numel() for l in tree_leaves(tree))
+
+
 def tree_stack(trees):
     """List of identically-structured trees -> one tree with a new leading
     client axis on every leaf."""
