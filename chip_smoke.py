@@ -23,26 +23,32 @@
    route launched exactly its kernels; then aggregates one (K, D) matrix
    with every rule without a participation mask, as the paper's Fig. 3
    times them (the unmasked median kernel), against the plain route;
-6. holds the flash-attention kernel against its exact-softmax twin at the
-   smollm-135m shape (B = 4, L = 2048, Hq = 9, Hkv = 3, D = 64, causal) in f32
-   and bf16, at the JAX package's test shapes (causal and full, Lq != Lk
-   included) and at one more causal Lq != Lk case: f32 within 2e-4, bf16
-   within 2e-2, bit-identical reruns, times beside the bound and
+6. holds the two flash-attention kernels against their twins at the
+   smollm-135m shape (B = 4, L = 2048, Hq = 9, Hkv = 3, D = 64, causal), at
+   the JAX package's test shapes (causal and full, Lq != Lk included), at
+   one more causal Lq != Lk case, each in f32, bf16 and f16, and at the
+   tensor-core kernel's element-load cases (D % 8 != 0, a pointer off 16
+   bytes): the exact-softmax twin within 2e-4 (f32, the CUDA-core kernel),
+   2e-2 (bf16) and 2.5e-3 (f16) (the tensor-core kernel), which is also held
+   to ``flash_attention_tc_ref`` within one output ulp at v's scale;
+   bit-identical reruns; times in all three dtypes beside the bound and
    ``F.scaled_dot_product_attention``;
 7. runs a forward of smollm-135m at full width and depth (30 layers, B = 4 x
    L = 2048 tokens, random weights from a seed) through
-   ``repro_torch.models.build_model`` with the flash kernel and with the
+   ``repro_torch.models.build_model`` with the flash kernels and with the
    plain blocked attention, in f32 and in the published bf16: f32 logits of
-   the two routes within 2e-3, 30 kernel launches per forward on the kernel
-   route and none on the plain one, finite bf16 logits;
+   the two routes within 2e-3, 30 launches per forward of ``flash_attn``
+   (f32) or ``flash_attn_tc`` (bf16) on the kernel route and none on the
+   plain one, finite bf16 logits;
 8. runs federated LoRA fine-tuning of smollm-135m (rank 4 on wq/wk/wv/wo,
    D_adapter = 460,800; 6 clients, 2 byzantine, 8 rounds) through
    ``repro_torch.fed.api.run`` on the AFA gram/fused kernel route and on the
    plain route: both byzantine clients blocked in round 6, no benign client
    blocked, the same decisions on both routes;
-9. traces three rounds of the paper DNN's gram/fused route and two rounds
-   of the LoRA phase's with ``torch.profiler`` (device busy share, the
-   kernels that take the time);
+9. traces three rounds of the paper DNN's gram/fused route, two rounds of
+   the LoRA phase's and one bf16 forward of smollm-135m on the kernel route
+   with ``torch.profiler`` (device busy share, the kernels that take the
+   time);
 10. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
@@ -85,6 +91,7 @@ REPLACES = {
     "coord_median_masked": ("src/repro/kernels/coord_median.py:51", RANK_SOURCE),
     "trimmed_mean": ("src/repro/kernels/trimmed_mean.py:33", RANK_SOURCE),
     "flash_attn": ("src/repro/kernels/flash_attn.py:76", ATTN_SOURCE),
+    "flash_attn_tc": ("src/repro/kernels/flash_attn.py:76", ATTN_SOURCE),
 }
 EXACT = ("coord_median", "coord_median_masked")  # pure selection: the twin's bits
 TRIM = 3         # trimmed_mean's trim, as ServerConfig.trim
@@ -113,11 +120,15 @@ SELECTING = ("mkrum", "bulyan")  # rules whose good_mask is a selection
 # device-side names of this repository's kernels
 OUR_KERNEL_NAMES = ("weighted_sum_kernel", "cosine_parts_kernel", "cosine_reduce_kernel",
                     "gram_parts_kernel", "gram_reduce_kernel", "afa_screen_kernel",
-                    "rank_select_kernel", "flash_attn_kernel")
+                    "rank_select_kernel", "flash_attn_kernel", "flash_attn_tc_kernel")
 # published peaks: (HBM bytes/s, FP32 non-tensor FLOP/s, dense bf16 tensor
 # FLOP/s), NVIDIA data sheets
 PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
          "SXM": (3.35e12, 67e12, 989e12)}
+# exponentials a second: the SFU's 16 MUFU.EX2 per SM per clock against the
+# tensor cores' 4,096 dense bf16 operations per SM per clock (CUDA
+# programming guide, arithmetic instruction throughput; Hopper white paper)
+EXP_PER_TENSOR_OP = 16 / 4096
 # flash attention: (B, Lq, Lk, Hq, Hkv, D) of the main path, smollm-135m at
 # the forward phase's B x L, and the shapes checked against the twin
 ATTN_MAIN = (4, 2048, 2048, 9, 3, 64)
@@ -129,7 +140,15 @@ ATTN_SHAPES = [  # the JAX package's tests/test_kernels.py:200-205, then Lq > Lk
     ((1, 300, 130, 6, 2, 64), (True,)),
 ]
 ATTN_TOL = {"float32": 2e-4,   # tests/test_kernels.py:219 holds the Pallas kernel to it
-            "bfloat16": 2e-2}  # bf16 output rounding (8 mantissa bits)
+            "bfloat16": 2e-2,  # bf16 output rounding (8 mantissa bits)
+            "float16": 2.5e-3}  # the bf16 bound scaled by f16's 3 extra mantissa bits
+# the tensor-core kernel against flash_attention_tc_ref: one output ulp at
+# v's scale, max |kernel - twin| <= ULP * max |v|
+ATTN_TC_ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+# the tensor-core kernel's element-load path: D % 8 != 0, and operands whose
+# data starts 2 bytes past a 16-byte boundary: (shape, causals, misaligned)
+ATTN_ELEMENT_LOADS = [((1, 77, 77, 4, 2, 20), (True, False), False),
+                      ((2, 33, 65, 4, 4, 16), (True,), True)]
 FWD_B, FWD_L = 4, 2048
 FWD_TOL = 2e-3   # tests/test_models.py:256 holds the JAX Pallas route to it
 # the LoRA phase's run: smollm-135m at full width, 2 of 6 clients byzantine
@@ -469,10 +488,11 @@ def unmasked_phase(torch, ops):
 
 
 def trace(torch, label: str, fn, rounds: int):
-    """Run ``fn`` (which returns the run's train and aggregation ms per
-    round) once to warm up, then once under ``torch.profiler``: the device's
-    busy share of the wall time and the kernels that fill it.
-    Informational: the launch counts of each path come from its phase."""
+    """Run ``fn`` (which returns a dict of the run's own numbers, e.g. train
+    and aggregation ms per round) once to warm up, then once under
+    ``torch.profiler``: the device's busy share of the wall time and the
+    kernels that fill it.  Informational: the launch counts of each path
+    come from its phase."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -480,7 +500,7 @@ def trace(torch, label: str, fn, rounds: int):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_ms, agg_ms = fn()
+        numbers = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -498,7 +518,7 @@ def trace(torch, label: str, fn, rounds: int):
                   if any(k in n for k in OUR_KERNEL_NAMES))
     out = {
         "label": label, "rounds": rounds, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-        "device_events": len(spans), "train_ms": train_ms, "agg_ms": agg_ms,
+        "device_events": len(spans), **numbers,
         "top": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in top],
         "ours": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in ours],
     }
@@ -508,7 +528,7 @@ def trace(torch, label: str, fn, rounds: int):
         return out
     print(f"profile [{label}, {rounds} rounds]: wall_ms={wall_ms:.3f} device_busy_ms="
           f"{busy_us / 1e3:.3f} busy_share={busy_us / 1e3 / wall_ms:.3f} device_events="
-          f"{len(spans)} train_ms/round={train_ms:.3f} agg_ms/round={agg_ms:.3f}")
+          f"{len(spans)} " + " ".join(f"{k}={v:.3f}" for k, v in numbers.items()))
     for item in out["top"]:
         print(f"  {item['ms']:9.3f} ms  x{item['count']:5d}  {item['name']}")
     print("  this repository's kernels on the route:")
@@ -531,7 +551,7 @@ def profile_phase(torch, data_rounds: int = 3):
 
     def fn():
         res = run(None, sim, server, data=data, device="cuda")
-        return res.train_time * 1e3, res.agg_time * 1e3
+        return {"train_ms": res.train_time * 1e3, "agg_ms": res.agg_time * 1e3}
 
     return trace(torch, "gram/fused", fn, data_rounds)
 
@@ -552,7 +572,7 @@ def lora_profile_phase(torch, rounds: int = 2):
 
     def fn():
         res = run(workload, sim, server, data=data, device="cuda", **LORA_EXTRA)
-        return res["train_time"] * 1e3, res["agg_time"] * 1e3
+        return {"train_ms": res["train_time"] * 1e3, "agg_ms": res["agg_time"] * 1e3}
 
     return trace(torch, "lora gram/fused", fn, rounds)
 
@@ -566,79 +586,143 @@ def visible_pairs(lq: int, lk: int, causal: bool) -> int:
 
 
 def flash_attn_phase(torch, ops, ref, peaks):
-    """The flash-attention kernel against its twin: every ``ATTN_SHAPES``
-    case once in f32, the main path's shape in f32 and bf16 with times.
-    Returns the rows."""
+    """The two flash-attention kernels against their twins: every
+    ``ATTN_SHAPES`` case in f32, bf16 and f16, the ``ATTN_ELEMENT_LOADS``
+    cases in bf16 and f16, and the main path's shape in all three with
+    times.  f32 goes to ``flash_attn`` (CUDA cores), bf16/f16 to
+    ``flash_attn_tc`` (tensor cores), which is also held to its own twin
+    ``flash_attention_tc_ref``.  Returns the rows."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    cases = [(shape, causal, torch.float32, False)
-             for shape, causals in ATTN_SHAPES for causal in causals]
-    cases += [(ATTN_MAIN, True, dt, True) for dt in (torch.float32, torch.bfloat16)]
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    cases = [(shape, causal, dt, False, False)
+             for shape, causals in ATTN_SHAPES for causal in causals for dt in dtypes]
+    cases += [(shape, causal, dt, misaligned, False)
+              for shape, causals, misaligned in ATTN_ELEMENT_LOADS for causal in causals
+              for dt in dtypes[1:]]
+    cases += [(ATTN_MAIN, True, dt, False, True) for dt in dtypes]
     rows = []
-    for (B, Lq, Lk, Hq, Hkv, D), causal, dt, timed in cases:
+    for (B, Lq, Lk, Hq, Hkv, D), causal, dt, misaligned, timed in cases:
         gen = torch.Generator(device=dev)
         gen.manual_seed(2000 + Lq + D)
-        q = torch.randn((B, Lq, Hq, D), generator=gen, device=dev).to(dt)
-        k = torch.randn((B, Lk, Hkv, D), generator=gen, device=dev).to(dt)
-        v = torch.randn((B, Lk, Hkv, D), generator=gen, device=dev).to(dt)
+
+        def make(*shape):
+            x = torch.randn(shape, generator=gen, device=dev).to(dt)
+            if not misaligned:
+                return x
+            y = torch.empty((x.numel() + 1,), dtype=dt, device=dev)[1:].view(shape)
+            y.copy_(x)
+            return y
+
+        q, k, v = make(B, Lq, Hq, D), make(B, Lk, Hkv, D), make(B, Lk, Hkv, D)
+        dname = str(dt).split(".")[-1]
+        tc = dt != torch.float32
+        name = "flash_attn_tc" if tc else "flash_attn"
         kern = lambda: ops.flash_attention(q, k, v, causal=causal)
-        plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal)
-        out, want = kern(), plain()
+        exact = lambda: ref.flash_attention_ref(q, k, v, causal=causal)
+        twin = (lambda: ref.flash_attention_tc_ref(q, k, v, causal=causal,
+                                                   block_k=ops.ATTN_TC_BLOCK_K)) if tc else exact
+        out, want = kern(), exact()
         torch.cuda.synchronize()
-        tol = ATTN_TOL[str(dt).split(".")[-1]]
+        tol = ATTN_TOL[dname]
         diff = (out.float() - want.float()).abs()
         err = float(diff.max())
         excess = float((diff - tol * want.float().abs()).max())
-        label = f"flash_attn {str(dt).split('.')[-1]} {(B, Lq, Lk, Hq, Hkv, D)} causal={causal}"
+        label = (f"{name} {dname} {(B, Lq, Lk, Hq, Hkv, D)} causal={causal}"
+                 + (" misaligned" if misaligned else ""))
         if not torch.isfinite(out).all() or excess > tol:
             raise AssertionError(f"{label}: max |kernel - twin| = {err}, beyond "
                                  f"atol = rtol = {tol}")
+        row = {"name": name, "dtype": dname, "shape": [B, Lq, Lk, Hq, Hkv, D],
+               "causal": causal, "misaligned": misaligned, "max_abs_err": err, "tol": tol}
+        if tc:
+            e_tw = float((out.float() - twin().float()).abs().max())
+            tw_tol = ATTN_TC_ULP[dname] * float(v.float().abs().max())
+            if e_tw > tw_tol:
+                raise AssertionError(f"{label}: max |kernel - tc twin| = {e_tw} > one output "
+                                     f"ulp at v's scale {tw_tol}")
+            row.update(max_abs_err_tc_twin=e_tw, tc_twin_tol=tw_tol,
+                       flags=ops.attn_flags(q, k, v, out, causal=causal))
         if not torch.equal(out, kern()):
             raise AssertionError(f"{label}: two launches are not bit-identical")
         pairs = visible_pairs(Lq, Lk, causal)
         flops = 4 * B * Hq * D * pairs
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
-        b_ms, b_by = bound_ms(nbytes, flops, peaks)
-        row = {"name": "flash_attn", "dtype": str(dt).split(".")[-1],
-               "shape": [B, Lq, Lk, Hq, Hkv, D], "causal": causal, "max_abs_err": err,
-               "tol": tol, "visible_pairs": pairs, "flops": flops, "bytes": nbytes,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        if dt == torch.bfloat16:  # the same work on the dense bf16 tensor cores
-            row["bound_ms_bf16_tensor"] = max(nbytes / peaks[0], flops / peaks[2]) * 1e3
+        if tc:  # tensor cores and one exponential per visible pair, beside the bytes
+            terms = {"bytes": nbytes / peaks[0] * 1e3, "tensor": flops / peaks[2] * 1e3,
+                     "exp": B * Hq * pairs / (peaks[2] * EXP_PER_TENSOR_OP) * 1e3}
+            b_ms = max(terms.values())
+            b_by = "bytes" if b_ms == terms["bytes"] else "operations"
+            row.update({f"bound_ms_{t}": ms for t, ms in terms.items()})
+        else:
+            b_ms, b_by = bound_ms(nbytes, flops, peaks)
+        row.update(visible_pairs=pairs, flops=flops, bytes=nbytes, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
         if timed:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            library = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
-            row.update(time_ms(torch, {"ms": kern, "plain_ms": plain,
-                                       "library_ms": library}, flush))
+            fns = {"ms": kern, "plain_ms": twin,
+                   "library_ms": lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=causal, enable_gqa=True)}
+            if tc:
+                fns["exact_twin_ms"] = exact
+            row.update(time_ms(torch, fns, flush))
             print(f"kernel {label}: kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                   f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})"
-                  + (f" bf16-tensor bound_ms={row['bound_ms_bf16_tensor']:.4f}"
-                     if "bound_ms_bf16_tensor" in row else "")
+                  + (f" [bytes {row['bound_ms_bytes']:.4f}, tensor {row['bound_ms_tensor']:.4f}, "
+                     f"exp {row['bound_ms_exp']:.4f}] exact_twin_ms={row['exact_twin_ms']:.4f}"
+                     if tc else "")
                   + f" max_abs_err={err:.3e} bit-identical")
         else:
-            print(f"kernel {label}: max_abs_err={err:.3e} (tol {tol}) bit-identical")
+            print(f"kernel {label}: max_abs_err={err:.3e} (tol {tol})"
+                  + (f", vs tc twin {row['max_abs_err_tc_twin']:.3e} (tol "
+                     f"{row['tc_twin_tol']:.3e}) flags={row['flags']}" if tc else "")
+                  + " bit-identical")
         rows.append(row)
     return rows
+
+
+def smollm_forward_inputs(torch):
+    """smollm-135m's config, random bf16 weights (seed 0) and B x L tokens
+    (seed 1) on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    cfg = get_config("smollm-135m")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = build_model(cfg).init(gen, dev)
+    tgen = torch.Generator(device=dev)
+    tgen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (FWD_B, FWD_L), generator=tgen, device=dev)
+    return cfg, params, tokens
+
+
+def forward_profile_phase(torch):
+    """Trace one bf16 forward of smollm-135m on the kernel route."""
+    from repro_torch.models import build_model
+
+    cfg, params, tokens = smollm_forward_inputs(torch)
+    model = build_model(cfg.with_(use_pallas_attention=True))
+
+    def fn():
+        with torch.no_grad():
+            model.forward(params, {"tokens": tokens})
+        return {}
+
+    return trace(torch, "smollm-135m bf16 forward, kernel route", fn, 1)
 
 
 def forward_phase(torch, ops):
     """smollm-135m at full width and depth: one B x L forward per route and
     dtype through ``build_model(cfg).forward``; returns the rows and the
-    flash-attention launches of the kernel route."""
-    from repro_torch.configs import get_config
+    launches of the kernel route (f32 forwards launch ``flash_attn``, bf16
+    ones ``flash_attn_tc``, and nothing else)."""
     from repro_torch.models import build_model
 
-    dev = torch.device("cuda")
-    cfg16 = get_config("smollm-135m")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    p16 = build_model(cfg16).init(gen, dev)
-    tgen = torch.Generator(device=dev)
-    tgen.manual_seed(1)
-    tokens = torch.randint(0, cfg16.vocab_size, (FWD_B, FWD_L), generator=tgen, device=dev)
+    cfg16, p16, tokens = smollm_forward_inputs(torch)
 
     def cast(tree, dt):
         return {k: cast(v, dt) if isinstance(v, dict) else v.to(dt) for k, v in tree.items()}
@@ -648,8 +732,9 @@ def forward_phase(torch, ops):
                     cast(p16, torch.float32)),
         "bfloat16": (cfg16, p16),
     }
-    rows, launches = [], 0
+    rows, launches = [], {"flash_attn": 0, "flash_attn_tc": 0}
     for dname, (cfg, params) in variants.items():
+        key = "flash_attn" if dname == "float32" else "flash_attn_tc"
         logits = {}
         for route, pallas in (("kernel", True), ("plain", False)):
             model = build_model(cfg.with_(use_pallas_attention=pallas))
@@ -662,17 +747,16 @@ def forward_phase(torch, ops):
                     out = model.forward(params, {"tokens": tokens})
                     torch.cuda.synchronize()
                     times.append(time.perf_counter() - t0)
-                    counts.append(ops.LAUNCH_COUNTS["flash_attn"])
-                    others = {n: c for n, c in ops.LAUNCH_COUNTS.items()
-                              if c and n != "flash_attn"}
+                    counts.append(ops.LAUNCH_COUNTS[key])
+                    others = {n: c for n, c in ops.LAUNCH_COUNTS.items() if c and n != key}
                     if others:
                         raise AssertionError(f"forward {dname}/{route} launched {others}")
             want = cfg.num_layers if pallas else 0
             if counts != [want] * len(counts):
-                raise AssertionError(f"forward {dname}/{route}: flash_attn launches {counts} "
+                raise AssertionError(f"forward {dname}/{route}: {key} launches {counts} "
                                      f"per forward, expected {want}")
             if pallas:
-                launches += sum(counts)
+                launches[key] += sum(counts)
             if out.shape != (FWD_B, FWD_L, cfg.vocab_size) or not torch.isfinite(out).all():
                 raise AssertionError(f"forward {dname}/{route}: logits not finite of shape "
                                      f"{(FWD_B, FWD_L, cfg.vocab_size)}")
@@ -680,10 +764,11 @@ def forward_phase(torch, ops):
             logits[route] = out
             rows.append({"dtype": dname, "route": route, "ms": ms,
                          "tokens_per_s": FWD_B * FWD_L / (ms / 1e3),
+                         "kernel": key if pallas else None,
                          "launches_per_forward": counts[-1]})
             print(f"forward [{dname}/{route}] smollm-135m {cfg.num_layers} layers "
                   f"B={FWD_B} L={FWD_L}: ms={ms:.2f} tokens/s={FWD_B * FWD_L / (ms / 1e3):.0f} "
-                  f"flash_attn launches/forward={counts[-1]}")
+                  f"{key} launches/forward={counts[-1]}")
         a, b = logits["kernel"], logits["plain"]
         diff = float((a - b).abs().max())
         agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
@@ -796,8 +881,10 @@ def main() -> None:
     path, log = build.build_library()
     print(f"build: {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "warning" in line.lower():
-            print("  " + line.strip())
+        if "Compiling entry function" in line:  # the mangled kernel name, template args
+            print("  " + line.split("'")[1].split("_cu_")[-1].lstrip("0123456789")[:72])
+        elif "registers" in line or "spill" in line or "warning" in line.lower():
+            print("    " + line.strip())
     build.load_library()
 
     kernel_rows = kernel_phase(torch, ops, ref, peaks)
@@ -805,9 +892,10 @@ def main() -> None:
     baseline_runs, baseline_launches = baselines_phase(torch, ops)
     unmasked_rows, unmasked_launches = unmasked_phase(torch, ops)
     attn_rows = flash_attn_phase(torch, ops, ref, peaks)
-    forward_rows, launches["flash_attn"] = forward_phase(torch, ops)
+    forward_rows, forward_launches = forward_phase(torch, ops)
+    launches.update(forward_launches)
     lora_runs, lora_launches = lora_phase(torch, ops, min_rounds_to_block)
-    traces = [profile_phase(torch), lora_profile_phase(torch)]
+    traces = [profile_phase(torch), lora_profile_phase(torch), forward_profile_phase(torch)]
     for more in (baseline_launches, unmasked_launches, lora_launches):
         for kernel, count in more.items():
             launches[kernel] += count
@@ -824,16 +912,17 @@ def main() -> None:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
-    attn_main = next(r for r in attn_rows
-                     if r["shape"] == list(ATTN_MAIN) and r["dtype"] == "float32")
-    replaces, source = REPLACES["flash_attn"]
-    kernels.append({
-        "name": "flash_attn", "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches["flash_attn"], "max_abs_err": attn_main["max_abs_err"],
-        "ms": attn_main["ms"], "plain_ms": attn_main["plain_ms"],
-        "bound_ms": attn_main["bound_ms"], "bound_by": attn_main["bound_by"],
-        "library_ms": attn_main["library_ms"],
-    })
+    for kname, dname, err_key in (("flash_attn", "float32", "max_abs_err"),
+                                  ("flash_attn_tc", "bfloat16", "max_abs_err_tc_twin")):
+        main = next(r for r in attn_rows if r["shape"] == list(ATTN_MAIN) and r["dtype"] == dname)
+        replaces, source = REPLACES[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": main[err_key],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+        })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({

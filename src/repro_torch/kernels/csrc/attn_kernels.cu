@@ -13,8 +13,6 @@
 // j <= i, aligned top-left (flash_attn.py:57; the JAX oracle ref.py:50 aligns
 // bottom-right, and the two agree only when Lq == Lk).  A masked score is
 // -1e30, not -inf, and the output is acc / max(l, 1e-30), cast to q's type.
-// Every input is loaded to f32 and everything is computed in f32, as the TPU
-// kernel does with preferred_element_type=f32.
 //
 // The online-softmax recurrence over key tiles is the TPU kernel's:
 //   m' = max(m, rowmax(s)),  alpha = exp(m - m'),  p = exp(s - m'),
@@ -22,27 +20,68 @@
 // Key 0 lies in the first tile and is visible to every row, so after it m is
 // finite, and a later tile that is wholly masked for a row adds exactly 0
 // (p = 0, alpha = 1).  That is why the causal loop may stop at the last tile
-// any row of the block can see: the tiles it skips would add 0.
+// any row of the block can see: the tiles it skips would add 0.  Blocks run
+// from the last query block down, so the long causal rows start first.  No
+// atomics, keys in a fixed order: reruns are bit-identical.  D up to 128; a
+// larger D is refused.
 //
-// What bounds it: operations.  4 D flops per visible (query, key) pair --
-// 1.9e10 at smollm-135m's B = 4, L = 2048, Hq = 9, D = 64, causal: 0.29 ms at
-// the H100's 67 TFLOP/s of FP32 FMA, against 0.03 ms for the bytes (each of
-// q, k, v, o read or written once).  This kernel does its FMAs on the CUDA
-// cores in f32; bf16 tensor cores (989 TFLOP/s) would cut the bound ~15x but
-// round the products, and are the next PR's work (wgmma/TMA).
+// Two kernels, by dtype (repro_flash_attn's dtype argument):
 //
-// Design: one CTA of 256 threads per (64-query block, batch x query head).
-// The CTA stages its q tile once and each 64-key tile of k and v in shared
-// memory as f32.  The threads form a 16 x 16 grid; thread (ty, tx) owns rows
-// ty + 16 i (i < 4) of the block, scores keys tx + 16 j (j < 4) of a tile --
-// q and k read four d at a time as float4 -- and owns D_MAX / 16 output
-// columns, read from v as float4 (float2 at D_MAX = 32).  A row's max and sum
-// are reduced across its 16 threads with xor shuffles inside a half warp.
-// The probabilities pass through shared memory from the score layout to the
-// p.v layout.  No atomics, keys in a fixed order: reruns are bit-identical.
-// Blocks run from the last query block down, so the long causal rows
-// start first.  D up to 128 (D_MAX 32, 64 or 128 by template; columns past D
-// are zero-filled in shared memory); a larger D is refused.
+// * flash_attn_kernel, f32 (dtype 0): CUDA cores, f32 throughout, as the TPU
+//   kernel computes with preferred_element_type=f32.  Bound: operations, 4 D
+//   flops per visible (query, key) pair -- 1.9e10 at smollm-135m's B = 4,
+//   L = 2048, Hq = 9, D = 64, causal: 0.29 ms at the H100's 67 TFLOP/s of FP32
+//   FMA, against 0.03 ms for the bytes.  One CTA of 256 threads per (64-query
+//   block, batch x query head) stages its q tile once and each 64-key tile of
+//   k and v in shared memory as f32.  The threads form a 16 x 16 grid; thread
+//   (ty, tx) owns rows ty + 16 i (i < 4) of the block, scores keys tx + 16 j
+//   (j < 4) of a tile -- q and k read four d at a time as float4 -- and owns
+//   D_MAX / 16 output columns, read from v as float4 (float2 at D_MAX = 32).
+//   A row's max and sum are reduced across its 16 threads with xor shuffles
+//   inside a half warp.  The probabilities pass through shared memory from
+//   the score layout to the p.v layout.  D_MAX 32, 64 or 128 by template;
+//   columns past D are zero-filled in shared memory.
+//
+// * flash_attn_tc_kernel, bf16 (dtype 1) and f16 (dtype 2): tensor cores,
+//   warp-level mma.sync.aligned.m16n8k16 with f32 accumulators (the
+//   FlashAttention-2 layout).  S = q k^T is the TPU kernel's f32 dot of the
+//   upcast inputs up to summation order (a product of two bf16 or f16 values
+//   is exact in f32).  Mask, m, l and alpha are f32 in registers; the scale
+//   and log2(e) fold into one FFMA before ex2.approx (MUFU.EX2, denormals
+//   flushed), so p = 2^(s c - m c) with c = log2(e) / sqrt(D).  P is rounded to the input type
+//   before P.V -- the one place the arithmetic leaves the TPU kernel's -- and
+//   l is summed from the unrounded f32 p.  ref.flash_attention_tc_ref is the
+//   twin of exactly this arithmetic.
+//   Bound: at D = 64 the exponentials cost as much as the products.  Tensor
+//   cores: 4 D operations per visible pair, 1.93e10 at the smollm shape,
+//   0.0196 ms at 989 TFLOP/s dense bf16; exponentials: one per visible pair,
+//   7.55e7, 0.0195 ms at 16 MUFU.EX2 per SM per clock (132 SMs, 1.83 GHz);
+//   bytes under 0.01 ms.  The bound is the larger of the two operation terms.
+//   mma.sync does not reach wgmma's rate on Hopper; a wgmma + TMA + warp-
+//   specialised kernel is the headroom this design leaves.
+//   Design: one CTA of 4 warps per (64-query block, batch x query head); warp
+//   w owns query rows 16 w .. 16 w + 15 of the block.  Key tiles of kBK = 64.
+//   D is padded with zeros to kDPad in {32, 64, 128}, a multiple of the k16
+//   step.  Shared memory holds the q tile once and two buffers each of the k
+//   and v tiles (tile j + 1 is in flight while tile j is computed), rows
+//   padded by 8 elements so that the 8 row addresses of an ldmatrix fall in
+//   8 distinct 4-bank groups; 46 KB at kDPad = 64, 87 KB at 128 (opt-in above
+//   48 KB).  Loads are cp.async.cg 16-byte copies with commit/wait groups; a
+//   row past L or a chunk past D uses the zero-filling form (src-size 0), so
+//   v rows past Lk are zeros (p = 0 times stale data could make NaN).  Where
+//   a 16-byte copy is not possible (D % 8 != 0, or a pointer not 16-byte
+//   aligned) the wrapper clears a flag and the same kernel loads element by
+//   element.  The q fragments come from one ldmatrix.x4 per k16 step and stay
+//   in registers for the whole key loop; k fragments from ldmatrix (k's rows
+//   are the n dimension).  Each thread holds two rows of S (groupID and
+//   groupID + 8); their max is reduced over the quad with two xor shuffles,
+//   their sums are kept per thread and reduced once at the end.  The mask is
+//   applied only on a tile that crosses the warp's diagonal or Lk.  P stays
+//   in registers: the f32 C fragments of two adjacent n8 tiles of S, packed
+//   to pairs of T, are the A fragment of one k16 step of P.V, whose v
+//   fragments come from ldmatrix.trans.  O is accumulated in f32, kDPad / 2
+//   registers a thread.  The epilogue stages each warp's rows of T in its own
+//   rows of the q tile and stores them 16 bytes at a time where aligned.
 //
 // The C interface is plain (loaded with ctypes): it launches on the stream it
 // is given, allocates nothing, and returns cudaGetLastError().
@@ -284,6 +323,360 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B, int 
   return launch_flash_attn<T, 128>(q, k, v, o, B, Lq, Lk, Hq, Hkv, D, scale, causal, stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 / f16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWarps = 4;                 // 16 query rows each
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcPad = 8;                   // elements added to each shared row
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared row stride (elements) of the q, k and v tiles: 16-byte rows whose
+// starts fall 4 banks apart, so the 8 row reads of an ldmatrix never collide
+template <int kDPad> constexpr int kTcStride = kDPad + kTcPad;
+
+// CTAs an SM holds: 4 at kDPad <= 64 (46 KB of shared memory and <= 128
+// registers a thread each), 2 at kDPad = 128 (87 KB)
+template <int kDPad> constexpr int kTcMinBlocks = kDPad <= 64 ? 4 : 2;
+
+template <int kDPad> constexpr size_t tc_smem_bytes() {
+  return (size_t)(kBQ + 4 * kBK) * kTcStride<kDPad> * 2;   // q, k x 2, v x 2
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 b16 matrices; lanes 8 i .. 8 i + 7 give the row addresses of
+// matrix i, and lane l receives, in register i, row l / 4, columns
+// 2 (l % 4) and 2 (l % 4) + 1 of matrix i (of its transpose with .trans)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), d 16 x 8 f32.  Lane l, with
+// g = l / 4 and t = l % 4, holds a = {(g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..)}, b = {(2t.., g), (2t + 8.., g)} and d = {(g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}; each a and b register is a pair
+// of b16 values, the lower column (row of b) in the low half.
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&d)[4], const uint32_t (&a)[4],
+                                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma16816<__half>(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to a pair of T, lo in the low half
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// 2^x on the SFU (MUFU.EX2), denormal results flushed to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(dst), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows r0 .. r0 + kRows - 1 of one head (row stride `stride` elements) into a
+// shared kRows x kDPad tile, zero past L and past D: 16-byte cp.async copies
+// (zero-filling ones past the edge) when `vec`, else element by element
+template <typename T, int kDPad, int kRows>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride, int r0, int L,
+                                          int D, int vec, int tid) {
+  constexpr int S = kTcStride<kDPad>;
+  if (vec) {
+    constexpr int CH = kDPad / 8;
+    for (int idx = tid; idx < kRows * CH; idx += kTcThreads) {
+      const int r = idx / CH, c = (idx - r * CH) * 8;
+      const int pos = r0 + r;
+      const bool in = pos < L && c < D;
+      cp_async16(smem_addr(dst + r * S + c), in ? src + pos * stride + c : src, in ? 16 : 0);
+    }
+  } else {
+    for (int idx = tid; idx < kRows * kDPad; idx += kTcThreads) {
+      const int r = idx / kDPad, c = idx - r * kDPad;
+      const int pos = r0 + r;
+      dst[r * S + c] = (pos < L && c < D) ? src[pos * stride + c] : from_f32<T>(0.f);
+    }
+  }
+}
+
+template <typename T, int kDPad>
+__global__ void __launch_bounds__(kTcThreads, kTcMinBlocks<kDPad>)
+flash_attn_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     T* __restrict__ o, int Hq, int Hkv, int Lq, int Lk, int D, int nq,
+                     float scale_log2, int causal, int vec) {
+  constexpr int S = kTcStride<kDPad>;
+  constexpr int KS = kDPad / 16;            // k16 steps of q k^T
+  constexpr int NT = kBK / 8;               // n8 tiles of keys in S
+  constexpr int DT = kDPad / 8;             // n8 tiles of d in O
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* q_s = reinterpret_cast<T*>(tc_smem);
+  T* k_s = q_s + kBQ * S;                   // two buffers of kBK rows
+  T* v_s = k_s + 2 * kBK * S;               // two buffers of kBK rows
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb = nq - 1 - (int)(blockIdx.x % nq);   // last query block first
+  const int bh = (int)(blockIdx.x / nq);
+  const int b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qb * kBQ;
+  const long long q_row = (long long)Hq * D;   // stride between positions
+  const long long kv_row = (long long)Hkv * D;
+  const T* qg = q + ((long long)b * Lq) * q_row + (long long)h * D;
+  const T* kg = k + ((long long)b * Lk) * kv_row + (long long)hk * D;
+  const T* vg = v + ((long long)b * Lk) * kv_row + (long long)hk * D;
+
+  // keys any row of this block may see
+  const int kv_end = causal ? min(Lk, min(q0 + kBQ, Lq)) : Lk;
+  const int ntiles = (kv_end + kBK - 1) / kBK;
+
+  load_tile<T, kDPad, kBQ>(q_s, qg, q_row, q0, Lq, D, vec, tid);
+  load_tile<T, kDPad, kBK>(k_s, kg, kv_row, 0, Lk, D, vec, tid);
+  load_tile<T, kDPad, kBK>(v_s, vg, kv_row, 0, Lk, D, vec, tid);
+  cp_async_commit();
+
+  // each lane's ldmatrix row and column (matrix i = lane / 8):
+  // q (A): matrices (rows lo, d lo), (rows hi, d lo), (rows lo, d hi), (rows hi, d hi)
+  const int qa_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int qa_col = (lane >> 4) * 8;
+  // k (B of q k^T): (n-tile j, d lo), (j, d hi), (j + 1, d lo), (j + 1, d hi)
+  const int kb_row = (lane & 7) + (lane >> 4) * 8;
+  const int kb_col = ((lane >> 3) & 1) * 8;
+  // v (B of p v, transposed): (keys lo, d-tile n), (keys hi, n), (lo, n + 1), (hi, n + 1)
+  const int vb_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int vb_col = (lane >> 4) * 8;
+
+  const int row0 = q0 + warp * 16 + g;       // this thread's two rows of the block
+  const int row1 = row0 + 8;
+  uint32_t qf[KS][4];
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;   // running max of the unscaled scores, quad-uniform
+  float l0 = 0.f, l1 = 0.f;           // this thread's share of the running sums
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * kBK;
+    const int buf = j & 1;
+    if (j + 1 < ntiles) {   // tile j + 1 into the other buffer, freed by the last sync
+      load_tile<T, kDPad, kBK>(k_s + (buf ^ 1) * kBK * S, kg, kv_row, k0 + kBK, Lk, D, vec, tid);
+      load_tile<T, kDPad, kBK>(v_s + (buf ^ 1) * kBK * S, vg, kv_row, k0 + kBK, Lk, D, vec, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(qf[ks], smem_addr(q_s + qa_row * S + ks * 16 + qa_col));
+    }
+    const T* kt = k_s + buf * kBK * S;
+    const T* vt = v_s + buf * kBK * S;
+
+    // s = q k^T: 16 rows x 64 keys per warp
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, smem_addr(kt + (n * 8 + kb_row) * S + ks * 16 + kb_col));
+        mma16816<T>(s[n], qf[ks], kf[0], kf[1]);
+        mma16816<T>(s[n + 1], qf[ks], kf[2], kf[3]);
+      }
+
+    // on a tile crossing Lk or this warp's diagonal, mask; then the online
+    // softmax with the scale and log2(e) folded into one FFMA before ex2:
+    // p = 2^(s c - m c) = e^(s / sqrt(D) - m / sqrt(D)), c = log2(e) / sqrt(D)
+    const bool masked = k0 + kBK > Lk || (causal && k0 + kBK - 1 > q0 + warp * 16);
+    if (masked) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + n * 8 + 2 * t + e;
+          if (kpos >= Lk || (causal && kpos > row0)) s[n][e] = kNegInf;
+          if (kpos >= Lk || (causal && kpos > row1)) s[n][2 + e] = kNegInf;
+        }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float al0 = ex2((m0 - mx0) * scale_log2), al1 = ex2((m1 - mx1) * scale_log2);
+    m0 = mx0;
+    m1 = mx1;
+    const float mc0 = mx0 * scale_log2, mc1 = mx1 * scale_log2;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[n][e] = ex2(fmaf(s[n][e], scale_log2, -mc0));
+        s[n][2 + e] = ex2(fmaf(s[n][2 + e], scale_log2, -mc1));
+        sum0 += s[n][e];
+        sum1 += s[n][2 + e];
+      }
+    l0 = l0 * al0 + sum0;
+    l1 = l1 * al1 + sum1;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      acc[n][0] *= al0;
+      acc[n][1] *= al0;
+      acc[n][2] *= al1;
+      acc[n][3] *= al1;
+    }
+
+    // acc += P v: the C fragments of n-tiles 2 kk and 2 kk + 1, rounded to
+    // T, are the A fragment of k16 step kk
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t pa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                              pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                              pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < DT; n += 2) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, smem_addr(vt + (kk * 16 + vb_row) * S + n * 8 + vb_col));
+        mma16816<T>(acc[n], pa, vf[0], vf[1]);
+        mma16816<T>(acc[n + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();   // buffer buf is free for tile j + 2
+  }
+
+  // the quad's shares of l, then acc / max(l, 1e-30) as T into this warp's
+  // own rows of the q tile, then out to o
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  T* o_s = q_s + warp * 16 * S;
+#pragma unroll
+  for (int n = 0; n < DT; ++n) {
+    const int c = n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(o_s + g * S + c) = pack2<T>(acc[n][0] * inv0, acc[n][1] * inv0);
+    *reinterpret_cast<uint32_t*>(o_s + (g + 8) * S + c) =
+        pack2<T>(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+  __syncwarp();
+  T* og = o + ((long long)b * Lq) * q_row + (long long)h * D;
+  const int r_base = q0 + warp * 16;
+  if (vec) {
+    constexpr int CH = kDPad / 8;
+    for (int idx = lane; idx < 16 * CH; idx += 32) {
+      const int r = idx / CH, c = (idx - r * CH) * 8;
+      if (r_base + r < Lq && c < D)
+        *reinterpret_cast<uint4*>(og + (r_base + r) * q_row + c) =
+            *reinterpret_cast<const uint4*>(o_s + r * S + c);
+    }
+  } else {
+    for (int idx = lane; idx < 16 * D; idx += 32) {
+      const int r = idx / D, c = idx - r * D;
+      if (r_base + r < Lq) og[(r_base + r) * q_row + c] = o_s[r * S + c];
+    }
+  }
+}
+
+template <typename T, int kDPad>
+int launch_flash_attn_tc(const void* q, const void* k, const void* v, void* o, int B, int Lq,
+                         int Lk, int Hq, int Hkv, int D, float scale, int causal, int vec,
+                         void* stream) {
+  const size_t smem = tc_smem_bytes<kDPad>();
+  if (smem > (size_t)kDefaultSmemBytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attn_tc_kernel<T, kDPad>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int nq = (Lq + kBQ - 1) / kBQ;
+  const long long blocks = (long long)nq * B * Hq;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_attn_tc_kernel<T, kDPad><<<(unsigned)blocks, kTcThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), Hq, Hkv, Lq, Lk, D, nq, scale * kLog2e, causal, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_tc(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk,
+                int Hq, int Hkv, int D, float scale, int causal, int vec, void* stream) {
+  if (vec && ((D & 7) || (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)))
+    return (int)cudaErrorMisalignedAddress;   // the flag promised 16-byte copies
+  if (D <= 32)
+    return launch_flash_attn_tc<T, 32>(q, k, v, o, B, Lq, Lk, Hq, Hkv, D, scale, causal, vec,
+                                       stream);
+  if (D <= 64)
+    return launch_flash_attn_tc<T, 64>(q, k, v, o, B, Lq, Lk, Hq, Hkv, D, scale, causal, vec,
+                                       stream);
+  return launch_flash_attn_tc<T, 128>(q, k, v, o, B, Lq, Lk, Hq, Hkv, D, scale, causal, vec,
+                                      stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -291,19 +684,24 @@ extern "C" {
 // largest head dimension the kernel takes
 int repro_flash_attn_max_d() { return 128; }
 
-// dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and o all of it)
+// dtype: 0 float32 (CUDA cores), 1 bfloat16, 2 float16 (tensor cores); q, k,
+// v and o all of it.  flags: bit 0 causal; bit 1 (bf16/f16 only) the caller
+// found D % 8 == 0 and every pointer 16-byte aligned, so tiles load by 16-byte
+// cp.async copies (else element by element)
 int repro_flash_attn(const void* q, const void* k, const void* v, void* o, int dtype, int B,
-                     int Lq, int Lk, int Hq, int Hkv, int D, float scale, int causal,
+                     int Lq, int Lk, int Hq, int Hkv, int D, float scale, int flags,
                      void* stream) {
   if (D < 1 || D > 128 || Lk < 1 || Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (B < 1 || Lq < 1) return (int)cudaGetLastError();  // nothing to compute
+  const int causal = flags & 1, vec = (flags >> 1) & 1;
   switch (dtype) {
     case 0:
       return dispatch_d<float>(q, k, v, o, B, Lq, Lk, Hq, Hkv, D, scale, causal, stream);
     case 1:
-      return dispatch_d<__nv_bfloat16>(q, k, v, o, B, Lq, Lk, Hq, Hkv, D, scale, causal, stream);
+      return dispatch_tc<__nv_bfloat16>(q, k, v, o, B, Lq, Lk, Hq, Hkv, D, scale, causal, vec,
+                                        stream);
     case 2:
-      return dispatch_d<__half>(q, k, v, o, B, Lq, Lk, Hq, Hkv, D, scale, causal, stream);
+      return dispatch_tc<__half>(q, k, v, o, B, Lq, Lk, Hq, Hkv, D, scale, causal, vec, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

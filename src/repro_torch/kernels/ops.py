@@ -26,7 +26,7 @@ from repro_torch.kernels.build import load_library
 
 LAUNCH_COUNTS = {"weighted_sum": 0, "cosine_sim": 0, "gram": 0, "afa_screen": 0,
                  "coord_median": 0, "coord_median_masked": 0, "trimmed_mean": 0,
-                 "flash_attn": 0}
+                 "flash_attn": 0, "flash_attn_tc": 0}
 
 
 def reset_launch_counts() -> None:
@@ -295,20 +295,35 @@ def _rank_cuda(op, lib, stream, updates, mask, *, trim=None):
 # kernel dtype codes of repro_flash_attn
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ATTN_MAX_D = 128
+ATTN_TC_BLOCK_K = 64   # keys per tile of the tensor-core kernel (kBK in attn_kernels.cu)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
     """(B, Lq, Hq, D), (B, Lk, Hkv, D) x2 -> (B, Lq, Hq, D) attention, scale
-    1/sqrt(D), computed in f32 and returned in q's dtype.
+    1/sqrt(D), returned in q's dtype.
 
     The mask is the TPU kernel's: causal keys ``kpos <= qpos`` aligned
     top-left, so ``Lq != Lk`` is allowed; query head h reads kv head
-    ``h // (Hq / Hkv)``.  ``block_q``/``block_k`` are the JAX wrapper's tile
-    hints, checked and otherwise unused: the CUDA kernel's tiles are 64 x 64.
-    There is no backward (the JAX package has none either): the call raises
-    when grad is enabled and any operand requires grad."""
+    ``h // (Hq / Hkv)``.  Which kernel runs depends on the dtype:
+
+    * float32: ``flash_attn_kernel`` on the CUDA cores, f32 throughout, as the
+      TPU kernel (counted as ``flash_attn``);
+    * bfloat16 / float16: ``flash_attn_tc_kernel`` on the tensor cores
+      (``mma.sync`` m16n8k16, f32 accumulation; counted as ``flash_attn_tc``).
+      q k^T is exact products summed in f32 and the softmax is f32, but p is
+      rounded to the input dtype before p.v -- the one place the arithmetic
+      leaves f32; ``ref.flash_attention_tc_ref`` is its twin.  Tiles load by
+      16-byte copies when D % 8 == 0 and every pointer is 16-byte aligned,
+      else element by element (the same kernel).
+
+    Both kernels take 64 query rows by ``ATTN_TC_BLOCK_K`` = 64 keys per tile
+    and D <= ``ATTN_MAX_D``.  ``block_q``/``block_k`` are the JAX wrapper's
+    tile hints, checked and otherwise unused.  On the CPU the call takes the
+    exact twin ``ref.flash_attention_ref`` for every dtype.  There is no
+    backward (the JAX package has none either): the call raises when grad is
+    enabled and any operand requires grad."""
     op = "flash_attention"
     for what, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
@@ -343,8 +358,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _on_card(op, q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal)
     out = _flash_attention_cuda(load_library(), _stream(q), q, k, v, causal=causal)
-    LAUNCH_COUNTS["flash_attn"] += 1
+    LAUNCH_COUNTS["flash_attn" if q.dtype == torch.float32 else "flash_attn_tc"] += 1
     return out
+
+
+def attn_flags(q, k, v, out, *, causal: bool) -> int:
+    """``repro_flash_attn``'s flags: bit 0 causal; bit 1, for the bf16/f16
+    kernel, 16-byte tile copies (D % 8 == 0 and every pointer 16-byte
+    aligned)."""
+    vec = (q.dtype != torch.float32 and q.shape[-1] % 8 == 0
+           and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+    return int(bool(causal)) | (int(vec) << 1)
 
 
 def _flash_attention_cuda(lib, stream, q, k, v, *, causal):
@@ -353,7 +377,8 @@ def _flash_attention_cuda(lib, stream, q, k, v, *, causal):
     out = torch.empty_like(q)
     _check_rc("flash_attention", lib.repro_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ATTN_DTYPES[q.dtype],
-        B, Lq, Lk, Hq, Hkv, D, 1.0 / D ** 0.5, int(bool(causal)), stream))
+        B, Lq, Lk, Hq, Hkv, D, 1.0 / D ** 0.5, attn_flags(q, k, v, out, causal=causal),
+        stream))
     return out
 
 

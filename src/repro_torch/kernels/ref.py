@@ -3,9 +3,11 @@
 Each twin computes the same function as the JAX package's ``kernels/ops.py``
 wrapper of the corresponding Pallas kernel, EPS rules included.  The ops
 wrappers take the twin for CPU tensors; ``chip_smoke.py`` holds each CUDA
-kernel against its twin on the card.  The module imports nothing else of the
-port, as ``repro/kernels/afa_screen.py`` keeps its own mirrors of the
-screening statistics.
+kernel against its twin on the card.  ``flash_attention_tc_ref`` is the one
+twin of a kernel's own arithmetic (the tensor-core kernel rounds p before
+p.v); only the tests and ``chip_smoke.py`` use it.  The module imports
+nothing else of the port, as ``repro/kernels/afa_screen.py`` keeps its own
+mirrors of the screening statistics.
 """
 
 from __future__ import annotations
@@ -169,3 +171,43 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhglm,bmhd->blhgd", p, v.float())
     return o.reshape(b, lq, hq, d).to(q.dtype)
+
+
+def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           causal: bool = True, block_k: int = 64) -> torch.Tensor:
+    """(B, Lq, Hq, D), (B, Lk, Hkv, D) x2 -> (B, Lq, Hq, D): the tensor-core
+    kernel's arithmetic (bf16/f16 route of ``ops.flash_attention``).
+
+    Key tiles of ``block_k`` (the kernel's, ``ops.ATTN_TC_BLOCK_K``) go
+    through the TPU kernel's online softmax in f32, with log2(e) folded into
+    the scale as the kernel does; p is rounded to q's dtype before p.v, and l
+    is summed from the unrounded f32 p.  On f32 inputs the rounding is a no-op
+    and this is ``flash_attention_ref`` up to summation order.  The mask is
+    the kernel's (top-left causal, -1e30); the output is acc / max(l, 1e-30)
+    cast to q's dtype."""
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    g = hq // hkv
+    scale_log2 = (1.0 / d ** 0.5) * 1.4426950408889634
+    qs = q.float().reshape(b, lq, hkv, g, d)
+    kf, vf = k.float(), v.float()
+    neg = torch.tensor(-1e30, device=q.device)
+    m = torch.full((b, hkv, g, lq), -1e30, device=q.device)
+    l = torch.zeros((b, hkv, g, lq), device=q.device)
+    acc = torch.zeros((b, hkv, g, lq, d), device=q.device)
+    qpos = torch.arange(lq, device=q.device)[:, None]
+    for k0 in range(0, lk, block_k):
+        kb, vb = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        s = torch.einsum("blhgd,bmhd->bhglm", qs, kb) * scale_log2
+        if causal:
+            kpos = torch.arange(k0, k0 + kb.shape[1], device=q.device)[None, :]
+            s = torch.where(kpos <= qpos, s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhglm,bmhd->bhgld", p.to(q.dtype).float(), vb)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, lq, hq, d).to(q.dtype)

@@ -181,10 +181,11 @@ def test_cpu_calls_do_not_count_as_launches():
     ops.trimmed_mean(u, m, trim=1)
     qkv = torch.ones((1, 4, 2, 8))
     ops.flash_attention(qkv, qkv, qkv)
+    ops.flash_attention(qkv.bfloat16(), qkv.bfloat16(), qkv.bfloat16())
     assert ops.LAUNCH_COUNTS == {"weighted_sum": 0, "cosine_sim": 0, "gram": 0,
                                  "afa_screen": 0, "coord_median": 0,
                                  "coord_median_masked": 0, "trimmed_mean": 0,
-                                 "flash_attn": 0}
+                                 "flash_attn": 0, "flash_attn_tc": 0}
 
 
 def test_wrappers_check_their_operands():
