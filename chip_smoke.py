@@ -6,10 +6,15 @@
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch twin on the card at K in
-   {10, 200} clients and the paper DNN's D = 535,818 parameters: agreement
+   {10, 200} clients and the paper DNN's D = 535,818 parameters, and gram
+   and afa_screen also at the LoRA phase's K = 6, D = 460,800: agreement
    within a stated tolerance (exact for the median, which only selects),
-   bit-identical reruns, and times of the kernel, the twin and one PyTorch
-   library call, beside the least time the card could take (``bound_ms``);
+   the two Gram kernels also against the twin of their 3xTF32 arithmetic
+   (``ref.gram_3xtf32_ref``) and at edge shapes (``GRAM_EDGES``: one row,
+   partial tiles, every copy width), bit-identical reruns, and times of the
+   kernel, the twin and one PyTorch library call, beside the least time the
+   card could take (``bound_ms``; for the Gram kernels from the TF32 rate
+   of the tensor cores, with the FP32 bound of the same work beside it);
 4. runs the paper's experiment through ``repro_torch.fed.api.run`` at full
    width (784 x 512 x 256 x 10 DNN, K = 10, 3 byzantine clients, 8 rounds)
    on each AFA kernel route, and checks that every byzantine client is
@@ -44,7 +49,12 @@
    D_adapter = 460,800; 6 clients, 2 byzantine, 8 rounds) through
    ``repro_torch.fed.api.run`` on the AFA gram/fused kernel route and on the
    plain route: both byzantine clients blocked in round 6, no benign client
-   blocked, the same decisions on both routes;
+   blocked, the same blocking decisions on both routes; round 7's
+   ``server_step`` inputs are recorded on both routes, the kernel route's go
+   to ``chiprun_out/``, and each live client's f32 margin to the first
+   screening pass's tail threshold is printed, on the kernel's Gram and on
+   ``U @ U.T`` (ROADMAP C.6: a benign client sits within f32 rounding of it
+   there, so the routes' ``good_mask`` is not compared);
 9. traces three rounds of the paper DNN's gram/fused route, two rounds of
    the LoRA phase's and one bf16 forward of smollm-135m on the kernel route
    with ``torch.profiler`` (device busy share, the kernels that take the
@@ -58,6 +68,7 @@ Everything it measured also goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -119,12 +130,20 @@ BASELINES = {
 SELECTING = ("mkrum", "bulyan")  # rules whose good_mask is a selection
 # device-side names of this repository's kernels
 OUR_KERNEL_NAMES = ("weighted_sum_kernel", "cosine_parts_kernel", "cosine_reduce_kernel",
-                    "gram_parts_kernel", "gram_reduce_kernel", "afa_screen_kernel",
+                    "gram_tf32x3_kernel", "gram_reduce_kernel", "afa_screen_kernel",
                     "rank_select_kernel", "flash_attn_kernel", "flash_attn_tc_kernel")
 # published peaks: (HBM bytes/s, FP32 non-tensor FLOP/s, dense bf16 tensor
-# FLOP/s), NVIDIA data sheets
-PEAKS = {"PCIe": (2.0e12, 51e12, 756e12), "NVL": (3.9e12, 60e12, 835e12),
-         "SXM": (3.35e12, 67e12, 989e12)}
+# FLOP/s, dense TF32 tensor FLOP/s), NVIDIA data sheets (the dense rates are
+# half the sparse ones)
+PEAKS = {"PCIe": (2.0e12, 51e12, 756e12, 378e12), "NVL": (3.9e12, 60e12, 835e12, 418e12),
+         "SXM": (3.35e12, 67e12, 989e12, 495e12)}
+# the Gram kernel against its own arithmetic's twin (ref.gram_3xtf32_ref,
+# exact TF32 products summed in float64), per part: they differ only by the
+# kernel's f32 sums, read at <= 6.9e-7 of a part's scale (afa_screen's sims
+# at K = 200; the Gram parts <= 3.1e-7), while a kernel that drops one
+# lo-term product reads >= 1.8e-4 on the off-diagonal and 1xTF32 >= 1.5e-6
+# on the diagonal (tools/gram_sweep.py on an H100 SXM)
+TC_RTOL = 2e-6
 # exponentials a second: the SFU's 16 MUFU.EX2 per SM per clock against the
 # tensor cores' 4,096 dense bf16 operations per SM per clock (CUDA
 # programming guide, arithmetic instruction throughput; Hopper white paper)
@@ -156,6 +175,20 @@ LORA_SIM = dict(num_clients=6, bad_frac=2 / 6, scenario="byzantine", rounds=8,
                 local_epochs=2, batch_size=2, seed=0, lr=0.2)
 LORA_EXTRA = dict(samples_per_client=16, seq=256, n_test=16)
 LORA_D = 30 * (4 * 576 * 4 + 4 * (576 + 192 + 192 + 576))  # 460,800
+# gram and afa_screen are also checked at the LoRA phase's (K, D_adapter),
+# where D % 4 == 0 gives the Gram kernel 16-byte copies (D_PAPER % 4 == 2
+# takes 8-byte ones)
+GRAM_LORA_SHAPE = (LORA_SIM["num_clients"], LORA_D)
+# (K, D, byte offset of U's data) of the Gram kernel's edge cases, checked
+# against the twins without times: one row; full and partial 16-row tiles;
+# 32-row tiles with a partial last block; splits shorter than a stage; each
+# copy width (16 bytes where D % 4 == 0, 8 where D is even, else 4, or as
+# far as the offset allows)
+GRAM_EDGES = [(1, 7, 0), (3, 64, 0), (16, 1001, 0), (17, 4098, 0), (33, 4096, 0),
+              (33, 4096, 4), (65, 20_000, 8), (100, 3000, 0)]
+# the LoRA round whose server_step inputs are kept and screened on every
+# route (1-indexed; ROADMAP C.6)
+LORA_DUMP_ROUND = 7
 
 
 def fail(msg: str) -> None:
@@ -223,45 +256,76 @@ def float_parts(torch, name, outs, refs):
     return parts
 
 
-def check_kernel(torch, name, K, kern, plain, library, nbytes, flops, peaks, flush):
-    """Parity, run-to-run identity and times of one kernel at one shape."""
+def hold_to_twin(torch, name, K, out_t, ref_t, rtol, twin):
+    """Each float part of a kernel's outputs within ``rtol`` of the twin's
+    at that part's largest magnitude, the discrete ones equal."""
+    checks = []
+    for label, o, r in float_parts(torch, name, out_t, ref_t):
+        if o.numel() == 0:  # the off-diagonal of a 1 x 1 Gram matrix
+            continue
+        e, scale = float((o - r).abs().max()), float(r.abs().max())
+        checks.append({"twin": twin, "part": label, "max_abs_err": e, "twin_max_abs": scale,
+                       "tol": rtol * scale})
+        if e > rtol * scale:
+            raise AssertionError(f"{name} K={K} {label}: max |kernel - {twin}| = {e} > "
+                                 f"{rtol} * {scale}")
+    return checks
+
+
+def check_kernel(torch, name, K, kern, plain, library, nbytes, flops, peaks, flush, *,
+                 D=D_PAPER, tf32_flops=0, arith_twin=None, geometry=None):
+    """Parity, run-to-run identity and times of one kernel at one shape.
+
+    ``flops`` are FP32 operations on the CUDA cores and ``tf32_flops`` TF32
+    tensor-core operations; the bound is the largest of the bytes' time and
+    each kind of operations' time at its own peak, and where the kernel runs
+    on the tensor cores the row also keeps the bound of the same work in FP32
+    (``bound_ms_fp32``).  ``arith_twin`` is a second twin, of the kernel's own
+    arithmetic, held at ``TC_RTOL``."""
     out = kern()
     ref = plain()
     out_t = out if isinstance(out, tuple) else (out,)
     ref_t = ref if isinstance(ref, tuple) else (ref,)
-    err, checks = 0.0, []
-    rtol = 0.0 if name in EXACT else RTOL
-    for label, o, r in float_parts(torch, name, out_t, ref_t):
-        e, scale = float((o - r).abs().max()), float(r.abs().max())
-        checks.append({"part": label, "max_abs_err": e, "twin_max_abs": scale,
-                       "tol": rtol * scale})
-        if e > rtol * scale:
-            raise AssertionError(f"{name} K={K} {label}: max |kernel - twin| = {e} > "
-                                 f"{rtol} * {scale}")
-        err = max(err, e)
+    checks = hold_to_twin(torch, name, K, out_t, ref_t, 0.0 if name in EXACT else RTOL, "twin")
+    err = max(c["max_abs_err"] for c in checks) if checks else 0.0
+    if arith_twin is not None:
+        tw = arith_twin()
+        checks += hold_to_twin(torch, name, K, out_t, tw if isinstance(tw, tuple) else (tw,),
+                               TC_RTOL, "arithmetic twin")
+        del tw
     again = kern()
     again_t = again if isinstance(again, tuple) else (again,)
     if not all(torch.equal(a, b) for a, b in zip(out_t, again_t)):
         raise AssertionError(f"{name} K={K}: two launches are not bit-identical")
-    b_ms, b_by = bound_ms(nbytes, flops, peaks)
+    terms = {"bytes": nbytes / peaks[0] * 1e3, "fp32": flops / peaks[1] * 1e3,
+             "tf32": tf32_flops / peaks[3] * 1e3}
+    b_ms = max(terms.values())
+    b_by = "bytes" if b_ms == terms["bytes"] else "operations"
     fns = {"ms": kern, "plain_ms": plain}
     if library is not None:
         fns["library_ms"] = library
     row = {
-        "name": name, "K": K, "D": D_PAPER, "max_abs_err": err, "checks": checks,
+        "name": name, "K": K, "D": D, "max_abs_err": err, "checks": checks,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **{f"bound_ms_{t}": ms for t, ms in terms.items()},
         **time_ms(torch, fns, flush),
     }
-    print(f"kernel {name:19s} K={K:3d}: kernel_ms={row['ms']:.4f} plain_ms="
-          f"{row['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms="
-          f"{row['library_ms']} bit-identical")
+    if tf32_flops:
+        row["bound_ms_fp32"] = bound_ms(nbytes, flops + tf32_flops / 3, peaks)[0]
+    if geometry is not None:
+        row["geometry"] = geometry
+    print(f"kernel {name:19s} K={K:3d} D={D}: kernel_ms={row['ms']:.4f} plain_ms="
+          f"{row['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}"
+          + (f"; FP32 {row['bound_ms_fp32']:.4f}" if tf32_flops else "")
+          + f") library_ms={row['library_ms']} bit-identical"
+          + (f" geometry={geometry}" if geometry is not None else ""))
     for c in checks:
-        print(f"  {c['part']:12s} max_abs_err={c['max_abs_err']:.3e} tol={c['tol']:.3e} "
-              f"(twin max {c['twin_max_abs']:.3e})")
+        print(f"  {c['part']:12s} vs {c['twin']:15s} max_abs_err={c['max_abs_err']:.3e} "
+              f"tol={c['tol']:.3e} (twin max {c['twin_max_abs']:.3e})")
     return row
 
 
-def kernel_phase(torch, ops, ref, peaks):
+def kernel_phase(torch, ops, ref, peaks, lib):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -299,13 +363,7 @@ def kernel_phase(torch, ops, ref, peaks):
             torch, "cosine_sim", K, lambda: ops.cosine_sim(U, w),
             lambda: ref.cosine_sim_ref(U, w), lambda: F.cosine_similarity(U, w[None]),
             (kd + D + K) * f, 4 * kd + 2 * D, peaks, flush))
-        rows.append(check_kernel(
-            torch, "gram", K, lambda: ops.gram(U), lambda: ref.gram_ref(U),
-            lambda: U @ U.T, (kd + K * K) * f, K * (K + 1) * D, peaks, flush))
-        rows.append(check_kernel(
-            torch, "afa_screen", K, lambda: ops.afa_screen(Us, pn, mask0, **kw),
-            lambda: ref.afa_screen_ref(Us, pn, mask0, **kw), None,
-            (kd + 2 * K + D + 3 * K + 1) * f, K * (K + 1) * D + 2 * kd, peaks, flush))
+        rows += gram_checks(torch, ops, ref, K, D, U, Us, pn, mask0, kw, peaks, flush)
         # rank kernels: the masked median's inputs hold multiples of 1/4, so
         # most columns have tied values and the tie-break by client index
         # decides; the trimmed mean takes the normal values, whose sums show
@@ -329,7 +387,119 @@ def kernel_phase(torch, ops, ref, peaks):
             (kd + D + K) * f, kd, peaks, flush))
         for row in rows[-3:]:
             row["compares"] = K * K * D
+    # the LoRA adapters' shape, where the Gram kernel takes 16-byte copies
+    K, D = GRAM_LORA_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1000 + K)
+    U = torch.randn((K, D), generator=gen, device=dev)
+    base = torch.randn((D,), generator=gen, device=dev)
+    Us = base + 0.3 * torch.randn((K, D), generator=gen, device=dev)
+    Us[:2] = base + 20.0 * torch.randn((2, D), generator=gen, device=dev)
+    Us = Us.contiguous()
+    pn = torch.rand((K,), generator=gen, device=dev) * 100 + 50
+    mask0 = torch.ones((K,), dtype=torch.bool, device=dev)
+    rows += gram_checks(torch, ops, ref, K, D, U, Us, pn, mask0,
+                        dict(xi0=2.0, delta_xi=0.5, max_rounds=8, ddof=0), peaks, flush)
+    gram_edge_checks(torch, ops, ref, lib)
     return rows
+
+
+def gram_edge_checks(torch, ops, ref, lib):
+    """``gram`` and ``afa_screen`` at ``GRAM_EDGES`` against their twins, as
+    ``check_kernel`` holds them (RTOL per part, TC_RTOL against the 3xTF32
+    twin, ``good`` and ``rounds`` equal), and reruns bit-identical.  Where U
+    starts 4 bytes off, the C entry must also refuse a geometry that the
+    operand breaks (wider copies, a tile height it has no kernel for, a
+    split that misses the end of D) without launching."""
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kw = dict(xi0=2.0, delta_xi=0.5, max_rounds=8, ddof=0)
+    for K, D, offset in GRAM_EDGES:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3000 + K + D)
+
+        def placed(x):  # a contiguous copy whose data starts `offset` bytes in
+            y = torch.empty((x.numel() + 4,), dtype=x.dtype, device=dev)
+            y = y[offset // 4:offset // 4 + x.numel()].view(x.shape)
+            return y.copy_(x)
+
+        U = placed(torch.randn((K, D), generator=gen, device=dev))
+        base = torch.randn((D,), generator=gen, device=dev)
+        Us = base + 0.3 * torch.randn((K, D), generator=gen, device=dev)
+        Us[:(3 * K) // 10] = base + 20.0 * torch.randn(((3 * K) // 10, D), generator=gen,
+                                                       device=dev)
+        Us = placed(Us)
+        pn = torch.rand((K,), generator=gen, device=dev) * 100 + 50
+        mask0 = torch.ones((K,), dtype=torch.bool, device=dev)
+        mask0[-1] = K < 3
+        geo = ops.gram_geometry(K, D, U.data_ptr(), sms)
+        if offset % 8:
+            refused = refuses_bad_geometry(torch, lib, U, geo)
+            print(f"kernel gram                K={K:3d} D={D} offset={offset}: the C entry "
+                  f"refuses {refused}")
+        cases = (("gram", lambda: ops.gram(U), (ref.gram_ref(U),), (ref.gram_3xtf32_ref(U),)),
+                 ("afa_screen", lambda: ops.afa_screen(Us, pn, mask0, **kw),
+                  ref.afa_screen_ref(Us, pn, mask0, **kw),
+                  ref.afa_screen_ref(Us, pn, mask0, gram=ref.gram_3xtf32_ref(Us), **kw)))
+        for name, kern, exact, arith in cases:
+            out = kern()
+            out_t = out if isinstance(out, tuple) else (out,)
+            checks = (hold_to_twin(torch, name, K, out_t, exact, RTOL, "twin")
+                      + hold_to_twin(torch, name, K, out_t, arith, TC_RTOL, "arithmetic twin"))
+            again = kern()
+            if not all(torch.equal(a, b) for a, b in
+                       zip(out_t, again if isinstance(again, tuple) else (again,))):
+                raise AssertionError(f"{name} K={K} D={D}: two launches are not bit-identical")
+            print(f"kernel {name:19s} K={K:3d} D={D} offset={offset}: width={geo.width} "
+                  f"tile_rows={geo.tile_rows} nsplit={geo.nsplit} within twins, bit-identical")
+            for c in checks:
+                print(f"  {c['part']:12s} vs {c['twin']:15s} max_abs_err={c['max_abs_err']:.3e}"
+                      f" ({c['max_abs_err'] / max(c['twin_max_abs'], 1e-30):.2e} of scale)")
+
+
+def refuses_bad_geometry(torch, lib, U, geo):
+    """Call ``repro_gram`` with geometries that break U and expect each one
+    refused with a nonzero code; returns their labels."""
+    K, D = U.shape
+    pg = torch.empty((4 * (geo.nsplit + 1) * geo.entries,), device=U.device)
+    g = torch.empty((K, K), device=U.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    bad = {f"width={w}": geo._replace(width=w) for w in (8, 16, 3)}
+    bad["tile_rows=24"] = geo._replace(tile_rows=24)
+    bad["nsplit+1"] = geo._replace(nsplit=geo.nsplit + 1)
+    bad["chunk-1"] = geo._replace(chunk=geo.chunk - 1)
+    for label, b in bad.items():
+        rc = lib.repro_gram(U.data_ptr(), pg.data_ptr(), g.data_ptr(), K, D, b.tile_rows,
+                            b.nsplit, b.chunk, b.width, stream)
+        if rc == 0:
+            raise AssertionError(f"repro_gram accepted {label} for U at {U.data_ptr():#x}, "
+                                 f"D={D}")
+    torch.cuda.synchronize()
+    return list(bad)
+
+
+def gram_checks(torch, ops, ref, K, D, U, Us, pn, mask0, kw, peaks, flush):
+    """``gram`` on U and ``afa_screen`` on the screening inputs Us: each held
+    to its exact twin (f32 ``U @ U.T``) at RTOL and to the tensor-core
+    arithmetic's twin (``ref.gram_3xtf32_ref``) at TC_RTOL, with its geometry.
+    The bound counts the 3K(K+1)D TF32 operations the kernel runs beside the
+    bytes; ``bound_ms_fp32`` is the same work's FP32 bound."""
+    kd, f = K * D, 4
+    sms = torch.cuda.get_device_properties(U.device).multi_processor_count
+    geo = ops.gram_geometry(K, D, U.data_ptr(), sms)._asdict()
+    return [
+        check_kernel(torch, "gram", K, lambda: ops.gram(U), lambda: ref.gram_ref(U),
+                     lambda: U @ U.T, (kd + K * K) * f, 0, peaks, flush, D=D,
+                     tf32_flops=3 * K * (K + 1) * D,
+                     arith_twin=lambda: ref.gram_3xtf32_ref(U), geometry=geo),
+        check_kernel(torch, "afa_screen", K, lambda: ops.afa_screen(Us, pn, mask0, **kw),
+                     lambda: ref.afa_screen_ref(Us, pn, mask0, **kw), None,
+                     (kd + 2 * K + D + 3 * K + 1) * f, 2 * kd, peaks, flush, D=D,
+                     tf32_flops=3 * K * (K + 1) * D,
+                     arith_twin=lambda: ref.afa_screen_ref(
+                         Us, pn, mask0, gram=ref.gram_3xtf32_ref(Us), **kw),
+                     geometry=ops.gram_geometry(K, D, Us.data_ptr(), sms)._asdict()),
+    ]
 
 
 def main_path_phase(torch, ops, min_rounds_to_block):
@@ -786,11 +956,12 @@ def forward_phase(torch, ops):
 
 def lora_phase(torch, ops, min_rounds_to_block):
     """Federated LoRA fine-tuning of smollm-135m through ``run`` on the AFA
-    kernel route and the plain route, with the gates; returns the runs and
-    the launches of the kernel route."""
+    kernel route and the plain route, with the gates; returns the runs, the
+    launches of the kernel route and round ``LORA_DUMP_ROUND``'s report."""
     import numpy as np
 
     from repro_torch.fed import ServerConfig, SimConfig, get_workload, make_llm_fused_data, run
+    from repro_torch.kernels import ref
     from repro_torch.kernels.policy import resolve_kernel_plan
 
     workload = get_workload("lora", arch="smollm-135m", reduced=False, rank=4)
@@ -802,13 +973,15 @@ def lora_phase(torch, ops, min_rounds_to_block):
                                seq=LORA_EXTRA["seq"], n_test=LORA_EXTRA["n_test"])
     routes = {"gram/fused": (resolve_kernel_plan(True, kernel_launch="fused"), ("afa_screen",)),
               "gram/plain-torch": (resolve_kernel_plan(False), ())}
-    runs, launches, decisions = [], {}, {}
+    runs, launches, decisions, dumps = [], {}, {}, {}
     for label, (plan, names) in routes.items():
         server = ServerConfig(rule="afa", num_clients=K, afa_variant="gram", kernel_plan=plan)
+        dumps[label] = {}
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        res = run(workload, SimConfig(**LORA_SIM), server, data=data, device="cuda",
-                  **LORA_EXTRA)
+        with recording_server_step(torch, dumps[label]):
+            res = run(workload, SimConfig(**LORA_SIM), server, data=data, device="cuda",
+                      **LORA_EXTRA)
         wall = time.perf_counter() - t0
         counts = dict(ops.LAUNCH_COUNTS)
         rb, err = res["rounds_blocked"], res["test_error"]
@@ -850,7 +1023,83 @@ def lora_phase(torch, ops, min_rounds_to_block):
     first, *rest = decisions.values()
     if any(d != first for d in rest):
         raise AssertionError(f"lora: the routes' blocking decisions differ: {decisions}")
-    return runs, launches
+    dump = lora_round_dump(torch, ops, ref, dumps)
+    return runs, launches, dump
+
+
+@contextlib.contextmanager
+def recording_server_step(torch, dump: dict):
+    """Swap ``repro_torch.fed.server.server_step`` for a wrapper that keeps
+    the inputs of round ``LORA_DUMP_ROUND`` (1-indexed) in ``dump``: the
+    packed (K, D) proposals, ``n_k``, the participation mask and the
+    reputation means ``p_good``.  ``simulate_llm`` imports ``server_step``
+    when it is called, so the wrapper reaches it."""
+    from repro_torch.core import p_good
+    from repro_torch.fed import server as server_mod
+
+    real = server_mod.server_step
+
+    def step(state, proposals, n_k, mask0, **kw):
+        if state.round == LORA_DUMP_ROUND - 1:
+            dump.update(proposals=proposals.detach().float().clone(),
+                        n_k=torch.as_tensor(n_k, dtype=torch.float32).clone(),
+                        mask0=torch.as_tensor(mask0).bool().clone(),
+                        p_good=p_good(state.reputation).float().clone())
+        return real(state, proposals, n_k, mask0, **kw)
+
+    server_mod.server_step = step
+    try:
+        yield
+    finally:
+        server_mod.server_step = real
+
+
+def lora_round_dump(torch, ops, ref, dumps):
+    """ROADMAP C.6, a threshold tie: the inputs of round ``LORA_DUMP_ROUND``
+    as each LoRA route saw them (failing if a route recorded none).  The
+    first route's go to ``chiprun_out/lora_round{n}_<route>.npz``, which
+    ``tools/afa_dump_jax.py`` screens in float64 and with the JAX package.
+    On them, the first screening pass's f32 statistics from
+    ``ref.afa_screen_ref`` give each live client's signed margin to the tail
+    threshold ``median -/+ xi0 sigma`` (negative: screened out), on the
+    kernel's Gram and on ``U @ U.T``."""
+    import numpy as np
+
+    missing = [label for label, d in dumps.items() if not d]
+    if missing:
+        raise AssertionError(f"lora: round {LORA_DUMP_ROUND}'s server_step inputs were not "
+                             f"recorded on {missing}")
+    (label, d), *others = dumps.items()
+    U, dev = d["proposals"], d["proposals"].device
+    n_k, mask0, p = d["n_k"].to(dev), d["mask0"].to(dev), d["p_good"].to(dev)
+    name = f"lora_round{LORA_DUMP_ROUND}_{label.replace('/', '_')}.npz"
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    np.savez(out_dir / name, proposals=U.cpu().numpy(), n_k=n_k.cpu().numpy(),
+             mask0=mask0.cpu().numpy(), p_good=p.cpu().numpy())
+    report = {"round": LORA_DUMP_ROUND, "file": name, "mask0": mask0.tolist(),
+              "p_good": p.tolist(), "n_k": n_k.tolist(), "max_abs_proposal": float(U.abs().max()),
+              "max_abs_diff_from": {o: float((od["proposals"] - U).abs().max())
+                                    for o, od in others}}
+    print(f"lora round {LORA_DUMP_ROUND} [{label} inputs, {name}]: mask0="
+          f"{mask0.int().tolist()} p_good={[round(x, 5) for x in p.tolist()]}; the other "
+          f"routes' proposals differ by {report['max_abs_diff_from']} at most")
+    xi0 = 2.0  # ServerConfig's default
+    pn = p * n_k
+    for gname, G in (("kernel gram", ops.gram(U)), ("plain gram", U @ U.T)):
+        s = ref.afa_screen_ref(U, pn, mask0, xi0=xi0, delta_xi=0.5, max_rounds=0, gram=G)[3]
+        mean, median = ref._masked_mean(s, mask0), ref.masked_median_cc(s, mask0)
+        sigma = ref._masked_std(s, mask0, 0)
+        low = bool(mean < median)
+        thr = median - xi0 * sigma if low else median + xi0 * sigma
+        margin = (s - thr) if low else (thr - s)
+        live = mask0.nonzero().flatten().tolist()
+        report[gname] = {"tail": "low" if low else "high", "threshold": float(thr),
+                         "sims": s.tolist(), "margin": margin.tolist()}
+        print(f"  f32 {gname} pass 1: tail={'low' if low else 'high'} "
+              f"threshold={float(thr):.9g} " + " ".join(
+                  f"k{k}: s={float(s[k]):.9g} margin={float(margin[k]):+.3e}" for k in live))
+    return report
 
 
 def main() -> None:
@@ -875,7 +1124,7 @@ def main() -> None:
     peak_key, peaks = card_peaks(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; peaks used ({peak_key}): "
           f"{peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} FP32 TFLOP/s, "
-          f"{peaks[2] / 1e12} dense bf16 TFLOP/s")
+          f"{peaks[2] / 1e12} dense bf16 TFLOP/s, {peaks[3] / 1e12} dense TF32 TFLOP/s")
 
     t0 = time.perf_counter()
     path, log = build.build_library()
@@ -885,16 +1134,16 @@ def main() -> None:
             print("  " + line.split("'")[1].split("_cu_")[-1].lstrip("0123456789")[:72])
         elif "registers" in line or "spill" in line or "warning" in line.lower():
             print("    " + line.strip())
-    build.load_library()
+    lib = build.load_library()
 
-    kernel_rows = kernel_phase(torch, ops, ref, peaks)
+    kernel_rows = kernel_phase(torch, ops, ref, peaks, lib)
     runs, launches = main_path_phase(torch, ops, min_rounds_to_block)
     baseline_runs, baseline_launches = baselines_phase(torch, ops)
     unmasked_rows, unmasked_launches = unmasked_phase(torch, ops)
     attn_rows = flash_attn_phase(torch, ops, ref, peaks)
     forward_rows, forward_launches = forward_phase(torch, ops)
     launches.update(forward_launches)
-    lora_runs, lora_launches = lora_phase(torch, ops, min_rounds_to_block)
+    lora_runs, lora_launches, lora_dump = lora_phase(torch, ops, min_rounds_to_block)
     traces = [profile_phase(torch), lora_profile_phase(torch), forward_profile_phase(torch)]
     for more in (baseline_launches, unmasked_launches, lora_launches):
         for kernel, count in more.items():
@@ -902,7 +1151,7 @@ def main() -> None:
 
     kernels = []
     for row in kernel_rows:
-        if row["K"] != MAIN_K:
+        if row["K"] != MAIN_K or row["D"] != D_PAPER:
             continue
         replaces, source = REPLACES[row["name"]]
         kernels.append({
@@ -928,10 +1177,10 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "nvidia_smi": smi, "device": name, "torch": torch.__version__,
         "peaks": {"key": peak_key, "bytes_per_s": peaks[0], "fp32_flops": peaks[1],
-                  "bf16_tensor_flops": peaks[2]},
+                  "bf16_tensor_flops": peaks[2], "tf32_tensor_flops": peaks[3]},
         "kernel_checks": kernel_rows, "main_path": runs, "baselines": baseline_runs,
         "unmasked": unmasked_rows, "flash_attn_checks": attn_rows, "forward": forward_rows,
-        "lora": lora_runs, "launches": launches, "profile": traces,
+        "lora": lora_runs, "lora_round_dump": lora_dump, "launches": launches, "profile": traces,
     }, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

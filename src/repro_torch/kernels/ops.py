@@ -19,6 +19,9 @@ library and the stream explicitly.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import ref
@@ -146,9 +149,67 @@ def _cosine_sim_cuda(lib, stream, updates, agg):
 # Gram matrix  (replaces repro/kernels/gram.py:56 gram)
 # ---------------------------------------------------------------------------
 
+GRAM_TILE_D = 64                 # columns per stage of the Gram kernel (kGramTileD)
+GRAM_CTAS_PER_SM = 8             # CTAs the split count aims for on each multiprocessor
+GRAM_PARTIALS_CAP = 8 * 2**20    # bytes of Gram and row-norm partials at most (L2-resident)
+
+
+class GramGeometry(NamedTuple):
+    """How the Gram kernel cuts a (K, D) operand, passed to the C entries,
+    which check it against the operands."""
+
+    tile_rows: int     # rows of an output tile: 16 for K <= 16, else 32
+    ntiles: int        # row blocks, ceil(K / tile_rows)
+    npairs: int        # upper tile pairs ti <= tj, the grid's x
+    nsplit: int        # column splits, the grid's y
+    chunk: int         # columns per split, a multiple of GRAM_TILE_D
+    width: int         # bytes per cp.async copy: 16, 8 or 4
+    entries: int       # upper-triangle entries K (K + 1) / 2
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-int(a) // int(b))
+
+
+def gram_geometry(K: int, D: int, ptr: int, sms: int) -> GramGeometry:
+    """The Gram kernel's geometry for a (K, D) f32 operand at address ``ptr``
+    on a card with ``sms`` multiprocessors.
+
+    Tiles of 16 rows for K <= 16, else 32 (at K = 200: 28 upper pairs, 1.43x
+    the 20,100 entries); enough column splits for ``GRAM_CTAS_PER_SM`` CTAs
+    on each multiprocessor, fewer where the partials would pass
+    ``GRAM_PARTIALS_CAP`` or a split would hold less than one stage; the
+    widest cp.async copy that ``ptr`` and the row length ``4 D`` bytes
+    allow."""
+    K, D = int(K), int(D)
+    if K < 1 or D < 1:
+        raise ValueError(f"gram: empty operand ({K}, {D})")
+    width = next(w for w in (16, 8, 4) if ptr % w == 0 and (4 * D) % w == 0)
+    bt = 16 if K <= 16 else 32
+    ntiles = _ceil_div(K, bt)
+    npairs = ntiles * (ntiles + 1) // 2
+    entries = K * (K + 1) // 2
+    cap = max(GRAM_PARTIALS_CAP // (4 * (entries + K)), 1)
+    target = GRAM_CTAS_PER_SM * int(sms)
+    n = max(1, min(_ceil_div(target, npairs), cap, _ceil_div(D, GRAM_TILE_D), 65535))
+    chunk = _ceil_div(_ceil_div(D, n), GRAM_TILE_D) * GRAM_TILE_D
+    return GramGeometry(bt, ntiles, npairs, _ceil_div(D, chunk), chunk, width, entries)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _gram_geometry_for(updates: torch.Tensor) -> GramGeometry:
+    K, D = updates.shape
+    return gram_geometry(K, D, updates.data_ptr(), _sm_count(updates.device.index))
+
 
 def gram(updates: torch.Tensor) -> torch.Tensor:
-    """(K, d) -> (K, K) Gram matrix U U^T (f32)."""
+    """(K, d) -> (K, K) Gram matrix U U^T (f32).  On the card: 3xTF32 on the
+    tensor cores with f32 sums (``ref.gram_3xtf32_ref`` is that arithmetic's
+    twin); on the CPU: the f32 twin ``ref.gram_ref``."""
     _check_tensor("gram", "updates", updates, 2)
     if not _on_card("gram", updates):
         return ref.gram_ref(updates)
@@ -159,11 +220,12 @@ def gram(updates: torch.Tensor) -> torch.Tensor:
 
 def _gram_cuda(lib, stream, updates):
     K, D = updates.shape
-    nsplit = lib.repro_gram_nsplit(K, D)
-    pg = torch.empty((K, K, nsplit), dtype=torch.float32, device=updates.device)
+    geo = _gram_geometry_for(updates)
+    pg = torch.empty((geo.nsplit * geo.entries,), dtype=torch.float32, device=updates.device)
     g = torch.empty((K, K), dtype=torch.float32, device=updates.device)
     _check_rc("gram", lib.repro_gram(
-        updates.data_ptr(), pg.data_ptr(), g.data_ptr(), K, D, nsplit, stream))
+        updates.data_ptr(), pg.data_ptr(), g.data_ptr(), K, D,
+        geo.tile_rows, geo.nsplit, geo.chunk, geo.width, stream))
     return g
 
 
@@ -203,20 +265,21 @@ def _afa_screen_cuda(lib, stream, updates, pn, mask0, *, xi0, delta_xi,
             f"afa_screen: K={K} clients exceed the {max_k} the one-CTA screen "
             "holds in shared memory"
         )
-    nsplit = lib.repro_gram_nsplit(K, D)
+    geo = _gram_geometry_for(updates)
     dev = updates.device
-    # one float and one int buffer, carved into the kernel's scratch and outputs
-    sizes = (nsplit * K * K, nsplit * K, K * K, K, D, K)
+    # one float and one int buffer, carved into the kernels' scratch and outputs
+    sizes = (geo.nsplit * geo.entries, geo.nsplit * K, K * K, K, K, D, K)
     buf = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
-    pg, pun, G, weights, agg, sims = torch.split(buf, sizes)
+    pg, pun, G, rn, weights, agg, sims = torch.split(buf, sizes)
     ibuf = torch.empty((2 * K + 1,), dtype=torch.int32, device=dev)
     m0, good, rounds = torch.split(ibuf, (K, K, 1))
     m0.copy_(mask0)
     _check_rc("afa_screen", lib.repro_afa_screen(
         updates.data_ptr(), pn.data_ptr(), m0.data_ptr(), pg.data_ptr(), pun.data_ptr(),
-        G.data_ptr(), weights.data_ptr(), agg.data_ptr(), good.data_ptr(), rounds.data_ptr(),
-        sims.data_ptr(),
-        K, D, nsplit, xi0, delta_xi, max_rounds, ddof, stream))
+        G.data_ptr(), rn.data_ptr(), weights.data_ptr(), agg.data_ptr(), good.data_ptr(),
+        rounds.data_ptr(), sims.data_ptr(),
+        K, D, geo.tile_rows, geo.nsplit, geo.chunk, geo.width, xi0, delta_xi, max_rounds,
+        ddof, stream))
     return agg, good != 0, rounds[0], sims
 
 

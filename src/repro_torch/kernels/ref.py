@@ -3,11 +3,12 @@
 Each twin computes the same function as the JAX package's ``kernels/ops.py``
 wrapper of the corresponding Pallas kernel, EPS rules included.  The ops
 wrappers take the twin for CPU tensors; ``chip_smoke.py`` holds each CUDA
-kernel against its twin on the card.  ``flash_attention_tc_ref`` is the one
-twin of a kernel's own arithmetic (the tensor-core kernel rounds p before
-p.v); only the tests and ``chip_smoke.py`` use it.  The module imports
-nothing else of the port, as ``repro/kernels/afa_screen.py`` keeps its own
-mirrors of the screening statistics.
+kernel against its twin on the card.  ``flash_attention_tc_ref`` and
+``gram_3xtf32_ref`` are twins of a kernel's own arithmetic (the attention
+kernel rounds p before p.v; the Gram kernel multiplies TF32 halves on the
+tensor cores); only the tests and ``chip_smoke.py`` use them.  The module
+imports nothing else of the port, as ``repro/kernels/afa_screen.py`` keeps
+its own mirrors of the screening statistics.
 """
 
 from __future__ import annotations
@@ -36,6 +37,32 @@ def gram_ref(updates: torch.Tensor) -> torch.Tensor:
     """(K, d) -> (K, K) Gram matrix in f32 (``ops.gram``)."""
     u = updates.float()
     return u @ u.T
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the
+    nearest value with 10 explicit mantissa bits, ties away from zero; an f32
+    tensor whose low 13 bits are zero.  Inf and NaN pass through."""
+    x = x.float().contiguous()
+    bits = (x.view(torch.int32) + 0x1000) & ~0x1FFF
+    return torch.where(torch.isfinite(x), bits.view(torch.float32), x)
+
+
+def tf32_split(x: torch.Tensor):
+    """``x = hi + lo`` to 2^-22 relative: ``hi = tf32(x)``, ``lo = tf32(x - hi)``
+    (``x - hi`` is exact in f32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def gram_3xtf32_ref(updates: torch.Tensor) -> torch.Tensor:
+    """(K, d) -> (K, K): the Gram kernel's own arithmetic on the card
+    (``gram_tf32x3_kernel``), u_i u_j ~ lo_i hi_j + hi_i lo_j + hi_i hi_j with
+    the bit-exact TF32 split of ``tf32_split``.  The products are exact and
+    are summed here in float64, then cast to f32: the kernel differs from this
+    twin only by its f32 sums."""
+    hi, lo = (t.double() for t in tf32_split(updates))
+    return (lo @ hi.T + hi @ lo.T + hi @ hi.T).float()
 
 
 def _live_order_stats(updates: torch.Tensor, mask):
@@ -109,12 +136,14 @@ def masked_median_cc(x, mask):
 
 
 def afa_screen_ref(updates, pn, mask0, *, xi0: float, delta_xi: float,
-                   max_rounds: int, ddof: int = 0):
+                   max_rounds: int, ddof: int = 0, gram=None):
     """Algorithm 1 on the Gram matrix (``ops.afa_screen``): returns
-    ``(aggregate (d,), good_mask (K,) bool, rounds () int32, sims (K,))``."""
+    ``(aggregate (d,), good_mask (K,) bool, rounds () int32, sims (K,))``.
+    ``gram`` is the (K, K) matrix to screen with, ``u @ u.T`` in f32 unless
+    given (``gram_3xtf32_ref(updates)`` for the kernel's own arithmetic)."""
     u = updates.float()
     pn = pn.float()
-    gram = u @ u.T
+    gram = u @ u.T if gram is None else gram.float()
     row_norms = torch.sqrt((u * u).sum(dim=1))
     K = u.shape[0]
 
