@@ -31,13 +31,14 @@
 6. holds the two flash-attention kernels against their twins at the
    smollm-135m shape (B = 4, L = 2048, Hq = 9, Hkv = 3, D = 64, causal), at
    the JAX package's test shapes (causal and full, Lq != Lk included), at
-   one more causal Lq != Lk case, each in f32, bf16 and f16, and at the
-   tensor-core kernel's element-load cases (D % 8 != 0, a pointer off 16
-   bytes): the exact-softmax twin within 2e-4 (f32, the CUDA-core kernel),
-   2e-2 (bf16) and 2.5e-3 (f16) (the tensor-core kernel), which is also held
-   to ``flash_attention_tc_ref`` within one output ulp at v's scale;
-   bit-identical reruns; times in all three dtypes beside the bound and
-   ``F.scaled_dot_product_attention``;
+   one more causal Lq != Lk case and at the element-load cases (D not a
+   multiple of the elements in 16 bytes, a pointer off 16 bytes), each in
+   f32, bf16 and f16: the exact-softmax twin within 2e-4 (f32), 2e-2 (bf16)
+   and 2.5e-3 (f16); the f32 kernel (3xTF32) also within ``TF32_ATTN_RTOL``
+   max |v| of ``flash_attention_3xtf32_ref``, the bf16/f16 kernel within
+   one output ulp at v's scale of ``flash_attention_tc_ref``; bit-identical
+   reruns; times in all three dtypes beside the bound (tensor-core
+   operations, exponentials, bytes) and ``F.scaled_dot_product_attention``;
 7. runs a forward of smollm-135m at full width and depth (30 layers, B = 4 x
    L = 2048 tokens, random weights from a seed) through
    ``repro_torch.models.build_model`` with the flash kernels and with the
@@ -56,9 +57,9 @@
    ``U @ U.T`` (ROADMAP C.6: a benign client sits within f32 rounding of it
    there, so the routes' ``good_mask`` is not compared);
 9. traces three rounds of the paper DNN's gram/fused route, two rounds of
-   the LoRA phase's and one bf16 forward of smollm-135m on the kernel route
-   with ``torch.profiler`` (device busy share, the kernels that take the
-   time);
+   the LoRA phase's and one bf16 and one f32 forward of smollm-135m on the
+   kernel route with ``torch.profiler`` (device busy share, the kernels that
+   take the time);
 10. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
@@ -131,7 +132,7 @@ SELECTING = ("mkrum", "bulyan")  # rules whose good_mask is a selection
 # device-side names of this repository's kernels
 OUR_KERNEL_NAMES = ("weighted_sum_kernel", "cosine_parts_kernel", "cosine_reduce_kernel",
                     "gram_tf32x3_kernel", "gram_reduce_kernel", "afa_screen_kernel",
-                    "rank_select_kernel", "flash_attn_kernel", "flash_attn_tc_kernel")
+                    "rank_select_kernel", "flash_attn_tf32x3_kernel", "flash_attn_tc_kernel")
 # published peaks: (HBM bytes/s, FP32 non-tensor FLOP/s, dense bf16 tensor
 # FLOP/s, dense TF32 tensor FLOP/s), NVIDIA data sheets (the dense rates are
 # half the sparse ones)
@@ -164,9 +165,19 @@ ATTN_TOL = {"float32": 2e-4,   # tests/test_kernels.py:219 holds the Pallas kern
 # the tensor-core kernel against flash_attention_tc_ref: one output ulp at
 # v's scale, max |kernel - twin| <= ULP * max |v|
 ATTN_TC_ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
-# the tensor-core kernel's element-load path: D % 8 != 0, and operands whose
-# data starts 2 bytes past a 16-byte boundary: (shape, causals, misaligned)
+# the f32 kernel against flash_attention_3xtf32_ref (exact TF32 products
+# summed in float64): max |kernel - twin| <= TF32_ATTN_RTOL * max |v|.  The
+# kernel reads <= 6.6e-7 of max |v| from it on an H100 SXM (its f32 sums
+# inside a tile), a kernel with one lo-term product dropped 1.5e-4 and
+# 1xTF32 2.4e-4 at the smollm shape (tools/attn_sweep.py); on the CPU the
+# two faults read >= 5e-5 at the checked shapes
+# (tests/test_torch_attention_tf32.py)
+TF32_ATTN_RTOL = 3e-6
+# the element-load paths: D not a multiple of the elements in 16 bytes (8 in
+# bf16/f16, 4 in f32), and operands whose data starts one element past a
+# 16-byte boundary: (shape, causals, misaligned)
 ATTN_ELEMENT_LOADS = [((1, 77, 77, 4, 2, 20), (True, False), False),
+                      ((1, 77, 77, 4, 2, 18), (True, False), False),
                       ((2, 33, 65, 4, 4, 16), (True,), True)]
 FWD_B, FWD_L = 4, 2048
 FWD_TOL = 2e-3   # tests/test_models.py:256 holds the JAX Pallas route to it
@@ -757,11 +768,12 @@ def visible_pairs(lq: int, lk: int, causal: bool) -> int:
 
 def flash_attn_phase(torch, ops, ref, peaks):
     """The two flash-attention kernels against their twins: every
-    ``ATTN_SHAPES`` case in f32, bf16 and f16, the ``ATTN_ELEMENT_LOADS``
-    cases in bf16 and f16, and the main path's shape in all three with
-    times.  f32 goes to ``flash_attn`` (CUDA cores), bf16/f16 to
-    ``flash_attn_tc`` (tensor cores), which is also held to its own twin
-    ``flash_attention_tc_ref``.  Returns the rows."""
+    ``ATTN_SHAPES`` and ``ATTN_ELEMENT_LOADS`` case in f32, bf16 and f16, and
+    the main path's shape in all three with times.  f32 goes to
+    ``flash_attn`` (3xTF32), bf16/f16 to ``flash_attn_tc``; each is held to
+    the exact twin and to the twin of its own arithmetic
+    (``flash_attention_3xtf32_ref``, ``flash_attention_tc_ref``).  Returns
+    the rows."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -771,7 +783,7 @@ def flash_attn_phase(torch, ops, ref, peaks):
              for shape, causals in ATTN_SHAPES for causal in causals for dt in dtypes]
     cases += [(shape, causal, dt, misaligned, False)
               for shape, causals, misaligned in ATTN_ELEMENT_LOADS for causal in causals
-              for dt in dtypes[1:]]
+              for dt in dtypes]
     cases += [(ATTN_MAIN, True, dt, False, True) for dt in dtypes]
     rows = []
     for (B, Lq, Lk, Hq, Hkv, D), causal, dt, misaligned, timed in cases:
@@ -792,8 +804,14 @@ def flash_attn_phase(torch, ops, ref, peaks):
         name = "flash_attn_tc" if tc else "flash_attn"
         kern = lambda: ops.flash_attention(q, k, v, causal=causal)
         exact = lambda: ref.flash_attention_ref(q, k, v, causal=causal)
-        twin = (lambda: ref.flash_attention_tc_ref(q, k, v, causal=causal,
-                                                   block_k=ops.ATTN_TC_BLOCK_K)) if tc else exact
+        if tc:
+            twin = lambda: ref.flash_attention_tc_ref(q, k, v, causal=causal,
+                                                      block_k=ops.ATTN_TC_BLOCK_K)
+            twin_tol, twin_label = ATTN_TC_ULP[dname], "one output ulp"
+        else:
+            twin = lambda: ref.flash_attention_3xtf32_ref(q, k, v, causal=causal,
+                                                          block_k=ops.ATTN_TC_BLOCK_K)
+            twin_tol, twin_label = TF32_ATTN_RTOL, "TF32_ATTN_RTOL"
         out, want = kern(), exact()
         torch.cuda.synchronize()
         tol = ATTN_TOL[dname]
@@ -805,50 +823,48 @@ def flash_attn_phase(torch, ops, ref, peaks):
         if not torch.isfinite(out).all() or excess > tol:
             raise AssertionError(f"{label}: max |kernel - twin| = {err}, beyond "
                                  f"atol = rtol = {tol}")
-        row = {"name": name, "dtype": dname, "shape": [B, Lq, Lk, Hq, Hkv, D],
-               "causal": causal, "misaligned": misaligned, "max_abs_err": err, "tol": tol}
-        if tc:
-            e_tw = float((out.float() - twin().float()).abs().max())
-            tw_tol = ATTN_TC_ULP[dname] * float(v.float().abs().max())
-            if e_tw > tw_tol:
-                raise AssertionError(f"{label}: max |kernel - tc twin| = {e_tw} > one output "
-                                     f"ulp at v's scale {tw_tol}")
-            row.update(max_abs_err_tc_twin=e_tw, tc_twin_tol=tw_tol,
-                       flags=ops.attn_flags(q, k, v, out, causal=causal))
+        e_tw = float((out.float() - twin().float()).abs().max())
+        tw_tol = twin_tol * float(v.float().abs().max())
+        if e_tw > tw_tol:
+            raise AssertionError(f"{label}: max |kernel - arithmetic twin| = {e_tw} > "
+                                 f"{twin_label} at v's scale {tw_tol}")
         if not torch.equal(out, kern()):
             raise AssertionError(f"{label}: two launches are not bit-identical")
+        row = {"name": name, "dtype": dname, "shape": [B, Lq, Lk, Hq, Hkv, D],
+               "causal": causal, "misaligned": misaligned, "max_abs_err": err, "tol": tol,
+               "max_abs_err_arith_twin": e_tw, "arith_twin_tol": tw_tol,
+               "flags": ops.attn_flags(q, k, v, out, causal=causal)}
+        # tensor-core operations (three TF32 products per f32 one, at the
+        # TF32 rate) and one exponential per visible pair, beside the bytes;
+        # for f32 the same work's FP32 bound on the CUDA cores too
         pairs = visible_pairs(Lq, Lk, causal)
         flops = 4 * B * Hq * D * pairs
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
-        if tc:  # tensor cores and one exponential per visible pair, beside the bytes
-            terms = {"bytes": nbytes / peaks[0] * 1e3, "tensor": flops / peaks[2] * 1e3,
-                     "exp": B * Hq * pairs / (peaks[2] * EXP_PER_TENSOR_OP) * 1e3}
-            b_ms = max(terms.values())
-            b_by = "bytes" if b_ms == terms["bytes"] else "operations"
-            row.update({f"bound_ms_{t}": ms for t, ms in terms.items()})
-        else:
-            b_ms, b_by = bound_ms(nbytes, flops, peaks)
+        terms = {"bytes": nbytes / peaks[0] * 1e3,
+                 "tensor": (flops / peaks[2] if tc else 3 * flops / peaks[3]) * 1e3,
+                 "exp": B * Hq * pairs / (peaks[2] * EXP_PER_TENSOR_OP) * 1e3}
+        b_ms = max(terms.values())
+        b_by = "bytes" if b_ms == terms["bytes"] else "operations"
+        row.update({f"bound_ms_{t}": ms for t, ms in terms.items()})
+        if not tc:
+            row["bound_ms_fp32"] = flops / peaks[1] * 1e3
         row.update(visible_pairs=pairs, flops=flops, bytes=nbytes, bound_ms=b_ms,
                    bound_by=b_by, library_ms=None)
         if timed:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            fns = {"ms": kern, "plain_ms": twin,
+            fns = {"ms": kern, "plain_ms": twin, "exact_twin_ms": exact,
                    "library_ms": lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, is_causal=causal, enable_gqa=True)}
-            if tc:
-                fns["exact_twin_ms"] = exact
             row.update(time_ms(torch, fns, flush))
             print(f"kernel {label}: kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                  f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})"
-                  + (f" [bytes {row['bound_ms_bytes']:.4f}, tensor {row['bound_ms_tensor']:.4f}, "
-                     f"exp {row['bound_ms_exp']:.4f}] exact_twin_ms={row['exact_twin_ms']:.4f}"
-                     if tc else "")
-                  + f" max_abs_err={err:.3e} bit-identical")
+                  f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"[bytes {terms['bytes']:.4f}, tensor {terms['tensor']:.4f}, exp "
+                  f"{terms['exp']:.4f}" + ("" if tc else f"; FP32 {row['bound_ms_fp32']:.4f}")
+                  + f"] exact_twin_ms={row['exact_twin_ms']:.4f} max_abs_err={err:.3e}, vs "
+                  f"arithmetic twin {e_tw:.3e} (tol {tw_tol:.3e}) bit-identical")
         else:
-            print(f"kernel {label}: max_abs_err={err:.3e} (tol {tol})"
-                  + (f", vs tc twin {row['max_abs_err_tc_twin']:.3e} (tol "
-                     f"{row['tc_twin_tol']:.3e}) flags={row['flags']}" if tc else "")
-                  + " bit-identical")
+            print(f"kernel {label}: max_abs_err={err:.3e} (tol {tol}), vs arithmetic twin "
+                  f"{e_tw:.3e} (tol {tw_tol:.3e}) flags={row['flags']} bit-identical")
         rows.append(row)
     return rows
 
@@ -870,19 +886,32 @@ def smollm_forward_inputs(torch):
     return cfg, params, tokens
 
 
+def as_f32(cfg, params):
+    """smollm-135m's config and weights in f32 (the f32 forwards)."""
+    def cast(tree):
+        return {k: cast(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+    return cfg.with_(param_dtype="float32", compute_dtype="float32"), cast(params)
+
+
 def forward_profile_phase(torch):
-    """Trace one bf16 forward of smollm-135m on the kernel route."""
+    """Trace one bf16 and one f32 forward of smollm-135m on the kernel
+    route."""
     from repro_torch.models import build_model
 
-    cfg, params, tokens = smollm_forward_inputs(torch)
-    model = build_model(cfg.with_(use_pallas_attention=True))
+    cfg16, p16, tokens = smollm_forward_inputs(torch)
+    traces = []
+    for dname, (cfg, params) in (("bf16", (cfg16, p16)), ("f32", as_f32(cfg16, p16))):
+        model = build_model(cfg.with_(use_pallas_attention=True))
 
-    def fn():
-        with torch.no_grad():
-            model.forward(params, {"tokens": tokens})
-        return {}
+        def fn():
+            with torch.no_grad():
+                model.forward(params, {"tokens": tokens})
+            return {}
 
-    return trace(torch, "smollm-135m bf16 forward, kernel route", fn, 1)
+        traces.append(trace(torch, f"smollm-135m {dname} forward, kernel route", fn, 1))
+        del model, params
+    return traces
 
 
 def forward_phase(torch, ops):
@@ -893,15 +922,7 @@ def forward_phase(torch, ops):
     from repro_torch.models import build_model
 
     cfg16, p16, tokens = smollm_forward_inputs(torch)
-
-    def cast(tree, dt):
-        return {k: cast(v, dt) if isinstance(v, dict) else v.to(dt) for k, v in tree.items()}
-
-    variants = {
-        "float32": (cfg16.with_(param_dtype="float32", compute_dtype="float32"),
-                    cast(p16, torch.float32)),
-        "bfloat16": (cfg16, p16),
-    }
+    variants = {"float32": as_f32(cfg16, p16), "bfloat16": (cfg16, p16)}
     rows, launches = [], {"flash_attn": 0, "flash_attn_tc": 0}
     for dname, (cfg, params) in variants.items():
         key = "flash_attn" if dname == "float32" else "flash_attn_tc"
@@ -1144,7 +1165,7 @@ def main() -> None:
     forward_rows, forward_launches = forward_phase(torch, ops)
     launches.update(forward_launches)
     lora_runs, lora_launches, lora_dump = lora_phase(torch, ops, min_rounds_to_block)
-    traces = [profile_phase(torch), lora_profile_phase(torch), forward_profile_phase(torch)]
+    traces = [profile_phase(torch), lora_profile_phase(torch), *forward_profile_phase(torch)]
     for more in (baseline_launches, unmasked_launches, lora_launches):
         for kernel, count in more.items():
             launches[kernel] += count
@@ -1162,7 +1183,7 @@ def main() -> None:
             "library_ms": row["library_ms"],
         })
     for kname, dname, err_key in (("flash_attn", "float32", "max_abs_err"),
-                                  ("flash_attn_tc", "bfloat16", "max_abs_err_tc_twin")):
+                                  ("flash_attn_tc", "bfloat16", "max_abs_err_arith_twin")):
         main = next(r for r in attn_rows if r["shape"] == list(ATTN_MAIN) and r["dtype"] == dname)
         replaces, source = REPLACES[kname]
         kernels.append({

@@ -358,7 +358,7 @@ def _rank_cuda(op, lib, stream, updates, mask, *, trim=None):
 # kernel dtype codes of repro_flash_attn
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ATTN_MAX_D = 128
-ATTN_TC_BLOCK_K = 64   # keys per tile of the tensor-core kernel (kBK in attn_kernels.cu)
+ATTN_TC_BLOCK_K = 64   # keys per tile of both attention kernels (kBK in attn_kernels.cu)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -369,21 +369,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The mask is the TPU kernel's: causal keys ``kpos <= qpos`` aligned
     top-left, so ``Lq != Lk`` is allowed; query head h reads kv head
-    ``h // (Hq / Hkv)``.  Which kernel runs depends on the dtype:
+    ``h // (Hq / Hkv)``.  Both kernels run on the tensor cores (``mma.sync``
+    with f32 accumulation); which one depends on the dtype:
 
-    * float32: ``flash_attn_kernel`` on the CUDA cores, f32 throughout, as the
-      TPU kernel (counted as ``flash_attn``);
-    * bfloat16 / float16: ``flash_attn_tc_kernel`` on the tensor cores
-      (``mma.sync`` m16n8k16, f32 accumulation; counted as ``flash_attn_tc``).
-      q k^T is exact products summed in f32 and the softmax is f32, but p is
-      rounded to the input dtype before p.v -- the one place the arithmetic
-      leaves f32; ``ref.flash_attention_tc_ref`` is its twin.  Tiles load by
-      16-byte copies when D % 8 == 0 and every pointer is 16-byte aligned,
-      else element by element (the same kernel).
+    * float32: ``flash_attn_tf32x3_kernel`` (counted as ``flash_attn``),
+      3xTF32: each operand of q k^T and p.v splits into two TF32 halves, and
+      three exact products (lo hi', hi lo', hi hi') take the place of one f32
+      product; the tensor cores sum at most 64 d columns or 64 keys into a
+      zeroed tile, and the softmax and the recurrence are f32.  It reads as
+      close to exact attention as f32 does;
+      ``ref.flash_attention_3xtf32_ref`` is its twin;
+    * bfloat16 / float16: ``flash_attn_tc_kernel`` (``mma.sync`` m16n8k16;
+      counted as ``flash_attn_tc``).  q k^T is exact products summed in f32
+      and the softmax is f32, but p is rounded to the input dtype before
+      p.v -- the one place the arithmetic leaves f32;
+      ``ref.flash_attention_tc_ref`` is its twin.
 
-    Both kernels take 64 query rows by ``ATTN_TC_BLOCK_K`` = 64 keys per tile
-    and D <= ``ATTN_MAX_D``.  ``block_q``/``block_k`` are the JAX wrapper's
-    tile hints, checked and otherwise unused.  On the CPU the call takes the
+    Tiles load by 16-byte copies when D is a multiple of the elements in 16
+    bytes and every pointer is 16-byte aligned (``attn_flags``), else
+    element by element (the same kernel).  Both kernels take 64 query rows
+    by ``ATTN_TC_BLOCK_K`` = 64 keys per tile and D <= ``ATTN_MAX_D``.
+    ``block_q``/``block_k`` are the JAX wrapper's tile hints, checked and
+    otherwise unused.  On the CPU the call takes the
     exact twin ``ref.flash_attention_ref`` for every dtype.  There is no
     backward (the JAX package has none either): the call raises when grad is
     enabled and any operand requires grad."""
@@ -426,10 +433,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attn_flags(q, k, v, out, *, causal: bool) -> int:
-    """``repro_flash_attn``'s flags: bit 0 causal; bit 1, for the bf16/f16
-    kernel, 16-byte tile copies (D % 8 == 0 and every pointer 16-byte
-    aligned)."""
-    vec = (q.dtype != torch.float32 and q.shape[-1] % 8 == 0
+    """``repro_flash_attn``'s flags: bit 0 causal; bit 1 16-byte tile copies,
+    where D is a multiple of the elements in 16 bytes (4 in f32, 8 in
+    bf16/f16) and every pointer is 16-byte aligned."""
+    vec = (q.shape[-1] % (16 // q.element_size()) == 0
            and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
     return int(bool(causal)) | (int(vec) << 1)
 

@@ -3,9 +3,10 @@
 Each twin computes the same function as the JAX package's ``kernels/ops.py``
 wrapper of the corresponding Pallas kernel, EPS rules included.  The ops
 wrappers take the twin for CPU tensors; ``chip_smoke.py`` holds each CUDA
-kernel against its twin on the card.  ``flash_attention_tc_ref`` and
-``gram_3xtf32_ref`` are twins of a kernel's own arithmetic (the attention
-kernel rounds p before p.v; the Gram kernel multiplies TF32 halves on the
+kernel against its twin on the card.  ``flash_attention_tc_ref``,
+``flash_attention_3xtf32_ref`` and ``gram_3xtf32_ref`` are twins of a
+kernel's own arithmetic (the bf16/f16 attention kernel rounds p before p.v;
+the f32 attention kernel and the Gram kernel multiply TF32 halves on the
 tensor cores); only the tests and ``chip_smoke.py`` use them.  The module
 imports nothing else of the port, as ``repro/kernels/afa_screen.py`` keeps
 its own mirrors of the screening statistics.
@@ -240,3 +241,60 @@ def flash_attention_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(b, lq, hq, d).to(q.dtype)
+
+
+def flash_attention_3xtf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                               causal: bool = True, block_k: int = 64,
+                               terms: int = 3) -> torch.Tensor:
+    """(B, Lq, Hq, D), (B, Lk, Hkv, D) x2 f32 -> (B, Lq, Hq, D) f32: the f32
+    kernel's arithmetic on the card (``flash_attn_tf32x3_kernel``).
+
+    Both products are 3xTF32: each operand splits as ``tf32_split`` does and
+    a b ~ lo hi' + hi lo' + hi hi'.  The products are exact; they are summed
+    here in float64 over each key tile of ``block_k`` (the kernel's,
+    ``ops.ATTN_TC_BLOCK_K``) and rounded to f32, so the kernel differs from
+    this twin only by its f32 sums inside a tile.  Around them the TPU
+    kernel's online softmax in f32: the unscaled scores masked to -1e30
+    (top-left causal), m the running max, p = 2^(s c - m c) with
+    c = log2(e) / sqrt(D) and one rounding, as the kernel's FFMA before ex2,
+    l = l alpha + rowsum(p), acc = acc alpha + pv; the output is
+    acc / max(l, 1e-30).  ``terms`` = 2 drops the lo hi' product and 1 keeps
+    hi hi' alone (1xTF32): the faults a check against this twin must see."""
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    g = hq // hkv
+    # the kernel's scale_log2: 1/sqrt(D) and log2(e) as f32, their product in f32
+    c = float(torch.tensor(1.0 / d ** 0.5) * torch.tensor(1.4426950408889634))
+
+    def dot(eq, x, y):
+        xh, xl = (t.double() for t in tf32_split(x))
+        yh, yl = (t.double() for t in tf32_split(y))
+        out = torch.einsum(eq, xh, yh)
+        if terms >= 2:
+            out = out + torch.einsum(eq, xh, yl)
+        if terms >= 3:
+            out = out + torch.einsum(eq, xl, yh)
+        return out.float()
+
+    qs = q.float().reshape(b, lq, hkv, g, d)
+    kf, vf = k.float(), v.float()
+    neg = torch.tensor(-1e30, device=q.device)
+    m = torch.full((b, hkv, g, lq), -1e30, device=q.device)
+    l = torch.zeros((b, hkv, g, lq), device=q.device)
+    acc = torch.zeros((b, hkv, g, lq, d), device=q.device)
+    qpos = torch.arange(lq, device=q.device)[:, None]
+    for k0 in range(0, lk, block_k):
+        kb, vb = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        s = dot("blhgd,bmhd->bhglm", qs, kb)
+        if causal:
+            kpos = torch.arange(k0, k0 + kb.shape[1], device=q.device)[None, :]
+            s = torch.where(kpos <= qpos, s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2((m - m_new) * c)
+        mc = (m_new * c).double()
+        p = torch.exp2((s.double() * c - mc[..., None]).float())
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + dot("bhglm,bmhd->bhgld", p, vb)
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, lq, hq, d)

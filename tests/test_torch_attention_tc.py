@@ -111,7 +111,8 @@ def _misaligned(shape, dtype):
     (torch.float16, 128, False, True),
     (torch.bfloat16, 20, False, False),     # D % 8 != 0: element loads
     (torch.float16, 64, True, False),       # q not 16-byte aligned: element loads
-    (torch.float32, 64, False, False),      # the f32 kernel takes no flag
+    (torch.float32, 64, False, True),       # f32: 4 elements in 16 bytes
+    (torch.float32, 18, False, False),      # D % 4 != 0: element loads
 ])
 def test_attn_flags_ask_for_16_byte_copies_only_where_they_are_possible(dtype, d, misalign,
                                                                         vec):
