@@ -14,7 +14,14 @@
    partial tiles, every copy width), bit-identical reruns, and times of the
    kernel, the twin and one PyTorch library call, beside the least time the
    card could take (``bound_ms``; for the Gram kernels from the TF32 rate
-   of the tensor cores, with the FP32 bound of the same work beside it);
+   of the tensor cores, with the FP32 bound of the same work beside it;
+   afa_screen's bytes count U twice where U is larger than L2, since its
+   aggregate pass reads U again after the Gram pass); then a profiler
+   trace of one call of each: cosine_sim is one device operation and
+   afa_screen three, none from the wrappers (``DEVICE_OPS_PER_CALL``); and
+   calls back to back on different inputs, and on a side stream beside the
+   current one, each held to its own twin (their partials are summed by
+   the launch's last block, which draws a per-stream ticket);
 4. runs the paper's experiment through ``repro_torch.fed.api.run`` at full
    width (784 x 512 x 256 x 10 DNN, K = 10, 3 byzantine clients, 8 rounds)
    on each AFA kernel route, and checks that every byzantine client is
@@ -130,9 +137,16 @@ BASELINES = {
 }
 SELECTING = ("mkrum", "bulyan")  # rules whose good_mask is a selection
 # device-side names of this repository's kernels
-OUR_KERNEL_NAMES = ("weighted_sum_kernel", "cosine_parts_kernel", "cosine_reduce_kernel",
-                    "gram_tf32x3_kernel", "gram_reduce_kernel", "afa_screen_kernel",
-                    "rank_select_kernel", "flash_attn_tf32x3_kernel", "flash_attn_tc_kernel")
+OUR_KERNEL_NAMES = ("weighted_sum_kernel", "cosine_sim_kernel", "gram_tf32x3_kernel",
+                    "gram_reduce_kernel", "afa_reduce_screen_kernel", "rank_select_kernel",
+                    "flash_attn_tf32x3_kernel", "flash_attn_tc_kernel")
+# device operations of one wrapper call, all this repository's kernels:
+# cosine_sim one launch (its partials summed by the last block), afa_screen
+# three (the Gram partials; their reduce with the screen in its last block;
+# the aggregate), with no copy, fill or elementwise op from the wrappers
+DEVICE_OPS_PER_CALL = {"cosine_sim": ("cosine_sim_kernel",),
+                       "afa_screen": ("gram_tf32x3_kernel", "afa_reduce_screen_kernel",
+                                      "weighted_sum_kernel")}
 # published peaks: (HBM bytes/s, FP32 non-tensor FLOP/s, dense bf16 tensor
 # FLOP/s, dense TF32 tensor FLOP/s), NVIDIA data sheets (the dense rates are
 # half the sparse ones)
@@ -348,6 +362,7 @@ def kernel_phase(torch, ops, ref, peaks, lib):
     torch.cuda.synchronize()
     del a
     rows = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for K in KS:
         gen = torch.Generator(device=dev)
         gen.manual_seed(1000 + K)
@@ -373,7 +388,8 @@ def kernel_phase(torch, ops, ref, peaks, lib):
         rows.append(check_kernel(
             torch, "cosine_sim", K, lambda: ops.cosine_sim(U, w),
             lambda: ref.cosine_sim_ref(U, w), lambda: F.cosine_similarity(U, w[None]),
-            (kd + D + K) * f, 4 * kd + 2 * D, peaks, flush))
+            (kd + D + K) * f, 4 * kd + 2 * D, peaks, flush,
+            geometry=ops.cosine_geometry(K, D, U.data_ptr() | w.data_ptr(), sms)._asdict()))
         rows += gram_checks(torch, ops, ref, K, D, U, Us, pn, mask0, kw, peaks, flush)
         # rank kernels: the masked median's inputs hold multiples of 1/4, so
         # most columns have tied values and the tie-break by client index
@@ -412,7 +428,107 @@ def kernel_phase(torch, ops, ref, peaks, lib):
     rows += gram_checks(torch, ops, ref, K, D, U, Us, pn, mask0,
                         dict(xi0=2.0, delta_xi=0.5, max_rounds=8, ddof=0), peaks, flush)
     gram_edge_checks(torch, ops, ref, lib)
-    return rows
+    return rows, one_launch_checks(torch, ops, ref)
+
+
+def screening_inputs(torch, K, D, seed):
+    """U and w of the cosine, and the screening matrix Us (a benign cluster,
+    30 % byzantine rows), pn and mask0, on the card from one seed."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    U = torch.randn((K, D), generator=gen, device=dev)
+    w = torch.randn((D,), generator=gen, device=dev)
+    base = torch.randn((D,), generator=gen, device=dev)
+    Us = base + 0.3 * torch.randn((K, D), generator=gen, device=dev)
+    Us[:(3 * K) // 10] = base + 20.0 * torch.randn(((3 * K) // 10, D), generator=gen, device=dev)
+    pn = torch.rand((K,), generator=gen, device=dev) * 100 + 50
+    mask0 = torch.ones((K,), dtype=torch.bool, device=dev)
+    mask0[-1] = False
+    return U, w, Us.contiguous(), pn, mask0
+
+
+def device_ops(torch, fn):
+    """The names of the device operations (kernels, copies, fills) of one
+    call of ``fn``, traced with ``torch.profiler`` after a warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in sorted((e for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA),
+                                   key=lambda e: e.time_range.start)]
+
+
+def one_launch_checks(torch, ops, ref):
+    """The one-launch reductions of ``cosine_sim`` and ``afa_screen``: the
+    device operations of one call are exactly ``DEVICE_OPS_PER_CALL``'s (a
+    profiler trace; the first profiler run of a process records none, so
+    one runs first); two calls back to back on different inputs, and a call on
+    a side stream after one on the current stream, each held to its own
+    twin (RTOL per float output, ``good`` and ``rounds`` equal).  Between
+    calls the per-stream ticket counter must come back to 0, and two
+    streams must not share one.  Returns what was checked."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = dict(xi0=2.0, delta_xi=0.5, max_rounds=8, ddof=0)
+    shapes = [(MAIN_K, D_PAPER), GRAM_LORA_SHAPE]
+    ins = [screening_inputs(torch, K, D, 4000 + K) for K, D in shapes]
+    ins += [screening_inputs(torch, K, D, 5000 + K) for K, D in shapes]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones((1,), device="cuda").sum()
+        torch.cuda.synchronize()
+    U, w, Us, pn, mask0 = ins[0]
+    calls = {"cosine_sim": lambda: ops.cosine_sim(U, w),
+             "afa_screen": lambda: ops.afa_screen(Us, pn, mask0, **kw)}
+    report = {"device_ops_per_call": {}, "within_twin": []}
+    for name, fn in calls.items():
+        names = device_ops(torch, fn)
+        want = DEVICE_OPS_PER_CALL[name]
+        if len(names) != len(want) or not all(k in n for k, n in zip(want, names)):
+            raise AssertionError(f"{name}: one call made the device operations {names}, "
+                                 f"expected exactly {want}")
+        report["device_ops_per_call"][name] = [n[:90] for n in names]
+        print(f"kernel {name:19s} one call = {len(names)} device op(s): "
+              + ", ".join(n.split("(")[0][-40:] for n in names))
+
+    def held(label, name, K, out, x):
+        U, w, Us, pn, mask0 = x
+        twin = (ref.cosine_sim_ref(U, w) if name == "cosine_sim"
+                else ref.afa_screen_ref(Us, pn, mask0, **kw))
+        out_t = out if isinstance(out, tuple) else (out,)
+        checks = hold_to_twin(torch, name, K, out_t,
+                              twin if isinstance(twin, tuple) else (twin,), RTOL, "twin")
+        report["within_twin"].append({"kernel": name, "K": K, "call": label, "checks": checks})
+        print(f"kernel {name:19s} K={K:3d} {label}: within the twin")
+
+    def both(x):
+        U, w, Us, pn, mask0 = x
+        return ops.cosine_sim(U, w), ops.afa_screen(Us, pn, mask0, **kw)
+
+    # back to back: four calls of each kernel on four inputs, one sync
+    outs = [both(x) for x in ins]
+    torch.cuda.synchronize()
+    for x, (cos, scr), (K, _) in zip(ins, outs, shapes * 2):
+        held("back to back", "cosine_sim", K, cos, x)
+        held("back to back", "afa_screen", K, scr, x)
+    # one call on the current stream, then one on a side stream that does not
+    # wait for it, so that the two may run at once
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    first = both(ins[0])
+    with torch.cuda.stream(side):
+        second = both(ins[2])
+    torch.cuda.synchronize()
+    for label, x, (cos, scr) in (("current stream", ins[0], first),
+                                 ("side stream", ins[2], second)):
+        held(label, "cosine_sim", MAIN_K, cos, x)
+        held(label, "afa_screen", MAIN_K, scr, x)
+    return report
 
 
 def gram_edge_checks(torch, ops, ref, lib):
@@ -496,8 +612,12 @@ def gram_checks(torch, ops, ref, K, D, U, Us, pn, mask0, kw, peaks, flush):
     The bound counts the 3K(K+1)D TF32 operations the kernel runs beside the
     bytes; ``bound_ms_fp32`` is the same work's FP32 bound."""
     kd, f = K * D, 4
-    sms = torch.cuda.get_device_properties(U.device).multi_processor_count
+    props = torch.cuda.get_device_properties(U.device)
+    sms = props.multi_processor_count
     geo = ops.gram_geometry(K, D, U.data_ptr(), sms)._asdict()
+    # afa_screen reads U twice (the Gram pass, the aggregate pass): from
+    # device memory both times where U is larger than L2, else once
+    passes = 2 if kd * f > props.L2_cache_size else 1
     return [
         check_kernel(torch, "gram", K, lambda: ops.gram(U), lambda: ref.gram_ref(U),
                      lambda: U @ U.T, (kd + K * K) * f, 0, peaks, flush, D=D,
@@ -505,7 +625,7 @@ def gram_checks(torch, ops, ref, K, D, U, Us, pn, mask0, kw, peaks, flush):
                      arith_twin=lambda: ref.gram_3xtf32_ref(U), geometry=geo),
         check_kernel(torch, "afa_screen", K, lambda: ops.afa_screen(Us, pn, mask0, **kw),
                      lambda: ref.afa_screen_ref(Us, pn, mask0, **kw), None,
-                     (kd + 2 * K + D + 3 * K + 1) * f, 2 * kd, peaks, flush, D=D,
+                     (passes * kd + 2 * K + D + 3 * K + 1) * f, 2 * kd, peaks, flush, D=D,
                      tf32_flops=3 * K * (K + 1) * D,
                      arith_twin=lambda: ref.afa_screen_ref(
                          Us, pn, mask0, gram=ref.gram_3xtf32_ref(Us), **kw),
@@ -1157,7 +1277,7 @@ def main() -> None:
             print("    " + line.strip())
     lib = build.load_library()
 
-    kernel_rows = kernel_phase(torch, ops, ref, peaks, lib)
+    kernel_rows, one_launch = kernel_phase(torch, ops, ref, peaks, lib)
     runs, launches = main_path_phase(torch, ops, min_rounds_to_block)
     baseline_runs, baseline_launches = baselines_phase(torch, ops)
     unmasked_rows, unmasked_launches = unmasked_phase(torch, ops)
@@ -1199,9 +1319,10 @@ def main() -> None:
         "nvidia_smi": smi, "device": name, "torch": torch.__version__,
         "peaks": {"key": peak_key, "bytes_per_s": peaks[0], "fp32_flops": peaks[1],
                   "bf16_tensor_flops": peaks[2], "tf32_tensor_flops": peaks[3]},
-        "kernel_checks": kernel_rows, "main_path": runs, "baselines": baseline_runs,
-        "unmasked": unmasked_rows, "flash_attn_checks": attn_rows, "forward": forward_rows,
-        "lora": lora_runs, "lora_round_dump": lora_dump, "launches": launches, "profile": traces,
+        "kernel_checks": kernel_rows, "one_launch_checks": one_launch, "main_path": runs,
+        "baselines": baseline_runs, "unmasked": unmasked_rows, "flash_attn_checks": attn_rows,
+        "forward": forward_rows, "lora": lora_runs, "lora_round_dump": lora_dump,
+        "launches": launches, "profile": traces,
     }, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,12 +35,11 @@ _F = ctypes.c_float
 
 # C signatures of the library (the SOURCES in csrc/): name -> argtypes
 SIGNATURES = {
-    "repro_cosine_nsplit": (_L,),
     "repro_screen_max_k": (),
     "repro_weighted_sum": (_P, _P, _P, _I, _L, _P),
-    "repro_cosine_sim": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P),
+    "repro_cosine_sim": (_P, _P, _P, _P, _P, _I, _L, _I, _L, _I, _P),
     "repro_gram": (_P, _P, _P, _I, _L, _I, _I, _L, _I, _P),
-    "repro_afa_screen": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "repro_afa_screen": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _L, _I, _I, _L, _I, _F, _F, _I, _I, _P),
     "repro_rank_max_k": (),
     "repro_coord_median": (_P, _P, _P, _I, _L, _P),

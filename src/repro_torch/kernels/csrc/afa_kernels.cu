@@ -17,8 +17,12 @@
 // block, `+=` on every d-step).  A CUDA grid runs its blocks in parallel and
 // in no order, so every cross-block reduction here is split in two: blocks
 // over D slices write their partial sums to scratch the caller allocates, and
-// a second stage sums the partials in a fixed order.  There are no float
-// atomics, so two runs on the same inputs are bit-identical.
+// a second stage sums the partials in a fixed order.  For the cosine and the
+// screen the second stage runs in the same launch: each block, after its
+// partials, draws a ticket from an integer counter, and the block that draws
+// the last one runs it (LastBlock).  There are no float atomics, and which
+// block is last changes no sum, so two runs on the same inputs are
+// bit-identical.
 //
 // Every function has a plain C interface (loaded with ctypes), launches on the
 // stream it is given, allocates nothing, and returns cudaGetLastError() after
@@ -31,8 +35,7 @@ namespace {
 
 constexpr float kEps = 1e-12f;   // EPS of core/afa.py and kernels/ops.py
 constexpr int kThreads = 256;    // threads of every multi-block kernel
-constexpr int kChunk = 2048;     // D columns per block of the cosine parts
-constexpr int kScreenThreads = 1024;  // one CTA: the most threads a block may have
+constexpr int kScreenLoads = 16; // loads of G a thread of the block screen keeps in flight
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
@@ -43,97 +46,287 @@ __device__ __forceinline__ float warp_sum(float v) {
 // ... in turn, then the shuffle tree; the order depends on n only, so the
 // result is the same on every run.  Valid in lane 0.  Every partial-sum
 // buffer below is laid out entry-major (all splits of one entry contiguous),
-// so these reads are coalesced.
+// so these reads are coalesced.  The loads go through L2 (ld.global.cg):
+// the partials may have been written by other blocks of the same launch.
 __device__ __forceinline__ float warp_ordered_sum(const float* __restrict__ p, int n, int lane) {
   float s = 0.f;
 #pragma unroll 8
-  for (int i = lane; i < n; i += 32) s += p[i];
+  for (int i = lane; i < n; i += 32) s += __ldcg(p + i);
   return warp_sum(s);
+}
+
+// Sum over the warp of N values per lane (N a power of two <= 32) in 31
+// shuffles: the lane bits that index no value are added first, then each
+// step halves the values a lane keeps (the lanes with bit s set keep the
+// upper half and send the lower).  Lane l returns the sum of value l % N.
+// The order is fixed by the lane layout, so reruns are bit-identical.
+template <int N>
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[N], int lane) {
+#pragma unroll
+  for (int s = 16; s >= N; s >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], s);
+#pragma unroll
+  for (int s = N / 2; s >= 1; s >>= 1) {
+    const bool upper = (lane & s) != 0;
+#pragma unroll
+    for (int i = 0; i < s; ++i) {
+      const float send = upper ? v[i] : v[i + s];
+      const float keep = upper ? v[i + s] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, s);
+    }
+  }
+  return v[0];
+}
+
+// The second stage of a one-launch reduction.  Every thread calls it after
+// its last store of partials; it returns true in every thread of the one
+// block that drew the last ticket, whose loads (ld.global.cg) then see every
+// block's partials.  The fence before the ticket publishes this block's
+// stores; the fence after it orders the last block's loads after them.  The
+// last block must call release() when it is done: the counter is then 0
+// again for the next launch on the stream (ops.py keeps one counter per
+// stream, since launches on two streams may run at once and would draw from
+// one counter each other's tickets).
+struct LastBlock {
+  unsigned int* ticket;
+  __device__ __forceinline__ bool draw() const {
+    __shared__ bool last;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+    __syncthreads();
+    if (last) __threadfence();
+    return last;
+  }
+  __device__ __forceinline__ void release() const {
+    if (threadIdx.x == 0) *ticket = 0u;
+  }
+};
+
+// W bytes of floats (W = 16, 8 or 4) from p, which is W-aligned; the loads
+// of the streaming kernels.
+template <int W>
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[W / 4]) {
+  if constexpr (W == 16) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+  } else if constexpr (W == 8) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = t.x; x[1] = t.y;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[W / 4]) {
+  if constexpr (W == 16) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (W == 8) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    p[0] = x[0];
+  }
 }
 
 // ---------------------------------------------------------------------------
 // weighted sum: out[j] = sum_k c[k] * u[k, j]
 //
-// Bound by bytes: every element of u is read once.  One thread owns one
-// output column and walks k in ascending order, so no second stage is
-// needed; neighbouring threads read neighbouring addresses of each row.
+// Replaces src/repro/kernels/weighted_sum.py:30 weighted_sum, and is the
+// aggregate pass of afa_screen.  Bound by bytes: every element of u is read
+// once.  A thread owns groups of W / 4 neighbouring columns (W = 16, 8 or 4
+// bytes, the widest load U's pointer, the output's and D allow) and walks k
+// in ascending order, one fmaf per element, so no second stage is needed and
+// the sums depend neither on W nor on the grid.  It loads
+// kSumRows rows of its group before their FMAs, so that many independent
+// loads are in flight.  The grid is as many blocks as the card holds at once
+// (launch_weighted_sum), each thread striding over the groups, so no second
+// wave runs part-empty.
 // ---------------------------------------------------------------------------
-__global__ void weighted_sum_kernel(const float* __restrict__ c,
-                                    const float* __restrict__ u,
-                                    float* __restrict__ out, int K, long long D) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= D) return;
-  float acc = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < K; ++k) acc = fmaf(__ldg(c + k), __ldg(u + (long long)k * D + j), acc);
-  out[j] = acc;
+constexpr int kSumRows = 8;
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+weighted_sum_kernel(const float* __restrict__ c, const float* __restrict__ u,
+                    float* __restrict__ out, int K, long long D) {
+  constexpr int V = W / 4;
+  const long long groups = D / V;
+  for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x; g < groups;
+       g += (long long)gridDim.x * kThreads) {
+    const float* p = u + g * V;
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+    for (int r0 = 0; r0 < K; r0 += kSumRows) {
+      float x[kSumRows][V];
+#pragma unroll
+      for (int i = 0; i < kSumRows; ++i)
+        if (r0 + i < K) load_vec<W>(p + (long long)(r0 + i) * D, x[i]);
+#pragma unroll
+      for (int i = 0; i < kSumRows; ++i) {
+        if (r0 + i < K) {
+          const float ck = __ldg(c + r0 + i);
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = fmaf(ck, x[i][v], acc[v]);
+        }
+      }
+    }
+    store_vec<W>(out + g * V, acc);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // cosine similarity: s_k = <u_k, w> / (sqrt(max(|u_k|^2, EPS)) sqrt(max(|w|^2, EPS)))
 //
-// Stage 1: block b owns columns [b * kChunk, (b + 1) * kChunk).  Its slice of
-// w is staged in shared memory once; each warp walks whole rows of the slice
-// (lanes on neighbouring columns) and reduces with shuffles, writing the
-// partial dots and squared norms.  Stage 2 (one block) sums the partials in a
-// fixed order and divides.
+// Replaces src/repro/kernels/cosine_sim.py:49 cosine_sim_parts (and the
+// divide of repro/kernels/ops.py cosine_sim).  Bound by the bytes of U and w,
+// one launch.  What the design does about it:
+//
+// * The grid comes from the card's SM count (ops.cosine_geometry): block b
+//   owns the columns [b chunk, (b + 1) chunk), kCosineBlocksPerSM blocks of
+//   kCosineThreads per SM, all resident at once (the launch bounds hold each
+//   thread to 64 registers), so the whole of D is in one wave of 32 warps an
+//   SM.
+// * A thread owns groups of W / 4 columns (W = 16, 8 or 4 bytes: the widest
+//   load that U's and w's pointers and D allow).  It loads w for a group
+//   once per row block and then the group's elements of RB rows (4 at
+//   W = 16, else 8: 64 or 32 bytes a thread, within 64 registers) before
+//   the FMAs, so that many independent loads are in flight; larger K loops
+//   over row blocks.
+// * Each row block's 2 RB sums (dots and squared norms) go through one
+//   31-shuffle transpose reduction per warp, then the warps' values in warp
+//   order, into the partials: row 2k holds client k's dots, row 2k + 1 its
+//   squared norms, row 2K |w|^2, each row nsplit floats padded with zeros to
+//   a multiple of 4 (pstride), so the last block reads them as float4.
+// * The last block (LastBlock) sums each row in a fixed order, a warp per
+//   row and two rows at once, and divides, with the EPS clamp on the
+//   SQUARED norms.
 // ---------------------------------------------------------------------------
-__global__ void cosine_parts_kernel(const float* __restrict__ u, const float* __restrict__ w,
-                                    float* __restrict__ pdot, float* __restrict__ pun,
-                                    float* __restrict__ pwn, int K, long long D) {
-  __shared__ float ws[kChunk];
-  const int b = blockIdx.x;
-  const long long j0 = (long long)b * kChunk;
-  const long long j1 = (j0 + kChunk < D) ? j0 + kChunk : D;
-  const int n = (int)(j1 - j0);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) ws[t] = w[j0 + t];
-  __syncthreads();
-  for (int k = warp; k < K; k += nwarps) {
-    const float* row = u + (long long)k * D + j0;
-    float dot = 0.f, sq = 0.f;
-    for (int t = lane; t < n; t += 32) {
-      const float x = __ldg(row + t);
-      dot = fmaf(x, ws[t], dot);
-      sq = fmaf(x, x, sq);
-    }
-    dot = warp_sum(dot);
-    sq = warp_sum(sq);
-    if (lane == 0) {
-      pdot[(long long)k * gridDim.x + b] = dot;
-      pun[(long long)k * gridDim.x + b] = sq;
-    }
+constexpr int kCosineThreads = 512;
+constexpr int kCosineBlocksPerSM = 2;  // ops.COSINE_CTAS_PER_SM
+
+// Fixed-order sums of rows p and q (n floats each, n a multiple of 4,
+// 16-byte aligned) by one warp, their float4 loads in flight together:
+// lane l adds float4s l, l + 32, ... in turn, then the shuffle tree.  Valid
+// in lane 0.
+__device__ __forceinline__ void warp_ordered_sum4x2(const float* __restrict__ p,
+                                                    const float* __restrict__ q, int n, int lane,
+                                                    float& sp, float& sq) {
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+  const float4* q4 = reinterpret_cast<const float4*>(q);
+  float a = 0.f, b = 0.f;
+#pragma unroll 4
+  for (int i = lane; i < n / 4; i += 32) {
+    const float4 x = __ldcg(p4 + i);
+    const float4 y = __ldcg(q4 + i);
+    a += x.x; a += x.y; a += x.z; a += x.w;
+    b += y.x; b += y.y; b += y.z; b += y.w;
   }
-  if (warp == 0) {
-    float s = 0.f;
-    for (int t = lane; t < n; t += 32) s = fmaf(ws[t], ws[t], s);
-    s = warp_sum(s);
-    if (lane == 0) pwn[b] = s;
-  }
+  sp = warp_sum(a);
+  sq = warp_sum(b);
 }
 
-// Stage 2, one block: |w|^2 first, then per client the dot and |u_k|^2, each
-// a fixed-order warp sum over the splits, and the similarity with the EPS
-// clamp on the SQUARED norms (the divide of repro/kernels/ops.py cosine_sim).
-__global__ void cosine_reduce_kernel(const float* __restrict__ pdot, const float* __restrict__ pun,
-                                     const float* __restrict__ pwn, float* __restrict__ sims,
-                                     int K, int nsplit) {
-  __shared__ float wnorm;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+template <int W>
+__global__ void __launch_bounds__(kCosineThreads, kCosineBlocksPerSM)
+cosine_sim_kernel(const float* __restrict__ u, const float* __restrict__ w,
+                  float* __restrict__ part, float* __restrict__ sims, LastBlock lb, int K,
+                  long long D, long long chunk) {
+  constexpr int V = W / 4;
+  constexpr int RB = W == 16 ? 4 : 8;
+  constexpr int kWarps = kCosineThreads / 32;
+  __shared__ float red[kWarps][32];
+  const int nsplit = gridDim.x;
+  const int pstride = (nsplit + 3) & ~3;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long c0 = (long long)b * chunk;
+  const long long c1 = c0 + chunk < D ? c0 + chunk : D;
+  const int ngroups = (int)((c1 - c0) / V);
+  const float* wb = w + c0;
+  float wn = 0.f;
+  for (int r0 = 0; r0 < K; r0 += RB) {
+    float acc[2 * RB];  // dots of rows r0 + i, then their squared norms
+#pragma unroll
+    for (int i = 0; i < 2 * RB; ++i) acc[i] = 0.f;
+    const float* ub = u + (long long)r0 * D + c0;
+    for (int g = tid; g < ngroups; g += kCosineThreads) {
+      float wv[V];
+      load_vec<W>(wb + (long long)g * V, wv);
+      float x[RB][V];
+      const float* p = ub + (long long)g * V;
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        if (r0 + i < K) {
+          load_vec<W>(p, x[i]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) x[i][v] = 0.f;
+        }
+        p += D;
+      }
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          acc[i] = fmaf(x[i][v], wv[v], acc[i]);
+          acc[RB + i] = fmaf(x[i][v], x[i][v], acc[RB + i]);
+        }
+      if (r0 == 0) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) wn = fmaf(wv[v], wv[v], wn);
+      }
+    }
+    red[warp][lane] = warp_transpose_sum<2 * RB>(acc, lane);
+    __syncthreads();
+    if (tid < 2 * RB) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) s += red[q][tid];
+      const int row = r0 + tid % RB;
+      if (row < K) part[(long long)(2 * row + (tid >= RB)) * pstride + b] = s;
+    }
+    __syncthreads();
+  }
+  wn = warp_sum(wn);
+  if (lane == 0) red[warp][0] = wn;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) s += red[q][0];
+    part[2LL * K * pstride + b] = s;
+  }
+  if (b == nsplit - 1)  // the rows' padding
+    for (int e = tid; e < (2 * K + 1) * (pstride - nsplit); e += kCosineThreads)
+      part[(long long)(e / (pstride - nsplit)) * pstride + nsplit + e % (pstride - nsplit)] = 0.f;
+  if (!lb.draw()) return;
+  // the last block: warp w sums rows 2k and 2k + 1 for clients k = w,
+  // w + kWarps, ... and, first of all, warp 0 row 2K; each sum goes back
+  // into its row's first slot, which only that warp reads
   if (warp == 0) {
-    const float wn = warp_ordered_sum(pwn, nsplit, lane);
-    if (lane == 0) wnorm = sqrtf(fmaxf(wn, kEps));
+    float s, again;  // the one row twice: the pair's second sum is not used
+    const float* row = part + 2LL * K * pstride;
+    warp_ordered_sum4x2(row, row, pstride, lane, s, again);
+    if (lane == 0) part[2LL * K * pstride] = sqrtf(fmaxf(s, kEps));
+  }
+  for (int k = warp; k < K; k += kWarps) {
+    float d, un;
+    warp_ordered_sum4x2(part + 2LL * k * pstride, part + (2LL * k + 1) * pstride, pstride, lane,
+                        d, un);
+    if (lane == 0) {
+      part[2LL * k * pstride] = d;
+      part[(2LL * k + 1) * pstride] = un;
+    }
   }
   __syncthreads();
-  for (int k = warp; k < K; k += nwarps) {
-    const float d = warp_ordered_sum(pdot + (long long)k * nsplit, nsplit, lane);
-    const float un = warp_ordered_sum(pun + (long long)k * nsplit, nsplit, lane);
-    if (lane == 0) sims[k] = d / __fmul_rn(sqrtf(fmaxf(un, kEps)), wnorm);
-  }
+  const float wnorm = __ldcg(part + 2LL * K * pstride);
+  for (int k = tid; k < K; k += kCosineThreads)
+    sims[k] = __ldcg(part + 2LL * k * pstride) /
+              __fmul_rn(sqrtf(fmaxf(__ldcg(part + (2LL * k + 1) * pstride), kEps)), wnorm);
+  lb.release();
 }
 
 // ---------------------------------------------------------------------------
@@ -485,36 +678,48 @@ gram_tf32x3_kernel(const float* __restrict__ u, float* __restrict__ pg, float* _
                             stage_rows);
 }
 
-// Stage 2, multi-CTA: one warp per upper entry e(i, j) sums its splits in a
-// fixed order and writes G[i, j] and G[j, i]; when pun is given, K more warps
-// sum the squared row norms and write rn[k] = sqrt of the sum.
-__global__ void gram_reduce_kernel(const float* __restrict__ pg, const float* __restrict__ pun,
-                                   float* __restrict__ g, float* __restrict__ rn, int K,
-                                   int nsplit) {
-  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// Stage 2, multi-CTA: warp w sums the splits of upper entry e(i, j) = w (and
+// of w plus the grid's warp count, ...) in a fixed order and writes G[i, j]
+// and G[j, i]; when pun is given, K more entries are the squared row norms,
+// written as rn[k] = sqrt of the sum.  The grid is at most what the card
+// holds at once (resident_grid).
+__device__ __forceinline__ void gram_reduce_body(const float* __restrict__ pg,
+                                                 const float* __restrict__ pun,
+                                                 float* __restrict__ g, float* __restrict__ rn,
+                                                 int K, int nsplit) {
   const int lane = threadIdx.x & 31;
   const long long ne = (long long)K * (K + 1) / 2;
-  if (w < ne) {
-    // row i of entry w: the largest i with tri_index(i, i, K) <= w
-    const double b = 2.0 * K + 1.0;
-    int i = (int)((b - sqrt(b * b - 8.0 * (double)w)) * 0.5);
-    i = i < 0 ? 0 : (i >= K ? K - 1 : i);
-    while (i > 0 && tri_index(i, i, K) > w) --i;
-    while (i + 1 < K && tri_index(i + 1, i + 1, K) <= w) ++i;
-    const int j = i + (int)(w - tri_index(i, i, K));
-    const float s = warp_ordered_sum(pg + w * nsplit, nsplit, lane);
-    if (lane == 0) {
-      g[(long long)i * K + j] = s;
-      g[(long long)j * K + i] = s;
+  const long long n = ne + (pun != nullptr ? K : 0);
+  const long long step = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; w < n; w += step) {
+    if (w < ne) {
+      // row i of entry w: the largest i with tri_index(i, i, K) <= w
+      const double b = 2.0 * K + 1.0;
+      int i = (int)((b - sqrt(b * b - 8.0 * (double)w)) * 0.5);
+      i = i < 0 ? 0 : (i >= K ? K - 1 : i);
+      while (i > 0 && tri_index(i, i, K) > w) --i;
+      while (i + 1 < K && tri_index(i + 1, i + 1, K) <= w) ++i;
+      const int j = i + (int)(w - tri_index(i, i, K));
+      const float s = warp_ordered_sum(pg + w * nsplit, nsplit, lane);
+      if (lane == 0) {
+        g[(long long)i * K + j] = s;
+        g[(long long)j * K + i] = s;
+      }
+    } else {
+      const long long k = w - ne;
+      const float s = warp_ordered_sum(pun + k * nsplit, nsplit, lane);
+      if (lane == 0) rn[k] = sqrtf(s);
     }
-  } else if (pun != nullptr && w < ne + K) {
-    const long long k = w - ne;
-    const float s = warp_ordered_sum(pun + k * nsplit, nsplit, lane);
-    if (lane == 0) rn[k] = sqrtf(s);
   }
 }
+
+__global__ void __launch_bounds__(kThreads)
+gram_reduce_kernel(const float* __restrict__ pg, float* __restrict__ g, int K, int nsplit) {
+  gram_reduce_body(pg, nullptr, g, nullptr, K, nsplit);
+}
+
 // ---------------------------------------------------------------------------
-// AFA screening (Algorithm 1) on one CTA
+// AFA screening (Algorithm 1) in the last block of the Gram reduce
 //
 // Mirror of `_screen` in src/repro/kernels/afa_screen.py: reputation weights
 // c = mask * pn / max(sum, EPS); similarities s = G c / (max(|u|, EPS) *
@@ -522,11 +727,24 @@ __global__ void gram_reduce_kernel(const float* __restrict__ pg, const float* __
 // broken by client index) and std; the tail picked by mean vs median;
 // xi += delta_xi each pass; a floor of 2 survivors; stop when nothing changes
 // or at max_rounds.  The O(K^2) work is tiny beside the (K, D) passes, so one
-// CTA runs it: G and the row norms come from gram_reduce_kernel; G stays in
-// global memory, where it is L2-resident; the K-vectors live in shared
-// memory.  Scalar reductions over K run on thread 0 in index order.
+// block runs it: the block of afa_reduce_screen_kernel that draws the last
+// ticket, once every block has written its entries of G and rn, so the
+// screen costs no launch of its own.  Up to kWarpScreenMaxK clients (both
+// main paths) one warp screens from registers (screen_warp), G copied into
+// shared memory; above, the whole block (screen_block), its K-vectors in
+// shared memory and G read through L1, which later passes hit (no block
+// reads G before the last block's fence, so L1 holds no stale line of it;
+// at K = 200 G's 160 KB in shared memory would leave the reduce one block
+// per SM).  Scalar reductions over K are chains in client-index order (on
+// thread 0, or in every lane of the warp alike), and every other loop over
+// clients computes each client's value alone, so on the same G both give
+// the bits of the earlier one-block kernel of 1,024 threads.
 // ---------------------------------------------------------------------------
+constexpr int kWarpScreenMaxK = 32;  // one warp screens up to 32 clients
+
+// The block screen's K-vectors in shared memory, and G in global memory.
 struct ScreenShared {
+  const float* G;
   float* rn;
   float* pn;
   float* c;
@@ -537,11 +755,20 @@ struct ScreenShared {
   int* rank;
 };
 
+// The scalar reductions over K run on thread 0 in client-index order, as a
+// chain of one rounded operation per client.  A dead client adds +0.0 in
+// place of being skipped: every such chain starts at +0.0 and, rounding to
+// nearest, can never reach -0.0, so x + 0.0 = x and the bits are those of
+// the chain that skips; without the branch the loads can run ahead of the
+// adds (kChainUnroll at a time).
+constexpr int kChainUnroll = 8;
+
 __device__ void screen_weights(const ScreenShared& sh, int K, float* scale) {
   for (int k = threadIdx.x; k < K; k += blockDim.x) sh.c[k] = sh.mask[k] ? sh.pn[k] : 0.f;
   __syncthreads();
   if (threadIdx.x == 0) {
     float tot = 0.f;
+#pragma unroll kChainUnroll
     for (int k = 0; k < K; ++k) tot = __fadd_rn(tot, sh.c[k]);
     *scale = fmaxf(tot, kEps);
   }
@@ -550,17 +777,28 @@ __device__ void screen_weights(const ScreenShared& sh, int K, float* scale) {
   __syncthreads();
 }
 
-__device__ void screen_sims(const ScreenShared& sh, const float* __restrict__ G, int K,
-                            float* agg_norm) {
+// gc = G c: thread i walks column i of G (G[j, i] = G[i, j], the same
+// values in the same order as row i), so a warp's reads are contiguous
+__device__ void screen_sims(const ScreenShared& sh, int K, float* agg_norm) {
   for (int i = threadIdx.x; i < K; i += blockDim.x) {
     float acc = 0.f;
-    const float* row = G + (long long)i * K;
-    for (int j = 0; j < K; ++j) acc = fmaf(row[j], sh.c[j], acc);
+    const float* col = sh.G + i;
+    // kScreenLoads loads in flight before their FMAs, kept in L1 for later passes
+    for (int j0 = 0; j0 < K; j0 += kScreenLoads) {
+      float g[kScreenLoads];
+#pragma unroll
+      for (int j = 0; j < kScreenLoads; ++j)
+        g[j] = j0 + j < K ? __ldca(col + (long long)(j0 + j) * K) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kScreenLoads; ++j)
+        if (j0 + j < K) acc = fmaf(g[j], sh.c[j0 + j], acc);
+    }
     sh.gc[i] = acc;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     float cgc = 0.f;
+#pragma unroll kChainUnroll
     for (int k = 0; k < K; ++k) cgc = fmaf(sh.c[k], sh.gc[k], cgc);
     *agg_norm = sqrtf(fmaxf(cgc, kEps));
   }
@@ -578,19 +816,17 @@ __device__ void screen_mark_bad(const ScreenShared& sh, int K, float xi, int ddo
   if (threadIdx.x == 0) {
     int m = 0;
     float sum = 0.f;
+#pragma unroll kChainUnroll
     for (int k = 0; k < K; ++k) {
-      if (sh.mask[k]) {
-        ++m;
-        sum = __fadd_rn(sum, sh.s[k]);
-      }
+      m += sh.mask[k];
+      sum = __fadd_rn(sum, sh.mask[k] ? sh.s[k] : 0.f);
     }
     const float mu = m > 0 ? sum / (float)(m > 1 ? m : 1) : 0.f;
     float var = 0.f;
+#pragma unroll kChainUnroll
     for (int k = 0; k < K; ++k) {
-      if (sh.mask[k]) {
-        const float d = __fsub_rn(sh.s[k], mu);
-        var = __fadd_rn(var, __fmul_rn(d, d));
-      }
+      const float d = __fsub_rn(sh.s[k], mu);
+      var = __fadd_rn(var, sh.mask[k] ? __fmul_rn(d, d) : 0.f);
     }
     const int denom = (m - ddof) > 1 ? (m - ddof) : 1;
     var = var / (float)denom;
@@ -602,10 +838,10 @@ __device__ void screen_mark_bad(const ScreenShared& sh, int K, float xi, int ddo
   for (int i = threadIdx.x; i < K; i += blockDim.x) {
     const float x = sh.s[i];
     int r = 0;
+#pragma unroll kChainUnroll
     for (int j = 0; j < K; ++j) {
-      if (!sh.mask[j]) continue;
       const float y = sh.s[j];
-      r += (y < x) || (y == x && j < i);
+      r += sh.mask[j] && ((y < x) || (y == x && j < i));
     }
     sh.rank[i] = r;
   }
@@ -615,9 +851,12 @@ __device__ void screen_mark_bad(const ScreenShared& sh, int K, float xi, int ddo
     const int lo = (m - 1) / 2 > 0 ? (m - 1) / 2 : 0;
     const int hi = m / 2 > 0 ? m / 2 : 0;
     float v_lo = 0.f, v_hi = 0.f;
+#pragma unroll kChainUnroll
     for (int k = 0; k < K; ++k) {
-      if (sh.mask[k] && sh.rank[k] == lo) v_lo = __fadd_rn(v_lo, sh.s[k]);
-      if (sh.mask[k] && sh.rank[k] == hi) v_hi = __fadd_rn(v_hi, sh.s[k]);
+      const bool live = sh.mask[k];
+      const float x = sh.s[k];
+      v_lo = __fadd_rn(v_lo, live && sh.rank[k] == lo ? x : 0.f);
+      v_hi = __fadd_rn(v_hi, live && sh.rank[k] == hi ? x : 0.f);
     }
     stats[2] = m > 0 ? __fmul_rn(0.5f, __fadd_rn(v_lo, v_hi)) : 0.f;
   }
@@ -636,6 +875,7 @@ __device__ void screen_mark_bad(const ScreenShared& sh, int K, float xi, int ddo
   __syncthreads();
   if (threadIdx.x == 0) {
     int keep = 0, any = 0;
+#pragma unroll kChainUnroll
     for (int k = 0; k < K; ++k) {
       keep += sh.mask[k] && !sh.bad[k];
       any |= sh.bad[k];
@@ -649,12 +889,123 @@ __device__ void screen_mark_bad(const ScreenShared& sh, int K, float xi, int ddo
   __syncthreads();
 }
 
-__global__ void afa_screen_kernel(const float* __restrict__ G, const float* __restrict__ rn,
-                                  const float* __restrict__ pn, const int* __restrict__ mask0,
-                                  float* __restrict__ weights, int* __restrict__ good,
-                                  int* __restrict__ rounds_out, float* __restrict__ sims, int K,
-                                  float xi0, float delta_xi, int max_rounds, int ddof) {
-  extern __shared__ float smem[];
+// Algorithm 1 by one warp for K <= 32 (both main paths: K = 10 for the
+// paper's DNN, 6 for LoRA): client k's values live in lane k's registers,
+// and each scalar reduction is taken by every lane alike over shuffles, in
+// client-index order, so all lanes hold the same bits and no barrier is
+// needed.  The operations and their order are those of screen_weights,
+// screen_sims and screen_mark_bad, so the outputs are theirs bit for bit.
+// The loops run over K, not unrolled: the code stays small, and it is
+// fetched cold when the kernel runs after other work (an unrolled form read
+// slower on an H100).  Gs is G in shared memory.
+__device__ void screen_warp(const float* Gs, const float* __restrict__ rn_g,
+                            const float* __restrict__ pn, const unsigned char* __restrict__ mask0,
+                            float* __restrict__ weights, unsigned char* __restrict__ good,
+                            int* __restrict__ rounds_out, float* __restrict__ sims, int K,
+                            float xi0, float delta_xi, int max_rounds, int ddof) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const bool in = lane < K;
+  const float rn = in ? __ldcg(rn_g + lane) : 0.f;
+  const float pnk = in ? pn[lane] : 0.f;
+  bool mask = in && mask0[lane] != 0;
+  float c = 0.f, s = 0.f;
+
+  auto weights_pass = [&]() {
+    c = mask ? pnk : 0.f;
+    float tot = 0.f;
+    for (int k = 0; k < K; ++k) tot = __fadd_rn(tot, __shfl_sync(kAll, c, k));
+    c = c / fmaxf(tot, kEps);
+  };
+  auto sims_pass = [&]() {
+    float gc = 0.f;
+    for (int j = 0; j < K; ++j) {
+      const float cj = __shfl_sync(kAll, c, j);
+      if (in) gc = fmaf(Gs[j * K + lane], cj, gc);  // G[j, lane] = G[lane, j]
+    }
+    float cgc = 0.f;
+    for (int k = 0; k < K; ++k)
+      cgc = fmaf(__shfl_sync(kAll, c, k), __shfl_sync(kAll, gc, k), cgc);
+    const float agg_norm = sqrtf(fmaxf(cgc, kEps));
+    s = in ? gc / __fmul_rn(fmaxf(rn, kEps), agg_norm) : 0.f;
+  };
+  // one screening pass: bit 0 this lane's bad flag, bit 1 whether any
+  // client was newly flagged (the block version's flags[1])
+  auto mark_bad = [&](float xi) {
+    const unsigned live = __ballot_sync(kAll, mask);
+    const int m = __popc(live);
+    float sum = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float x = __shfl_sync(kAll, s, k);
+      if ((live >> k) & 1u) sum = __fadd_rn(sum, x);
+    }
+    const float mu = m > 0 ? sum / (float)(m > 1 ? m : 1) : 0.f;
+    float var = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float x = __shfl_sync(kAll, s, k);
+      if ((live >> k) & 1u) {
+        const float d = __fsub_rn(x, mu);
+        var = __fadd_rn(var, __fmul_rn(d, d));
+      }
+    }
+    const int denom = (m - ddof) > 1 ? (m - ddof) : 1;
+    var = var / (float)denom;
+    const float sigma = sqrtf(fmaxf(var, 0.f));
+    int rank = 0;  // compare-count rank among live clients (ties broken by index)
+    for (int j = 0; j < K; ++j) {
+      const float y = __shfl_sync(kAll, s, j);
+      if ((live >> j) & 1u) rank += (y < s) || (y == s && j < lane);
+    }
+    const int lo = (m - 1) / 2 > 0 ? (m - 1) / 2 : 0;
+    const int hi = m / 2 > 0 ? m / 2 : 0;
+    float v_lo = 0.f, v_hi = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float x = __shfl_sync(kAll, s, k);
+      const int rk = __shfl_sync(kAll, rank, k);
+      if (((live >> k) & 1u) && rk == lo) v_lo = __fadd_rn(v_lo, x);
+      if (((live >> k) & 1u) && rk == hi) v_hi = __fadd_rn(v_hi, x);
+    }
+    const float mu_bar = m > 0 ? __fmul_rn(0.5f, __fadd_rn(v_lo, v_hi)) : 0.f;
+    const float band = __fmul_rn(xi, sigma);
+    const float lo_thr = __fsub_rn(mu_bar, band);
+    const float hi_thr = __fadd_rn(mu_bar, band);
+    const bool low = mu < mu_bar;
+    const bool bad = mask && (low ? (s < lo_thr) : (s > hi_thr));
+    if (__popc(__ballot_sync(kAll, mask && !bad)) < 2) return 0;
+    return (bad ? 1 : 0) | (__ballot_sync(kAll, bad) != 0u ? 2 : 0);
+  };
+
+  if (max_rounds == 0) {  // round-0 similarities: the loop never runs
+    weights_pass();
+    sims_pass();
+  }
+  float xi = xi0;
+  int rounds = 0;
+  bool changed = true;
+  while (changed && rounds < max_rounds) {
+    weights_pass();
+    sims_pass();
+    const int flags = mark_bad(xi);
+    changed = (flags & 2) != 0;
+    mask = mask && !(flags & 1);
+    xi = __fadd_rn(xi, delta_xi);
+    ++rounds;
+  }
+  weights_pass();
+  if (in) {
+    weights[lane] = c;
+    good[lane] = mask ? 1 : 0;
+    sims[lane] = s;
+  }
+  if (lane == 0) rounds_out[0] = rounds;
+}
+
+// The screen by the whole block, for K > kWarpScreenMaxK.
+__device__ void screen_block(float* smem, float* G, const float* __restrict__ rn,
+                             const float* __restrict__ pn, const unsigned char* __restrict__ mask0,
+                             float* __restrict__ weights, unsigned char* __restrict__ good,
+                             int* __restrict__ rounds_out, float* __restrict__ sims, int K,
+                             float xi0, float delta_xi, int max_rounds, int ddof) {
   ScreenShared sh;
   sh.rn = smem;
   sh.pn = smem + K;
@@ -664,12 +1015,13 @@ __global__ void afa_screen_kernel(const float* __restrict__ G, const float* __re
   sh.mask = reinterpret_cast<int*>(smem + 5 * K);
   sh.bad = sh.mask + K;
   sh.rank = sh.bad + K;
-  __shared__ float scalar[4];
+  sh.G = G;
+  __shared__ float scalar[2];
   __shared__ float stats[3];
   __shared__ int flags[2];
 
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    sh.rn[k] = rn[k];
+    sh.rn[k] = __ldcg(rn + k);
     sh.pn[k] = pn[k];
     sh.mask[k] = mask0[k] != 0;
     sh.s[k] = 0.f;
@@ -679,14 +1031,14 @@ __global__ void afa_screen_kernel(const float* __restrict__ G, const float* __re
   if (max_rounds == 0) {
     // round-0 similarities: the loop never runs
     screen_weights(sh, K, &scalar[0]);
-    screen_sims(sh, G, K, &scalar[1]);
+    screen_sims(sh, K, &scalar[1]);
   }
   float xi = xi0;
   int rounds = 0;
   int changed = 1;
   while (changed && rounds < max_rounds) {
     screen_weights(sh, K, &scalar[0]);
-    screen_sims(sh, G, K, &scalar[1]);
+    screen_sims(sh, K, &scalar[1]);
     screen_mark_bad(sh, K, xi, ddof, stats, flags);
     for (int k = threadIdx.x; k < K; k += blockDim.x) sh.mask[k] = sh.mask[k] && !sh.bad[k];
     changed = flags[1];
@@ -697,10 +1049,41 @@ __global__ void afa_screen_kernel(const float* __restrict__ G, const float* __re
   screen_weights(sh, K, &scalar[0]);
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     weights[k] = sh.c[k];
-    good[k] = sh.mask[k];
+    good[k] = sh.mask[k] ? 1 : 0;
     sims[k] = sh.s[k];
   }
   if (threadIdx.x == 0) rounds_out[0] = rounds;
+}
+
+// grid: one warp per upper entry of G and per row norm, at most what the
+// card holds at once, kThreads threads, dynamic shared memory 8 K floats
+// (+ K^2 for the warp screen).  One instantiation per screen (kWarp: K <=
+// kWarpScreenMaxK), so that neither's code is compiled beside the other's:
+// in one kernel, the block screen's passes at K = 200 read from ~20 to
+// ~60 us on an H100 as the warp screen's code changed around them.
+template <bool kWarp>
+__global__ void __launch_bounds__(kThreads)
+afa_reduce_screen_kernel(const float* __restrict__ pg, const float* __restrict__ pun,
+                         float* __restrict__ G, float* __restrict__ rn, LastBlock lb,
+                         const float* __restrict__ pn, const unsigned char* __restrict__ mask0,
+                         float* __restrict__ weights, unsigned char* __restrict__ good,
+                         int* __restrict__ rounds_out, float* __restrict__ sims, int K,
+                         int nsplit, float xi0, float delta_xi, int max_rounds, int ddof) {
+  gram_reduce_body(pg, pun, G, rn, K, nsplit);
+  if (!lb.draw()) return;
+  extern __shared__ float smem[];
+  if constexpr (kWarp) {  // one warp, G in shared memory
+    float* g = smem + 8 * K;
+    for (int e = threadIdx.x; e < K * K; e += blockDim.x) g[e] = __ldcg(G + e);
+    __syncthreads();
+    if (threadIdx.x < 32)
+      screen_warp(g, rn, pn, mask0, weights, good, rounds_out, sims, K, xi0, delta_xi,
+                  max_rounds, ddof);
+  } else {
+    screen_block(smem, G, rn, pn, mask0, weights, good, rounds_out, sims, K, xi0, delta_xi,
+                 max_rounds, ddof);
+  }
+  lb.release();
 }
 
 long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
@@ -718,6 +1101,22 @@ bool gram_geometry_ok(const float* u, int K, long long D, int tile_rows, int nsp
   return reinterpret_cast<uintptr_t>(u) % width == 0 && (D * 4) % width == 0;
 }
 
+// the geometry ops.cosine_geometry computed, checked the same way: a load
+// width that U's and w's pointers and D allow, a chunk of whole column groups,
+// and a split count that covers D exactly
+bool cosine_geometry_ok(const float* u, const float* w, int K, long long D, int nsplit,
+                        long long chunk, int width) {
+  if (K < 1 || D < 1 || nsplit < 1 || nsplit > 65535) return false;
+  if (width != 4 && width != 8 && width != 16) return false;
+  if (chunk < width / 4 || chunk % (width / 4) != 0) return false;
+  if ((long long)(nsplit - 1) * chunk >= D || (long long)nsplit * chunk < D) return false;
+  return reinterpret_cast<uintptr_t>(u) % width == 0 &&
+         reinterpret_cast<uintptr_t>(w) % width == 0 && (D * 4) % width == 0;
+}
+
+// the partial rows are read as float4
+bool cosine_part_ok(const float* part) { return reinterpret_cast<uintptr_t>(part) % 16 == 0; }
+
 template <int BT, int W>
 cudaError_t launch_gram_tf32x3(const float* u, float* pg, float* pun, int K, long long D,
                                int nsplit, long long chunk, cudaStream_t stream) {
@@ -734,85 +1133,158 @@ cudaError_t launch_gram_tf32x3(const float* u, float* pg, float* pun, int K, lon
   return cudaGetLastError();
 }
 
-// the Gram partials (and the squared row norms when pun is given), then
-// their multi-CTA reduce into g (and rn); the geometry is checked first
-cudaError_t launch_gram(const float* u, float* pg, float* pun, float* g, float* rn, int K,
-                        long long D, int tile_rows, int nsplit, long long chunk, int width,
-                        cudaStream_t stream) {
+// the Gram partials (and the squared row norms when pun is given); the
+// geometry is checked first
+cudaError_t launch_gram_partials(const float* u, float* pg, float* pun, int K, long long D,
+                                 int tile_rows, int nsplit, long long chunk, int width,
+                                 cudaStream_t stream) {
   if (!gram_geometry_ok(u, K, D, tile_rows, nsplit, chunk, width)) return cudaErrorInvalidValue;
-  cudaError_t err;
-  if (tile_rows == 16) {
-    err = width == 16 ? launch_gram_tf32x3<16, 16>(u, pg, pun, K, D, nsplit, chunk, stream)
-        : width == 8  ? launch_gram_tf32x3<16, 8>(u, pg, pun, K, D, nsplit, chunk, stream)
-                      : launch_gram_tf32x3<16, 4>(u, pg, pun, K, D, nsplit, chunk, stream);
-  } else {
-    err = width == 16 ? launch_gram_tf32x3<32, 16>(u, pg, pun, K, D, nsplit, chunk, stream)
-        : width == 8  ? launch_gram_tf32x3<32, 8>(u, pg, pun, K, D, nsplit, chunk, stream)
-                      : launch_gram_tf32x3<32, 4>(u, pg, pun, K, D, nsplit, chunk, stream);
-  }
+  if (tile_rows == 16)
+    return width == 16 ? launch_gram_tf32x3<16, 16>(u, pg, pun, K, D, nsplit, chunk, stream)
+         : width == 8  ? launch_gram_tf32x3<16, 8>(u, pg, pun, K, D, nsplit, chunk, stream)
+                       : launch_gram_tf32x3<16, 4>(u, pg, pun, K, D, nsplit, chunk, stream);
+  return width == 16 ? launch_gram_tf32x3<32, 16>(u, pg, pun, K, D, nsplit, chunk, stream)
+       : width == 8  ? launch_gram_tf32x3<32, 8>(u, pg, pun, K, D, nsplit, chunk, stream)
+                     : launch_gram_tf32x3<32, 4>(u, pg, pun, K, D, nsplit, chunk, stream);
+}
+
+// the widest load (16, 8 or 4 bytes) that u's and out's pointers and D allow
+int stream_width(const float* u, const float* out, long long D) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(out);
+  for (int w = 16; w > 4; w /= 2)
+    if (a % w == 0 && (D * 4) % w == 0) return w;
+  return 4;
+}
+
+// blocks of kThreads that cover `items` threads' work once, at most as many
+// as the card holds at once (the kernel's occupancy at `smem` bytes of
+// dynamic shared memory times the SM count)
+cudaError_t resident_grid(const void* kernel, long long items, size_t smem, unsigned* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
-  const long long warps = (long long)K * (K + 1) / 2 + (pun != nullptr ? K : 0);
-  gram_reduce_kernel<<<(unsigned)ceil_div(warps * 32, kThreads), kThreads, 0, stream>>>(
-      pg, pun, g, rn, K, nsplit);
+  const long long all = ceil_div(items, kThreads);
+  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *blocks = (unsigned)(all < cap ? all : cap);
+  return cudaSuccess;
+}
+
+template <int W>
+cudaError_t launch_weighted_sum_w(const float* c, const float* u, float* out, int K, long long D,
+                                  cudaStream_t stream) {
+  unsigned blocks = 0;
+  const cudaError_t err =
+      resident_grid((const void*)weighted_sum_kernel<W>, D / (W / 4), 0, &blocks);
+  if (err != cudaSuccess) return err;
+  weighted_sum_kernel<W><<<blocks, kThreads, 0, stream>>>(c, u, out, K, D);
   return cudaGetLastError();
 }
+
+cudaError_t launch_weighted_sum(const float* c, const float* u, float* out, int K, long long D,
+                                cudaStream_t stream) {
+  const int width = stream_width(u, out, D);
+  return width == 16 ? launch_weighted_sum_w<16>(c, u, out, K, D, stream)
+       : width == 8  ? launch_weighted_sum_w<8>(c, u, out, K, D, stream)
+                     : launch_weighted_sum_w<4>(c, u, out, K, D, stream);
+}
+
+template <int W>
+cudaError_t launch_cosine(const float* u, const float* w, float* part, float* sims,
+                          unsigned int* ticket, int K, long long D, int nsplit, long long chunk,
+                          cudaStream_t stream) {
+  cosine_sim_kernel<W><<<nsplit, kCosineThreads, 0, stream>>>(u, w, part, sims,
+                                                              LastBlock{ticket}, K, D, chunk);
+  return cudaGetLastError();
+}
+
+template <bool kWarp>
+cudaError_t launch_reduce_screen(const float* pg, const float* pun, float* G, float* rn,
+                                 unsigned int* ticket, const float* pn, const unsigned char* mask0,
+                                 float* weights, unsigned char* good, int* rounds, float* sims,
+                                 int K, int nsplit, float xi0, float delta_xi, int max_rounds,
+                                 int ddof, cudaStream_t stream) {
+  const size_t smem = (size_t)(8 * K + (kWarp ? K * K : 0)) * sizeof(float);
+  unsigned blocks = 0;
+  const cudaError_t err = resident_grid((const void*)afa_reduce_screen_kernel<kWarp>,
+                                        ((long long)K * (K + 1) / 2 + K) * 32, smem, &blocks);
+  if (err != cudaSuccess) return err;
+  afa_reduce_screen_kernel<kWarp><<<blocks, kThreads, smem, stream>>>(
+      pg, pun, G, rn, LastBlock{ticket}, pn, mask0, weights, good, rounds, sims, K, nsplit, xi0,
+      delta_xi, max_rounds, ddof);
+  return cudaGetLastError();
+}
+
+// largest K the screen holds in shared memory: 8 K-vectors in the 48 KB a
+// launch may ask for without opting in, beside its static shared scalars
+constexpr int kScreenMaxK = (48 * 1024 - 256) / (8 * (int)sizeof(float));
 
 }  // namespace
 
 extern "C" {
 
-// number of D splits (partial blocks) of the cosine parts; the caller sizes
-// its scratch with it
-int repro_cosine_nsplit(long long D) { return (int)ceil_div(D, kChunk); }
-
-// largest K the one-CTA screen holds in shared memory (8 K-vectors)
-int repro_screen_max_k() { return (48 * 1024) / (8 * (int)sizeof(float)); }
+// largest K the screen holds in shared memory (8 K-vectors)
+int repro_screen_max_k() { return kScreenMaxK; }
 
 int repro_weighted_sum(const float* c, const float* u, float* out, int K, long long D,
                        void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = (unsigned)ceil_div(D, kThreads);
-  weighted_sum_kernel<<<blocks, kThreads, 0, st>>>(c, u, out, K, D);
-  return (int)cudaGetLastError();
+  return (int)launch_weighted_sum(c, u, out, K, D, static_cast<cudaStream_t>(stream));
 }
 
-int repro_cosine_sim(const float* u, const float* w, float* pdot, float* pun, float* pwn,
-                     float* sims, int K, long long D, int nsplit, void* stream) {
+// one launch.  part holds 2 K + 1 rows of nsplit floats rounded up to a
+// multiple of 4, 16-byte aligned; ticket is the stream's counter, 0 at entry
+// and left at 0; the geometry is ops.cosine_geometry's
+int repro_cosine_sim(const float* u, const float* w, float* part, float* sims,
+                     unsigned int* ticket, int K, long long D, int nsplit, long long chunk,
+                     int width, void* stream) {
+  if (!cosine_geometry_ok(u, w, K, D, nsplit, chunk, width) || !cosine_part_ok(part))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cosine_parts_kernel<<<nsplit, kThreads, 0, st>>>(u, w, pdot, pun, pwn, K, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cosine_reduce_kernel<<<1, kThreads, 0, st>>>(pdot, pun, pwn, sims, K, nsplit);
-  return (int)cudaGetLastError();
+  return (int)(width == 16 ? launch_cosine<16>(u, w, part, sims, ticket, K, D, nsplit, chunk, st)
+             : width == 8  ? launch_cosine<8>(u, w, part, sims, ticket, K, D, nsplit, chunk, st)
+                           : launch_cosine<4>(u, w, part, sims, ticket, K, D, nsplit, chunk, st));
 }
 
 // two launches: the Gram partials and their reduce.  pg holds
 // K (K + 1) / 2 * nsplit floats; the geometry is ops.gram_geometry's
 int repro_gram(const float* u, float* pg, float* g, int K, long long D, int tile_rows,
                int nsplit, long long chunk, int width, void* stream) {
-  return (int)launch_gram(u, pg, nullptr, g, nullptr, K, D, tile_rows, nsplit, chunk, width,
-                          static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_gram_partials(u, pg, nullptr, K, D, tile_rows, nsplit, chunk, width,
+                                         st);
+  if (err != cudaSuccess) return (int)err;
+  unsigned blocks = 0;
+  err = resident_grid((const void*)gram_reduce_kernel, (long long)K * (K + 1) / 2 * 32, 0,
+                      &blocks);
+  if (err != cudaSuccess) return (int)err;
+  gram_reduce_kernel<<<blocks, kThreads, 0, st>>>(pg, g, K, nsplit);
+  return (int)cudaGetLastError();
 }
 
-// four launches: the Gram and row-norm partials, their reduce into G and rn,
-// the one-CTA screen, the weighted sum with the final weights.  pun holds
-// K * nsplit floats
-int repro_afa_screen(const float* u, const float* pn, const int* mask0, float* pg, float* pun,
-                     float* G, float* rn, float* weights, float* agg, int* good, int* rounds,
-                     float* sims, int K, long long D, int tile_rows, int nsplit, long long chunk,
-                     int width, float xi0, float delta_xi, int max_rounds, int ddof,
-                     void* stream) {
+// three launches: the Gram and row-norm partials; their reduce into G and rn
+// with the screen in its last block (weights, good, rounds, sims); the
+// weighted sum with the final weights into agg.  pun holds K * nsplit
+// floats; mask0 and good are one byte per client (torch.bool); ticket is the
+// stream's counter, 0 at entry and left at 0
+int repro_afa_screen(const float* u, const float* pn, const unsigned char* mask0, float* pg,
+                     float* pun, float* G, float* rn, float* weights, float* agg,
+                     unsigned char* good, int* rounds, float* sims, unsigned int* ticket, int K,
+                     long long D, int tile_rows, int nsplit, long long chunk, int width,
+                     float xi0, float delta_xi, int max_rounds, int ddof, void* stream) {
+  if (K > kScreenMaxK) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_gram(u, pg, pun, G, rn, K, D, tile_rows, nsplit, chunk, width, st);
+  cudaError_t err = launch_gram_partials(u, pg, pun, K, D, tile_rows, nsplit, chunk, width, st);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)8 * K * sizeof(float);
-  afa_screen_kernel<<<1, kScreenThreads, smem, st>>>(G, rn, pn, mask0, weights, good, rounds,
-                                                     sims, K, xi0, delta_xi, max_rounds, ddof);
-  err = cudaGetLastError();
+  err = K <= kWarpScreenMaxK
+            ? launch_reduce_screen<true>(pg, pun, G, rn, ticket, pn, mask0, weights, good, rounds,
+                                         sims, K, nsplit, xi0, delta_xi, max_rounds, ddof, st)
+            : launch_reduce_screen<false>(pg, pun, G, rn, ticket, pn, mask0, weights, good,
+                                          rounds, sims, K, nsplit, xi0, delta_xi, max_rounds,
+                                          ddof, st);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)ceil_div(D, kThreads);
-  weighted_sum_kernel<<<blocks, kThreads, 0, st>>>(weights, u, agg, K, D);
-  return (int)cudaGetLastError();
+  return (int)launch_weighted_sum(weights, u, agg, K, D, st);
 }
 
 }  // extern "C"

@@ -13,8 +13,11 @@ kernels.  Scratch for the split-D partial sums is allocated here with
 ``torch.empty``; the kernels allocate nothing.  The scratch is released
 when a wrapper returns, possibly before its kernels ran: PyTorch's caching
 allocator hands that memory out again only to later work on the same
-stream, which runs after them.  The ``_*_cuda`` functions take the bound
-library and the stream explicitly.
+stream, which runs after them.  ``cosine_sim`` and ``afa_screen`` sum their
+partials in the launch that wrote them: the block that draws the last
+ticket from an integer counter does it, and leaves the counter at 0
+(``_ticket``).  The ``_*_cuda`` functions take the bound library and the
+stream explicitly.
 """
 
 from __future__ import annotations
@@ -81,6 +84,25 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_TICKETS: dict = {}
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """The int32 counter from which the blocks of a ``cosine_sim`` or
+    ``afa_screen`` launch on ``stream`` draw their tickets; the block that
+    draws the last one sums the partials and sets the counter back to 0, so
+    it is 0 at every launch without a device operation of its own (it is
+    zeroed once, at its first use).  One counter per stream: launches on one
+    stream run one after the other, but launches on two streams may run at
+    once, and blocks of both drawing from one counter could take each
+    other's last ticket."""
+    key = (device.index, stream)
+    counter = _TICKETS.get(key)
+    if counter is None:
+        counter = _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=device)
+    return counter
+
+
 # ---------------------------------------------------------------------------
 # weighted sum  (replaces repro/kernels/weighted_sum.py:30 weighted_sum)
 # ---------------------------------------------------------------------------
@@ -116,7 +138,9 @@ def _weighted_sum_cuda(lib, stream, weights, updates):
 
 def cosine_sim(updates: torch.Tensor, agg: torch.Tensor) -> torch.Tensor:
     """(K, d), (d,) -> (K,) cosine similarities (f32); the divide clamps the
-    SQUARED norms at EPS, as ``repro/kernels/ops.py`` does."""
+    SQUARED norms at EPS, as ``repro/kernels/ops.py`` does.  On the card one
+    launch: blocks over column chunks write partial sums, and the block
+    that draws the last ticket sums them in a fixed order and divides."""
     _check_tensor("cosine_sim", "updates", updates, 2)
     _check_tensor("cosine_sim", "agg", agg, 1)
     if agg.shape[0] != updates.shape[1]:
@@ -130,18 +154,49 @@ def cosine_sim(updates: torch.Tensor, agg: torch.Tensor) -> torch.Tensor:
     return out
 
 
+COSINE_CTAS_PER_SM = 2      # blocks of the cosine kernel per multiprocessor (kCosineBlocksPerSM)
+COSINE_THREADS = 512        # threads of a cosine block (kCosineThreads)
+
+
+class CosineGeometry(NamedTuple):
+    """How the cosine kernel cuts a (K, D) operand, passed to the C entry,
+    which checks it against the operands."""
+
+    nsplit: int        # blocks, one column chunk each
+    chunk: int         # columns per block, whole groups of width / 4
+    width: int         # bytes per load: 16, 8 or 4
+
+
+def cosine_geometry(K: int, D: int, ptr: int, sms: int) -> CosineGeometry:
+    """The cosine kernel's geometry for a (K, D) f32 operand on a card with
+    ``sms`` multiprocessors; ``ptr`` is U's address OR w's (so its
+    alignment is the lesser of the two).
+
+    The widest load that ``ptr`` and the row length ``4 D`` bytes allow;
+    ``COSINE_CTAS_PER_SM`` blocks on each multiprocessor, each a chunk of
+    whole column groups, at least one group per thread (so a short D takes
+    fewer blocks); the split count is at most ``COSINE_CTAS_PER_SM * sms``."""
+    K, D = int(K), int(D)
+    if K < 1 or D < 1:
+        raise ValueError(f"cosine_sim: empty operand ({K}, {D})")
+    width = next(w for w in (16, 8, 4) if ptr % w == 0 and (4 * D) % w == 0)
+    v = width // 4
+    groups = max(_ceil_div(D // v, COSINE_CTAS_PER_SM * int(sms)), COSINE_THREADS)
+    chunk = groups * v
+    return CosineGeometry(_ceil_div(D, chunk), chunk, width)
+
+
 def _cosine_sim_cuda(lib, stream, updates, agg):
     K, D = updates.shape
-    nsplit = lib.repro_cosine_nsplit(D)
-    f32 = dict(dtype=torch.float32, device=updates.device)
-    pdot = torch.empty((K, nsplit), **f32)
-    pun = torch.empty((K, nsplit), **f32)
-    pwn = torch.empty((nsplit,), **f32)
-    sims = torch.empty((K,), **f32)
+    geo = cosine_geometry(K, D, updates.data_ptr() | agg.data_ptr(),
+                          _sm_count(updates.device.index))
+    npart = (2 * K + 1) * _ceil_div(geo.nsplit, 4) * 4   # rows padded for float4 reads
+    buf = torch.empty((npart + K,), dtype=torch.float32, device=updates.device)
+    part, sims = torch.split(buf, (npart, K))
     _check_rc("cosine_sim", lib.repro_cosine_sim(
-        updates.data_ptr(), agg.data_ptr(), pdot.data_ptr(), pun.data_ptr(),
-        pwn.data_ptr(), sims.data_ptr(),
-        K, D, nsplit, stream))
+        updates.data_ptr(), agg.data_ptr(), part.data_ptr(), sims.data_ptr(),
+        _ticket(updates.device, stream).data_ptr(),
+        K, D, geo.nsplit, geo.chunk, geo.width, stream))
     return sims
 
 
@@ -240,7 +295,10 @@ def afa_screen(updates: torch.Tensor, pn: torch.Tensor, mask0: torch.Tensor, *,
     good_mask (K,) bool, rounds () int32, sims (K,))``.
 
     ``pn`` is the (K,) weight vector ``p_k * n_k``, ``mask0`` the (K,)
-    initial participation (bool or integer)."""
+    initial participation (bool or integer; any nonzero entry is live).  On
+    the card three launches: the Gram and row-norm partials (3xTF32 on the
+    tensor cores); their reduce, whose last block runs the screen; the
+    weighted sum of U with the final weights."""
     _check_tensor("afa_screen", "updates", updates, 2)
     _check_tensor("afa_screen", "pn", pn, 1)
     K = updates.shape[0]
@@ -258,29 +316,39 @@ def afa_screen(updates: torch.Tensor, pn: torch.Tensor, mask0: torch.Tensor, *,
 
 def _afa_screen_cuda(lib, stream, updates, pn, mask0, *, xi0, delta_xi,
                      max_rounds, ddof):
+    """Three launches: the Gram partials, their reduce with the screen in
+    its last block, and the aggregate.  The kernels read ``mask0`` and write
+    ``good`` as one byte per client, torch.bool's storage, so a bool mask
+    costs no device operation here (an integer one is compared with 0
+    first)."""
     K, D = updates.shape
     max_k = lib.repro_screen_max_k()
     if K > max_k:
         raise ValueError(
-            f"afa_screen: K={K} clients exceed the {max_k} the one-CTA screen "
+            f"afa_screen: K={K} clients exceed the {max_k} the one-block screen "
             "holds in shared memory"
         )
+    if mask0.dtype != torch.bool:
+        mask0 = mask0 != 0
+    mask0 = mask0.contiguous()
     geo = _gram_geometry_for(updates)
-    dev = updates.device
-    # one float and one int buffer, carved into the kernels' scratch and outputs
-    sizes = (geo.nsplit * geo.entries, geo.nsplit * K, K * K, K, K, D, K)
-    buf = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
-    pg, pun, G, rn, weights, agg, sims = torch.split(buf, sizes)
-    ibuf = torch.empty((2 * K + 1,), dtype=torch.int32, device=dev)
-    m0, good, rounds = torch.split(ibuf, (K, K, 1))
-    m0.copy_(mask0)
+    # one buffer, carved into the outputs and the kernels' scratch: floats
+    # (agg first, at the allocation's alignment, for the aggregate's vector
+    # stores), the int32 round count, then one byte per client for good
+    sizes = (D, K, K, geo.nsplit * geo.entries, geo.nsplit * K, K * K, K, 1)
+    nfloat = sum(sizes)
+    buf = torch.empty((4 * nfloat + K,), dtype=torch.uint8, device=updates.device)
+    agg, sims, weights, pg, pun, G, rn, rounds = torch.split(
+        buf[:4 * nfloat].view(torch.float32), sizes)
+    rounds = rounds.view(torch.int32)
+    good = buf[4 * nfloat:].view(torch.bool)
     _check_rc("afa_screen", lib.repro_afa_screen(
-        updates.data_ptr(), pn.data_ptr(), m0.data_ptr(), pg.data_ptr(), pun.data_ptr(),
+        updates.data_ptr(), pn.data_ptr(), mask0.data_ptr(), pg.data_ptr(), pun.data_ptr(),
         G.data_ptr(), rn.data_ptr(), weights.data_ptr(), agg.data_ptr(), good.data_ptr(),
-        rounds.data_ptr(), sims.data_ptr(),
+        rounds.data_ptr(), sims.data_ptr(), _ticket(updates.device, stream).data_ptr(),
         K, D, geo.tile_rows, geo.nsplit, geo.chunk, geo.width, xi0, delta_xi, max_rounds,
         ddof, stream))
-    return agg, good != 0, rounds[0], sims
+    return agg, good, rounds[0], sims
 
 
 # ---------------------------------------------------------------------------

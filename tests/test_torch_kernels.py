@@ -207,9 +207,25 @@ def test_wrappers_check_their_operands():
                        delta_xi=0.5, max_rounds=1)
 
 
+def _ctype(decl):
+    """The ctypes type that passes a C parameter declared as ``decl``."""
+    import ctypes
+
+    if "*" in decl:
+        return ctypes.c_void_p
+    if "long long" in decl:
+        return ctypes.c_longlong
+    if "float" in decl:
+        return ctypes.c_float
+    assert re.search(r"\bint\b", decl), decl
+    return ctypes.c_int
+
+
 def test_ctypes_signatures_match_the_cuda_source():
     """Every C function the wrappers bind exists in the sources with the
-    declared number of parameters (a mismatch would pass garbage pointers)."""
+    declared parameters, kind by kind: a pointer as c_void_p, a long long as
+    c_longlong, a float as c_float, an int as c_int (a mismatch would pass
+    garbage pointers or cut a 64-bit value)."""
     src = "".join((build.CSRC / name).read_text() for name in build.SOURCES)
     found = {
         name: params for name, params in re.findall(
@@ -217,8 +233,8 @@ def test_ctypes_signatures_match_the_cuda_source():
     }
     assert set(found) == set(build.SIGNATURES)
     for name, params in found.items():
-        n = 0 if not params.strip() else params.count(",") + 1
-        assert n == len(build.SIGNATURES[name]), name
+        kinds = [_ctype(p) for p in params.split(",")] if params.strip() else []
+        assert kinds == list(build.SIGNATURES[name]), name
 
 
 def test_build_key_follows_the_source():
