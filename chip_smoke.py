@@ -16,12 +16,19 @@
    card could take (``bound_ms``; for the Gram kernels from the TF32 rate
    of the tensor cores, with the FP32 bound of the same work beside it;
    afa_screen's bytes count U twice where U is larger than L2, since its
-   aggregate pass reads U again after the Gram pass); then a profiler
-   trace of one call of each: cosine_sim is one device operation and
-   afa_screen three, none from the wrappers (``DEVICE_OPS_PER_CALL``); and
+   aggregate pass reads U again after the Gram pass); the trimmed mean
+   also bit for bit against the twin of its row-order sum
+   (``ref.trimmed_mean_rowsum_ref``); then a profiler trace of one call of
+   each: cosine_sim is one device operation, afa_screen three and each
+   rank wrapper one, none from the wrappers (``DEVICE_OPS_PER_CALL``); and
    calls back to back on different inputs, and on a side stream beside the
    current one, each held to its own twin (their partials are summed by
-   the launch's last block, which draws a per-stream ticket);
+   the launch's last block, which draws a per-stream ticket); the rank
+   kernels at edge shapes (``RANK_EDGE_KS``: both paths and the largest K
+   accepted, from a misaligned and an aligned view; all-dead, single-live
+   and empty-trim masks; tied, +-0.0 and +-inf columns) bit for bit against
+   their twins, a K above the largest refused, and broken plans refused by
+   the C entry;
 4. runs the paper's experiment through ``repro_torch.fed.api.run`` at full
    width (784 x 512 x 256 x 10 DNN, K = 10, 3 byzantine clients, 8 rounds)
    on each AFA kernel route, and checks that every byzantine client is
@@ -138,15 +145,20 @@ BASELINES = {
 SELECTING = ("mkrum", "bulyan")  # rules whose good_mask is a selection
 # device-side names of this repository's kernels
 OUR_KERNEL_NAMES = ("weighted_sum_kernel", "cosine_sim_kernel", "gram_tf32x3_kernel",
-                    "gram_reduce_kernel", "afa_reduce_screen_kernel", "rank_select_kernel",
-                    "flash_attn_tf32x3_kernel", "flash_attn_tc_kernel")
-# device operations of one wrapper call, all this repository's kernels:
-# cosine_sim one launch (its partials summed by the last block), afa_screen
-# three (the Gram partials; their reduce with the screen in its last block;
-# the aggregate), with no copy, fill or elementwise op from the wrappers
+                    "gram_reduce_kernel", "afa_reduce_screen_kernel", "rank_regs_kernel",
+                    "rank_select_kernel", "flash_attn_tf32x3_kernel", "flash_attn_tc_kernel")
+# device operations of one wrapper call at the main path's K, all this
+# repository's kernels: cosine_sim one launch (its partials summed by the
+# last block), afa_screen three (the Gram partials; their reduce with the
+# screen in its last block; the aggregate), each rank wrapper one (the
+# register path; a bool mask read in place), with no copy, fill or
+# elementwise op from the wrappers
 DEVICE_OPS_PER_CALL = {"cosine_sim": ("cosine_sim_kernel",),
                        "afa_screen": ("gram_tf32x3_kernel", "afa_reduce_screen_kernel",
-                                      "weighted_sum_kernel")}
+                                      "weighted_sum_kernel"),
+                       "coord_median": ("rank_regs_kernel",),
+                       "coord_median_masked": ("rank_regs_kernel",),
+                       "trimmed_mean": ("rank_regs_kernel",)}
 # published peaks: (HBM bytes/s, FP32 non-tensor FLOP/s, dense bf16 tensor
 # FLOP/s, dense TF32 tensor FLOP/s), NVIDIA data sheets (the dense rates are
 # half the sparse ones)
@@ -214,6 +226,13 @@ GRAM_EDGES = [(1, 7, 0), (3, 64, 0), (16, 1001, 0), (17, 4098, 0), (33, 4096, 0)
 # the LoRA round whose server_step inputs are kept and screened on every
 # route (1-indexed; ROADMAP C.6)
 LORA_DUMP_ROUND = 7
+# the rank kernels' edge cases, each output bit-identical to the twins (on
+# the CPU, where torch.sort keeps every element's bits): K on both sides of
+# the register path's buckets and of the selection path's border, up to the
+# largest K accepted; U at (D, byte offset of its data): 4-byte loads from a
+# misaligned view, the widest the bucket allows from an aligned one
+RANK_EDGE_KS = (1, 2, 3, 31, 32, 33, 64, 200, 1760)
+RANK_EDGE_LAYOUTS = ((4099, 4), (4100, 0))
 
 
 def fail(msg: str) -> None:
@@ -298,7 +317,7 @@ def hold_to_twin(torch, name, K, out_t, ref_t, rtol, twin):
 
 
 def check_kernel(torch, name, K, kern, plain, library, nbytes, flops, peaks, flush, *,
-                 D=D_PAPER, tf32_flops=0, arith_twin=None, geometry=None):
+                 D=D_PAPER, tf32_flops=0, arith_twin=None, arith_rtol=TC_RTOL, geometry=None):
     """Parity, run-to-run identity and times of one kernel at one shape.
 
     ``flops`` are FP32 operations on the CUDA cores and ``tf32_flops`` TF32
@@ -306,7 +325,7 @@ def check_kernel(torch, name, K, kern, plain, library, nbytes, flops, peaks, flu
     each kind of operations' time at its own peak, and where the kernel runs
     on the tensor cores the row also keeps the bound of the same work in FP32
     (``bound_ms_fp32``).  ``arith_twin`` is a second twin, of the kernel's own
-    arithmetic, held at ``TC_RTOL``."""
+    arithmetic, held at ``arith_rtol`` (0: bit for bit)."""
     out = kern()
     ref = plain()
     out_t = out if isinstance(out, tuple) else (out,)
@@ -316,7 +335,7 @@ def check_kernel(torch, name, K, kern, plain, library, nbytes, flops, peaks, flu
     if arith_twin is not None:
         tw = arith_twin()
         checks += hold_to_twin(torch, name, K, out_t, tw if isinstance(tw, tuple) else (tw,),
-                               TC_RTOL, "arithmetic twin")
+                               arith_rtol, "arithmetic twin")
         del tw
     again = kern()
     again_t = again if isinstance(again, tuple) else (again,)
@@ -394,9 +413,10 @@ def kernel_phase(torch, ops, ref, peaks, lib):
         # rank kernels: the masked median's inputs hold multiples of 1/4, so
         # most columns have tied values and the tie-break by client index
         # decides; the trimmed mean takes the normal values, whose sums show
-        # the summation order.  Operations counted as one per element (a
-        # selection needs no more), not the K^2 compares per column the
-        # kernel makes ("compares")
+        # the summation order, and is held to its row-order twin bit for bit
+        # beside the sort twin.  Operations counted as one per element (a
+        # selection needs no more); the masked calls' bytes count the live
+        # rows only, the rows the kernel reads
         live = torch.ones((K,), dtype=torch.bool, device=dev)
         live[torch.randperm(K, generator=gen, device=dev)[:DEAD]] = False
         Uq = torch.round(4.0 * U) / 4.0
@@ -404,16 +424,18 @@ def kernel_phase(torch, ops, ref, peaks, lib):
             torch, "coord_median", K, lambda: ops.coord_median(U),
             lambda: ref.coord_median_ref(U), lambda: torch.quantile(U, 0.5, dim=0),
             (kd + D) * f, kd, peaks, flush))
+        md = (K - DEAD) * D
         rows.append(check_kernel(
             torch, "coord_median_masked", K, lambda: ops.coord_median(Uq, live),
             lambda: ref.coord_median_ref(Uq, live), None,
-            (kd + D + K) * f, kd, peaks, flush))
+            (md + D + K) * f, md, peaks, flush))
         rows.append(check_kernel(
             torch, "trimmed_mean", K, lambda: ops.trimmed_mean(U, live, trim=TRIM),
             lambda: ref.trimmed_mean_ref(U, live, trim=TRIM), None,
-            (kd + D + K) * f, kd, peaks, flush))
+            (md + D + K) * f, md, peaks, flush,
+            arith_twin=lambda: ref.trimmed_mean_rowsum_ref(U, live, trim=TRIM), arith_rtol=0.0))
         for row in rows[-3:]:
-            row["compares"] = K * K * D
+            row["geometry"] = ops.rank_geometry(K, D, U.data_ptr(), sms)._asdict()
     # the LoRA adapters' shape, where the Gram kernel takes 16-byte copies
     K, D = GRAM_LORA_SHAPE
     gen = torch.Generator(device=dev)
@@ -465,10 +487,11 @@ def device_ops(torch, fn):
 
 
 def one_launch_checks(torch, ops, ref):
-    """The one-launch reductions of ``cosine_sim`` and ``afa_screen``: the
-    device operations of one call are exactly ``DEVICE_OPS_PER_CALL``'s (a
-    profiler trace; the first profiler run of a process records none, so
-    one runs first); two calls back to back on different inputs, and a call on
+    """The device operations of one call of ``cosine_sim``, ``afa_screen`` and
+    the three rank wrappers at the main path's K are exactly
+    ``DEVICE_OPS_PER_CALL``'s (a profiler trace; the first profiler run of a
+    process records none, so one runs first).  For the two one-launch
+    reductions, two calls back to back on different inputs, and a call on
     a side stream after one on the current stream, each held to its own
     twin (RTOL per float output, ``good`` and ``rounds`` equal).  Between
     calls the per-stream ticket counter must come back to 0, and two
@@ -484,7 +507,10 @@ def one_launch_checks(torch, ops, ref):
         torch.cuda.synchronize()
     U, w, Us, pn, mask0 = ins[0]
     calls = {"cosine_sim": lambda: ops.cosine_sim(U, w),
-             "afa_screen": lambda: ops.afa_screen(Us, pn, mask0, **kw)}
+             "afa_screen": lambda: ops.afa_screen(Us, pn, mask0, **kw),
+             "coord_median": lambda: ops.coord_median(U),
+             "coord_median_masked": lambda: ops.coord_median(U, mask0),
+             "trimmed_mean": lambda: ops.trimmed_mean(U, mask0, trim=TRIM)}
     report = {"device_ops_per_call": {}, "within_twin": []}
     for name, fn in calls.items():
         names = device_ops(torch, fn)
@@ -602,6 +628,124 @@ def refuses_bad_geometry(torch, lib, U, geo):
             raise AssertionError(f"repro_gram accepted {label} for U at {U.data_ptr():#x}, "
                                  f"D={D}")
     torch.cuda.synchronize()
+    return list(bad)
+
+
+def rank_edge_inputs(torch, K, D, seed):
+    """(K, D) on the CPU from a seed: normal values; an eighth of the columns
+    integers in [-2, 2] (ties), an eighth drawn from +-0.0, +-inf and +-1,
+    eight columns of one value each, one column all -0.0 and one of +0.0
+    and -0.0 mixed."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    u = torch.randn((K, D), generator=gen)
+    q = D // 8
+    u[:, :q] = torch.randint(-2, 3, (K, q), generator=gen).float()
+    specials = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), 1.0, -1.0])
+    u[:, q:2 * q] = specials[torch.randint(0, 6, (K, q), generator=gen)]
+    u[:, 2 * q:2 * q + 8] = torch.randn((1, 8), generator=gen)
+    u[:, -1] = -0.0
+    u[:, -2] = specials[torch.randint(0, 2, (K,), generator=gen)]
+    return u
+
+
+def rank_edge_masks(torch, K, seed):
+    """label -> (K,) bool mask: every row live, none, one, ``2 TRIM`` (the
+    trimmed mean's empty window) and about half."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    masks = {"all live": torch.ones(K, dtype=torch.bool),
+             "all dead": torch.zeros(K, dtype=torch.bool),
+             "one live": torch.arange(K) == K // 2}
+    masks["m = 2 trim"] = torch.zeros(K, dtype=torch.bool)
+    masks["m = 2 trim"][torch.randperm(K, generator=gen)[:2 * TRIM]] = True
+    masks["half live"] = torch.rand(K, generator=gen) < 0.5
+    return masks
+
+
+def rank_edge_checks(torch, ops, ref, lib):
+    """The rank kernels at ``RANK_EDGE_KS`` x ``RANK_EDGE_LAYOUTS`` and the
+    masks of ``rank_edge_masks``: the medians (with each mask, and without
+    one) bit-identical to ``ref.coord_median_ref`` and the trimmed mean to
+    ``ref.trimmed_mean_rowsum_ref``, the twins run on the CPU (a NaN, from
+    +inf and -inf in one sum, matches any NaN: its payload is the
+    device's); reruns bit-identical.  A K above ``repro_rank_max_k`` must
+    be refused with the ValueError, and the C entry must refuse plans that
+    the misaligned view breaks without launching.  Returns what was
+    checked."""
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    report = []
+
+    def bits(t):
+        return t.cpu().contiguous().view(torch.int32)
+
+    def differ(a, b):
+        return int(((bits(a) != bits(b)) & ~(a.cpu().isnan() & b.cpu().isnan())).sum())
+
+    for D, offset in RANK_EDGE_LAYOUTS:
+        for K in RANK_EDGE_KS:
+            u = rank_edge_inputs(torch, K, D, 6000 + K + D)
+            buf = torch.empty((K * D + 4,), dtype=torch.float32, device=dev)
+            U = buf[offset // 4:offset // 4 + K * D].view(K, D).copy_(u.to(dev))
+            geo = ops.rank_geometry(K, D, U.data_ptr(), sms)
+            cases = [("coord_median", "no mask", lambda: ops.coord_median(U),
+                      ref.coord_median_ref(u))]
+            for label, mask in rank_edge_masks(torch, K, 7000 + K).items():
+                md = mask.to(dev)
+                cases += [
+                    ("coord_median_masked", label, lambda md=md: ops.coord_median(U, md),
+                     ref.coord_median_ref(u, mask)),
+                    ("trimmed_mean", label, lambda md=md: ops.trimmed_mean(U, md, trim=TRIM),
+                     ref.trimmed_mean_rowsum_ref(u, mask, trim=TRIM)),
+                ]
+            for name, label, kern, twin in cases:
+                got = kern()
+                bad = differ(got, twin)
+                if bad:
+                    raise AssertionError(f"{name} K={K} D={D} offset={offset} [{label}]: {bad} "
+                                         "outputs differ from the twin's bits")
+                if not torch.equal(bits(got), bits(kern())):
+                    raise AssertionError(f"{name} K={K} D={D} [{label}]: two launches are not "
+                                         "bit-identical")
+            torch.cuda.synchronize()
+            report.append({"K": K, "D": D, "offset": offset, "geometry": geo._asdict(),
+                           "cases": [f"{n} [{lab}]" for n, lab, _, _ in cases]})
+            print(f"kernel rank K={K:4d} D={D} offset={offset}: bucket={geo.bucket} "
+                  f"blocks={geo.blocks} width={geo.width}; {len(cases)} calls bit-identical "
+                  "to the twins and on rerun")
+            if offset % 8 and K in (31, 200):
+                report[-1]["refused"] = refuses_bad_rank_plan(torch, lib, U, geo)
+            del U, buf
+    max_k = lib.repro_rank_max_k()
+    try:
+        ops.coord_median(torch.zeros((max_k + 1, 8), device=dev))
+    except ValueError as e:
+        print(f"kernel rank K={max_k + 1}: refused ({e})")
+    else:
+        raise AssertionError(f"coord_median accepted K={max_k + 1} > {max_k}")
+    return report
+
+
+def refuses_bad_rank_plan(torch, lib, U, geo):
+    """Call ``repro_coord_median`` with plans that break U and expect each one
+    refused with a nonzero code; returns their labels."""
+    K, D = U.shape
+    out = torch.empty((D,), device=U.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    bad = {f"width={w}": geo._replace(width=w) for w in (8, 16, 3)}
+    bad["bucket=16" if geo.bucket != 16 else "bucket=8"] = geo._replace(
+        bucket=16 if geo.bucket != 16 else 8)
+    bad["blocks+1" if geo.bucket == 0 else "blocks=0"] = geo._replace(
+        blocks=geo.blocks + 1 if geo.bucket == 0 else 0)
+    for label, b in bad.items():
+        rc = lib.repro_coord_median(U.data_ptr(), None, out.data_ptr(), K, D, b.bucket,
+                                    b.blocks, b.width, stream)
+        if rc == 0:
+            raise AssertionError(f"repro_coord_median accepted {label} for U at "
+                                 f"{U.data_ptr():#x}, K={K}, D={D}")
+    torch.cuda.synchronize()
+    print(f"kernel rank K={K:4d} D={D}: the C entry refuses {list(bad)}")
     return list(bad)
 
 
@@ -1278,6 +1422,7 @@ def main() -> None:
     lib = build.load_library()
 
     kernel_rows, one_launch = kernel_phase(torch, ops, ref, peaks, lib)
+    rank_edges = rank_edge_checks(torch, ops, ref, lib)
     runs, launches = main_path_phase(torch, ops, min_rounds_to_block)
     baseline_runs, baseline_launches = baselines_phase(torch, ops)
     unmasked_rows, unmasked_launches = unmasked_phase(torch, ops)
@@ -1319,7 +1464,8 @@ def main() -> None:
         "nvidia_smi": smi, "device": name, "torch": torch.__version__,
         "peaks": {"key": peak_key, "bytes_per_s": peaks[0], "fp32_flops": peaks[1],
                   "bf16_tensor_flops": peaks[2], "tf32_tensor_flops": peaks[3]},
-        "kernel_checks": kernel_rows, "one_launch_checks": one_launch, "main_path": runs,
+        "kernel_checks": kernel_rows, "one_launch_checks": one_launch,
+        "rank_edge_checks": rank_edges, "main_path": runs,
         "baselines": baseline_runs, "unmasked": unmasked_rows, "flash_attn_checks": attn_rows,
         "forward": forward_rows, "lora": lora_runs, "lora_round_dump": lora_dump,
         "launches": launches, "profile": traces,

@@ -42,8 +42,8 @@ SIGNATURES = {
     "repro_afa_screen": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _L, _I, _I, _L, _I, _F, _F, _I, _I, _P),
     "repro_rank_max_k": (),
-    "repro_coord_median": (_P, _P, _P, _I, _L, _P),
-    "repro_trimmed_mean": (_P, _P, _P, _I, _L, _I, _P),
+    "repro_coord_median": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
+    "repro_trimmed_mean": (_P, _P, _P, _I, _L, _I, _I, _I, _I, _P),
     "repro_flash_attn_max_d": (),
     "repro_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }

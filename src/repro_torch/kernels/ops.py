@@ -361,9 +361,9 @@ def coord_median(updates: torch.Tensor, mask: torch.Tensor | None = None) -> tor
     """(K, d) [+ (K,) mask] -> (d,) coordinate-wise median (f32).
 
     The median of the live rows, by compare-count rank with ties broken by
-    client index; 0 where no row is live.  K is never padded.  A call without
-    a mask counts as a ``coord_median`` launch, one with a mask as
-    ``coord_median_masked``."""
+    client index; 0 where no row is live.  K is never padded.  On the card
+    one launch (``rank_geometry``).  A call without a mask counts as a
+    ``coord_median`` launch, one with a mask as ``coord_median_masked``."""
     _check_tensor("coord_median", "updates", updates, 2)
     operands = (updates,)
     if mask is not None:
@@ -385,7 +385,10 @@ def coord_median(updates: torch.Tensor, mask: torch.Tensor | None = None) -> tor
 def trimmed_mean(updates: torch.Tensor, mask: torch.Tensor, *, trim: int) -> torch.Tensor:
     """(K, d), (K,) mask -> (d,) coordinate-wise trimmed mean (f32): the live
     values of rank ``trim <= r < m - trim`` averaged, or the masked mean when
-    the live count ``m <= 2 trim``."""
+    the live count ``m <= 2 trim``.  On the card the kernel adds the kept
+    values in ascending row order and divides once
+    (``ref.trimmed_mean_rowsum_ref`` is that arithmetic's twin); on the CPU:
+    the sort twin ``ref.trimmed_mean_ref``."""
     _check_tensor("trimmed_mean", "updates", updates, 2)
     _check_mask("trimmed_mean", "mask", mask, updates.shape[0])
     trim = int(trim)
@@ -398,22 +401,75 @@ def trimmed_mean(updates: torch.Tensor, mask: torch.Tensor, *, trim: int) -> tor
     return out
 
 
+RANK_THREADS = 256          # threads of a rank block (kRankThreads)
+RANK_REG_MAX_K = 32         # the register path's largest K (kRegMaxK)
+RANK_REG_MAX_VALUES = 64    # values a thread of the register path holds at most (kRegMaxValues)
+RANK_TILE = 32              # columns of a selection block's tile (kTile)
+
+
+class RankGeometry(NamedTuple):
+    """How the rank kernel cuts a (K, D) operand, passed to the C entries,
+    which check it against the operands."""
+
+    bucket: int        # rows a register-path thread holds: 8, 16 or 32; 0 on the selection path
+    blocks: int        # the grid
+    width: int         # bytes per load: 16, 8 or 4 (4 on the selection path)
+
+
+def _rank_ctas_per_sm(bucket: int, v: int) -> int:
+    """Blocks of the register path on one multiprocessor (the kernel's launch
+    bounds): four where ``bucket (v + 1) <= 48`` (a thread's values, with
+    room for its ranks and addresses within 64 registers), else two."""
+    return 4 if bucket * (v + 1) <= 48 else 2
+
+
+def rank_geometry(K: int, D: int, ptr: int, sms: int) -> RankGeometry:
+    """The rank kernel's plan for a (K, D) f32 operand on a card with ``sms``
+    multiprocessors; ``ptr`` is U's address OR the output's.
+
+    K <= ``RANK_REG_MAX_K``: the register path.  Rows in a bucket of 8, 16 or
+    32; the widest load that ``ptr`` and the row length ``4 D`` bytes allow
+    within ``RANK_REG_MAX_VALUES`` values a thread; as many blocks as stay
+    resident (``_rank_ctas_per_sm`` an SM), no more than one column group a
+    thread.  Above: the selection path, one block per ``RANK_TILE`` columns
+    and 4-byte copies."""
+    K, D = int(K), int(D)
+    if K < 1 or D < 1:
+        raise ValueError(f"rank: empty operand ({K}, {D})")
+    if K > RANK_REG_MAX_K:
+        return RankGeometry(0, _ceil_div(D, RANK_TILE), 4)
+    bucket = next(b for b in (8, 16, 32) if K <= b)
+    width = next(w for w in (16, 8, 4) if ptr % w == 0 and (4 * D) % w == 0
+                 and bucket * (w // 4) <= RANK_REG_MAX_VALUES)
+    v = width // 4
+    blocks = min(_ceil_div(D // v, RANK_THREADS), _rank_ctas_per_sm(bucket, v) * int(sms))
+    return RankGeometry(bucket, blocks, width)
+
+
 def _rank_cuda(op, lib, stream, updates, mask, *, trim=None):
-    """Launch the median (``trim`` None) or the trimmed mean; ``mask`` None
-    passes a null pointer (every row live)."""
+    """One launch of the median (``trim`` None) or the trimmed mean, on
+    ``rank_geometry``'s plan.  The kernel reads the mask as one byte per
+    client, torch.bool's storage, so a bool mask costs no device operation
+    here (an integer one is compared with 0 first); ``mask`` None passes a
+    null pointer (every row live)."""
     K, D = updates.shape
     max_k = lib.repro_rank_max_k()
     if K > max_k:
         raise ValueError(f"{op}: K={K} clients exceed the {max_k} a 32-column "
                          "shared-memory tile holds")
     out = torch.empty((D,), dtype=torch.float32, device=updates.device)
-    m32 = None if mask is None else mask.to(torch.int32).contiguous()
-    mptr = None if m32 is None else m32.data_ptr()
+    if mask is not None:
+        if mask.dtype != torch.bool:
+            mask = mask != 0
+        mask = mask.contiguous()
+    mptr = None if mask is None else mask.data_ptr()
+    geo = rank_geometry(K, D, updates.data_ptr() | out.data_ptr(),
+                        _sm_count(updates.device.index))
+    plan = (geo.bucket, geo.blocks, geo.width, stream)
     if trim is None:
-        rc = lib.repro_coord_median(updates.data_ptr(), mptr, out.data_ptr(), K, D, stream)
+        rc = lib.repro_coord_median(updates.data_ptr(), mptr, out.data_ptr(), K, D, *plan)
     else:
-        rc = lib.repro_trimmed_mean(updates.data_ptr(), mptr, out.data_ptr(), K, D, trim,
-                                    stream)
+        rc = lib.repro_trimmed_mean(updates.data_ptr(), mptr, out.data_ptr(), K, D, trim, *plan)
     _check_rc(op, rc)
     return out
 

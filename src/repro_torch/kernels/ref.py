@@ -4,12 +4,14 @@ Each twin computes the same function as the JAX package's ``kernels/ops.py``
 wrapper of the corresponding Pallas kernel, EPS rules included.  The ops
 wrappers take the twin for CPU tensors; ``chip_smoke.py`` holds each CUDA
 kernel against its twin on the card.  ``flash_attention_tc_ref``,
-``flash_attention_3xtf32_ref`` and ``gram_3xtf32_ref`` are twins of a
-kernel's own arithmetic (the bf16/f16 attention kernel rounds p before p.v;
-the f32 attention kernel and the Gram kernel multiply TF32 halves on the
-tensor cores); only the tests and ``chip_smoke.py`` use them.  The module
-imports nothing else of the port, as ``repro/kernels/afa_screen.py`` keeps
-its own mirrors of the screening statistics.
+``flash_attention_3xtf32_ref``, ``gram_3xtf32_ref`` and
+``trimmed_mean_rowsum_ref`` are twins of a kernel's own arithmetic (the
+bf16/f16 attention kernel rounds p before p.v; the f32 attention kernel and
+the Gram kernel multiply TF32 halves on the tensor cores; the trimmed-mean
+kernel adds in row order); only the tests and ``chip_smoke.py`` use them.
+The module imports nothing else of the port, as
+``repro/kernels/afa_screen.py`` keeps its own mirrors of the screening
+statistics.
 """
 
 from __future__ import annotations
@@ -103,6 +105,37 @@ def trimmed_mean_ref(updates: torch.Tensor, mask, *, trim: int) -> torch.Tensor:
     live = mask.bool()[:, None]
     mean = torch.where(live, updates.float(), 0.0).sum(dim=0) / torch.clamp(m, min=1)
     return torch.where(m > 2 * trim, trimmed, mean)
+
+
+def trimmed_mean_rowsum_ref(updates: torch.Tensor, mask, *, trim: int) -> torch.Tensor:
+    """(K, d), (K,) mask -> (d,): the trimmed-mean kernel's own arithmetic.
+    The kept values (the live values of rank ``trim <= r < m - trim``, or
+    every live value when ``m <= 2 trim``) added in ascending row order,
+    starting from +0.0, in f32; then one f32 division by ``m - 2 trim`` (or
+    ``max(m, 1)``).  The ranks come from a stable sort by value (-0.0 and
+    +0.0 equal, ties in row order), then by liveness, so a dead row never
+    takes a live row's place."""
+    u = updates.float()
+    K = u.shape[0]
+    live = mask.bool()
+    m = int(live.sum())
+    if m <= 2 * trim:
+        keep = live[:, None].expand_as(u)
+        cnt = max(m, 1)
+    else:
+        by_value = torch.sort(u, dim=0, stable=True).indices
+        by_live = torch.sort((~live)[by_value].int(), dim=0, stable=True).indices
+        order = by_value.gather(0, by_live)  # row of rank r, the live rows first
+        pos = torch.arange(K, device=u.device)[:, None].expand_as(u)
+        keep = torch.zeros_like(u, dtype=torch.bool).scatter_(
+            0, order, (pos >= trim) & (pos < m - trim))
+        cnt = m - 2 * trim
+    acc = torch.zeros(u.shape[1:], dtype=torch.float32, device=u.device)
+    for k in range(K):
+        acc = torch.where(keep[k], acc + u[k], acc)
+    # tensor by tensor: a division by a Python scalar may become a product
+    # with its reciprocal
+    return acc / torch.full_like(acc, float(cnt))
 
 
 def _masked_mean(x, mask):
