@@ -70,11 +70,30 @@
    screening pass's tail threshold is printed, on the kernel's Gram and on
    ``U @ U.T`` (ROADMAP C.6: a benign client sits within f32 rounding of it
    there, so the routes' ``good_mask`` is not compared);
-9. traces three rounds of the paper DNN's gram/fused route, two rounds of
+9. runs the paper's experiment (step 4's configuration) through ``run`` on
+   the fused engines (``FUSED_ROUTES``: the three AFA kernel routes, the
+   plain route, comed's and trimmed_mean's kernel routes), each with
+   ``engine="fused"`` (one round captured as a CUDA graph and replayed) and
+   ``"fused_eager"`` (the same round body called once a round): the graph's
+   trajectory equal to the eager one bit for bit, step 4's outcome gates,
+   and the gram/fused route also in segments of 2 rounds with compaction,
+   blocking and screening as the one-shot run does; one eager round of each
+   route under ``torch.cuda.set_sync_debug_mode("error")``; round 5's keyed
+   Philox draws on the card equal to the CPU's (the normals within
+   ``KEYED_NORMAL_ATOL``); capture time and ms a round;
+10. traces three rounds of the paper DNN's gram/fused route, two rounds of
    the LoRA phase's and one bf16 and one f32 forward of smollm-135m on the
    kernel route with ``torch.profiler`` (device busy share, the kernels that
-   take the time);
-10. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+   take the time), one ``engine="fused"`` run of each ``FUSED_ROUTES``
+   route and the segmented run (each of the route's kernels exactly its
+   count a round times the rounds the run executed: its warm-up rounds,
+   which the wrappers count, and the T replayed ones, which only the trace
+   sees; from the first replayed round on exactly T times; the busy share
+   of the replayed rounds) and the batched engine's eight rounds on the
+   gram/fused route beside it;
+11. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+   Its ``launches`` are the wrappers' counts of the eager runs and, for the
+   fused engine's graph runs, the calls that step 10's traces executed.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, the script exits 1 before printing a result.
@@ -233,6 +252,30 @@ LORA_DUMP_ROUND = 7
 # misaligned view, the widest the bucket allows from an aligned one
 RANK_EDGE_KS = (1, 2, 3, 31, 32, 33, 64, 200, 1760)
 RANK_EDGE_LAYOUTS = ((4099, 4), (4100, 0))
+# the fused engines' phase: MAIN_SIM with engine="fused" (one CUDA graph per
+# round, replayed) and "fused_eager" on each route: label -> (rule,
+# afa_variant, kernel_launch, kernel route?, the wrapper calls of one
+# round).  The iterative route's screening runs AFAConfig.max_rounds = 8
+# passes (a cosine_sim and a weighted_sum each) plus the final weighted_sum
+FUSED_ROUTES = {
+    "iterative": ("afa", "iterative", "fused", True, {"cosine_sim": 8, "weighted_sum": 9}),
+    "gram/chained": ("afa", "gram", "chained", True, {"gram": 1, "weighted_sum": 1}),
+    "gram/fused": ("afa", "gram", "fused", True, {"afa_screen": 1}),
+    "iterative/plain-torch": ("afa", "iterative", "fused", False, {}),
+    "comed": ("comed", "iterative", "fused", True, {"coord_median_masked": 1}),
+    "trimmed_mean": ("trimmed_mean", "iterative", "fused", True, {"trimmed_mean": 1}),
+}
+# the device kernels of one call of each wrapper the fused routes call, at
+# MAIN_K, and the kernel that marks one call in a trace
+CALL_OPS = {**DEVICE_OPS_PER_CALL, "weighted_sum": ("weighted_sum_kernel",),
+            "gram": ("gram_tf32x3_kernel", "gram_reduce_kernel")}
+CALL_MARK = {"weighted_sum": "weighted_sum_kernel", "cosine_sim": "cosine_sim_kernel",
+             "gram": "gram_reduce_kernel", "afa_screen": "afa_reduce_screen_kernel",
+             "coord_median_masked": "rank_regs_kernel", "trimmed_mean": "rank_regs_kernel"}
+FUSED_SEGMENT = ("gram/fused", 2)   # the route run segmented, and its segment length
+# the keyed streams, card against CPU: the Box-Muller normals may round
+# log/cos/sin's last bit differently (values |z| < 6, an ulp ~5e-7)
+KEYED_NORMAL_ATOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -932,13 +975,41 @@ def unmasked_phase(torch, ops):
     return rows, launches
 
 
+def device_spans(torch, prof, after=None):
+    """``(start, end, name)`` of the trace's device operations, sorted, from
+    ``after`` (us) on; a named range's device-side annotation is not one."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.fed.engine import ROUNDS_RANGE
+
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and e.name != ROUNDS_RANGE
+                  and (after is None or e.time_range.start >= after))
+
+
+def busy_us(spans) -> float:
+    busy, end_us = 0.0, float("-inf")
+    for start, end, _ in spans:
+        busy += max(0.0, end - max(start, end_us))
+        end_us = max(end_us, end)
+    return busy
+
+
+def by_kernel(spans) -> dict:
+    """name -> (device us, count) over the spans."""
+    out: dict = {}
+    for start, end, name in spans:
+        total, count = out.get(name, (0.0, 0))
+        out[name] = (total + end - start, count + 1)
+    return out
+
+
 def trace(torch, label: str, fn, rounds: int):
     """Run ``fn`` (which returns a dict of the run's own numbers, e.g. train
     and aggregation ms per round) once to warm up, then once under
     ``torch.profiler``: the device's busy share of the wall time and the
     kernels that fill it.  Informational: the launch counts of each path
     come from its phase."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
@@ -948,21 +1019,14 @@ def trace(torch, label: str, fn, rounds: int):
         numbers = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end_us = 0.0, float("-inf")
-    for start, end, _ in spans:
-        busy_us += max(0.0, end - max(start, end_us))
-        end_us = max(end_us, end)
-    by_name: dict = {}
-    for start, end, name in spans:
-        total, count = by_name.get(name, (0.0, 0))
-        by_name[name] = (total + end - start, count + 1)
+    spans = device_spans(torch, prof)
+    busy = busy_us(spans)
+    by_name = by_kernel(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     ours = sorted((n, tc) for n, tc in by_name.items()
                   if any(k in n for k in OUR_KERNEL_NAMES))
     out = {
-        "label": label, "rounds": rounds, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+        "label": label, "rounds": rounds, "wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
         "device_events": len(spans), **numbers,
         "top": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in top],
         "ours": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in ours],
@@ -972,7 +1036,7 @@ def trace(torch, label: str, fn, rounds: int):
               "share not measured)")
         return out
     print(f"profile [{label}, {rounds} rounds]: wall_ms={wall_ms:.3f} device_busy_ms="
-          f"{busy_us / 1e3:.3f} busy_share={busy_us / 1e3 / wall_ms:.3f} device_events="
+          f"{busy / 1e3:.3f} busy_share={busy / 1e3 / wall_ms:.3f} device_events="
           f"{len(spans)} " + " ".join(f"{k}={v:.3f}" for k, v in numbers.items()))
     for item in out["top"]:
         print(f"  {item['ms']:9.3f} ms  x{item['count']:5d}  {item['name']}")
@@ -1387,6 +1451,345 @@ def lora_round_dump(torch, ops, ref, dumps):
     return report
 
 
+def fused_server_cfg(route):
+    from repro_torch.fed import ServerConfig
+    from repro_torch.kernels.policy import resolve_kernel_plan
+
+    rule, variant, launch, kernels, _ = FUSED_ROUTES[route]
+    return ServerConfig(rule=rule, num_clients=MAIN_K, afa_variant=variant,
+                        kernel_plan=resolve_kernel_plan(kernels, kernel_launch=launch))
+
+
+def same_trajectory(a, b, *, error=True) -> bool:
+    import numpy as np
+
+    return ((not error or list(a.test_error) == list(b.test_error))
+            and np.array_equal(np.stack(a.good_mask_history), np.stack(b.good_mask_history))
+            and np.array_equal(a.blocked_round, b.blocked_round))
+
+
+def fused_run_gates(label, rule, res, n_min):
+    """The main path's outcome gates on one fused run: AFA blocks every
+    byzantine client in round ``n_min`` and no good one; every robust rule
+    ends below 5 % test error."""
+    if rule == "afa":
+        good = [k for k in range(MAIN_K) if k not in set(res.bad_clients.tolist())]
+        if list(res.blocked_round[res.bad_clients]) != [n_min] * len(res.bad_clients):
+            raise AssertionError(f"fused {label}: bad clients blocked at "
+                                 f"{res.blocked_round[res.bad_clients]}, expected {n_min}")
+        if any(res.blocked_round[k] != -1 for k in good):
+            raise AssertionError(f"fused {label}: a good client was blocked: "
+                                 f"{res.blocked_round}")
+    if not res.test_error[-1] < 5.0:
+        raise AssertionError(f"fused {label}: final test error {res.test_error[-1]} % >= 5 %")
+
+
+def fused_phase(torch, ops, min_rounds_to_block):
+    """``MAIN_SIM`` through ``run`` with ``engine="fused"`` (the round as one
+    CUDA graph, replayed) and ``"fused_eager"`` (the same body called once a
+    round) on every route of ``FUSED_ROUTES``, and the ``FUSED_SEGMENT``
+    route segmented with compaction.  Gates: graph = eager bit for bit (test
+    error, good_mask history, blocked rounds); the outcome gates of the main
+    path; segmented = one-shot on the blocked rounds and the good_mask
+    history; each wrapper counted exactly the calls of the rounds launched
+    from the host: T on the eager body, the warm-up round's on the graph
+    engine (the recording launches nothing; the replays are counted from
+    ``fused_trace_phase``'s traces), one warm-up a bucket when segmented.
+    Returns the runs and the eager runs' launches."""
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import SimConfig, run
+
+    data = make_mnist_like()
+    n_min = min_rounds_to_block()
+    launches = {name: 0 for name in ops.LAUNCH_COUNTS}
+    runs, results = [], {}
+    for label, (rule, *_, calls) in FUSED_ROUTES.items():
+        server = fused_server_cfg(label)
+        for engine in ("fused_eager", "fused"):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run(None, SimConfig(**MAIN_SIM, engine=engine), server, data=data,
+                      device="cuda")
+            wall = time.perf_counter() - t0
+            counts = dict(ops.LAUNCH_COUNTS)
+            results[(label, engine)] = res
+            T = len(res.round_times)
+            replay_ms = (res.round_time * T - res.capture_time) / T * 1e3
+            print(f"fused [{label}, {engine}]: wall_s={wall:.3f} capture_s="
+                  f"{res.capture_time:.3f} round_ms={res.round_time * 1e3:.3f} "
+                  f"ms/round without capture={replay_ms:.3f} blocked_round="
+                  f"{res.blocked_round.tolist()} test_error="
+                  f"{[round(e, 3) for e in res.test_error]} launches={counts}")
+            fused_run_gates(f"{label}, {engine}", rule, res, n_min)
+            host_rounds = T if engine == "fused_eager" else 1
+            want = {name: calls.get(name, 0) * host_rounds for name in counts}
+            if counts != want:
+                raise AssertionError(f"fused {label} [{engine}]: wrapper counts {counts}, "
+                                     f"expected {want} ({host_rounds} rounds from the host)")
+            if engine == "fused_eager":
+                for name, count in counts.items():
+                    launches[name] += count
+            runs.append({"route": label, "engine": engine, "wall_s": wall,
+                         "capture_s": res.capture_time, "round_ms": res.round_time * 1e3,
+                         "replay_ms_per_round": replay_ms, "test_error": res.test_error,
+                         "blocked_round": res.blocked_round.tolist(), "launches": counts})
+        if not same_trajectory(results[(label, "fused")], results[(label, "fused_eager")]):
+            raise AssertionError(f"fused {label}: the graph's trajectory differs from the "
+                                 "eager body's")
+        print(f"fused [{label}]: graph = eager bit for bit")
+    label, seg = FUSED_SEGMENT
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(None, SimConfig(**MAIN_SIM, engine="fused", segment_rounds=seg, compact=True),
+              fused_server_cfg(label), data=data, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCH_COUNTS)
+    # two buckets, so two warm-up rounds: 10 rows, then 8 once the three
+    # byzantine clients are blocked
+    want = {name: 2 * FUSED_ROUTES[label][-1].get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"fused {label}, segmented: wrapper counts {counts}, expected "
+                             f"{want} (a warm-up round in each of two buckets)")
+    print(f"fused [{label}, segment_rounds={seg}, compact]: wall_s={wall:.3f} capture_s="
+          f"{res.capture_time:.3f} round_ms={res.round_time * 1e3:.3f} blocked_round="
+          f"{res.blocked_round.tolist()} test_error={[round(e, 3) for e in res.test_error]}")
+    fused_run_gates(f"{label}, segmented", "afa", res, n_min)
+    one_shot = results[(label, "fused")]
+    if not same_trajectory(res, one_shot, error=False):
+        raise AssertionError(f"fused {label}: segmented with compaction differs from the "
+                             "one-shot run in blocked rounds or good_mask history")
+    bit_equal = list(res.test_error) == list(one_shot.test_error)
+    print(f"fused [{label}]: segmented = one-shot (blocked rounds, good_mask); test error "
+          f"bit for bit: {bit_equal}")
+    runs.append({"route": label, "engine": f"fused, segment_rounds={seg}, compact",
+                 "wall_s": wall, "capture_s": res.capture_time,
+                 "round_ms": res.round_time * 1e3, "test_error": res.test_error,
+                 "test_error_equals_one_shot": bit_equal,
+                 "blocked_round": res.blocked_round.tolist(), "launches": counts})
+    return runs, launches
+
+
+def fused_sync_free_round(torch):
+    """One eager round of the fused body on each route under
+    ``torch.cuda.set_sync_debug_mode("error")``: any operation that waits for
+    the card raises."""
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import (SimConfig, fused_inputs, fused_server_state, make_fused_sim,
+                                 make_rule_options)
+
+    data = make_mnist_like()
+    sim = SimConfig(**MAIN_SIM, engine="fused_eager")
+    inp = fused_inputs(data, sim, device="cuda")
+    dev = torch.device("cuda")
+    for label in FUSED_ROUTES:
+        server = fused_server_cfg(label)
+        _, round_fn = make_fused_sim(
+            inp.workload, inp.engine_cfg, rule=server.rule,
+            opts=make_rule_options(server, MAIN_K), delta_block=server.delta_block,
+            num_clients=MAIN_K, num_rounds=sim.rounds, batch_s=inp.batch_s,
+            batch_b=inp.batch_b, bad_mask=inp.bad_mask, device=dev)
+        carry = (inp.params0, fused_server_state(MAIN_K, server.alpha0, server.beta0, dev))
+        seed = torch.full((), sim.seed, dtype=torch.int64, device=dev)
+        for rnd in range(2):   # the second round runs with everything warm
+            r = torch.full((), rnd, dtype=torch.int64, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error" if rnd else "default")
+            try:
+                carry, out = round_fn(carry, r, seed, inp.data)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(f"fused [{label}]: an eager round ran under sync debug mode 'error' "
+              f"(test error {float(out.test_error):.4f})")
+
+
+def keyed_stream_check(torch):
+    """Round 5's keyed draws of the main configuration on the card against
+    the CPU's: the minibatch words and indices, the dropout bits and the
+    noise words bit for bit, the normals within ``KEYED_NORMAL_ATOL``."""
+    from repro_torch.attacks.attacks import _ATTACK_STREAM
+    from repro_torch.fed.engine import _BATCH_STREAM
+    from repro_torch.fed.workload import _DROPOUT_STREAM
+    from repro_torch.utils.philox import keyed_bits, keyed_normal, keyed_randint, keyed_words
+
+    S, b, rnd = 10, 200, 5
+    out = {}
+    for dev in ("cuda", "cpu"):
+        offsets = rnd * MAIN_K + torch.arange(MAIN_K, dtype=torch.int64, device=dev)
+        seed = torch.full((), MAIN_SIM["seed"], dtype=torch.int64, device=dev)
+        lengths = torch.full((MAIN_K,), 1000, dtype=torch.int64, device=dev)
+        out[dev] = {
+            "batch_words": keyed_words(seed, _BATCH_STREAM, offsets, S * b),
+            "batch_idx": keyed_randint(seed, _BATCH_STREAM, offsets, S * b, lengths),
+            "dropout_bits": keyed_bits(seed, _DROPOUT_STREAM, offsets, S * b * (512 + 256)),
+            "noise_words": keyed_words(seed, _ATTACK_STREAM, offsets, D_PAPER),
+            "noise": keyed_normal(seed, _ATTACK_STREAM, offsets, D_PAPER),
+        }
+    row = {}
+    for name, card in out["cuda"].items():
+        cpu = out["cpu"][name]
+        if name == "noise":
+            e = float((card.cpu() - cpu).abs().max())
+            row["noise_max_abs_diff"] = e
+            if not e <= KEYED_NORMAL_ATOL:
+                raise AssertionError(f"keyed normals: card and CPU differ by {e}")
+        elif not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"keyed stream {name}: the card's draws differ from the CPU's")
+        row[name] = list(card.shape)
+    print(f"keyed streams, round {rnd}: card = CPU bit for bit on the words, indices and "
+          f"bits {row}; normals within {row['noise_max_abs_diff']:.3e}")
+    return row
+
+
+def round_ops(calls: dict) -> dict:
+    """The device kernels of one round: each wrapper call's ``CALL_OPS``."""
+    ops_ = {}
+    for name, n in calls.items():
+        for kname in CALL_OPS[name]:
+            ops_[kname] = ops_.get(kname, 0) + n
+    return ops_
+
+
+def our_kernels(spans) -> dict:
+    """kernel name -> its launches in the spans, this repository's kernels."""
+    counts = {}
+    for _, _, name in spans:
+        for kname in OUR_KERNEL_NAMES:
+            if kname in name:
+                counts[kname] = counts.get(kname, 0) + 1
+    return counts
+
+
+def graph_run_calls(label, spans, host, calls, T):
+    """The wrapper calls that a traced ``engine="fused"`` run executed, read
+    from its device kernels (each wrapper's ``CALL_MARK`` over the whole
+    run).  Gates: every kernel of the route ran exactly its count a call
+    times those calls, and the calls are the warm-up rounds', which the
+    wrappers counted on the host (``host``), plus T replayed rounds'."""
+    seen = our_kernels(spans)
+    executed = {name: seen.get(CALL_MARK[name], 0) for name in calls}
+    if seen != round_ops(executed):
+        raise AssertionError(f"fused trace [{label}]: kernels {seen}, expected "
+                             f"{round_ops(executed)} for the calls {executed}")
+    warm = {name: host[name] // n for name, n in calls.items()}
+    want = {name: (warm[name] + T) * n for name, n in calls.items()}
+    if (executed != want or len(set(warm.values())) > 1
+            or any(c for name, c in host.items() if name not in calls)):
+        raise AssertionError(f"fused trace [{label}]: calls executed {executed}, wrapper "
+                             f"counts {host}: expected {want}")
+    return executed
+
+
+def fused_trace_phase(torch, ops):
+    """One ``engine="fused"`` run of each kernel route under
+    ``torch.profiler``, its counts set to 0 just before: over the whole run
+    each of the route's kernels runs exactly its count a round times the
+    rounds executed, the warm-up round (counted by the wrappers) and T
+    replays (``graph_run_calls``); from the start of the replayed rounds
+    (the ``fused_rounds`` range, after the capture) exactly T times; the
+    rounds' device busy share over that window.  The ``FUSED_SEGMENT`` run,
+    traced the same way over the whole run.  Then the batched engine on the
+    gram/fused route, traced over the same eight rounds, for its busy share
+    beside it.  Returns the rows and the graph runs' executed calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import SimConfig, run
+    from repro_torch.fed.engine import ROUNDS_RANGE
+
+    data = make_mnist_like()
+    T = MAIN_SIM["rounds"]
+    rows = []
+    launches = {name: 0 for name in ops.LAUNCH_COUNTS}
+    for label, (*_, calls) in FUSED_ROUTES.items():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = run(None, SimConfig(**MAIN_SIM, engine="fused"), fused_server_cfg(label),
+                      data=data, device="cuda")
+            torch.cuda.synchronize()
+        host = dict(ops.LAUNCH_COUNTS)
+        executed = graph_run_calls(label, device_spans(torch, prof), host, calls, T)
+        for name, n in executed.items():
+            launches[name] += n
+        window = [e for e in prof.events()
+                  if e.name == ROUNDS_RANGE and e.device_type == DeviceType.CPU]
+        if len(window) != 1:
+            raise AssertionError(f"fused trace [{label}]: {len(window)} '{ROUNDS_RANGE}' ranges")
+        start = window[0].time_range.start
+        spans = device_spans(torch, prof, after=start)
+        if not spans:
+            raise AssertionError(f"fused trace [{label}]: no device events in the rounds")
+        wall_ms = (max(e for _, e, _ in spans) - start) / 1e3
+        busy_ms = busy_us(spans) / 1e3
+        counts = our_kernels(spans)
+        want = {k: n * T for k, n in round_ops(calls).items()}
+        if counts != want:
+            raise AssertionError(f"fused trace [{label}]: kernels {counts} in {T} rounds, "
+                                 f"expected {want}")
+        top = sorted(by_kernel(spans).items(), key=lambda kv: -kv[1][0])[:12]
+        row = {"label": f"fused {label}", "rounds": T, "window_ms": wall_ms,
+               "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+               "device_events": len(spans), "events_per_round": len(spans) / T,
+               "kernels": counts, "calls_executed": executed, "host_counts": host,
+               "capture_s": res.capture_time,
+               "top": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in top]}
+        rows.append(row)
+        print(f"profile [fused {label}, {T} rounds replayed]: window_ms={wall_ms:.3f} "
+              f"device_busy_ms={busy_ms:.3f} busy_share={busy_ms / wall_ms:.3f} "
+              f"device_events={len(spans)} ({len(spans) / T:.0f} a round) kernels={counts}; "
+              f"whole run: calls executed {executed}, counted by the wrappers {host}")
+        for item in row["top"]:
+            print(f"  {item['ms']:9.3f} ms  x{item['count']:5d}  {item['name']}")
+    label, seg = FUSED_SEGMENT
+    calls = FUSED_ROUTES[label][-1]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(None, SimConfig(**MAIN_SIM, engine="fused", segment_rounds=seg, compact=True),
+            fused_server_cfg(label), data=data, device="cuda")
+        torch.cuda.synchronize()
+    host = dict(ops.LAUNCH_COUNTS)
+    executed = graph_run_calls(f"{label}, segmented", device_spans(torch, prof), host, calls, T)
+    for name, n in executed.items():
+        launches[name] += n
+    rows.append({"label": f"fused {label}, segment_rounds={seg}, compact", "rounds": T,
+                 "calls_executed": executed, "host_counts": host})
+    print(f"profile [fused {label}, segment_rounds={seg}, compact]: calls executed "
+          f"{executed}, counted by the wrappers {host}")
+    server = fused_server_cfg("gram/fused")
+
+    def batched():
+        res = run(None, SimConfig(**MAIN_SIM), server, data=data, device="cuda")
+        return {"train_ms": res.train_time * 1e3, "agg_ms": res.agg_time * 1e3,
+                "round_ms": res.round_time * 1e3}
+
+    rows.append(trace(torch, "batched gram/fused", batched, T))
+    return rows, launches
+
+
+def fused_summary(smi, runs, traces):
+    """One line a fused route: capture time, ms a round of the replayed
+    graph and of the eager body, the replayed rounds' traced busy share;
+    then the batched engine's on the gram/fused route; each with the card's
+    name and power limit."""
+    busy = {t["label"]: t for t in traces}
+    for route in FUSED_ROUTES:
+        graph = next(r for r in runs if r["route"] == route and r["engine"] == "fused")
+        eager = next(r for r in runs if r["route"] == route and r["engine"] == "fused_eager")
+        t = busy[f"fused {route}"]
+        print(f"fused summary [{route}] ({smi}): capture_s={graph['capture_s']:.3f} "
+              f"ms/round replayed={graph['replay_ms_per_round']:.3f} eager="
+              f"{eager['round_ms']:.3f} busy_share={t['busy_share']:.3f} "
+              f"(device {t['device_busy_ms'] / t['rounds']:.3f} ms a round)")
+    t = busy["batched gram/fused"]
+    if "wall_ms" in t and t.get("device_busy_ms"):
+        print(f"batched summary [gram/fused] ({smi}): ms/round={t['round_ms']:.3f} "
+              f"busy_share={t['device_busy_ms'] / t['wall_ms']:.3f} "
+              f"(device {t['device_busy_ms'] / t['rounds']:.3f} ms a round)")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
@@ -1430,8 +1833,15 @@ def main() -> None:
     forward_rows, forward_launches = forward_phase(torch, ops)
     launches.update(forward_launches)
     lora_runs, lora_launches, lora_dump = lora_phase(torch, ops, min_rounds_to_block)
-    traces = [profile_phase(torch), lora_profile_phase(torch), *forward_profile_phase(torch)]
-    for more in (baseline_launches, unmasked_launches, lora_launches):
+    fused_runs, eager_launches = fused_phase(torch, ops, min_rounds_to_block)
+    fused_sync_free_round(torch)
+    keyed = keyed_stream_check(torch)
+    fused_traces, graph_launches = fused_trace_phase(torch, ops)
+    fused_summary(smi, fused_runs, fused_traces)
+    traces = [profile_phase(torch), lora_profile_phase(torch), *forward_profile_phase(torch),
+              *fused_traces]
+    for more in (baseline_launches, unmasked_launches, lora_launches, eager_launches,
+                 graph_launches):
         for kernel, count in more.items():
             launches[kernel] += count
 
@@ -1468,7 +1878,7 @@ def main() -> None:
         "rank_edge_checks": rank_edges, "main_path": runs,
         "baselines": baseline_runs, "unmasked": unmasked_rows, "flash_attn_checks": attn_rows,
         "forward": forward_rows, "lora": lora_runs, "lora_round_dump": lora_dump,
-        "launches": launches, "profile": traces,
+        "fused": fused_runs, "keyed_streams": keyed, "launches": launches, "profile": traces,
     }, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,12 @@ Counterpart of ``repro/attacks/attacks.py``:
 
 Byzantine noise is drawn from a ``torch.Generator`` seeded by (attack seed,
 leaf index, ORIGINAL client id), never by row position, so compacting the
-stack later is a change of layout only.  torch cannot replay ``jax.random``,
-so the noise differs from the JAX package's in value, not in distribution.
+stack later is a change of layout only.  The fused engines draw it with
+``byzantine_update_keyed`` from the keyed Philox stream
+(``utils/philox.py``) instead, for every row of the packed proposals, and
+select the bad rows by mask, with no host read.  torch cannot replay
+``jax.random``, so the noise differs from the JAX package's in value, not in
+distribution.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.utils.philox import keyed_normal
 from repro_torch.utils.trees import tree_leaves, tree_map, tree_structure, tree_unflatten
 
 UPDATE_ATTACK_SCENARIOS = ("byzantine", "alie", "ipm")
@@ -77,6 +82,19 @@ def byzantine_update_tree(proposals, w_prev, bad_mask, seed: int, *,
             l[k] = (p.float() + scale * noise).to(l.dtype)
         out.append(l)
     return tree_unflatten(tree_structure(proposals), out)
+
+
+def byzantine_update_keyed(packed, w_prev, bad_mask, seed, offsets, *,
+                           scale: float = 20.0):
+    """Bad rows of the packed ``(R, D)`` proposals <- w_t + N(0, scale^2 I).
+
+    ``w_prev`` is the packed ``(D,)`` point w_t; row r's noise is the keyed
+    normal stream ``(seed, attack stream, offsets[r])`` (``offsets`` = round
+    * K + original client id), drawn for every row and kept where
+    ``bad_mask`` is set."""
+    noise = keyed_normal(seed, _ATTACK_STREAM, offsets, packed.shape[1])
+    forged = (w_prev.float()[None] + scale * noise).to(packed.dtype)
+    return torch.where(bad_mask[:, None], forged, packed)
 
 
 def _benign_count(benign_mask):

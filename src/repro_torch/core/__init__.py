@@ -28,10 +28,14 @@ from repro_torch.core.extra_rules import (
 from repro_torch.core.reputation import (
     ReputationState,
     betainc,
+    blocked_by_table,
+    blocking_table,
+    gather_reputation,
     init_reputation,
     mark_blocked_round,
     min_rounds_to_block,
     p_good,
+    scatter_reputation,
     update_reputation,
 )
 from repro_torch.core.stats import masked_mean, masked_median, masked_std

@@ -22,6 +22,20 @@ Each route keeps its own EPS placement, as in the JAX package: the plain
 iterative route clamps the norms, the kernel iterative route clamps the
 squared norms before the square root, the gram route clamps c^T G c.
 
+Sums over the client axis (the weights' normaliser, c^T U, G c, c^T G c) are
+left folds in row order (``core.stats.row_sum``), so a live client's result
+does not depend on the row it occupies: the segmented fused engine compacts
+blocked rows away between segments.
+
+The screening loop stops after the first pass that marks no client, which
+reads the device once a pass.  With ``unroll=True`` it runs ``max_rounds``
+passes under a device flag instead: a pass after the loop would have stopped
+leaves the mask, xi, the pass count and the similarities as they are, so the
+outputs equal the stopping loop's bit for bit with no host read
+(``lax.while_loop`` in the JAX package).  The fused engines ask for it,
+since they capture the round as a CUDA graph; the batched engine keeps the
+stopping loop, whose fewer passes launch fewer operations from the host.
+
 Direction convention follows the paper's algorithm box: when mean >= median
 the high-similarity tail is removed, otherwise the low tail.
 """
@@ -32,7 +46,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.stats import masked_mean, masked_median, masked_std
+from repro_torch.core.stats import masked_mean, masked_median, masked_std, row_sum
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.policy import resolve_kernel_mode
 
@@ -64,7 +78,7 @@ class AFAResult(NamedTuple):
 
 def _weights(mask, p, n):
     c = torch.where(mask, p * n, 0.0)
-    return c / torch.clamp(c.sum(), min=EPS)
+    return c / torch.clamp(row_sum(c), min=EPS)
 
 
 def _mark_bad(s, mask, xi, ddof):
@@ -86,6 +100,8 @@ def afa_aggregate(
     p_k: torch.Tensor,              # (K,) reputation means
     mask0: torch.Tensor | None = None,  # (K,) initial participation
     config: AFAConfig = AFAConfig(),
+    *,
+    unroll: bool = False,
 ) -> AFAResult:
     if config.kernel_launch not in ("fused", "chained"):
         raise ValueError(
@@ -118,8 +134,8 @@ def afa_aggregate(
         row_norms = torch.linalg.vector_norm(upd32, dim=1)
 
         def sims(c):
-            gc = gram @ c
-            agg_norm = torch.sqrt(torch.clamp(c @ gc, min=EPS))
+            gc = row_sum(gram.T * c[:, None])                    # (G c)_i = sum_k G_ik c_k
+            agg_norm = torch.sqrt(torch.clamp(row_sum(c * gc), min=EPS))
             return gc / (torch.clamp(row_norms, min=EPS) * agg_norm)
 
     elif kernels:
@@ -131,7 +147,7 @@ def afa_aggregate(
         row_norms = torch.linalg.vector_norm(upd32, dim=1)
 
         def sims(c):
-            agg = c @ upd32
+            agg = row_sum(c[:, None] * upd32)
             agg_norm = torch.linalg.vector_norm(agg)
             return (upd32 @ agg) / (
                 torch.clamp(row_norms, min=EPS) * torch.clamp(agg_norm, min=EPS)
@@ -141,20 +157,32 @@ def afa_aggregate(
     # round-0 similarities, not zeros, when max_rounds=0: the loop never runs
     s = (sims(_weights(mask, p32, n32)) if config.max_rounds == 0
          else torch.zeros((K,), dtype=torch.float32, device=dev))
-    xi = torch.tensor(config.xi0, dtype=torch.float32, device=dev)
-    rounds, changed = 0, True
-    while changed and rounds < config.max_rounds:
-        s = sims(_weights(mask, p32, n32))
-        bad = _mark_bad(s, mask, xi, config.ddof)
-        mask = mask & ~bad
-        xi = xi + config.delta_xi
-        changed = bool(bad.any())
-        rounds += 1
+    xi = torch.full((), config.xi0, dtype=torch.float32, device=dev)
+    if unroll:
+        rounds = torch.zeros((), dtype=torch.int32, device=dev)
+        live = torch.ones((), dtype=torch.bool, device=dev)   # this pass runs
+        for _ in range(config.max_rounds):
+            s_pass = sims(_weights(mask, p32, n32))
+            bad = _mark_bad(s_pass, mask, xi, config.ddof)
+            s = torch.where(live, s_pass, s)
+            mask = torch.where(live, mask & ~bad, mask)
+            xi = torch.where(live, xi + config.delta_xi, xi)
+            rounds = rounds + live.to(torch.int32)
+            live = live & bad.any()
+    else:
+        n_passes, changed = 0, True
+        while changed and n_passes < config.max_rounds:
+            s = sims(_weights(mask, p32, n32))
+            bad = _mark_bad(s, mask, xi, config.ddof)
+            mask = mask & ~bad
+            xi = xi + config.delta_xi
+            changed = bool(bad.any())
+            n_passes += 1
+        rounds = torch.full((), n_passes, dtype=torch.int32, device=dev)
     w = _weights(mask, p32, n32)
-    agg = kernel_ops.weighted_sum(w, upd32) if kernels else w @ upd32
+    agg = kernel_ops.weighted_sum(w, upd32) if kernels else row_sum(w[:, None] * upd32)
     return AFAResult(
-        aggregate=agg.to(updates.dtype), good_mask=mask,
-        rounds=torch.tensor(rounds, dtype=torch.int32, device=dev), similarities=s,
+        aggregate=agg.to(updates.dtype), good_mask=mask, rounds=rounds, similarities=s,
     )
 
 
@@ -166,7 +194,7 @@ def _afa_matrix_rule(updates, n_k, p_k, mask, opts):
     cfg = opts.afa if opts.afa is not None else AFAConfig(use_kernels=opts.use_kernels)
     return afa_aggregate(
         updates, n_k, _default_p(p_k, updates.shape[0], updates.device),
-        mask0=mask, config=cfg,
+        mask0=mask, config=cfg, unroll=opts.capturable,
     )
 
 

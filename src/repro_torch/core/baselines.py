@@ -136,7 +136,7 @@ def comed_aggregate(updates, n_k=None, p_k=None, mask=None, *,
     n_dead_lo = torch.div(dead.sum(), 2, rounding_mode="floor")
     lo_i = n_dead_lo + torch.clamp(torch.div(m - 1, 2, rounding_mode="floor"), min=0)
     hi_i = n_dead_lo + torch.clamp(torch.div(m, 2, rounding_mode="floor"), min=0)
-    med = 0.5 * (srt[lo_i] + srt[hi_i])
+    med = 0.5 * (srt.index_select(0, lo_i.reshape(1)) + srt.index_select(0, hi_i.reshape(1)))[0]
     return AggResult(med.to(updates.dtype), mask)
 
 
@@ -202,13 +202,16 @@ def norm_clip_aggregate(updates, n_k, p_k=None, mask=None, clip=None, *,
 class RuleOptions(NamedTuple):
     """Per-call rule knobs.  ``afa`` holds an ``AFAConfig`` when rule == afa;
     ``num_selected`` (MKRUM) comes from the participation count on the host
-    (``fed.server.make_rule_options``)."""
+    (``fed.server.make_rule_options``).  ``capturable``, set by the fused
+    engines, asks a rule for no host read, so a CUDA graph can capture it
+    (AFA then unrolls its screening loop)."""
 
     num_byzantine: int = 3
     trim: int = 3
     num_selected: int | None = None
     use_kernels: bool | str = False
     afa: Any = None  # AFAConfig | None (typed Any to avoid an import cycle)
+    capturable: bool = False
 
 
 class RuleSpec(NamedTuple):

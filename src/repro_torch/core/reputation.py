@@ -10,13 +10,23 @@ mean weights the aggregation (eq. 3/5); the Beta CDF at 0.5 drives blocking
 torch has no ``betainc``, so :func:`betainc` evaluates the regularized
 incomplete beta by Lentz's continued fraction, in float64, on the K scalars
 moved to the host CPU (a few hundred tiny tensor ops; on the card each would
-be a kernel launch).
+be a kernel launch).  The batched engine calls it every round.
+
+The fused engines decide blocking on the device instead.  A client's counts
+``g = alpha - alpha0`` and ``b = beta - beta0`` are integers, and
+``I_{0.5}(alpha0 + g, beta0 + b)`` rises with ``b``; so once per run the host
+tabulates, for each ``g`` in ``0..n``, the smallest ``b`` that blocks
+(:func:`blocking_table`, with :func:`betainc` at the very float32 values the
+posteriors hold), and each round gathers from that table
+(``update_reputation(..., table=...)``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -99,9 +109,43 @@ def betainc(a, b, x) -> torch.Tensor:
     return torch.where(swap, 1.0 - val, val)
 
 
-def _blocked_after(state_blocked, alpha, beta, delta: float):
-    over = (betainc(alpha, beta, 0.5) > delta).to(state_blocked.device)
-    return state_blocked | over
+def _f32_counts(start: float, n: int) -> torch.Tensor:
+    """``start``, ``start + 1``, ..., ``start + n`` as float32 sums one at a
+    time: the values a posterior holds after 0..n increments."""
+    vals = [torch.tensor(float(start), dtype=torch.float32)]
+    for _ in range(n):
+        vals.append(vals[-1] + 1.0)
+    return torch.stack(vals)
+
+
+@functools.lru_cache(maxsize=16)
+def _blocking_table(alpha0: float, beta0: float, delta: float, n: int) -> np.ndarray:
+    a = _f32_counts(alpha0, n)
+    b = _f32_counts(beta0, n)
+    over = (betainc(a[:, None], b[None, :], 0.5) > delta).numpy()   # (g, b)
+    first = np.where(over.any(axis=1), over.argmax(axis=1), n + 1)
+    return first.astype(np.int64)
+
+
+def blocking_table(alpha0: float, beta0: float, delta: float, n: int) -> np.ndarray:
+    """``(n + 1,)`` int64: entry ``g`` is the smallest bad count ``b`` in
+    ``0..n`` with ``I_{0.5}(alpha0 + g, beta0 + b) > delta``, or ``n + 1`` when
+    none is.  The arguments are the float32 posteriors after ``g`` and ``b``
+    increments, as ``update_reputation`` builds them, so a table lookup blocks
+    exactly where :func:`betainc` does for every count up to ``n``."""
+    return _blocking_table(float(alpha0), float(beta0), float(delta), int(n)).copy()
+
+
+def blocked_by_table(alpha, beta, table: torch.Tensor, alpha0: float,
+                     beta0: float) -> torch.Tensor:
+    """``I_{0.5}(alpha, beta) > delta`` read from ``blocking_table``'s
+    ``table`` (on the posteriors' device), with no host read: ``b >=
+    table[g]``.  Pad rows of a compacted state (``alpha = beta = 1``) have
+    negative counts; their index is clamped, and they are blocked already."""
+    n = table.shape[0] - 1
+    g = torch.round(alpha - alpha0).to(torch.int64).clamp(0, n)
+    b = torch.round(beta - beta0).to(torch.int64)
+    return b >= table.index_select(0, g)
 
 
 def update_reputation(
@@ -110,18 +154,26 @@ def update_reputation(
     participated: torch.Tensor,
     *,
     delta: float = 0.95,
+    table=None,
 ) -> ReputationState:
     """Bayesian update from one round's aggregation outcome.
 
     Only participating, un-blocked clients get their posterior touched.
-    Blocking is monotone: once blocked, always blocked.
+    Blocking is monotone: once blocked, always blocked.  ``table`` None
+    tests ``betainc`` on the host; else ``(table, alpha0, beta0)`` with
+    ``blocking_table``'s table on the posteriors' device, for the rounds no
+    host read may interrupt.
     """
     participated = participated & ~state.blocked
     good = participated & good_mask
     bad = participated & ~good_mask
     alpha = state.alpha + good.float()
     beta = state.beta + bad.float()
-    return ReputationState(alpha, beta, _blocked_after(state.blocked, alpha, beta, delta))
+    if table is None:
+        over = (betainc(alpha, beta, 0.5) > delta).to(state.blocked.device)
+    else:
+        over = blocked_by_table(alpha, beta, *table)
+    return ReputationState(alpha, beta, state.blocked | over)
 
 
 def mark_blocked_round(
@@ -139,6 +191,52 @@ def mark_blocked_round(
     newly = blocked_after & ~blocked_before & (rounds_blocked < 0)
     stamp = torch.as_tensor(round_index, dtype=torch.int32, device=rounds_blocked.device) + 1
     return torch.where(newly, stamp, rounds_blocked)
+
+
+def gather_reputation(state: ReputationState, keep, pad_to: int) -> ReputationState:
+    """Compact the posteriors to the kept client ids ``keep`` (ascending;
+    ``-1`` marks a pad slot) and pad to ``pad_to`` entries.  Pads are blocked
+    for good, with ``alpha = beta = 1``."""
+    keep = np.asarray(keep, np.int64)
+    dev = state.alpha.device
+    idx = torch.from_numpy(np.maximum(keep, 0)).to(dev)
+    live = torch.from_numpy(keep >= 0).to(dev)
+    pad = pad_to - keep.shape[0]
+
+    def take(leaf, fill):
+        out = torch.where(live, leaf.index_select(-1, idx), torch.full_like(leaf[..., :1], fill))
+        if pad > 0:
+            tail = torch.full(out.shape[:-1] + (pad,), fill, dtype=out.dtype, device=dev)
+            out = torch.cat([out, tail], dim=-1)
+        return out
+
+    return ReputationState(
+        alpha=take(state.alpha, 1.0), beta=take(state.beta, 1.0),
+        blocked=take(state.blocked, True),
+    )
+
+
+def scatter_reputation(full: ReputationState, compact: ReputationState,
+                       keep) -> ReputationState:
+    """Re-embed a compacted posterior into the full-K layout (inverse of
+    :func:`gather_reputation`): clients not in ``keep`` keep their entries
+    in ``full``, which is exact because only blocked clients are dropped and
+    blocking freezes a posterior; pad slots are dropped."""
+    keep = np.asarray(keep, np.int64)
+    live = keep >= 0
+    dev = full.alpha.device
+    idx = torch.from_numpy(keep[live]).to(dev)
+    sel = torch.from_numpy(np.nonzero(live)[0]).to(dev)
+
+    def put(f, c):
+        out = f.clone()
+        out[..., idx] = c.index_select(-1, sel)
+        return out
+
+    return ReputationState(
+        alpha=put(full.alpha, compact.alpha), beta=put(full.beta, compact.beta),
+        blocked=put(full.blocked, compact.blocked),
+    )
 
 
 def min_rounds_to_block(alpha0: float = 3.0, beta0: float = 3.0, delta: float = 0.95) -> int:

@@ -1,4 +1,10 @@
-from repro_torch.data.sharding import dirichlet_shards, iid_shards, padded_stack
+from repro_torch.data.sharding import (
+    compact_stack,
+    dirichlet_shards,
+    iid_shards,
+    padded_stack,
+    pow2_bucket,
+)
 from repro_torch.data.synthetic import (
     SyntheticClassification,
     TokenStream,

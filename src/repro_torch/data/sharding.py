@@ -1,7 +1,8 @@
 """Client shard construction: IID (the paper's equal split) and Dirichlet
-non-IID, and the padded ``(K, n_max, ...)`` stacking of ragged shards.  A
-numpy copy of those functions of ``repro/data/sharding.py``; the same seed
-gives the same shards."""
+non-IID, the padded ``(K, n_max, ...)`` stacking of ragged shards, and its
+inverse ``compact_stack``, with which the segmented fused engine drops
+blocked clients between segments.  A numpy copy of those functions of
+``repro/data/sharding.py``; the same seed gives the same shards."""
 
 from __future__ import annotations
 
@@ -61,3 +62,47 @@ def padded_stack(shards):
         y_pad[k, :n] = y
         lengths[k] = n
     return x_pad, y_pad, lengths
+
+
+def compact_stack(x_pad, y_pad, lengths, keep, pad_to: int | None = None):
+    """Inverse of :func:`padded_stack` restricted to the kept client rows.
+
+    Gathers rows ``keep`` (the still-live client ids, ascending) of the
+    padded stacks into a ``(len(keep), n_max, ...)`` layout, re-padded to
+    ``pad_to`` rows when given.  Pad rows, and ``-1`` entries of ``keep``,
+    carry zero shards of length 1: the device batch draw needs a non-empty
+    range, and a pad row is blocked, so it is masked out of every aggregate.
+    Raises ``ValueError`` when ``pad_to`` is smaller than ``len(keep)``."""
+    keep = np.asarray(keep, np.int64)
+    if pad_to is not None and pad_to < len(keep):
+        raise ValueError(
+            f"pad_to={pad_to} is smaller than the {len(keep)} kept client "
+            f"rows; refusing to truncate live clients"
+        )
+    live = keep >= 0
+
+    def _gather(stack):
+        row = live.reshape((-1,) + (1,) * (stack.ndim - 1))
+        return np.where(row, stack[np.maximum(keep, 0)], 0).astype(stack.dtype)
+
+    x_c = _gather(x_pad)
+    y_c = _gather(y_pad)
+    len_c = np.where(live, np.asarray(lengths)[np.maximum(keep, 0)], 1).astype(
+        np.asarray(lengths).dtype
+    )
+    if pad_to is not None and pad_to > len(keep):
+        extra = pad_to - len(keep)
+        x_c = np.concatenate([x_c, np.zeros((extra,) + x_c.shape[1:], x_c.dtype)])
+        y_c = np.concatenate([y_c, np.zeros((extra,) + y_c.shape[1:], y_c.dtype)])
+        len_c = np.concatenate([len_c, np.ones((extra,), len_c.dtype)])
+    return x_c, y_c, len_c
+
+
+def pow2_bucket(n_live: int, cap: int) -> int:
+    """Smallest power of two >= ``n_live``, clamped to ``[1, cap]``: the
+    segmented fused engine's client-axis size, so a run captures O(log K)
+    round graphs, not one per blocking event."""
+    b = 1
+    while b < n_live:
+        b *= 2
+    return max(1, min(b, cap))

@@ -13,10 +13,13 @@ Counterpart of ``repro/fed/api.py``:
 
 ``workload`` is ``None``, a ``ClientWorkload`` or a registry name
 (``"dnn"`` / ``"lora"``, built by ``get_workload`` with ``workload_kwargs``).
-``None`` / ``DnnWorkload`` go to the classification simulator; any other
-workload to ``simulate_llm``, with extra keyword arguments (``local_steps``,
-``samples_per_client``, ``seq``, ``n_test``, ...) passed through.  Seed
-sweeps are not ported and raise ``NotImplementedError``.
+``None`` / ``DnnWorkload`` go to the classification simulator, on the
+engine ``sim.engine`` names (``batched``, or ``fused`` / ``fused_eager``, the
+round captured once as a CUDA graph and replayed, with ``segment_rounds`` and
+``compact``); any other workload to ``simulate_llm`` (a loop over rounds,
+whatever ``sim.engine`` says), with extra keyword arguments
+(``local_steps``, ``samples_per_client``, ``seq``, ``n_test``, ...) passed
+through.  Seed sweeps are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,8 +64,8 @@ def run(
     ``SimResult`` or the LLM route's result dict."""
     if seeds is not None:
         raise NotImplementedError(
-            "seed sweeps need the fused engine, which is not ported to "
-            "repro_torch yet (ROADMAP queue A); loop over sim.seed instead"
+            "seed sweeps are not ported to repro_torch yet (ROADMAP queue A); "
+            "loop over sim.seed instead"
         )
     workload = _resolve_workload(workload, workload_kwargs)
     if server is None:

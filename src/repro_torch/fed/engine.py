@@ -1,44 +1,87 @@
-"""The round engines' proposal pipeline.
+"""The round engines: the proposal pipeline of the batched engine, and the
+fused and segmented engines, whose round is captured once as a CUDA graph.
 
-Counterpart of the round pieces of ``repro/fed/engine.py``: the K clients
-train (``workload.local_update``), non-trainers are reset to ``w_t``, and
-the update-level attacks run on the stacked proposals.  ``FusedData`` holds
-the device-resident inputs of the LLM workload's round loop
-(``fed/workload.simulate_llm``).  The fused and segmented scan engines are
-not ported.
+Counterpart of ``repro/fed/engine.py``.  Every engine trains the K clients
+(``workload.local_update``), resets non-trainers to ``w_t`` and applies the
+update-level attacks to the stacked proposals.
 
-Seeded torch streams replace ``jax.random`` keys: client k's dropout masks in
-round r come from ``client_seeds(seed, r, ids)[k]``, keyed by (seed, round,
-original client id); the byzantine noise from ``attack_seed(seed, r)`` plus
-(leaf, original client id).
+**Batched** (``make_train_attack_step``): seeded torch streams stand in for
+``jax.random`` keys: client k's dropout masks in round r come from
+``client_seeds(seed, r, ids)[k]``, keyed by (seed, round, original client
+id); the byzantine noise from ``attack_seed(seed, r)`` plus (leaf, original
+client id).  The host draws the minibatches.
+
+**Fused** (``make_fused_sim``): the counterpart of the JAX package's
+``lax.scan`` over rounds.  One round -- the device minibatch draw, local
+training, the attacks, ``server_step`` with blocking on the device, the test
+error -- is ``_round_body``, a function of device tensors that reads nothing
+from the host.  On the card ``scan_fn`` captures it once as a CUDA graph over
+static buffers (``_RoundProgram``: the body reads the round index from a
+device scalar that it advances itself, writes the round's test error,
+``good_mask`` and blocked set into ``(T,)`` and ``(T, K)`` buffers at that
+index, and copies the new parameters and server state into the buffers the
+next replay reads) and replays it T times; the host reads nothing until the
+run ends.  A capture that fails raises: the engine never goes on eagerly.
+On the CPU, which has no graphs, it runs the same body in a loop.
+``round_fn`` is the body called once, the ``fused_eager`` engine's step.
+
+**Segmented** (``make_fused_segment``): the same round graph replayed
+``seg_len`` times from ``seg_start``, over a client axis the simulator has
+compacted to a power-of-two bucket of the still-live clients; one capture
+per bucket, so O(log K) captures a run.
+
+Random streams of the fused engines are keyed Philox streams
+(``utils/philox.py``): ``(seed, stream, round * K + original client id,
+element)`` for the minibatch indices, the dropout masks and the byzantine
+noise, with K the full client count.  They depend on a client's id, never on
+its row, so compaction changes the layout only; they are not the batched
+engine's streams, nor ``jax.random``'s.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from repro_torch.attacks import apply_update_attack, stream_seed
-from repro_torch.utils.trees import tree_broadcast_clients, tree_select_rows
+from repro_torch.attacks import (
+    UPDATE_ATTACK_SCENARIOS,
+    apply_update_attack,
+    byzantine_update_keyed,
+    stream_seed,
+)
+from repro_torch.core import blocking_table
+from repro_torch.fed.server import ServerState, init_server_state, server_step
+from repro_torch.utils.philox import keyed_randint
+from repro_torch.utils.trees import (
+    pack_stack,
+    tree_broadcast_clients,
+    tree_map,
+    tree_select_rows,
+    unpack_stack,
+)
 
 _CLIENT_STREAM = 0xC11E47
 _ROUND_ATTACK_STREAM = 0xA7
+_BATCH_STREAM = 0x0B47C4    # the fused engines' device minibatch draws
+ROUNDS_RANGE = "fused_rounds"  # profiler range around the fused rounds (no capture)
 
 
 class FusedData(NamedTuple):
     """Device-resident inputs of a round loop over padded client shards."""
 
     x: torch.Tensor        # (K, n_max, *feat) zero-padded client shards
-    y: torch.Tensor        # (K, n_max, *lab) int32 labels
-    lengths: torch.Tensor  # (K,) int32 live rows per shard
+    y: torch.Tensor        # (K, n_max, *lab) integer labels
+    lengths: torch.Tensor  # (K,) integer live rows per shard
     n_k: torch.Tensor      # (K,) float32 aggregation data weights
     x_test: torch.Tensor   # (n_test, *feat)
-    y_test: torch.Tensor   # (n_test, *lab) int32
+    y_test: torch.Tensor   # (n_test, *lab) integer labels
 
 
 class EngineConfig(NamedTuple):
-    """Knobs of the batched round step."""
+    """Knobs of the round step."""
 
     scenario: str = "clean"      # clean | byzantine | flipping | noisy | alie | ipm
     lr: float = 0.1
@@ -83,3 +126,323 @@ def make_train_attack_step(workload, cfg: EngineConfig):
                                  bad_mask, benign_mask, round_attack_seed)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# fused engine — one round captured as a CUDA graph, replayed T times
+# ---------------------------------------------------------------------------
+
+
+class FusedTrajectory(NamedTuple):
+    """Per-round outputs (leading axis T)."""
+
+    test_error: torch.Tensor  # (T,) fraction in [0, 1]
+    good_mask: torch.Tensor   # (T, K) bool — rule's kept-set each round
+    blocked: torch.Tensor     # (T, K) bool — blocked set AFTER each round
+
+
+def _propose_round(workload, cfg: EngineConfig, num_clients_total, batch_s, batch_b,
+                   params, blocked, rnd, seed, data: FusedData, bad, client_ids):
+    """One round's proposal phase: participation masks, the keyed device
+    minibatch draw (per-client upper bound ``lengths[k]``; pad rows carry
+    length 1), local training, non-trainers reset to ``w_t`` and the
+    update-level attack on the packed buffer.  Returns ``(packed (R, D),
+    pack spec, mask0)``."""
+    skip_bad = cfg.scenario in UPDATE_ATTACK_SCENARIOS
+    mask0 = ~blocked
+    train_mask = mask0 & ~bad if skip_bad else mask0
+    R = client_ids.shape[0]
+    offsets = rnd * num_clients_total + client_ids
+    idx = keyed_randint(seed, _BATCH_STREAM, offsets, batch_s * batch_b, data.lengths)
+    idx = idx.reshape(R, batch_s, batch_b)
+    rows = torch.arange(R, device=idx.device)[:, None, None]
+    batch = {"x": data.x[rows, idx], "y": data.y[rows, idx]}
+    proposals = workload.local_update_keyed(cfg, params, batch, seed, offsets)
+    w_prev = workload.codec.proposal_of(params)
+    proposals = tree_select_rows(train_mask, proposals, tree_broadcast_clients(w_prev, R))
+    pspec = workload.delta_spec(params)
+    packed = pack_stack(proposals, pspec)
+    w_row = pack_stack(tree_map(lambda l: l[None], w_prev), pspec)[0]
+    bad_live = bad & mask0
+    if cfg.scenario == "byzantine":
+        packed = byzantine_update_keyed(packed, w_row, bad_live, seed, offsets,
+                                        scale=cfg.byzantine_scale)
+    else:
+        packed = apply_update_attack(cfg.scenario, packed, w_row, bad_live, mask0 & ~bad, 0,
+                                     z_max=cfg.alie_z_max, eps=cfg.ipm_eps)
+    return packed, pspec, mask0
+
+
+def _round_body(workload, cfg: EngineConfig, rule, opts, delta_block, block_table,
+                num_clients_total, batch_s, batch_b, carry, rnd, seed, data: FusedData,
+                bad, client_ids):
+    """ONE fused round over a (possibly compacted) client layout of R rows:
+    ``bad`` and ``client_ids`` are ``(R,)`` device tensors, ``rnd`` a 0-d
+    int64 device tensor, ``seed`` a 0-d int64 device tensor, and
+    ``num_clients_total`` the full K, the stride of the keyed streams.  The
+    packed ``(R, D)`` proposals go through ``server_step`` (blocking from
+    ``block_table``); with no live client the aggregate keeps the previous
+    proposal point (a ``torch.where``, not a host branch).  Returns
+    ``((params', state'), FusedTrajectory row)``."""
+    params, state = carry
+    packed, pspec, mask0 = _propose_round(
+        workload, cfg, num_clients_total, batch_s, batch_b, params,
+        state.reputation.blocked, rnd, seed, data, bad, client_ids,
+    )
+    state, res = server_step(state, packed, data.n_k, mask0, rule=rule, opts=opts,
+                             delta_block=delta_block, layout="matrix",
+                             block_table=block_table)
+    w_prev = workload.codec.proposal_of(params)
+    aggregate = tree_map(lambda prev, new: torch.where(res.all_blocked, prev, new),
+                         w_prev, unpack_stack(res.aggregate, pspec))
+    params = workload.codec.apply(params, aggregate)
+    err = workload.eval_metric(params, data.x_test, data.y_test)
+    return (params, state), FusedTrajectory(err, res.good_mask, state.reputation.blocked)
+
+
+def fused_server_state(num_clients: int, alpha0: float, beta0: float, device) -> ServerState:
+    """Round-0 server state with its round counter a 0-d int32 tensor on
+    ``device``, as the fused engines carry it."""
+    state = init_server_state(num_clients, alpha0, beta0, device=device)
+    return state._replace(round=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _device_seed(seed: int, device) -> torch.Tensor:
+    return torch.full((), int(seed), dtype=torch.int64, device=device)
+
+
+def _clone_state(state: ServerState) -> ServerState:
+    return ServerState(state.reputation._replace(
+        alpha=state.reputation.alpha.clone(), beta=state.reputation.beta.clone(),
+        blocked=state.reputation.blocked.clone()),
+        state.rounds_blocked.clone(), state.round.clone())
+
+
+def _copy_state_(dst: ServerState, src: ServerState) -> None:
+    for d, s in ((dst.reputation.alpha, src.reputation.alpha),
+                 (dst.reputation.beta, src.reputation.beta),
+                 (dst.reputation.blocked, src.reputation.blocked),
+                 (dst.rounds_blocked, src.rounds_blocked), (dst.round, src.round)):
+        d.copy_(s)
+
+
+def _copy_tree_(dst, src) -> None:
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+
+
+class _RoundProgram:
+    """The round body over static buffers, for one client layout.
+
+    ``step()`` runs one round: the body reads the parameters, server state,
+    round index and inputs from the buffers, then writes the round's outputs
+    into the trajectory at the round index, copies the new parameters and
+    state over the old ones and advances the index.  ``capture()`` records
+    ``step()`` as a CUDA graph: one warm-up round on the capture stream (it
+    builds the kernel library, loads the kernels, creates the stream's
+    ticket counter of ``kernels.ops`` and lets autograd settle), the buffers
+    restored, then the capture, in a private memory pool.  ``run()`` replays
+    the graph, or on the CPU calls ``step()``, once per round."""
+
+    def __init__(self, body, params, state: ServerState, seed, data: FusedData, bad,
+                 client_ids, num_rounds: int):
+        dev = client_ids.device
+        self.body = body
+        self.params = tree_map(lambda l: l.clone(), params)
+        self.state = _clone_state(state)
+        self.seed, self.data, self.bad, self.ids = seed, data, bad, client_ids
+        self.rnd = torch.zeros((), dtype=torch.int64, device=dev)
+        R = client_ids.shape[0]
+        self.traj = FusedTrajectory(
+            torch.zeros((num_rounds,), dtype=torch.float32, device=dev),
+            torch.zeros((num_rounds, R), dtype=torch.bool, device=dev),
+            torch.zeros((num_rounds, R), dtype=torch.bool, device=dev),
+        )
+        self.graph = None
+        self.capture_s = 0.0
+
+    def step(self) -> None:
+        (params, state), out = self.body((self.params, self.state), self.rnd, self.seed,
+                                         self.data, self.bad, self.ids)
+        at = self.rnd.reshape(1)
+        for buf, val in zip(self.traj, out):
+            buf.index_copy_(0, at, val.reshape((1,) + tuple(buf.shape[1:])).to(buf.dtype))
+        _copy_tree_(self.params, params)
+        _copy_state_(self.state, state)
+        self.rnd.add_(1)
+
+    def load(self, params, state: ServerState, data: FusedData, bad, client_ids,
+             start: int) -> None:
+        """Set the buffers for a run from round ``start`` (inputs are copied
+        only where they are other tensors than the buffers)."""
+        _copy_tree_(self.params, params)
+        _copy_state_(self.state, state)
+        for buf, new in zip((*self.data, self.bad, self.ids), (*data, bad, client_ids)):
+            if new is not buf:
+                buf.copy_(new)
+        self.rnd.fill_(int(start))
+
+    def capture(self) -> None:
+        dev = self.ids.device
+        t0 = time.perf_counter()
+        saved = (tree_map(lambda l: l.clone(), self.params), _clone_state(self.state),
+                 self.rnd.clone(), [t.clone() for t in self.traj])
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        _copy_tree_(self.params, saved[0])
+        _copy_state_(self.state, saved[1])
+        self.rnd.copy_(saved[2])
+        for buf, old in zip(self.traj, saved[3]):
+            buf.copy_(old)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            self.step()
+        torch.cuda.synchronize(dev)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, count: int) -> None:
+        # a named range, so that a profiler trace can tell the rounds from
+        # the capture's warm-up round (free when no profiler is on)
+        with torch.profiler.record_function(ROUNDS_RANGE):
+            for _ in range(count):
+                if self.graph is not None:
+                    self.graph.replay()
+                else:
+                    self.step()
+
+    def outputs(self, start: int, count: int):
+        """Copies of the parameters, the state and rounds ``start ..
+        start + count`` of the trajectory."""
+        traj = FusedTrajectory(*(t[start:start + count].clone() for t in self.traj))
+        return tree_map(lambda l: l.clone(), self.params), _clone_state(self.state), traj
+
+
+def _body(workload, cfg, rule, opts, delta_block, num_clients_total, batch_s, batch_b,
+          alpha0, beta0, num_rounds, device):
+    """The round body with its static configuration bound: the rule asked
+    for no host read (``RuleOptions.capturable``) and the blocking table
+    (counts up to ``num_rounds``) on ``device``."""
+    table = torch.from_numpy(blocking_table(alpha0, beta0, delta_block, num_rounds)).to(device)
+    block = (table, float(alpha0), float(beta0))
+    opts = opts._replace(capturable=True)
+
+    def body(carry, rnd, seed, data, bad, client_ids):
+        return _round_body(workload, cfg, rule, opts, delta_block, block, num_clients_total,
+                           batch_s, batch_b, carry, rnd, seed, data, bad, client_ids)
+
+    return body
+
+
+def make_fused_sim(
+    workload,
+    cfg: EngineConfig,
+    *,
+    rule: str,
+    opts,                      # repro_torch.core.RuleOptions, built once with K
+    delta_block: float,
+    num_clients: int,
+    num_rounds: int,
+    batch_s: int,
+    batch_b: int,
+    bad_mask: np.ndarray,
+    alpha0: float = 3.0,
+    beta0: float = 3.0,
+    device="cuda",
+):
+    """Build the fused T-round simulation on ``device``.
+
+    Returns ``(scan_fn, round_fn)``:
+
+    * ``scan_fn(params0, seed, data, *, stats=None) -> (params_T, state_T,
+      traj)``: all T rounds from the int ``seed``, the round captured as a
+      CUDA graph and replayed on the card, looped on the CPU; ``stats``, a
+      dict, receives
+      ``capture_s`` (warm-up round and capture, in seconds).
+    * ``round_fn(carry, rnd, seed, data) -> (carry', out)``: the round body
+      called once (``rnd`` and ``seed`` 0-d int64 tensors on ``device``), the
+      ``fused_eager`` engine's step.
+
+    Blocked clients keep their row and are excluded by mask; the segmented
+    form (:func:`make_fused_segment`) compacts them away."""
+    device = torch.device(device)
+    K = int(num_clients)
+    bad = torch.from_numpy(np.asarray(bad_mask, bool)).to(device)
+    ids = torch.arange(K, dtype=torch.int64, device=device)
+    body = _body(workload, cfg, rule, opts, delta_block, K, int(batch_s), int(batch_b),
+                 alpha0, beta0, int(num_rounds), device)
+
+    def round_fn(carry, rnd, seed, data: FusedData):
+        return body(carry, rnd, seed, data, bad, ids)
+
+    def scan_fn(params0, seed, data: FusedData, *, stats=None):
+        state0 = fused_server_state(K, alpha0, beta0, device)
+        prog = _RoundProgram(body, params0, state0, _device_seed(seed, device), data, bad, ids,
+                             int(num_rounds))
+        if device.type == "cuda":
+            prog.capture()
+        prog.run(int(num_rounds))
+        if stats is not None:
+            stats["capture_s"] = prog.capture_s
+        return prog.outputs(0, int(num_rounds))
+
+    return scan_fn, round_fn
+
+
+def make_fused_segment(
+    workload,
+    cfg: EngineConfig,
+    *,
+    rule: str,
+    opts,
+    delta_block: float,
+    num_clients_total: int,
+    num_rounds: int,
+    batch_s: int,
+    batch_b: int,
+    alpha0: float = 3.0,
+    beta0: float = 3.0,
+    device="cuda",
+):
+    """Build the segments of the fused simulation on ``device``.
+
+    Returns ``segment_fn(params, state, seed, data, bad, client_ids,
+    seg_start, seg_len, *, stats=None) -> (params', state', traj)``: rounds
+    ``seg_start .. seg_start + seg_len`` of the round body over the client
+    layout the arguments carry (R rows: ``data``, ``state``, ``bad`` and
+    ``client_ids``, the rows' original ids), ``seed`` the run's int seed.
+    Unlike the JAX package's,
+    ``seg_len`` is an argument: one round is captured, and the segment
+    replays it.  One program, and on the card one capture, per R: a bucket
+    of the segmented simulator's compaction, so O(log K) a run.  ``stats``,
+    a dict, has the seconds of a capture made in the call added to its
+    ``capture_s``.
+
+    Compaction contract (the simulator keeps it): ``client_ids[:K_live]``
+    are the live original ids ascending; pad rows are blocked in ``state``,
+    with zero shards of length 1 in ``data``.  The keyed streams then give
+    every live client the draws of the uncompacted run."""
+    device = torch.device(device)
+    body = _body(workload, cfg, rule, opts, delta_block, int(num_clients_total), int(batch_s),
+                 int(batch_b), alpha0, beta0, int(num_rounds), device)
+    programs: dict = {}
+
+    def segment_fn(params, state, seed, data: FusedData, bad, client_ids, seg_start: int,
+                   seg_len: int, *, stats=None):
+        rows = int(client_ids.shape[0])
+        prog = programs.get(rows)
+        if prog is None:
+            prog = programs[rows] = _RoundProgram(body, params, state,
+                                                  _device_seed(seed, device), data, bad,
+                                                  client_ids, int(num_rounds))
+            if device.type == "cuda":
+                prog.capture()
+                if stats is not None:
+                    stats["capture_s"] = stats.get("capture_s", 0.0) + prog.capture_s
+        prog.load(params, state, data, bad, client_ids, seg_start)
+        prog.run(int(seg_len))
+        return prog.outputs(int(seg_start), int(seg_len))
+
+    return segment_fn

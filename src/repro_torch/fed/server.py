@@ -3,13 +3,15 @@ and blocking state.
 
 Counterpart of ``repro/fed/server.py``: a pure core (``ServerState`` and
 ``server_step``) wrapped by the stateful ``FedServer`` shell the batched
-engine drives.
+engine drives.  The fused engines call ``server_step`` inside their round
+body with a device round counter and the blocking table, and compact the
+state with ``gather_server_state`` / ``scatter_server_state``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import numpy as np
 import torch
@@ -22,9 +24,11 @@ from repro_torch.core import (
     RuleOptions,
     dispatch_rule,
     dispatch_rule_tree,
+    gather_reputation,
     init_reputation,
     mark_blocked_round,
     p_good,
+    scatter_reputation,
     update_reputation,
 )
 from repro_torch.kernels.policy import KernelPlan, resolve_kernel_plan
@@ -62,7 +66,10 @@ class ServerState(NamedTuple):
     reputation: ReputationState   # Beta posteriors + blocked set, (K,) leaves
     rounds_blocked: torch.Tensor  # (K,) int32 — 1-indexed round of first
                                   # blocking, -1 = never blocked
-    round: int                    # completed rounds
+    # completed rounds: a Python int on the batched engine, a () int32
+    # tensor on the state's device on the fused engines (whose rounds read
+    # and advance it without a host read)
+    round: Union[int, torch.Tensor]
 
 
 def init_server_state(num_clients: int, alpha0: float = 3.0, beta0: float = 3.0, *,
@@ -75,6 +82,36 @@ def init_server_state(num_clients: int, alpha0: float = 3.0, beta0: float = 3.0,
         rounds_blocked=torch.full((num_clients,), -1, dtype=torch.int32, device=device),
         round=0,
     )
+
+
+def gather_server_state(state: ServerState, keep, pad_to: int) -> ServerState:
+    """Compact the full-K state to the kept client ids ``keep`` (ascending;
+    ``-1`` marks a pad slot) and pad to ``pad_to`` rows: pads are blocked for
+    good and read "never blocked" (``rounds_blocked = -1``).  The round
+    counter stays absolute."""
+    keep = np.asarray(keep, np.int64)
+    dev = state.rounds_blocked.device
+    rb = state.rounds_blocked.index_select(0, torch.from_numpy(np.maximum(keep, 0)).to(dev))
+    rb = torch.where(torch.from_numpy(keep >= 0).to(dev), rb, -1)
+    if pad_to > keep.shape[0]:
+        rb = torch.cat([rb, torch.full((pad_to - keep.shape[0],), -1, dtype=rb.dtype,
+                                       device=dev)])
+    return ServerState(gather_reputation(state.reputation, keep, pad_to), rb, state.round)
+
+
+def scatter_server_state(full: ServerState, compact: ServerState, keep) -> ServerState:
+    """Re-embed a compacted state into the full-K layout (inverse of
+    :func:`gather_server_state`): clients not in ``keep`` keep their entries
+    in ``full`` (only blocked clients are dropped, and blocking freezes them);
+    pad slots are dropped.  The round counter is the compacted state's."""
+    keep = np.asarray(keep, np.int64)
+    live = keep >= 0
+    dev = full.rounds_blocked.device
+    rb = full.rounds_blocked.clone()
+    rb[torch.from_numpy(keep[live]).to(dev)] = compact.rounds_blocked.index_select(
+        0, torch.from_numpy(np.nonzero(live)[0]).to(dev))
+    return ServerState(scatter_reputation(full.reputation, compact.reputation, keep), rb,
+                       compact.round)
 
 
 def make_rule_options(cfg: ServerConfig, num_participants: int) -> RuleOptions:
@@ -97,10 +134,10 @@ def make_rule_options(cfg: ServerConfig, num_participants: int) -> RuleOptions:
     )
 
 
-def _absorb(state: ServerState, good_mask, mask0, *, delta: float) -> ServerState:
+def _absorb(state: ServerState, good_mask, mask0, *, delta: float, table=None) -> ServerState:
     """Fold one round's screening outcome into the Beta posteriors, the
     blocked set and the 1-indexed ``rounds_blocked`` bookkeeping."""
-    rep = update_reputation(state.reputation, good_mask, mask0, delta=delta)
+    rep = update_reputation(state.reputation, good_mask, mask0, delta=delta, table=table)
     rounds_blocked = mark_blocked_round(
         state.rounds_blocked, state.reputation.blocked, rep.blocked, state.round
     )
@@ -117,11 +154,14 @@ def server_step(
     opts: RuleOptions,
     delta_block: float = 0.95,
     layout: str = "tree",
+    block_table=None,
 ):
     """One server round: dispatch the rule, then (for reputation-driven
     rules) absorb the screening outcome.  ``proposals`` is a stacked tree
     (``layout="tree"``, packed inside the dispatch) or a ``(K, D)`` matrix
-    (``"matrix"``).  Returns ``(state', result)``."""
+    (``"matrix"``).  ``block_table`` None blocks by ``betainc`` on the host;
+    the fused engines pass ``(table, alpha0, beta0)``
+    (``core.reputation.update_reputation``).  Returns ``(state', result)``."""
     dev = state.rounds_blocked.device
     n32 = torch.as_tensor(n_k, dtype=torch.float32, device=dev)
     mask0 = torch.as_tensor(mask0, device=dev)
@@ -132,7 +172,7 @@ def server_step(
     else:
         raise ValueError(f"unknown layout {layout!r}; expected tree | matrix")
     if RULES[rule].updates_reputation:
-        state = _absorb(state, res.good_mask, mask0, delta=delta_block)
+        state = _absorb(state, res.good_mask, mask0, delta=delta_block, table=block_table)
     else:
         state = state._replace(round=state.round + 1)
     return state, res

@@ -1,38 +1,76 @@
 """Paper-scale federated simulator: K clients x T rounds over a synthetic
 dataset, in the clean / byzantine / flipping / noisy / alie / ipm scenarios.
 
-Counterpart of ``repro/fed/simulator.py`` with the ``batched`` engine: each
-round trains all K clients at once on stacked parameters, applies the
-update-level attacks on the stacked proposals and aggregates through the
-packed registry dispatch.  The ``looped``, ``fused`` and ``fused_eager``
-engines are not ported and raise.
+Counterpart of ``repro/fed/simulator.py``.  Three round engines, selected
+by ``SimConfig.engine``:
+
+* ``batched`` (default) -- each round trains all K clients at once on
+  stacked parameters, applies the update-level attacks on the stacked
+  proposals and aggregates through the packed registry dispatch; the host
+  draws the minibatches and reads the round's outcome.
+* ``fused`` -- the whole T-round simulation as one round body that reads
+  nothing from the host (``fed/engine.make_fused_sim``): on the card one
+  CUDA graph, captured once and replayed T times, on the CPU the same body
+  in a loop.  With ``segment_rounds > 0`` the rounds run in segments, and
+  with ``compact`` the host reads the blocked set between segments and
+  compacts blocked clients out of the client axis (power-of-two buckets,
+  streams keyed by original id): the same trajectory, paying only for live
+  clients.
+* ``fused_eager`` -- the fused round body called one round at a time, the
+  reference the graph is held to.
+
+The ``looped`` engine is not ported and raises.
 
 ``_Setup`` consumes ONE numpy stream exactly as the JAX package does (the
-noisy-features poisoning first, then the minibatch indices of the trainers
-in ascending order, byzantine clients skipping training), so the shards and
-minibatches equal the JAX run's; only the torch-side streams (init, dropout,
-byzantine noise) differ.  The shards live on the device and each round
-gathers its minibatches there.
+noisy-features poisoning first, then, on the batched engine, the minibatch
+indices of the trainers in ascending order, byzantine clients skipping
+training), so the shards and the batched engine's minibatches equal the JAX
+run's; only the torch-side streams (init, dropout, byzantine noise) differ.
+The fused engines draw minibatches, dropout masks and byzantine noise from
+keyed Philox streams on the device (``utils/philox.py``), as the JAX
+package's fused engines draw theirs from ``jax.random``; the two packages'
+fused runs agree in distribution, not bit for bit.  The fused engines fill
+``round_time`` as total / T (capture included; ``capture_time`` apart) and
+leave ``train_time`` and ``agg_time`` at 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.attacks import UPDATE_ATTACK_SCENARIOS, flip_labels, noisy_features
-from repro_torch.data import SyntheticClassification, dirichlet_shards, iid_shards
+from repro_torch.data import (
+    SyntheticClassification,
+    compact_stack,
+    dirichlet_shards,
+    iid_shards,
+    padded_stack,
+    pow2_bucket,
+)
 from repro_torch.fed.engine import (
     EngineConfig,
+    FusedData,
+    FusedTrajectory,
     attack_seed,
     client_seeds,
+    fused_server_state,
+    make_fused_segment,
+    make_fused_sim,
     make_train_attack_step,
 )
-from repro_torch.fed.server import FedServer, ServerConfig
+from repro_torch.fed.server import (
+    FedServer,
+    ServerConfig,
+    gather_server_state,
+    make_rule_options,
+    scatter_server_state,
+)
 from repro_torch.fed.workload import DnnWorkload
 
 
@@ -52,7 +90,12 @@ class SimConfig:
     hidden: tuple = (512, 256)
     sharding: str = "iid"        # iid | dirichlet (non-IID label skew)
     dirichlet_alpha: float = 0.5
-    engine: str = "batched"      # the port runs "batched" only
+    engine: str = "batched"      # batched | fused | fused_eager ("looped" is not ported)
+    # fused engine only: > 0 runs the rounds in segments of this many, with
+    # the blocked clients compacted out of the client axis between segments
+    # when ``compact`` is set (0 = one run of T rounds, no compaction)
+    segment_rounds: int = 0
+    compact: bool = True
 
 
 @dataclasses.dataclass
@@ -68,6 +111,8 @@ class SimResult:
     round_time: float = 0.0     # mean per round: batch draw + train +
                                 # aggregate + eval
     round_times: list = dataclasses.field(default_factory=list)  # raw per-round
+    capture_time: float = 0.0   # fused engine on the card: seconds spent capturing
+                                # the round graphs (a warm-up round each included)
 
 
 def _sync(device: torch.device) -> None:
@@ -115,16 +160,12 @@ class _Setup:
         self.x_test = torch.from_numpy(data.x_test).to(device)
         self.y_test = torch.from_numpy(data.y_test.astype(np.int64)).to(device)
 
-        # shards as padded device stacks; each round gathers its minibatches
+        # shards as padded stacks, on the host (the segmented engine compacts
+        # them) and on the device, where each round gathers its minibatches
         lens = [len(x) for x, _ in self.poisoned]
-        n_max = max(lens)
-        x_pad = np.zeros((K, n_max, data.dim), np.float32)
-        y_pad = np.zeros((K, n_max), np.int64)
-        for k, (x, y) in enumerate(self.poisoned):
-            x_pad[k, : len(x)] = x
-            y_pad[k, : len(y)] = y
-        self.x_pad = torch.from_numpy(x_pad).to(device)
-        self.y_pad = torch.from_numpy(y_pad).to(device)
+        self.padded = padded_stack(self.poisoned)
+        self.x_pad = torch.from_numpy(self.padded[0]).to(device)
+        self.y_pad = torch.from_numpy(self.padded[1].astype(np.int64)).to(device)
 
         # uniform per-round minibatch geometry, keyed to the MEAN shard;
         # sampling is with replacement
@@ -194,11 +235,8 @@ def detection_stats(blocked_round: np.ndarray, bad: np.ndarray):
     return rate, mean_rounds
 
 
-_NOT_PORTED = {
-    "looped": "ROADMAP queue A: the looped engine",
-    "fused": "ROADMAP queue A: the fused and segmented engines",
-    "fused_eager": "ROADMAP queue A: the fused and segmented engines",
-}
+_NOT_PORTED = {"looped": "ROADMAP queue A: the looped engine"}
+_ENGINES = ("batched", "fused", "fused_eager")
 
 
 def simulate(data: SyntheticClassification, sim: SimConfig, server_cfg: ServerConfig, *,
@@ -209,11 +247,15 @@ def simulate(data: SyntheticClassification, sim: SimConfig, server_cfg: ServerCo
             f"engine={sim.engine!r} is not ported to repro_torch yet "
             f"({_NOT_PORTED[sim.engine]}); use engine='batched'"
         )
-    if sim.engine != "batched":
+    if sim.engine not in _ENGINES:
         raise ValueError(f"unknown engine {sim.engine!r} (batched | looped | fused | fused_eager)")
     dev = resolve_device(device)
     setup = _Setup(data, sim, dev, workload=workload)
-    return _run_batched(setup, server_cfg, eval_every)
+    if sim.engine == "batched":
+        return _run_batched(setup, server_cfg, eval_every)
+    if sim.engine == "fused" and sim.segment_rounds > 0:
+        return _run_fused_segmented(setup, server_cfg, eval_every)
+    return _run_fused(setup, server_cfg, eval_every, eager=sim.engine == "fused_eager")
 
 
 def _run_batched(setup: _Setup, server_cfg: ServerConfig, eval_every: int) -> SimResult:
@@ -263,3 +305,217 @@ def _run_batched(setup: _Setup, server_cfg: ServerConfig, eval_every: int) -> Si
     return setup.result(
         server.rounds_blocked, test_error, good_hist, t_train, t_agg, round_times
     )
+
+
+# ---------------------------------------------------------------------------
+# fused engine — one round body, a CUDA graph on the card
+# ---------------------------------------------------------------------------
+
+
+def _fused_data(setup: _Setup) -> FusedData:
+    """The device inputs of the fused engine over all K clients."""
+    dev = setup.device
+    return FusedData(
+        x=setup.x_pad, y=setup.y_pad,
+        lengths=torch.from_numpy(setup.padded[2].astype(np.int64)).to(dev),
+        n_k=torch.from_numpy(setup.n_k).to(dev),
+        x_test=setup.x_test, y_test=setup.y_test,
+    )
+
+
+def _make_setup_sim(setup: _Setup, server_cfg: ServerConfig):
+    """Fused simulation for this experiment's static configuration; the rule
+    options are built once, with K (MKRUM selects K - f - 2)."""
+    sim = setup.sim
+    return make_fused_sim(
+        setup.workload, setup.engine_config(),
+        rule=server_cfg.rule,
+        opts=make_rule_options(server_cfg, sim.num_clients),
+        delta_block=server_cfg.delta_block,
+        num_clients=sim.num_clients,
+        num_rounds=sim.rounds,
+        batch_s=setup.batch_s,
+        batch_b=setup.batch_b,
+        bad_mask=setup.bad_mask,
+        alpha0=server_cfg.alpha0,
+        beta0=server_cfg.beta0,
+        device=setup.device,
+    )
+
+
+class FusedInputs(NamedTuple):
+    """Everything an outside caller of the fused round pipeline needs."""
+
+    workload: object           # ClientWorkload (hashable frozen dataclass)
+    engine_cfg: EngineConfig
+    data: FusedData            # padded device stacks + n_k + test set
+    bad_mask: np.ndarray       # (K,) bool — ground-truth byzantine ids
+    batch_s: int               # per-round local steps
+    batch_b: int               # minibatch width
+    params0: object            # workload.init_params from sim.seed
+
+
+def fused_inputs(data: SyntheticClassification, sim: SimConfig, *, workload=None,
+                 device="cuda") -> FusedInputs:
+    """The fused engine's inputs for this experiment, built by the same
+    ``_Setup`` the engines use, without running it."""
+    setup = _Setup(data, sim, resolve_device(device), workload=workload)
+    return FusedInputs(
+        workload=setup.workload, engine_cfg=setup.engine_config(), data=_fused_data(setup),
+        bad_mask=setup.bad_mask, batch_s=setup.batch_s, batch_b=setup.batch_b,
+        params0=setup.params0,
+    )
+
+
+def _fused_result(setup: _Setup, rounds_blocked, test_error, good_hist, total: float,
+                  eval_every: int, capture_s: float) -> SimResult:
+    T = setup.sim.rounds
+    errs = np.asarray(test_error, np.float64) * 100.0
+    kept = [float(errs[r]) for r in range(T) if r % eval_every == 0 or r == T - 1]
+    # one program covers the T rounds: no per-phase host timings exist, so
+    # only round_time is filled (uniformly spread)
+    res = setup.result(np.asarray(rounds_blocked), kept, good_hist, 0.0, 0.0,
+                       [total / max(T, 1)] * T)
+    res.capture_time = capture_s
+    return res
+
+
+def _run_fused(setup: _Setup, server_cfg: ServerConfig, eval_every: int, *,
+               eager: bool = False) -> SimResult:
+    sim, dev = setup.sim, setup.device
+    data = _fused_data(setup)
+    scan_fn, round_fn = _make_setup_sim(setup, server_cfg)
+    stats = {"capture_s": 0.0}
+    _sync(dev)
+    t_start = time.perf_counter()
+    if eager:
+        # the reference for the graph: the identical round body, called once
+        # per round
+        seed = torch.full((), sim.seed, dtype=torch.int64, device=dev)
+        carry = (setup.params0,
+                 fused_server_state(sim.num_clients, server_cfg.alpha0, server_cfg.beta0, dev))
+        outs = []
+        for rnd in range(sim.rounds):
+            carry, out = round_fn(carry, torch.full((), rnd, dtype=torch.int64, device=dev),
+                                  seed, data)
+            outs.append(out)
+        state = carry[1]
+        traj = FusedTrajectory(*[torch.stack(parts) for parts in zip(*outs)])
+    else:
+        _, state, traj = scan_fn(setup.params0, sim.seed, data, stats=stats)
+    _sync(dev)
+    total = time.perf_counter() - t_start
+    return _fused_result(setup, state.rounds_blocked.cpu().numpy(),
+                         traj.test_error.cpu().numpy(), list(traj.good_mask.cpu().numpy()),
+                         total, eval_every, stats["capture_s"])
+
+
+# ---------------------------------------------------------------------------
+# segmented fused engine — compaction of blocked clients between segments
+# ---------------------------------------------------------------------------
+
+
+def _compact_inputs(setup: _Setup, kept: np.ndarray, bucket: int):
+    """The kept clients' device inputs in a ``bucket``-row layout: ``kept``
+    holds the live original ids, ascending; pad rows carry zero shards of
+    length 1, zero ``n_k``, benign ``bad`` and id 0, all inert, since their
+    server-state rows are blocked."""
+    dev = setup.device
+    x_pad, y_pad, lengths = setup.padded
+    kept = np.asarray(kept, np.int64)
+    x_c, y_c, len_c = compact_stack(x_pad, y_pad, lengths, kept, pad_to=bucket)
+    n = len(kept)
+    n_k_c = np.zeros((bucket,), np.float32)
+    n_k_c[:n] = setup.n_k[kept]
+    bad_c = np.zeros((bucket,), bool)
+    bad_c[:n] = setup.bad_mask[kept]
+    ids_c = np.zeros((bucket,), np.int64)
+    ids_c[:n] = kept
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    data = FusedData(x=t(x_c), y=t(y_c.astype(np.int64)), lengths=t(len_c.astype(np.int64)),
+                     n_k=t(n_k_c), x_test=setup.x_test, y_test=setup.y_test)
+    return data, t(bad_c), t(ids_c)
+
+
+def _segment_fn(setup: _Setup, server_cfg: ServerConfig):
+    """The segments for this experiment's static configuration: one program
+    (one capture on the card) per bucket."""
+    sim = setup.sim
+    return make_fused_segment(
+        setup.workload, setup.engine_config(),
+        rule=server_cfg.rule,
+        opts=make_rule_options(server_cfg, sim.num_clients),
+        delta_block=server_cfg.delta_block,
+        num_clients_total=sim.num_clients,
+        num_rounds=sim.rounds,
+        batch_s=setup.batch_s,
+        batch_b=setup.batch_b,
+        alpha0=server_cfg.alpha0,
+        beta0=server_cfg.beta0,
+        device=setup.device,
+    )
+
+
+def _run_fused_segmented(setup: _Setup, server_cfg: ServerConfig,
+                         eval_every: int) -> SimResult:
+    """The fused simulation in segments of ``segment_rounds`` rounds.
+
+    Before each segment the host reads the blocked set (with ``compact``;
+    the only device-to-host read of the run until its end) and, when the
+    live clients fit a smaller power-of-two bucket, saves the rows being
+    dropped into the full-K state, gathers the live clients' shards,
+    ``n_k``, posteriors and attack flags into the bucket and replays that
+    bucket's round graph.  Every keyed stream depends on the original id and
+    every client-axis sum adds the live rows in order, so the stitched
+    trajectory equals the one-shot run's."""
+    sim, dev = setup.sim, setup.device
+    K, T, S = sim.num_clients, sim.rounds, sim.segment_rounds
+    seg_fn = _segment_fn(setup, server_cfg)
+    stats = {"capture_s": 0.0}
+    _sync(dev)
+    t_start = time.perf_counter()
+    params = setup.params0
+    # the full-K state holds the frozen rows of clients dropped at earlier
+    # compactions; the live rows' state is ``state_c``, scattered back at
+    # bucket changes and once at the end
+    state_full = fused_server_state(K, server_cfg.alpha0, server_cfg.beta0, dev)
+    state_c = state_full
+    data_c = bad_c = ids_c = None
+    kept, bucket = np.arange(K), None
+    pieces = []
+    seg_start = 0
+    while seg_start < T:
+        seg_len = min(S, T - seg_start)
+        if sim.compact:
+            blocked_c = state_c.reputation.blocked.cpu().numpy()[: len(kept)]
+            live = kept[~blocked_c]
+        else:
+            live = np.arange(K)
+        new_bucket = pow2_bucket(len(live), K)
+        if bucket != new_bucket:
+            if bucket is not None:
+                state_full = scatter_server_state(state_full, state_c, kept)
+            bucket, kept = new_bucket, live
+            data_c, bad_c, ids_c = _compact_inputs(setup, kept, bucket)
+            state_c = gather_server_state(state_full, kept, bucket)
+        params, state_c, traj = seg_fn(params, state_c, sim.seed, data_c, bad_c, ids_c,
+                                       seg_start, seg_len, stats=stats)
+        pieces.append((seg_start, seg_len, kept, traj))
+        seg_start += seg_len
+    state_full = scatter_server_state(state_full, state_c, kept)
+    _sync(dev)
+    total = time.perf_counter() - t_start
+
+    # stitch the (seg_len, bucket) outputs into full-K rows through the kept
+    # maps; dropped clients keep good_mask = False, as the one-shot run
+    # gives them (they are blocked)
+    test_error = np.zeros((T,), np.float64)
+    good = np.zeros((T, K), bool)
+    for start, n, kept_s, traj in pieces:
+        test_error[start:start + n] = traj.test_error.cpu().numpy()
+        good[start:start + n, kept_s] = traj.good_mask.cpu().numpy()[:, : len(kept_s)]
+    return _fused_result(setup, state_full.rounds_blocked.cpu().numpy(), test_error,
+                         list(good), total, eval_every, stats["capture_s"])

@@ -25,6 +25,7 @@ from repro_torch import resolve_device
 from repro_torch.attacks import UPDATE_ATTACK_SCENARIOS, stream_seed
 from repro_torch.fed.client import local_sgd, local_sgd_frozen
 from repro_torch.fed.dnn import dnn_error, dnn_loss, init_dnn
+from repro_torch.utils.philox import keyed_bits
 from repro_torch.utils.trees import (
     PackSpec,
     pack_spec,
@@ -86,6 +87,17 @@ class ClientWorkload:
         resets them to ``w_t``."""
         raise NotImplementedError
 
+    def local_update_keyed(self, cfg, params, batches, seed, offsets):
+        """``local_update`` for the fused engines: row r's randomness comes
+        from the keyed stream ``(seed, stream, offsets[r])``
+        (``utils/philox.py``; ``offsets`` = round * K + original client id,
+        ``seed`` a 0-d device tensor), so the call reads nothing from the host
+        and a client's draws do not depend on its row."""
+        raise NotImplementedError(
+            f"workload {self.name!r} has no keyed local update yet; the fused "
+            "engines run the DNN workload only (ROADMAP queue A)"
+        )
+
     def eval_metric(self, params, x_test, y_test):
         """Scalar error in [0, 1] on the held-out set."""
         raise NotImplementedError
@@ -136,16 +148,34 @@ class DnnWorkload(ClientWorkload):
         keep = torch.stack(rows)
         return list(torch.split(keep, list(widths), dim=-1))
 
-    def local_update(self, cfg, params, batches, client_seeds, train_mask=None):
+    def dropout_keep_keyed(self, seed, offsets, steps: int, batch: int):
+        """``dropout_keep`` from the keyed stream: row r's masks are the
+        first ``steps * batch * sum(widths)`` fair bits of the stream ``(seed,
+        dropout stream, offsets[r])``, one bit a unit (DROPOUT_P = 0.5)."""
+        widths = self.sizes[1:-1]
+        keep = keyed_bits(seed, _DROPOUT_STREAM, offsets, steps * batch * sum(widths))
+        keep = keep.reshape(offsets.shape[0], steps, batch, sum(widths))
+        return list(torch.split(keep, list(widths), dim=-1))
+
+    def _train(self, cfg, params, batches, keep):
         # every row trains: one batched pass costs no more than a masked one
-        K = len(client_seeds)
-        x = batches["x"]
-        keep = (self.dropout_keep(client_seeds, x.shape[1], x.shape[2], x.device)
-                if cfg.dropout else None)
+        K = batches["x"].shape[0]
         return local_sgd(
             dnn_loss, tree_broadcast_clients(params, K), batches,
             lr=cfg.lr, momentum=cfg.momentum, dropout_keep=keep,
         )
+
+    def local_update(self, cfg, params, batches, client_seeds, train_mask=None):
+        x = batches["x"]
+        keep = (self.dropout_keep(client_seeds, x.shape[1], x.shape[2], x.device)
+                if cfg.dropout else None)
+        return self._train(cfg, params, batches, keep)
+
+    def local_update_keyed(self, cfg, params, batches, seed, offsets):
+        x = batches["x"]
+        keep = (self.dropout_keep_keyed(seed, offsets, x.shape[1], x.shape[2])
+                if cfg.dropout else None)
+        return self._train(cfg, params, batches, keep)
 
     def eval_metric(self, params, x_test, y_test):
         return dnn_error(params, x_test, y_test)

@@ -9,7 +9,9 @@ shape and contiguity, then
 There is no fallback from the kernel to the twin.  ``LAUNCH_COUNTS`` holds
 one plain integer per kernel, raised by one where its wrapper launches it
 (CPU calls do not count), so a run can show that it went through the
-kernels.  Scratch for the split-D partial sums is allocated here with
+kernels.  A call made while the stream is captured into a CUDA graph
+launches nothing and is not counted: the graph's replays launch the
+kernels, and only a profiler trace sees them.  Scratch for the split-D partial sums is allocated here with
 ``torch.empty``; the kernels allocate nothing.  The scratch is released
 when a wrapper returns, possibly before its kernels ran: PyTorch's caching
 allocator hands that memory out again only to later work on the same
@@ -38,6 +40,13 @@ LAUNCH_COUNTS = {"weighted_sum": 0, "cosine_sim": 0, "gram": 0, "afa_screen": 0,
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    """One launch of ``name``'s kernel, unless the call was recorded into a
+    CUDA graph."""
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCH_COUNTS[name] += 1
 
 
 def _check_tensor(op: str, what: str, t, ndim: int) -> None:
@@ -119,7 +128,7 @@ def weighted_sum(weights: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
     if not _on_card("weighted_sum", weights, updates):
         return ref.weighted_sum_ref(updates, weights)
     out = _weighted_sum_cuda(load_library(), _stream(updates), weights, updates)
-    LAUNCH_COUNTS["weighted_sum"] += 1
+    _count_launch("weighted_sum")
     return out
 
 
@@ -150,7 +159,7 @@ def cosine_sim(updates: torch.Tensor, agg: torch.Tensor) -> torch.Tensor:
     if not _on_card("cosine_sim", updates, agg):
         return ref.cosine_sim_ref(updates, agg)
     out = _cosine_sim_cuda(load_library(), _stream(updates), updates, agg)
-    LAUNCH_COUNTS["cosine_sim"] += 1
+    _count_launch("cosine_sim")
     return out
 
 
@@ -269,7 +278,7 @@ def gram(updates: torch.Tensor) -> torch.Tensor:
     if not _on_card("gram", updates):
         return ref.gram_ref(updates)
     out = _gram_cuda(load_library(), _stream(updates), updates)
-    LAUNCH_COUNTS["gram"] += 1
+    _count_launch("gram")
     return out
 
 
@@ -310,7 +319,7 @@ def afa_screen(updates: torch.Tensor, pn: torch.Tensor, mask0: torch.Tensor, *,
     if not _on_card("afa_screen", updates, pn, mask0):
         return ref.afa_screen_ref(updates, pn, mask0, **kw)
     out = _afa_screen_cuda(load_library(), _stream(updates), updates, pn, mask0, **kw)
-    LAUNCH_COUNTS["afa_screen"] += 1
+    _count_launch("afa_screen")
     return out
 
 
@@ -372,7 +381,7 @@ def coord_median(updates: torch.Tensor, mask: torch.Tensor | None = None) -> tor
     if not _on_card("coord_median", *operands):
         return ref.coord_median_ref(updates, mask)
     out = _rank_cuda("coord_median", load_library(), _stream(updates), updates, mask)
-    LAUNCH_COUNTS["coord_median" if mask is None else "coord_median_masked"] += 1
+    _count_launch("coord_median" if mask is None else "coord_median_masked")
     return out
 
 
@@ -397,7 +406,7 @@ def trimmed_mean(updates: torch.Tensor, mask: torch.Tensor, *, trim: int) -> tor
     if not _on_card("trimmed_mean", updates, mask):
         return ref.trimmed_mean_ref(updates, mask, trim=trim)
     out = _rank_cuda("trimmed_mean", load_library(), _stream(updates), updates, mask, trim=trim)
-    LAUNCH_COUNTS["trimmed_mean"] += 1
+    _count_launch("trimmed_mean")
     return out
 
 
@@ -552,7 +561,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _on_card(op, q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal)
     out = _flash_attention_cuda(load_library(), _stream(q), q, k, v, causal=causal)
-    LAUNCH_COUNTS["flash_attn" if q.dtype == torch.float32 else "flash_attn_tc"] += 1
+    _count_launch("flash_attn" if q.dtype == torch.float32 else "flash_attn_tc")
     return out
 
 

@@ -191,5 +191,5 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError):
         run(None, sim, data=data, seeds=[0, 1], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(None, SimConfig(num_clients=2, rounds=1, hidden=(4,), engine="fused"),
+        run(None, SimConfig(num_clients=2, rounds=1, hidden=(4,), engine="looped"),
             data=data, device="cpu")
