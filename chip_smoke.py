@@ -28,7 +28,10 @@
    accepted, from a misaligned and an aligned view; all-dead, single-live
    and empty-trim masks; tied, +-0.0 and +-inf columns) bit for bit against
    their twins, a K above the largest refused, and broken plans refused by
-   the C entry;
+   the C entry; ROADMAP C.8: ``gram`` and ``afa_screen`` on the live 120
+   rows of a 200-row buffer and on the same rows in a 128-row buffer, bit
+   for bit with the split planned for 200 rows (``plan_rows``), and how
+   many entries differ without the plan and on cuBLAS's ``U @ U.T``;
 4. runs the paper's experiment through ``repro_torch.fed.api.run`` at full
    width (784 x 512 x 256 x 10 DNN, K = 10, 3 byzantine clients, 8 rounds)
    on each AFA kernel route, and checks that every byzantine client is
@@ -80,7 +83,12 @@
    blocking and screening as the one-shot run does; one eager round of each
    route under ``torch.cuda.set_sync_debug_mode("error")``; round 5's keyed
    Philox draws on the card equal to the CPU's (the normals within
-   ``KEYED_NORMAL_ATOL``); capture time and ms a round;
+   ``KEYED_NORMAL_ATOL``); capture time and ms a round; then ROADMAP C.8
+   end to end (``C8_SIM``: 180 clients, 54 byzantine, 1,000 samples a
+   client): one shot against 2-round segments, compacted from 180 to 128
+   rows after round 6, bit for bit on the two gram kernel routes, the
+   plain routes reported; and 200 clients with 40 % byzantine once, its
+   blocking reported;
 10. traces three rounds of the paper DNN's gram/fused route, two rounds of
    the LoRA phase's and one bf16 and one f32 forward of smollm-135m on the
    kernel route with ``torch.profiler`` (device busy share, the kernels that
@@ -91,9 +99,22 @@
    sees; from the first replayed round on exactly T times; the busy share
    of the replayed rounds) and the batched engine's eight rounds on the
    gram/fused route beside it;
-11. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
-   Its ``launches`` are the wrappers' counts of the eager runs and, for the
-   fused engine's graph runs, the calls that step 10's traces executed.
+11. drives the serve tier (``repro_torch.serve``) at step 4's configuration:
+   ``run_serve_replay`` with the default ``ServeConfig`` on gram/fused,
+   gram/chained, iterative and the plain route, each equal bit for bit to
+   the route's ``engine="fused"`` run of step 9 (test error, blocked rounds,
+   good_mask history), with step 4's outcome gates, no rejection and each
+   kernel route's kernels launched; then ``run_traffic`` on gram/fused
+   (``SERVE_ASYNC``, ``SERVE_TRAFFIC``, 20 rounds), twice: exactly the
+   byzantine clients blocked, at least 95 % of their reconnects rejected at
+   ingress, the same ingress log, test errors and fire times; readings of
+   each aggregation step, cohort propose and submit, the host-device bytes
+   of a round, the copies' times and the busy share of 8 traced replay
+   rounds;
+12. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+   Its ``launches`` are the wrappers' counts of the eager runs and of the
+   serve phase and, for the fused engine's graph runs, the calls that step
+   10's traces executed.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, the script exits 1 before printing a result.
@@ -273,6 +294,34 @@ CALL_MARK = {"weighted_sum": "weighted_sum_kernel", "cosine_sim": "cosine_sim_ke
              "gram": "gram_reduce_kernel", "afa_screen": "afa_reduce_screen_kernel",
              "coord_median_masked": "rank_regs_kernel", "trimmed_mean": "rank_regs_kernel"}
 FUSED_SEGMENT = ("gram/fused", 2)   # the route run segmented, and its segment length
+# ROADMAP C.8: the Gram of the live rows of a 200-row buffer against the same
+# rows in a 128-row one; then MAIN_SIM at 180 clients (54 byzantine, 1,000
+# samples a client), whose 126 live clients are compacted from 180 into a
+# 128-row bucket after round 6, one shot against 2-round segments: the gram
+# routes gated bit for bit, the plain routes (cuBLAS products) reported.
+# 200 clients with 40 % byzantine (the JAX package's benchmarks/fused_engine.py
+# case, at its small width) is run once and reported: at the paper DNN's
+# width AFA blocks none of them
+GRAM_BUCKET = (200, 128)
+C8_K = 180
+C8_BUCKET = 128
+C8_SIM = dict(MAIN_SIM, num_clients=C8_K)
+C8_SHARE_SIM = dict(MAIN_SIM, num_clients=200, bad_frac=0.4)
+C8_ROUTES = {  # label -> (afa_variant, kernel_launch, kernel route?, wrapper calls a round)
+    "gram/fused": ("gram", "fused", True, {"afa_screen": 1}),
+    "gram/chained": ("gram", "chained", True, {"gram": 1, "weighted_sum": 1}),
+    "gram/plain-torch": ("gram", "fused", False, {}),
+    "iterative/plain-torch": ("iterative", "fused", False, {}),
+}
+# the serve phase (repro_torch.serve): MAIN_SIM replayed through the service
+# on these routes, each against its engine="fused" run of the fused phase;
+# then asynchronous traffic on gram/fused with tests/test_serve.py's
+# settings, the buffer at K - 2
+SERVE_ROUTES = ("gram/fused", "gram/chained", "iterative", "iterative/plain-torch")
+SERVE_ASYNC = dict(buffer_size=MAIN_K - 2, deadline=4.0, max_staleness=2, staleness_decay=0.7)
+SERVE_TRAFFIC = dict(seed=3, straggler_frac=0.25, burst_every=5.0)
+SERVE_TARGET_ROUNDS = 20
+SERVE_REJECT_MIN = 0.95   # byzantine reconnects turned away at ingress once blocked
 # the keyed streams, card against CPU: the Box-Muller normals may round
 # log/cos/sin's last bit differently (values |z| < 6, an ulp ~5e-7)
 KEYED_NORMAL_ATOL = 1e-5
@@ -1495,7 +1544,8 @@ def fused_phase(torch, ops, min_rounds_to_block):
     from the host: T on the eager body, the warm-up round's on the graph
     engine (the recording launches nothing; the replays are counted from
     ``fused_trace_phase``'s traces), one warm-up a bucket when segmented.
-    Returns the runs and the eager runs' launches."""
+    Returns the runs, the eager runs' launches and each run's result by
+    (route, engine)."""
     from repro_torch.data import make_mnist_like
     from repro_torch.fed import SimConfig, run
 
@@ -1566,7 +1616,7 @@ def fused_phase(torch, ops, min_rounds_to_block):
                  "round_ms": res.round_time * 1e3, "test_error": res.test_error,
                  "test_error_equals_one_shot": bit_equal,
                  "blocked_round": res.blocked_round.tolist(), "launches": counts})
-    return runs, launches
+    return runs, launches, results
 
 
 def fused_sync_free_round(torch):
@@ -1769,6 +1819,350 @@ def fused_trace_phase(torch, ops):
     return rows, launches
 
 
+def gram_bucket_checks(torch, ops):
+    """ROADMAP C.8 on the card: the live rows of a 200-row screening buffer
+    (rows 80.. live, as after 80 byzantine clients were blocked) and the same
+    rows compacted into a 128-row buffer.  With the split planned for the
+    run's 200 rows (``plan_rows``), ``gram``'s Gram and ``afa_screen``'s
+    outputs on the live rows are equal bit for bit; without the plan the
+    Gram is reported, as are the plain route's cuBLAS products ``U @ U.T``
+    and ``U @ v`` on the two layouts."""
+    (K, B), D = GRAM_BUCKET, D_PAPER
+    _, w, Us, pn, _ = screening_inputs(torch, K, D, 21)
+    dev = Us.device
+    live = torch.arange(K - 120, K, device=dev)
+    n = live.shape[0]
+    Ub = torch.zeros((B, D), device=dev)
+    Ub[:n] = Us[live]
+    pnb = torch.zeros((B,), device=dev)
+    pnb[:n] = pn[live]
+    mask = torch.zeros((K,), dtype=torch.bool, device=dev)
+    mask[live] = True
+    maskb = torch.zeros((B,), dtype=torch.bool, device=dev)
+    maskb[:n] = True
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    row = {"K": K, "bucket": B, "live": n, "D": D,
+           "nsplit": {f"{r} rows, plan {p}": ops.gram_geometry(r, D, 1 << 20, sms,
+                                                               plan_rows=p).nsplit
+                      for r, p in ((K, None), (B, None), (B, K))}}
+
+    def differ(a, b):
+        return int((a != b).sum())
+
+    for plan in (K, None):
+        g = ops.gram(Us, plan_rows=plan)[live][:, live]
+        gb = ops.gram(Ub, plan_rows=plan)[:n, :n]
+        row[f"gram_entries_differing_plan_{plan}"] = differ(g, gb)
+    agg, good, rounds, sims = ops.afa_screen(Us, pn, mask, xi0=2.0, delta_xi=0.5, max_rounds=8,
+                                             plan_rows=K)
+    aggb, goodb, roundsb, simsb = ops.afa_screen(Ub, pnb, maskb, xi0=2.0, delta_xi=0.5,
+                                                 max_rounds=8, plan_rows=K)
+    row["afa_screen_differing"] = {
+        "agg": differ(agg, aggb), "good": differ(good[live], goodb[:n]),
+        "rounds": differ(rounds, roundsb), "sims": differ(sims[live], simsb[:n])}
+    row["plain_gram_entries_differing"] = differ((Us @ Us.T)[live][:, live], (Ub @ Ub.T)[:n, :n])
+    row["plain_matvec_differing"] = differ((Us @ w)[live], (Ub @ w)[:n])
+    torch.cuda.synchronize()
+    print(f"C.8 Gram across buckets (live rows of {K} against {B} rows, D = {D}): "
+          f"splits {row['nsplit']}; entries differing: gram planned for {K} rows "
+          f"{row[f'gram_entries_differing_plan_{K}']}, unplanned "
+          f"{row['gram_entries_differing_plan_None']}; afa_screen planned "
+          f"{row['afa_screen_differing']}; plain U @ U.T {row['plain_gram_entries_differing']}, "
+          f"U @ v {row['plain_matvec_differing']}")
+    if row[f"gram_entries_differing_plan_{K}"] or any(row["afa_screen_differing"].values()):
+        raise AssertionError(f"C.8: a bucket's Gram differs from the full buffer's with the "
+                             f"split planned for {K} rows: {row}")
+    return row
+
+
+def segmented_compaction_phase(torch, ops):
+    """ROADMAP C.8 end to end: ``C8_SIM`` (180 clients, 54 byzantine) with
+    ``engine="fused"`` in one shot and in 2-round segments with compaction
+    (180 rows, then 128 once the 54 are blocked), on each of ``C8_ROUTES``.
+    Gates on the gram kernel routes: segmented = one-shot bit for bit in test
+    error, good_mask history and blocked rounds; every byzantine client
+    blocked and no good one, so the second bucket holds 126 live rows; one
+    warm-up round a bucket counted by the wrappers (two buckets).  The plain
+    routes' equality is reported.  Then ``C8_SHARE_SIM`` once on gram/fused,
+    its blocking and test error reported."""
+    import numpy as np
+
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import ServerConfig, SimConfig, run
+    from repro_torch.kernels.policy import resolve_kernel_plan
+
+    data = make_mnist_like(n_train=1000 * C8_K)
+    rows = []
+    for label, (variant, launch, kernels, calls) in C8_ROUTES.items():
+        server = ServerConfig(num_clients=C8_K, afa_variant=variant,
+                              kernel_plan=resolve_kernel_plan(kernels, kernel_launch=launch))
+        t0 = time.perf_counter()
+        one = run(None, SimConfig(**C8_SIM, engine="fused"), server, data=data, device="cuda")
+        t1 = time.perf_counter()
+        ops.reset_launch_counts()
+        seg = run(None, SimConfig(**C8_SIM, engine="fused", segment_rounds=2), server,
+                  data=data, device="cuda")
+        t2 = time.perf_counter()
+        counts = dict(ops.LAUNCH_COUNTS)
+        bad = set(seg.bad_clients.tolist())
+        blocked = {k for k in range(C8_K) if seg.blocked_round[k] > 0}
+        equal = {"test_error": list(seg.test_error) == list(one.test_error),
+                 "good_mask": bool(np.array_equal(np.stack(seg.good_mask_history),
+                                                  np.stack(one.good_mask_history))),
+                 "blocked_round": bool(np.array_equal(seg.blocked_round, one.blocked_round))}
+        row = {"route": label, "one_shot_s": t1 - t0, "segmented_s": t2 - t1,
+               "capture_s": seg.capture_time, "equal": equal, "launches": counts,
+               "blocked": len(blocked), "byzantine_blocked": len(bad & blocked),
+               "blocked_rounds": sorted(set(seg.blocked_round.tolist())),
+               "test_error": seg.test_error}
+        rows.append(row)
+        print(f"C.8 segmented K = {C8_K} -> {C8_BUCKET} rows [{label}]: segmented = one-shot "
+              f"{equal}; blocked {len(blocked)} ({len(bad & blocked)} of {len(bad)} byzantine) "
+              f"in rounds {row['blocked_rounds']}; test error {[round(e, 3) for e in seg.test_error]}; "
+              f"one-shot {t1 - t0:.2f} s, segmented {t2 - t1:.2f} s; wrapper counts {counts}")
+        if not kernels:
+            continue
+        if not all(equal.values()):
+            raise AssertionError(f"C.8 [{label}]: segmented differs from the one-shot run: "
+                                 f"{equal}")
+        if blocked != bad:
+            raise AssertionError(f"C.8 [{label}]: blocked {sorted(blocked)}, expected the "
+                                 f"{len(bad)} byzantine clients")
+        want = {name: 2 * calls.get(name, 0) for name in counts}
+        if counts != want:
+            raise AssertionError(f"C.8 [{label}]: wrapper counts {counts}, expected {want} "
+                                 "(a warm-up round in each of two buckets)")
+    variant, launch, kernels, _ = C8_ROUTES["gram/fused"]
+    K = C8_SHARE_SIM["num_clients"]
+    res = run(None, SimConfig(**C8_SHARE_SIM, engine="fused"),
+              ServerConfig(num_clients=K, afa_variant=variant,
+                           kernel_plan=resolve_kernel_plan(kernels, kernel_launch=launch)),
+              data=make_mnist_like(n_train=1000 * K), device="cuda")
+    share = {"route": "gram/fused", "num_clients": K, "byzantine": len(res.bad_clients),
+             "blocked": int((res.blocked_round > 0).sum()), "test_error": res.test_error}
+    rows.append(share)
+    print(f"byzantine share [{K} clients, {share['byzantine']} byzantine, gram/fused]: blocked "
+          f"{share['blocked']}; test error {[round(e, 3) for e in res.test_error]} (reported)")
+    return rows
+
+
+@contextlib.contextmanager
+def serve_timers(torch):
+    """Time the serve tier from outside (it reads no clock): each aggregation
+    step and each cohort ``propose``, synchronised, in ms; each ``submit`` in
+    us, keyed by its decision ("... fired" when it closed a round)."""
+    from repro_torch.serve import pool as pool_mod
+    from repro_torch.serve import service as service_mod
+
+    samples = {"agg_ms": [], "propose_ms": [], "submit_us": {}}
+    make_step = service_mod._make_agg_step
+    make_propose = pool_mod.make_packed_propose_fn
+    submit = service_mod.AggregationService.submit
+
+    def timed(fn, key):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            samples[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def timed_submit(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = submit(self, *args, **kw)
+        us = (time.perf_counter() - t0) * 1e6
+        key = out.decision + (" fired" if out.fired is not None else "")
+        samples["submit_us"].setdefault(key, []).append(us)
+        return out
+
+    service_mod._make_agg_step = lambda *a: timed(make_step(*a), "agg_ms")
+    pool_mod.make_packed_propose_fn = lambda *a: timed(make_propose(*a), "propose_ms")
+    service_mod.AggregationService.submit = timed_submit
+    try:
+        yield samples
+    finally:
+        service_mod._make_agg_step = make_step
+        pool_mod.make_packed_propose_fn = make_propose
+        service_mod.AggregationService.submit = submit
+
+
+def _spread(xs):
+    import numpy as np
+
+    xs = np.asarray(xs, np.float64)
+    return {"n": int(xs.size), "median": float(np.median(xs)), "min": float(xs.min()),
+            "max": float(xs.max())} if xs.size else {"n": 0}
+
+
+def serve_phase(torch, ops, fused_results, smi, min_rounds_to_block):
+    """The serve tier at full width.  Sync replay (``run_serve_replay``, the
+    default ServeConfig) of ``MAIN_SIM`` on each of ``SERVE_ROUTES``, held
+    bit for bit to the route's ``engine="fused"`` run of the fused phase
+    (test error, blocked rounds, good_mask history), with the main path's
+    outcome gates, no rejection and every round's trigger "buffer" or
+    "flush"; each kernel route launched its kernels, the plain route none.
+    Then asynchronous traffic on gram/fused (``SERVE_ASYNC``,
+    ``SERVE_TRAFFIC``, ``SERVE_TARGET_ROUNDS``): exactly the byzantine
+    clients blocked, at least ``SERVE_REJECT_MIN`` of their reconnects
+    turned away, and a second run with the same ingress log, test errors and
+    fire times; whether duplicate and stale rejections occurred is reported.
+    Readings: ms of each aggregation step and each cohort propose, us of
+    each submit by decision, the host-device bytes of a round, the copies'
+    times, and the device busy share of 8 traced sync-replay rounds.
+    Returns the readings and the phase's wrapper counts."""
+    import numpy as np
+
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import SimConfig, fused_inputs
+    from repro_torch.serve import (REJECTED_DUPLICATE, REJECTED_STALE, AggregationService,
+                                   ProposalPool, ServeConfig, TrafficConfig, run_serve_replay,
+                                   run_traffic)
+
+    data = make_mnist_like()
+    sim = SimConfig(**MAIN_SIM)
+    n_min = min_rounds_to_block()
+    launches = {name: 0 for name in ops.LAUNCH_COUNTS}
+    out = {"nvidia_smi": smi, "replay": [], "async": {}}
+    for label in SERVE_ROUTES:
+        server = fused_server_cfg(label)
+        calls = FUSED_ROUTES[label][-1]
+        with serve_timers(torch) as samples:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run_serve_replay(data, sim, server, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(ops.LAUNCH_COUNTS)
+        ref = fused_results[(label, "fused")]
+        fused_run_gates(f"serve replay {label}", "afa", res, n_min)
+        if not same_trajectory(res, ref):
+            raise AssertionError(f"serve replay [{label}]: differs from engine='fused' "
+                                 f"(test error {res.test_error} against {ref.test_error}, "
+                                 f"blocked {res.blocked_round} against {ref.blocked_round})")
+        triggers = sorted({r.trigger for r in res.rounds})
+        if not set(triggers) <= {"buffer", "flush"} or any(
+                v for d, v in res.decisions.items() if d != "accepted"):
+            raise AssertionError(f"serve replay [{label}]: triggers {triggers}, decisions "
+                                 f"{res.decisions}")
+        for name in calls:
+            if counts[name] <= 0:
+                raise AssertionError(f"serve replay [{label}]: kernel {name} was never launched")
+        if not calls and any(counts.values()):
+            raise AssertionError(f"serve replay [{label}]: the plain route launched {counts}")
+        for name, c in counts.items():
+            launches[name] += c
+        row = {"route": label, "wall_s": wall, "agg_ms": samples["agg_ms"],
+               "propose_ms": samples["propose_ms"],
+               "submit_us": {k: _spread(v) for k, v in samples["submit_us"].items()},
+               "test_error": res.test_error, "blocked_round": res.blocked_round.tolist(),
+               "decisions": res.decisions, "launches": counts}
+        out["replay"].append(row)
+        print(f"serve replay [{label}] ({smi}): = engine='fused' bit for bit; wall_s="
+              f"{wall:.3f} agg_ms={[round(t, 3) for t in samples['agg_ms']]} propose_ms="
+              f"{[round(t, 3) for t in samples['propose_ms']]} submit_us (median) "
+              f"{ {k: round(v['median'], 1) for k, v in row['submit_us'].items()} } "
+              f"launches={counts}")
+
+    # asynchronous traffic, twice from the same inputs
+    server = fused_server_cfg("gram/fused")
+    inputs = fused_inputs(data, sim, device="cuda")
+    reps = []
+    for attempt in range(2):
+        with serve_timers(torch) as samples:
+            ops.reset_launch_counts()
+            svc = AggregationService(inputs.workload, server, ServeConfig(**SERVE_ASYNC),
+                                     inputs.params0, inputs.data)
+            t0 = time.perf_counter()
+            rep = run_traffic(svc, ProposalPool(inputs, sim.seed), TrafficConfig(**SERVE_TRAFFIC),
+                              target_rounds=SERVE_TARGET_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(ops.LAUNCH_COUNTS)
+        reps.append((svc, rep))
+        for name, c in counts.items():
+            launches[name] += c
+        if attempt == 0:
+            out["async"] = {
+                "wall_s": wall, "rounds": len(rep.rounds), "events": rep.n_events,
+                "decisions": rep.decisions, "byz_after_block": rep.byz_submissions_after_block,
+                "byz_rejected": rep.byz_rejected_at_ingress,
+                "byz_reject_fraction": rep.byz_reject_fraction,
+                "triggers": [r.trigger for r in rep.rounds],
+                "n_accepted": [r.n_accepted for r in rep.rounds],
+                "test_error": [r.test_error for r in rep.rounds],
+                "agg_ms": samples["agg_ms"], "propose_ms": samples["propose_ms"],
+                "submit_us": {k: _spread(v) for k, v in samples["submit_us"].items()},
+                "launches": counts}
+    (svc, rep), (svc2, rep2) = reps
+    a = out["async"]
+    print(f"serve async [gram/fused] ({smi}): {a['rounds']} rounds in {a['events']} events, "
+          f"wall_s={a['wall_s']:.3f}; decisions {rep.decisions}; byzantine reconnects after "
+          f"blocking {rep.byz_submissions_after_block}, rejected {rep.byz_rejected_at_ingress} "
+          f"({rep.byz_reject_fraction:.3f}); triggers {a['triggers']}; agg_ms median "
+          f"{_spread(a['agg_ms'])['median']:.3f} propose_ms median "
+          f"{_spread(a['propose_ms'])['median']:.3f}; submit_us "
+          f"{ {k: round(v['median'], 1) for k, v in a['submit_us'].items()} }; "
+          f"launches {a['launches']}")
+    if len(rep.rounds) != SERVE_TARGET_ROUNDS:
+        raise AssertionError(f"serve async: {len(rep.rounds)} rounds fired")
+    if not np.array_equal(svc.blocked, inputs.bad_mask):
+        raise AssertionError(f"serve async: blocked {svc.blocked.tolist()}, byzantine "
+                             f"{inputs.bad_mask.tolist()}")
+    if not (rep.byz_submissions_after_block > 0
+            and rep.byz_reject_fraction >= SERVE_REJECT_MIN):
+        raise AssertionError(f"serve async: byzantine reconnects rejected "
+                             f"{rep.byz_rejected_at_ingress} of "
+                             f"{rep.byz_submissions_after_block}")
+    if not (svc.log == svc2.log
+            and [r.test_error for r in rep.rounds] == [r.test_error for r in rep2.rounds]
+            and [r.fired_at for r in rep.rounds] == [r.fired_at for r in rep2.rounds]):
+        raise AssertionError("serve async: a second run differs in its ingress log, test "
+                             "errors or fire times")
+    if a["launches"]["afa_screen"] <= 0:
+        raise AssertionError("serve async: afa_screen was never launched")
+    for decision in (REJECTED_DUPLICATE, REJECTED_STALE):
+        if rep.decisions[decision] == 0:
+            print(f"serve async: NOT EXERCISED at K = {MAIN_K}: no {decision} in this "
+                  "configuration")
+    print("serve async: a second run gave the same ingress log, test errors and fire times")
+
+    # what a sync round moves between host and device, and the copies' times
+    K, D = MAIN_K, D_PAPER
+    out["bytes_per_round"] = {
+        "h2d": {"rows (pinned, one copy)": 4 * K * D, "mask0": K, "versions (int32)": 4 * K,
+                "blocked, to the pool": K, "blocking decision from betainc": K},
+        "d2h": {"cohort rows (pool, once a version)": 4 * K * D, "blocked": K, "good_mask": K,
+                "test error": 4, "all_blocked": 1, "alpha and beta, for betainc": 8 * K},
+    }
+    pinned = torch.empty((K, D), pin_memory=True)
+    on_card = torch.empty((K, D), device="cuda")
+    copies = {"h2d_pinned_ms": [], "d2h_pageable_ms": []}
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card.copy_(pinned, non_blocking=True)
+        torch.cuda.synchronize()
+        copies["h2d_pinned_ms"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        on_card.cpu().numpy()
+        copies["d2h_pageable_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["copies"] = {k: _spread(v) for k, v in copies.items()}
+    print(f"serve copies ({smi}): host-device bytes a sync round "
+          f"{ {d: sum(v.values()) for d, v in out['bytes_per_round'].items()} }; (K, D) f32 "
+          f"pinned to card {out['copies']['h2d_pinned_ms']['median']:.3f} ms, card to pageable "
+          f"host {out['copies']['d2h_pageable_ms']['median']:.3f} ms (median of 10)")
+
+    def replay():
+        run_serve_replay(data, sim, server, device="cuda")
+        return {}
+
+    out["trace"] = trace(torch, "serve sync replay gram/fused", replay, MAIN_SIM["rounds"])
+    return out, launches
+
+
 def fused_summary(smi, runs, traces):
     """One line a fused route: capture time, ms a round of the replayed
     graph and of the eager body, the replayed rounds' traced busy share;
@@ -1826,6 +2220,7 @@ def main() -> None:
 
     kernel_rows, one_launch = kernel_phase(torch, ops, ref, peaks, lib)
     rank_edges = rank_edge_checks(torch, ops, ref, lib)
+    gram_buckets = gram_bucket_checks(torch, ops)
     runs, launches = main_path_phase(torch, ops, min_rounds_to_block)
     baseline_runs, baseline_launches = baselines_phase(torch, ops)
     unmasked_rows, unmasked_launches = unmasked_phase(torch, ops)
@@ -1833,15 +2228,17 @@ def main() -> None:
     forward_rows, forward_launches = forward_phase(torch, ops)
     launches.update(forward_launches)
     lora_runs, lora_launches, lora_dump = lora_phase(torch, ops, min_rounds_to_block)
-    fused_runs, eager_launches = fused_phase(torch, ops, min_rounds_to_block)
+    fused_runs, eager_launches, fused_results = fused_phase(torch, ops, min_rounds_to_block)
+    segmented = segmented_compaction_phase(torch, ops)
     fused_sync_free_round(torch)
     keyed = keyed_stream_check(torch)
     fused_traces, graph_launches = fused_trace_phase(torch, ops)
     fused_summary(smi, fused_runs, fused_traces)
+    serve, serve_launches = serve_phase(torch, ops, fused_results, smi, min_rounds_to_block)
     traces = [profile_phase(torch), lora_profile_phase(torch), *forward_profile_phase(torch),
               *fused_traces]
     for more in (baseline_launches, unmasked_launches, lora_launches, eager_launches,
-                 graph_launches):
+                 graph_launches, serve_launches):
         for kernel, count in more.items():
             launches[kernel] += count
 
@@ -1878,7 +2275,9 @@ def main() -> None:
         "rank_edge_checks": rank_edges, "main_path": runs,
         "baselines": baseline_runs, "unmasked": unmasked_rows, "flash_attn_checks": attn_rows,
         "forward": forward_rows, "lora": lora_runs, "lora_round_dump": lora_dump,
-        "fused": fused_runs, "keyed_streams": keyed, "launches": launches, "profile": traces,
+        "fused": fused_runs, "keyed_streams": keyed, "gram_buckets": gram_buckets,
+        "segmented_compaction": segmented, "serve": serve, "launches": launches,
+        "profile": traces,
     }, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,12 @@ leaf index, ORIGINAL client id), never by row position, so compacting the
 stack later is a change of layout only.  The fused engines draw it with
 ``byzantine_update_keyed`` from the keyed Philox stream
 (``utils/philox.py``) instead, for every row of the packed proposals, and
-select the bad rows by mask, with no host read.  torch cannot replay
-``jax.random``, so the noise differs from the JAX package's in value, not in
-distribution.
+select the bad rows by mask, with no host read.  The benign moments of
+``alie_update_tree`` and ``ipm_update_tree`` are row-order folds
+(``core.stats.row_sum``; a row outside the benign mask adds an exact zero),
+so a compaction that moves the rows leaves the forged rows unchanged.
+torch cannot replay ``jax.random``, so the noise differs from the JAX
+package's in value, not in distribution.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.stats import row_sum
 from repro_torch.utils.philox import keyed_normal
 from repro_torch.utils.trees import tree_leaves, tree_map, tree_structure, tree_unflatten
 
@@ -108,8 +112,8 @@ def alie_update_tree(proposals, bad_mask, benign_mask, *, z_max: float = 1.2):
     def leaf(l):
         w = _row(benign_mask, l).float()
         lf = l.float()
-        mu = (w * lf).sum(dim=0) / cnt
-        var = (w * (lf - mu[None]) ** 2).sum(dim=0) / cnt
+        mu = row_sum(w * lf) / cnt
+        var = row_sum(w * (lf - mu[None]) ** 2) / cnt
         adv = (mu - z_max * torch.sqrt(var)).to(l.dtype)
         return torch.where(_row(bad_mask, l), adv[None], l)
 
@@ -122,7 +126,7 @@ def ipm_update_tree(proposals, bad_mask, benign_mask, *, eps: float = 0.5):
 
     def leaf(l):
         w = _row(benign_mask, l).float()
-        mu = (w * l.float()).sum(dim=0) / cnt
+        mu = row_sum(w * l.float()) / cnt
         return torch.where(_row(bad_mask, l), (-eps * mu).to(l.dtype)[None], l)
 
     return tree_map(leaf, proposals)

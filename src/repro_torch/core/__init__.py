@@ -37,5 +37,6 @@ from repro_torch.core.reputation import (
     p_good,
     scatter_reputation,
     update_reputation,
+    update_reputation_weighted,
 )
 from repro_torch.core.stats import masked_mean, masked_median, masked_std

@@ -36,6 +36,11 @@ outputs equal the stopping loop's bit for bit with no host read
 since they capture the round as a CUDA graph; the batched engine keeps the
 stopping loop, whose fewer passes launch fewer operations from the host.
 
+``plan_rows`` reaches the Gram kernels (``gram``, ``afa_screen``): their
+column splits are planned for that many rows, so the fused engines pass the
+run's full K and a compacted bucket sums each Gram entry over D in the
+one-shot run's chunks (``kernels.ops.gram_geometry``).
+
 Direction convention follows the paper's algorithm box: when mean >= median
 the high-similarity tail is removed, otherwise the low tail.
 """
@@ -102,6 +107,7 @@ def afa_aggregate(
     config: AFAConfig = AFAConfig(),
     *,
     unroll: bool = False,
+    plan_rows: int | None = None,
 ) -> AFAResult:
     if config.kernel_launch not in ("fused", "chained"):
         raise ValueError(
@@ -125,12 +131,12 @@ def afa_aggregate(
         agg, good, rounds, sims = kernel_ops.afa_screen(
             upd32, (p32 * n32).contiguous(), mask0,
             xi0=config.xi0, delta_xi=config.delta_xi,
-            max_rounds=config.max_rounds, ddof=config.ddof,
+            max_rounds=config.max_rounds, ddof=config.ddof, plan_rows=plan_rows,
         )
         return AFAResult(agg.to(updates.dtype), good, rounds, sims)
 
     if config.variant == "gram":
-        gram = kernel_ops.gram(upd32) if kernels else upd32 @ upd32.T
+        gram = kernel_ops.gram(upd32, plan_rows=plan_rows) if kernels else upd32 @ upd32.T
         row_norms = torch.linalg.vector_norm(upd32, dim=1)
 
         def sims(c):
@@ -194,7 +200,7 @@ def _afa_matrix_rule(updates, n_k, p_k, mask, opts):
     cfg = opts.afa if opts.afa is not None else AFAConfig(use_kernels=opts.use_kernels)
     return afa_aggregate(
         updates, n_k, _default_p(p_k, updates.shape[0], updates.device),
-        mask0=mask, config=cfg, unroll=opts.capturable,
+        mask0=mask, config=cfg, unroll=opts.capturable, plan_rows=opts.plan_rows,
     )
 
 

@@ -204,7 +204,9 @@ class RuleOptions(NamedTuple):
     ``num_selected`` (MKRUM) comes from the participation count on the host
     (``fed.server.make_rule_options``).  ``capturable``, set by the fused
     engines, asks a rule for no host read, so a CUDA graph can capture it
-    (AFA then unrolls its screening loop)."""
+    (AFA then unrolls its screening loop).  ``plan_rows``, also set by the
+    fused engines, is the run's full K: AFA's Gram kernels plan their column
+    splits for it, whatever bucket the rows were compacted into."""
 
     num_byzantine: int = 3
     trim: int = 3
@@ -212,6 +214,7 @@ class RuleOptions(NamedTuple):
     use_kernels: bool | str = False
     afa: Any = None  # AFAConfig | None (typed Any to avoid an import cycle)
     capturable: bool = False
+    plan_rows: int | None = None
 
 
 class RuleSpec(NamedTuple):

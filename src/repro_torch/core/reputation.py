@@ -176,6 +176,34 @@ def update_reputation(
     return ReputationState(alpha, beta, state.blocked | over)
 
 
+def update_reputation_weighted(
+    state: ReputationState,
+    good_mask: torch.Tensor,
+    participated: torch.Tensor,
+    weights,
+    *,
+    delta: float = 0.95,
+) -> ReputationState:
+    """:func:`update_reputation` with per-client evidence weights in [0, 1].
+
+    The serving tier's staleness decay: an update trained against the
+    parameters of round ``t - tau`` enters the posterior fractionally,
+    ``alpha += w * good`` and ``beta += w * bad`` with ``w = decay**tau``, a
+    tempered Beta update.  The counts are then fractional, which
+    ``blocking_table`` does not cover, so blocking tests :func:`betainc` on
+    the host.  ``weights = 1`` gives :func:`update_reputation` (``table=None``)
+    bit for bit: ``x * 1.0`` is ``x``.
+    """
+    participated = participated & ~state.blocked
+    good = participated & good_mask
+    bad = participated & ~good_mask
+    w = torch.as_tensor(weights, dtype=torch.float32, device=state.alpha.device)
+    alpha = state.alpha + good.float() * w
+    beta = state.beta + bad.float() * w
+    over = (betainc(alpha, beta, 0.5) > delta).to(state.blocked.device)
+    return ReputationState(alpha, beta, state.blocked | over)
+
+
 def mark_blocked_round(
     rounds_blocked: torch.Tensor,
     blocked_before: torch.Tensor,

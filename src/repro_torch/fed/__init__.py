@@ -10,6 +10,7 @@ from repro_torch.fed.engine import (
     fused_server_state,
     make_fused_segment,
     make_fused_sim,
+    make_packed_propose_fn,
     make_train_attack_step,
 )
 from repro_torch.fed.server import (
@@ -22,6 +23,7 @@ from repro_torch.fed.server import (
     resolve_server_plan,
     scatter_server_state,
     server_step,
+    server_step_versioned,
 )
 from repro_torch.fed.simulator import (
     FusedInputs,
@@ -44,4 +46,5 @@ from repro_torch.fed.workload import (
     make_llm_fused_data,
     merge_lora,
     simulate_llm,
+    validate_submission,
 )

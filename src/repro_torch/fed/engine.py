@@ -24,6 +24,8 @@ next replay reads) and replays it T times; the host reads nothing until the
 run ends.  A capture that fails raises: the engine never goes on eagerly.
 On the CPU, which has no graphs, it runs the same body in a loop.
 ``round_fn`` is the body called once, the ``fused_eager`` engine's step.
+``make_packed_propose_fn`` is the body's proposal phase alone, for the
+serving tier (``repro_torch.serve``).
 
 **Segmented** (``make_fused_segment``): the same round graph replayed
 ``seg_len`` times from ``seg_start``, over a client axis the simulator has
@@ -40,6 +42,7 @@ engine's streams, nor ``jax.random``'s.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import NamedTuple
 
@@ -171,6 +174,30 @@ def _propose_round(workload, cfg: EngineConfig, num_clients_total, batch_s, batc
         packed = apply_update_attack(cfg.scenario, packed, w_row, bad_live, mask0 & ~bad, 0,
                                      z_max=cfg.alie_z_max, eps=cfg.ipm_eps)
     return packed, pspec, mask0
+
+
+@functools.lru_cache(maxsize=32)
+def make_packed_propose_fn(workload, cfg: EngineConfig, num_clients_total, batch_s, batch_b):
+    """The serving tier's cohort computation::
+
+        propose(params, blocked, rnd, seed, data, bad, client_ids) -> (R, D)
+
+    the proposal phase of the fused round body (:func:`_propose_round`: the
+    keyed minibatch draw, local training, the update-level attack) on the
+    packed buffer, so a row equals, bit for bit, the row that the fused body
+    aggregates at round ``rnd``.  Blocked rows hold the packed current
+    proposal point w_t.  ``blocked`` and ``bad`` are ``(R,)`` bool and
+    ``client_ids`` ``(R,)`` int64 device tensors, ``rnd`` and ``seed`` 0-d
+    int64 device tensors.  It takes the workloads with a keyed local update
+    (the DNN); any other raises, as on the fused engines."""
+
+    def propose(params, blocked, rnd, seed, data: FusedData, bad, client_ids):
+        packed, _, _ = _propose_round(workload, cfg, int(num_clients_total), int(batch_s),
+                                      int(batch_b), params, blocked, rnd, seed, data, bad,
+                                      client_ids)
+        return packed
+
+    return propose
 
 
 def _round_body(workload, cfg: EngineConfig, rule, opts, delta_block, block_table,
@@ -323,11 +350,12 @@ class _RoundProgram:
 def _body(workload, cfg, rule, opts, delta_block, num_clients_total, batch_s, batch_b,
           alpha0, beta0, num_rounds, device):
     """The round body with its static configuration bound: the rule asked
-    for no host read (``RuleOptions.capturable``) and the blocking table
-    (counts up to ``num_rounds``) on ``device``."""
+    for no host read (``RuleOptions.capturable``), its Gram kernels to plan
+    for the run's full K in every bucket (``RuleOptions.plan_rows``), and the
+    blocking table (counts up to ``num_rounds``) on ``device``."""
     table = torch.from_numpy(blocking_table(alpha0, beta0, delta_block, num_rounds)).to(device)
     block = (table, float(alpha0), float(beta0))
-    opts = opts._replace(capturable=True)
+    opts = opts._replace(capturable=True, plan_rows=int(num_clients_total))
 
     def body(carry, rnd, seed, data, bad, client_ids):
         return _round_body(workload, cfg, rule, opts, delta_block, block, num_clients_total,

@@ -3,7 +3,8 @@ and blocking state.
 
 Counterpart of ``repro/fed/server.py``: a pure core (``ServerState`` and
 ``server_step``) wrapped by the stateful ``FedServer`` shell the batched
-engine drives.  The fused engines call ``server_step`` inside their round
+engine drives; ``server_step_versioned`` is the serving tier's round over a
+buffer of version-stamped updates.  The fused engines call ``server_step`` inside their round
 body with a device round counter and the blocking table, and compact the
 state with ``gather_server_state`` / ``scatter_server_state``.
 """
@@ -30,6 +31,7 @@ from repro_torch.core import (
     p_good,
     scatter_reputation,
     update_reputation,
+    update_reputation_weighted,
 )
 from repro_torch.kernels.policy import KernelPlan, resolve_kernel_plan
 
@@ -144,6 +146,18 @@ def _absorb(state: ServerState, good_mask, mask0, *, delta: float, table=None) -
     return ServerState(rep, rounds_blocked, state.round + 1)
 
 
+def _dispatch(state: ServerState, proposals, n_k, mask0, rule: str, opts: RuleOptions,
+              layout: str):
+    """The rule on the round's proposals, weighted by the reputation means."""
+    dev = state.rounds_blocked.device
+    n32 = torch.as_tensor(n_k, dtype=torch.float32, device=dev)
+    if layout == "matrix":
+        return dispatch_rule(rule, proposals, n32, p_good(state.reputation), mask0, opts)
+    if layout == "tree":
+        return dispatch_rule_tree(rule, proposals, n32, p_good(state.reputation), mask0, opts)
+    raise ValueError(f"unknown layout {layout!r}; expected tree | matrix")
+
+
 def server_step(
     state: ServerState,
     proposals,
@@ -162,20 +176,67 @@ def server_step(
     (``"matrix"``).  ``block_table`` None blocks by ``betainc`` on the host;
     the fused engines pass ``(table, alpha0, beta0)``
     (``core.reputation.update_reputation``).  Returns ``(state', result)``."""
-    dev = state.rounds_blocked.device
-    n32 = torch.as_tensor(n_k, dtype=torch.float32, device=dev)
-    mask0 = torch.as_tensor(mask0, device=dev)
-    if layout == "matrix":
-        res = dispatch_rule(rule, proposals, n32, p_good(state.reputation), mask0, opts)
-    elif layout == "tree":
-        res = dispatch_rule_tree(rule, proposals, n32, p_good(state.reputation), mask0, opts)
-    else:
-        raise ValueError(f"unknown layout {layout!r}; expected tree | matrix")
+    mask0 = torch.as_tensor(mask0, device=state.rounds_blocked.device)
+    res = _dispatch(state, proposals, n_k, mask0, rule, opts, layout)
     if RULES[rule].updates_reputation:
         state = _absorb(state, res.good_mask, mask0, delta=delta_block, table=block_table)
     else:
         state = state._replace(round=state.round + 1)
     return state, res
+
+
+def _absorb_weighted(state: ServerState, good_mask, mask0, weights, *,
+                     delta: float) -> ServerState:
+    """:func:`_absorb` with per-client evidence weights (the serving tier's
+    staleness decay, ``weights = decay**tau``)."""
+    rep = update_reputation_weighted(state.reputation, good_mask, mask0, weights, delta=delta)
+    rounds_blocked = mark_blocked_round(
+        state.rounds_blocked, state.reputation.blocked, rep.blocked, state.round
+    )
+    return ServerState(rep, rounds_blocked, state.round + 1)
+
+
+def server_step_versioned(
+    state: ServerState,
+    proposals,
+    n_k,
+    mask0: torch.Tensor,
+    versions,
+    *,
+    rule: str,
+    opts: RuleOptions,
+    delta_block: float = 0.95,
+    layout: str = "matrix",
+    staleness_decay: float = 1.0,
+):
+    """:func:`server_step` for asynchronous buffers, whose rows carry version
+    stamps.
+
+    ``versions`` is ``(K,)``: the round counter of the parameters each
+    buffered update was trained against; its staleness is ``tau =
+    state.round - version``, clipped at 0 (``state.round`` a Python int or
+    the fused engines' 0-d tensor).  The rule judges the submitted updates as
+    they are; the reputation absorbs each observation with weight
+    ``staleness_decay ** tau`` in float32
+    (``core.reputation.update_reputation_weighted``).  ``staleness_decay =
+    1.0`` goes through :func:`_absorb` itself, so the synchronous case
+    evolves the state exactly as the fused engine's round does (with
+    ``betainc`` on the host in place of its table).  Entries of ``versions``
+    for rows outside ``mask0`` are inert."""
+    if not 0.0 < staleness_decay <= 1.0:
+        raise ValueError(f"staleness_decay={staleness_decay!r} outside (0, 1]")
+    dev = state.rounds_blocked.device
+    mask0 = torch.as_tensor(mask0, device=dev)
+    res = _dispatch(state, proposals, n_k, mask0, rule, opts, layout)
+    if not RULES[rule].updates_reputation:
+        return state._replace(round=state.round + 1), res
+    if staleness_decay == 1.0:
+        return _absorb(state, res.good_mask, mask0, delta=delta_block), res
+    rnd = torch.as_tensor(state.round, dtype=torch.int32, device=dev)
+    tau = torch.clamp(rnd - torch.as_tensor(versions, device=dev).to(torch.int32), min=0)
+    weights = torch.pow(torch.tensor(staleness_decay, dtype=torch.float32, device=dev),
+                        tau.to(torch.float32))
+    return _absorb_weighted(state, res.good_mask, mask0, weights, delta=delta_block), res
 
 
 class FedServer:

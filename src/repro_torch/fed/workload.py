@@ -8,6 +8,7 @@ proposal space and back (``codec``) and scores the model (``eval_metric``).
 frozen transformer base through LoRA adapters, so the packed aggregation
 buffer is ``(K, D_adapter)`` with ``D_adapter`` far below the model size.
 ``simulate_llm`` drives the LoRA workload round by round.
+``validate_submission`` is the serving tier's check of one submitted row.
 """
 
 from __future__ import annotations
@@ -70,6 +71,39 @@ def _adapter_apply(params, aggregate):
 ADAPTER_CODEC = ProposalCodec(_adapter_proposal, _adapter_apply)
 
 
+_NUMPY_DTYPES = {torch.float64: np.float64, torch.float32: np.float32,
+                 torch.float16: np.float16}
+
+
+def validate_submission(spec: PackSpec, payload) -> np.ndarray:
+    """Validate ONE submitted packed proposal row against a workload's
+    ``PackSpec``: the serving tier's wire contract.
+
+    A submission is a ``(D,)`` row of the packed aggregation buffer (a numpy
+    array or a tensor, on any device), whose dtype casts ``same_kind`` to the
+    spec's and whose entries are finite.  Anything else raises
+    ``ValueError``, and the service rejects the submission at ingress.  The
+    finiteness check matters: a masked-out row is zeroed by multiplication in
+    the aggregation, and ``0 * inf`` is nan.  Returns the row as a host array
+    in the spec's dtype."""
+    want = _NUMPY_DTYPES.get(spec.dtype)
+    if want is None:
+        raise ValueError(f"packed buffer dtype {spec.dtype} has no numpy counterpart")
+    if isinstance(payload, torch.Tensor):
+        payload = payload.detach().cpu().resolve_conj().numpy()
+    row = np.asarray(payload)
+    if row.shape != (spec.dim,):
+        raise ValueError(f"submission shape {row.shape} != ({spec.dim},): one packed "
+                         "proposal row per submission")
+    if not np.can_cast(row.dtype, want, casting="same_kind"):
+        raise ValueError(f"submission dtype {row.dtype} does not cast to the packed "
+                         f"buffer dtype {np.dtype(want)}")
+    row = row.astype(want, copy=False)
+    if not np.all(np.isfinite(row)):
+        raise ValueError("submission contains non-finite entries")
+    return row
+
+
 class ClientWorkload:
     """Protocol base (subclasses are frozen dataclasses)."""
 
@@ -109,6 +143,11 @@ class ClientWorkload:
     def proposal_dim(self, params) -> int:
         """D: flattened size of one proposal row."""
         return tree_size(self.codec.proposal_of(params))
+
+    def validate_submission(self, params, payload) -> np.ndarray:
+        """Ingress validation of one submitted packed proposal row (see
+        :func:`validate_submission`)."""
+        return validate_submission(self.delta_spec(params), payload)
 
     def param_dim(self, params) -> int:
         """Total model size (frozen + trainable)."""

@@ -235,7 +235,8 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-int(a) // int(b))
 
 
-def gram_geometry(K: int, D: int, ptr: int, sms: int) -> GramGeometry:
+def gram_geometry(K: int, D: int, ptr: int, sms: int, *,
+                  plan_rows: int | None = None) -> GramGeometry:
     """The Gram kernel's geometry for a (K, D) f32 operand at address ``ptr``
     on a card with ``sms`` multiprocessors.
 
@@ -244,18 +245,30 @@ def gram_geometry(K: int, D: int, ptr: int, sms: int) -> GramGeometry:
     on each multiprocessor, fewer where the partials would pass
     ``GRAM_PARTIALS_CAP`` or a split would hold less than one stage; the
     widest cp.async copy that ``ptr`` and the row length ``4 D`` bytes
-    allow."""
+    allow.
+
+    The column splits are planned for ``plan_rows`` rows (K when None, at
+    least K).  An entry of the Gram sums D in the chunks of the split, so a
+    run whose rows are compacted into fewer (the segmented fused engine)
+    passes its full K here, and every bucket sums in the one-shot run's
+    chunks.  Tiles and pairs are K's own."""
     K, D = int(K), int(D)
     if K < 1 or D < 1:
         raise ValueError(f"gram: empty operand ({K}, {D})")
+    P = K if plan_rows is None else int(plan_rows)
+    if P < K:
+        raise ValueError(f"gram: plan_rows={P} < K={K}")
     width = next(w for w in (16, 8, 4) if ptr % w == 0 and (4 * D) % w == 0)
     bt = 16 if K <= 16 else 32
     ntiles = _ceil_div(K, bt)
     npairs = ntiles * (ntiles + 1) // 2
     entries = K * (K + 1) // 2
-    cap = max(GRAM_PARTIALS_CAP // (4 * (entries + K)), 1)
+    plan_tiles = _ceil_div(P, 16 if P <= 16 else 32)
+    plan_entries = P * (P + 1) // 2
+    cap = max(GRAM_PARTIALS_CAP // (4 * (plan_entries + P)), 1)
     target = GRAM_CTAS_PER_SM * int(sms)
-    n = max(1, min(_ceil_div(target, npairs), cap, _ceil_div(D, GRAM_TILE_D), 65535))
+    n = max(1, min(_ceil_div(target, plan_tiles * (plan_tiles + 1) // 2), cap,
+                   _ceil_div(D, GRAM_TILE_D), 65535))
     chunk = _ceil_div(_ceil_div(D, n), GRAM_TILE_D) * GRAM_TILE_D
     return GramGeometry(bt, ntiles, npairs, _ceil_div(D, chunk), chunk, width, entries)
 
@@ -265,26 +278,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _gram_geometry_for(updates: torch.Tensor) -> GramGeometry:
+def _gram_geometry_for(updates: torch.Tensor, plan_rows=None) -> GramGeometry:
     K, D = updates.shape
-    return gram_geometry(K, D, updates.data_ptr(), _sm_count(updates.device.index))
+    return gram_geometry(K, D, updates.data_ptr(), _sm_count(updates.device.index),
+                         plan_rows=plan_rows)
 
 
-def gram(updates: torch.Tensor) -> torch.Tensor:
+def gram(updates: torch.Tensor, *, plan_rows: int | None = None) -> torch.Tensor:
     """(K, d) -> (K, K) Gram matrix U U^T (f32).  On the card: 3xTF32 on the
     tensor cores with f32 sums (``ref.gram_3xtf32_ref`` is that arithmetic's
-    twin); on the CPU: the f32 twin ``ref.gram_ref``."""
+    twin), the column splits planned for ``plan_rows`` rows
+    (``gram_geometry``); on the CPU: the f32 twin ``ref.gram_ref``."""
     _check_tensor("gram", "updates", updates, 2)
     if not _on_card("gram", updates):
         return ref.gram_ref(updates)
-    out = _gram_cuda(load_library(), _stream(updates), updates)
+    out = _gram_cuda(load_library(), _stream(updates), updates, plan_rows)
     _count_launch("gram")
     return out
 
 
-def _gram_cuda(lib, stream, updates):
+def _gram_cuda(lib, stream, updates, plan_rows=None):
     K, D = updates.shape
-    geo = _gram_geometry_for(updates)
+    geo = _gram_geometry_for(updates, plan_rows)
     pg = torch.empty((geo.nsplit * geo.entries,), dtype=torch.float32, device=updates.device)
     g = torch.empty((K, K), dtype=torch.float32, device=updates.device)
     _check_rc("gram", lib.repro_gram(
@@ -299,7 +314,8 @@ def _gram_cuda(lib, stream, updates):
 
 
 def afa_screen(updates: torch.Tensor, pn: torch.Tensor, mask0: torch.Tensor, *,
-               xi0: float, delta_xi: float, max_rounds: int, ddof: int = 0):
+               xi0: float, delta_xi: float, max_rounds: int, ddof: int = 0,
+               plan_rows: int | None = None):
     """Algorithm 1 through the screening kernel -> ``(aggregate (d,),
     good_mask (K,) bool, rounds () int32, sims (K,))``.
 
@@ -318,13 +334,14 @@ def afa_screen(updates: torch.Tensor, pn: torch.Tensor, mask0: torch.Tensor, *,
               max_rounds=int(max_rounds), ddof=int(ddof))
     if not _on_card("afa_screen", updates, pn, mask0):
         return ref.afa_screen_ref(updates, pn, mask0, **kw)
-    out = _afa_screen_cuda(load_library(), _stream(updates), updates, pn, mask0, **kw)
+    out = _afa_screen_cuda(load_library(), _stream(updates), updates, pn, mask0,
+                           plan_rows=plan_rows, **kw)
     _count_launch("afa_screen")
     return out
 
 
 def _afa_screen_cuda(lib, stream, updates, pn, mask0, *, xi0, delta_xi,
-                     max_rounds, ddof):
+                     max_rounds, ddof, plan_rows=None):
     """Three launches: the Gram partials, their reduce with the screen in
     its last block, and the aggregate.  The kernels read ``mask0`` and write
     ``good`` as one byte per client, torch.bool's storage, so a bool mask
@@ -340,7 +357,7 @@ def _afa_screen_cuda(lib, stream, updates, pn, mask0, *, xi0, delta_xi,
     if mask0.dtype != torch.bool:
         mask0 = mask0 != 0
     mask0 = mask0.contiguous()
-    geo = _gram_geometry_for(updates)
+    geo = _gram_geometry_for(updates, plan_rows)
     # one buffer, carved into the outputs and the kernels' scratch: floats
     # (agg first, at the allocation's alignment, for the aggregate's vector
     # stores), the int32 round count, then one byte per client for good

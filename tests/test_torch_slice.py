@@ -153,6 +153,10 @@ def test_port_imports_no_jax_and_no_repro():
         "        ServerConfig(num_clients=4, afa_variant=v,\n"
         "        kernel_plan=resolve_kernel_plan(True, kernel_launch=l)),\n"
         "        data=data, device='cpu')\n"
+        "from repro_torch.serve import run_serve_replay\n"
+        "run_serve_replay(data, SimConfig(num_clients=4, scenario='byzantine', rounds=2,\n"
+        "    local_epochs=1, batch_size=25, hidden=(8, 4)), ServerConfig(num_clients=4),\n"
+        "    device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
