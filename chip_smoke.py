@@ -6,8 +6,10 @@
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch twin on the card at K in
-   {10, 200} clients and the paper DNN's D = 535,818 parameters, and gram
-   and afa_screen also at the LoRA phase's K = 6, D = 460,800: agreement
+   {10, 200} clients and the paper DNN's D = 535,818 parameters, gram and
+   afa_screen also at the LoRA phase's K = 6, D = 460,800, and gram,
+   afa_screen, weighted_sum and the masked median at the Spambase DNN's
+   K = 10, D = 10,601 (odd, so every copy 4 bytes wide): agreement
    within a stated tolerance (exact for the median, which only selects),
    the two Gram kernels also against the twin of their 3xTF32 arithmetic
    (``ref.gram_3xtf32_ref``) and at edge shapes (``GRAM_EDGES``: one row,
@@ -111,10 +113,38 @@
    each aggregation step, cohort propose and submit, the host-device bytes
    of a round, the copies' times and the busy share of 8 traced replay
    rounds;
-12. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+12. runs the paper's Tables 1 and 2 at the published widths (``GRID_DATA``:
+   MNIST-like 784 x 512 x 256 x 10, D = 535,818, and Spambase-like 54 x 100
+   x 50 x 1, D = 10,601; 10 clients of which 3 bad, 8 rounds): clean,
+   byzantine, flipping and noisy under AFA gram/fused, AFA on the plain
+   route, fa, mkrum and comed on the batched engine, each kernel route
+   launching exactly its kernels: byzantine and flipping clients blocked in
+   round 6 by both AFA routes, no good client blocked, none on clean data,
+   AFA's round-8 test error under 5 % (MNIST-like) and 15 % (Spambase-like);
+   on noisy data the noisy clients each AFA route blocked beside the JAX
+   package's; every round's inputs of both routes screened by afa_screen
+   and by the plain screen alike, but where the two screens first decide
+   apart, in that pass, a tie (each client decided apart within
+   ``NOISY_TIE`` of its threshold in float64); where the routes block
+   apart, the first round that splits them a tie in the same sense, the
+   kernel screen on the kernel route's inputs against the plain screen on
+   the plain route's, its margins a pass printed; then AFA
+   gram/fused with ``engine="fused"`` against ``"fused_eager"`` under
+   byzantine and noisy on both datasets, graph = eager bit for bit;
+13. runs ``MAIN_SIM`` and its noisy scenario with ``engine="looped"`` (one
+   client at a time) against ``"batched"`` on gram/fused: equal good_mask
+   histories and blocked rounds, test error within 0.5 pp, ms a round of
+   each;
+14. runs ``MAIN_SIM`` on the leaf layout (``KernelPlan(mode="cuda",
+   layout="leaf")``, AFA's tree form, both variants): byzantine blocked in
+   round 6 with no AFA kernel launched; then one ``server_step`` on round
+   3's recorded proposals on the leaf and the tree layouts: AFA's good_mask
+   equal and its aggregate within rtol 2e-5 / atol 2e-6, fa, mkrum and
+   comed bit for bit, each launching its kernel on the leaf layout;
+15. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
-   serve phase and, for the fused engine's graph runs, the calls that step
-   10's traces executed.
+   serve, grid, looped and leaf phases and, for the fused engine's graph runs,
+   the calls that step 10's traces executed.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, the script exits 1 before printing a result.
@@ -325,6 +355,51 @@ SERVE_REJECT_MIN = 0.95   # byzantine reconnects turned away at ingress once blo
 # the keyed streams, card against CPU: the Box-Muller normals may round
 # log/cos/sin's last bit differently (values |z| < 6, an ulp ~5e-7)
 KEYED_NORMAL_ATOL = 1e-5
+# the paper's Tables 1 and 2 at the published widths, as
+# benchmarks/table1_robustness.py and table2_detection.py configure them:
+# 10 clients of which 3 bad, 8 rounds, local_epochs 2, batch 200, dropout
+# off, seed 0; dataset -> (data maker's arguments, hidden widths, lr, D,
+# AFA's bound on round 8's test error in %)
+D_SPAMBASE = 54 * 100 + 100 + 100 * 50 + 50 + 50 * 1 + 1   # 10,601
+GRID_DATA = {
+    "mnist": (dict(n_train=3000, n_test=800), (512, 256), 0.1, D_PAPER, 5.0),
+    "spambase": ({}, (100, 50), 0.05, D_SPAMBASE, 15.0),
+}
+GRID_SIM = dict(num_clients=MAIN_K, bad_frac=0.3, rounds=8, local_epochs=2, batch_size=200,
+                dropout=False, seed=0)
+GRID_SCENARIOS = ("clean", "byzantine", "flipping", "noisy")
+GRID_BLOCKING = ("byzantine", "flipping")  # every bad client blocked in round 6
+# label -> (rule, afa_variant, kernel route?, the kernels the route launches)
+GRID_ROUTES = {
+    "afa gram/fused": ("afa", "gram", True, ("afa_screen",)),
+    "afa gram/plain-torch": ("afa", "gram", False, ()),
+    "fa": ("fa", "gram", True, ("weighted_sum",)),
+    "mkrum": ("mkrum", "gram", True, ("gram", "weighted_sum")),
+    "comed": ("comed", "gram", True, ("coord_median_masked",)),
+}
+GRID_FUSED = ("byzantine", "noisy")  # afa gram/fused on engine="fused" against "fused_eager"
+# a screening decision whose float64 margin to its threshold, in the pass
+# where two f32 screens first decide apart, is within this is a tie, which
+# f32 rounding decides: about three times the largest gap read on an H100
+# between a client's f32 margin and its float64 one (1.78e-7, MNIST-like
+# noisy inputs; the kernel's and the plain screen split them at +3.68e-8)
+NOISY_TIE = 6e-7
+# the JAX package's afa (iterative variant, jnp) on the noisy scenario at
+# the grid's configuration, on a CPU: noisy client -> round blocked
+JAX_NOISY = {"mnist": {2: 6}, "spambase": {}}
+# the looped engine against the batched one on gram/fused: MAIN_SIM and its
+# noisy scenario; test error within LOOPED_ERR_PP
+LOOPED_SIMS = {"byzantine": MAIN_SIM, "noisy": dict(MAIN_SIM, scenario="noisy")}
+LOOPED_ERR_PP = 0.5
+# the leaf layout: AFA's tree form launches no AFA kernel; one server_step on
+# this round's (0-indexed, every client live) proposals on the leaf and tree
+# layouts: AFA within tests/test_packed.py's bound, the matrix-only rules
+# bit for bit
+AFA_KERNELS = ("weighted_sum", "cosine_sim", "gram", "afa_screen")
+LEAF_ROUND = 2
+LEAF_RTOL, LEAF_ATOL = 2e-5, 2e-6
+# the matrix-only rules, each with the kernel its leaf-layout step must launch
+LEAF_EXACT_RULES = {"fa": "weighted_sum", "mkrum": "gram", "comed": "coord_median_masked"}
 
 
 def fail(msg: str) -> None:
@@ -541,6 +616,27 @@ def kernel_phase(torch, ops, ref, peaks, lib):
     mask0 = torch.ones((K,), dtype=torch.bool, device=dev)
     rows += gram_checks(torch, ops, ref, K, D, U, Us, pn, mask0,
                         dict(xi0=2.0, delta_xi=0.5, max_rounds=8, ddof=0), peaks, flush)
+    # the Spambase DNN's D = 10,601 at K = 10, before the grid reads these
+    # kernels there: D is odd, so every copy is 4 bytes wide, and the Gram's
+    # splits are a few columns long
+    K, D = MAIN_K, D_SPAMBASE
+    U, _, Us, pn, mask0 = screening_inputs(torch, K, D, 1000 + D)
+    rows += gram_checks(torch, ops, ref, K, D, U, Us, pn, mask0,
+                        dict(xi0=2.0, delta_xi=0.5, max_rounds=8, ddof=0), peaks, flush)
+    kd, f = K * D, 4
+    c = pn / pn.sum()
+    rows.append(check_kernel(
+        torch, "weighted_sum", K, lambda: ops.weighted_sum(c, U),
+        lambda: ref.weighted_sum_ref(U, c), lambda: c @ U, (kd + K + D) * f, 2 * kd, peaks,
+        flush, D=D))
+    live = mask0.clone()
+    live[:DEAD] = False
+    Uq = torch.round(4.0 * U) / 4.0
+    md = int(live.sum()) * D
+    rows.append(check_kernel(
+        torch, "coord_median_masked", K, lambda: ops.coord_median(Uq, live),
+        lambda: ref.coord_median_ref(Uq, live), None, (md + D + K) * f, md, peaks, flush, D=D,
+        geometry=ops.rank_geometry(K, D, Uq.data_ptr(), sms)._asdict()))
     gram_edge_checks(torch, ops, ref, lib)
     return rows, one_launch_checks(torch, ops, ref)
 
@@ -1426,23 +1522,26 @@ def lora_phase(torch, ops, min_rounds_to_block):
 
 
 @contextlib.contextmanager
-def recording_server_step(torch, dump: dict):
+def recording_server_step(torch, dump: dict, rounds=(LORA_DUMP_ROUND - 1,)):
     """Swap ``repro_torch.fed.server.server_step`` for a wrapper that keeps
-    the inputs of round ``LORA_DUMP_ROUND`` (1-indexed) in ``dump``: the
-    packed (K, D) proposals, ``n_k``, the participation mask and the
-    reputation means ``p_good``.  ``simulate_llm`` imports ``server_step``
-    when it is called, so the wrapper reaches it."""
+    the inputs of each of ``rounds`` (0-indexed) in ``dump[round]``: the
+    proposals (a packed (K, D) matrix or a stacked tree), ``n_k``, the
+    participation mask, the reputation means ``p_good`` and the server
+    state.  ``simulate_llm`` imports ``server_step`` when it is called and
+    ``FedServer`` reads it from its module, so the wrapper reaches both."""
     from repro_torch.core import p_good
     from repro_torch.fed import server as server_mod
+    from repro_torch.utils.trees import tree_map
 
     real = server_mod.server_step
 
     def step(state, proposals, n_k, mask0, **kw):
-        if state.round == LORA_DUMP_ROUND - 1:
-            dump.update(proposals=proposals.detach().float().clone(),
-                        n_k=torch.as_tensor(n_k, dtype=torch.float32).clone(),
-                        mask0=torch.as_tensor(mask0).bool().clone(),
-                        p_good=p_good(state.reputation).float().clone())
+        if state.round in rounds:
+            dump[state.round] = dict(
+                proposals=tree_map(lambda l: l.detach().float().clone(), proposals),
+                n_k=torch.as_tensor(n_k, dtype=torch.float32).clone(),
+                mask0=torch.as_tensor(mask0).bool().clone(),
+                p_good=p_good(state.reputation).float().clone(), state=state)
         return real(state, proposals, n_k, mask0, **kw)
 
     server_mod.server_step = step
@@ -1463,11 +1562,11 @@ def lora_round_dump(torch, ops, ref, dumps):
     kernel's Gram and on ``U @ U.T``."""
     import numpy as np
 
-    missing = [label for label, d in dumps.items() if not d]
+    missing = [label for label, d in dumps.items() if LORA_DUMP_ROUND - 1 not in d]
     if missing:
         raise AssertionError(f"lora: round {LORA_DUMP_ROUND}'s server_step inputs were not "
                              f"recorded on {missing}")
-    (label, d), *others = dumps.items()
+    (label, d), *others = ((label, d[LORA_DUMP_ROUND - 1]) for label, d in dumps.items())
     U, dev = d["proposals"], d["proposals"].device
     n_k, mask0, p = d["n_k"].to(dev), d["mask0"].to(dev), d["p_good"].to(dev)
     name = f"lora_round{LORA_DUMP_ROUND}_{label.replace('/', '_')}.npz"
@@ -1767,7 +1866,15 @@ def fused_trace_phase(torch, ops):
                   if e.name == ROUNDS_RANGE and e.device_type == DeviceType.CPU]
         if len(window) != 1:
             raise AssertionError(f"fused trace [{label}]: {len(window)} '{ROUNDS_RANGE}' ranges")
-        start = window[0].time_range.start
+        # the range's device-side annotation, where the trace has one, starts
+        # the window on the device's own timestamps: the host range's start
+        # can lie a round after the first replayed kernel's
+        on_device = [e.time_range.start for e in prof.events()
+                     if e.name == ROUNDS_RANGE and e.device_type == DeviceType.CUDA]
+        start = min(on_device) if on_device else window[0].time_range.start
+        print(f"fused trace [{label}]: window from the {'device' if on_device else 'host'} "
+              f"range; device start - host start = "
+              f"{(start - window[0].time_range.start) / 1e3:.3f} ms")
         spans = device_spans(torch, prof, after=start)
         if not spans:
             raise AssertionError(f"fused trace [{label}]: no device events in the rounds")
@@ -2163,6 +2270,418 @@ def serve_phase(torch, ops, fused_results, smi, min_rounds_to_block):
     return out, launches
 
 
+def grid_gates(where, res, n_min, scenario, err_max, afa):
+    """Tables 1/2's gates on one run: no good client blocked; under clean
+    no client blocked; under byzantine and flipping every bad client blocked
+    in round ``n_min`` (AFA); AFA's round-8 test error below ``err_max``."""
+    bad = set(res.bad_clients.tolist())
+    rb = res.blocked_round
+    if any(rb[k] != -1 for k in range(len(rb)) if k not in bad):
+        raise AssertionError(f"{where}: a good client was blocked: {rb.tolist()}")
+    if scenario == "clean" and (rb != -1).any():
+        raise AssertionError(f"{where}: a client was blocked on clean data: {rb.tolist()}")
+    if afa and scenario in GRID_BLOCKING and list(rb[res.bad_clients]) != [n_min] * len(bad):
+        raise AssertionError(f"{where}: bad clients blocked at {rb[res.bad_clients]}, "
+                             f"expected round {n_min}")
+    if afa and not res.test_error[-1] < err_max:
+        raise AssertionError(f"{where}: round-8 test error {res.test_error[-1]} % >= {err_max} %")
+
+
+def screening_margins(torch, U, pn, mask0, G, client):
+    """``client``'s margin to the tail threshold in each pass of Algorithm 1
+    on the Gram matrix ``G``, in G's dtype (negative: screened out in that
+    pass), until the client is removed or the screen stops; ServerConfig's
+    xi0 = 2.0 and delta_xi = 0.5, ddof 0, as ``ref.afa_screen_ref``."""
+    u, pn = U.to(G.dtype), pn.to(G.dtype)
+    rn = torch.sqrt(torch.clamp((u * u).sum(1), min=1e-12))
+    mask, xi, margins = mask0.clone(), 2.0, []
+    for _ in range(8):
+        c = torch.where(mask, pn, 0.0)
+        c = c / c.sum()
+        gc = G @ c
+        s = gc / (rn * torch.sqrt(torch.clamp(c @ gc, min=1e-12)))
+        live = torch.sort(s[mask]).values
+        n = live.numel()
+        mean, median = live.mean(), 0.5 * (live[(n - 1) // 2] + live[n // 2])
+        sd = torch.sqrt(((live - mean) ** 2).mean())
+        margin = s - (median - xi * sd) if bool(mean < median) else median + xi * sd - s
+        margins.append(float(margin[client]))
+        bad = mask & (margin < 0)
+        if int((mask & ~bad).sum()) < 2:
+            bad[:] = False
+        mask, xi = mask & ~bad, xi + 0.5
+        if not (bool(mask[client]) and bool(bad.any())):
+            break
+    return margins
+
+
+def margins64(torch, U, pn, mask, xi):
+    """Every client's float64 margin to the tail threshold in one pass of
+    Algorithm 1 that enters with ``mask`` at ``xi`` (negative: screened
+    out), ddof 0, as ``ref.afa_screen_ref``."""
+    u, pn = U.double(), pn.double()
+    rn = torch.sqrt(torch.clamp((u * u).sum(1), min=1e-12))
+    c = torch.where(mask, pn, 0.0)
+    c = c / c.sum()
+    gc = (u @ u.T) @ c
+    s = gc / (rn * torch.sqrt(torch.clamp(c @ gc, min=1e-12)))
+    live = torch.sort(s[mask]).values
+    n = live.numel()
+    mean, median = live.mean(), 0.5 * (live[(n - 1) // 2] + live[n // 2])
+    sd = torch.sqrt(((live - mean) ** 2).mean())
+    return s - (median - xi * sd) if bool(mean < median) else median + xi * sd - s
+
+
+def screen_mask(ops, side, passes):
+    """The good_mask of one screen, ``(route, U, n_k, p_good, mask0)`` with
+    route ``"kernel"`` (``afa_screen``) or ``"plain"`` (the plain route's
+    gram screen), stopped after ``passes`` passes of Algorithm 1."""
+    from repro_torch.core import AFAConfig, afa_aggregate
+
+    route, U, n_k, p, m0 = side
+    if passes == 0:
+        return m0
+    if route == "kernel":
+        return ops.afa_screen(U, (p * n_k).contiguous(), m0, xi0=2.0, delta_xi=0.5,
+                              max_rounds=passes, ddof=0)[1]
+    return afa_aggregate(U, n_k, p, m0, AFAConfig(variant="gram", max_rounds=passes)).good_mask
+
+
+def first_split(torch, ops, a, b):
+    """Two screens (``screen_mask``'s sides) whose good_masks differ: the
+    first pass after which their masks differ, the clients they decide apart
+    in it, and those clients' float64 margins in that pass on each screen's
+    inputs, from the mask both screens entered it with."""
+    from repro_torch.core import AFAConfig
+
+    for n in range(AFAConfig().max_rounds + 1):
+        ma, mb = screen_mask(ops, a, n), screen_mask(ops, b, n)
+        if not torch.equal(ma, mb):
+            break
+    else:
+        raise AssertionError("the two screens' masks never differ")
+    if n == 0:
+        raise AssertionError("the two screens start from different participation masks")
+    enter, xi = screen_mask(ops, a, n - 1), 2.0 + 0.5 * (n - 1)
+    clients = (ma != mb).nonzero().flatten().tolist()
+    margins = [[float(m) for m in margins64(torch, U, (p * n_k).contiguous(), enter, xi)[clients]]
+               for _, U, n_k, p, _ in (a, b)]
+    return n, clients, margins
+
+
+def noisy_route_checks(torch, ops, dname, afa_runs, dumps):
+    """The noisy scenario on the AFA kernel route and the plain route
+    (``afa_runs``, with every round's ``server_step`` inputs in ``dumps``).
+    Same inputs: every round's inputs of each run screened by ``afa_screen``
+    and by the plain route's gram screen give the same good_mask, but where
+    the two screens' masks first differ, in the pass where they do, every
+    client they decide apart has a float64 margin within ``NOISY_TIE`` (a
+    tie, which f32 rounding decides).  End to end: the noisy clients each
+    route blocked, beside the JAX package's; where the routes' blocked
+    rounds differ, the first round whose good_mask differs must split off
+    such a tie, the kernel screen on the kernel route's inputs against the
+    plain screen on the plain route's, on both inputs.  Each split is
+    printed with its clients' margins a pass on the kernel's Gram, on
+    ``U @ U.T`` and in float64.  Returns the report."""
+    import numpy as np
+
+    from repro_torch.core import AFAConfig
+    from repro_torch.utils.trees import pack_stack
+
+    def inputs(label, rnd):
+        d = dumps[label][rnd]
+        U = pack_stack(d["proposals"])
+        return U, d["n_k"].to(U.device), d["p_good"], d["mask0"].to(U.device)
+
+    def margins(U, n_k, p, m0, k):
+        pn = (p * n_k).contiguous()
+        return {g: screening_margins(torch, U, pn, m0, G, k) for g, G in (
+            ("kernel gram", ops.gram(U)), ("U @ U.T", U @ U.T),
+            ("float64", U.double() @ U.double().T))}
+
+    def check_split(where, a, b):
+        n, clients, m64 = first_split(torch, ops, a, b)
+        for i, k in enumerate(clients):
+            per_pass = {side[0]: {g: [f"{x:+.3e}" for x in v]
+                                  for g, v in margins(*side[1:], k).items()} for side in (a, b)}
+            print(f"{where}: the kernel and plain screens decide client {k} apart first in "
+                  f"pass {n}, float64 margins there {[f'{m[i]:+.3e}' for m in m64]}; margin a "
+                  f"pass on each screen's inputs {per_pass}")
+            if any(abs(m[i]) > NOISY_TIE for m in m64):
+                raise AssertionError(f"{where}: client {k} decided apart in pass {n} off a tie "
+                                     f"(float64 margins {[m[i] for m in m64]} > {NOISY_TIE})")
+        return {"pass": n, "clients": clients, "float64_margins": m64}
+
+    (kl, kres), (pl, pres) = afa_runs.items()
+    bad = kres.bad_clients.tolist()
+    report = {"blocked": {}, "same_input_ties": [], "split": None}
+    for label, res in afa_runs.items():
+        got = {k: int(res.blocked_round[k]) for k in bad if res.blocked_round[k] > 0}
+        report["blocked"][label] = got
+        print(f"grid [{dname}, noisy, {label}]: noisy clients blocked {got} (client: round) "
+              f"of {len(bad)}; the JAX package's: {JAX_NOISY[dname]}")
+    for label in afa_runs:
+        for rnd in sorted(dumps[label]):
+            x = inputs(label, rnd)
+            full = AFAConfig().max_rounds
+            if torch.equal(screen_mask(ops, ("kernel", *x), full),
+                           screen_mask(ops, ("plain", *x), full)):
+                continue
+            where = f"grid [{dname}, noisy]: {label}'s round {rnd + 1} inputs"
+            report["same_input_ties"].append(
+                dict(check_split(where, ("kernel", *x), ("plain", *x)), inputs=label,
+                     round=rnd + 1))
+    if np.array_equal(kres.blocked_round, pres.blocked_round):
+        print(f"grid [{dname}, noisy]: both AFA routes block alike")
+        return report
+    rnd = next(r for r, (a, b) in enumerate(zip(kres.good_mask_history, pres.good_mask_history))
+               if not np.array_equal(a, b))
+    where = f"grid [{dname}, noisy]: round {rnd + 1}, {kl} against {pl}"
+    report["split"] = dict(check_split(where, ("kernel", *inputs(kl, rnd)),
+                                       ("plain", *inputs(pl, rnd))), round=rnd + 1)
+    print(f"grid [{dname}, noisy]: the AFA routes block apart ({kres.blocked_round.tolist()} "
+          f"against {pres.blocked_round.tolist()}), from a tie in round {rnd + 1}")
+    return report
+
+
+def paper_grid_phase(torch, ops, min_rounds_to_block):
+    """Tables 1 and 2 at the published widths (``GRID_DATA``, ``GRID_SIM``):
+    every scenario of ``GRID_SCENARIOS`` under every route of ``GRID_ROUTES``
+    on the batched engine, with ``grid_gates``, each kernel route launching
+    exactly its kernels; on the noisy scenario ``noisy_route_checks``.  Then
+    afa gram/fused on ``engine="fused"`` against ``"fused_eager"`` under
+    ``GRID_FUSED``: graph = eager bit for bit.  Returns the runs, the noisy
+    reports, the launches of the batched and eager runs and the grid's wall
+    time."""
+    import numpy as np
+
+    from repro_torch.data import make_mnist_like, make_spambase_like
+    from repro_torch.fed import ServerConfig, SimConfig, run
+    from repro_torch.kernels.policy import resolve_kernel_plan
+
+    n_min = min_rounds_to_block()
+    launches = {name: 0 for name in ops.LAUNCH_COUNTS}
+    runs, noisy = [], {}
+    t_grid = time.perf_counter()
+    for dname, (data_kw, hidden, lr, D, err_max) in GRID_DATA.items():
+        data = (make_mnist_like if dname == "mnist" else make_spambase_like)(**data_kw)
+        for scenario in GRID_SCENARIOS:
+            sim = SimConfig(**GRID_SIM, scenario=scenario, hidden=hidden, lr=lr)
+            afa_runs, dumps = {}, {}
+            for label, (rule, variant, kernels, names) in GRID_ROUTES.items():
+                server = ServerConfig(rule=rule, num_clients=MAIN_K, afa_variant=variant,
+                                      kernel_plan=resolve_kernel_plan(kernels))
+                where = f"grid [{dname}, {scenario}, {label}]"
+                record = rule == "afa" and scenario == "noisy"
+                dumps[label] = {}
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                with (recording_server_step(torch, dumps[label], range(GRID_SIM["rounds"]))
+                      if record else contextlib.nullcontext()):
+                    res = run(None, sim, server, data=data, device="cuda")
+                wall = time.perf_counter() - t0
+                counts = dict(ops.LAUNCH_COUNTS)
+                print(f"{where}: D={D} wall_s={wall:.3f} round_ms="
+                      f"{[round(t * 1e3, 2) for t in res.round_times]} blocked_round="
+                      f"{res.blocked_round.tolist()} test_error="
+                      f"{[round(e, 2) for e in res.test_error]}")
+                for name, count in counts.items():
+                    if (name in names) != (count > 0):
+                        raise AssertionError(f"{where}: kernel {name} launched {count} times, "
+                                             f"expected {'some' if name in names else 'none'}")
+                    launches[name] += count
+                grid_gates(where, res, n_min, scenario, err_max, rule == "afa")
+                if rule == "afa":
+                    afa_runs[label] = res
+                runs.append({"dataset": dname, "D": D, "scenario": scenario, "route": label,
+                             "engine": "batched", "wall_s": wall,
+                             "round_ms": [t * 1e3 for t in res.round_times],
+                             "test_error": res.test_error,
+                             "blocked_round": res.blocked_round.tolist(), "launches": counts})
+            if scenario == "noisy":
+                noisy[dname] = noisy_route_checks(torch, ops, dname, afa_runs, dumps)
+        server = ServerConfig(num_clients=MAIN_K, afa_variant="gram",
+                              kernel_plan=resolve_kernel_plan(True))
+        for scenario in GRID_FUSED:
+            results = {}
+            for engine in ("fused_eager", "fused"):
+                where = f"grid fused [{dname}, {scenario}, {engine}]"
+                sim = SimConfig(**GRID_SIM, scenario=scenario, hidden=hidden, lr=lr,
+                                engine=engine)
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                res = results[engine] = run(None, sim, server, data=data, device="cuda")
+                wall = time.perf_counter() - t0
+                counts = dict(ops.LAUNCH_COUNTS)
+                T = len(res.round_times)
+                replay_ms = (res.round_time * T - res.capture_time) / T * 1e3
+                print(f"{where}: wall_s={wall:.3f} capture_s={res.capture_time:.3f} "
+                      f"ms/round without capture={replay_ms:.3f} blocked_round="
+                      f"{res.blocked_round.tolist()} test_error="
+                      f"{[round(e, 2) for e in res.test_error]} launches={counts}")
+                grid_gates(where, res, n_min, scenario, err_max, True)
+                if engine == "fused_eager":
+                    for name, count in counts.items():
+                        launches[name] += count
+                runs.append({"dataset": dname, "D": D, "scenario": scenario,
+                             "route": "afa gram/fused", "engine": engine, "wall_s": wall,
+                             "capture_s": res.capture_time, "replay_ms_per_round": replay_ms,
+                             "test_error": res.test_error,
+                             "blocked_round": res.blocked_round.tolist(), "launches": counts})
+            if not same_trajectory(results["fused"], results["fused_eager"]):
+                raise AssertionError(f"grid fused [{dname}, {scenario}]: the graph's "
+                                     "trajectory differs from the eager body's")
+            print(f"grid fused [{dname}, {scenario}]: graph = eager bit for bit")
+    wall = time.perf_counter() - t_grid
+    print(f"grid: {len(runs)} runs in {wall:.1f} s")
+    return runs, noisy, launches, wall
+
+
+def looped_phase(torch, ops):
+    """``LOOPED_SIMS`` on gram/fused with ``engine="looped"`` (one client at
+    a time) and ``"batched"``: equal good_mask histories and blocked rounds,
+    test error within ``LOOPED_ERR_PP``; ms a round of each.  Returns the
+    runs and their launches."""
+    import numpy as np
+
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import ServerConfig, SimConfig, run
+    from repro_torch.kernels.policy import resolve_kernel_plan
+
+    data = make_mnist_like()
+    server = ServerConfig(num_clients=MAIN_K, afa_variant="gram",
+                          kernel_plan=resolve_kernel_plan(True))
+    launches = {name: 0 for name in ops.LAUNCH_COUNTS}
+    runs = []
+    for label, sim_kw in LOOPED_SIMS.items():
+        results = {}
+        for engine in ("batched", "looped"):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = results[engine] = run(None, SimConfig(**sim_kw, engine=engine), server,
+                                        data=data, device="cuda")
+            wall = time.perf_counter() - t0
+            counts = dict(ops.LAUNCH_COUNTS)
+            if counts["afa_screen"] != sim_kw["rounds"]:
+                raise AssertionError(f"looped [{label}, {engine}]: afa_screen launched "
+                                     f"{counts['afa_screen']} times in {sim_kw['rounds']} rounds")
+            for name, count in counts.items():
+                launches[name] += count
+            ms = [t * 1e3 for t in res.round_times]
+            print(f"looped [{label}, {engine}]: wall_s={wall:.3f} round_ms="
+                  f"{[round(t, 2) for t in ms]} median={sorted(ms)[len(ms) // 2]:.2f} "
+                  f"train_ms/round={res.train_time * 1e3:.2f} blocked_round="
+                  f"{res.blocked_round.tolist()} test_error="
+                  f"{[round(e, 2) for e in res.test_error]}")
+            runs.append({"scenario": label, "engine": engine, "wall_s": wall, "round_ms": ms,
+                         "train_ms": res.train_time * 1e3, "agg_ms": res.agg_time * 1e3,
+                         "test_error": res.test_error,
+                         "blocked_round": res.blocked_round.tolist(), "launches": counts})
+        a, b = results["looped"], results["batched"]
+        gap = float(np.abs(np.asarray(a.test_error) - np.asarray(b.test_error)).max())
+        print(f"looped [{label}]: largest test-error gap to batched {gap:.3f} pp; good_mask "
+              f"histories equal: {same_trajectory(a, b, error=False)}")
+        if not same_trajectory(a, b, error=False):
+            raise AssertionError(f"looped [{label}]: good_mask history or blocked rounds "
+                                 f"differ from the batched engine's")
+        if gap > LOOPED_ERR_PP:
+            raise AssertionError(f"looped [{label}]: test error {gap} pp from the batched "
+                                 f"engine's > {LOOPED_ERR_PP}")
+        runs[-1]["max_err_gap_pp"] = gap
+    return runs, launches
+
+
+def leaf_layout_phase(torch, ops, min_rounds_to_block):
+    """``MAIN_SIM`` through ``run`` with ``KernelPlan(mode="cuda",
+    layout="leaf")`` on both AFA variants: AFA's tree form blocks every
+    byzantine client in round ``min_rounds_to_block()`` and no good one, and
+    no AFA kernel is launched.  Then one ``server_step`` on round
+    ``LEAF_ROUND``'s recorded proposals (a stacked tree) on the leaf and the
+    tree layouts: AFA's equal good_mask and its aggregate within
+    ``LEAF_RTOL`` / ``LEAF_ATOL``; fa, mkrum and comed (their kernels on
+    the leaf layout's flatten) equal bit for bit.  Returns the runs and the
+    steps' launches."""
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import ServerConfig, SimConfig, make_rule_options, run, server_step
+    from repro_torch.kernels.policy import KernelPlan
+    from repro_torch.utils.trees import tree_leaves
+
+    data = make_mnist_like()
+    n_min = min_rounds_to_block()
+    plan = KernelPlan(mode="cuda", layout="leaf")
+    runs, dump = [], {}
+    for variant in ("gram", "iterative"):
+        server = ServerConfig(num_clients=MAIN_K, afa_variant=variant, kernel_plan=plan)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recording_server_step(torch, dump, (LEAF_ROUND,)):
+            res = run(None, SimConfig(**MAIN_SIM), server, data=data, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCH_COUNTS)
+        print(f"leaf [afa {variant}]: wall_s={wall:.3f} agg_ms/round={res.agg_time * 1e3:.3f} "
+              f"blocked_round={res.blocked_round.tolist()} test_error="
+              f"{[round(e, 3) for e in res.test_error]} launches={counts}")
+        fused_run_gates(f"leaf afa {variant}", "afa", res, n_min)
+        if any(counts[name] for name in AFA_KERNELS):
+            raise AssertionError(f"leaf [afa {variant}]: AFA kernels launched {counts}")
+        runs.append({"route": f"afa {variant}, layout=leaf", "wall_s": wall,
+                     "agg_ms": res.agg_time * 1e3, "test_error": res.test_error,
+                     "blocked_round": res.blocked_round.tolist(), "launches": counts})
+    d = dump[LEAF_ROUND]
+    state, tree, n_k, mask0 = d["state"], d["proposals"], d["n_k"], d["mask0"]
+    ops.reset_launch_counts()
+    for rule in ("afa", *LEAF_EXACT_RULES):
+        cfg = ServerConfig(rule=rule, num_clients=MAIN_K, afa_variant="gram", kernel_plan=plan)
+        out = {}
+        for layout in ("leaf", "tree"):
+            before = dict(ops.LAUNCH_COUNTS)
+            out[layout] = server_step(state, tree, n_k, mask0, rule=rule,
+                                      opts=make_rule_options(cfg, int(mask0.sum())),
+                                      layout=layout)[1]
+            if layout == "leaf":
+                new = {n: c - before[n] for n, c in ops.LAUNCH_COUNTS.items() if c > before[n]}
+        torch.cuda.synchronize()
+        want = LEAF_EXACT_RULES.get(rule)
+        if (want is None and any(n in AFA_KERNELS for n in new)) or (want and want not in new):
+            raise AssertionError(f"leaf step [{rule}]: the leaf layout launched {new}, expected "
+                                 f"{want or 'no AFA kernel'}")
+        if not torch.equal(out["leaf"].good_mask, out["tree"].good_mask):
+            raise AssertionError(f"leaf step [{rule}]: good_mask {out['leaf'].good_mask} on "
+                                 f"the leaf layout, {out['tree'].good_mask} on the tree one")
+        worst = 0.0
+        for a, b in zip(tree_leaves(out["leaf"].aggregate), tree_leaves(out["tree"].aggregate)):
+            gap = (a - b).abs()
+            worst = max(worst, float(gap.max()))
+            tol = 0.0 if rule in LEAF_EXACT_RULES else LEAF_ATOL + LEAF_RTOL * b.abs()
+            if (gap > tol).any():
+                raise AssertionError(f"leaf step [{rule}]: the leaf layout's aggregate is "
+                                     f"{float(gap.max())} from the tree layout's")
+        print(f"leaf step [{rule}] round {LEAF_ROUND + 1}: good_mask="
+              f"{out['leaf'].good_mask.int().tolist()} max |leaf - tree| = {worst:.3e} "
+              f"leaf launches={new}")
+        runs.append({"step": rule, "round": LEAF_ROUND + 1, "max_abs_gap": worst,
+                     "good_mask": out["leaf"].good_mask.tolist()})
+    return runs, dict(ops.LAUNCH_COUNTS)
+
+
+def scenario_summary(smi, grid, grid_wall, looped):
+    """The grid's wall time, the median ms a round of the batched AFA
+    gram/fused runs on each dataset, and of the looped and batched engines,
+    with the card's name and power limit."""
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    for dname in GRID_DATA:
+        ms = [t for r in grid if r["dataset"] == dname and r["engine"] == "batched"
+              and r["route"] == "afa gram/fused" for t in r["round_ms"]]
+        print(f"grid summary [{dname}] ({smi}): afa gram/fused batched ms/round median="
+              f"{median(ms):.3f}; grid wall_s={grid_wall:.1f}")
+    for r in looped:
+        print(f"looped summary [{r['scenario']}, {r['engine']}] ({smi}): ms/round median="
+              f"{median(r['round_ms']):.3f} train_ms/round={r['train_ms']:.3f}")
+
+
 def fused_summary(smi, runs, traces):
     """One line a fused route: capture time, ms a round of the replayed
     graph and of the eager body, the replayed rounds' traced busy share;
@@ -2235,10 +2754,15 @@ def main() -> None:
     fused_traces, graph_launches = fused_trace_phase(torch, ops)
     fused_summary(smi, fused_runs, fused_traces)
     serve, serve_launches = serve_phase(torch, ops, fused_results, smi, min_rounds_to_block)
+    grid, noisy, grid_launches, grid_wall = paper_grid_phase(torch, ops, min_rounds_to_block)
+    looped, looped_launches = looped_phase(torch, ops)
+    leaf, leaf_launches = leaf_layout_phase(torch, ops, min_rounds_to_block)
+    scenario_summary(smi, grid, grid_wall, looped)
     traces = [profile_phase(torch), lora_profile_phase(torch), *forward_profile_phase(torch),
               *fused_traces]
     for more in (baseline_launches, unmasked_launches, lora_launches, eager_launches,
-                 graph_launches, serve_launches):
+                 graph_launches, serve_launches, grid_launches, looped_launches,
+                 leaf_launches):
         for kernel, count in more.items():
             launches[kernel] += count
 
@@ -2276,7 +2800,10 @@ def main() -> None:
         "baselines": baseline_runs, "unmasked": unmasked_rows, "flash_attn_checks": attn_rows,
         "forward": forward_rows, "lora": lora_runs, "lora_round_dump": lora_dump,
         "fused": fused_runs, "keyed_streams": keyed, "gram_buckets": gram_buckets,
-        "segmented_compaction": segmented, "serve": serve, "launches": launches,
+        "segmented_compaction": segmented, "serve": serve, "paper_grid": grid,
+        "paper_grid_noisy": noisy,
+        "paper_grid_wall_s": grid_wall, "looped": looped, "leaf_layout": leaf,
+        "launches": launches,
         "profile": traces,
     }, indent=1))
     print(json.dumps({"kernels": kernels}))

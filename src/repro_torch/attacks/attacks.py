@@ -5,6 +5,12 @@ Counterpart of ``repro/attacks/attacks.py``:
 * data poisoning, applied to a client's shard before training (numpy copies
   of the JAX package's, consuming the same numpy stream):
   ``flip_labels`` and ``noisy_features``;
+* the numpy update-space helpers on flat ``(d,)`` / ``(K, d)`` arrays, for
+  analysis scripts and tests (copies of the JAX package's, with its
+  defaults; ``byzantine_update_attack`` consumes the caller's numpy
+  generator as it does): ``byzantine_update_attack``,
+  ``alie_update_attack``, ``ipm_update_attack`` and
+  ``sign_flip_update_attack``;
 * update poisoning on stacked proposals (every leaf has a leading client
   axis), selected by (K,) bool masks: ``byzantine_update_tree`` (w_t +
   N(0, 20^2 I)), ``alie_update_tree`` and ``ipm_update_tree``, dispatched by
@@ -50,6 +56,31 @@ def noisy_features(x: np.ndarray, y: np.ndarray, rng=None, *, binary: bool | Non
         return np.where(flip, 1.0 - x, x).astype(x.dtype), y
     eps = rng.uniform(-1.4, 1.4, size=x.shape).astype(x.dtype)
     return np.clip(x + eps, -1.0, 1.0), y
+
+
+def byzantine_update_attack(w_prev_flat: np.ndarray, rng, scale: float = 20.0):
+    """Paper eq.: w_{t+1}^k <- w_t + Delta, Delta ~ N(0, scale^2 I)."""
+    return w_prev_flat + rng.normal(scale=scale, size=w_prev_flat.shape).astype(
+        w_prev_flat.dtype
+    )
+
+
+def alie_update_attack(benign_updates: np.ndarray, z_max: float = 1.2):
+    """Colluding stealth attack: every attacker sends mean - z_max * std of
+    the benign updates (coordinate-wise), inside the benign spread."""
+    mu = benign_updates.mean(axis=0)
+    sd = benign_updates.std(axis=0)
+    return mu - z_max * sd
+
+
+def ipm_update_attack(benign_updates: np.ndarray, eps: float = 0.5):
+    """Inner-product manipulation: colluders send -eps * mean(benign)."""
+    return -eps * benign_updates.mean(axis=0)
+
+
+def sign_flip_update_attack(own_update: np.ndarray, w_prev: np.ndarray, scale: float = 3.0):
+    """Reverse and amplify the client's own honest delta."""
+    return w_prev - scale * (own_update - w_prev)
 
 
 def stream_seed(*keys: int) -> int:

@@ -1,8 +1,17 @@
 """Adaptive Federated Averaging — the paper's Algorithm 1, in PyTorch.
 
-Counterpart of the matrix form of ``repro/core/afa.py``: updates as a dense
-``(K, d)`` matrix, the form the packed dispatch runs (the tree form and the
-client-sharded form are not ported yet).
+Counterpart of ``repro/core/afa.py``, in two forms:
+
+* the matrix form (``afa_aggregate``): updates as a dense ``(K, d)`` matrix,
+  the form the packed dispatch and the kernels run;
+* the tree form (``afa_aggregate_tree``): updates as a stacked tree (a
+  leading client axis on every leaf), the form the ``leaf`` layout runs.
+  Its Gram and dot products are accumulated leaf by leaf in leaf order, as
+  the JAX package's are; it launches no kernel, whatever ``use_kernels``
+  says (the JAX tree form has no Pallas call), and it runs the stopping
+  loop.
+
+The client-sharded form is not ported.
 
 Two variants:
 
@@ -54,6 +63,7 @@ import torch
 from repro_torch.core.stats import masked_mean, masked_median, masked_std, row_sum
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.policy import resolve_kernel_mode
+from repro_torch.utils.trees import tree_dot, tree_leaves, tree_map
 
 EPS = 1e-12
 
@@ -192,6 +202,83 @@ def afa_aggregate(
     )
 
 
+def _stacked_weighted_sum(stacked, c):
+    """sum_k c_k * u_k over the leading client axis, leaf by leaf (a
+    row-order fold)."""
+    def leaf(l):
+        cb = c.reshape((-1,) + (1,) * (l.ndim - 1)).float()
+        return row_sum(cb * l.float()).to(l.dtype)
+
+    return tree_map(leaf, stacked)
+
+
+def _stacked_gram(stacked):
+    """K x K Gram matrix, accumulated leaf by leaf."""
+    tot = None
+    for l in tree_leaves(stacked):
+        f = l.reshape(l.shape[0], -1).float()
+        part = f @ f.T
+        tot = part if tot is None else tot + part
+    return tot
+
+
+def afa_aggregate_tree(
+    stacked_updates,               # tree, every leaf (K, ...)
+    n_k: torch.Tensor,
+    p_k: torch.Tensor,
+    mask0: torch.Tensor | None = None,
+    config: AFAConfig = AFAConfig(),
+) -> AFAResult:
+    """Algorithm 1 on a stacked tree; the aggregate is a tree of one
+    client's leaves.  The row norms are clamped inside the square root,
+    and sums over the client axis are row-order folds, as in the matrix
+    form."""
+    if config.variant not in ("iterative", "gram"):
+        raise ValueError(
+            f"AFAConfig.variant={config.variant!r} invalid; "
+            "expected 'iterative' or 'gram'"
+        )
+    leaves = tree_leaves(stacked_updates)
+    K, dev = leaves[0].shape[0], leaves[0].device
+    mask0 = torch.ones((K,), dtype=torch.bool, device=dev) if mask0 is None else mask0.bool()
+    n32, p32 = n_k.float(), p_k.float()
+    row_norms = torch.sqrt(torch.clamp(tree_dot(stacked_updates, stacked_updates, axes=1),
+                                       min=EPS))
+
+    if config.variant == "gram":
+        gram = _stacked_gram(stacked_updates)
+
+        def sims(c):
+            gc = row_sum(gram.T * c[:, None])
+            agg_norm = torch.sqrt(torch.clamp(row_sum(c * gc), min=EPS))
+            return gc / (row_norms * agg_norm)
+
+    else:
+
+        def sims(c):
+            agg = _stacked_weighted_sum(stacked_updates, c)
+            dots = tree_dot(stacked_updates, tree_map(lambda v: v[None], agg), axes=1)
+            agg_norm = torch.sqrt(torch.clamp(tree_dot(agg, agg), min=EPS))
+            return dots / (row_norms * agg_norm)
+
+    mask = mask0
+    s = (sims(_weights(mask, p32, n32)) if config.max_rounds == 0
+         else torch.zeros((K,), dtype=torch.float32, device=dev))
+    xi = torch.full((), config.xi0, dtype=torch.float32, device=dev)
+    n_passes, changed = 0, True
+    while changed and n_passes < config.max_rounds:
+        s = sims(_weights(mask, p32, n32))
+        bad = _mark_bad(s, mask, xi, config.ddof)
+        mask = mask & ~bad
+        xi = xi + config.delta_xi
+        changed = bool(bad.any())
+        n_passes += 1
+    agg = _stacked_weighted_sum(stacked_updates, _weights(mask, p32, n32))
+    return AFAResult(aggregate=agg, good_mask=mask,
+                     rounds=torch.full((), n_passes, dtype=torch.int32, device=dev),
+                     similarities=s)
+
+
 def _default_p(p_k, K, device):
     return torch.full((K,), 0.5, dtype=torch.float32, device=device) if p_k is None else p_k
 
@@ -204,6 +291,14 @@ def _afa_matrix_rule(updates, n_k, p_k, mask, opts):
     )
 
 
+def _afa_tree_rule(stacked, n_k, p_k, mask, opts):
+    cfg = opts.afa if opts.afa is not None else AFAConfig()
+    leaf = tree_leaves(stacked)[0]
+    return afa_aggregate_tree(
+        stacked, n_k, _default_p(p_k, leaf.shape[0], leaf.device), mask0=mask, config=cfg,
+    )
+
+
 from repro_torch.core.baselines import register_rule  # noqa: E402  (baselines does not import afa)
 
-register_rule("afa", _afa_matrix_rule, updates_reputation=True)
+register_rule("afa", _afa_matrix_rule, _afa_tree_rule, updates_reputation=True)

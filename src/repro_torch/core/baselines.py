@@ -14,9 +14,10 @@ Counterpart of ``repro/core/baselines.py``:
 ``afa`` registers from ``core/afa.py``, ``geomed`` and ``centered_clip``
 from ``core/extra_rules.py``.  Every dispatchable rule registers a
 :class:`RuleSpec` whose matrix form is ``(updates (K, d), n_k, p_k, mask,
-opts) -> result``; :func:`dispatch_rule` (a matrix) and
-:func:`dispatch_rule_tree` (a stacked tree, packed ONCE into a ``(K, D)``
-buffer) are the entry points.
+opts) -> result`` (AFA also registers a tree form); :func:`dispatch_rule`
+(a matrix) and :func:`dispatch_rule_tree` (a stacked tree, packed ONCE into
+a ``(K, D)`` buffer, or per leaf with ``layout="leaf"``) are the entry
+points.
 
 On the kernel route (``use_kernels`` resolving to ``cuda``) the hot ops go
 through ``repro_torch.kernels.ops``: ``weighted_sum`` (fa, mkrum,
@@ -36,7 +37,7 @@ import torch
 from repro_torch.core.stats import masked_median
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.policy import resolve_kernel_mode
-from repro_torch.utils.trees import pack_spec, pack_stack, unpack_stack
+from repro_torch.utils.trees import pack_spec, pack_stack, tree_map, unpack_stack
 
 EPS = 1e-12
 
@@ -240,12 +241,14 @@ def register_rule(
 
 
 def _guard_all_blocked(res, mask):
-    """Empty participation: an explicit zero update plus ``all_blocked``;
-    with any live client the aggregate passes through unchanged."""
+    """Empty participation: an explicit zero update (a vector, or a tree on
+    the leaf layout's tree forms) plus ``all_blocked``; with any live client
+    the aggregate passes through unchanged."""
     if mask is None:
         return res._replace(all_blocked=False)
     all_blocked = ~mask.any()
-    aggregate = torch.where(all_blocked, torch.zeros_like(res.aggregate), res.aggregate)
+    aggregate = tree_map(lambda l: torch.where(all_blocked, torch.zeros_like(l), l),
+                         res.aggregate)
     return res._replace(aggregate=aggregate, all_blocked=all_blocked)
 
 
@@ -263,13 +266,24 @@ def dispatch_rule(name: str, updates, n_k, p_k=None, mask=None,
     return _guard_all_blocked(spec.matrix_fn(updates, n_k, p_k, mask, opts), mask)
 
 
+TREE_LAYOUTS = ("packed", "leaf")
+
+
 def dispatch_rule_tree(name: str, stacked, n_k, p_k=None, mask=None,
-                       opts: RuleOptions = RuleOptions()):
-    """Tree-form dispatch over a stacked tree: packed ONCE into a ``(K, D)``
-    buffer, the rule's matrix form on it, the aggregate unpacked ONCE back to
-    the tree (the JAX package's packed layout; its per-leaf layout is not
-    ported)."""
+                       opts: RuleOptions = RuleOptions(), *, layout: str = "packed"):
+    """Tree-form dispatch over a stacked tree.
+
+    ``layout="packed"``: the tree is packed ONCE into a ``(K, D)`` buffer,
+    the rule's matrix form runs on it and the aggregate is unpacked ONCE back
+    to the tree.  ``layout="leaf"``: a rule with a tree form (AFA) runs it
+    on the leaves; any other rule has only its matrix form, whose per-leaf
+    flatten is the packed buffer, so it takes the packed path (and reaches
+    the same kernels)."""
     spec = _spec(name)
+    if layout not in TREE_LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; expected {TREE_LAYOUTS}")
+    if layout == "leaf" and spec.tree_fn is not None:
+        return _guard_all_blocked(spec.tree_fn(stacked, n_k, p_k, mask, opts), mask)
     pspec = pack_spec(stacked, stacked=True)
     res = spec.matrix_fn(pack_stack(stacked, pspec), n_k, p_k, mask, opts)
     res = _guard_all_blocked(res, mask)

@@ -14,9 +14,9 @@ Counterpart of ``repro/fed/api.py``:
 ``workload`` is ``None``, a ``ClientWorkload`` or a registry name
 (``"dnn"`` / ``"lora"``, built by ``get_workload`` with ``workload_kwargs``).
 ``None`` / ``DnnWorkload`` go to the classification simulator, on the
-engine ``sim.engine`` names (``batched``, or ``fused`` / ``fused_eager``, the
-round captured once as a CUDA graph and replayed, with ``segment_rounds`` and
-``compact``); any other workload to ``simulate_llm`` (a loop over rounds,
+engine ``sim.engine`` names (``batched``; ``looped``, one client at a time;
+or ``fused`` / ``fused_eager``, the round captured once as a CUDA graph and
+replayed, with ``segment_rounds`` and ``compact``); any other workload to ``simulate_llm`` (a loop over rounds,
 whatever ``sim.engine`` says), with extra keyword arguments
 (``local_steps``, ``samples_per_client``, ``seq``, ``n_test``, ...) passed
 through.  Seed sweeps are not ported and raise ``NotImplementedError``.

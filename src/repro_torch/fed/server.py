@@ -148,14 +148,17 @@ def _absorb(state: ServerState, good_mask, mask0, *, delta: float, table=None) -
 
 def _dispatch(state: ServerState, proposals, n_k, mask0, rule: str, opts: RuleOptions,
               layout: str):
-    """The rule on the round's proposals, weighted by the reputation means."""
+    """The rule on the round's proposals, weighted by the reputation means.
+    ``matrix`` and its alias ``packed`` take a ``(K, D)`` buffer; ``tree``
+    (packed inside the dispatch) and ``leaf`` (per leaf) a stacked tree."""
     dev = state.rounds_blocked.device
     n32 = torch.as_tensor(n_k, dtype=torch.float32, device=dev)
-    if layout == "matrix":
+    if layout in ("matrix", "packed"):
         return dispatch_rule(rule, proposals, n32, p_good(state.reputation), mask0, opts)
-    if layout == "tree":
-        return dispatch_rule_tree(rule, proposals, n32, p_good(state.reputation), mask0, opts)
-    raise ValueError(f"unknown layout {layout!r}; expected tree | matrix")
+    if layout in ("tree", "leaf"):
+        return dispatch_rule_tree(rule, proposals, n32, p_good(state.reputation), mask0, opts,
+                                  layout="packed" if layout == "tree" else "leaf")
+    raise ValueError(f"unknown layout {layout!r}; expected tree | leaf | matrix | packed")
 
 
 def server_step(
@@ -172,8 +175,9 @@ def server_step(
 ):
     """One server round: dispatch the rule, then (for reputation-driven
     rules) absorb the screening outcome.  ``proposals`` is a stacked tree
-    (``layout="tree"``, packed inside the dispatch) or a ``(K, D)`` matrix
-    (``"matrix"``).  ``block_table`` None blocks by ``betainc`` on the host;
+    (``layout="tree"``, packed inside the dispatch, or ``"leaf"``, the
+    per-leaf path) or a ``(K, D)`` matrix (``"matrix"``, or its alias
+    ``"packed"`` for a buffer the caller packed).  ``block_table`` None blocks by ``betainc`` on the host;
     the fused engines pass ``(table, alpha0, beta0)``
     (``core.reputation.update_reputation``).  Returns ``(state', result)``."""
     mask0 = torch.as_tensor(mask0, device=state.rounds_blocked.device)
@@ -241,7 +245,8 @@ def server_step_versioned(
 
 class FedServer:
     """Stateful wrapper over ``server_step``: holds a ``ServerState`` on
-    ``device`` and swaps it for the step's output each round."""
+    ``device`` and swaps it for the step's output each round.  The caller
+    owns the model's (un)flattening."""
 
     def __init__(self, config: ServerConfig, *, device="cuda"):
         self.cfg = config
@@ -251,6 +256,10 @@ class FedServer:
         )
 
     @property
+    def reputation(self) -> ReputationState:
+        return self.state.reputation
+
+    @property
     def blocked(self) -> np.ndarray:
         return self.state.reputation.blocked.cpu().numpy()
 
@@ -258,9 +267,16 @@ class FedServer:
     def rounds_blocked(self) -> np.ndarray:
         return self.state.rounds_blocked.cpu().numpy()
 
-    def select(self) -> np.ndarray:
-        """Per-round client selection: every un-blocked client."""
-        return np.nonzero(~self.blocked)[0]
+    def select(self, rng: np.random.Generator | None = None, frac: float = 1.0) -> np.ndarray:
+        """Per-round client selection among the un-blocked clients: all of
+        them, or with ``rng`` and ``frac`` < 1 a sorted draw of
+        ``max(1, round(frac * available))`` without replacement, the JAX
+        package's draw from the same generator."""
+        avail = np.nonzero(~self.blocked)[0]
+        if frac >= 1.0 or rng is None:
+            return avail
+        m = max(1, int(round(frac * len(avail))))
+        return np.sort(rng.choice(avail, size=m, replace=False))
 
     def participation_mask(self, selected: np.ndarray) -> np.ndarray:
         mask0 = np.zeros(self.cfg.num_clients, bool)
@@ -271,14 +287,12 @@ class FedServer:
     def rule_options(self, mask0: np.ndarray) -> RuleOptions:
         return make_rule_options(self.cfg, int(mask0.sum()))
 
-    def aggregate_tree(self, stacked, n_k, selected: np.ndarray):
-        """One round over a stacked tree of proposals, packed into one
-        (K, D) buffer; rows outside ``selected`` are ignored."""
+    def _apply(self, proposals, n_k, selected: np.ndarray, layout: str):
         mask0 = self.participation_mask(selected)
         self.state, res = server_step(
-            self.state, stacked, n_k, torch.from_numpy(mask0).to(self.device),
+            self.state, proposals, n_k, torch.from_numpy(mask0).to(self.device),
             rule=self.cfg.rule, opts=self.rule_options(mask0),
-            delta_block=self.cfg.delta_block, layout="tree",
+            delta_block=self.cfg.delta_block, layout=layout,
         )
         info = {
             "good_mask": res.good_mask.cpu().numpy(),
@@ -294,3 +308,16 @@ class FedServer:
                 p_good=p_good(self.state.reputation).cpu().numpy(),
             )
         return res.aggregate, info
+
+    def aggregate(self, updates: torch.Tensor, n_k, selected: np.ndarray):
+        """One round over a ``(K, D)`` matrix of proposals; rows outside
+        ``selected`` are ignored.  Returns (aggregate vector, info dict)."""
+        return self._apply(updates, n_k, selected, "matrix")
+
+    def aggregate_tree(self, stacked, n_k, selected: np.ndarray):
+        """One round over a stacked tree of proposals: packed into one
+        ``(K, D)`` buffer, or per leaf when the config's plan has
+        ``layout="leaf"``; rows outside ``selected`` are ignored.  Returns
+        (aggregate tree, info dict)."""
+        layout = "leaf" if resolve_server_plan(self.cfg).layout == "leaf" else "tree"
+        return self._apply(stacked, n_k, selected, layout)

@@ -1,13 +1,19 @@
 """Paper-scale federated simulator: K clients x T rounds over a synthetic
 dataset, in the clean / byzantine / flipping / noisy / alie / ipm scenarios.
 
-Counterpart of ``repro/fed/simulator.py``.  Three round engines, selected
+Counterpart of ``repro/fed/simulator.py``.  Four round engines, selected
 by ``SimConfig.engine``:
 
 * ``batched`` (default) -- each round trains all K clients at once on
   stacked parameters, applies the update-level attacks on the stacked
   proposals and aggregates through the packed registry dispatch; the host
   draws the minibatches and reads the round's outcome.
+* ``looped`` -- the reference for the batched engine's client layer: each
+  round trains the clients one at a time (``workload.local_update`` on a
+  one-row stack, with the batched engine's minibatch indices and per-client
+  seeds), stacks their proposals, applies the same update-level attack and
+  aggregates through the same ``FedServer.aggregate_tree``, so the two
+  engines differ only in how the clients are trained.
 * ``fused`` -- the whole T-round simulation as one round body that reads
   nothing from the host (``fed/engine.make_fused_sim``): on the card one
   CUDA graph, captured once and replayed T times, on the CPU the same body
@@ -19,13 +25,11 @@ by ``SimConfig.engine``:
 * ``fused_eager`` -- the fused round body called one round at a time, the
   reference the graph is held to.
 
-The ``looped`` engine is not ported and raises.
-
 ``_Setup`` consumes ONE numpy stream exactly as the JAX package does (the
-noisy-features poisoning first, then, on the batched engine, the minibatch
-indices of the trainers in ascending order, byzantine clients skipping
-training), so the shards and the batched engine's minibatches equal the JAX
-run's; only the torch-side streams (init, dropout, byzantine noise) differ.
+noisy-features poisoning first, then, on the batched and looped engines,
+the minibatch indices of the trainers in ascending order, byzantine clients
+skipping training), so the shards and those engines' minibatches equal the
+JAX run's; only the torch-side streams (init, dropout, byzantine noise) differ.
 The fused engines draw minibatches, dropout masks and byzantine noise from
 keyed Philox streams on the device (``utils/philox.py``), as the JAX
 package's fused engines draw theirs from ``jax.random``; the two packages'
@@ -44,7 +48,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.attacks import UPDATE_ATTACK_SCENARIOS, flip_labels, noisy_features
+from repro_torch.attacks import (
+    UPDATE_ATTACK_SCENARIOS,
+    apply_update_attack,
+    flip_labels,
+    noisy_features,
+)
 from repro_torch.data import (
     SyntheticClassification,
     compact_stack,
@@ -72,6 +81,7 @@ from repro_torch.fed.server import (
     scatter_server_state,
 )
 from repro_torch.fed.workload import DnnWorkload
+from repro_torch.utils.trees import tree_map, tree_stack
 
 
 @dataclasses.dataclass
@@ -90,7 +100,7 @@ class SimConfig:
     hidden: tuple = (512, 256)
     sharding: str = "iid"        # iid | dirichlet (non-IID label skew)
     dirichlet_alpha: float = 0.5
-    engine: str = "batched"      # batched | fused | fused_eager ("looped" is not ported)
+    engine: str = "batched"      # batched | looped | fused | fused_eager
     # fused engine only: > 0 runs the rounds in segments of this many, with
     # the blocked clients compacted out of the client axis between segments
     # when ``compact`` is set (0 = one run of T rounds, no compaction)
@@ -186,6 +196,12 @@ class _Setup:
             out[k] = self.rng.integers(0, len(x), size=(self.batch_s, self.batch_b))
         return out
 
+    def client_batch(self, k: int, ix: np.ndarray) -> dict:
+        """Client k's minibatches ``(1, S, b, ...)`` from its drawn indices,
+        on the device: the batched engine's row k."""
+        ix = torch.from_numpy(ix).to(self.device)
+        return {"x": self.x_pad[k][ix][None], "y": self.y_pad[k][ix][None]}
+
     def batch(self, idx: dict) -> dict:
         """Device minibatches ``(K, S, b, ...)``; non-trainer rows gather
         index 0 (their proposals are reset to ``w_t`` anyway)."""
@@ -235,24 +251,20 @@ def detection_stats(blocked_round: np.ndarray, bad: np.ndarray):
     return rate, mean_rounds
 
 
-_NOT_PORTED = {"looped": "ROADMAP queue A: the looped engine"}
-_ENGINES = ("batched", "fused", "fused_eager")
+_ENGINES = ("batched", "looped", "fused", "fused_eager")
 
 
 def simulate(data: SyntheticClassification, sim: SimConfig, server_cfg: ServerConfig, *,
              eval_every: int = 1, workload=None, device="cuda") -> SimResult:
     """The classification simulator behind ``repro_torch.fed.api.run``."""
-    if sim.engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine={sim.engine!r} is not ported to repro_torch yet "
-            f"({_NOT_PORTED[sim.engine]}); use engine='batched'"
-        )
     if sim.engine not in _ENGINES:
         raise ValueError(f"unknown engine {sim.engine!r} (batched | looped | fused | fused_eager)")
     dev = resolve_device(device)
     setup = _Setup(data, sim, dev, workload=workload)
     if sim.engine == "batched":
         return _run_batched(setup, server_cfg, eval_every)
+    if sim.engine == "looped":
+        return _run_looped(setup, server_cfg, eval_every)
     if sim.engine == "fused" and sim.segment_rounds > 0:
         return _run_fused_segmented(setup, server_cfg, eval_every)
     return _run_fused(setup, server_cfg, eval_every, eager=sim.engine == "fused_eager")
@@ -261,10 +273,56 @@ def simulate(data: SyntheticClassification, sim: SimConfig, server_cfg: ServerCo
 def _run_batched(setup: _Setup, server_cfg: ServerConfig, eval_every: int) -> SimResult:
     sim, dev = setup.sim, setup.device
     K = sim.num_clients
-    server = FedServer(server_cfg, device=dev)
-    params = setup.params0
     step = make_train_attack_step(setup.workload, setup.engine_config())
     bad_t = torch.from_numpy(setup.bad_mask).to(dev)
+
+    def propose(params, rnd, batch, trainers, mask0, benign):
+        train_mask = np.zeros(K, bool)
+        train_mask[trainers] = True
+        return step(
+            params, batch, client_seeds(sim.seed, rnd, range(K)),
+            torch.from_numpy(train_mask).to(dev), bad_t & torch.from_numpy(mask0).to(dev),
+            torch.from_numpy(benign).to(dev), attack_seed(sim.seed, rnd),
+        )
+
+    return _run_rounds(setup, server_cfg, eval_every, setup.batch, propose)
+
+
+def _run_looped(setup: _Setup, server_cfg: ServerConfig, eval_every: int) -> SimResult:
+    sim, dev = setup.sim, setup.device
+    K = sim.num_clients
+    ec = setup.engine_config()
+    workload = setup.workload
+
+    def load(idx):
+        return {k: setup.client_batch(k, ix) for k, ix in idx.items()}
+
+    def propose(params, rnd, batches, trainers, mask0, benign):
+        seeds = client_seeds(sim.seed, rnd, range(K))
+        w_prev = workload.codec.proposal_of(params)
+        per_client = [w_prev] * K  # non-trainers hold w_t
+        for k in trainers:
+            one = workload.local_update(ec, params, batches[k], [seeds[k]])
+            per_client[k] = tree_map(lambda l: l[0], one)
+        return apply_update_attack(
+            sim.scenario, tree_stack(per_client), w_prev,
+            torch.from_numpy(setup.bad_mask & mask0).to(dev), torch.from_numpy(benign).to(dev),
+            attack_seed(sim.seed, rnd), byzantine_scale=ec.byzantine_scale,
+            z_max=ec.alie_z_max, eps=ec.ipm_eps,
+        )
+
+    return _run_rounds(setup, server_cfg, eval_every, load, propose)
+
+
+def _run_rounds(setup: _Setup, server_cfg: ServerConfig, eval_every: int, load,
+                propose) -> SimResult:
+    """The round loop of the batched and looped engines, which differ only
+    in the client layer: ``load`` turns the drawn minibatch indices into
+    device batches, ``propose(params, rnd, batches, trainers, mask0,
+    benign)`` trains and attacks and returns the stacked proposals."""
+    sim, dev = setup.sim, setup.device
+    server = FedServer(server_cfg, device=dev)
+    params = setup.params0
 
     test_error, good_hist, round_times = [], [], []
     t_train = t_agg = 0.0
@@ -272,20 +330,13 @@ def _run_batched(setup: _Setup, server_cfg: ServerConfig, eval_every: int) -> Si
         t_start = time.perf_counter()
         selected = server.select()
         trainers = setup.trainers(selected)
-        batch = setup.batch(setup.draw_indices(trainers))
-        train_mask = np.zeros(K, bool)
-        train_mask[trainers] = True
+        batches = load(setup.draw_indices(trainers))
         mask0 = server.participation_mask(selected)
         benign = mask0 & ~setup.bad_mask
-        mask0_t = torch.from_numpy(mask0).to(dev)
 
         _sync(dev)
         t0 = time.perf_counter()
-        proposals = step(
-            params, batch, client_seeds(sim.seed, rnd, range(K)),
-            torch.from_numpy(train_mask).to(dev), bad_t & mask0_t,
-            torch.from_numpy(benign).to(dev), attack_seed(sim.seed, rnd),
-        )
+        proposals = propose(params, rnd, batches, trainers, mask0, benign)
         _sync(dev)
         t_train += time.perf_counter() - t0
 

@@ -30,6 +30,11 @@ MODES = ("torch", "cuda")
 # AFA screening launch geometries (core/afa.py): "fused" = the whole
 # screening loop through the afa_screen kernel, "chained" = per-op launches
 LAUNCHES = ("fused", "chained")
+# aggregation representations of the tree dispatch (FedServer.aggregate_tree):
+# "packed" / "tree" pack the stacked tree into one (K, D) buffer, "leaf"
+# runs a rule's tree form (AFA's) or its matrix form on the per-leaf
+# flatten.  The fused engines always aggregate the packed buffer.
+LAYOUTS = ("packed", "tree", "leaf")
 
 
 def requested_policy() -> str:
@@ -64,7 +69,7 @@ def resolve_kernel_mode(use_kernels: bool | str | None) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class KernelPlan:
-    """The one resolved kernel decision of an aggregation stack.
+    """The one resolved kernel and layout decision of an aggregation stack.
 
     ``mode`` is the resolved ``use_kernels`` value: a mode string when the
     route is pinned (by the config, or by an env pin elevating ``True``), or
@@ -73,11 +78,16 @@ class KernelPlan:
 
     mode: bool | str = False   # resolved kernel request (bool = auto)
     launch: str = "fused"      # AFA screening geometry: fused | chained
+    layout: str = "packed"     # aggregation representation: packed | tree | leaf
 
     def __post_init__(self):
         if self.launch not in LAUNCHES:
             raise ValueError(
                 f"KernelPlan.launch={self.launch!r} invalid; expected {LAUNCHES}"
+            )
+        if self.layout not in LAYOUTS:
+            raise ValueError(
+                f"KernelPlan.layout={self.layout!r} invalid; expected {LAYOUTS}"
             )
         if not (isinstance(self.mode, bool) or self.mode in MODES):
             raise ValueError(
@@ -88,10 +98,12 @@ class KernelPlan:
 
 def resolve_kernel_plan(
     use_kernels: bool | str | None = False,
+    agg_layout: str = "packed",
     kernel_launch: str = "fused",
 ) -> KernelPlan:
-    """Collapse ``use_kernels`` / ``kernel_launch`` (and the env var) into
-    one :class:`KernelPlan`.
+    """Collapse ``use_kernels`` / ``agg_layout`` / ``kernel_launch`` (and the
+    env var) into one :class:`KernelPlan`; an unknown layout or launch
+    raises.
 
     Precedence for the kernel route, highest first: an explicit mode string
     in ``use_kernels``; ``$REPRO_TORCH_KERNELS`` pinning a mode elevates
@@ -108,7 +120,7 @@ def resolve_kernel_plan(
                 "(config mode strings and the env pin must agree)"
             )
     mode = explicit if explicit is not None else bool(use_kernels)
-    return KernelPlan(mode=mode, launch=kernel_launch)
+    return KernelPlan(mode=mode, launch=kernel_launch, layout=agg_layout)
 
 
 def explicit_kernel_request(use_kernels: bool | str | None) -> str | None:

@@ -1,6 +1,8 @@
 """Helpers over trees of tensors (nested dicts) and the packed (K, D) layout.
 
-Counterpart of ``repro/utils/trees.py``.  A tree is a nested ``dict`` whose
+Counterpart of ``repro/utils/trees.py``: the vector-space ops of the tree
+form (``tree_dot`` with a kept client axis, ``tree_norm``, ``tree_axpy`` and
+the rest), the stacked-tree helpers and the packed layout.  A tree is a nested ``dict`` whose
 non-dict values are the leaves.  Leaves are visited in SORTED key order at
 every level, the order ``jax.tree_util`` gives dicts, so the paper DNN packs
 as ``b0, b1, b2, w0, w1, w2`` and a packed ``(K, D)`` buffer lines up with the
@@ -56,6 +58,48 @@ def tree_map(fn: Callable, tree, *rest):
     return tree_unflatten(
         treedef, [fn(*ls) for ls in zip(tree_leaves(tree), *others)]
     )
+
+
+def tree_dot(a, b, *, axes=None, dtype=torch.float32):
+    """Sum of elementwise products over all leaves, accumulated leaf by leaf
+    in leaf order, in ``dtype``.  With ``axes`` the leading ``axes`` axes
+    are kept: stacked ``(K, ...)`` leaves give a ``(K,)`` result."""
+    total = None
+    for la, lb in zip(tree_leaves(a), tree_leaves(b)):
+        prod = la.to(dtype) * lb.to(dtype)
+        if axes is None:
+            part = prod.sum()
+        else:
+            red = tuple(range(axes, prod.ndim))
+            part = prod.sum(dim=red) if red else prod
+        total = part if total is None else total + part
+    return total
+
+
+def tree_norm(a, *, axes=None, dtype=torch.float32):
+    return torch.sqrt(tree_dot(a, a, axes=axes, dtype=dtype))
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(s, a):
+    """``s * a`` leafwise, each leaf kept in its dtype."""
+    return tree_map(lambda x: (s * x).to(x.dtype), a)
+
+
+def tree_axpy(s, x, y):
+    """``y + s * x`` leafwise, in y's dtype."""
+    return tree_map(lambda lx, ly: (ly + s * lx.to(ly.dtype)).to(ly.dtype), x, y)
+
+
+def tree_zeros_like(a, dtype=None):
+    return tree_map(lambda x: torch.zeros_like(x, dtype=dtype or x.dtype), a)
 
 
 def tree_size(tree) -> int:
@@ -146,3 +190,18 @@ def unpack_stack(packed: torch.Tensor, spec: PackSpec):
         .reshape(lead + slot.shape).to(slot.dtype)
         for slot in spec.slots
     ])
+
+
+def flatten_to_matrix(stacked_tree, num_rows: int) -> torch.Tensor:
+    """Stacked tree with leading client axis K -> dense ``(K, D)`` matrix:
+    :func:`pack_stack` under the name the leaf layout's matrix-only rules
+    use.  ``num_rows`` is read off the leaves and kept for the JAX
+    package's signature."""
+    del num_rows
+    return pack_stack(stacked_tree)
+
+
+def unflatten_from_vector(vec: torch.Tensor, template):
+    """Inverse of :func:`flatten_to_matrix` for one ``(D,)`` vector, against
+    a template tree of one client's leaves."""
+    return unpack_stack(vec, pack_spec(template))

@@ -43,6 +43,7 @@ from repro_torch.fed import (  # noqa: E402
     DnnWorkload,
     ServerConfig,
     SimConfig,
+    SimResult,
     init_dnn,
     init_server_state,
     run,
@@ -194,6 +195,6 @@ def test_unported_routes_raise():
     sim = SimConfig(num_clients=2, rounds=1, hidden=(4,))
     with pytest.raises(NotImplementedError):
         run(None, sim, data=data, seeds=[0, 1], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(None, SimConfig(num_clients=2, rounds=1, hidden=(4,), engine="looped"),
-            data=data, device="cpu")
+    looped = run(None, SimConfig(num_clients=2, rounds=1, hidden=(4,), engine="looped"),
+                 data=data, device="cpu")
+    assert isinstance(looped, SimResult) and looped.blocked_round.shape == (2,)
