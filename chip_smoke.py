@@ -68,10 +68,14 @@
 8. runs federated LoRA fine-tuning of smollm-135m (rank 4 on wq/wk/wv/wo,
    D_adapter = 460,800; 6 clients, 2 byzantine, 8 rounds) through
    ``repro_torch.fed.api.run`` on the AFA gram/fused kernel route and on the
-   plain route: both byzantine clients blocked in round 6, no benign client
-   blocked, the same blocking decisions on both routes; round 7's
-   ``server_step`` inputs are recorded on both routes, the kernel route's go
-   to ``chiprun_out/``, and each live client's f32 margin to the first
+   plain route, each on the fused engine as ``simulate_llm`` runs it (the six
+   clients trained together, the round captured once as a CUDA graph and
+   replayed) and as its eager body (``eager=True``): graph = eager bit for
+   bit in test error, good_mask, blocked set and final adapters, both
+   byzantine clients blocked in round 6, no benign client blocked, the same
+   blocking decisions on both routes; round 7's ``server_step`` inputs are
+   recorded from both routes' eager runs, the kernel route's go to
+   ``chiprun_out/``, and each live client's f32 margin to the first
    screening pass's tail threshold is printed, on the kernel's Gram and on
    ``U @ U.T`` (ROADMAP C.6: a benign client sits within f32 rounding of it
    there, so the routes' ``good_mask`` is not compared);
@@ -91,16 +95,23 @@
    rows after round 6, bit for bit on the two gram kernel routes, the
    plain routes reported; and 200 clients with 40 % byzantine once, its
    blocking reported;
-10. traces three rounds of the paper DNN's gram/fused route, two rounds of
-   the LoRA phase's and one bf16 and one f32 forward of smollm-135m on the
-   kernel route with ``torch.profiler`` (device busy share, the kernels that
-   take the time), one ``engine="fused"`` run of each ``FUSED_ROUTES``
-   route and the segmented run (each of the route's kernels exactly its
-   count a round times the rounds the run executed: its warm-up rounds,
-   which the wrappers count, and the T replayed ones, which only the trace
-   sees; from the first replayed round on exactly T times; the busy share
-   of the replayed rounds) and the batched engine's eight rounds on the
-   gram/fused route beside it;
+10. traces three rounds of the paper DNN's gram/fused route and one bf16
+   and one f32 forward of smollm-135m on the kernel route with
+   ``torch.profiler`` (device busy share, the kernels that take the time),
+   one ``engine="fused"`` run of each ``FUSED_ROUTES`` route, the segmented
+   run and one LoRA run of step 8's gram/fused route (each of the route's
+   kernels exactly its count a round times the rounds the run executed:
+   its warm-up rounds, which the wrappers count, and the T replayed ones,
+   which only the trace sees; from the first replayed round on exactly T
+   times; the busy share, device ms and events of the replayed rounds) and
+   the batched engine's eight rounds on the gram/fused route beside it;
+   then runs step 4's configuration as a seed sweep (``SWEEP_SEEDS`` 0-3,
+   ``run(..., seeds=)``: one capture a sweep, every seed replaying it) on
+   gram/fused and the plain route, and on gram/fused in 2-round segments
+   compacted on the union of the clients live in any seed: the row of seed
+   0 equal to step 9's ``engine="fused"`` run bit for bit, segmented =
+   unsegmented bit for bit, every seed blocking the 3 byzantine clients in
+   round 6, each seed's detection rate and mean rounds to block printed;
 11. drives the serve tier (``repro_torch.serve``) at step 4's configuration:
    ``run_serve_replay`` with the default ``ServeConfig`` on gram/fused,
    gram/chained, iterative and the plain route, each equal bit for bit to
@@ -143,8 +154,9 @@
    comed bit for bit, each launching its kernel on the leaf layout;
 15. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
-   serve, grid, looped and leaf phases and, for the fused engine's graph runs,
-   the calls that step 10's traces executed.
+   sweep, serve, grid, looped and leaf phases and, for the fused engine's
+   graph runs (the DNN's and LoRA's), the calls that step 10's traces
+   executed.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, the script exits 1 before printing a result.
@@ -391,6 +403,13 @@ JAX_NOISY = {"mnist": {2: 6}, "spambase": {}}
 # noisy scenario; test error within LOOPED_ERR_PP
 LOOPED_SIMS = {"byzantine": MAIN_SIM, "noisy": dict(MAIN_SIM, scenario="noisy")}
 LOOPED_ERR_PP = 0.5
+# seed sweeps: MAIN_SIM on the fused engine once per seed, one capture a
+# sweep, on these routes (of FUSED_ROUTES), each row of MAIN_SIM's seed
+# against the route's engine="fused" run; the first route also segmented
+# (2-round segments, compaction on the union of the clients live in any seed)
+SWEEP_SEEDS = (0, 1, 2, 3)
+SWEEP_ROUTES = ("gram/fused", "iterative/plain-torch")
+SWEEP_SEGMENT = 2
 # the leaf layout: AFA's tree form launches no AFA kernel; one server_step on
 # this round's (0-indexed, every client live) proposals on the leaf and tree
 # layouts: AFA within tests/test_packed.py's bound, the matrix-only rules
@@ -658,20 +677,28 @@ def screening_inputs(torch, K, D, seed):
     return U, w, Us.contiguous(), pn, mask0
 
 
-def device_ops(torch, fn):
+def device_ops(torch, fn, tries: int = 3):
     """The names of the device operations (kernels, copies, fills) of one
-    call of ``fn``, traced with ``torch.profiler`` after a warm call."""
+    call of ``fn``, traced with ``torch.profiler`` after a warm call.  A
+    trace that recorded no device event at all is taken again, up to
+    ``tries`` traces: the profiler can miss a whole trace (the first of a
+    process, and once in a later one on an H100)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in sorted((e for e in prof.events()
-                                    if e.device_type == DeviceType.CUDA),
-                                   key=lambda e: e.time_range.start)]
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted((e for e in prof.events()
+                                         if e.device_type == DeviceType.CUDA),
+                                        key=lambda e: e.time_range.start)]
+        if names:
+            break
+        print(f"device_ops: trace {attempt + 1} recorded no device event; tracing again")
+    return names
 
 
 def one_launch_checks(torch, ops, ref):
@@ -1210,25 +1237,36 @@ def profile_phase(torch, data_rounds: int = 3):
     return trace(torch, "gram/fused", fn, data_rounds)
 
 
-def lora_profile_phase(torch, rounds: int = 2):
-    """Trace ``rounds`` rounds of the LoRA phase's gram/fused route."""
-    from repro_torch.fed import ServerConfig, SimConfig, get_workload, make_llm_fused_data, run
+def lora_profile_phase(torch, ops):
+    """One LoRA run of the gram/fused route (``simulate_llm``: the round
+    captured as a CUDA graph, replayed T times) under ``torch.profiler``,
+    its counts set to 0 just before: the AFA kernels' calls the whole run
+    executed (``graph_run_calls``: the warm-up round's, counted by the
+    wrappers, and T replays), the replayed rounds' window from the
+    ``fused_rounds`` range's device-side annotation, their device busy
+    share, device ms and events a round.  Returns the row and the calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fed import ServerConfig, SimConfig, run
     from repro_torch.kernels.policy import resolve_kernel_plan
 
-    workload = get_workload("lora", arch="smollm-135m", reduced=False, rank=4)
-    K = LORA_SIM["num_clients"]
-    data = make_llm_fused_data(workload.model_cfg, clients=K, seed=LORA_SIM["seed"],
-                               samples_per_client=LORA_EXTRA["samples_per_client"],
-                               seq=LORA_EXTRA["seq"], n_test=LORA_EXTRA["n_test"])
-    sim = SimConfig(**{**LORA_SIM, "rounds": rounds})
+    workload, data = lora_workload_and_data()
+    K, T = LORA_SIM["num_clients"], LORA_SIM["rounds"]
     server = ServerConfig(rule="afa", num_clients=K, afa_variant="gram",
                           kernel_plan=resolve_kernel_plan(True, kernel_launch="fused"))
-
-    def fn():
-        res = run(workload, sim, server, data=data, device="cuda", **LORA_EXTRA)
-        return {"train_ms": res["train_time"] * 1e3, "agg_ms": res["agg_time"] * 1e3}
-
-    return trace(torch, "lora gram/fused", fn, rounds)
+    calls = {"afa_screen": 1}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = run(workload, SimConfig(**LORA_SIM), server, data=data, device="cuda",
+                  **LORA_EXTRA)
+        torch.cuda.synchronize()
+    host = dict(ops.LAUNCH_COUNTS)
+    executed = graph_run_calls("lora gram/fused", device_spans(torch, prof), host, calls, T)
+    row = replay_window_row(torch, prof, "lora gram/fused", calls, T)
+    row.update(capture_s=res["capture_time"], calls_executed=executed, host_counts=host,
+               replay_ms_per_round=(res["round_times"][0] * T - res["capture_time"]) / T * 1e3)
+    return row, executed
 
 
 def visible_pairs(lq: int, lk: int, causal: bool) -> int:
@@ -1448,72 +1486,117 @@ def forward_phase(torch, ops):
     return rows, launches
 
 
-def lora_phase(torch, ops, min_rounds_to_block):
-    """Federated LoRA fine-tuning of smollm-135m through ``run`` on the AFA
-    kernel route and the plain route, with the gates; returns the runs, the
-    launches of the kernel route and round ``LORA_DUMP_ROUND``'s report."""
+def lora_run_gates(label, res, K, n_bad, n_min):
+    """The LoRA phase's outcome gates on one run."""
     import numpy as np
 
-    from repro_torch.fed import ServerConfig, SimConfig, get_workload, make_llm_fused_data, run
+    rb, err = res["rounds_blocked"], res["test_error"]
+    if list(rb[:n_bad]) != [n_min] * n_bad:
+        raise AssertionError(f"lora {label}: byzantine clients blocked at {rb[:n_bad]}, "
+                             f"expected round {n_min}")
+    if (rb[n_bad:] != -1).any() or res["blocked"][:, n_bad:].any():
+        raise AssertionError(f"lora {label}: a benign client was blocked: {rb}")
+    if (res["good_frac"] > (K - n_bad) / K + 1e-6).any():
+        raise AssertionError(f"lora {label}: good_frac {res['good_frac']} above "
+                             f"{K - n_bad}/{K}")
+    if res["adapter_dim"] != LORA_D or not res["adapter_fraction"] < 0.05:
+        raise AssertionError(f"lora {label}: adapter_dim {res['adapter_dim']} (expected "
+                             f"{LORA_D}), fraction {res['adapter_fraction']}")
+    if not (np.isfinite(err).all() and (err >= 0).all() and (err <= 1).all()):
+        raise AssertionError(f"lora {label}: test error {err} not finite in [0, 1]")
+
+
+def same_lora_run(torch, a, b) -> bool:
+    """Two LoRA runs equal bit for bit: test error, good_mask, blocked set,
+    blocked rounds and the final adapters."""
+    import numpy as np
+
+    from repro_torch.utils.trees import tree_leaves
+
+    return (all(np.array_equal(a[k], b[k])
+                for k in ("test_error", "good_mask", "blocked", "rounds_blocked"))
+            and all(torch.equal(x, y) for x, y in zip(tree_leaves(a["params"]["adapters"]),
+                                                      tree_leaves(b["params"]["adapters"]))))
+
+
+def lora_workload_and_data():
+    from repro_torch.fed import get_workload, make_llm_fused_data
+
+    workload = get_workload("lora", arch="smollm-135m", reduced=False, rank=4)
+    data = make_llm_fused_data(workload.model_cfg, clients=LORA_SIM["num_clients"],
+                               seed=LORA_SIM["seed"],
+                               samples_per_client=LORA_EXTRA["samples_per_client"],
+                               seq=LORA_EXTRA["seq"], n_test=LORA_EXTRA["n_test"])
+    return workload, data
+
+
+def lora_phase(torch, ops, min_rounds_to_block):
+    """Federated LoRA fine-tuning of smollm-135m through ``run`` on the AFA
+    kernel route and the plain route, each as ``simulate_llm`` runs it (one
+    CUDA graph a round, replayed) and as its eager body (``eager=True``:
+    ``make_fused_sim``'s ``round_fn`` called once a round), with the gates:
+    graph = eager bit for bit; the eager run's wrappers counted their calls
+    of T rounds, the graph run's those of its warm-up round (the replays
+    are counted from ``lora_profile_phase``'s trace).  Returns the runs, the
+    launches of the kernel route's eager run and round ``LORA_DUMP_ROUND``'s
+    report, recorded from the eager runs."""
+    from repro_torch.fed import ServerConfig, SimConfig, run
     from repro_torch.kernels import ref
     from repro_torch.kernels.policy import resolve_kernel_plan
 
-    workload = get_workload("lora", arch="smollm-135m", reduced=False, rank=4)
+    workload, data = lora_workload_and_data()
     K = LORA_SIM["num_clients"]
+    T = LORA_SIM["rounds"]
     n_bad = int(round(LORA_SIM["bad_frac"] * K))
     n_min = min_rounds_to_block()
-    data = make_llm_fused_data(workload.model_cfg, clients=K, seed=LORA_SIM["seed"],
-                               samples_per_client=LORA_EXTRA["samples_per_client"],
-                               seq=LORA_EXTRA["seq"], n_test=LORA_EXTRA["n_test"])
     routes = {"gram/fused": (resolve_kernel_plan(True, kernel_launch="fused"), ("afa_screen",)),
               "gram/plain-torch": (resolve_kernel_plan(False), ())}
     runs, launches, decisions, dumps = [], {}, {}, {}
     for label, (plan, names) in routes.items():
         server = ServerConfig(rule="afa", num_clients=K, afa_variant="gram", kernel_plan=plan)
         dumps[label] = {}
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        with recording_server_step(torch, dumps[label]):
-            res = run(workload, SimConfig(**LORA_SIM), server, data=data, device="cuda",
-                      **LORA_EXTRA)
-        wall = time.perf_counter() - t0
-        counts = dict(ops.LAUNCH_COUNTS)
-        rb, err = res["rounds_blocked"], res["test_error"]
-        print(f"lora [{label}]: wall_s={wall:.3f} rounds_blocked={rb.tolist()} good_frac="
-              f"{[round(float(g), 4) for g in res['good_frac']]} test_error="
-              f"{[round(float(e), 4) for e in err]}")
-        print(f"  round_ms={[round(t * 1e3, 3) for t in res['round_times']]} "
-              f"train_ms/round={res['train_time'] * 1e3:.3f} "
-              f"agg_ms/round={res['agg_time'] * 1e3:.3f} adapter_dim={res['adapter_dim']} "
-              f"adapter_fraction={res['adapter_fraction']:.5f} launches={counts}")
-        if list(rb[:n_bad]) != [n_min] * n_bad:
-            raise AssertionError(f"lora {label}: byzantine clients blocked at {rb[:n_bad]}, "
-                                 f"expected round {n_min}")
-        if (rb[n_bad:] != -1).any() or res["blocked"][:, n_bad:].any():
-            raise AssertionError(f"lora {label}: a benign client was blocked: {rb}")
-        if (res["good_frac"] > (K - n_bad) / K + 1e-6).any():
-            raise AssertionError(f"lora {label}: good_frac {res['good_frac']} above "
-                                 f"{K - n_bad}/{K}")
-        if res["adapter_dim"] != LORA_D or not res["adapter_fraction"] < 0.05:
-            raise AssertionError(f"lora {label}: adapter_dim {res['adapter_dim']} (expected "
-                                 f"{LORA_D}), fraction {res['adapter_fraction']}")
-        if not (np.isfinite(err).all() and (err >= 0).all() and (err <= 1).all()):
-            raise AssertionError(f"lora {label}: test error {err} not finite in [0, 1]")
-        for name, count in counts.items():
-            if (name in names) != (count > 0):
-                raise AssertionError(f"lora {label}: kernel {name} launched {count} times, "
-                                     f"expected {'some' if name in names else 'none'}")
-        if names:
-            launches = counts
-        decisions[label] = (rb.tolist(), res["blocked"].tolist())
-        runs.append({
-            "route": label, "wall_s": wall, "round_ms": [t * 1e3 for t in res["round_times"]],
-            "train_ms": res["train_time"] * 1e3, "agg_ms": res["agg_time"] * 1e3,
-            "test_error": err.tolist(), "good_frac": res["good_frac"].tolist(),
-            "rounds_blocked": rb.tolist(), "adapter_dim": res["adapter_dim"],
-            "param_dim": res["param_dim"], "adapter_fraction": res["adapter_fraction"],
-            "launches": counts,
-        })
+        results = {}
+        for engine in ("eager", "graph"):
+            eager = engine == "eager"
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with (recording_server_step(torch, dumps[label]) if eager
+                  else contextlib.nullcontext()):
+                res = run(workload, SimConfig(**LORA_SIM), server, data=data, device="cuda",
+                          eager=eager, **LORA_EXTRA)
+            wall = time.perf_counter() - t0
+            counts = dict(ops.LAUNCH_COUNTS)
+            results[engine] = res
+            rb, err = res["rounds_blocked"], res["test_error"]
+            replay_ms = (res["round_times"][0] * T - res["capture_time"]) / T * 1e3
+            print(f"lora [{label}, {engine}]: wall_s={wall:.3f} capture_s="
+                  f"{res['capture_time']:.3f} ms/round without capture={replay_ms:.3f} "
+                  f"rounds_blocked={rb.tolist()} good_frac="
+                  f"{[round(float(g), 4) for g in res['good_frac']]} test_error="
+                  f"{[round(float(e), 4) for e in err]} adapter_dim={res['adapter_dim']} "
+                  f"adapter_fraction={res['adapter_fraction']:.5f} launches={counts}")
+            lora_run_gates(f"{label}, {engine}", res, K, n_bad, n_min)
+            host_rounds = T if eager else 1
+            want = {name: host_rounds if name in names else 0 for name in counts}
+            if counts != want:
+                raise AssertionError(f"lora {label} [{engine}]: wrapper counts {counts}, "
+                                     f"expected {want} ({host_rounds} rounds from the host)")
+            if names and eager:
+                launches = counts
+            runs.append({
+                "route": label, "engine": engine, "wall_s": wall,
+                "capture_s": res["capture_time"], "replay_ms_per_round": replay_ms,
+                "test_error": err.tolist(), "good_frac": res["good_frac"].tolist(),
+                "rounds_blocked": rb.tolist(), "adapter_dim": res["adapter_dim"],
+                "param_dim": res["param_dim"], "adapter_fraction": res["adapter_fraction"],
+                "launches": counts,
+            })
+        if not same_lora_run(torch, results["graph"], results["eager"]):
+            raise AssertionError(f"lora {label}: the graph's run differs from the eager body's")
+        print(f"lora [{label}]: graph = eager bit for bit (test error, good_mask, blocked, "
+              "final adapters)")
+        res = results["graph"]
+        decisions[label] = (res["rounds_blocked"].tolist(), res["blocked"].tolist())
     first, *rest = decisions.values()
     if any(d != first for d in rest):
         raise AssertionError(f"lora: the routes' blocking decisions differ: {decisions}")
@@ -1523,32 +1606,36 @@ def lora_phase(torch, ops, min_rounds_to_block):
 
 @contextlib.contextmanager
 def recording_server_step(torch, dump: dict, rounds=(LORA_DUMP_ROUND - 1,)):
-    """Swap ``repro_torch.fed.server.server_step`` for a wrapper that keeps
-    the inputs of each of ``rounds`` (0-indexed) in ``dump[round]``: the
-    proposals (a packed (K, D) matrix or a stacked tree), ``n_k``, the
-    participation mask, the reputation means ``p_good`` and the server
-    state.  ``simulate_llm`` imports ``server_step`` when it is called and
-    ``FedServer`` reads it from its module, so the wrapper reaches both."""
+    """Swap ``server_step`` for a wrapper that keeps the inputs of each of
+    ``rounds`` (0-indexed) in ``dump[round]``: the proposals (a packed (K, D)
+    matrix or a stacked tree), ``n_k``, the participation mask, the
+    reputation means ``p_good`` and the server state.  ``FedServer`` reads
+    it from ``repro_torch.fed.server`` and the fused round body from
+    ``repro_torch.fed.engine``, so the wrapper is set in both.  It reads the
+    round counter on the host, so it records eager rounds only: a CUDA
+    graph's replays do not call it."""
     from repro_torch.core import p_good
+    from repro_torch.fed import engine as engine_mod
     from repro_torch.fed import server as server_mod
     from repro_torch.utils.trees import tree_map
 
     real = server_mod.server_step
 
     def step(state, proposals, n_k, mask0, **kw):
-        if state.round in rounds:
-            dump[state.round] = dict(
+        rnd = int(state.round)
+        if rnd in rounds:
+            dump[rnd] = dict(
                 proposals=tree_map(lambda l: l.detach().float().clone(), proposals),
                 n_k=torch.as_tensor(n_k, dtype=torch.float32).clone(),
                 mask0=torch.as_tensor(mask0).bool().clone(),
                 p_good=p_good(state.reputation).float().clone(), state=state)
         return real(state, proposals, n_k, mask0, **kw)
 
-    server_mod.server_step = step
+    server_mod.server_step = engine_mod.server_step = step
     try:
         yield
     finally:
-        server_mod.server_step = real
+        server_mod.server_step = engine_mod.server_step = real
 
 
 def lora_round_dump(torch, ops, ref, dumps):
@@ -1718,6 +1805,79 @@ def fused_phase(torch, ops, min_rounds_to_block):
     return runs, launches, results
 
 
+def sweep_phase(torch, ops, fused_results, min_rounds_to_block):
+    """``MAIN_SIM`` through ``run(..., seeds=SWEEP_SEEDS)`` on each of
+    ``SWEEP_ROUTES``, and on the first segmented with compaction, each sweep
+    with its counts set to 0 just before.  Gates: the row of MAIN_SIM's
+    seed equals the route's ``engine="fused"`` run of the fused phase bit for
+    bit (test error, good_mask history, blocked rounds); the segmented sweep
+    equals the unsegmented one bit for bit; every seed blocks each
+    byzantine client in round ``min_rounds_to_block()``; the wrappers
+    counted the warm-up round of each capture, one a sweep (one a bucket
+    segmented: 10 rows, then 8).  Returns the rows and those launches."""
+    import numpy as np
+
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fed import SimConfig, run
+
+    data = make_mnist_like()
+    n_min = min_rounds_to_block()
+    at = SWEEP_SEEDS.index(MAIN_SIM["seed"])
+    launches = {name: 0 for name in ops.LAUNCH_COUNTS}
+    rows, sweeps = [], {}
+    for label, seg in [(r, 0) for r in SWEEP_ROUTES] + [(SWEEP_ROUTES[0], SWEEP_SEGMENT)]:
+        calls = FUSED_ROUTES[label][-1]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sw = run(None, SimConfig(**MAIN_SIM, engine="fused", segment_rounds=seg),
+                 fused_server_cfg(label), data=data, seeds=SWEEP_SEEDS, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCH_COUNTS)
+        name = f"{label}{f', segment_rounds={seg}, compact' if seg else ''}"
+        sweeps[name] = sw
+        print(f"sweep [{name}]: seeds={list(SWEEP_SEEDS)} wall_s={wall:.3f} capture_s="
+              f"{sw.capture_time:.3f} launches={counts}")
+        for i, s in enumerate(SWEEP_SEEDS):
+            print(f"  seed {s}: detection_rate={sw.detection_rate[i]:.3f} "
+                  f"mean_rounds_to_block={sw.mean_rounds_to_block[i]:.3f} blocked_round="
+                  f"{sw.blocked_round[i].tolist()} test_error="
+                  f"{[round(float(e), 3) for e in sw.test_error[i]]}")
+        bad = sw.bad_clients
+        if not (sw.blocked_round[:, bad] == n_min).all():
+            raise AssertionError(f"sweep [{name}]: byzantine clients blocked at "
+                                 f"{sw.blocked_round[:, bad].tolist()}, expected round {n_min}")
+        buckets = 2 if seg else 1
+        want = {k: buckets * calls.get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"sweep [{name}]: wrapper counts {counts}, expected {want} "
+                                 f"(a warm-up round a capture, {buckets} captures)")
+        for k, n in counts.items():
+            launches[k] += n
+        if seg:
+            base = sweeps[label]
+            same = all(np.array_equal(getattr(sw, f), getattr(base, f))
+                       for f in ("test_error", "good_mask_history", "blocked_round"))
+            if not same:
+                raise AssertionError(f"sweep [{name}]: differs from the unsegmented sweep")
+            print(f"sweep [{name}]: = the unsegmented sweep bit for bit")
+        else:
+            one = fused_results[(label, "fused")]
+            if not (list(sw.test_error[at]) == list(one.test_error)
+                    and np.array_equal(sw.good_mask_history[at], np.stack(one.good_mask_history))
+                    and np.array_equal(sw.blocked_round[at], one.blocked_round)):
+                raise AssertionError(f"sweep [{name}]: the row of seed {MAIN_SIM['seed']} "
+                                     "differs from the engine=\"fused\" run")
+            print(f"sweep [{name}]: the row of seed {MAIN_SIM['seed']} = engine=\"fused\" "
+                  "bit for bit")
+        rows.append({"route": name, "seeds": list(SWEEP_SEEDS), "wall_s": wall,
+                     "capture_s": sw.capture_time,
+                     "detection_rate": sw.detection_rate.tolist(),
+                     "mean_rounds_to_block": sw.mean_rounds_to_block.tolist(),
+                     "blocked_round": sw.blocked_round.tolist(),
+                     "test_error": sw.test_error.tolist(), "launches": counts})
+    return rows, launches
+
+
 def fused_sync_free_round(torch):
     """One eager round of the fused body on each route under
     ``torch.cuda.set_sync_debug_mode("error")``: any operation that waits for
@@ -1829,6 +1989,48 @@ def graph_run_calls(label, spans, host, calls, T):
     return executed
 
 
+def replay_window_row(torch, prof, label, calls, T):
+    """The replayed rounds of a traced graph run: the window starts at the
+    ``fused_rounds`` range's device-side annotation, where the trace has one
+    (the host range's start can lie a round after the first replayed
+    kernel's), else at the host range's; this repository's kernels in it
+    exactly ``calls`` a round times T; the device busy share of the window,
+    its device events a round and the kernels that take the time."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.fed.engine import ROUNDS_RANGE
+
+    window = [e for e in prof.events()
+              if e.name == ROUNDS_RANGE and e.device_type == DeviceType.CPU]
+    if len(window) != 1:
+        raise AssertionError(f"trace [{label}]: {len(window)} '{ROUNDS_RANGE}' ranges")
+    on_device = [e.time_range.start for e in prof.events()
+                 if e.name == ROUNDS_RANGE and e.device_type == DeviceType.CUDA]
+    start = min(on_device) if on_device else window[0].time_range.start
+    print(f"trace [{label}]: window from the {'device' if on_device else 'host'} range; "
+          f"device start - host start = {(start - window[0].time_range.start) / 1e3:.3f} ms")
+    spans = device_spans(torch, prof, after=start)
+    if not spans:
+        raise AssertionError(f"trace [{label}]: no device events in the rounds")
+    wall_ms = (max(e for _, e, _ in spans) - start) / 1e3
+    busy_ms = busy_us(spans) / 1e3
+    counts = our_kernels(spans)
+    want = {k: n * T for k, n in round_ops(calls).items()}
+    if counts != want:
+        raise AssertionError(f"trace [{label}]: kernels {counts} in {T} rounds, expected {want}")
+    top = sorted(by_kernel(spans).items(), key=lambda kv: -kv[1][0])[:12]
+    row = {"label": label, "rounds": T, "window_ms": wall_ms, "device_busy_ms": busy_ms,
+           "busy_share": busy_ms / wall_ms, "device_events": len(spans),
+           "events_per_round": len(spans) / T, "kernels": counts,
+           "top": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in top]}
+    print(f"profile [{label}, {T} rounds replayed]: window_ms={wall_ms:.3f} "
+          f"device_busy_ms={busy_ms:.3f} busy_share={busy_ms / wall_ms:.3f} "
+          f"device_events={len(spans)} ({len(spans) / T:.0f} a round) kernels={counts}")
+    for item in row["top"]:
+        print(f"  {item['ms']:9.3f} ms  x{item['count']:5d}  {item['name']}")
+    return row
+
+
 def fused_trace_phase(torch, ops):
     """One ``engine="fused"`` run of each kernel route under
     ``torch.profiler``, its counts set to 0 just before: over the whole run
@@ -1840,12 +2042,10 @@ def fused_trace_phase(torch, ops):
     traced the same way over the whole run.  Then the batched engine on the
     gram/fused route, traced over the same eight rounds, for its busy share
     beside it.  Returns the rows and the graph runs' executed calls."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import make_mnist_like
     from repro_torch.fed import SimConfig, run
-    from repro_torch.fed.engine import ROUNDS_RANGE
 
     data = make_mnist_like()
     T = MAIN_SIM["rounds"]
@@ -1862,43 +2062,10 @@ def fused_trace_phase(torch, ops):
         executed = graph_run_calls(label, device_spans(torch, prof), host, calls, T)
         for name, n in executed.items():
             launches[name] += n
-        window = [e for e in prof.events()
-                  if e.name == ROUNDS_RANGE and e.device_type == DeviceType.CPU]
-        if len(window) != 1:
-            raise AssertionError(f"fused trace [{label}]: {len(window)} '{ROUNDS_RANGE}' ranges")
-        # the range's device-side annotation, where the trace has one, starts
-        # the window on the device's own timestamps: the host range's start
-        # can lie a round after the first replayed kernel's
-        on_device = [e.time_range.start for e in prof.events()
-                     if e.name == ROUNDS_RANGE and e.device_type == DeviceType.CUDA]
-        start = min(on_device) if on_device else window[0].time_range.start
-        print(f"fused trace [{label}]: window from the {'device' if on_device else 'host'} "
-              f"range; device start - host start = "
-              f"{(start - window[0].time_range.start) / 1e3:.3f} ms")
-        spans = device_spans(torch, prof, after=start)
-        if not spans:
-            raise AssertionError(f"fused trace [{label}]: no device events in the rounds")
-        wall_ms = (max(e for _, e, _ in spans) - start) / 1e3
-        busy_ms = busy_us(spans) / 1e3
-        counts = our_kernels(spans)
-        want = {k: n * T for k, n in round_ops(calls).items()}
-        if counts != want:
-            raise AssertionError(f"fused trace [{label}]: kernels {counts} in {T} rounds, "
-                                 f"expected {want}")
-        top = sorted(by_kernel(spans).items(), key=lambda kv: -kv[1][0])[:12]
-        row = {"label": f"fused {label}", "rounds": T, "window_ms": wall_ms,
-               "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
-               "device_events": len(spans), "events_per_round": len(spans) / T,
-               "kernels": counts, "calls_executed": executed, "host_counts": host,
-               "capture_s": res.capture_time,
-               "top": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in top]}
+        row = replay_window_row(torch, prof, f"fused {label}", calls, T)
+        row.update(calls_executed=executed, host_counts=host, capture_s=res.capture_time)
         rows.append(row)
-        print(f"profile [fused {label}, {T} rounds replayed]: window_ms={wall_ms:.3f} "
-              f"device_busy_ms={busy_ms:.3f} busy_share={busy_ms / wall_ms:.3f} "
-              f"device_events={len(spans)} ({len(spans) / T:.0f} a round) kernels={counts}; "
-              f"whole run: calls executed {executed}, counted by the wrappers {host}")
-        for item in row["top"]:
-            print(f"  {item['ms']:9.3f} ms  x{item['count']:5d}  {item['name']}")
+        print(f"  whole run: calls executed {executed}, counted by the wrappers {host}")
     label, seg = FUSED_SEGMENT
     calls = FUSED_ROUTES[label][-1]
     torch.cuda.synchronize()
@@ -2703,6 +2870,24 @@ def fused_summary(smi, runs, traces):
               f"(device {t['device_busy_ms'] / t['rounds']:.3f} ms a round)")
 
 
+def lora_summary(smi, runs, trace_row, sweeps):
+    """The LoRA round replayed as a graph (ms a round without the capture,
+    capture s, the traced busy share) beside the host-driven round it replaced, and
+    each sweep's wall time, with the card's name and power limit."""
+    for r in runs:
+        print(f"lora summary [{r['route']}, {r['engine']}] ({smi}): capture_s="
+              f"{r['capture_s']:.3f} ms/round without capture={r['replay_ms_per_round']:.3f}")
+    t = trace_row
+    print(f"lora summary [traced gram/fused graph] ({smi}): ms/round replayed="
+          f"{t['replay_ms_per_round']:.3f} capture_s={t['capture_s']:.3f} busy_share="
+          f"{t['busy_share']:.3f} (device {t['device_busy_ms'] / t['rounds']:.3f} ms and "
+          f"{t['events_per_round']:.0f} events a round); with the clients trained one after "
+          "the other on the host: 1.1-1.6 s a round, busy 0.063 (NVIDIA H100 80GB HBM3, 700 W)")
+    for r in sweeps:
+        print(f"sweep summary [{r['route']}] ({smi}): {len(r['seeds'])} seeds wall_s="
+              f"{r['wall_s']:.3f} capture_s={r['capture_s']:.3f}")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
@@ -2752,17 +2937,16 @@ def main() -> None:
     fused_sync_free_round(torch)
     keyed = keyed_stream_check(torch)
     fused_traces, graph_launches = fused_trace_phase(torch, ops)
-    fused_summary(smi, fused_runs, fused_traces)
+    sweeps, sweep_launches = sweep_phase(torch, ops, fused_results, min_rounds_to_block)
+    lora_trace, lora_graph_launches = lora_profile_phase(torch, ops)
     serve, serve_launches = serve_phase(torch, ops, fused_results, smi, min_rounds_to_block)
     grid, noisy, grid_launches, grid_wall = paper_grid_phase(torch, ops, min_rounds_to_block)
     looped, looped_launches = looped_phase(torch, ops)
     leaf, leaf_launches = leaf_layout_phase(torch, ops, min_rounds_to_block)
-    scenario_summary(smi, grid, grid_wall, looped)
-    traces = [profile_phase(torch), lora_profile_phase(torch), *forward_profile_phase(torch),
-              *fused_traces]
-    for more in (baseline_launches, unmasked_launches, lora_launches, eager_launches,
-                 graph_launches, serve_launches, grid_launches, looped_launches,
-                 leaf_launches):
+    traces = [profile_phase(torch), lora_trace, *forward_profile_phase(torch), *fused_traces]
+    for more in (baseline_launches, unmasked_launches, lora_launches, lora_graph_launches,
+                 eager_launches, graph_launches, sweep_launches, serve_launches,
+                 grid_launches, looped_launches, leaf_launches):
         for kernel, count in more.items():
             launches[kernel] += count
 
@@ -2799,13 +2983,18 @@ def main() -> None:
         "rank_edge_checks": rank_edges, "main_path": runs,
         "baselines": baseline_runs, "unmasked": unmasked_rows, "flash_attn_checks": attn_rows,
         "forward": forward_rows, "lora": lora_runs, "lora_round_dump": lora_dump,
-        "fused": fused_runs, "keyed_streams": keyed, "gram_buckets": gram_buckets,
+        "fused": fused_runs, "sweeps": sweeps, "keyed_streams": keyed,
+        "gram_buckets": gram_buckets,
         "segmented_compaction": segmented, "serve": serve, "paper_grid": grid,
         "paper_grid_noisy": noisy,
         "paper_grid_wall_s": grid_wall, "looped": looped, "leaf_layout": leaf,
         "launches": launches,
         "profile": traces,
     }, indent=1))
+    # the summaries last, where the end of the output keeps them
+    fused_summary(smi, fused_runs, fused_traces)
+    lora_summary(smi, lora_runs, lora_trace, sweeps)
+    scenario_summary(smi, grid, grid_wall, looped)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 from repro_torch.fed.api import run
-from repro_torch.fed.client import local_sgd, local_sgd_frozen
+from repro_torch.fed.client import local_sgd, local_sgd_frozen, local_sgd_frozen_clients
 from repro_torch.fed.dnn import dnn_error, dnn_logits, dnn_loss, init_dnn
 from repro_torch.fed.engine import (
     EngineConfig,
@@ -7,11 +7,13 @@ from repro_torch.fed.engine import (
     FusedTrajectory,
     attack_seed,
     client_seeds,
+    fused_eager_run,
     fused_server_state,
     make_fused_segment,
     make_fused_sim,
     make_packed_propose_fn,
     make_train_attack_step,
+    sweep_fused_sim,
 )
 from repro_torch.fed.server import (
     FedServer,
@@ -29,9 +31,13 @@ from repro_torch.fed.simulator import (
     FusedInputs,
     SimConfig,
     SimResult,
+    SweepResult,
     detection_stats,
     fused_inputs,
+    run_simulation,
+    run_sweep,
     simulate,
+    sweep,
 )
 from repro_torch.fed.workload import (
     ADAPTER_CODEC,
@@ -45,6 +51,7 @@ from repro_torch.fed.workload import (
     init_lora_adapters,
     make_llm_fused_data,
     merge_lora,
+    run_llm_simulation,
     simulate_llm,
     validate_submission,
 )

@@ -16,10 +16,12 @@ Counterpart of ``repro/fed/api.py``:
 ``None`` / ``DnnWorkload`` go to the classification simulator, on the
 engine ``sim.engine`` names (``batched``; ``looped``, one client at a time;
 or ``fused`` / ``fused_eager``, the round captured once as a CUDA graph and
-replayed, with ``segment_rounds`` and ``compact``); any other workload to ``simulate_llm`` (a loop over rounds,
-whatever ``sim.engine`` says), with extra keyword arguments
-(``local_steps``, ``samples_per_client``, ``seq``, ``n_test``, ...) passed
-through.  Seed sweeps are not ported and raise ``NotImplementedError``.
+replayed, with ``segment_rounds`` and ``compact``), or with ``seeds=`` to
+``sweep`` (the fused engine once per seed, one captured round for all);
+any other workload to ``simulate_llm`` (the fused engine, whatever
+``sim.engine`` says), with extra keyword arguments (``local_steps``,
+``samples_per_client``, ``seq``, ``n_test``, ``eager``, ...) passed through.
+The LLM route takes no ``seeds``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from __future__ import annotations
 from typing import Any, Iterable, Optional, Union
 
 from repro_torch.fed.server import ServerConfig
-from repro_torch.fed.simulator import SimConfig, SimResult, simulate
+from repro_torch.fed.simulator import SimConfig, SimResult, SweepResult, simulate, sweep
 from repro_torch.fed.workload import ClientWorkload, DnnWorkload, get_workload, simulate_llm
 
 WorkloadLike = Union[None, str, ClientWorkload]
@@ -52,7 +54,7 @@ def run(
     workload_kwargs: Optional[dict] = None,
     device="cuda",
     **extra,
-) -> Union[SimResult, dict]:
+) -> Union[SimResult, SweepResult, dict]:
     """Run a federated experiment on ``device``.
 
     ``device="cuda"`` (the default) raises when CUDA is missing; pass
@@ -61,12 +63,8 @@ def run(
     round(``bad_frac`` K), ``local_epochs`` -> local steps, ``batch_size`` ->
     batch, ``rounds``, ``seed``, ``lr``, ``scenario``); the server's ``rule``,
     ``afa_variant`` and ``kernel_plan`` pick the aggregation route.  Returns a
-    ``SimResult`` or the LLM route's result dict."""
-    if seeds is not None:
-        raise NotImplementedError(
-            "seed sweeps are not ported to repro_torch yet (ROADMAP queue A); "
-            "loop over sim.seed instead"
-        )
+    ``SimResult``, a ``SweepResult`` (``seeds``) or the LLM route's result
+    dict."""
     workload = _resolve_workload(workload, workload_kwargs)
     if server is None:
         server = ServerConfig(num_clients=sim.num_clients)
@@ -81,9 +79,14 @@ def run(
                 "the classification route needs `data` (a SyntheticClassification); "
                 "build one with repro_torch.data"
             )
+        if seeds is not None:
+            return sweep(data, sim, server, seeds, workload=workload, device=device)
         return simulate(data, sim, server, eval_every=eval_every, workload=workload,
                         device=device)
 
+    if seeds is not None:
+        raise ValueError("seed sweeps are not wired for the LLM route; loop over sim.seed "
+                         "instead")
     llm_kwargs = dict(
         clients=sim.num_clients,
         byzantine=int(round(sim.bad_frac * sim.num_clients)),

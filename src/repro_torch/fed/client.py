@@ -65,3 +65,32 @@ def local_sgd_frozen(loss_fn, frozen, params, batches, *, lr: float = 0.1,
         upd, state = opt.update(dict(zip(treedef, grads)), state, p)
         p = {path: p[path].detach() + upd[path].to(p[path].dtype) for path in treedef}
     return tree_unflatten(treedef, [p[path] for path in treedef])
+
+
+def local_sgd_frozen_clients(loss_fn, frozen, params, batches, *, lr: float = 0.1,
+                             momentum: float = 0.9):
+    """``local_sgd_frozen`` for K clients at once: the trainable tree
+    ``params`` carries a leading client axis, ``frozen`` is shared and
+    ``batches`` is a dict of ``(K, S, b, ...)`` tensors.
+
+    The per-client loss is ``torch.func.vmap`` of ``loss_fn`` over the
+    trainable rows and the batches, the frozen tree unbatched (the
+    counterpart of the JAX package's ``vmap(train_one)``); backpropagating
+    the sum of the K losses gives each row exactly its own gradient, since
+    no trainable leaf is shared between rows."""
+    treedef = tree_structure(params)
+    opt = sgd_momentum(lr, momentum)
+    p = {path: l.detach().clone(memory_format=torch.contiguous_format)
+         for path, l in zip(treedef, tree_leaves(params))}
+    state = opt.init(p)
+    losses = torch.func.vmap(loss_fn, in_dims=(None, 0, 0))
+    steps = next(iter(batches.values())).shape[1]
+    for t in range(steps):
+        mb = {k: v[:, t] for k, v in batches.items()}
+        leaves = [p[path].requires_grad_(True) for path in treedef]
+        with torch.enable_grad():
+            loss = losses(frozen, tree_unflatten(treedef, leaves), mb).sum()
+            grads = torch.autograd.grad(loss, leaves)
+        upd, state = opt.update(dict(zip(treedef, grads)), state, p)
+        p = {path: p[path].detach() + upd[path].to(p[path].dtype) for path in treedef}
+    return tree_unflatten(treedef, [p[path] for path in treedef])

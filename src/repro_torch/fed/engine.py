@@ -23,7 +23,8 @@ index, and copies the new parameters and server state into the buffers the
 next replay reads) and replays it T times; the host reads nothing until the
 run ends.  A capture that fails raises: the engine never goes on eagerly.
 On the CPU, which has no graphs, it runs the same body in a loop.
-``round_fn`` is the body called once, the ``fused_eager`` engine's step.
+``round_fn`` is the body called once, the ``fused_eager`` engine's step
+(``fused_eager_run`` calls it T times).
 ``make_packed_propose_fn`` is the body's proposal phase alone, for the
 serving tier (``repro_torch.serve``).
 
@@ -31,6 +32,9 @@ serving tier (``repro_torch.serve``).
 ``seg_len`` times from ``seg_start``, over a client axis the simulator has
 compacted to a power-of-two bucket of the still-live clients; one capture
 per bucket, so O(log K) captures a run.
+
+**Seed sweeps** (``sweep_fused_sim``): ``scan_fn`` once per seed, every
+seed replaying the one captured program with its own seed loaded.
 
 Random streams of the fused engines are keyed Philox streams
 (``utils/philox.py``): ``(seed, stream, round * K + original client id,
@@ -189,7 +193,7 @@ def make_packed_propose_fn(workload, cfg: EngineConfig, num_clients_total, batch
     proposal point w_t.  ``blocked`` and ``bad`` are ``(R,)`` bool and
     ``client_ids`` ``(R,)`` int64 device tensors, ``rnd`` and ``seed`` 0-d
     int64 device tensors.  It takes the workloads with a keyed local update
-    (the DNN); any other raises, as on the fused engines."""
+    (the DNN and LoRA); any other raises, as on the fused engines."""
 
     def propose(params, blocked, rnd, seed, data: FusedData, bad, client_ids):
         packed, _, _ = _propose_round(workload, cfg, int(num_clients_total), int(batch_s),
@@ -260,23 +264,30 @@ def _copy_tree_(dst, src) -> None:
 class _RoundProgram:
     """The round body over static buffers, for one client layout.
 
+    The program owns its buffers: copies of the parameters, the server
+    state, the inputs and the seed it was built with.  ``load()`` copies
+    another run's into them (any seed, any data of the same layout), so one
+    program, and on the card one capture, serves every run of its layout.
     ``step()`` runs one round: the body reads the parameters, server state,
-    round index and inputs from the buffers, then writes the round's outputs
-    into the trajectory at the round index, copies the new parameters and
-    state over the old ones and advances the index.  ``capture()`` records
-    ``step()`` as a CUDA graph: one warm-up round on the capture stream (it
-    builds the kernel library, loads the kernels, creates the stream's
-    ticket counter of ``kernels.ops`` and lets autograd settle), the buffers
-    restored, then the capture, in a private memory pool.  ``run()`` replays
-    the graph, or on the CPU calls ``step()``, once per round."""
+    seed, round index and inputs from the buffers, then writes the round's
+    outputs into the trajectory at the round index, copies the new
+    parameters and state over the old ones and advances the index.
+    ``capture()`` records ``step()`` as a CUDA graph: one warm-up round on
+    the capture stream (it builds the kernel library, loads the kernels,
+    creates the stream's ticket counter of ``kernels.ops`` and lets autograd
+    settle), the buffers restored, then the capture, in a private memory
+    pool.  ``run()`` replays the graph, or on the CPU calls ``step()``, once
+    per round."""
 
-    def __init__(self, body, params, state: ServerState, seed, data: FusedData, bad,
+    def __init__(self, body, params, state: ServerState, seed: int, data: FusedData, bad,
                  client_ids, num_rounds: int):
         dev = client_ids.device
         self.body = body
         self.params = tree_map(lambda l: l.clone(), params)
         self.state = _clone_state(state)
-        self.seed, self.data, self.bad, self.ids = seed, data, bad, client_ids
+        self.seed = _device_seed(seed, dev)
+        self.data = FusedData(*(t.clone() for t in data))
+        self.bad, self.ids = bad.clone(), client_ids.clone()
         self.rnd = torch.zeros((), dtype=torch.int64, device=dev)
         R = client_ids.shape[0]
         self.traj = FusedTrajectory(
@@ -297,15 +308,14 @@ class _RoundProgram:
         _copy_state_(self.state, state)
         self.rnd.add_(1)
 
-    def load(self, params, state: ServerState, data: FusedData, bad, client_ids,
+    def load(self, params, state: ServerState, seed: int, data: FusedData, bad, client_ids,
              start: int) -> None:
-        """Set the buffers for a run from round ``start`` (inputs are copied
-        only where they are other tensors than the buffers)."""
+        """Set the buffers for a run from round ``start``."""
         _copy_tree_(self.params, params)
         _copy_state_(self.state, state)
+        self.seed.fill_(int(seed))
         for buf, new in zip((*self.data, self.bad, self.ids), (*data, bad, client_ids)):
-            if new is not buf:
-                buf.copy_(new)
+            buf.copy_(new)
         self.rnd.fill_(int(start))
 
     def capture(self) -> None:
@@ -347,6 +357,31 @@ class _RoundProgram:
         return tree_map(lambda l: l.clone(), self.params), _clone_state(self.state), traj
 
 
+def _program_runner(body, num_rounds: int, device: torch.device):
+    """``run(params, state, seed, data, bad, client_ids, start, count) ->
+    ((params', state', traj), capture_s)``: rounds ``start .. start + count``
+    of ``body`` over the layout the arguments carry, on one program per
+    row count R, built (and on the card captured) at its first run;
+    ``capture_s`` is the seconds of a capture made in the call, else 0."""
+    programs: dict = {}
+
+    def run(params, state, seed, data, bad, client_ids, start: int, count: int):
+        rows = int(client_ids.shape[0])
+        prog = programs.get(rows)
+        capture_s = 0.0
+        if prog is None:
+            prog = programs[rows] = _RoundProgram(body, params, state, seed, data, bad,
+                                                  client_ids, num_rounds)
+            if device.type == "cuda":
+                prog.capture()
+                capture_s = prog.capture_s
+        prog.load(params, state, seed, data, bad, client_ids, start)
+        prog.run(int(count))
+        return prog.outputs(int(start), int(count)), capture_s
+
+    return run
+
+
 def _body(workload, cfg, rule, opts, delta_block, num_clients_total, batch_s, batch_b,
           alpha0, beta0, num_rounds, device):
     """The round body with its static configuration bound: the rule asked
@@ -386,9 +421,10 @@ def make_fused_sim(
 
     * ``scan_fn(params0, seed, data, *, stats=None) -> (params_T, state_T,
       traj)``: all T rounds from the int ``seed``, the round captured as a
-      CUDA graph and replayed on the card, looped on the CPU; ``stats``, a
-      dict, receives
-      ``capture_s`` (warm-up round and capture, in seconds).
+      CUDA graph at the first call and replayed on the card, looped on the
+      CPU; later calls, with any seed and data of the same shapes, replay
+      the same graph.  ``stats``, a dict, receives ``capture_s`` (warm-up
+      round and capture made in the call, in seconds).
     * ``round_fn(carry, rnd, seed, data) -> (carry', out)``: the round body
       called once (``rnd`` and ``seed`` 0-d int64 tensors on ``device``), the
       ``fused_eager`` engine's step.
@@ -396,27 +432,74 @@ def make_fused_sim(
     Blocked clients keep their row and are excluded by mask; the segmented
     form (:func:`make_fused_segment`) compacts them away."""
     device = torch.device(device)
-    K = int(num_clients)
+    K, T = int(num_clients), int(num_rounds)
     bad = torch.from_numpy(np.asarray(bad_mask, bool)).to(device)
     ids = torch.arange(K, dtype=torch.int64, device=device)
     body = _body(workload, cfg, rule, opts, delta_block, K, int(batch_s), int(batch_b),
-                 alpha0, beta0, int(num_rounds), device)
+                 alpha0, beta0, T, device)
+    runner = _program_runner(body, T, device)
 
     def round_fn(carry, rnd, seed, data: FusedData):
         return body(carry, rnd, seed, data, bad, ids)
 
     def scan_fn(params0, seed, data: FusedData, *, stats=None):
         state0 = fused_server_state(K, alpha0, beta0, device)
-        prog = _RoundProgram(body, params0, state0, _device_seed(seed, device), data, bad, ids,
-                             int(num_rounds))
-        if device.type == "cuda":
-            prog.capture()
-        prog.run(int(num_rounds))
+        out, capture_s = runner(params0, state0, seed, data, bad, ids, 0, T)
         if stats is not None:
-            stats["capture_s"] = prog.capture_s
-        return prog.outputs(0, int(num_rounds))
+            stats["capture_s"] = capture_s
+        return out
 
     return scan_fn, round_fn
+
+
+def fused_eager_run(round_fn, params0, state0: ServerState, seed: int, data: FusedData,
+                    num_rounds: int):
+    """The ``fused_eager`` engine: ``round_fn`` called once per round from
+    ``(params0, state0)``, the reference a replayed graph is held to.
+    Returns ``(params_T, state_T, traj)`` as ``scan_fn`` does."""
+    dev = state0.rounds_blocked.device
+    seed_t = _device_seed(seed, dev)
+    carry, outs = (params0, state0), []
+    for rnd in range(int(num_rounds)):
+        carry, out = round_fn(carry, torch.full((), rnd, dtype=torch.int64, device=dev),
+                              seed_t, data)
+        outs.append(out)
+    return carry[0], carry[1], FusedTrajectory(*[torch.stack(parts) for parts in zip(*outs)])
+
+
+def _stack_runs(items):
+    """Per-run outputs (tensors, dicts of them, NamedTuples of them) ->
+    one with a leading run axis on every tensor."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    if isinstance(first, dict):
+        return {k: _stack_runs([it[k] for it in items]) for k in first}
+    return type(first)(*(_stack_runs(list(parts)) for parts in zip(*items)))
+
+
+def sweep_fused_sim(scan_fn, workload, seeds, data: FusedData, *, stats=None):
+    """The fused simulation for every seed of ``seeds``: the counterpart of
+    the JAX package's ``vmap`` over a seed axis, as a loop of ``scan_fn``
+    over one captured program (one capture a sweep).
+
+    Each seed drives the model init (``workload.init_params`` from a
+    generator on the data's device seeded with it), the device minibatch
+    stream and the attack-noise stream; the shard split is the caller's and
+    fixed across the sweep.  Returns ``(params_T, state_T, traj)`` with a
+    leading ``len(seeds)`` axis on every tensor; ``stats``, a dict,
+    receives the sweep's ``capture_s``."""
+    dev = data.x.device
+    outs, capture_s = [], 0.0
+    for s in seeds:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(s))
+        one: dict = {}
+        outs.append(scan_fn(workload.init_params(gen, dev), int(s), data, stats=one))
+        capture_s += one["capture_s"]
+    if stats is not None:
+        stats["capture_s"] = capture_s
+    return tuple(_stack_runs(list(parts)) for parts in zip(*outs))
 
 
 def make_fused_segment(
@@ -441,10 +524,10 @@ def make_fused_segment(
     ``seg_start .. seg_start + seg_len`` of the round body over the client
     layout the arguments carry (R rows: ``data``, ``state``, ``bad`` and
     ``client_ids``, the rows' original ids), ``seed`` the run's int seed.
-    Unlike the JAX package's,
-    ``seg_len`` is an argument: one round is captured, and the segment
-    replays it.  One program, and on the card one capture, per R: a bucket
-    of the segmented simulator's compaction, so O(log K) a run.  ``stats``,
+    Unlike the JAX package's, ``seg_len`` is an argument: one round is
+    captured, and the segment replays it.  One program, and on the card one
+    capture, per R: a bucket of the segmented simulator's compaction, so
+    O(log K) a run, for any seed (a seed sweep shares them).  ``stats``,
     a dict, has the seconds of a capture made in the call added to its
     ``capture_s``.
 
@@ -455,22 +538,13 @@ def make_fused_segment(
     device = torch.device(device)
     body = _body(workload, cfg, rule, opts, delta_block, int(num_clients_total), int(batch_s),
                  int(batch_b), alpha0, beta0, int(num_rounds), device)
-    programs: dict = {}
+    runner = _program_runner(body, int(num_rounds), device)
 
     def segment_fn(params, state, seed, data: FusedData, bad, client_ids, seg_start: int,
                    seg_len: int, *, stats=None):
-        rows = int(client_ids.shape[0])
-        prog = programs.get(rows)
-        if prog is None:
-            prog = programs[rows] = _RoundProgram(body, params, state,
-                                                  _device_seed(seed, device), data, bad,
-                                                  client_ids, int(num_rounds))
-            if device.type == "cuda":
-                prog.capture()
-                if stats is not None:
-                    stats["capture_s"] = stats.get("capture_s", 0.0) + prog.capture_s
-        prog.load(params, state, data, bad, client_ids, seg_start)
-        prog.run(int(seg_len))
-        return prog.outputs(int(seg_start), int(seg_len))
+        out, capture_s = runner(params, state, seed, data, bad, client_ids, seg_start, seg_len)
+        if stats is not None and capture_s:
+            stats["capture_s"] = stats.get("capture_s", 0.0) + capture_s
+        return out
 
     return segment_fn

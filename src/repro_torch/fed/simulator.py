@@ -36,12 +36,19 @@ package's fused engines draw theirs from ``jax.random``; the two packages'
 fused runs agree in distribution, not bit for bit.  The fused engines fill
 ``round_time`` as total / T (capture included; ``capture_time`` apart) and
 leave ``train_time`` and ``agg_time`` at 0.
+
+``sweep`` runs the fused simulation once for every seed of a list (each
+seed's init and keyed streams, the shards of ``sim.seed``), replaying one
+captured program, segmented with compaction on the union of the clients live
+in any seed when ``segment_rounds > 0``; ``run_sweep`` and ``run_simulation``
+are the JAX package's deprecated shims.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -65,13 +72,14 @@ from repro_torch.data import (
 from repro_torch.fed.engine import (
     EngineConfig,
     FusedData,
-    FusedTrajectory,
     attack_seed,
     client_seeds,
+    fused_eager_run,
     fused_server_state,
     make_fused_segment,
     make_fused_sim,
     make_train_attack_step,
+    sweep_fused_sim,
 )
 from repro_torch.fed.server import (
     FedServer,
@@ -106,6 +114,9 @@ class SimConfig:
     # when ``compact`` is set (0 = one run of T rounds, no compaction)
     segment_rounds: int = 0
     compact: bool = True
+    # the JAX package's client-sharded engine; not ported (ROADMAP queue A):
+    # > 0 raises
+    client_shards: int = 0
 
 
 @dataclasses.dataclass
@@ -259,6 +270,9 @@ def simulate(data: SyntheticClassification, sim: SimConfig, server_cfg: ServerCo
     """The classification simulator behind ``repro_torch.fed.api.run``."""
     if sim.engine not in _ENGINES:
         raise ValueError(f"unknown engine {sim.engine!r} (batched | looped | fused | fused_eager)")
+    if sim.client_shards > 0:
+        raise NotImplementedError("the client-sharded engine (SimConfig.client_shards) is not "
+                                  "ported to repro_torch (ROADMAP queue A)")
     dev = resolve_device(device)
     setup = _Setup(data, sim, dev, workload=workload)
     if sim.engine == "batched":
@@ -442,16 +456,9 @@ def _run_fused(setup: _Setup, server_cfg: ServerConfig, eval_every: int, *,
     if eager:
         # the reference for the graph: the identical round body, called once
         # per round
-        seed = torch.full((), sim.seed, dtype=torch.int64, device=dev)
-        carry = (setup.params0,
-                 fused_server_state(sim.num_clients, server_cfg.alpha0, server_cfg.beta0, dev))
-        outs = []
-        for rnd in range(sim.rounds):
-            carry, out = round_fn(carry, torch.full((), rnd, dtype=torch.int64, device=dev),
-                                  seed, data)
-            outs.append(out)
-        state = carry[1]
-        traj = FusedTrajectory(*[torch.stack(parts) for parts in zip(*outs)])
+        state0 = fused_server_state(sim.num_clients, server_cfg.alpha0, server_cfg.beta0, dev)
+        _, state, traj = fused_eager_run(round_fn, setup.params0, state0, sim.seed, data,
+                                         sim.rounds)
     else:
         _, state, traj = scan_fn(setup.params0, sim.seed, data, stats=stats)
     _sync(dev)
@@ -510,63 +517,178 @@ def _segment_fn(setup: _Setup, server_cfg: ServerConfig):
     )
 
 
-def _run_fused_segmented(setup: _Setup, server_cfg: ServerConfig,
-                         eval_every: int) -> SimResult:
-    """The fused simulation in segments of ``segment_rounds`` rounds.
+def _seed_params(setup: _Setup, seed: int):
+    """The model init of ``seed``: a generator on the device seeded with it,
+    as ``_Setup`` draws ``params0`` from ``sim.seed``."""
+    gen = torch.Generator(device=setup.device)
+    gen.manual_seed(int(seed))
+    return setup.workload.init_params(gen, setup.device)
 
-    Before each segment the host reads the blocked set (with ``compact``;
+
+def _segmented_runs(setup: _Setup, server_cfg: ServerConfig, seeds, stats: dict):
+    """The fused simulation of each seed in segments of ``segment_rounds``
+    rounds, every seed on the same client layout.
+
+    Before each segment the host reads the blocked sets (with ``compact``;
     the only device-to-host read of the run until its end) and, when the
-    live clients fit a smaller power-of-two bucket, saves the rows being
-    dropped into the full-K state, gathers the live clients' shards,
-    ``n_k``, posteriors and attack flags into the bucket and replays that
-    bucket's round graph.  Every keyed stream depends on the original id and
-    every client-axis sum adds the live rows in order, so the stitched
-    trajectory equals the one-shot run's."""
+    clients live in ANY seed fit a smaller power-of-two bucket, saves each
+    seed's rows being dropped into its full-K state, gathers the live
+    clients' shards, ``n_k``, attack flags and each seed's posteriors into
+    the bucket, and replays that bucket's round graph once per seed.  A
+    client blocked in some seeds only stays resident, held out by those
+    seeds' masks.  Every keyed stream depends on the original id and every
+    client-axis sum adds the live rows in order, so each seed's stitched
+    trajectory equals its one-shot run's.  Returns ``(rounds_blocked (n, K),
+    test_error (n, T), good_mask (n, T, K))`` as host arrays."""
     sim, dev = setup.sim, setup.device
     K, T, S = sim.num_clients, sim.rounds, sim.segment_rounds
+    n = len(seeds)
     seg_fn = _segment_fn(setup, server_cfg)
-    stats = {"capture_s": 0.0}
-    _sync(dev)
-    t_start = time.perf_counter()
-    params = setup.params0
-    # the full-K state holds the frozen rows of clients dropped at earlier
-    # compactions; the live rows' state is ``state_c``, scattered back at
-    # bucket changes and once at the end
-    state_full = fused_server_state(K, server_cfg.alpha0, server_cfg.beta0, dev)
-    state_c = state_full
+    params = [_seed_params(setup, s) for s in seeds]
+    # each seed's full-K state holds the frozen rows of clients dropped at
+    # earlier compactions; its live rows' state is in ``state_c``, scattered
+    # back at bucket changes and once at the end
+    state_full = [fused_server_state(K, server_cfg.alpha0, server_cfg.beta0, dev)
+                  for _ in seeds]
+    state_c = list(state_full)
     data_c = bad_c = ids_c = None
     kept, bucket = np.arange(K), None
-    pieces = []
+    test_error = np.zeros((n, T), np.float64)
+    good = np.zeros((n, T, K), bool)
     seg_start = 0
     while seg_start < T:
         seg_len = min(S, T - seg_start)
         if sim.compact:
-            blocked_c = state_c.reputation.blocked.cpu().numpy()[: len(kept)]
-            live = kept[~blocked_c]
+            blocked_c = np.stack([st.reputation.blocked.cpu().numpy()[: len(kept)]
+                                  for st in state_c])
+            live = kept[~blocked_c.all(axis=0)]
         else:
             live = np.arange(K)
         new_bucket = pow2_bucket(len(live), K)
         if bucket != new_bucket:
             if bucket is not None:
-                state_full = scatter_server_state(state_full, state_c, kept)
+                state_full = [scatter_server_state(f, c, kept)
+                              for f, c in zip(state_full, state_c)]
             bucket, kept = new_bucket, live
             data_c, bad_c, ids_c = _compact_inputs(setup, kept, bucket)
-            state_c = gather_server_state(state_full, kept, bucket)
-        params, state_c, traj = seg_fn(params, state_c, sim.seed, data_c, bad_c, ids_c,
-                                       seg_start, seg_len, stats=stats)
-        pieces.append((seg_start, seg_len, kept, traj))
-        seg_start += seg_len
-    state_full = scatter_server_state(state_full, state_c, kept)
-    _sync(dev)
-    total = time.perf_counter() - t_start
+            state_c = [gather_server_state(f, kept, bucket) for f in state_full]
+        end = seg_start + seg_len
+        for i, s in enumerate(seeds):
+            params[i], state_c[i], traj = seg_fn(params[i], state_c[i], int(s), data_c, bad_c,
+                                                 ids_c, seg_start, seg_len, stats=stats)
+            # dropped clients keep good_mask = False, as the one-shot run
+            # gives them (they are blocked)
+            test_error[i, seg_start:end] = traj.test_error.cpu().numpy()
+            good[i][seg_start:end, kept] = traj.good_mask.cpu().numpy()[:, : len(kept)]
+        seg_start = end
+    state_full = [scatter_server_state(f, c, kept) for f, c in zip(state_full, state_c)]
+    rounds_blocked = np.stack([st.rounds_blocked.cpu().numpy() for st in state_full])
+    return rounds_blocked, test_error, good
 
-    # stitch the (seg_len, bucket) outputs into full-K rows through the kept
-    # maps; dropped clients keep good_mask = False, as the one-shot run
-    # gives them (they are blocked)
-    test_error = np.zeros((T,), np.float64)
-    good = np.zeros((T, K), bool)
-    for start, n, kept_s, traj in pieces:
-        test_error[start:start + n] = traj.test_error.cpu().numpy()
-        good[start:start + n, kept_s] = traj.good_mask.cpu().numpy()[:, : len(kept_s)]
-    return _fused_result(setup, state_full.rounds_blocked.cpu().numpy(), test_error,
-                         list(good), total, eval_every, stats["capture_s"])
+
+def _run_fused_segmented(setup: _Setup, server_cfg: ServerConfig,
+                         eval_every: int) -> SimResult:
+    """The fused simulation in segments of ``segment_rounds`` rounds, with
+    the blocked clients compacted out between them (``_segmented_runs`` on
+    the one seed ``sim.seed``)."""
+    stats = {"capture_s": 0.0}
+    _sync(setup.device)
+    t_start = time.perf_counter()
+    rounds_blocked, test_error, good = _segmented_runs(setup, server_cfg, [setup.sim.seed],
+                                                       stats)
+    total = time.perf_counter() - t_start
+    return _fused_result(setup, rounds_blocked[0], test_error[0], list(good[0]), total,
+                         eval_every, stats["capture_s"])
+
+
+# ---------------------------------------------------------------------------
+# seed sweeps — one program replayed for every seed
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """Per-seed trajectories and detection statistics of a seed sweep."""
+
+    seeds: np.ndarray                # (n,)
+    test_error: np.ndarray           # (n, T) percent, every round
+    good_mask_history: np.ndarray    # (n, T, K) bool
+    blocked_round: np.ndarray        # (n, K) 1-indexed, -1 = never
+    bad_clients: np.ndarray          # (n_bad,) indices (fixed across seeds)
+    detection_rate: np.ndarray       # (n,)
+    mean_rounds_to_block: np.ndarray  # (n,)
+    capture_time: float = 0.0        # on the card: seconds spent capturing the
+                                     # round graphs (one a sweep, or one a bucket)
+
+
+def _sweep_result(setup: _Setup, seeds, blocked_round, test_error, good_mask,
+                  capture_s: float) -> SweepResult:
+    stats = [detection_stats(br, setup.bad) for br in blocked_round]
+    return SweepResult(
+        seeds=np.asarray(seeds),
+        test_error=np.asarray(test_error, np.float64) * 100.0,
+        good_mask_history=np.asarray(good_mask, bool),
+        blocked_round=np.asarray(blocked_round),
+        bad_clients=setup.bad,
+        detection_rate=np.asarray([r for r, _ in stats]),
+        mean_rounds_to_block=np.asarray([m for _, m in stats]),
+        capture_time=capture_s,
+    )
+
+
+def sweep(data: SyntheticClassification, sim: SimConfig, server_cfg: ServerConfig, seeds, *,
+          workload=None, device="cuda") -> SweepResult:
+    """Run the fused simulation once for every seed of ``seeds``.
+
+    The shard split (and data-level poisoning) is built once from
+    ``sim.seed`` and shared across the sweep; each sweep seed drives the
+    model init, the device minibatch stream and the attack-noise stream, so
+    the row of ``sim.seed`` is the ``engine="fused"`` run.  The round is
+    captured once and replayed for every seed (``sweep_fused_sim``).  With
+    ``sim.segment_rounds > 0`` the sweep runs segmented, compacting on the
+    UNION of the clients live in any seed between segments, with one
+    capture a bucket for all seeds; each seed's trajectory equals its
+    unsegmented one bit for bit."""
+    if sim.client_shards > 0:
+        raise ValueError("run_sweep is not wired for the client-sharded engine; set "
+                         "client_shards=0 for sweeps")
+    setup = _Setup(data, sim, resolve_device(device), workload=workload)
+    stats = {"capture_s": 0.0}
+    if sim.segment_rounds > 0:
+        rounds_blocked, test_error, good = _segmented_runs(setup, server_cfg, seeds, stats)
+    else:
+        scan_fn, _ = _make_setup_sim(setup, server_cfg)
+        _, state, traj = sweep_fused_sim(scan_fn, setup.workload, seeds, _fused_data(setup),
+                                         stats=stats)
+        rounds_blocked = state.rounds_blocked.cpu().numpy()
+        test_error = traj.test_error.cpu().numpy()
+        good = traj.good_mask.cpu().numpy()
+    return _sweep_result(setup, seeds, rounds_blocked, test_error, good, stats["capture_s"])
+
+
+def run_sweep(data: SyntheticClassification, sim: SimConfig, server_cfg: ServerConfig, seeds, *,
+              device="cuda") -> SweepResult:
+    """DEPRECATED: call :func:`repro_torch.fed.api.run` with ``seeds=``
+    instead.  A thin shim over :func:`sweep` (the same trajectories), kept
+    so existing callers keep working, with a warning."""
+    warnings.warn(
+        "run_sweep is deprecated; use repro_torch.fed.api.run(workload, sim, server, "
+        "data=data, seeds=seeds) instead",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return sweep(data, sim, server_cfg, seeds, device=device)
+
+
+def run_simulation(data: SyntheticClassification, sim: SimConfig, server_cfg: ServerConfig, *,
+                   eval_every: int = 1, device="cuda") -> SimResult:
+    """DEPRECATED: call :func:`repro_torch.fed.api.run` instead.  A thin shim
+    over :func:`simulate` (the same trajectory), kept so existing callers
+    keep working, with a warning."""
+    warnings.warn(
+        "run_simulation is deprecated; use repro_torch.fed.api.run(workload, sim, server, "
+        "data=data) instead",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return simulate(data, sim, server_cfg, eval_every=eval_every, device=device)

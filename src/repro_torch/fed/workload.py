@@ -7,7 +7,8 @@ proposal space and back (``codec``) and scores the model (``eval_metric``).
 ``DnnWorkload`` is the paper's DNN; ``TransformerLoraWorkload`` fine-tunes a
 frozen transformer base through LoRA adapters, so the packed aggregation
 buffer is ``(K, D_adapter)`` with ``D_adapter`` far below the model size.
-``simulate_llm`` drives the LoRA workload round by round.
+``simulate_llm`` runs the LoRA workload on the fused engine (one CUDA graph a
+round on the card), ``run_llm_simulation`` is its deprecated shim.
 ``validate_submission`` is the serving tier's check of one submitted row.
 """
 
@@ -17,24 +18,22 @@ import dataclasses
 import functools
 import math
 import time
+import warnings
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.attacks import UPDATE_ATTACK_SCENARIOS, stream_seed
-from repro_torch.fed.client import local_sgd, local_sgd_frozen
+from repro_torch.attacks import stream_seed
+from repro_torch.fed.client import local_sgd, local_sgd_frozen_clients
 from repro_torch.fed.dnn import dnn_error, dnn_loss, init_dnn
 from repro_torch.utils.philox import keyed_bits
 from repro_torch.utils.trees import (
     PackSpec,
     pack_spec,
-    pack_stack,
     tree_broadcast_clients,
     tree_size,
-    tree_stack,
-    unpack_stack,
 )
 
 
@@ -128,8 +127,8 @@ class ClientWorkload:
         ``seed`` a 0-d device tensor), so the call reads nothing from the host
         and a client's draws do not depend on its row."""
         raise NotImplementedError(
-            f"workload {self.name!r} has no keyed local update yet; the fused "
-            "engines run the DNN workload only (ROADMAP queue A)"
+            f"workload {self.name!r} has no keyed local update, which the fused "
+            "engines need"
         )
 
     def eval_metric(self, params, x_test, y_test):
@@ -343,25 +342,29 @@ class TransformerLoraWorkload(ClientWorkload):
         adapters = init_lora_adapters(generator, base["layers"], self.targets, self.rank)
         return {"base": base, "adapters": adapters}
 
-    def local_update(self, cfg, params, batches, client_seeds, train_mask=None):
-        """SGD with momentum on each trained row's adapters, one client after
-        the other, the base frozen; untrained rows hold the current adapters.
-        The LM stack is deterministic, so the seeds are not used."""
-        del client_seeds
-        loss = _lora_loss_fn(self.model_cfg, self.targets, self.scaling)
+    def _train(self, cfg, params, batches):
+        # every row trains in one pass over the client axis (the engine
+        # resets non-trainers to w_t): a masked pass would cost the same
         K = batches["x"].shape[0]
-        train = [True] * K if train_mask is None else [bool(t) for t in train_mask.tolist()]
-        rows = []
-        for k in range(K):
-            if not train[k]:
-                rows.append(params["adapters"])
-                continue
-            rows.append(local_sgd_frozen(
-                loss, params["base"], params["adapters"],
-                {"x": batches["x"][k], "y": batches["y"][k]},
-                lr=cfg.lr, momentum=cfg.momentum,
-            ))
-        return tree_stack(rows)
+        return local_sgd_frozen_clients(
+            _lora_loss_fn(self.model_cfg, self.targets, self.scaling), params["base"],
+            tree_broadcast_clients(params["adapters"], K), batches,
+            lr=cfg.lr, momentum=cfg.momentum,
+        )
+
+    def local_update(self, cfg, params, batches, client_seeds, train_mask=None):
+        """SGD with momentum on the adapters of all K rows at once, the base
+        frozen and shared (``local_sgd_frozen_clients``).  The LM stack is
+        deterministic, so the seeds are not used."""
+        del client_seeds, train_mask
+        return self._train(cfg, params, batches)
+
+    def local_update_keyed(self, cfg, params, batches, seed, offsets):
+        """``local_update`` for the fused engines: the LM stack draws
+        nothing, so neither ``seed`` nor ``offsets`` is used, as the JAX
+        package's LoRA loss ignores its dropout key."""
+        del seed, offsets
+        return self._train(cfg, params, batches)
 
     @torch.no_grad()
     def eval_metric(self, params, x_test, y_test):
@@ -420,11 +423,8 @@ def get_workload(name: str, **kwargs) -> ClientWorkload:
 
 
 # ---------------------------------------------------------------------------
-# the LLM workload's simulation, round by round
+# the LLM workload's simulation on the fused engine
 # ---------------------------------------------------------------------------
-
-# stream tag of the minibatch draws (the JAX package's BATCH_STREAM)
-_BATCH_STREAM = 0x0B47C4
 
 
 def make_llm_fused_data(model_cfg, *, clients: int, samples_per_client: int = 16,
@@ -456,26 +456,22 @@ def make_llm_fused_data(model_cfg, *, clients: int, samples_per_client: int = 16
     )
 
 
-def _draw_minibatches(data, seed: int, rnd: int, steps: int, batch: int) -> dict:
-    """Round ``rnd``'s minibatches ``{"x", "y"}`` of shape ``(K, S, b, ...)``,
-    gathered on the data's device.  Client k's indices come from a numpy
-    generator keyed by (seed, round, original client id), drawn below its
-    shard length; they do not replay the JAX package's ``jax.random`` draw."""
-    lengths = data.lengths.tolist()
-    K = len(lengths)
-    idx = np.stack([
-        np.random.default_rng(stream_seed(_BATCH_STREAM, seed, rnd * K + k))
-        .integers(0, max(n, 1), size=(steps, batch))
-        for k, n in enumerate(lengths)
-    ])
-    ix = torch.from_numpy(idx).to(data.x.device)
-    rows = torch.arange(K, device=data.x.device)[:, None, None]
-    return {"x": data.x[rows, ix], "y": data.y[rows, ix]}
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def run_llm_simulation(workload: TransformerLoraWorkload, **kwargs):
+    """DEPRECATED: call :func:`repro_torch.fed.api.run` instead.  A thin shim
+    over :func:`simulate_llm`, kept so existing callers keep working, with a
+    warning."""
+    warnings.warn(
+        "run_llm_simulation is deprecated; use repro_torch.fed.api.run(workload, "
+        "sim_config) instead",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return simulate_llm(workload, **kwargs)
 
 
 def simulate_llm(
@@ -496,30 +492,35 @@ def simulate_llm(
     afa_variant: str = "iterative",
     kernel_plan=None,
     data=None,
+    eager: bool = False,
     device="cuda",
 ):
-    """Run the T-round simulation of the LLM workload and summarize.
+    """Run the fused T-round simulation of the LLM workload and summarize.
 
-    The round is the JAX package's fused round body with
-    ``agg_layout="packed"``, run as a Python loop: draw the minibatches,
-    train the live non-attacking clients, reset the other rows to the current
-    adapters ``w_t``, run the update-level attack ``scenario`` of the first
-    ``byzantine`` clients on the adapter proposals, pack them into the
-    ``(K, D_adapter)`` buffer, ``server_step`` (screening, reputation,
-    blocking), keep ``w_t`` when no client is live, swap the aggregate in and
-    score the model.  The server config is built here from ``rule`` as in
-    the JAX package; ``afa_variant`` and ``kernel_plan`` pick the AFA route.
-    Returns the JAX package's dict of host results plus the per-round wall
-    times (``round_times``) and the mean train and aggregation times per
-    round (``train_time``, ``agg_time``), in seconds.
+    The round is the fused engine's body (``fed/engine.make_fused_sim``, the
+    JAX package's with ``agg_layout="packed"``): the keyed device minibatch
+    draw, local training of all K clients at once, non-trainers reset to the
+    current adapters ``w_t``, the update-level attack ``scenario`` of the
+    first ``byzantine`` clients on the adapter proposals, the ``(K,
+    D_adapter)`` buffer through ``server_step`` (screening, reputation,
+    blocking from the table), ``w_t`` kept when no client is live, the
+    aggregate swapped in and the model scored.  On the card the round is
+    captured once as a CUDA graph and replayed T times, on the CPU it runs
+    in a loop; with ``eager`` the body is called once a round instead, the
+    reference the graph is held to.  The server config is built here from
+    ``rule`` as in the JAX package; ``afa_variant`` and ``kernel_plan`` pick
+    the AFA route.  Returns the JAX package's dict of host results plus the
+    ``(T, K)`` ``good_mask``, the per-round wall times (``round_times``,
+    total / T, capture included) and the capture's seconds
+    (``capture_time``, 0 without a graph).
     """
-    from repro_torch.fed.engine import EngineConfig, _train_and_attack, attack_seed, client_seeds
-    from repro_torch.fed.server import (
-        ServerConfig,
-        init_server_state,
-        make_rule_options,
-        server_step,
+    from repro_torch.fed.engine import (
+        EngineConfig,
+        fused_eager_run,
+        fused_server_state,
+        make_fused_sim,
     )
+    from repro_torch.fed.server import ServerConfig, make_rule_options
 
     dev = resolve_device(device)
     if data is None:
@@ -529,7 +530,6 @@ def simulate_llm(
         )
     bad = np.zeros((clients,), bool)
     bad[:byzantine] = True
-    bad_t = torch.from_numpy(bad).to(dev)
 
     cfg = EngineConfig(scenario=scenario, lr=lr, momentum=0.9, dropout=False)
     scfg = ServerConfig(
@@ -537,60 +537,41 @@ def simulate_llm(
         trim=max(min(byzantine, (clients - 1) // 2), 1), afa_variant=afa_variant,
         kernel_plan=kernel_plan,
     )
-    opts = make_rule_options(scfg, clients)
+    scan_fn, round_fn = make_fused_sim(
+        workload, cfg, rule=rule, opts=make_rule_options(scfg, clients),
+        delta_block=scfg.delta_block, num_clients=clients, num_rounds=rounds,
+        batch_s=local_steps, batch_b=batch, bad_mask=bad, alpha0=scfg.alpha0,
+        beta0=scfg.beta0, device=dev,
+    )
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    params = workload.init_params(gen, dev)
-    d_adapter = workload.proposal_dim(params)
-    d_total = workload.param_dim(params)
-    spec = workload.delta_spec(params)
-    state = init_server_state(clients, scfg.alpha0, scfg.beta0, device=dev)
-    skip_bad = scenario in UPDATE_ATTACK_SCENARIOS
+    params0 = workload.init_params(gen, dev)
+    d_adapter = workload.proposal_dim(params0)
+    d_total = workload.param_dim(params0)
 
-    errs, goods, blocked_hist, round_times = [], [], [], []
-    t_train = t_agg = 0.0
-    for rnd in range(rounds):
-        t_start = time.perf_counter()
-        mask0 = ~state.reputation.blocked
-        train_mask = mask0 & ~bad_t if skip_bad else mask0
-        mb = _draw_minibatches(data, seed, rnd, local_steps, batch)
-        _sync(dev)
-        t0 = time.perf_counter()
-        proposals = _train_and_attack(
-            workload, cfg, params, mb, client_seeds(seed, rnd, range(clients)), train_mask,
-            bad_t & mask0, mask0 & ~bad_t, attack_seed(seed, rnd),
-        )
-        _sync(dev)
-        t_train += time.perf_counter() - t0
+    stats = {"capture_s": 0.0}
+    _sync(dev)
+    t_start = time.perf_counter()
+    if eager:
+        state0 = fused_server_state(clients, scfg.alpha0, scfg.beta0, dev)
+        params, state, traj = fused_eager_run(round_fn, params0, state0, seed, data, rounds)
+    else:
+        params, state, traj = scan_fn(params0, seed, data, stats=stats)
+    _sync(dev)
+    total = time.perf_counter() - t_start
 
-        t0 = time.perf_counter()
-        state, res = server_step(
-            state, pack_stack(proposals, spec), data.n_k, mask0, rule=rule, opts=opts,
-            delta_block=scfg.delta_block, layout="matrix",
-        )
-        # empty-participation guard: keep the current adapters
-        if not bool(res.all_blocked):
-            params = workload.codec.apply(params, unpack_stack(res.aggregate, spec))
-        _sync(dev)
-        t_agg += time.perf_counter() - t0
-
-        errs.append(float(workload.eval_metric(params, data.x_test, data.y_test)))
-        goods.append(res.good_mask.cpu().numpy())
-        blocked_hist.append(state.reputation.blocked.cpu().numpy())
-        round_times.append(time.perf_counter() - t_start)
-
-    good_mask = np.asarray(goods, bool).reshape(rounds, clients)
+    good_mask = traj.good_mask.cpu().numpy()
     return {
-        "test_error": np.asarray(errs, np.float32),
+        "test_error": traj.test_error.cpu().numpy(),
         "good_frac": good_mask.astype(np.float32).mean(axis=1),
-        "blocked": np.asarray(blocked_hist, bool).reshape(rounds, clients),
+        "good_mask": good_mask,
+        "blocked": traj.blocked.cpu().numpy(),
         "rounds_blocked": state.rounds_blocked.cpu().numpy(),
         "bad_mask": bad,
         "adapter_dim": int(d_adapter),
         "param_dim": int(d_total),
         "adapter_fraction": float(d_adapter) / float(d_total),
         "params": params,
-        "round_times": round_times,
-        "train_time": t_train / max(rounds, 1),
-        "agg_time": t_agg / max(rounds, 1),
+        "round_times": [total / max(rounds, 1)] * rounds,
+        "capture_time": stats["capture_s"],
     }

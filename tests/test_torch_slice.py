@@ -44,6 +44,7 @@ from repro_torch.fed import (  # noqa: E402
     ServerConfig,
     SimConfig,
     SimResult,
+    SweepResult,
     init_dnn,
     init_server_state,
     run,
@@ -193,8 +194,12 @@ def test_constructors_default_to_cuda_and_raise_without_it(monkeypatch, build):
 def test_unported_routes_raise():
     data = make_mnist_like(n_train=100, n_test=20, dim=8)
     sim = SimConfig(num_clients=2, rounds=1, hidden=(4,))
-    with pytest.raises(NotImplementedError):
-        run(None, sim, data=data, seeds=[0, 1], device="cpu")
+    sweep = run(None, sim, data=data, seeds=[0, 1], device="cpu")
+    assert isinstance(sweep, SweepResult) and sweep.blocked_round.shape == (2, 2)
+    assert sweep.test_error.shape == (2, 1) and list(sweep.seeds) == [0, 1]
+    with pytest.raises(NotImplementedError, match="client-sharded"):
+        run(None, SimConfig(num_clients=2, rounds=1, hidden=(4,), client_shards=2),
+            data=data, device="cpu")
     looped = run(None, SimConfig(num_clients=2, rounds=1, hidden=(4,), engine="looped"),
                  data=data, device="cpu")
     assert isinstance(looped, SimResult) and looped.blocked_round.shape == (2,)
