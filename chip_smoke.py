@@ -50,7 +50,8 @@
 6. holds the two flash-attention kernels against their twins at the
    smollm-135m shape (B = 4, L = 2048, Hq = 9, Hkv = 3, D = 64, causal), at
    the JAX package's test shapes (causal and full, Lq != Lk included), at
-   one more causal Lq != Lk case and at the element-load cases (D not a
+   one more causal Lq != Lk case, at olmoe-1b-7b's two prefill shapes of
+   step 8 (D = 128, 16/16 heads) and at the element-load cases (D not a
    multiple of the elements in 16 bytes, a pointer off 16 bytes), each in
    f32, bf16 and f16: the exact-softmax twin within 2e-4 (f32), 2e-2 (bf16)
    and 2.5e-3 (f16); the f32 kernel (3xTF32) also within ``TF32_ATTN_RTOL``
@@ -65,7 +66,29 @@
    the two routes within 2e-3, 30 launches per forward of ``flash_attn``
    (f32) or ``flash_attn_tc`` (bf16) on the kernel route and none on the
    plain one, finite bf16 logits;
-8. runs federated LoRA fine-tuning of smollm-135m (rank 4 on wq/wk/wv/wo,
+8. serves smollm-135m at full width and depth through
+   ``repro_torch.launch.serve.generate`` (``SERVE_LLM``: B = 4, prompt
+   2,048, 64 tokens, a linear cache of 2,112 slots) in bf16 and f32, each
+   on the kernel and the plain attention route: the decode step replayed as
+   one CUDA graph a token equal to the eager steps bit for bit (tokens,
+   final logits, final cache), exactly 30 ``flash_attn`` (f32) or
+   ``flash_attn_tc`` (bf16) launches a kernel-route prefill and none in
+   decode, f32 ``logits_last`` of the two routes within 2e-3, one eager
+   decode step under ``torch.cuda.set_sync_debug_mode("error")``; prefill
+   ms, decode ms a token (graph and eager), capture s, tokens/s and KV-cache
+   MB; one traced graph-replayed bf16 token; decode = teacher forcing (f32,
+   kernel route, 16 steps after 2,048 tokens, ``SERVE_TF_TOL``, against a
+   forward on the plain route); ring =
+   window decode past the window (``SERVE_RING``: prompt 8,512 = 8,192 +
+   320, the ring cache of 8,192 slots against the windowed linear cache,
+   logits within 5e-3 a step, greedy tokens equal); olmoe-1b-7b at full
+   width and depth (6.9 B parameters) in bf16 on the kernel route
+   (``OLMOE_SERVE``: graph = eager bit for bit, finite logits, memory in
+   use), then dropless in f32 (capacity_factor = E/k, ``OLMOE_TF``) held to
+   a plain-route forward by teacher forcing (olmoe's two prefill shapes are
+   also ``ATTN_SHAPES`` cases of step 6); and the launcher ``SERVE_CLI``, linear and
+   ``--ring``, each exiting 0 with the reference's last line;
+9. runs federated LoRA fine-tuning of smollm-135m (rank 4 on wq/wk/wv/wo,
    D_adapter = 460,800; 6 clients, 2 byzantine, 8 rounds) through
    ``repro_torch.fed.api.run`` on the AFA gram/fused kernel route and on the
    plain route, each on the fused engine as ``simulate_llm`` runs it (the six
@@ -79,7 +102,7 @@
    screening pass's tail threshold is printed, on the kernel's Gram and on
    ``U @ U.T`` (ROADMAP C.6: a benign client sits within f32 rounding of it
    there, so the routes' ``good_mask`` is not compared);
-9. runs the paper's experiment (step 4's configuration) through ``run`` on
+10. runs the paper's experiment (step 4's configuration) through ``run`` on
    the fused engines (``FUSED_ROUTES``: the three AFA kernel routes, the
    plain route, comed's and trimmed_mean's kernel routes), each with
    ``engine="fused"`` (one round captured as a CUDA graph and replayed) and
@@ -95,11 +118,11 @@
    rows after round 6, bit for bit on the two gram kernel routes, the
    plain routes reported; and 200 clients with 40 % byzantine once, its
    blocking reported;
-10. traces three rounds of the paper DNN's gram/fused route and one bf16
+11. traces three rounds of the paper DNN's gram/fused route and one bf16
    and one f32 forward of smollm-135m on the kernel route with
    ``torch.profiler`` (device busy share, the kernels that take the time),
    one ``engine="fused"`` run of each ``FUSED_ROUTES`` route, the segmented
-   run and one LoRA run of step 8's gram/fused route (each of the route's
+   run and one LoRA run of step 9's gram/fused route (each of the route's
    kernels exactly its count a round times the rounds the run executed:
    its warm-up rounds, which the wrappers count, and the T replayed ones,
    which only the trace sees; from the first replayed round on exactly T
@@ -109,13 +132,13 @@
    ``run(..., seeds=)``: one capture a sweep, every seed replaying it) on
    gram/fused and the plain route, and on gram/fused in 2-round segments
    compacted on the union of the clients live in any seed: the row of seed
-   0 equal to step 9's ``engine="fused"`` run bit for bit, segmented =
+   0 equal to step 10's ``engine="fused"`` run bit for bit, segmented =
    unsegmented bit for bit, every seed blocking the 3 byzantine clients in
    round 6, each seed's detection rate and mean rounds to block printed;
-11. drives the serve tier (``repro_torch.serve``) at step 4's configuration:
+12. drives the serve tier (``repro_torch.serve``) at step 4's configuration:
    ``run_serve_replay`` with the default ``ServeConfig`` on gram/fused,
    gram/chained, iterative and the plain route, each equal bit for bit to
-   the route's ``engine="fused"`` run of step 9 (test error, blocked rounds,
+   the route's ``engine="fused"`` run of step 10 (test error, blocked rounds,
    good_mask history), with step 4's outcome gates, no rejection and each
    kernel route's kernels launched; then ``run_traffic`` on gram/fused
    (``SERVE_ASYNC``, ``SERVE_TRAFFIC``, 20 rounds), twice: exactly the
@@ -124,7 +147,7 @@
    each aggregation step, cohort propose and submit, the host-device bytes
    of a round, the copies' times and the busy share of 8 traced replay
    rounds;
-12. runs the paper's Tables 1 and 2 at the published widths (``GRID_DATA``:
+13. runs the paper's Tables 1 and 2 at the published widths (``GRID_DATA``:
    MNIST-like 784 x 512 x 256 x 10, D = 535,818, and Spambase-like 54 x 100
    x 50 x 1, D = 10,601; 10 clients of which 3 bad, 8 rounds): clean,
    byzantine, flipping and noisy under AFA gram/fused, AFA on the plain
@@ -142,20 +165,20 @@
    the plain route's, its margins a pass printed; then AFA
    gram/fused with ``engine="fused"`` against ``"fused_eager"`` under
    byzantine and noisy on both datasets, graph = eager bit for bit;
-13. runs ``MAIN_SIM`` and its noisy scenario with ``engine="looped"`` (one
+14. runs ``MAIN_SIM`` and its noisy scenario with ``engine="looped"`` (one
    client at a time) against ``"batched"`` on gram/fused: equal good_mask
    histories and blocked rounds, test error within 0.5 pp, ms a round of
    each;
-14. runs ``MAIN_SIM`` on the leaf layout (``KernelPlan(mode="cuda",
+15. runs ``MAIN_SIM`` on the leaf layout (``KernelPlan(mode="cuda",
    layout="leaf")``, AFA's tree form, both variants): byzantine blocked in
    round 6 with no AFA kernel launched; then one ``server_step`` on round
    3's recorded proposals on the leaf and the tree layouts: AFA's good_mask
    equal and its aggregate within rtol 2e-5 / atol 2e-6, fa, mkrum and
    comed bit for bit, each launching its kernel on the leaf layout;
-15. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+16. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
-   sweep, serve, grid, looped and leaf phases and, for the fused engine's
-   graph runs (the DNN's and LoRA's), the calls that step 10's traces
+   serve-LLM, sweep, serve, grid, looped and leaf phases and, for the fused engine's
+   graph runs (the DNN's and LoRA's), the calls that step 11's traces
    executed.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
@@ -266,6 +289,9 @@ ATTN_SHAPES = [  # the JAX package's tests/test_kernels.py:200-205, then Lq > Lk
     ((2, 33, 65, 4, 4, 16), (True, False)),
     ((1, 256, 256, 8, 2, 128), (True, False)),
     ((1, 300, 130, 6, 2, 64), (True,)),
+    # olmoe-1b-7b's prefills in phase V: bf16 B = 2 x 512, f32 1 x 256
+    ((2, 512, 512, 16, 16, 128), (True,)),
+    ((1, 256, 256, 16, 16, 128), (True,)),
 ]
 ATTN_TOL = {"float32": 2e-4,   # tests/test_kernels.py:219 holds the Pallas kernel to it
             "bfloat16": 2e-2,  # bf16 output rounding (8 mantissa bits)
@@ -289,6 +315,19 @@ ATTN_ELEMENT_LOADS = [((1, 77, 77, 4, 2, 20), (True, False), False),
                       ((2, 33, 65, 4, 4, 16), (True,), True)]
 FWD_B, FWD_L = 4, 2048
 FWD_TOL = 2e-3   # tests/test_models.py:256 holds the JAX Pallas route to it
+# the serve-LLM phase (V): smollm-135m served from a linear cache, the
+# reference's decode = teacher forcing (tests/test_models.py:86, its
+# tolerances) and ring = window decode past the window (:138); olmoe-1b-7b
+# in bf16, then dropless (capacity_factor = E/k, tests/test_models.py:25) in
+# f32; the launcher's command, linear and ring
+SERVE_LLM = dict(B=4, P=2048, gen=64)          # cache 2,112 slots
+SERVE_TF_STEPS = 16
+SERVE_TF_TOL = (2e-3, 5e-3)                    # logits_last, each decode step
+SERVE_RING = dict(B=2, P=8192 + 320, gen=32)   # l >= w and l % w != 0: the roll runs
+OLMOE_SERVE = dict(B=2, P=512, gen=32)
+OLMOE_TF = dict(B=1, P=256, steps=8)
+SERVE_CLI = ["--arch", "smollm-135m", "--requests", "8", "--batch", "4",
+             "--prompt-len", "2048", "--gen", "64"]
 # the LoRA phase's run: smollm-135m at full width, 2 of 6 clients byzantine
 LORA_SIM = dict(num_clients=6, bad_frac=2 / 6, scenario="byzantine", rounds=8,
                 local_epochs=2, batch_size=2, seed=0, lr=0.2)
@@ -1484,6 +1523,298 @@ def forward_phase(torch, ops):
                                      f"{FWD_TOL} of the plain route's (max diff {diff})")
         del logits, a, b
     return rows, launches
+
+
+def beyond(torch, a, b, tol) -> float:
+    """How far a lies outside ``atol = rtol = tol`` of b (> 0: outside)."""
+    return float(((a - b).abs() - tol - tol * b.abs()).max())
+
+
+def cache_mb(cache) -> float:
+    return sum(t.numel() * t.element_size() for t in cache["layers"]) / 1e6
+
+
+def same_generation(torch, a, b) -> bool:
+    """Two ``generate`` results equal bit for bit: tokens, final logits,
+    final cache."""
+    return (torch.equal(a.tokens, b.tokens) and torch.equal(a.logits, b.logits)
+            and all(torch.equal(x, y) for x, y in zip(a.cache["layers"], b.cache["layers"]))
+            and torch.equal(a.cache["pos"], b.cache["pos"]))
+
+
+def serve_prompts(torch, vocab: int, b: int, p: int, seed: int):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.randint(0, vocab, (b, p), generator=gen, device="cuda")
+
+
+def served(torch, ops, label, model, params, prompts, *, gen, key, launches):
+    """One batch through ``generate`` replayed as a graph and eagerly, after
+    one prefill of the same prompts alone: graph = eager bit for bit,
+    exactly L flash launches a prefill on the kernel route (the eager run's
+    decode steps launch eagerly, so a flash call there would show), none on
+    the plain route.  Returns the row, the lone prefill's logits, the eager
+    run and the graph's programs."""
+    from repro_torch.launch.serve import generate
+
+    cfg = model.config
+    b, p = prompts.shape
+    want = cfg.num_layers if cfg.use_pallas_attention else 0
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_last = model.prefill(params, {"tokens": prompts}, cache_size=p + gen)[0]
+    torch.cuda.synchronize()
+    prefill_s = [time.perf_counter() - t0]
+    launches[key] += ops.LAUNCH_COUNTS[key]
+    runs, programs = {}, {}
+    for mode in ("graph", "eager"):
+        ops.reset_launch_counts()
+        runs[mode] = generate(model, params, prompts, gen=gen, ring=False, cache_size=p + gen,
+                              graph=mode == "graph",
+                              programs=programs if mode == "graph" else None)
+        counts = {n: c for n, c in ops.LAUNCH_COUNTS.items() if c}
+        if counts != ({key: want} if want else {}):
+            raise AssertionError(f"serve [{label}] {mode}: launches {counts}, expected "
+                                 f"{want} {key} in the prefill and none in decode")
+        launches[key] += counts.get(key, 0)
+    g, e = runs["graph"], runs["eager"]
+    if not same_generation(torch, g, e):
+        raise AssertionError(f"serve [{label}]: the replayed graph's tokens, logits or cache "
+                             "differ from the eager steps'")
+    if not torch.isfinite(g.logits).all():
+        raise AssertionError(f"serve [{label}]: logits not finite")
+    tg, te = g.times, e.times
+    steps = tg["decode_steps"]
+    # the median of three prefills: the lone one pays the configuration's
+    # first use (cuBLAS handles, the allocator's new blocks)
+    prefill_ms = sorted(prefill_s + [tg["prefill_s"], te["prefill_s"]])[1] * 1e3
+    row = {"label": label, "B": b, "prompt": p, "gen": gen, "prefill_ms": prefill_ms,
+           "prefill_ms_first": prefill_s[0] * 1e3, "capture_s": tg["capture_s"],
+           "decode_ms_per_token_graph": tg["decode_s"] / steps * 1e3,
+           "decode_ms_per_token_eager": te["decode_s"] / steps * 1e3,
+           "decode_tokens_per_s_graph": b * steps / tg["decode_s"],
+           "tokens_per_s_graph": b * gen / (prefill_ms / 1e3 + tg["decode_s"]),
+           "kv_cache_mb": cache_mb(g.cache), "prefill_flash_launches": want}
+    print(f"serve [{label}] B={b} prompt={p} gen={gen}: prefill_ms={row['prefill_ms']:.2f} "
+          f"(first {row['prefill_ms_first']:.2f}) "
+          f"decode ms/token graph={row['decode_ms_per_token_graph']:.3f} eager="
+          f"{row['decode_ms_per_token_eager']:.3f} capture_s={row['capture_s']:.3f} "
+          f"tokens/s={row['tokens_per_s_graph']:.0f} (decode "
+          f"{row['decode_tokens_per_s_graph']:.0f}) kv_cache_MB={row['kv_cache_mb']:.1f} "
+          f"{key} launches/prefill={want}; graph = eager bit for bit")
+    return row, logits_last, e, programs
+
+
+def teacher_forced(torch, ops, label, model, params, prompts, steps, launches):
+    """Prefill, then ``steps`` decode steps fed the next tokens, against a
+    forward over the whole sequence on the plain attention route, at
+    ``SERVE_TF_TOL``; on the kernel route exactly L flash launches, all in
+    the prefill."""
+    from repro_torch.models import build_model
+
+    b, p = prompts.shape
+    cfg = model.config
+    key = "flash_attn" if cfg.cdtype == torch.float32 else "flash_attn_tc"
+    extra = serve_prompts(torch, cfg.vocab_size, b, steps, 7)
+    plain = build_model(cfg.with_(use_pallas_attention=False))
+    full = plain.forward(params, {"tokens": torch.cat([prompts, extra], dim=1)})
+    ops.reset_launch_counts()
+    lp, cache = model.prefill(params, {"tokens": prompts}, cache_size=p + steps)
+    worst = [beyond(torch, lp, full[:, p - 1], SERVE_TF_TOL[0])]
+    diffs = [float((lp - full[:, p - 1]).abs().max())]
+    for t in range(steps):
+        logits, cache = model.decode_step(params, cache, extra[:, t])
+        worst.append(beyond(torch, logits, full[:, p + t], SERVE_TF_TOL[1]))
+        diffs.append(float((logits - full[:, p + t]).abs().max()))
+    want = cfg.num_layers if cfg.use_pallas_attention else 0
+    counts = {n: c for n, c in ops.LAUNCH_COUNTS.items() if c}
+    if counts != ({key: want} if want else {}):
+        raise AssertionError(f"serve [{label}]: launches {counts}, expected {want} {key}")
+    launches[key] += want
+    if max(worst) > 0:
+        raise AssertionError(f"serve [{label}]: decode != teacher forcing beyond "
+                             f"{SERVE_TF_TOL} (max |diff| per step {diffs})")
+    print(f"serve [{label}] decode = teacher forcing: prefill {p} + {steps} steps, max |logit "
+          f"diff| prefill={diffs[0]:.3e} steps={max(diffs[1:]):.3e}")
+    return {"label": label, "prompt": p, "steps": steps, "max_abs_diff_prefill": diffs[0],
+            "max_abs_diff_steps": max(diffs[1:])}
+
+
+def ring_vs_window(torch, ops, model, params):
+    """``SERVE_RING``: greedy decoding from the ring cache (``cache_size`` =
+    the window) against the windowed linear cache (``use_window=True``, the
+    prompt and every decoded position in slots), logits each step within
+    ``SERVE_TF_TOL[1]``, tokens equal."""
+    cfg = model.config
+    w, (b, p, gen) = cfg.sliding_window, SERVE_RING.values()
+    prompts = serve_prompts(torch, cfg.vocab_size, b, p, 3)
+    out = {}
+    ops.reset_launch_counts()
+    for name, size, ring in (("ring", w, True), ("window", p + gen, False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompts}, cache_size=size,
+                                      use_window=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, steps = [torch.argmax(logits, -1)], []
+        for _ in range(gen - 1):
+            logits, cache = model.decode_step(params, cache, toks[-1], ring=ring)
+            steps.append(logits.clone())
+            toks.append(torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        out[name] = dict(tokens=torch.stack(toks, 1), logits=steps, mb=cache_mb(cache),
+                         prefill_ms=(t1 - t0) * 1e3,
+                         decode_ms=(time.perf_counter() - t1) / (gen - 1) * 1e3)
+        del cache
+    if any(ops.LAUNCH_COUNTS.values()):
+        raise AssertionError(f"serve [ring]: the windowed path launched {ops.LAUNCH_COUNTS}")
+    r, v = out["ring"], out["window"]
+    worst = max(beyond(torch, a, c, SERVE_TF_TOL[1]) for a, c in zip(r["logits"], v["logits"]))
+    diff = max(float((a - c).abs().max()) for a, c in zip(r["logits"], v["logits"]))
+    if worst > 0 or not torch.equal(r["tokens"], v["tokens"]):
+        raise AssertionError(f"serve [ring]: ring decode != window decode past the window "
+                             f"(max |logit diff| {diff}, tokens equal "
+                             f"{torch.equal(r['tokens'], v['tokens'])})")
+    print(f"serve [ring vs window] smollm-135m f32 B={b} prompt={p} (window {w}, roll "
+          f"{p % w}) gen={gen}: max |logit diff|={diff:.3e}, tokens equal; ring cache "
+          f"{r['mb']:.1f} MB prefill_ms={r['prefill_ms']:.1f} decode ms/token (eager)="
+          f"{r['decode_ms']:.3f}; window cache {v['mb']:.1f} MB prefill_ms="
+          f"{v['prefill_ms']:.1f} decode ms/token (eager)={v['decode_ms']:.3f}")
+    return {"B": b, "prompt": p, "gen": gen, "window": w, "max_abs_diff": diff,
+            **{f"{n}_{k}": out[n][k] for n in out for k in ("mb", "prefill_ms", "decode_ms")}}
+
+
+def launcher_runs(torch):
+    """``repro_torch.launch.serve.main`` as a user runs it: ``SERVE_CLI``,
+    then with ``--ring``; rc 0 and the reference's last line."""
+    import io
+
+    from repro_torch.launch import serve
+
+    rows = []
+    for extra, word in (([], "linear cache"), (["--ring"], "ring cache")):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(SERVE_CLI + extra)
+        wall = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            print(f"  launcher{' --ring' if extra else ''}: {line}")
+        if rc != 0 or not lines or not lines[-1].startswith("served ") or word not in lines[-1]:
+            raise AssertionError(f"launcher {SERVE_CLI + extra}: rc {rc}, last line "
+                                 f"{lines[-1] if lines else None!r}")
+        rows.append({"argv": SERVE_CLI + extra, "wall_s": wall, "lines": lines})
+    return rows
+
+
+def serve_llm_phase(torch, ops):
+    """LLM serving through ``repro_torch.launch.serve.generate`` and the
+    model's prefill / decode_step (phase V): smollm-135m at full width and
+    depth on both dtypes and both attention routes, decode = teacher
+    forcing, ring = window decode past the window, olmoe-1b-7b in bf16 and
+    dropless in f32, the launcher; returns the rows, the traced token and
+    the flash launches of the phase."""
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {"flash_attn": 0, "flash_attn_tc": 0}
+    rows = {"smollm": []}
+    cfg16, p16, _ = smollm_forward_inputs(torch)
+    variants = {"bf16": (cfg16, p16), "f32": as_f32(cfg16, p16)}
+    b, p, gen = SERVE_LLM.values()
+    prompts = serve_prompts(torch, cfg16.vocab_size, b, p, 2)
+    traced = None
+    with torch.no_grad():
+        for dname, (cfg, params) in variants.items():
+            key = "flash_attn" if dname == "f32" else "flash_attn_tc"
+            last = {}
+            for route, pallas in (("kernel", True), ("plain", False)):
+                model = build_model(cfg.with_(use_pallas_attention=pallas))
+                row, last[route], e, programs = served(
+                    torch, ops, f"smollm-135m {dname}/{route}", model, params, prompts, gen=gen,
+                    key=key, launches=launches)
+                # one eager decode step into the cache's last slot, P + gen - 1
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    model.decode_step(params, e.cache, e.tokens[:, -1])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                rows["smollm"].append(row)
+                if (dname, route) == ("bf16", "kernel"):
+                    prog = next(iter(programs.values()))
+
+                    def one_token(prog=prog):
+                        prog.cache["pos"].fill_(p)   # the first decoded token's slot
+                        prog.run()
+                        return {}
+
+                    traced = trace(torch, "smollm-135m bf16 decode token, graph replay",
+                                   one_token, 1)
+                    del prog
+                del e, programs
+            diff = float((last["kernel"] - last["plain"]).abs().max())
+            rows["smollm"][-2]["logits_last_max_abs_diff_to_plain"] = diff
+            print(f"serve [smollm-135m {dname}] logits_last kernel vs plain: max |diff|="
+                  f"{diff:.3e}; an eager decode step ran under sync debug mode 'error'")
+            if dname == "f32" and beyond(torch, last["kernel"], last["plain"], FWD_TOL) > 0:
+                raise AssertionError(f"serve f32: kernel-route prefill logits beyond atol = "
+                                     f"rtol = {FWD_TOL} of the plain route's (max {diff})")
+        cfg32, p32 = variants["f32"]
+        model = build_model(cfg32.with_(use_pallas_attention=True))
+        rows["teacher_forcing"] = [teacher_forced(torch, ops, "smollm-135m f32/kernel", model,
+                                                  p32, prompts, SERVE_TF_STEPS, launches)]
+        rows["ring"] = ring_vs_window(torch, ops, model, p32)
+        del model, variants, p32, p16
+        torch.cuda.empty_cache()
+        rows["olmoe"] = olmoe_serving(torch, ops, launches)
+        rows["teacher_forcing"].append(rows["olmoe"].pop("f32_teacher_forcing"))
+    rows["launcher"] = launcher_runs(torch)
+    rows["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve-LLM phase: {rows['phase_s']:.1f} s")
+    return rows, traced, launches
+
+
+def olmoe_serving(torch, ops, launches):
+    """olmoe-1b-7b at full width and depth: bf16 served on the kernel route
+    (graph = eager, finite logits, memory in use); then, the bf16 copy freed,
+    dropless (capacity_factor = E/k) in f32, decode = teacher forcing."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_config("olmoe-1b-7b").with_(use_pallas_attention=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(gen, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    b, p, g = OLMOE_SERVE.values()
+    prompts = serve_prompts(torch, cfg.vocab_size, b, p, 4)
+    row, *_ = served(torch, ops, "olmoe-1b-7b bf16/kernel", model, params, prompts, gen=g,
+                     key="flash_attn_tc", launches=launches)
+    row.update(params_b=n_params / 1e9, memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"serve [olmoe-1b-7b bf16] {n_params / 1e9:.3f} B parameters; GPU memory in use "
+          f"{row['memory_allocated_gb']:.2f} GB, peak {row['max_memory_allocated_gb']:.2f} GB")
+    del params, model
+    torch.cuda.empty_cache()
+    model = build_model(cfg.with_(param_dtype="float32", compute_dtype="float32",
+                                  capacity_factor=cfg.num_experts / cfg.top_k))
+    gen.manual_seed(0)
+    params = model.init(gen, "cuda")
+    b, p, steps = OLMOE_TF.values()
+    tf = teacher_forced(torch, ops, "olmoe-1b-7b f32 dropless/kernel", model, params,
+                        serve_prompts(torch, cfg.vocab_size, b, p, 5), steps, launches)
+    del params, model
+    torch.cuda.empty_cache()
+    return {"bf16": row, "f32_teacher_forcing": tf}
 
 
 def lora_run_gates(label, res, K, n_bad, n_min):
@@ -2888,6 +3219,31 @@ def lora_summary(smi, runs, trace_row, sweeps):
               f"{r['wall_s']:.3f} capture_s={r['capture_s']:.3f}")
 
 
+def serve_llm_summary(smi, rows, traced):
+    """One line a served configuration of phase V, the ring against the
+    window, the launcher's runs and the traced token, with the card's name
+    and power limit."""
+    for r in rows["smollm"] + [rows["olmoe"]["bf16"]]:
+        print(f"serve-LLM summary [{r['label']}] ({smi}): prefill_ms={r['prefill_ms']:.2f} "
+              f"decode ms/token graph={r['decode_ms_per_token_graph']:.3f} eager="
+              f"{r['decode_ms_per_token_eager']:.3f} capture_s={r['capture_s']:.3f} "
+              f"tokens/s={r['tokens_per_s_graph']:.0f} kv_cache_MB={r['kv_cache_mb']:.1f}")
+    r = rows["ring"]
+    print(f"serve-LLM summary [ring vs window, prompt {r['prompt']}] ({smi}): ring "
+          f"{r['ring_mb']:.1f} MB {r['ring_decode_ms']:.3f} ms/token, window "
+          f"{r['window_mb']:.1f} MB {r['window_decode_ms']:.3f} ms/token (eager)")
+    for r in rows["launcher"]:
+        print(f"serve-LLM summary [launcher{' --ring' if '--ring' in r['argv'] else ''}] "
+              f"({smi}): {r['lines'][-1]}")
+    if traced and traced.get("device_events"):
+        graph_ms = rows["smollm"][0]["decode_ms_per_token_graph"]   # bf16, kernel route
+        print(f"serve-LLM summary [traced bf16 token] ({smi}): wall_ms={traced['wall_ms']:.3f} "
+              f"device_busy_ms={traced['device_busy_ms']:.3f} busy_share="
+              f"{traced['device_busy_ms'] / traced['wall_ms']:.3f} device ops="
+              f"{traced['device_events']}; device ms / untraced graph ms a token = "
+              f"{traced['device_busy_ms'] / graph_ms:.3f}; phase {rows['phase_s']:.1f} s")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
@@ -2931,6 +3287,7 @@ def main() -> None:
     attn_rows = flash_attn_phase(torch, ops, ref, peaks)
     forward_rows, forward_launches = forward_phase(torch, ops)
     launches.update(forward_launches)
+    serve_llm, serve_llm_trace, serve_llm_launches = serve_llm_phase(torch, ops)
     lora_runs, lora_launches, lora_dump = lora_phase(torch, ops, min_rounds_to_block)
     fused_runs, eager_launches, fused_results = fused_phase(torch, ops, min_rounds_to_block)
     segmented = segmented_compaction_phase(torch, ops)
@@ -2944,7 +3301,9 @@ def main() -> None:
     looped, looped_launches = looped_phase(torch, ops)
     leaf, leaf_launches = leaf_layout_phase(torch, ops, min_rounds_to_block)
     traces = [profile_phase(torch), lora_trace, *forward_profile_phase(torch), *fused_traces]
-    for more in (baseline_launches, unmasked_launches, lora_launches, lora_graph_launches,
+    traces.append(serve_llm_trace)
+    for more in (serve_llm_launches, baseline_launches, unmasked_launches, lora_launches,
+                 lora_graph_launches,
                  eager_launches, graph_launches, sweep_launches, serve_launches,
                  grid_launches, looped_launches, leaf_launches):
         for kernel, count in more.items():
@@ -2982,7 +3341,7 @@ def main() -> None:
         "kernel_checks": kernel_rows, "one_launch_checks": one_launch,
         "rank_edge_checks": rank_edges, "main_path": runs,
         "baselines": baseline_runs, "unmasked": unmasked_rows, "flash_attn_checks": attn_rows,
-        "forward": forward_rows, "lora": lora_runs, "lora_round_dump": lora_dump,
+        "forward": forward_rows, "serve_llm": serve_llm, "lora": lora_runs, "lora_round_dump": lora_dump,
         "fused": fused_runs, "sweeps": sweeps, "keyed_streams": keyed,
         "gram_buckets": gram_buckets,
         "segmented_compaction": segmented, "serve": serve, "paper_grid": grid,
@@ -2995,6 +3354,7 @@ def main() -> None:
     fused_summary(smi, fused_runs, fused_traces)
     lora_summary(smi, lora_runs, lora_trace, sweeps)
     scenario_summary(smi, grid, grid_wall, looped)
+    serve_llm_summary(smi, serve_llm, serve_llm_trace)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

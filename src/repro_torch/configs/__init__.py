@@ -2,8 +2,8 @@
 published configuration; every module cites its source in its docstring.
 
 A copy of ``repro/configs``: the same ids, aliases and config data, built on
-``repro_torch.models.ModelConfig``.  Only the dense family can be built by
-``repro_torch.models.build_model`` so far.
+``repro_torch.models.ModelConfig``.  ``repro_torch.models.build_model``
+builds the dense and MoE families so far.
 """
 
 from __future__ import annotations

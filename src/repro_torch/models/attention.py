@@ -1,17 +1,28 @@
 """Memory-efficient attention in plain PyTorch (flash-style online softmax).
 
-Counterpart of ``repro/models/attention.py:51 flash_attention``: full /
-causal / prefix-LM masked attention, doubly blocked (a loop over query
-blocks, an inner loop over key blocks), so the score tensor never grows
-beyond ``(B, Hkv, G, BQ, BK)``.  GQA: q heads grouped over kv heads.
-Shapes: q (B, Lq, Hq, D), k, v (B, Lk, Hkv, D), G = Hq // Hkv.  It runs under
-autograd, so the LoRA workload trains through it.  ``sliding_window_attention``
-and ``decode_attention`` come with the serving slice (ROADMAP).
+Counterparts of ``repro/models/attention.py``:
+
+* ``flash_attention`` (``:51``): full / causal / prefix-LM masked attention,
+  doubly blocked (a loop over query blocks, an inner loop over key blocks),
+  so the score tensor never grows beyond ``(B, Hkv, G, BQ, BK)``.  It runs
+  under autograd, so the LoRA workload trains through it;
+* ``sliding_window_attention`` (``:129``): causal attention over the last
+  ``window`` keys, a static ``window + BQ`` key slice per query block of the
+  key stream left-padded by ``window``: O(L * window);
+* ``decode_attention`` (``:180``): one query token against a KV cache in
+  the linear or the ring layout.
+
+The reference computes the last two outside any Pallas kernel, so they are
+plain torch here, in f32 with the reference's masking (no
+``F.scaled_dot_product_attention``, whose masking and accumulation differ).
+GQA: q heads grouped over kv heads.  Shapes: q (B, Lq, Hq, D), k, v (B, Lk,
+Hkv, D), G = Hq // Hkv.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -81,3 +92,64 @@ def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0, q_offs
     # (nq, b, hk, g, bq, d) -> (b, nq, bq, hk, g, d) -> (b, l, hq, d)
     out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, nq * block_q, hq, d)
     return out[:, :lq].to(q.dtype)
+
+
+def sliding_window_attention(q, k, v, *, window: int, q_offset: int = 0, block_q: int = 512):
+    """Causal attention restricted to the last ``window`` keys -- O(L*window).
+
+    KV is left-padded by ``window`` (and right-padded by the query padding),
+    so each query block reads the slice ``[iq*BQ, iq*BQ + window + BQ)`` of
+    the padded stream; a key is seen when ``kpos <= qpos``, ``qpos - kpos <
+    window`` and ``kpos >= 0``."""
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    g = hq // hkv
+    block_q = min(block_q, lq)
+    pq = (-lq) % block_q
+    nq = (lq + pq) // block_q
+    qs = F.pad(q, (0, 0, 0, 0, 0, pq)).reshape(b, nq, block_q, hkv, g, d)
+    kp = F.pad(k, (0, 0, 0, 0, window, pq))
+    vp = F.pad(v, (0, 0, 0, 0, window, pq))
+    span = window + block_q
+    scale = 1.0 / (d ** 0.5)
+    dev = q.device
+    outs = []
+    for iq in range(nq):
+        start = iq * block_q
+        kb, vb = kp[:, start:start + span], vp[:, start:start + span]
+        qpos = q_offset + iq * block_q + torch.arange(block_q, device=dev)
+        kpos = q_offset + iq * block_q - window + torch.arange(span, device=dev)
+        allowed = ((kpos[None, :] <= qpos[:, None])
+                   & (qpos[:, None] - kpos[None, :] < window)
+                   & (kpos[None, :] >= 0))
+        _, l, o = _block_attend(qs[:, iq], kb, vb, allowed[None, None, None], scale)
+        outs.append(o / torch.clamp(l, min=1e-30)[..., None])  # (B,Hk,G,BQ,D)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, nq * block_q, hq, d)
+    return out[:, :lq].to(q.dtype)
+
+
+def decode_attention(q1, k_cache, v_cache, cache_len, *, window: int = 0, ring: bool = False):
+    """Single-step attention.  q1: (B, Hq, D); caches: (B, S, Hkv, D);
+    ``cache_len`` (B,) int, the positions the cache holds after this step.
+
+    Linear layout: slot ``< cache_len`` is valid, and ``>= cache_len -
+    window`` too when ``window > 0``.  ``ring=True``: the cache is a ring
+    buffer (slot ``pos % S``), every slot ``< min(cache_len, S)`` valid,
+    since every live slot lies within the window by construction.  It reads
+    nothing from the host."""
+    b, s, hkv, d = k_cache.shape
+    hq = q1.shape[1]
+    qs = q1.reshape(b, hkv, hq // hkv, d)
+    scale = 1.0 / (d ** 0.5)
+    scores = torch.einsum("bhgd,bshd->bhgs", qs.float(), k_cache.float()) * scale
+    slot = torch.arange(s, device=k_cache.device)
+    if ring:
+        valid = slot[None, :] < torch.clamp(cache_len, max=s)[:, None]
+    else:
+        valid = slot[None, :] < cache_len[:, None]
+        if window:
+            valid = valid & (slot[None, :] >= cache_len[:, None] - window)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(b, hq, d).to(q1.dtype)

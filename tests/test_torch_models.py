@@ -182,18 +182,11 @@ def test_config_registry_is_a_copy_of_jax():
     assert dataclasses.asdict(red) == dataclasses.asdict(jax_get_config("smollm-135m").reduced())
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-1.3b", "zamba2-1.2b",
-                                  "paligemma-3b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b", "paligemma-3b",
+                                  "hubert-xlarge"])
 def test_other_families_raise_with_the_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_config(arch))
-
-
-def test_serving_entry_points_raise():
-    model = build_model(ModelConfig(**TINY))
-    for fn in (model.prefill, model.decode_step, model.init_cache):
-        with pytest.raises(NotImplementedError, match="serving slice"):
-            fn()
 
 
 def test_bf16_params_convert_through_float32():
