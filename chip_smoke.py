@@ -51,8 +51,11 @@
    smollm-135m shape (B = 4, L = 2048, Hq = 9, Hkv = 3, D = 64, causal), at
    the JAX package's test shapes (causal and full, Lq != Lk included), at
    one more causal Lq != Lk case, at olmoe-1b-7b's two prefill shapes of
-   step 8 (D = 128, 16/16 heads) and at the element-load cases (D not a
-   multiple of the elements in 16 bytes, a pointer off 16 bytes), each in
+   step 8 (D = 128, 16/16 heads), at zamba2-1.2b's shared-block prefill
+   (B = 4 x 2,048, 32/32 heads, D = 64, causal) and hubert-xlarge's encoder
+   (B = 2 x 2,048, 16/16 heads, D = 80, full) of step 9, and at the
+   element-load cases (D not a multiple of the elements in 16 bytes, a
+   pointer off 16 bytes), each in
    f32, bf16 and f16: the exact-softmax twin within 2e-4 (f32), 2e-2 (bf16)
    and 2.5e-3 (f16); the f32 kernel (3xTF32) also within ``TF32_ATTN_RTOL``
    max |v| of ``flash_attention_3xtf32_ref``, the bf16/f16 kernel within
@@ -88,7 +91,29 @@
    a plain-route forward by teacher forcing (olmoe's two prefill shapes are
    also ``ATTN_SHAPES`` cases of step 6); and the launcher ``SERVE_CLI``, linear and
    ``--ring``, each exiting 0 with the reference's last line;
-9. runs federated LoRA fine-tuning of smollm-135m (rank 4 on wq/wk/wv/wo,
+9. runs the registry's other families at full width and depth (phase Y,
+   random weights from seed 0): mamba2-1.3b in bf16 served through
+   ``generate`` (``MAMBA_SERVE``: B = 4, prompt 2,048, 64 tokens; graph =
+   eager bit for bit in tokens, final logits, SSM state and conv window;
+   no flash launch; an eager decode step under sync debug mode 'error'; one
+   traced graph-replayed token), then f32 decode = teacher forcing
+   (``FAMILY_TF``); zamba2-1.2b in bf16 served on both attention routes
+   (6 ``flash_attn_tc`` launches a kernel-route prefill, the shared block's,
+   none in decode) and from the ring cache past its window of 4,096
+   (``ZAMBA_RING``; graph = eager), f32 prefills on both routes
+   (``logits_last`` within 2e-3, 6 ``flash_attn``), f32 teacher forcing and
+   ring = window decode past the window; paligemma-3b in bf16 with 256
+   patch embeddings before a 512-token prompt (``PALI_SERVE``; the kernel
+   asked for, the prefix-LM mask keeps every layer on the plain attention:
+   0 flash launches; graph = eager), then f32 teacher forcing
+   (``PALI_TF``); hubert-xlarge's forward and loss at B = 2 x 2,048 frames
+   in bf16 and f32 on both routes (48 non-causal flash launches a
+   kernel-route forward, f32 logits within 2e-3, the last frame zeroed
+   moves the first frame's logits); prefill ms, decode ms a token (graph
+   and eager), capture s, tokens/s and cache and SSM-state MB (zamba2's
+   shared blocks' and hubert's shapes are also ``ATTN_SHAPES`` cases of
+   step 6);
+10. runs federated LoRA fine-tuning of smollm-135m (rank 4 on wq/wk/wv/wo,
    D_adapter = 460,800; 6 clients, 2 byzantine, 8 rounds) through
    ``repro_torch.fed.api.run`` on the AFA gram/fused kernel route and on the
    plain route, each on the fused engine as ``simulate_llm`` runs it (the six
@@ -102,7 +127,7 @@
    screening pass's tail threshold is printed, on the kernel's Gram and on
    ``U @ U.T`` (ROADMAP C.6: a benign client sits within f32 rounding of it
    there, so the routes' ``good_mask`` is not compared);
-10. runs the paper's experiment (step 4's configuration) through ``run`` on
+11. runs the paper's experiment (step 4's configuration) through ``run`` on
    the fused engines (``FUSED_ROUTES``: the three AFA kernel routes, the
    plain route, comed's and trimmed_mean's kernel routes), each with
    ``engine="fused"`` (one round captured as a CUDA graph and replayed) and
@@ -118,11 +143,11 @@
    rows after round 6, bit for bit on the two gram kernel routes, the
    plain routes reported; and 200 clients with 40 % byzantine once, its
    blocking reported;
-11. traces three rounds of the paper DNN's gram/fused route and one bf16
+12. traces three rounds of the paper DNN's gram/fused route and one bf16
    and one f32 forward of smollm-135m on the kernel route with
    ``torch.profiler`` (device busy share, the kernels that take the time),
    one ``engine="fused"`` run of each ``FUSED_ROUTES`` route, the segmented
-   run and one LoRA run of step 9's gram/fused route (each of the route's
+   run and one LoRA run of step 10's gram/fused route (each of the route's
    kernels exactly its count a round times the rounds the run executed:
    its warm-up rounds, which the wrappers count, and the T replayed ones,
    which only the trace sees; from the first replayed round on exactly T
@@ -132,13 +157,13 @@
    ``run(..., seeds=)``: one capture a sweep, every seed replaying it) on
    gram/fused and the plain route, and on gram/fused in 2-round segments
    compacted on the union of the clients live in any seed: the row of seed
-   0 equal to step 10's ``engine="fused"`` run bit for bit, segmented =
+   0 equal to step 11's ``engine="fused"`` run bit for bit, segmented =
    unsegmented bit for bit, every seed blocking the 3 byzantine clients in
    round 6, each seed's detection rate and mean rounds to block printed;
-12. drives the serve tier (``repro_torch.serve``) at step 4's configuration:
+13. drives the serve tier (``repro_torch.serve``) at step 4's configuration:
    ``run_serve_replay`` with the default ``ServeConfig`` on gram/fused,
    gram/chained, iterative and the plain route, each equal bit for bit to
-   the route's ``engine="fused"`` run of step 10 (test error, blocked rounds,
+   the route's ``engine="fused"`` run of step 11 (test error, blocked rounds,
    good_mask history), with step 4's outcome gates, no rejection and each
    kernel route's kernels launched; then ``run_traffic`` on gram/fused
    (``SERVE_ASYNC``, ``SERVE_TRAFFIC``, 20 rounds), twice: exactly the
@@ -147,7 +172,7 @@
    each aggregation step, cohort propose and submit, the host-device bytes
    of a round, the copies' times and the busy share of 8 traced replay
    rounds;
-13. runs the paper's Tables 1 and 2 at the published widths (``GRID_DATA``:
+14. runs the paper's Tables 1 and 2 at the published widths (``GRID_DATA``:
    MNIST-like 784 x 512 x 256 x 10, D = 535,818, and Spambase-like 54 x 100
    x 50 x 1, D = 10,601; 10 clients of which 3 bad, 8 rounds): clean,
    byzantine, flipping and noisy under AFA gram/fused, AFA on the plain
@@ -165,20 +190,20 @@
    the plain route's, its margins a pass printed; then AFA
    gram/fused with ``engine="fused"`` against ``"fused_eager"`` under
    byzantine and noisy on both datasets, graph = eager bit for bit;
-14. runs ``MAIN_SIM`` and its noisy scenario with ``engine="looped"`` (one
+15. runs ``MAIN_SIM`` and its noisy scenario with ``engine="looped"`` (one
    client at a time) against ``"batched"`` on gram/fused: equal good_mask
    histories and blocked rounds, test error within 0.5 pp, ms a round of
    each;
-15. runs ``MAIN_SIM`` on the leaf layout (``KernelPlan(mode="cuda",
+16. runs ``MAIN_SIM`` on the leaf layout (``KernelPlan(mode="cuda",
    layout="leaf")``, AFA's tree form, both variants): byzantine blocked in
    round 6 with no AFA kernel launched; then one ``server_step`` on round
    3's recorded proposals on the leaf and the tree layouts: AFA's good_mask
    equal and its aggregate within rtol 2e-5 / atol 2e-6, fa, mkrum and
    comed bit for bit, each launching its kernel on the leaf layout;
-16. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+17. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
-   serve-LLM, sweep, serve, grid, looped and leaf phases and, for the fused engine's
-   graph runs (the DNN's and LoRA's), the calls that step 11's traces
+   serve-LLM, families, sweep, serve, grid, looped and leaf phases and, for the fused engine's
+   graph runs (the DNN's and LoRA's), the calls that step 12's traces
    executed.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
@@ -292,6 +317,10 @@ ATTN_SHAPES = [  # the JAX package's tests/test_kernels.py:200-205, then Lq > Lk
     # olmoe-1b-7b's prefills in phase V: bf16 B = 2 x 512, f32 1 x 256
     ((2, 512, 512, 16, 16, 128), (True,)),
     ((1, 256, 256, 16, 16, 128), (True,)),
+    # phase Y: zamba2-1.2b's shared block in a B = 4 x 2,048 prefill, and
+    # hubert-xlarge's encoder at B = 2 x 2,048 frames (D = 80 in the 128 template)
+    ((4, 2048, 2048, 32, 32, 64), (True,)),
+    ((2, 2048, 2048, 16, 16, 80), (False,)),
 ]
 ATTN_TOL = {"float32": 2e-4,   # tests/test_kernels.py:219 holds the Pallas kernel to it
             "bfloat16": 2e-2,  # bf16 output rounding (8 mantissa bits)
@@ -326,6 +355,15 @@ SERVE_TF_TOL = (2e-3, 5e-3)                    # logits_last, each decode step
 SERVE_RING = dict(B=2, P=8192 + 320, gen=32)   # l >= w and l % w != 0: the roll runs
 OLMOE_SERVE = dict(B=2, P=512, gen=32)
 OLMOE_TF = dict(B=1, P=256, steps=8)
+# the families phase (Y): the registry's SSM, hybrid, VLM and audio models at
+# full width and depth, random weights from seed 0; served shapes as phase V's
+MAMBA_SERVE = dict(B=4, P=2048, gen=64)        # no attention: the SSM cache only
+ZAMBA_SERVE = dict(B=4, P=2048, gen=64)        # 6 shared-block KV caches of 2,112 slots
+FAMILY_TF = dict(B=1, P=512, steps=16)         # f32 decode = teacher forcing
+ZAMBA_RING = dict(B=1, P=4096 + 256, gen=16)   # past zamba2's window of 4,096, roll 256
+PALI_SERVE = dict(B=2, P=512, gen=32)          # after paligemma's 256 patches
+PALI_TF = dict(B=1, P=128, steps=8)
+HUBERT_FWD = dict(B=2, L=2048)                 # frames
 SERVE_CLI = ["--arch", "smollm-135m", "--requests", "8", "--batch", "4",
              "--prompt-len", "2048", "--gen", "64"]
 # the LoRA phase's run: smollm-135m at full width, 2 of 6 clients byzantine
@@ -1530,16 +1568,28 @@ def beyond(torch, a, b, tol) -> float:
     return float(((a - b).abs() - tol - tol * b.abs()).max())
 
 
-def cache_mb(cache) -> float:
-    return sum(t.numel() * t.element_size() for t in cache["layers"]) / 1e6
+def leaves(tree) -> list:
+    """The tensors of a tree of dicts and tuples (a cache), in order."""
+    if isinstance(tree, dict):
+        return [t for k in tree for t in leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in leaves(x)]
+    return [tree]
+
+
+def cache_mb(cache, part=None) -> float:
+    """MB of a serving cache without its positions, or of one ``part``
+    (``"shared"``, or an SSM stack's ``"state"``)."""
+    tree = {k: v for k, v in cache.items() if k != "pos"} if part is None else (
+        cache["layers"]["state"] if part == "state" else cache[part])
+    return sum(t.numel() * t.element_size() for t in leaves(tree)) / 1e6
 
 
 def same_generation(torch, a, b) -> bool:
     """Two ``generate`` results equal bit for bit: tokens, final logits,
-    final cache."""
+    final cache (every tensor of its tree)."""
     return (torch.equal(a.tokens, b.tokens) and torch.equal(a.logits, b.logits)
-            and all(torch.equal(x, y) for x, y in zip(a.cache["layers"], b.cache["layers"]))
-            and torch.equal(a.cache["pos"], b.cache["pos"]))
+            and all(torch.equal(x, y) for x, y in zip(leaves(a.cache), leaves(b.cache))))
 
 
 def serve_prompts(torch, vocab: int, b: int, p: int, seed: int):
@@ -1548,31 +1598,42 @@ def serve_prompts(torch, vocab: int, b: int, p: int, seed: int):
     return torch.randint(0, vocab, (b, p), generator=gen, device="cuda")
 
 
-def served(torch, ops, label, model, params, prompts, *, gen, key, launches):
+def served(torch, ops, label, model, params, prompts, *, gen, key, launches, want=None,
+           patches=None, ring=False):
     """One batch through ``generate`` replayed as a graph and eagerly, after
     one prefill of the same prompts alone: graph = eager bit for bit,
-    exactly L flash launches a prefill on the kernel route (the eager run's
-    decode steps launch eagerly, so a flash call there would show), none on
-    the plain route.  Returns the row, the lone prefill's logits, the eager
-    run and the graph's programs."""
+    exactly ``want`` flash launches a prefill (default: L on the kernel
+    route, none on the plain one; the eager run's decode steps launch
+    eagerly, so a flash call there would show).  A VLM's ``patches`` go
+    before the prompts, its linear cache holding them too.  ``ring`` serves
+    from the ring cache of the config's window (a windowed prefill, no
+    flash launch).  Returns the row,
+    the lone prefill's logits, the eager run and the graph's programs."""
     from repro_torch.launch.serve import generate
 
     cfg = model.config
     b, p = prompts.shape
-    want = cfg.num_layers if cfg.use_pallas_attention else 0
+    if want is None:
+        want = cfg.num_layers if cfg.use_pallas_attention else 0
+    batch = {"tokens": prompts} if patches is None else {"tokens": prompts,
+                                                         "patch_embeds": patches}
+    size = p + gen + (0 if patches is None else patches.shape[1])
+    if ring:
+        size, want = cfg.sliding_window, 0
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits_last = model.prefill(params, {"tokens": prompts}, cache_size=p + gen)[0]
+    logits_last = model.prefill(params, batch, cache_size=size, use_window=ring)[0]
     torch.cuda.synchronize()
     prefill_s = [time.perf_counter() - t0]
     launches[key] += ops.LAUNCH_COUNTS[key]
     runs, programs = {}, {}
     for mode in ("graph", "eager"):
         ops.reset_launch_counts()
-        runs[mode] = generate(model, params, prompts, gen=gen, ring=False, cache_size=p + gen,
+        runs[mode] = generate(model, params, prompts, gen=gen, ring=ring, cache_size=size,
                               graph=mode == "graph",
-                              programs=programs if mode == "graph" else None)
+                              programs=programs if mode == "graph" else None,
+                              patch_embeds=patches)
         counts = {n: c for n, c in ops.LAUNCH_COUNTS.items() if c}
         if counts != ({key: want} if want else {}):
             raise AssertionError(f"serve [{label}] {mode}: launches {counts}, expected "
@@ -1589,28 +1650,34 @@ def served(torch, ops, label, model, params, prompts, *, gen, key, launches):
     # the median of three prefills: the lone one pays the configuration's
     # first use (cuBLAS handles, the allocator's new blocks)
     prefill_ms = sorted(prefill_s + [tg["prefill_s"], te["prefill_s"]])[1] * 1e3
-    row = {"label": label, "B": b, "prompt": p, "gen": gen, "prefill_ms": prefill_ms,
+    row = {"label": label, "B": b, "prompt": p, "gen": gen, "ring": ring, "cache_slots": size,
+           "prefill_ms": prefill_ms,
            "prefill_ms_first": prefill_s[0] * 1e3, "capture_s": tg["capture_s"],
            "decode_ms_per_token_graph": tg["decode_s"] / steps * 1e3,
            "decode_ms_per_token_eager": te["decode_s"] / steps * 1e3,
            "decode_tokens_per_s_graph": b * steps / tg["decode_s"],
            "tokens_per_s_graph": b * gen / (prefill_ms / 1e3 + tg["decode_s"]),
            "kv_cache_mb": cache_mb(g.cache), "prefill_flash_launches": want}
-    print(f"serve [{label}] B={b} prompt={p} gen={gen}: prefill_ms={row['prefill_ms']:.2f} "
+    if isinstance(g.cache["layers"], dict):
+        row["ssm_state_mb"] = cache_mb(g.cache, "state")
+    print(f"serve [{label}] B={b} prompt={p} gen={gen} {'ring' if ring else 'linear'} cache of "
+          f"{size} slots: prefill_ms={row['prefill_ms']:.2f} "
           f"(first {row['prefill_ms_first']:.2f}) "
           f"decode ms/token graph={row['decode_ms_per_token_graph']:.3f} eager="
           f"{row['decode_ms_per_token_eager']:.3f} capture_s={row['capture_s']:.3f} "
           f"tokens/s={row['tokens_per_s_graph']:.0f} (decode "
-          f"{row['decode_tokens_per_s_graph']:.0f}) kv_cache_MB={row['kv_cache_mb']:.1f} "
+          f"{row['decode_tokens_per_s_graph']:.0f}) cache_MB={row['kv_cache_mb']:.1f} "
+          + (f"(SSM state {row['ssm_state_mb']:.1f}) " if "ssm_state_mb" in row else "") +
           f"{key} launches/prefill={want}; graph = eager bit for bit")
     return row, logits_last, e, programs
 
 
-def teacher_forced(torch, ops, label, model, params, prompts, steps, launches):
+def teacher_forced(torch, ops, label, model, params, prompts, steps, launches, want=None,
+                   patches=None):
     """Prefill, then ``steps`` decode steps fed the next tokens, against a
     forward over the whole sequence on the plain attention route, at
-    ``SERVE_TF_TOL``; on the kernel route exactly L flash launches, all in
-    the prefill."""
+    ``SERVE_TF_TOL``; on the kernel route exactly ``want`` flash launches
+    (default L), all in the prefill.  A VLM's ``patches`` go first."""
     from repro_torch.models import build_model
 
     b, p = prompts.shape
@@ -1618,16 +1685,20 @@ def teacher_forced(torch, ops, label, model, params, prompts, steps, launches):
     key = "flash_attn" if cfg.cdtype == torch.float32 else "flash_attn_tc"
     extra = serve_prompts(torch, cfg.vocab_size, b, steps, 7)
     plain = build_model(cfg.with_(use_pallas_attention=False))
-    full = plain.forward(params, {"tokens": torch.cat([prompts, extra], dim=1)})
+    batch, at = {"tokens": prompts}, p
+    if patches is not None:
+        batch["patch_embeds"], at = patches, p + patches.shape[1]
+    full = plain.forward(params, dict(batch, tokens=torch.cat([prompts, extra], dim=1)))
     ops.reset_launch_counts()
-    lp, cache = model.prefill(params, {"tokens": prompts}, cache_size=p + steps)
-    worst = [beyond(torch, lp, full[:, p - 1], SERVE_TF_TOL[0])]
-    diffs = [float((lp - full[:, p - 1]).abs().max())]
+    lp, cache = model.prefill(params, batch, cache_size=at + steps)
+    worst = [beyond(torch, lp, full[:, at - 1], SERVE_TF_TOL[0])]
+    diffs = [float((lp - full[:, at - 1]).abs().max())]
     for t in range(steps):
         logits, cache = model.decode_step(params, cache, extra[:, t])
-        worst.append(beyond(torch, logits, full[:, p + t], SERVE_TF_TOL[1]))
-        diffs.append(float((logits - full[:, p + t]).abs().max()))
-    want = cfg.num_layers if cfg.use_pallas_attention else 0
+        worst.append(beyond(torch, logits, full[:, at + t], SERVE_TF_TOL[1]))
+        diffs.append(float((logits - full[:, at + t]).abs().max()))
+    if want is None:
+        want = cfg.num_layers if cfg.use_pallas_attention else 0
     counts = {n: c for n, c in ops.LAUNCH_COUNTS.items() if c}
     if counts != ({key: want} if want else {}):
         raise AssertionError(f"serve [{label}]: launches {counts}, expected {want} {key}")
@@ -1641,13 +1712,13 @@ def teacher_forced(torch, ops, label, model, params, prompts, steps, launches):
             "max_abs_diff_steps": max(diffs[1:])}
 
 
-def ring_vs_window(torch, ops, model, params):
-    """``SERVE_RING``: greedy decoding from the ring cache (``cache_size`` =
-    the window) against the windowed linear cache (``use_window=True``, the
-    prompt and every decoded position in slots), logits each step within
-    ``SERVE_TF_TOL[1]``, tokens equal."""
+def ring_vs_window(torch, ops, model, params, shape=SERVE_RING):
+    """``shape`` (default ``SERVE_RING``): greedy decoding from the ring
+    cache (``cache_size`` = the window) against the windowed linear cache
+    (``use_window=True``, the prompt and every decoded position in slots),
+    logits each step within ``SERVE_TF_TOL[1]``, tokens equal."""
     cfg = model.config
-    w, (b, p, gen) = cfg.sliding_window, SERVE_RING.values()
+    w, (b, p, gen) = cfg.sliding_window, shape.values()
     prompts = serve_prompts(torch, cfg.vocab_size, b, p, 3)
     out = {}
     ops.reset_launch_counts()
@@ -1677,7 +1748,7 @@ def ring_vs_window(torch, ops, model, params):
         raise AssertionError(f"serve [ring]: ring decode != window decode past the window "
                              f"(max |logit diff| {diff}, tokens equal "
                              f"{torch.equal(r['tokens'], v['tokens'])})")
-    print(f"serve [ring vs window] smollm-135m f32 B={b} prompt={p} (window {w}, roll "
+    print(f"serve [ring vs window] {cfg.name} f32 B={b} prompt={p} (window {w}, roll "
           f"{p % w}) gen={gen}: max |logit diff|={diff:.3e}, tokens equal; ring cache "
           f"{r['mb']:.1f} MB prefill_ms={r['prefill_ms']:.1f} decode ms/token (eager)="
           f"{r['decode_ms']:.3f}; window cache {v['mb']:.1f} MB prefill_ms="
@@ -1738,13 +1809,7 @@ def serve_llm_phase(torch, ops):
                     torch, ops, f"smollm-135m {dname}/{route}", model, params, prompts, gen=gen,
                     key=key, launches=launches)
                 # one eager decode step into the cache's last slot, P + gen - 1
-                torch.cuda.synchronize()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    model.decode_step(params, e.cache, e.tokens[:, -1])
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-                torch.cuda.synchronize()
+                sync_free_step(torch, model, params, e, f"smollm-135m {dname}/{route}")
                 rows["smollm"].append(row)
                 if (dname, route) == ("bf16", "kernel"):
                     prog = next(iter(programs.values()))
@@ -1761,7 +1826,7 @@ def serve_llm_phase(torch, ops):
             diff = float((last["kernel"] - last["plain"]).abs().max())
             rows["smollm"][-2]["logits_last_max_abs_diff_to_plain"] = diff
             print(f"serve [smollm-135m {dname}] logits_last kernel vs plain: max |diff|="
-                  f"{diff:.3e}; an eager decode step ran under sync debug mode 'error'")
+                  f"{diff:.3e}")
             if dname == "f32" and beyond(torch, last["kernel"], last["plain"], FWD_TOL) > 0:
                 raise AssertionError(f"serve f32: kernel-route prefill logits beyond atol = "
                                      f"rtol = {FWD_TOL} of the plain route's (max {diff})")
@@ -1815,6 +1880,249 @@ def olmoe_serving(torch, ops, launches):
     del params, model
     torch.cuda.empty_cache()
     return {"bf16": row, "f32_teacher_forcing": tf}
+
+
+def family_model(torch, arch: str, **kw):
+    """``arch``'s full config (with ``kw``), its model and random weights
+    from seed 0 on the card, in the published dtype."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).with_(**kw)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = build_model(cfg)
+    return model, model.init(gen, "cuda")
+
+
+def sync_free_step(torch, model, params, run, label):
+    """One eager decode step on a finished run's cache (its last slot)
+    under ``torch.cuda.set_sync_debug_mode("error")``: it reads nothing from
+    the host."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(params, run.cache, run.tokens[:, -1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"serve [{label}] an eager decode step ran under sync debug mode 'error'")
+
+
+def patch_embeds(torch, cfg, b: int, seed: int):
+    """A VLM's stubbed SigLIP output: (B, prefix_len, frontend_dim) normals."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.randn((b, cfg.prefix_len, cfg.frontend_dim), generator=gen, device="cuda")
+
+
+def mamba_serving(torch, ops, launches):
+    """mamba2-1.3b: bf16 served (``MAMBA_SERVE``, graph = eager bit for bit
+    in tokens, logits, state and conv window, no flash launch), an eager
+    step without a host sync, one traced replayed token; f32 teacher
+    forcing (``FAMILY_TF``)."""
+    from repro_torch.models import build_model
+
+    model, params = family_model(torch, "mamba2-1.3b")
+    cfg = model.config
+    b, p, gen = MAMBA_SERVE.values()
+    prompts = serve_prompts(torch, cfg.vocab_size, b, p, 11)
+    row, _, e, programs = served(torch, ops, "mamba2-1.3b bf16", model, params, prompts,
+                                 gen=gen, key="flash_attn_tc", launches=launches)
+    sync_free_step(torch, model, params, e, "mamba2-1.3b bf16")
+    prog = next(iter(programs.values()))
+    traced = trace(torch, "mamba2-1.3b bf16 decode token, graph replay",
+                   lambda: prog.run() or {}, 1)
+    del e, programs, prog
+    cfg32, p32 = as_f32(cfg, params)
+    del params
+    b, p, steps = FAMILY_TF.values()
+    tf = teacher_forced(torch, ops, "mamba2-1.3b f32", build_model(cfg32), p32,
+                        serve_prompts(torch, cfg.vocab_size, b, p, 12), steps, launches)
+    return row, tf, traced
+
+
+def zamba_serving(torch, ops, launches):
+    """zamba2-1.2b: bf16 served on the kernel and the plain route
+    (``ZAMBA_SERVE``: 6 ``flash_attn_tc`` launches a kernel-route prefill,
+    the shared block's, none in decode; graph = eager) and from the ring
+    cache (``ZAMBA_RING``, graph = eager); f32 prefills on
+    both routes (``logits_last`` within ``FWD_TOL``, 6 ``flash_attn``); f32
+    teacher forcing; ring = window past the window (``ZAMBA_RING``)."""
+    from repro_torch.models import build_model
+
+    from repro_torch.models.model import hybrid_segments
+
+    model, params = family_model(torch, "zamba2-1.2b")
+    cfg = model.config
+    nseg = hybrid_segments(cfg)[0]
+    b, p, gen = ZAMBA_SERVE.values()
+    prompts = serve_prompts(torch, cfg.vocab_size, b, p, 13)
+    rows = []
+    for route, pallas in (("kernel", True), ("plain", False)):
+        m = build_model(cfg.with_(use_pallas_attention=pallas))
+        row, _, e, _ = served(torch, ops, f"zamba2-1.2b bf16/{route}", m, params, prompts,
+                              gen=gen, key="flash_attn_tc", launches=launches,
+                              want=nseg if pallas else 0)
+        row["shared_kv_cache_mb"] = cache_mb(e.cache, "shared")
+        if pallas:
+            sync_free_step(torch, m, params, e, "zamba2-1.2b bf16/kernel")
+        rows.append(row)
+        del e
+    # the ring: the shared blocks' caches of 4,096 slots, decoded past the window
+    b, p, gen = ZAMBA_RING.values()
+    row, _, e, _ = served(torch, ops, "zamba2-1.2b bf16 ring", m, params,
+                          serve_prompts(torch, cfg.vocab_size, b, p, 20), gen=gen,
+                          key="flash_attn_tc", launches=launches, ring=True)
+    row["shared_kv_cache_mb"] = cache_mb(e.cache, "shared")
+    rows.append(row)
+    del e, m
+    b, p, gen = ZAMBA_SERVE.values()
+    cfg32, p32 = as_f32(cfg, params)
+    del params
+    last = {}
+    for route, pallas in (("kernel", True), ("plain", False)):
+        ops.reset_launch_counts()
+        last[route] = build_model(cfg32.with_(use_pallas_attention=pallas)).prefill(
+            p32, {"tokens": prompts}, cache_size=p + gen)[0]
+        counts = {n: c for n, c in ops.LAUNCH_COUNTS.items() if c}
+        if counts != ({"flash_attn": nseg} if pallas else {}):
+            raise AssertionError(f"zamba2-1.2b f32 {route} prefill launched {counts}")
+        launches["flash_attn"] += counts.get("flash_attn", 0)
+    diff = float((last["kernel"] - last["plain"]).abs().max())
+    print(f"serve [zamba2-1.2b f32] logits_last kernel vs plain: max |diff|={diff:.3e}")
+    if beyond(torch, last["kernel"], last["plain"], FWD_TOL) > 0:
+        raise AssertionError(f"zamba2-1.2b f32: kernel-route prefill logits beyond atol = "
+                             f"rtol = {FWD_TOL} of the plain route's (max {diff})")
+    rows[0]["f32_logits_last_max_abs_diff_to_plain"] = diff
+    model32 = build_model(cfg32.with_(use_pallas_attention=True))
+    b, p, steps = FAMILY_TF.values()
+    tf = teacher_forced(torch, ops, "zamba2-1.2b f32/kernel", model32, p32,
+                        serve_prompts(torch, cfg.vocab_size, b, p, 14), steps, launches,
+                        want=nseg)
+    ring = ring_vs_window(torch, ops, model32, p32, ZAMBA_RING)
+    return rows, tf, ring
+
+
+def paligemma_serving(torch, ops, launches):
+    """paligemma-3b with the kernel asked for: the prefix-LM mask keeps
+    every layer on the plain attention (0 flash launches); bf16 served with
+    its 256 patches (``PALI_SERVE``, graph = eager), an eager step without
+    a host sync; f32 teacher forcing (``PALI_TF``)."""
+    from repro_torch.models import build_model
+
+    model, params = family_model(torch, "paligemma-3b", use_pallas_attention=True)
+    cfg = model.config
+    b, p, gen = PALI_SERVE.values()
+    prompts = serve_prompts(torch, cfg.vocab_size, b, p, 15)
+    row, _, e, _ = served(torch, ops, "paligemma-3b bf16", model, params, prompts, gen=gen,
+                          key="flash_attn_tc", launches=launches, want=0,
+                          patches=patch_embeds(torch, cfg, b, 16))
+    row["prefix"] = cfg.prefix_len
+    sync_free_step(torch, model, params, e, "paligemma-3b bf16")
+    del e
+    cfg32, p32 = as_f32(cfg, params)
+    del params
+    b, p, steps = PALI_TF.values()
+    tf = teacher_forced(torch, ops, "paligemma-3b f32", build_model(cfg32), p32,
+                        serve_prompts(torch, cfg.vocab_size, b, p, 17), steps, launches,
+                        want=0, patches=patch_embeds(torch, cfg, b, 18))
+    return row, tf
+
+
+def hubert_forwards(torch, ops, launches):
+    """hubert-xlarge, an encoder: forward and loss at ``HUBERT_FWD`` frames
+    in bf16 and f32 on both attention routes (48 non-causal flash launches
+    a forward on the kernel route, none on the plain one; f32 logits within
+    ``FWD_TOL``); a late frame zeroed changes the first frame's logits."""
+    from repro_torch.models import build_model
+
+    model, params = family_model(torch, "hubert-xlarge")
+    cfg = model.config
+    b, l = HUBERT_FWD.values()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    frames = torch.randn((b, l, cfg.frontend_dim), generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (b, l), generator=gen, device="cuda")
+    batch = {"frame_embeds": frames, "labels": labels}
+    rows, logits = [], {}
+    for dname, (c, ps) in (("bf16", (cfg, params)), ("f32", as_f32(cfg, params))):
+        key = "flash_attn" if dname == "f32" else "flash_attn_tc"
+        for route, pallas in (("kernel", True), ("plain", False)):
+            m = build_model(c.with_(use_pallas_attention=pallas))
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                out = m.forward(ps, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                counts = {n: x for n, x in ops.LAUNCH_COUNTS.items() if x}
+                if counts != ({key: cfg.num_layers} if pallas else {}):
+                    raise AssertionError(f"hubert-xlarge {dname}/{route}: forward launched "
+                                         f"{counts}")
+                launches[key] += counts.get(key, 0)
+            ops.reset_launch_counts()
+            loss, met = m.loss_fn(ps, batch)
+            launches[key] += ops.LAUNCH_COUNTS[key]
+            if (out.shape != (b, l, cfg.vocab_size) or not torch.isfinite(out).all()
+                    or not torch.isfinite(loss)):
+                raise AssertionError(f"hubert-xlarge {dname}/{route}: logits or loss not "
+                                     "finite of their shapes")
+            ms = sorted(times)[1] * 1e3
+            logits[(dname, route)] = out
+            rows.append({"dtype": dname, "route": route, "ms": ms, "loss": float(loss),
+                         "frames_per_s": b * l / (ms / 1e3),
+                         "launches_per_forward": cfg.num_layers if pallas else 0})
+            print(f"forward [hubert-xlarge {dname}/{route}] B={b} L={l} frames: ms={ms:.2f} "
+                  f"frames/s={b * l / (ms / 1e3):.0f} loss={float(loss):.4f} {key} "
+                  f"launches/forward={cfg.num_layers if pallas else 0}")
+    a, c = logits[("f32", "kernel")], logits[("f32", "plain")]
+    diff = float((a - c).abs().max())
+    rows[2]["max_abs_diff_to_plain"] = diff
+    if beyond(torch, a, c, FWD_TOL) > 0:
+        raise AssertionError(f"hubert-xlarge f32: kernel-route logits beyond {FWD_TOL} of the "
+                             f"plain route's (max {diff})")
+    cfg32, p32 = as_f32(cfg, params)
+    late = dict(batch, frame_embeds=frames.clone())
+    late["frame_embeds"][:, -1] = 0.0
+    ops.reset_launch_counts()
+    moved = float((build_model(cfg32.with_(use_pallas_attention=True)).forward(p32, late)[:, 0]
+                   - a[:, 0]).abs().max())
+    launches["flash_attn"] += ops.LAUNCH_COUNTS["flash_attn"]
+    if not moved > 1e-6:
+        raise AssertionError(f"hubert-xlarge: zeroing the last frame moved the first frame's "
+                             f"logits by {moved}: the encoder is not bidirectional")
+    print(f"forward [hubert-xlarge f32] kernel vs plain max |logit diff|={diff:.3e}; the last "
+          f"frame zeroed moves the first frame's logits by {moved:.3e}")
+    return rows
+
+
+def families_phase(torch, ops):
+    """The SSM, hybrid, VLM and audio families at full width and depth
+    (phase Y): mamba2-1.3b, zamba2-1.2b and paligemma-3b served through
+    ``generate``, hubert-xlarge's forwards; returns the rows, the traced
+    mamba token and the flash launches of the phase."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {"flash_attn": 0, "flash_attn_tc": 0}
+    rows = {"teacher_forcing": []}
+    with torch.no_grad():
+        rows["mamba"], tf, traced = mamba_serving(torch, ops, launches)
+        rows["teacher_forcing"].append(tf)
+        torch.cuda.empty_cache()
+        rows["zamba"], tf, rows["zamba_ring"] = zamba_serving(torch, ops, launches)
+        rows["teacher_forcing"].append(tf)
+        torch.cuda.empty_cache()
+        rows["paligemma"], tf = paligemma_serving(torch, ops, launches)
+        rows["teacher_forcing"].append(tf)
+        torch.cuda.empty_cache()
+        rows["hubert"] = hubert_forwards(torch, ops, launches)
+        torch.cuda.empty_cache()
+    rows["phase_s"] = time.perf_counter() - t_phase
+    print(f"families phase: {rows['phase_s']:.1f} s, flash launches {launches}")
+    return rows, traced, launches
 
 
 def lora_run_gates(label, res, K, n_bad, n_min):
@@ -3244,6 +3552,31 @@ def serve_llm_summary(smi, rows, traced):
               f"{traced['device_busy_ms'] / graph_ms:.3f}; phase {rows['phase_s']:.1f} s")
 
 
+def families_summary(smi, rows, traced):
+    """One line a served configuration of phase Y, zamba2's ring against its
+    window, hubert's forwards and the traced mamba token, with the card's
+    name and power limit."""
+    for r in [rows["mamba"], *rows["zamba"], rows["paligemma"]]:
+        print(f"families summary [{r['label']}] ({smi}): prefill_ms={r['prefill_ms']:.2f} "
+              f"decode ms/token graph={r['decode_ms_per_token_graph']:.3f} eager="
+              f"{r['decode_ms_per_token_eager']:.3f} capture_s={r['capture_s']:.3f} "
+              f"tokens/s={r['tokens_per_s_graph']:.0f} cache_MB={r['kv_cache_mb']:.1f}"
+              + (f" SSM_state_MB={r['ssm_state_mb']:.1f}" if "ssm_state_mb" in r else ""))
+    r = rows["zamba_ring"]
+    print(f"families summary [zamba2-1.2b ring vs window, prompt {r['prompt']}] ({smi}): ring "
+          f"{r['ring_mb']:.1f} MB {r['ring_decode_ms']:.3f} ms/token, window "
+          f"{r['window_mb']:.1f} MB {r['window_decode_ms']:.3f} ms/token (eager)")
+    for r in rows["hubert"]:
+        print(f"families summary [hubert-xlarge {r['dtype']}/{r['route']}] ({smi}): forward "
+              f"ms={r['ms']:.2f} frames/s={r['frames_per_s']:.0f}")
+    if traced and traced.get("device_events"):
+        graph_ms = rows["mamba"]["decode_ms_per_token_graph"]
+        print(f"families summary [traced mamba2-1.3b bf16 token] ({smi}): wall_ms="
+              f"{traced['wall_ms']:.3f} device_busy_ms={traced['device_busy_ms']:.3f} device "
+              f"ops={traced['device_events']}; device ms / untraced graph ms a token = "
+              f"{traced['device_busy_ms'] / graph_ms:.3f}; phase {rows['phase_s']:.1f} s")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
@@ -3288,6 +3621,7 @@ def main() -> None:
     forward_rows, forward_launches = forward_phase(torch, ops)
     launches.update(forward_launches)
     serve_llm, serve_llm_trace, serve_llm_launches = serve_llm_phase(torch, ops)
+    families, families_trace, families_launches = families_phase(torch, ops)
     lora_runs, lora_launches, lora_dump = lora_phase(torch, ops, min_rounds_to_block)
     fused_runs, eager_launches, fused_results = fused_phase(torch, ops, min_rounds_to_block)
     segmented = segmented_compaction_phase(torch, ops)
@@ -3301,9 +3635,9 @@ def main() -> None:
     looped, looped_launches = looped_phase(torch, ops)
     leaf, leaf_launches = leaf_layout_phase(torch, ops, min_rounds_to_block)
     traces = [profile_phase(torch), lora_trace, *forward_profile_phase(torch), *fused_traces]
-    traces.append(serve_llm_trace)
-    for more in (serve_llm_launches, baseline_launches, unmasked_launches, lora_launches,
-                 lora_graph_launches,
+    traces += [serve_llm_trace, families_trace]
+    for more in (serve_llm_launches, families_launches, baseline_launches, unmasked_launches,
+                 lora_launches, lora_graph_launches,
                  eager_launches, graph_launches, sweep_launches, serve_launches,
                  grid_launches, looped_launches, leaf_launches):
         for kernel, count in more.items():
@@ -3341,7 +3675,8 @@ def main() -> None:
         "kernel_checks": kernel_rows, "one_launch_checks": one_launch,
         "rank_edge_checks": rank_edges, "main_path": runs,
         "baselines": baseline_runs, "unmasked": unmasked_rows, "flash_attn_checks": attn_rows,
-        "forward": forward_rows, "serve_llm": serve_llm, "lora": lora_runs, "lora_round_dump": lora_dump,
+        "forward": forward_rows, "serve_llm": serve_llm, "families": families,
+        "lora": lora_runs, "lora_round_dump": lora_dump,
         "fused": fused_runs, "sweeps": sweeps, "keyed_streams": keyed,
         "gram_buckets": gram_buckets,
         "segmented_compaction": segmented, "serve": serve, "paper_grid": grid,
@@ -3355,6 +3690,7 @@ def main() -> None:
     lora_summary(smi, lora_runs, lora_trace, sweeps)
     scenario_summary(smi, grid, grid_wall, looped)
     serve_llm_summary(smi, serve_llm, serve_llm_trace)
+    families_summary(smi, families, families_trace)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -5,7 +5,7 @@ arrays (``{"w0": ..., "b0": ..., ...}``, e.g. ``jax.tree.map(np.asarray,
 params)``) and returns the port's parameters; ``model_params_from_numpy``
 and ``lora_params_from_numpy`` do the same for a transformer's parameter
 tree and a LoRA workload's ``{"base", "adapters"}``; ``cache_from_numpy``
-for a KV cache of ``repro.models`` (``prefill``'s, ``init_cache``'s);
+for a serving cache of ``repro.models`` (``prefill``'s, ``init_cache``'s);
 ``server_state_from_numpy`` does it for a server state whose leaves were
 turned into numpy.  The module takes numpy and imports nothing of JAX.
 
@@ -22,6 +22,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import ReputationState
 from repro_torch.fed.server import ServerState
+from repro_torch.models.model import tree_apply
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -43,21 +44,25 @@ def params_from_numpy(tree, *, device="cuda") -> dict:
 
 
 def model_params_from_numpy(tree, *, device="cuda") -> dict:
-    """A transformer's parameter tree (``repro.models.build_model(cfg).init``,
+    """A model's parameter tree (``repro.models.build_model(cfg).init``,
     leaves as numpy) -> the port's tree for ``repro_torch.models``, leaf for
     leaf: the layer stack keeps its leading L axis, bf16 stays bf16, and an
-    MoE layer's f32 router stays f32 beside its experts' dtype."""
+    MoE layer's f32 router and a Mamba-2 layer's f32 ``A_log``, ``dt_bias``
+    and ``D`` stay f32 beside the weights' dtype."""
     return params_from_numpy(tree, device=device)
 
 
 def cache_from_numpy(cache, *, device="cuda") -> dict:
-    """A KV cache of ``repro.models`` (``{"layers": (k, v), "pos"}``, k and v
-    each ``(L, B, S, Hkv, D)``, leaves as numpy) -> the port's cache on
-    ``device``, which ``decode_step`` writes in place."""
+    """A serving cache of ``repro.models`` (``prefill``'s, ``init_cache``'s:
+    ``{"layers", "pos"}`` and a hybrid model's ``"shared"``, the layers'
+    caches ``(k, v)`` tuples or SSM ``{"state", "conv"}`` dicts, leaves as
+    numpy) -> the port's cache of the same tree on ``device``, which
+    ``decode_step`` writes in place."""
     device = resolve_device(device)
-    k, v = cache["layers"]
-    return {"layers": (_tensor(k, device), _tensor(v, device)),
-            "pos": _tensor(cache["pos"], device, torch.int32)}
+    out = {k: tree_apply(lambda a: _tensor(a, device), v) for k, v in cache.items()
+           if k != "pos"}
+    out["pos"] = _tensor(cache["pos"], device, torch.int32)
+    return out
 
 
 def lora_params_from_numpy(tree, *, device="cuda") -> dict:

@@ -1,19 +1,27 @@
 """Batched serving driver: prefill + decode loop over a request queue.
 
 Counterpart of ``repro/launch/serve.py``: the same arguments, prompts and
-printed lines, for the dense and MoE families, with the linear KV cache or
-(``--ring``) the sliding-window ring cache.  ``generate`` serves one batch:
-an eager prefill (its length varies by request), then one decode step a
-token.  On the card the step (``decode_step`` and the argmax) is captured
-once as a CUDA graph over static token, position and cache buffers, per
-(batch, cache size, ring), and replayed for every token: the counterpart of
-the reference's ``jax.jit(decode)``.  On the CPU, or with ``graph=False``,
+printed lines, for every decoder family (dense, MoE, SSM, hybrid, VLM;
+an encoder is refused), with the linear cache or (``--ring``) the
+sliding-window ring cache of the attention layers.  A VLM's patch
+embeddings are drawn as the reference draws them, after each batch's
+prompts from the same generator; its linear cache holds the patches too
+(``prefix_len + prompt_len + gen`` slots), where the reference sizes it
+``prompt_len + gen`` and XLA drops the decode steps' writes past its end
+(ROADMAP C.11).  ``generate`` serves one batch: an eager prefill (its
+length varies by request), then one decode step a token.  On the card the
+step (``decode_step`` and the argmax) is captured once as a CUDA graph over
+static token, position and cache buffers, per (batch, cache size, ring),
+and replayed for every token: the counterpart of the reference's
+``jax.jit(decode)``.  On the CPU, or with ``graph=False``,
 the same step runs eagerly.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --requests 8 --batch 4 --prompt-len 2048 --gen 64 [--ring]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --reduced \\
       --device cpu --requests 2 --batch 2 --prompt-len 16 --gen 4 [--ring]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --reduced \\
+      --device cpu --requests 2 --batch 2 --prompt-len 16 --gen 4
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
+from repro_torch.models.model import tree_apply
 
 
 class Generation(NamedTuple):
@@ -58,8 +67,9 @@ class DecodeProgram:
     """One decode step over static buffers, for one (batch, cache size,
     ring) and one set of parameters.
 
-    The program owns its buffers: the cache, the next token and the step's
-    logits.  ``load()`` copies a prefill's cache and first token into them.
+    The program owns its buffers: the cache (any family's tree), the next
+    token and the step's logits.  ``load()`` copies a prefill's cache and
+    first token into them.
     ``step()`` runs ``decode_step`` on them (the cache and its ``pos``
     written in place), copies the logits out and, when greedy, writes the
     argmax into the token buffer.  ``capture()`` records ``step()`` as a
@@ -69,8 +79,7 @@ class DecodeProgram:
 
     def __init__(self, model, params, cache: dict, *, ring: bool, greedy: bool):
         self.model, self.params, self.ring, self.greedy = model, params, ring, greedy
-        self.cache = {"layers": tuple(torch.zeros_like(t) for t in cache["layers"]),
-                      "pos": torch.zeros_like(cache["pos"])}
+        self.cache = tree_apply(torch.zeros_like, cache)
         b, dev = cache["pos"].shape[0], cache["pos"].device
         self.tok = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.logits = torch.zeros((b, model.config.vocab_size), dtype=torch.float32,
@@ -85,9 +94,7 @@ class DecodeProgram:
             self.tok.copy_(torch.argmax(logits, dim=-1))
 
     def load(self, cache: dict, tok: torch.Tensor) -> None:
-        for dst, src in zip(self.cache["layers"], cache["layers"]):
-            dst.copy_(src)
-        self.cache["pos"].copy_(cache["pos"])
+        tree_apply(lambda dst, src: dst.copy_(src), self.cache, cache)
         self.tok.copy_(tok)
 
     def capture(self) -> None:
@@ -115,12 +122,16 @@ class DecodeProgram:
 @torch.no_grad()
 def generate(model, params, prompts: torch.Tensor, *, gen: int, ring: bool, cache_size: int,
              temperature: float = 0.0, generator: torch.Generator | None = None,
-             graph: bool = True, programs: dict | None = None) -> Generation:
+             graph: bool = True, programs: dict | None = None,
+             patch_embeds: torch.Tensor | None = None) -> Generation:
     """Serve one batch of prompts (B, P) int on their device: prefill, then
-    ``gen - 1`` decode steps, ``gen`` tokens in all.
+    ``gen - 1`` decode steps, ``gen`` tokens in all.  A VLM takes its
+    ``patch_embeds`` (B, prefix_len, frontend_dim), prefilled before the
+    prompts.
 
     ``ring`` takes the sliding window and the ring cache of ``cache_size``
-    slots; else the cache is linear and must hold ``P + gen - 1`` positions.
+    slots; else the cache is linear and must hold the prefix, ``P`` and
+    ``gen - 1`` positions.
     ``temperature > 0`` samples with ``generator`` (on the prompts' device),
     else decoding is greedy.  On the card with ``graph=True`` each step is a
     replay of one captured ``DecodeProgram``; ``programs`` (a dict the
@@ -130,15 +141,22 @@ def generate(model, params, prompts: torch.Tensor, *, gen: int, ring: bool, cach
     ``programs`` overwrites it."""
     dev = prompts.device
     b, plen = prompts.shape
-    if not ring and cache_size < plen + gen - 1:
-        raise ValueError(f"a linear cache of {cache_size} slots cannot hold {plen} prompt "
-                         f"and {gen - 1} decoded positions")
+    batch = {"tokens": prompts}
+    if (patch_embeds is not None) != (model.config.family == "vlm"):
+        raise ValueError(f"{model.config.name}: patch_embeds are given with a VLM, and only "
+                         "with one")
+    prefix = 0
+    if patch_embeds is not None:
+        batch["patch_embeds"] = patch_embeds
+        prefix = patch_embeds.shape[1]
+    if not ring and cache_size < prefix + plen + gen - 1:
+        raise ValueError(f"a linear cache of {cache_size} slots cannot hold {prefix} prefix, "
+                         f"{plen} prompt and {gen - 1} decoded positions")
     greedy = temperature <= 0
     times = {"prefill_s": 0.0, "capture_s": 0.0, "decode_s": 0.0, "decode_steps": gen - 1}
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts}, cache_size=cache_size,
-                                  use_window=ring)
+    logits, cache = model.prefill(params, batch, cache_size=cache_size, use_window=ring)
     tok = sample(logits, temperature, generator)
     _sync(dev)
     times["prefill_s"] = time.perf_counter() - t0
@@ -196,7 +214,8 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)  # the reference's prompts
     sampler = torch.Generator(device=device)
     sampler.manual_seed(0)
-    cache_size = cfg.sliding_window if args.ring else args.prompt_len + args.gen
+    prefix = cfg.prefix_len if cfg.family == "vlm" else 0
+    cache_size = cfg.sliding_window if args.ring else prefix + args.prompt_len + args.gen
     programs: dict = {}
 
     n_batches = (args.requests + args.batch - 1) // args.batch
@@ -205,9 +224,13 @@ def main(argv=None) -> int:
     for bi in range(n_batches):
         prompts = torch.from_numpy(
             rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
+        patches = None
+        if prefix:
+            patches = torch.from_numpy(rng.normal(
+                size=(args.batch, prefix, cfg.frontend_dim)).astype(np.float32)).to(device)
         res = generate(model, params, prompts, gen=args.gen, ring=args.ring,
                        cache_size=cache_size, temperature=args.temperature,
-                       generator=sampler, programs=programs)
+                       generator=sampler, programs=programs, patch_embeds=patches)
         t = res.times
         total_tokens += args.batch * args.gen
         print(

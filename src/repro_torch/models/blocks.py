@@ -1,9 +1,8 @@
-"""Transformer blocks of the dense and MoE families: the attention
-sub-block (forward, prefill into a KV cache, one decode step), the MLP or
-MoE sub-block and their per-layer init and cache.
+"""Blocks of every family: the attention sub-block (forward, prefill into a
+KV cache, one decode step) with its MLP or MoE sub-block, and the Mamba-2
+block of the SSM and hybrid families; their per-layer init and cache.
 
-Counterpart of ``repro/models/blocks.py`` without the SSM and hybrid blocks
-(ROADMAP queue A).
+Counterpart of ``repro/models/blocks.py``.
 
 Attention routes.  The forward takes the sliding window under
 ``use_window`` when the config sets one, else the hand-written flash kernel
@@ -17,10 +16,12 @@ C.2); the route changes, not the function, and with
 The windowed prefill and the decode step are plain torch, as in the
 reference.
 
-KV caches.  Linear: slot = position, the prompt's keys padded to
-``cache_size``.  Ring (windowed prefill): slot = ``pos % cache_size``;
-prefill keeps the last ``cache_size`` keys, rolled so that slot i holds the
-position whose ``pos % cache_size == i``.  ``decode_attn`` writes the new
+Caches.  An SSM or hybrid layer's is ``{"state", "conv"}``
+(``models/ssm.py``), an attention layer's ``(k, v)``.  Linear: slot =
+position, the prompt's keys padded to ``cache_size``.  Ring (windowed
+prefill): slot = ``pos % cache_size``; prefill keeps the last
+``cache_size`` keys, rolled so that slot i holds the position whose ``pos %
+cache_size == i``.  ``decode_attn`` writes the new
 key and value into the cache in place.
 """
 
@@ -38,6 +39,9 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp, rms_norm, rope
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.ssm import apply_mamba2, decode_mamba2, init_mamba2, init_ssm_cache
+
+_SSM = ("ssm", "hybrid")
 
 
 def init_attn(generator: torch.Generator, cfg, *, device=None) -> dict:
@@ -136,17 +140,15 @@ def decode_attn(p, cfg, x1, cache_kv, pos, *, ring: bool):
 
 
 # ---------------------------------------------------------------------------
-# full block (attention + MLP or MoE)
+# full block (attention + MLP or MoE, or Mamba-2)
 # ---------------------------------------------------------------------------
 
 
 def init_block(generator: torch.Generator, cfg, *, device=None) -> dict:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: only dense and MoE blocks are ported to repro_torch "
-            "(ROADMAP A.5: the SSM, hybrid, VLM and audio families)"
-        )
     zeros = dict(dtype=cfg.pdtype, device=device)
+    if cfg.family in _SSM:
+        return {"norm_ssm": torch.zeros((cfg.d_model,), **zeros),
+                "mamba": init_mamba2(generator, cfg, device=device)}
     p = {
         "norm_attn": torch.zeros((cfg.d_model,), **zeros),
         "attn": init_attn(generator, cfg, device=device),
@@ -167,8 +169,10 @@ def _moe(p, cfg, x):
 
 
 def apply_block(p, cfg, h, *, positions, use_window: bool = False):
-    """Forward of one block (no cache) -> (h, (lb_loss, z_loss)); a dense
-    block has no router and returns (h, None) (the reference's zeros)."""
+    """Forward of one block (no cache) -> (h, (lb_loss, z_loss)); a block
+    with no router returns (h, None) (the reference's zeros)."""
+    if cfg.family in _SSM:
+        return h + apply_mamba2(p["mamba"], cfg, rms_norm(h, p["norm_ssm"])), None
     h = h + apply_attn(p["attn"], cfg, rms_norm(h, p["norm_attn"]), positions=positions,
                        use_window=use_window)
     x = rms_norm(h, p["norm_ffn"])
@@ -179,13 +183,20 @@ def apply_block(p, cfg, h, *, positions, use_window: bool = False):
 
 
 def init_block_cache(cfg, batch: int, cache_size: int, dtype, *, device=None):
-    """One layer's empty (k, v) cache, each (B, S, Hkv, D)."""
+    """One layer's empty cache: (k, v), each (B, S, Hkv, D), or an SSM
+    layer's ``{"state", "conv"}``."""
+    if cfg.family in _SSM:
+        return init_ssm_cache(cfg, batch, dtype, device=device)
     shape = (batch, cache_size, cfg.num_kv_heads, cfg.hd)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
 
 def prefill_block(p, cfg, h, *, positions, cache_size: int, use_window: bool):
+    if cfg.family in _SSM:
+        out, cache = apply_mamba2(p["mamba"], cfg, rms_norm(h, p["norm_ssm"]),
+                                  return_state=True)
+        return h + out, cache
     a, cache = prefill_attn(p["attn"], cfg, rms_norm(h, p["norm_attn"]), positions=positions,
                             cache_size=cache_size, use_window=use_window)
     h = h + a
@@ -195,10 +206,12 @@ def prefill_block(p, cfg, h, *, positions, cache_size: int, use_window: bool):
     return h + apply_mlp(p["mlp"], x, cfg.activation), cache
 
 
-def decode_block(p, cfg, h1, cache_kv, pos, *, ring: bool):
+def decode_block(p, cfg, h1, cache, pos, *, ring: bool):
     """One token through one block, h1 (B, d); the layer's cache is written
     in place."""
-    h1 = h1 + decode_attn(p["attn"], cfg, rms_norm(h1, p["norm_attn"]), cache_kv, pos,
+    if cfg.family in _SSM:
+        return h1 + decode_mamba2(p["mamba"], cfg, rms_norm(h1, p["norm_ssm"]), cache)
+    h1 = h1 + decode_attn(p["attn"], cfg, rms_norm(h1, p["norm_attn"]), cache, pos,
                           ring=ring)
     x = rms_norm(h1, p["norm_ffn"])
     if cfg.family == "moe":

@@ -1,24 +1,36 @@
-"""Model assembly of the dense and MoE families: init / forward / loss /
-prefill / decode.
+"""Model assembly of every family: init / forward / loss / prefill / decode.
 
-Counterpart of ``repro/models/model.py`` (without the hybrid branches) on a
-dict of tensors whose layer stack has a leading L axis, as the JAX
-package's ``vmap``-stacked params, so a JAX parameter tree converts leaf
-for leaf (``repro_torch.convert``).  The layers run in a Python loop over
-that axis.  The head is untied from the embedding, as in the JAX package.
-The SSM, hybrid, VLM and audio families wait for their slices (ROADMAP
-A.5): ``build_model`` raises ``NotImplementedError`` for them.
+Counterpart of ``repro/models/model.py`` on a dict of tensors whose layer
+stack has a leading L axis, as the JAX package's ``vmap``-stacked params,
+so a JAX parameter tree converts leaf for leaf (``repro_torch.convert``).
+The layers run in a Python loop over that axis.  The head is untied from
+the embedding, as in the JAX package.
 
-Batch convention: ``{"tokens": (B, L) int, "labels": (B, L) int}``; labels
-below 0 are masked out of the loss.
+Hybrid (zamba2-style) models run uniform segments of ``shared_attn_every``
+Mamba-2 layers and apply the one ``params["shared"]`` attention block after
+each full segment, with its own KV cache for each application point; a
+remainder segment (``num_layers % shared_attn_every`` layers) has no shared
+block after it.
 
-Serving.  The cache keeps the reference's tree, ``{"layers": (k, v), "pos":
-(B,) int32}`` with k and v each ``(L, B, S, Hkv, D)``.  ``prefill`` returns
-a new cache; ``decode_step`` writes the step's key and value into it in
-place (one ``index_put_`` per layer and tensor), advances ``cache["pos"]``
-in place and returns the same dict: it reads nothing from the host, so a
-CUDA graph can replay it over static buffers (``repro_torch.launch.serve``).
-A caller that keeps an earlier cache clones it first.
+Batch conventions:
+  LM families: ``{"tokens": (B, L) int, "labels": (B, L) int}``, labels
+               below 0 masked out of the loss;
+  vlm:         + ``{"patch_embeds": (B, prefix_len, frontend_dim)}``, projected
+               and put before the token embeddings; the loss is on the text;
+  audio:       ``{"frame_embeds": (B, L, frontend_dim), "labels": (B, L)}``
+               (an encoder: no decode step).
+
+Serving.  The cache keeps the reference's tree: ``{"layers": ..., "pos": (B,)
+int32}``, the layers' caches stacked on a leading L axis (``(k, v)`` each
+``(L, B, S, Hkv, D)``, or an SSM stack's ``{"state": (L, B, H, N, P) f32,
+"conv": (L, B, cw - 1, d_inner + 2N)}``), and a hybrid model's shared
+blocks' ``(k, v)`` under ``"shared"``, stacked on the segment axis.
+``prefill`` returns a new cache; ``decode_step`` writes every cache in place
+(one ``index_put_`` per attention layer and tensor, the SSM state and conv
+window updated in place), advances ``cache["pos"]`` in place and returns the
+same dict: it reads nothing from the host, so a CUDA graph can replay it
+over static buffers (``repro_torch.launch.serve``).  A caller that keeps an
+earlier cache clones it first.
 """
 
 from __future__ import annotations
@@ -49,9 +61,20 @@ class Model(NamedTuple):
     init_cache: Any     # (batch, cache_size, dtype=None, device="cuda") -> cache
 
 
-def layer(layers: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked layer tree (views, no copies)."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
+def tree_apply(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (nested dicts and
+    tuples of tensors: parameters, caches), the same structure back."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_apply(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (tuple, list)):
+        return tuple(tree_apply(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
+
+def layer(tree, i: int):
+    """Entry ``i`` of a stacked tree (views, no copies)."""
+    return tree_apply(lambda t: t[i], tree)
 
 
 def stack_layers(trees: list) -> dict:
@@ -64,58 +87,96 @@ def stack_layers(trees: list) -> dict:
             else torch.stack([t.pop(k) for t in trees]) for k in list(first)}
 
 
+def hybrid_segments(cfg: ModelConfig):
+    """(segments, layers a segment, tail layers): uniform segments of
+    ``shared_attn_every`` layers, the shared block after each, and a
+    trailing remainder with none after it."""
+    every = cfg.shared_attn_every
+    nseg, tail = divmod(cfg.num_layers, every)
+    return nseg, every, tail
+
+
 def build_model(cfg: ModelConfig) -> Model:
     validate(cfg)
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch yet "
-            "(ROADMAP A.5: the SSM, hybrid, VLM and audio families)"
-        )
     L = cfg.num_layers
+    is_hybrid = cfg.family == "hybrid" and cfg.shared_attn_every > 0
+    attn_cfg = cfg.with_(family="dense") if is_hybrid else cfg  # the shared block
+    if is_hybrid:
+        nseg, every, tail = hybrid_segments(cfg)
+        # (first layer, end, shared application point after it or None)
+        segments = [(s * every, (s + 1) * every, s) for s in range(nseg)]
+        segments += [(nseg * every, L, None)] if tail else []
+    else:
+        nseg, segments = 0, [(0, L, None)]
+
+    def _device(device):
+        device = torch.device(device)
+        return device if device.type == "meta" else resolve_device(device)
 
     def init(generator: torch.Generator | None, device="cuda") -> dict:
         """Random params on ``device`` (the card unless ``device="cpu"``;
         raises without CUDA), drawn from ``generator``, which must live on
         that device.  ``device="meta"`` gives the shapes and draws nothing."""
-        device = torch.device(device)
-        if device.type != "meta":
-            device = resolve_device(device)
-        return {
-            "embed": dense_init(generator, (cfg.vocab_size, cfg.d_model), cfg.pdtype,
-                                scale=0.02, device=device),
-            "layers": stack_layers([init_block(generator, cfg, device=device)
-                                    for _ in range(L)]),
-            "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype, device=device),
-            "head": dense_init(generator, (cfg.d_model, cfg.vocab_size), cfg.pdtype,
-                               scale=0.02, device=device),
-        }
-
-    def _positions(tokens):
-        b, l = tokens.shape
-        return torch.arange(l, device=tokens.device).expand(b, l)
+        device = _device(device)
+        params = {}
+        if cfg.frontend == "none" or cfg.family == "vlm":
+            params["embed"] = dense_init(generator, (cfg.vocab_size, cfg.d_model), cfg.pdtype,
+                                         scale=0.02, device=device)
+        if cfg.frontend != "none":
+            params["frontend_proj"] = dense_init(generator, (cfg.frontend_dim, cfg.d_model),
+                                                 cfg.pdtype, device=device)
+        params["layers"] = stack_layers([init_block(generator, cfg, device=device)
+                                         for _ in range(L)])
+        if is_hybrid:
+            params["shared"] = init_block(generator, attn_cfg, device=device)
+        params["final_norm"] = torch.zeros((cfg.d_model,), dtype=cfg.pdtype, device=device)
+        params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size), cfg.pdtype,
+                                    scale=0.02, device=device)
+        return params
 
     def _embed(params, tokens):
         return params["embed"][tokens.long()].to(cfg.cdtype)
 
-    def _hidden(params, tokens, use_window):
+    def _embed_inputs(params, batch):
+        """The input sequence (B, L, d_model): token embeddings, projected
+        frames (audio), or projected patches before the tokens (vlm)."""
+        if cfg.family == "audio":
+            return (batch["frame_embeds"].to(cfg.cdtype) @ params["frontend_proj"]).to(cfg.cdtype)
+        h = _embed(params, batch["tokens"])
+        if cfg.family == "vlm":
+            patch = batch["patch_embeds"].to(cfg.cdtype) @ params["frontend_proj"]
+            h = torch.cat([patch.to(cfg.cdtype), h], dim=1)
+        return h
+
+    def _positions(h):
+        b, l = h.shape[:2]
+        return torch.arange(l, device=h.device).expand(b, l)
+
+    def _hidden(params, batch, use_window):
         """The final-normed hidden states and the layers' summed (lb, z),
-        None for a dense model."""
-        h = _embed(params, tokens)
-        positions = _positions(tokens)
+        None for a model without a router."""
+        h = _embed_inputs(params, batch)
+        positions = _positions(h)
         aux = None
-        for i in range(L):
-            h, block_aux = apply_block(layer(params["layers"], i), cfg, h,
-                                       positions=positions, use_window=use_window)
-            if block_aux is not None:
-                aux = torch.stack(block_aux) if aux is None else aux + torch.stack(block_aux)
+        for lo, hi, shared in segments:
+            for i in range(lo, hi):
+                h, block_aux = apply_block(layer(params["layers"], i), cfg, h,
+                                           positions=positions, use_window=use_window)
+                if block_aux is not None:
+                    aux = torch.stack(block_aux) if aux is None else aux + torch.stack(block_aux)
+            if shared is not None:
+                h, _ = apply_block(params["shared"], attn_cfg, h, positions=positions,
+                                   use_window=use_window)
         return rms_norm(h, params["final_norm"]), aux
 
     def forward(params, batch, use_window: bool = False) -> torch.Tensor:
-        h, _ = _hidden(params, batch["tokens"], use_window)
+        h, _ = _hidden(params, batch, use_window)
         return (h @ params["head"]).float()
 
     def loss_fn(params, batch, use_window: bool = False):
-        h, aux = _hidden(params, batch["tokens"], use_window)
+        h, aux = _hidden(params, batch, use_window)
+        if cfg.family == "vlm":
+            h = h[:, cfg.prefix_len:]  # the loss on the text tokens only
         logits = (h @ params["head"]).float()
         labels = batch["labels"].long()
         mask = (labels >= 0).float()
@@ -123,7 +184,7 @@ def build_model(cfg: ModelConfig) -> Model:
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         ce = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
-        if aux is None:  # dense blocks have no router: the aux terms are zero
+        if aux is None:  # no router: the aux terms are zero
             zero = torch.zeros((), dtype=torch.float32, device=logits.device)
             return ce, {"ce": ce, "lb_loss": zero, "z_loss": zero}
         loss = ce + cfg.router_aux_weight * aux[0] + cfg.router_z_weight * aux[1]
@@ -131,45 +192,60 @@ def build_model(cfg: ModelConfig) -> Model:
 
     def init_cache(batch_size: int, cache_size: int, dtype=None, device="cuda") -> dict:
         """An empty cache on ``device`` (the card unless ``device="cpu"``)."""
-        device = torch.device(device)
-        if device.type != "meta":
-            device = resolve_device(device)
-        k, v = init_block_cache(cfg, batch_size, cache_size, dtype or cfg.cdtype,
-                                device=device)
-        return {"layers": (k.expand(L, *k.shape).clone(), v.expand(L, *v.shape).clone()),
-                "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
+        device = _device(device)
+        dtype = dtype or cfg.cdtype
+
+        def stacked(c, n):
+            return tree_apply(lambda t: t.expand(n, *t.shape).clone(), c)
+
+        cache = {"layers": stacked(init_block_cache(cfg, batch_size, cache_size, dtype,
+                                                    device=device), L),
+                 "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
+        if is_hybrid:
+            cache["shared"] = stacked(init_block_cache(attn_cfg, batch_size, cache_size, dtype,
+                                                       device=device), nseg)
+        return cache
 
     def prefill(params, batch, cache_size: int, use_window: bool = False):
-        """The prompt through every layer -> (logits of its last token (B, V)
-        f32, a new cache holding it).  ``use_window`` takes the sliding
-        window and the ring layout of ``cache_size`` slots."""
-        tokens = batch["tokens"]
-        h = _embed(params, tokens)
-        positions = _positions(tokens)
-        ks, vs = [], []
-        for i in range(L):
-            h, (k, v) = prefill_block(layer(params["layers"], i), cfg, h, positions=positions,
-                                      cache_size=cache_size, use_window=use_window)
-            ks.append(k)
-            vs.append(v)
-        b, l = tokens.shape
-        cache = {"layers": (torch.stack(ks), torch.stack(vs)),
+        """The prompt (and a VLM's patches before it) through every layer ->
+        (logits of its last position (B, V) f32, a new cache holding it).
+        ``use_window`` takes the sliding window and the ring layout of
+        ``cache_size`` slots for the attention layers."""
+        h = _embed_inputs(params, batch)
+        positions = _positions(h)
+        kw = dict(positions=positions, cache_size=cache_size, use_window=use_window)
+        caches, shared_caches = [], []
+        for lo, hi, shared in segments:
+            for i in range(lo, hi):
+                h, c = prefill_block(layer(params["layers"], i), cfg, h, **kw)
+                caches.append(c)
+            if shared is not None:
+                h, c = prefill_block(params["shared"], attn_cfg, h, **kw)
+                shared_caches.append(c)
+        b, l = h.shape[:2]
+        cache = {"layers": tree_apply(lambda *ts: torch.stack(ts), *caches),
                  "pos": torch.full((b,), l, dtype=torch.int32, device=h.device)}
+        if is_hybrid:
+            cache["shared"] = tree_apply(lambda *ts: torch.stack(ts), *shared_caches)
         h = rms_norm(h, params["final_norm"])
         return (h[:, -1] @ params["head"]).float(), cache
 
     def decode_step(params, cache, tokens, pos=None, *, ring: bool = False):
         """tokens (B,) int at positions ``pos`` (default ``cache["pos"]``) ->
         (logits (B, V) f32, cache): the cache is written in place and its
-        ``pos`` becomes ``pos + 1``."""
+        ``pos`` becomes ``pos + 1``.  ``ring`` applies to the attention
+        layers' caches (a hybrid model's shared blocks)."""
         if cfg.is_encoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
         pos = cache["pos"] if pos is None else pos
         h1 = _embed(params, tokens)
-        k_all, v_all = cache["layers"]
-        for i in range(L):
-            h1 = decode_block(layer(params["layers"], i), cfg, h1, (k_all[i], v_all[i]), pos,
-                              ring=ring)
+        for lo, hi, shared in segments:
+            for i in range(lo, hi):
+                h1 = decode_block(layer(params["layers"], i), cfg, h1,
+                                  layer(cache["layers"], i), pos, ring=ring)
+            if shared is not None:
+                h1 = decode_block(params["shared"], attn_cfg, h1, layer(cache["shared"], shared),
+                                  pos, ring=ring)
         cache["pos"].copy_(pos + 1)
         h1 = rms_norm(h1, params["final_norm"])
         return (h1 @ params["head"]).float(), cache

@@ -1,0 +1,174 @@
+"""Mamba-2 (SSD, state-space duality, arXiv:2405.21060) block in plain torch.
+
+Counterpart of ``repro/models/ssm.py``.  The chunked SSD form turns the
+recurrence into per-chunk quadratic products (matmuls) and a short loop
+over chunk states.
+
+Shapes (one group, shared by every head):
+  x:  (B, L, H, P)    P = ssm_head_dim
+  dt: (B, L, H)       softplus-discretised step
+  A:  (H,)            negative decay rate per head
+  B,C:(B, L, N)       state input and output projections (N = ssm_state)
+
+The intra-chunk terms are laid out (b, nc, h, i, j), so the products with
+``x`` are batched matmuls over (b, nc, h) with no permuted copy of a
+(q, q) tensor; at most three such f32 tensors are live in a layer (two
+under ``torch.no_grad``).
+
+Serving carries a state (B, H, N, P) f32 and the last ``cw - 1`` raw
+(pre-conv) rows of ``[x, B, C]``.  ``decode_mamba2`` writes both in place:
+the conv window is shifted (its rows move up one, the new row goes last),
+so a step reads nothing from the host and a CUDA graph can replay it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init
+
+
+def init_mamba2(generator: torch.Generator, cfg, *, device=None) -> dict:
+    d, di, h, n, cw = cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_conv_width
+    d_xbc = di + 2 * n  # the conv runs over [x, B, C]
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_proj": dense_init(generator, (d, 2 * di + 2 * n + h), cfg.pdtype, device=device),
+        "conv_w": dense_init(generator, (cw, d_xbc), cfg.pdtype, scale=0.5, device=device),
+        "conv_b": torch.zeros((d_xbc,), dtype=cfg.pdtype, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, h, **f32)),
+        "dt_bias": torch.zeros((h,), **f32),
+        "D": torch.ones((h,), **f32),
+        "out_proj": dense_init(generator, (di, d), cfg.pdtype, device=device),
+        "gate_norm_w": torch.zeros((di,), dtype=cfg.pdtype, device=device),
+    }
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of width cw, then SiLU.  xbc: (B, L, D)."""
+    cw, l = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, cw - 1, 0))
+    out = pad[:, 0:l] * w[0]
+    for i in range(1, cw):
+        out = out + pad[:, i:i + l] * w[i]
+    return F.silu(out + b)
+
+
+def _ssd_chunked(x, dt, A, B, C, D, chunk: int):
+    """Chunked SSD scan -> (y (B, L, H, P) in x's dtype, final state (B, H,
+    N, P) f32)."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    pad = (-l) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, -1)                      # (b,nc,q,h) or (b,nc,q,1)
+    Bc = B.reshape(b, nc, chunk, n).float()
+    Cc = C.reshape(b, nc, chunk, n).float()
+
+    a_cs = torch.cumsum((A * dtc).float(), dim=2)           # within-chunk log-decay (b,nc,q,h)
+    a_tot = a_cs[:, :, -1]                                  # (b,nc,h)
+    xbar = xc.float() * dtc[..., None]                      # (b,nc,q,h,p)
+    xbar_h = xbar.permute(0, 1, 3, 2, 4)                    # (b,nc,h,q,p)
+    a_h = a_cs.permute(0, 1, 3, 2)                          # (b,nc,h,q)
+
+    # intra-chunk: y_i = sum_{j<=i} (C_i . B_j) exp(a_cs_i - a_cs_j) xbar_j;
+    # mask BEFORE exp: the anti-causal entries grow and would overflow, and
+    # exp(-inf) = 0 keeps them out of the gradient
+    iq = torch.arange(chunk, device=x.device)
+    causal = iq[:, None] >= iq[None, :]
+    lmat = torch.exp(torch.where(causal, a_h[..., :, None] - a_h[..., None, :], -torch.inf))
+    scores = Cc @ Bc.transpose(-1, -2)                      # (b,nc,i,j)
+    y = (lmat * scores[:, :, None]) @ xbar_h                # (b,nc,h,i,p)
+    del lmat
+
+    # chunk states: S_c = sum_j exp(a_tot - a_cs_j) B_j xbar_j^T  (b,nc,h,n,p)
+    w_in = torch.exp(a_tot[:, :, None, :] - a_cs)           # (b,nc,j,h)
+    s_c = Bc.transpose(-1, -2)[:, :, None] @ (xbar * w_in[..., None]).permute(0, 1, 3, 2, 4)
+
+    # inter-chunk recurrence: the state entering each chunk
+    decay = torch.exp(a_tot)                                # (b,nc,h)
+    s = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = s * decay[:, c, :, None, None] + s_c[:, c]
+    s_in = torch.stack(s_in, dim=1)                         # (b,nc,h,n,p)
+
+    # inter-chunk output: y_i += exp(a_cs_i) C_i . S_in
+    y = y + torch.exp(a_h)[..., None] * (Cc[:, :, None] @ s_in)
+    y = y.permute(0, 1, 3, 2, 4).reshape(b, nc * chunk, h, p)
+    y = y + D[:, None] * x.float()
+    return y[:, :l].to(x.dtype), s
+
+
+def _split_proj(cfg, proj):
+    di, n = cfg.d_inner, cfg.ssm_state
+    return torch.split(proj, [di, di + 2 * n, cfg.ssm_heads], dim=-1)
+
+
+def _gated_out(p, y, z, dtype):
+    """The gated RMSNorm of mamba2, then ``out_proj``."""
+    g = y.float() * F.silu(z.float())
+    var = torch.mean(g * g, dim=-1, keepdim=True)
+    g = g * torch.rsqrt(var + 1e-6) * (1.0 + p["gate_norm_w"].float())
+    return g.to(dtype) @ p["out_proj"]
+
+
+def apply_mamba2(p, cfg, u, *, return_state: bool = False):
+    """u: (B, L, d_model) -> (B, L, d_model); with ``return_state`` also the
+    serving cache ``{"state": (B, H, N, P) f32, "conv": (B, cw - 1, d_inner +
+    2N)}``.  The reference's ``activation_sharding`` lever has no effect on
+    one card."""
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    z, xbc_raw, dt_raw = _split_proj(cfg, u @ p["in_proj"])
+    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    x, B, C = torch.split(xbc, [di, n, n], dim=-1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = x.reshape(*x.shape[:2], h, cfg.ssm_head_dim)
+    y, state = _ssd_chunked(xh, dt, A, B, C, p["D"], cfg.ssm_chunk)
+    out = _gated_out(p, y.reshape(*u.shape[:2], di), z, u.dtype)
+    if not return_state:
+        return out
+    # the cache keeps the RAW (pre-conv) xbc tail, as decode_mamba2 reads it
+    cw = cfg.ssm_conv_width
+    tail = xbc_raw[:, -(cw - 1):]
+    tail = F.pad(tail, (0, 0, (cw - 1) - tail.shape[1], 0))
+    return out, {"state": state, "conv": tail}
+
+
+def init_ssm_cache(cfg, batch: int, dtype, *, device=None) -> dict:
+    h, pdim, n, cw = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv_width
+    return {
+        "state": torch.zeros((batch, h, n, pdim), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cw - 1, cfg.d_inner + 2 * n), dtype=dtype, device=device),
+    }
+
+
+def decode_mamba2(p, cfg, u1, cache: dict) -> torch.Tensor:
+    """One token, u1: (B, d_model) -> (B, d_model).  ``cache``'s state and
+    conv window are written in place."""
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    z, xbc_new, dt_raw = _split_proj(cfg, u1 @ p["in_proj"])
+    window = torch.cat([cache["conv"], xbc_new[:, None]], dim=1)
+    conv = torch.sum(window.float() * p["conv_w"].float(), dim=1)
+    xbc = F.silu(conv + p["conv_b"].float()).to(u1.dtype)
+    x, B, C = torch.split(xbc, [di, n, n], dim=-1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])          # (B,h)
+    A = -torch.exp(p["A_log"])
+    xh = x.reshape(-1, h, cfg.ssm_head_dim).float()
+    decay = torch.exp(A * dt)
+    inp = B.float()[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :]   # (B,h,n,p)
+    state = cache["state"]
+    state.mul_(decay[:, :, None, None]).add_(inp)
+    y = (C.float()[:, None, None, :] @ state)[:, :, 0]     # (B,h,p)
+    y = y + p["D"][:, None] * xh
+    cache["conv"].copy_(window[:, 1:])
+    return _gated_out(p, y.reshape(-1, di), z, u1.dtype)

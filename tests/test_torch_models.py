@@ -182,11 +182,21 @@ def test_config_registry_is_a_copy_of_jax():
     assert dataclasses.asdict(red) == dataclasses.asdict(jax_get_config("smollm-135m").reduced())
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b", "paligemma-3b",
-                                  "hubert-xlarge"])
-def test_other_families_raise_with_the_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(arch))
+@pytest.mark.parametrize("arch", sorted(ALIASES))
+def test_every_registry_arch_builds_on_meta(arch):
+    """Every architecture of the registry builds, its parameters on the meta
+    device in the config's dtype, with the cache tree its family serves
+    from (none for an encoder's decode)."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init(None, "meta")
+    leaves = tree_leaves(params)
+    assert leaves and all(t.device.type == "meta" for t in leaves)
+    assert params["head"].shape == (cfg.d_model, cfg.vocab_size)
+    assert params["head"].dtype == cfg.pdtype
+    cache = model.init_cache(2, 16, device="meta")
+    assert sorted(cache) == (["layers", "pos", "shared"] if cfg.family == "hybrid"
+                             else ["layers", "pos"])
 
 
 def test_bf16_params_convert_through_float32():
