@@ -113,7 +113,22 @@
    and eager), capture s, tokens/s and cache and SSM-state MB (zamba2's
    shared blocks' and hubert's shapes are also ``ATTN_SHAPES`` cases of
    step 6);
-10. runs federated LoRA fine-tuning of smollm-135m (rank 4 on wq/wk/wv/wo,
+10. trains whole models federated (phase T, ``TRAIN_RUN``): smollm-135m at
+   full width and depth (162,826,560 parameters, random weights from seed
+   0) through ``repro_torch.fed.distributed.make_fed_round`` on the train
+   CLI's batches (K = 4, client 0 byzantine by the CLI's attack, 2 local
+   steps of 2 x 128 tokens), every mode of ``TRAIN_MODES`` (vmap, scan
+   storing f32, bf16 or int8 deltas, remat, vmap with one screening pass)
+   for 2 rounds in bf16 and one round on an f32 copy of the weights:
+   exactly client 0 screened out in every round, a client retrained from
+   the same start the same bits, round 1 of scan and remat within
+   ``TRAIN_BOUNDS`` of vmap (f32: the reference tests' tolerances),
+   remat's reputation = vmap's with one pass, scan's and remat's peak of
+   allocated memory below vmap's; ms a round, peak GB and eval loss; then
+   ``repro_torch.launch.train`` as a user runs it (``TRAIN_CLI``): every
+   round prints ``good_frac=0.75`` and its checkpoint loads back through
+   ``load_pytree`` equal bit for bit to the vmap run, bf16 leaves and all;
+11. runs federated LoRA fine-tuning of smollm-135m (rank 4 on wq/wk/wv/wo,
    D_adapter = 460,800; 6 clients, 2 byzantine, 8 rounds) through
    ``repro_torch.fed.api.run`` on the AFA gram/fused kernel route and on the
    plain route, each on the fused engine as ``simulate_llm`` runs it (the six
@@ -127,7 +142,7 @@
    screening pass's tail threshold is printed, on the kernel's Gram and on
    ``U @ U.T`` (ROADMAP C.6: a benign client sits within f32 rounding of it
    there, so the routes' ``good_mask`` is not compared);
-11. runs the paper's experiment (step 4's configuration) through ``run`` on
+12. runs the paper's experiment (step 4's configuration) through ``run`` on
    the fused engines (``FUSED_ROUTES``: the three AFA kernel routes, the
    plain route, comed's and trimmed_mean's kernel routes), each with
    ``engine="fused"`` (one round captured as a CUDA graph and replayed) and
@@ -143,11 +158,11 @@
    rows after round 6, bit for bit on the two gram kernel routes, the
    plain routes reported; and 200 clients with 40 % byzantine once, its
    blocking reported;
-12. traces three rounds of the paper DNN's gram/fused route and one bf16
+13. traces three rounds of the paper DNN's gram/fused route and one bf16
    and one f32 forward of smollm-135m on the kernel route with
    ``torch.profiler`` (device busy share, the kernels that take the time),
    one ``engine="fused"`` run of each ``FUSED_ROUTES`` route, the segmented
-   run and one LoRA run of step 10's gram/fused route (each of the route's
+   run and one LoRA run of step 11's gram/fused route (each of the route's
    kernels exactly its count a round times the rounds the run executed:
    its warm-up rounds, which the wrappers count, and the T replayed ones,
    which only the trace sees; from the first replayed round on exactly T
@@ -157,13 +172,13 @@
    ``run(..., seeds=)``: one capture a sweep, every seed replaying it) on
    gram/fused and the plain route, and on gram/fused in 2-round segments
    compacted on the union of the clients live in any seed: the row of seed
-   0 equal to step 11's ``engine="fused"`` run bit for bit, segmented =
+   0 equal to step 12's ``engine="fused"`` run bit for bit, segmented =
    unsegmented bit for bit, every seed blocking the 3 byzantine clients in
    round 6, each seed's detection rate and mean rounds to block printed;
-13. drives the serve tier (``repro_torch.serve``) at step 4's configuration:
+14. drives the serve tier (``repro_torch.serve``) at step 4's configuration:
    ``run_serve_replay`` with the default ``ServeConfig`` on gram/fused,
    gram/chained, iterative and the plain route, each equal bit for bit to
-   the route's ``engine="fused"`` run of step 11 (test error, blocked rounds,
+   the route's ``engine="fused"`` run of step 12 (test error, blocked rounds,
    good_mask history), with step 4's outcome gates, no rejection and each
    kernel route's kernels launched; then ``run_traffic`` on gram/fused
    (``SERVE_ASYNC``, ``SERVE_TRAFFIC``, 20 rounds), twice: exactly the
@@ -172,7 +187,7 @@
    each aggregation step, cohort propose and submit, the host-device bytes
    of a round, the copies' times and the busy share of 8 traced replay
    rounds;
-14. runs the paper's Tables 1 and 2 at the published widths (``GRID_DATA``:
+15. runs the paper's Tables 1 and 2 at the published widths (``GRID_DATA``:
    MNIST-like 784 x 512 x 256 x 10, D = 535,818, and Spambase-like 54 x 100
    x 50 x 1, D = 10,601; 10 clients of which 3 bad, 8 rounds): clean,
    byzantine, flipping and noisy under AFA gram/fused, AFA on the plain
@@ -190,20 +205,21 @@
    the plain route's, its margins a pass printed; then AFA
    gram/fused with ``engine="fused"`` against ``"fused_eager"`` under
    byzantine and noisy on both datasets, graph = eager bit for bit;
-15. runs ``MAIN_SIM`` and its noisy scenario with ``engine="looped"`` (one
+16. runs ``MAIN_SIM`` and its noisy scenario with ``engine="looped"`` (one
    client at a time) against ``"batched"`` on gram/fused: equal good_mask
    histories and blocked rounds, test error within 0.5 pp, ms a round of
    each;
-16. runs ``MAIN_SIM`` on the leaf layout (``KernelPlan(mode="cuda",
+17. runs ``MAIN_SIM`` on the leaf layout (``KernelPlan(mode="cuda",
    layout="leaf")``, AFA's tree form, both variants): byzantine blocked in
    round 6 with no AFA kernel launched; then one ``server_step`` on round
    3's recorded proposals on the leaf and the tree layouts: AFA's good_mask
    equal and its aggregate within rtol 2e-5 / atol 2e-6, fa, mkrum and
    comed bit for bit, each launching its kernel on the leaf layout;
-17. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+18. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
-   serve-LLM, families, sweep, serve, grid, looped and leaf phases and, for the fused engine's
-   graph runs (the DNN's and LoRA's), the calls that step 12's traces
+   serve-LLM, families, sweep, serve, grid, looped and leaf phases (phase T runs
+   no kernel) and, for the fused engine's
+   graph runs (the DNN's and LoRA's), the calls that step 13's traces
    executed.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
@@ -496,6 +512,43 @@ LEAF_ROUND = 2
 LEAF_RTOL, LEAF_ATOL = 2e-5, 2e-6
 # the matrix-only rules, each with the kernel its leaf-layout step must launch
 LEAF_EXACT_RULES = {"fa": "weighted_sum", "mkrum": "gram", "comed": "coord_median_masked"}
+
+# phase T: federated training of whole models (repro_torch.fed.distributed,
+# on repro_torch.launch.train's batches and attack) on smollm-135m at full
+# width and depth in its published bf16, random weights from seed 0; the
+# train CLI's defaults: K = 4 clients, 2 local steps of batch 2 x 128 tokens,
+# lr 0.05, client 0 byzantine (the CLI's attack); 2 rounds a mode, and one
+# round a mode on an f32 copy of the same weights
+TRAIN_ARCH = "smollm-135m"
+TRAIN_PARAMS = 162_826_560
+TRAIN_RUN = dict(K=4, byzantine=1, local_steps=2, batch=2, seq=128, rounds=2, lr=0.05)
+TRAIN_MODES = {  # label -> (mode, proposal_dtype, AFA max_rounds)
+    "vmap": ("vmap", "bfloat16", 8),
+    "scan/float32": ("scan", "float32", 8),
+    "scan/bfloat16": ("scan", "bfloat16", 8),
+    "scan/int8": ("scan", "int8", 8),
+    "remat": ("remat", "bfloat16", 1),
+    "vmap/max_rounds=1": ("vmap", "bfloat16", 1),
+}
+# How far each mode's round-1 aggregate may lie from vmap's (remat's: from
+# vmap with one screening pass).  In f32, scan with f32 storage and remat at
+# tests/test_fed.py:188's 1e-4 / 1e-5 and :211's 2e-3 / 2e-4 (rtol, atol).
+# Otherwise the rounding bound TRAIN_ROUNDING: a twentieth of the leaf's
+# largest update (tests/test_fed.py:248's bound for int8 deltas, whose
+# error is at most half a step, max|d| / 254, and a convex combination keeps
+# it) and two bf16 ulps of the value (2 * 2**-7).  Two causes, each rounding
+# one value to a neighbour: bf16 storage rounds a proposal by half an ulp,
+# and the aggregate's cast may round either way; in bf16, a client trained
+# alone (scan, remat) and the same client trained beside the others (vmap)
+# differ by an ulp in ~0.5 % of the weights, since cuBLAS runs (b*l, d)
+# GEMMs for one client and K*b batched ones for K.
+TRAIN_ROUNDING = (0.05, 2.0 ** -6)
+TRAIN_BOUNDS = {("float32", "scan/float32"): (1e-4, 1e-5), ("float32", "remat"): (2e-3, 2e-4)}
+TRAIN_BOUNDS.update({(d, m): "rounding" for d in ("float32", "bfloat16")
+                     for m in ("scan/float32", "scan/bfloat16", "scan/int8", "remat")
+                     if (d, m) not in TRAIN_BOUNDS})
+TRAIN_CLI = ["--arch", TRAIN_ARCH, "--rounds", str(TRAIN_RUN["rounds"]),
+             "--byzantine", str(TRAIN_RUN["byzantine"])]
 
 
 def fail(msg: str) -> None:
@@ -3470,6 +3523,273 @@ def leaf_layout_phase(torch, ops, min_rounds_to_block):
     return runs, dict(ops.LAUNCH_COUNTS)
 
 
+def train_data(torch, cfg):
+    """Phase T's batches as the train CLI draws them from seed 0: the eval
+    batch, then each round's K clients with the CLI's attack on client 0."""
+    import numpy as np
+
+    from repro_torch.data import make_token_stream
+    from repro_torch.launch.train import byzantine_batches, make_fed_batches
+
+    r = TRAIN_RUN
+    stream = make_token_stream(vocab=cfg.vocab_size, n=50_000)
+    rng = np.random.default_rng(0)
+    ev = make_fed_batches(cfg, stream, rng, K=1, S=1, b=r["batch"], seq=r["seq"], device="cuda")
+    rounds = []
+    for rnd in range(r["rounds"]):
+        batch = make_fed_batches(cfg, stream, rng, K=r["K"], S=r["local_steps"], b=r["batch"],
+                                 seq=r["seq"], device="cuda")
+        byzantine_batches(batch, r["byzantine"], rnd, cfg.vocab_size)
+        rounds.append(batch)
+    return {k: v[0, 0] for k, v in ev.items()}, rounds
+
+
+def train_mode_run(torch, model, params, data, label):
+    """``TRAIN_RUN["rounds"]`` rounds of one of ``TRAIN_MODES`` from
+    ``params`` and a fresh reputation: ms a round (host clock to a
+    synchronise), the peak of allocated memory over the rounds, the eval
+    loss; every round screens out exactly client 0.  Returns the row and each
+    round's aggregate (its leaves, on the host)."""
+    from repro_torch.core import AFAConfig, init_reputation
+    from repro_torch.fed.distributed import FedRoundConfig, make_fed_round
+    from repro_torch.utils.trees import tree_leaves
+
+    mode, pdt, max_rounds = TRAIN_MODES[label]
+    K = TRAIN_RUN["K"]
+    fed_round = make_fed_round(model, FedRoundConfig(
+        num_clients=K, local_steps=TRAIN_RUN["local_steps"], lr=TRAIN_RUN["lr"],
+        afa=AFAConfig(max_rounds=max_rounds), mode=mode, proposal_dtype=pdt))
+    rep = init_reputation(K, device="cuda")
+    n_k = torch.ones((K,), dtype=torch.float32, device="cuda")
+    eval_batch, rounds = data
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    p, rows, aggs, peak = params, [], [], 0
+    for rnd, batch in enumerate(rounds):
+        t0 = time.perf_counter()
+        p, rep, m = fed_round(p, rep, n_k, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        with torch.no_grad():
+            ev = float(model.loss_fn(p, eval_batch)[0])
+        row = {"round": rnd, "ms": ms, "good_frac": float(m["good_frac"]),
+               "afa_rounds": int(m["afa_rounds"]), "eval_loss": ev,
+               "alpha": rep.alpha.tolist(), "beta": rep.beta.tolist(),
+               "blocked": rep.blocked.tolist(), "similarities": m["similarities"].tolist()}
+        rows.append(row)
+        aggs.append([l.cpu() for l in tree_leaves(p)])
+        print(f"train [{label}] round {rnd}: {ms:.1f} ms good_frac={row['good_frac']:.2f} "
+              f"afa_rounds={row['afa_rounds']} eval_loss={ev:.4f} similarities="
+              f"{[round(x, 4) for x in row['similarities']]}")
+        n = rnd + 1.0
+        if (row["good_frac"] != 0.75 or row["beta"] != [3.0 + n] + [3.0] * (K - 1)
+                or row["alpha"] != [3.0] + [3.0 + n] * (K - 1) or any(row["blocked"])):
+            raise AssertionError(f"train [{label}] round {rnd}: not exactly client 0 screened "
+                                 f"out: {row}")
+    del p
+    return {"label": label, "mode": mode, "proposal_dtype": pdt, "max_rounds": max_rounds,
+            "rounds": rows, "ms_per_round": rows[-1]["ms"], "peak_gb": peak / 1e9,
+            "start_gb": start / 1e9}, aggs
+
+
+def outside(torch, a, b, rtol, atol) -> float:
+    """How far the leaves ``a`` lie outside ``rtol``, ``atol`` of ``b``
+    (> 0: outside), compared on the card leaf by leaf."""
+    worst = float("-inf")
+    for x, y in zip(a, b):
+        x, y = x.cuda().float(), y.cuda().float()
+        worst = max(worst, float(((x - y).abs() - atol - rtol * y.abs()).max()))
+    return worst
+
+
+def rounding_outside(torch, a, b, w) -> float:
+    """How far the leaves ``a`` lie outside ``TRAIN_ROUNDING``'s bound of
+    ``b`` (a twentieth of b's largest update from the round's start ``w``
+    in the leaf, and two bf16 ulps of the value), leaf by leaf (> 0:
+    outside)."""
+    frac, rtol = TRAIN_ROUNDING
+    worst = float("-inf")
+    for x, y, z in zip(a, b, w):
+        x, y, z = x.cuda().float(), y.cuda().float(), z.cuda().float()
+        atol = frac * float((y - z).abs().max())
+        worst = max(worst, float(((x - y).abs() - atol - rtol * y.abs()).max()))
+    return worst
+
+
+def train_replay_check(torch, model, params, batch):
+    """Trap of ``remat``: a client retrained from the same start gives the
+    same bits (every leaf); then, reported, how far each client trained
+    alone lies from its row of the K clients trained together."""
+    from repro_torch.fed.distributed import _client_train, _clients_train
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.utils.trees import tree_leaves
+
+    opt = sgd_momentum(TRAIN_RUN["lr"], 0.9)
+
+    def alone(k):
+        return tree_leaves(_client_train(model.loss_fn, opt, params,
+                                         {n: v[k] for n, v in batch.items()}))
+
+    first, again = alone(1), alone(1)
+    bad = [i for i, (x, y) in enumerate(zip(first, again)) if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"train: client 1 retrained gives other bits in {len(bad)} of "
+                             f"{len(first)} leaves (first: leaf {bad[0]})")
+    together = tree_leaves(_clients_train(model.loss_fn, opt, params, batch))
+    rows = []
+    for k in range(TRAIN_RUN["K"]):
+        solo = first if k == 1 else alone(k)
+        differ = sum(int((x != y[k]).sum()) for x, y in zip(solo, together))
+        diff = max(float((x.float() - y[k].float()).abs().max()) for x, y in zip(solo, together))
+        rows.append({"client": k, "elements_differing": differ, "max_abs_diff": diff})
+    print(f"train: client 1 retrained twice: the same bits in all {len(first)} leaves; alone "
+          f"vs trained together (vmap): {rows}")
+    return rows
+
+
+def train_cli_run(torch, params, vmap_final):
+    """``repro_torch.launch.train.main`` as a user runs it (``TRAIN_CLI``
+    with ``--ckpt``): every round prints ``good_frac=0.75``; the checkpoint
+    loads back through ``load_pytree`` equal bit for bit to phase T's vmap
+    run (the same weights, batches and round) and saves to the same bytes."""
+    import io
+    import tempfile
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.launch import train
+    from repro_torch.utils.trees import tree_leaves
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "ckpt_000002.msgpack")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(TRAIN_CLI + ["--ckpt", path])
+        wall = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            print(f"  train CLI: {line}")
+        rounds = [line for line in lines if line.startswith("round ")]
+        if (rc != 0 or len(rounds) != TRAIN_RUN["rounds"]
+                or not all("good_frac=0.75" in line for line in rounds)
+                or lines[-1] != f"saved {path}"):
+            raise AssertionError(f"train CLI {TRAIN_CLI}: rc {rc}, lines {lines}")
+        K = TRAIN_RUN["K"]
+        template = {"params": params, "rep": {
+            "alpha": torch.zeros(K, device="cuda"), "beta": torch.zeros(K, device="cuda"),
+            "blocked": torch.zeros(K, dtype=torch.bool, device="cuda")}}
+        restored = load_pytree(path, template)
+        got = tree_leaves(restored["params"])
+        n_bf16 = sum(l.dtype == torch.bfloat16 for l in got)
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(got, vmap_final)):
+            raise AssertionError("train CLI: the checkpoint's params differ from phase T's "
+                                 "vmap run")
+        again = str(Path(tmp) / "again.msgpack")
+        save_pytree(again, restored)
+        size = Path(path).stat().st_size
+        if Path(again).read_bytes() != Path(path).read_bytes():
+            raise AssertionError("train CLI: the restored checkpoint saves to other bytes")
+    print(f"train CLI: {wall:.1f} s, checkpoint {size / 1e6:.1f} MB ({n_bf16} of {len(got)} "
+          f"param leaves bf16) = phase T's vmap run bit for bit, saved again to the same bytes")
+    return {"argv": TRAIN_CLI, "wall_s": wall, "lines": lines, "ckpt_mb": size / 1e6,
+            "bf16_leaves": n_bf16}
+
+
+def train_mode_checks(torch, aggs, params, dtype) -> dict:
+    """Round 1 of scan and remat against vmap (remat: vmap with one
+    screening pass), each within its bound (``TRAIN_BOUNDS``); the max
+    |diff| of every round reported.  Raises on a bound missed."""
+    from repro_torch.utils.trees import tree_leaves
+
+    start = tree_leaves(params)
+    out = {}
+    for label, ref in (("scan/float32", "vmap"), ("scan/bfloat16", "vmap"),
+                       ("scan/int8", "vmap"), ("remat", "vmap/max_rounds=1")):
+        bound = TRAIN_BOUNDS[(dtype, label)]
+        a, b = aggs[label][0], aggs[ref][0]
+        far = (rounding_outside(torch, a, b, start) if bound == "rounding"
+               else outside(torch, a, b, *bound))
+        diffs = [max(float((x.float() - y.float()).abs().max()) for x, y in zip(ra, rb))
+                 for ra, rb in zip(aggs[label], aggs[ref])]
+        out[label] = {"against": ref, "bound": bound, "outside": far, "max_abs_diff": diffs}
+    print(f"train [{dtype}]: round 1 of each mode against {{vmap, remat: vmap/max_rounds=1}}, "
+          f"how far outside its bound (> 0 fails) and each round's max |diff|: "
+          + "; ".join(f"{k} {v['bound']} {v['outside']:.3e} {v['max_abs_diff']}"
+                      for k, v in out.items()))
+    missed = {k: v["outside"] for k, v in out.items() if v["outside"] > 0}
+    if missed:
+        raise AssertionError(f"train [{dtype}]: aggregates beyond their bound: {missed}")
+    return out
+
+
+def train_phase(torch):
+    """Federated training of whole models (phase T): smollm-135m at full
+    width and depth, every ``TRAIN_MODES`` mode on the CLI's batches in
+    bf16 (``TRAIN_RUN["rounds"]`` rounds) and on an f32 copy of the weights
+    (one round); a client retrained to the same bits; the modes held to one
+    another; scan's and remat's peak memory below vmap's; the train CLI.
+    Returns the rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_size
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen, "cuda")
+    if tree_size(params) != TRAIN_PARAMS:
+        raise AssertionError(f"train: {tree_size(params)} parameters, not {TRAIN_PARAMS}")
+    cfg32, params32 = as_f32(cfg, params)
+    eval_batch, rounds = train_data(torch, cfg)
+    rows = {"modes": [], "checks": {}, "replay": {}}
+    for dtype, m, p, n in (("bfloat16", model, params, TRAIN_RUN["rounds"]),
+                           ("float32", build_model(cfg32), params32, 1)):
+        rows["replay"][dtype] = train_replay_check(torch, m, p, rounds[0])
+        aggs = {}
+        for label in TRAIN_MODES:
+            row, aggs[label] = train_mode_run(torch, m, p, (eval_batch, rounds[:n]), label)
+            rows["modes"].append(dict(row, dtype=dtype))
+        rows["checks"][dtype] = train_mode_checks(torch, aggs, p, dtype)
+        by = {r["label"]: r for r in rows["modes"] if r["dtype"] == dtype}
+        if [r["alpha"] for r in by["remat"]["rounds"]] != [
+                r["alpha"] for r in by["vmap/max_rounds=1"]["rounds"]]:
+            raise AssertionError(f"train [{dtype}]: remat's reputation differs from vmap's "
+                                 "with one screening pass")
+        for label in ("scan/float32", "scan/bfloat16", "scan/int8", "remat"):
+            if not by[label]["peak_gb"] < by["vmap"]["peak_gb"]:
+                raise AssertionError(f"train [{dtype}]: {label}'s peak {by[label]['peak_gb']:.3f}"
+                                     f" GB is not below vmap's {by['vmap']['peak_gb']:.3f} GB")
+        if dtype == "bfloat16":
+            vmap_final = aggs["vmap"][-1]
+        del aggs
+    del params32
+    rows["cli"] = train_cli_run(torch, params, vmap_final)
+    del params, vmap_final
+    torch.cuda.empty_cache()
+    rows["phase_s"] = time.perf_counter() - t_phase
+    print(f"train phase: {rows['phase_s']:.1f} s")
+    return rows
+
+
+def train_summary(smi, rows):
+    """One line a mode and dtype of phase T, with the card's name and power
+    limit."""
+    for r in rows["modes"]:
+        first, last = r["rounds"][0], r["rounds"][-1]
+        print(f"train summary [{TRAIN_ARCH} {r['dtype']} K={TRAIN_RUN['K']} {r['label']}] "
+              f"({smi}): ms/round={last['ms']:.1f} (first round {first['ms']:.1f}) peak_GB="
+              f"{r['peak_gb']:.3f} (start {r['start_gb']:.3f}) eval_loss={last['eval_loss']:.4f}"
+              f" good_frac={last['good_frac']:.2f} afa_rounds={last['afa_rounds']}")
+    print(f"train summary [launcher] ({smi}): {rows['cli']['lines'][-2]}; phase "
+          f"{rows['phase_s']:.1f} s")
+
+
 def scenario_summary(smi, grid, grid_wall, looped):
     """The grid's wall time, the median ms a round of the batched AFA
     gram/fused runs on each dataset, and of the looped and batched engines,
@@ -3622,6 +3942,7 @@ def main() -> None:
     launches.update(forward_launches)
     serve_llm, serve_llm_trace, serve_llm_launches = serve_llm_phase(torch, ops)
     families, families_trace, families_launches = families_phase(torch, ops)
+    train = train_phase(torch)
     lora_runs, lora_launches, lora_dump = lora_phase(torch, ops, min_rounds_to_block)
     fused_runs, eager_launches, fused_results = fused_phase(torch, ops, min_rounds_to_block)
     segmented = segmented_compaction_phase(torch, ops)
@@ -3675,7 +3996,7 @@ def main() -> None:
         "kernel_checks": kernel_rows, "one_launch_checks": one_launch,
         "rank_edge_checks": rank_edges, "main_path": runs,
         "baselines": baseline_runs, "unmasked": unmasked_rows, "flash_attn_checks": attn_rows,
-        "forward": forward_rows, "serve_llm": serve_llm, "families": families,
+        "forward": forward_rows, "serve_llm": serve_llm, "families": families, "train": train,
         "lora": lora_runs, "lora_round_dump": lora_dump,
         "fused": fused_runs, "sweeps": sweeps, "keyed_streams": keyed,
         "gram_buckets": gram_buckets,
@@ -3691,6 +4012,7 @@ def main() -> None:
     scenario_summary(smi, grid, grid_wall, looped)
     serve_llm_summary(smi, serve_llm, serve_llm_trace)
     families_summary(smi, families, families_trace)
+    train_summary(smi, train)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -58,6 +58,12 @@ def noisy_features(x: np.ndarray, y: np.ndarray, rng=None, *, binary: bool | Non
     return np.clip(x + eps, -1.0, 1.0), y
 
 
+ATTACKS = {
+    "flipping": flip_labels,
+    "noisy": noisy_features,
+}
+
+
 def byzantine_update_attack(w_prev_flat: np.ndarray, rng, scale: float = 20.0):
     """Paper eq.: w_{t+1}^k <- w_t + Delta, Delta ~ N(0, scale^2 I)."""
     return w_prev_flat + rng.normal(scale=scale, size=w_prev_flat.shape).astype(

@@ -28,6 +28,7 @@ from repro_torch.core.extra_rules import (
 from repro_torch.core.reputation import (
     ReputationState,
     betainc,
+    block_probability,
     blocked_by_table,
     blocking_table,
     gather_reputation,

@@ -59,6 +59,12 @@ def p_good(state: ReputationState) -> torch.Tensor:
     return state.alpha / (state.alpha + state.beta)
 
 
+def block_probability(state: ReputationState) -> torch.Tensor:
+    """Pr(G_k <= 0.5) = I_{0.5}(alpha_k, beta_k)  (eq. 6): :func:`betainc` in
+    float64 on the host, returned as float32 on the posteriors' device."""
+    return betainc(state.alpha, state.beta, 0.5).to(state.alpha.device, torch.float32)
+
+
 def _guard(v):
     return torch.where(v.abs() < _CF_TINY, torch.full_like(v, _CF_TINY), v)
 

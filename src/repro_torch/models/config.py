@@ -2,9 +2,11 @@
 
 Counterpart of ``repro/models/config.py``: the same fields and defaults, so
 a config of the JAX package and its port describe the same model.
-``pdtype``/``cdtype`` are torch dtypes.  The mesh levers
-(``activation_sharding``, ``fsdp_activations``, ``seq_par_attention``,
-``fed_mode``, ``microbatch``) are carried but have no effect on one card.
+``pdtype``/``cdtype`` are torch dtypes.  ``fed_mode`` and ``microbatch``
+pick the client-memory mode and the gradient-accumulation chunks of
+``repro_torch.launch.train``'s rounds (``fed.distributed``); the mesh levers
+(``activation_sharding``, ``fsdp_activations``, ``seq_par_attention``) are
+carried but have no effect on one card.
 """
 
 from __future__ import annotations
@@ -68,11 +70,10 @@ class ModelConfig:
     block_q: int = 512
     block_k: int = 512
     # fed-integration knobs
-    fed_mode: str = "vmap"  # vmap | scan | remat (no effect on one card)
+    fed_mode: str = "vmap"  # vmap | scan | remat (fed.distributed)
     fed_clients: int = 16
-    # mesh levers of the JAX package (no effect on one card)
-    activation_sharding: bool = False
-    microbatch: int = 1
+    activation_sharding: bool = False  # a mesh lever: no effect on one card
+    microbatch: int = 1  # gradient-accumulation chunks a local step (fed.distributed)
     fsdp_activations: bool = False
     seq_par_attention: bool = False
     # attention through the hand-written flash kernel (kernels.ops

@@ -84,3 +84,6 @@ def apply_mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = gelu(x @ p["up"])
     return h @ p["down"]
 
+
+def mlp_param_count(d_model: int, d_ff: int, activation: str) -> int:
+    return d_model * d_ff * (3 if activation in ("swiglu", "geglu") else 2)

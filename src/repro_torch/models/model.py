@@ -38,6 +38,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models.blocks import (
@@ -135,7 +136,11 @@ def build_model(cfg: ModelConfig) -> Model:
         return params
 
     def _embed(params, tokens):
-        return params["embed"][tokens.long()].to(cfg.cdtype)
+        # F.embedding, not params["embed"][tokens]: its backward sums each
+        # row's gradients in a fixed order, where the indexing backward's
+        # float scatter-add on the CPU adds in parallel in no fixed order; a
+        # client retrained from the same start must give the same bits
+        return F.embedding(tokens.long(), params["embed"]).to(cfg.cdtype)
 
     def _embed_inputs(params, batch):
         """The input sequence (B, L, d_model): token embeddings, projected
