@@ -128,7 +128,26 @@
    ``repro_torch.launch.train`` as a user runs it (``TRAIN_CLI``): every
    round prints ``good_frac=0.75`` and its checkpoint loads back through
    ``load_pytree`` equal bit for bit to the vmap run, bf16 leaves and all;
-11. runs federated LoRA fine-tuning of smollm-135m (rank 4 on wq/wk/wv/wo,
+11. runs smollm-135m at full width and depth (bf16, seed 0) at the
+   reference's production input shapes (phase D, ``repro_torch.launch
+   .specs.INPUT_SHAPES``) through ``input_specs(..., device="cuda")`` and
+   ``build_step``: ``prefill_32k`` (B = 32 x 32,768) on the kernel route,
+   30 ``flash_attn_tc`` launches a prefill, logits finite, ms (median of 3),
+   peak GB, analytic FLOP/s and the model-FLOP share; in f32 at B = 1 the
+   kernel-route forward within 2e-3 of the plain route at 16,384 tokens
+   and the 32,768-token prefill's ``logits_last`` within 2e-3 of the
+   forward's last position (30 ``flash_attn`` launches each), both flash
+   kernels against the twins of their arithmetic at 32,768 tokens;
+   ``decode_32k`` (cut to B = 64: 128 x 32,768 take 96.6 GB of cache) and
+   ``long_500k`` (a ring of 8,192 at position 524,287) from seeded caches
+   adopted by a ``DecodeProgram``: one graph-replayed step = the eager
+   serve step bit for bit, ms a step, the byte share, the f32 widening's
+   time, one traced ``decode_32k`` replay; ``long_500k``'s ring step in
+   f32 = the window decode over the same 8,192 entries; ``train_4k`` at
+   ``client_rows`` = 4 (``PROD_TRAIN``: scan, the batch and local steps
+   cut) screening out exactly the byzantine client, ms a round, peak GB,
+   the model-FLOP share;
+12. runs federated LoRA fine-tuning of smollm-135m (rank 4 on wq/wk/wv/wo,
    D_adapter = 460,800; 6 clients, 2 byzantine, 8 rounds) through
    ``repro_torch.fed.api.run`` on the AFA gram/fused kernel route and on the
    plain route, each on the fused engine as ``simulate_llm`` runs it (the six
@@ -142,7 +161,7 @@
    screening pass's tail threshold is printed, on the kernel's Gram and on
    ``U @ U.T`` (ROADMAP C.6: a benign client sits within f32 rounding of it
    there, so the routes' ``good_mask`` is not compared);
-12. runs the paper's experiment (step 4's configuration) through ``run`` on
+13. runs the paper's experiment (step 4's configuration) through ``run`` on
    the fused engines (``FUSED_ROUTES``: the three AFA kernel routes, the
    plain route, comed's and trimmed_mean's kernel routes), each with
    ``engine="fused"`` (one round captured as a CUDA graph and replayed) and
@@ -158,11 +177,11 @@
    rows after round 6, bit for bit on the two gram kernel routes, the
    plain routes reported; and 200 clients with 40 % byzantine once, its
    blocking reported;
-13. traces three rounds of the paper DNN's gram/fused route and one bf16
+14. traces three rounds of the paper DNN's gram/fused route and one bf16
    and one f32 forward of smollm-135m on the kernel route with
    ``torch.profiler`` (device busy share, the kernels that take the time),
    one ``engine="fused"`` run of each ``FUSED_ROUTES`` route, the segmented
-   run and one LoRA run of step 11's gram/fused route (each of the route's
+   run and one LoRA run of step 12's gram/fused route (each of the route's
    kernels exactly its count a round times the rounds the run executed:
    its warm-up rounds, which the wrappers count, and the T replayed ones,
    which only the trace sees; from the first replayed round on exactly T
@@ -172,13 +191,13 @@
    ``run(..., seeds=)``: one capture a sweep, every seed replaying it) on
    gram/fused and the plain route, and on gram/fused in 2-round segments
    compacted on the union of the clients live in any seed: the row of seed
-   0 equal to step 12's ``engine="fused"`` run bit for bit, segmented =
+   0 equal to step 13's ``engine="fused"`` run bit for bit, segmented =
    unsegmented bit for bit, every seed blocking the 3 byzantine clients in
    round 6, each seed's detection rate and mean rounds to block printed;
-14. drives the serve tier (``repro_torch.serve``) at step 4's configuration:
+15. drives the serve tier (``repro_torch.serve``) at step 4's configuration:
    ``run_serve_replay`` with the default ``ServeConfig`` on gram/fused,
    gram/chained, iterative and the plain route, each equal bit for bit to
-   the route's ``engine="fused"`` run of step 12 (test error, blocked rounds,
+   the route's ``engine="fused"`` run of step 13 (test error, blocked rounds,
    good_mask history), with step 4's outcome gates, no rejection and each
    kernel route's kernels launched; then ``run_traffic`` on gram/fused
    (``SERVE_ASYNC``, ``SERVE_TRAFFIC``, 20 rounds), twice: exactly the
@@ -187,7 +206,7 @@
    each aggregation step, cohort propose and submit, the host-device bytes
    of a round, the copies' times and the busy share of 8 traced replay
    rounds;
-15. runs the paper's Tables 1 and 2 at the published widths (``GRID_DATA``:
+16. runs the paper's Tables 1 and 2 at the published widths (``GRID_DATA``:
    MNIST-like 784 x 512 x 256 x 10, D = 535,818, and Spambase-like 54 x 100
    x 50 x 1, D = 10,601; 10 clients of which 3 bad, 8 rounds): clean,
    byzantine, flipping and noisy under AFA gram/fused, AFA on the plain
@@ -205,21 +224,22 @@
    the plain route's, its margins a pass printed; then AFA
    gram/fused with ``engine="fused"`` against ``"fused_eager"`` under
    byzantine and noisy on both datasets, graph = eager bit for bit;
-16. runs ``MAIN_SIM`` and its noisy scenario with ``engine="looped"`` (one
+17. runs ``MAIN_SIM`` and its noisy scenario with ``engine="looped"`` (one
    client at a time) against ``"batched"`` on gram/fused: equal good_mask
    histories and blocked rounds, test error within 0.5 pp, ms a round of
    each;
-17. runs ``MAIN_SIM`` on the leaf layout (``KernelPlan(mode="cuda",
+18. runs ``MAIN_SIM`` on the leaf layout (``KernelPlan(mode="cuda",
    layout="leaf")``, AFA's tree form, both variants): byzantine blocked in
    round 6 with no AFA kernel launched; then one ``server_step`` on round
    3's recorded proposals on the leaf and the tree layouts: AFA's good_mask
    equal and its aggregate within rtol 2e-5 / atol 2e-6, fa, mkrum and
    comed bit for bit, each launching its kernel on the leaf layout;
-18. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+19. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
-   serve-LLM, families, sweep, serve, grid, looped and leaf phases (phase T runs
-   no kernel) and, for the fused engine's
-   graph runs (the DNN's and LoRA's), the calls that step 13's traces
+   serve-LLM, families, production-shape (its kernel-route prefills and
+   forwards), sweep, serve, grid, looped and leaf phases (phase T runs no
+   kernel) and, for the fused engine's
+   graph runs (the DNN's and LoRA's), the calls that step 14's traces
    executed.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
@@ -549,6 +569,30 @@ TRAIN_BOUNDS.update({(d, m): "rounding" for d in ("float32", "bfloat16")
                      if (d, m) not in TRAIN_BOUNDS})
 TRAIN_CLI = ["--arch", TRAIN_ARCH, "--rounds", str(TRAIN_RUN["rounds"]),
              "--byzantine", str(TRAIN_RUN["byzantine"])]
+
+# phase D: smollm-135m at full width and depth (bf16, seed 0) at the
+# reference's production input shapes (repro_torch.launch.specs.INPUT_SHAPES)
+# through input_specs(..., device="cuda") and build_step.  smollm's bf16 KV
+# cache takes 30 layers x 2 x 3 heads x 64 x 2 B = 23,040 B a token
+PROD_ARCH = "smollm-135m"
+PROD_PREFILL_B = 32        # prefill_32k's 32 x 32,768: a 24.2 GB linear cache
+PROD_TIMED = 3             # prefill ms: the median of 3 after a warm-up
+# decode_32k's 128 x 32,768 tokens take 96.6 GB of cache, more than the
+# card's 80 GB: cut to 64 sequences (48.3 GB)
+PROD_DECODE_B = 64
+PROD_REPLAYS = 20          # decode: graph replays timed, the eager step 3 times
+PROD_LONG_L = 16_384       # f32 kernel-route forward against the plain route, B = 1
+PROD_TWIN_LS = (32_768, 16_384, 8_192)   # the flash kernels against their twins, B = 1
+# train_4k at client_rows = 4: K = 4 clients, client 0 byzantine (the train
+# CLI's attack), 4,096-token sequences.  The plain blocked attention the
+# clients train through saves every tile's scores and probabilities for its
+# backward, ~36 GB a sequence for smollm at 4,096 tokens (64 tiles x 2 x
+# 9 x 512 x 512 x 4 B x 30 layers), so vmap's K = 4 sequences of a
+# microbatch (~145 GB) do not fit: the clients train one at a time (scan,
+# bf16 storage), one sequence a microbatch; b and the local steps are cut
+PROD_TRAIN = dict(client_rows=4, per_client_batch=2, local_steps=1, lr=0.05)
+BF16_DENSE_PEAK = 989.4e12   # H100 SXM dense bf16 tensor-core FLOP/s: model-FLOP share
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 bytes/s: the decode byte share
 
 
 def fail(msg: str) -> None:
@@ -3777,6 +3821,472 @@ def train_phase(torch):
     return rows
 
 
+def prod_model(**over):
+    """smollm-135m's published config (with ``over``) built by the port."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    return build_model(get_config(PROD_ARCH).with_(**over))
+
+
+def median_of(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def prod_prefill(torch, ops, smi, launches):
+    """``prefill_32k`` on the kernel route (bf16, B = ``PROD_PREFILL_B``):
+    a warm-up and ``PROD_TIMED`` timed prefills through ``build_step``, each
+    exactly ``num_layers`` ``flash_attn_tc`` launches and nothing else,
+    logits finite; ms (median), peak GB, analytic FLOP/s and the model-FLOP
+    share.  Returns the row and the bf16 weights."""
+    from repro_torch.launch.analytic import analytic_report
+    from repro_torch.launch.dryrun import nbytes
+    from repro_torch.launch.specs import INPUT_SHAPES, input_specs
+    from repro_torch.launch.steps import build_step
+
+    model = prod_model(use_pallas_attention=True)
+    cfg = model.config
+    torch.cuda.empty_cache()
+    bundle = input_specs(model, "prefill_32k", device="cuda", global_batch=PROD_PREFILL_B)
+    params, batch = bundle.args
+    step = build_step(model, bundle)
+    B, L = batch["tokens"].shape
+    times, peak, cache_b = [], 0, 0
+    with torch.no_grad():
+        for i in range(1 + PROD_TIMED):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, cache = step(params, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            counts = {n: c for n, c in ops.LAUNCH_COUNTS.items() if c}
+            cache_b = nbytes({k: v for k, v in cache.items() if k != "pos"})
+            del cache
+            if counts != {"flash_attn_tc": cfg.num_layers}:
+                raise AssertionError(f"prod [prefill_32k]: launches {counts}, expected "
+                                     f"{cfg.num_layers} flash_attn_tc")
+            launches["flash_attn_tc"] += cfg.num_layers
+            if logits.shape != (B, cfg.vocab_size) or not torch.isfinite(logits).all():
+                raise AssertionError(f"prod [prefill_32k]: logits_last not finite of shape "
+                                     f"{(B, cfg.vocab_size)}")
+            if i:
+                times.append(dt)
+    ms = median_of(times) * 1e3
+    rep = analytic_report(cfg, "prefill_32k", 1)
+    scale = B / INPUT_SHAPES["prefill_32k"]["global_batch"]
+    flops, six_nd = rep["analytic_flops"] * scale, rep["model_flops_6nd"] * scale
+    row = {"shape": "prefill_32k", "B": B, "L": L, "ms": ms, "ms_all": [t * 1e3 for t in times],
+           "peak_gb": peak / 1e9, "cache_gb": cache_b / 1e9, "analytic_flops": flops,
+           "model_flops_6nd": six_nd, "analytic_tflops_per_s": flops / (ms / 1e3) / 1e12,
+           "model_flop_share": six_nd / (ms / 1e3) / BF16_DENSE_PEAK,
+           "flash_attn_tc_per_prefill": cfg.num_layers,
+           "cut": None if B == 32 else f"B 32 -> {B}"}
+    print(f"prod [prefill_32k, kernel route, bf16] ({smi}): B={B} L={L} ms={ms:.1f} (each "
+          f"{[round(t * 1e3, 1) for t in times]}) peak_GB={row['peak_gb']:.2f} cache_GB="
+          f"{row['cache_gb']:.2f} analytic_TFLOP/s={row['analytic_tflops_per_s']:.1f} "
+          f"model_flop_share={row['model_flop_share']:.4f} flash_attn_tc/prefill="
+          f"{cfg.num_layers}")
+    del bundle, batch, step
+    torch.cuda.empty_cache()
+    return row, params
+
+
+def prod_long_context(torch, ops, smi, params16, launches):
+    """f32, B = 1, on the f32 kernel: the kernel-route forward against the
+    plain route at ``PROD_LONG_L`` tokens (within ``FWD_TOL``), and the
+    kernel-route prefill's ``logits_last`` at 32,768 against the
+    kernel-route forward's last position (within ``FWD_TOL``); each
+    kernel-route call exactly ``num_layers`` ``flash_attn`` launches, the
+    plain route none."""
+    from repro_torch.launch.specs import INPUT_SHAPES
+    from repro_torch.models import build_model
+
+    cfg32, p32 = as_f32(prod_model().config, params16)
+    kern = build_model(cfg32.with_(use_pallas_attention=True))
+    plain = build_model(cfg32)
+    seq = INPUT_SHAPES["prefill_32k"]["seq"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    tokens = torch.randint(0, cfg32.vocab_size, (1, seq), generator=gen, device="cuda")
+    n = cfg32.num_layers
+
+    def run(label, fn, want):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: c for k, c in ops.LAUNCH_COUNTS.items() if c}
+        if counts != want:
+            raise AssertionError(f"prod [long context] {label}: launches {counts}, expected "
+                                 f"{want}")
+        launches["flash_attn"] += want.get("flash_attn", 0)
+        return out, ms
+
+    row = {"L_compared": PROD_LONG_L, "L_prefill": seq}
+    with torch.no_grad():
+        short = {"tokens": tokens[:, :PROD_LONG_L]}
+        a, row["kernel_forward_ms"] = run("kernel forward",
+                                          lambda: kern.forward(p32, short), {"flash_attn": n})
+        b, row["plain_forward_ms"] = run("plain forward", lambda: plain.forward(p32, short), {})
+        diff = float((a - b).abs().max())
+        excess = float(((a - b).abs() - FWD_TOL * b.abs()).max())
+        finite = bool(torch.isfinite(a).all())
+        del a, b
+        if excess > FWD_TOL or not finite:
+            raise AssertionError(f"prod [long context]: f32 kernel-route logits at "
+                                 f"{PROD_LONG_L} beyond atol = rtol = {FWD_TOL} of the plain "
+                                 f"route's (max diff {diff})")
+        row["max_abs_diff_kernel_vs_plain"] = diff
+        (last, cache), row["kernel_prefill_ms"] = run(
+            "kernel prefill", lambda: kern.prefill(p32, {"tokens": tokens}, cache_size=seq),
+            {"flash_attn": n})
+        del cache
+        full, row["kernel_forward_32k_ms"] = run(
+            "kernel forward 32k", lambda: kern.forward(p32, {"tokens": tokens}),
+            {"flash_attn": n})
+        at_end = full[:, -1].clone()
+        del full
+    diff_last = float((last - at_end).abs().max())
+    if beyond(torch, last, at_end, FWD_TOL) > 0 or not torch.isfinite(last).all():
+        raise AssertionError(f"prod [long context]: prefill logits_last at {seq} beyond "
+                             f"{FWD_TOL} of the forward's last position (max diff {diff_last})")
+    row["max_abs_diff_prefill_last_vs_forward"] = diff_last
+    print(f"prod [long context, f32, B=1] ({smi}): kernel forward vs plain at {PROD_LONG_L}: "
+          f"max |logit diff|={diff:.3e} (atol = rtol = {FWD_TOL}); kernel "
+          f"{row['kernel_forward_ms']:.1f} ms, plain {row['plain_forward_ms']:.1f} ms; at {seq}: "
+          f"prefill logits_last vs the "
+          f"forward's last position max |diff|={diff_last:.3e}, prefill "
+          f"{row['kernel_prefill_ms']:.1f} ms, forward {row['kernel_forward_32k_ms']:.1f} ms; "
+          f"{n} flash_attn launches each")
+    del p32, kern, plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def prod_twins(torch, ops, ref, smi):
+    """Both flash kernels against the twins of their arithmetic at smollm's
+    heads (9/3, D = 64, causal, B = 1) at the longest ``PROD_TWIN_LS``
+    length whose twin fits the free memory (f32: ``TF32_ATTN_RTOL``, bf16:
+    one output ulp, each at v's scale), bit-identical reruns, the kernel's
+    ms (median of 3).  Comparison launches: the counts are reset after."""
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        # the twins' largest transients: float64 (L, Hq, 64) slices, ~16 alive
+        L = next(l for l in PROD_TWIN_LS if 16 * l * 9 * 64 * 8 < free / 2)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(17)
+        q, k, v = (torch.randn((1, L, h, 64), generator=gen, device="cuda").to(dt)
+                   for h in (9, 3, 3))
+        out = ops.flash_attention(q, k, v, causal=True)
+        if dt == torch.float32:
+            twin = ref.flash_attention_3xtf32_ref(q, k, v, causal=True,
+                                                  block_k=ops.ATTN_TC_BLOCK_K)
+            tol, what = TF32_ATTN_RTOL * float(v.abs().max()), "TF32_ATTN_RTOL"
+        else:
+            twin = ref.flash_attention_tc_ref(q, k, v, causal=True, block_k=ops.ATTN_TC_BLOCK_K)
+            tol, what = ATTN_TC_ULP[dname] * float(v.float().abs().max()), "one output ulp"
+        err = float((out.float() - twin.float()).abs().max())
+        del twin
+        times = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            again = ops.flash_attention(q, k, v, causal=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        name = "flash_attn" if dt == torch.float32 else "flash_attn_tc"
+        if err > tol or not torch.isfinite(out).all() or not torch.equal(out, again):
+            raise AssertionError(f"prod [twins] {name} {dname} at L={L}: max |kernel - twin| "
+                                 f"{err} > {what} {tol}, or not finite, or reruns differ")
+        rows.append({"name": name, "dtype": dname, "L": L, "max_abs_err_arith_twin": err,
+                     "tol": tol, "ms": median_of(times)})
+        print(f"prod [twins] {name} {dname} (1, {L}, {L}, 9, 3, 64) causal ({smi}): max |kernel -"
+              f" arithmetic twin|={err:.3e} (tol {tol:.3e}, {what}) bit-identical, kernel_ms="
+              f"{rows[-1]['ms']:.3f}; the longest of {PROD_TWIN_LS} the twin fits")
+        del q, k, v, out, again
+    ops.reset_launch_counts()
+    return rows
+
+
+def prod_decode(torch, ops, smi, shape, global_batch=None):
+    """``decode_32k`` or ``long_500k`` (bf16): the spec's cache filled from
+    the seed and adopted by a ``DecodeProgram``; the eager serve step
+    (``build_step``) and one graph replay from the same state equal bit for
+    bit (logits, the written cache slot of every layer, the next position);
+    ms a step replayed (median of ``PROD_REPLAYS``, the state restored
+    before each) and eager, the step's transient memory, its share of the
+    card's bytes rate, the time the step's per-layer f32 widening of the
+    cache takes, and for ``decode_32k`` a traced replay (state restored
+    first)."""
+    from repro_torch.launch.analytic import analytic_report
+    from repro_torch.launch.dryrun import nbytes
+    from repro_torch.launch.serve import DecodeProgram
+    from repro_torch.launch.specs import INPUT_SHAPES, input_specs
+    from repro_torch.launch.steps import build_step
+
+    model = prod_model()
+    torch.cuda.empty_cache()
+    bundle = input_specs(model, shape, device="cuda", global_batch=global_batch)
+    params, cache, tokens, pos = bundle.args
+    B, S, ring = tokens.shape[0], bundle.meta["cache_size"], bundle.meta["ring"]
+    p = INPUT_SHAPES[shape]["seq"] - 1
+    slot = p % S if ring else p
+    step = build_step(model, bundle)
+    prog = DecodeProgram(model, params, cache, ring=ring, greedy=True, adopt=True)
+    kv = cache["layers"]
+    snap = [t[:, :, slot].clone() for t in kv]
+
+    def restore():
+        for t, s in zip(kv, snap):
+            t[:, :, slot].copy_(s)
+        cache["pos"].copy_(pos)
+        prog.tok.copy_(tokens)
+
+    def state(logits):
+        return [logits.clone(), *(t[:, :, slot].clone() for t in kv), cache["pos"].clone()]
+
+    def widen(kv):
+        """The step's f32 copies of the bf16 cache, one layer's k or v at a
+        time, each dropped at once."""
+        for i in range(kv[0].shape[0]):
+            for t in kv:
+                t[i].float()
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), out
+
+    ops.reset_launch_counts()
+    restore()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        _, (logits, _) = timed(lambda: step(params, cache, tokens, pos))
+        transient = torch.cuda.max_memory_allocated() - base
+        eager = state(logits)
+        eager_ms = []
+        for _ in range(3):
+            restore()
+            eager_ms.append(timed(lambda: step(params, cache, tokens, pos))[0])
+        restore()
+        prog.capture()
+        restore()
+        prog.run()
+        graph = state(prog.logits)
+        replay_ms = []
+        for _ in range(PROD_REPLAYS):
+            restore()
+            replay_ms.append(timed(prog.run)[0])
+        widen_ms = median_of([timed(lambda: widen(kv))[0] for _ in range(3)])
+        traced = None
+        if shape == "decode_32k":  # where a replayed step's time goes
+            traced = trace(torch, f"{shape} B={B} step, graph-replayed",
+                           lambda: (restore(), prog.run(), {})[-1], 1)
+    if any(ops.LAUNCH_COUNTS.values()):
+        raise AssertionError(f"prod [{shape}]: the decode step launched {ops.LAUNCH_COUNTS}")
+    same = all(torch.equal(a, b) for a, b in zip(eager, graph))
+    if (not same or eager[-1].tolist() != [p + 1] * B
+            or not torch.isfinite(eager[0]).all()):
+        raise AssertionError(f"prod [{shape}]: the graph-replayed step differs from the eager "
+                             f"step (bit for bit {same}) or pos {eager[-1].tolist()[:4]} != "
+                             f"{p + 1}, or logits not finite")
+    ms, e_ms = median_of(replay_ms), median_of(eager_ms)
+    cache_b = nbytes(kv)
+    param_b = nbytes(params)
+    rep = analytic_report(model.config, shape, 1)
+    scale = B / INPUT_SHAPES[shape]["global_batch"]
+    row = {"shape": shape, "B": B, "cache_slots": S, "ring": ring, "pos": p,
+           "graph_ms_per_step": ms, "eager_ms_per_step": e_ms, "tokens_per_s": B / (ms / 1e3),
+           "cache_gb": cache_b / 1e9, "param_gb": param_b / 1e9,
+           "byte_share": (cache_b + param_b) / (ms / 1e3) / HBM_BYTES_PER_S,
+           "transient_gb": transient / 1e9, "widen_ms": widen_ms,
+           "widen_share": widen_ms / ms, "capture_s": prog.capture_s,
+           "analytic_flops": rep["analytic_flops"] * scale, "trace": traced,
+           "cut": None if scale == 1 else f"B {INPUT_SHAPES[shape]['global_batch']} -> {B}"}
+    print(f"prod [{shape}, bf16, {'ring' if ring else 'linear'} cache of {S} slots, pos={p}] "
+          f"({smi}): B={B} graph = eager bit for bit; ms/step replayed={ms:.3f} eager={e_ms:.3f}"
+          f" tokens/s={row['tokens_per_s']:.0f} cache_GB={row['cache_gb']:.2f} byte_share="
+          f"{row['byte_share']:.4f} transient_GB={row['transient_gb']:.2f} f32 widening of the "
+          f"cache {widen_ms:.3f} ms ({row['widen_share']:.3f} of a replayed step) capture_s="
+          f"{prog.capture_s:.3f}")
+    del prog, step, bundle, cache, kv, snap, params, eager, graph
+    torch.cuda.empty_cache()
+    return row
+
+
+def prod_ring_window(torch, smi, params16):
+    """``long_500k`` in f32: the ring step over its ``sliding_window``
+    slots (seeded) at position 524,287 against the window decode of a
+    linear cache of 524,288 slots holding the same 8,192 entries, logits
+    within ``SERVE_TF_TOL[1]``, the greedy token equal, the first layer's
+    written key and value equal bit for bit (the later layers' inputs
+    carry the attention's rounding)."""
+    from repro_torch.launch.dryrun import nbytes
+    from repro_torch.launch.specs import INPUT_SHAPES
+    from repro_torch.models import build_model
+
+    cfg32, p32 = as_f32(prod_model().config, params16)
+    model = build_model(cfg32)
+    w, seq = cfg32.sliding_window, INPUT_SHAPES["long_500k"]["seq"]
+    pos = seq - 1
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    ring = model.init_cache(1, w, torch.float32, device="cuda")
+    for t in ring["layers"]:
+        t.normal_(generator=gen)
+    lin = model.init_cache(1, seq, torch.float32, device="cuda")
+    for r, l in zip(ring["layers"], lin["layers"]):
+        l[:, :, seq - w:].copy_(r)   # slot pos % w of the ring = position seq - w + slot
+    ring["pos"].fill_(pos)
+    lin["pos"].fill_(pos)
+    tok = torch.randint(0, cfg32.vocab_size, (1,), generator=gen, device="cuda")
+    with torch.no_grad():
+        lr, _ = model.decode_step(p32, ring, tok, ring=True)
+        lw, _ = model.decode_step(p32, lin, tok, ring=False)
+    diff = float((lr - lw).abs().max())
+    kv_same = all(torch.equal(r[0, :, pos % w], l[0, :, pos])
+                  for r, l in zip(ring["layers"], lin["layers"]))
+    kv_diff = max(float((r[:, :, pos % w] - l[:, :, pos]).abs().max())
+                  for r, l in zip(ring["layers"], lin["layers"]))
+    if (beyond(torch, lr, lw, SERVE_TF_TOL[1]) > 0 or not kv_same
+            or not torch.equal(lr.argmax(-1), lw.argmax(-1))):
+        raise AssertionError(f"prod [long_500k f32]: ring step != window decode over the same "
+                             f"{w} entries (max |logit diff| {diff}, layer 0's written k/v equal "
+                             f"{kv_same})")
+    row = {"window": w, "pos": pos, "max_abs_diff": diff, "written_kv_max_abs_diff": kv_diff,
+           "linear_cache_gb": nbytes(lin["layers"]) / 1e9}
+    print(f"prod [long_500k ring = window, f32, B=1, pos={pos}] ({smi}): max |logit diff|="
+          f"{diff:.3e} (atol = rtol = {SERVE_TF_TOL[1]}), greedy token equal, layer 0's written "
+          f"k/v equal, every layer's within {kv_diff:.3e}; the window's linear cache "
+          f"{row['linear_cache_gb']:.2f} GB")
+    del ring, lin, p32, model
+    torch.cuda.empty_cache()
+    return row
+
+
+def prod_train(torch, smi):
+    """``train_4k`` (``PROD_TRAIN``): one round of K = 4 clients, client 0
+    byzantine, through ``input_specs(..., device="cuda")`` and
+    ``build_step``; exactly client 0 screened out; ms a round, peak GB, the
+    model-FLOP share of the round."""
+    from repro_torch.launch.analytic import analytic_report, n_matmul_active
+    from repro_torch.launch.specs import INPUT_SHAPES, LOCAL_STEPS, input_specs
+    from repro_torch.launch.steps import build_step
+    from repro_torch.launch.train import byzantine_batches
+
+    r = PROD_TRAIN
+    model = prod_model(fed_mode="scan", fed_clients=4)
+    cfg = model.config
+    torch.cuda.empty_cache()
+    bundle = input_specs(model, "train_4k", r["client_rows"], device="cuda",
+                         global_batch=r["per_client_batch"], local_steps=r["local_steps"])
+    params, rep, n_k, batch = bundle.args
+    K, S, b, L = batch["tokens"].shape
+    byzantine_batches(batch, 1, 0, cfg.vocab_size)
+    step = build_step(model, bundle, lr=r["lr"], local_steps=S, microbatch=b,
+                      proposal_dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    agg, rep2, m = step(params, rep, n_k, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    got = {"good_frac": float(m["good_frac"]), "alpha": rep2.alpha.tolist(),
+           "beta": rep2.beta.tolist(), "blocked": rep2.blocked.tolist()}
+    if got != {"good_frac": 0.75, "alpha": [3.0] + [4.0] * (K - 1),
+               "beta": [4.0] + [3.0] * (K - 1), "blocked": [False] * K}:
+        raise AssertionError(f"prod [train_4k]: not exactly client 0 screened out: {got}")
+    tokens = K * S * b * L
+    six_nd = 6.0 * n_matmul_active(cfg) * tokens
+    full = analytic_report(cfg, "train_4k", r["client_rows"])
+    scale = (b / INPUT_SHAPES["train_4k"]["global_batch"]) * (S / LOCAL_STEPS)
+    row = {"shape": "train_4k", "mode": cfg.fed_mode, "K": K, "per_client_batch": b,
+           "local_steps": S, "seq": L, "microbatch": b, "tokens": tokens, "ms": ms,
+           "peak_gb": peak / 1e9, "model_flops_6nd": six_nd,
+           "model_flop_share": six_nd / (ms / 1e3) / BF16_DENSE_PEAK,
+           "analytic_flops": full["analytic_flops"] * scale, "afa_rounds": int(m["afa_rounds"]),
+           "similarities": m["similarities"].tolist(), **got,
+           "cut": f"vmap -> scan, b 64 -> {b}, local steps {LOCAL_STEPS} -> {S}"}
+    print(f"prod [train_4k, {cfg.fed_mode}, K={K} b={b} S={S} L={L}, bf16] ({smi}): exactly "
+          f"client 0 screened out (alpha {got['alpha']}, beta {got['beta']}); ms/round={ms:.1f}"
+          f" peak_GB={row['peak_gb']:.2f} tokens={tokens} model_flop_share="
+          f"{row['model_flop_share']:.4f} afa_rounds={row['afa_rounds']}")
+    del bundle, params, batch, step, agg
+    torch.cuda.empty_cache()
+    return row
+
+
+def production_phase(torch, ops, ref, smi):
+    """Phase D: smollm-135m at the reference's production input shapes.
+    Returns the rows and the flash launches of its kernel-route runs (the
+    twin comparisons not counted)."""
+    t_phase = time.perf_counter()
+    launches = {"flash_attn": 0, "flash_attn_tc": 0}
+    rows = {}
+    rows["prefill_32k"], params16 = prod_prefill(torch, ops, smi, launches)
+    rows["long_context"] = prod_long_context(torch, ops, smi, params16, launches)
+    rows["twins"] = prod_twins(torch, ops, ref, smi)
+    rows["decode_32k"] = prod_decode(torch, ops, smi, "decode_32k", PROD_DECODE_B)
+    rows["long_500k"] = prod_decode(torch, ops, smi, "long_500k")
+    rows["long_500k_ring_window"] = prod_ring_window(torch, smi, params16)
+    del params16
+    torch.cuda.empty_cache()
+    rows["train_4k"] = prod_train(torch, smi)
+    rows["launches"] = launches
+    rows["phase_s"] = time.perf_counter() - t_phase
+    print(f"production phase: {rows['phase_s']:.1f} s, launches {launches}")
+    return rows, launches
+
+
+def production_summary(smi, rows):
+    """One line a production shape of phase D, with the card's name and
+    power limit, and the cuts."""
+    p, lc, d, lg, t = (rows[k] for k in ("prefill_32k", "long_context", "decode_32k",
+                                         "long_500k", "train_4k"))
+    print(f"production summary [prefill_32k B={p['B']}] ({smi}): ms={p['ms']:.1f} peak_GB="
+          f"{p['peak_gb']:.2f} analytic_TFLOP/s={p['analytic_tflops_per_s']:.1f} "
+          f"model_flop_share={p['model_flop_share']:.4f}")
+    print(f"production summary [f32 long context] ({smi}): kernel vs plain at "
+          f"{lc['L_compared']} max diff {lc['max_abs_diff_kernel_vs_plain']:.3e}; prefill vs "
+          f"forward at {lc['L_prefill']} {lc['max_abs_diff_prefill_last_vs_forward']:.3e}; "
+          + "; ".join(f"{r['name']} vs twin at L={r['L']} {r['max_abs_err_arith_twin']:.3e}"
+                      for r in rows["twins"]))
+    for r in (d, lg):
+        print(f"production summary [{r['shape']} B={r['B']}] ({smi}): ms/step replayed="
+              f"{r['graph_ms_per_step']:.3f} eager={r['eager_ms_per_step']:.3f} byte_share="
+              f"{r['byte_share']:.4f} widening {r['widen_ms']:.3f} ms transient_GB="
+              f"{r['transient_gb']:.2f}")
+    tr = d.get("trace") or {}
+    if tr.get("device_events"):
+        print(f"production summary [decode_32k traced replay] ({smi}): wall_ms="
+              f"{tr['wall_ms']:.3f} device_busy_ms={tr['device_busy_ms']:.3f} device ops="
+              f"{tr['device_events']}; top: " + "; ".join(
+                  f"{t['ms']:.2f} ms x{t['count']} {t['name'][:48]}" for t in tr["top"][:4]))
+    print(f"production summary [train_4k] ({smi}): {t['mode']} K={t['K']} b={t['per_client_batch']}"
+          f" S={t['local_steps']} ms/round={t['ms']:.1f} peak_GB={t['peak_gb']:.2f} "
+          f"model_flop_share={t['model_flop_share']:.4f}")
+    cuts = [f"{k}: {v['cut']}" for k, v in rows.items()
+            if isinstance(v, dict) and v.get("cut")]
+    print(f"production summary [cuts] ({smi}): " + "; ".join(cuts)
+          + f"; phase {rows['phase_s']:.1f} s")
+
+
 def train_summary(smi, rows):
     """One line a mode and dtype of phase T, with the card's name and power
     limit."""
@@ -3943,6 +4453,7 @@ def main() -> None:
     serve_llm, serve_llm_trace, serve_llm_launches = serve_llm_phase(torch, ops)
     families, families_trace, families_launches = families_phase(torch, ops)
     train = train_phase(torch)
+    production, production_launches = production_phase(torch, ops, ref, smi)
     lora_runs, lora_launches, lora_dump = lora_phase(torch, ops, min_rounds_to_block)
     fused_runs, eager_launches, fused_results = fused_phase(torch, ops, min_rounds_to_block)
     segmented = segmented_compaction_phase(torch, ops)
@@ -3957,7 +4468,8 @@ def main() -> None:
     leaf, leaf_launches = leaf_layout_phase(torch, ops, min_rounds_to_block)
     traces = [profile_phase(torch), lora_trace, *forward_profile_phase(torch), *fused_traces]
     traces += [serve_llm_trace, families_trace]
-    for more in (serve_llm_launches, families_launches, baseline_launches, unmasked_launches,
+    for more in (serve_llm_launches, families_launches, production_launches,
+                 baseline_launches, unmasked_launches,
                  lora_launches, lora_graph_launches,
                  eager_launches, graph_launches, sweep_launches, serve_launches,
                  grid_launches, looped_launches, leaf_launches):
@@ -3997,6 +4509,7 @@ def main() -> None:
         "rank_edge_checks": rank_edges, "main_path": runs,
         "baselines": baseline_runs, "unmasked": unmasked_rows, "flash_attn_checks": attn_rows,
         "forward": forward_rows, "serve_llm": serve_llm, "families": families, "train": train,
+        "production": production,
         "lora": lora_runs, "lora_round_dump": lora_dump,
         "fused": fused_runs, "sweeps": sweeps, "keyed_streams": keyed,
         "gram_buckets": gram_buckets,
@@ -4013,6 +4526,7 @@ def main() -> None:
     serve_llm_summary(smi, serve_llm, serve_llm_trace)
     families_summary(smi, families, families_trace)
     train_summary(smi, train)
+    production_summary(smi, production)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

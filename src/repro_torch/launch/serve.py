@@ -69,7 +69,9 @@ class DecodeProgram:
 
     The program owns its buffers: the cache (any family's tree), the next
     token and the step's logits.  ``load()`` copies a prefill's cache and
-    first token into them.
+    first token into them.  With ``adopt=True`` the given cache itself is
+    the program's cache buffer, not copied: a cache too large to hold twice
+    (a 32k-token batch) is filled in place by the caller.
     ``step()`` runs ``decode_step`` on them (the cache and its ``pos``
     written in place), copies the logits out and, when greedy, writes the
     argmax into the token buffer.  ``capture()`` records ``step()`` as a
@@ -77,9 +79,10 @@ class DecodeProgram:
     buffers are loaded afterwards, so the warm-up's writes do not matter).
     ``run()`` replays the graph, or on the CPU calls ``step()``."""
 
-    def __init__(self, model, params, cache: dict, *, ring: bool, greedy: bool):
+    def __init__(self, model, params, cache: dict, *, ring: bool, greedy: bool,
+                 adopt: bool = False):
         self.model, self.params, self.ring, self.greedy = model, params, ring, greedy
-        self.cache = tree_apply(torch.zeros_like, cache)
+        self.cache = cache if adopt else tree_apply(torch.zeros_like, cache)
         b, dev = cache["pos"].shape[0], cache["pos"].device
         self.tok = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.logits = torch.zeros((b, model.config.vocab_size), dtype=torch.float32,
