@@ -137,10 +137,12 @@
    kernel-route forward within 2e-3 of the plain route at 16,384 tokens
    and the 32,768-token prefill's ``logits_last`` within 2e-3 of the
    forward's last position (30 ``flash_attn`` launches each), both flash
-   kernels against the twins of their arithmetic at 32,768 tokens;
+   kernels against the twins of their arithmetic at 32,768 tokens, the f32
+   one at B = 1 and the bf16 one at the prefill's B = 32 (its first and
+   last rows each against the twin on that row);
    ``decode_32k`` (cut to B = 64: 128 x 32,768 take 96.6 GB of cache) and
    ``long_500k`` (a ring of 8,192 at position 524,287) from seeded caches
-   adopted by a ``DecodeProgram``: one graph-replayed step = the eager
+   used in place by a ``DecodeProgram``: one graph-replayed step = the eager
    serve step bit for bit, ms a step, the byte share, the f32 widening's
    time, one traced ``decode_32k`` replay; ``long_500k``'s ring step in
    f32 = the window decode over the same 8,192 entries; ``train_4k`` at
@@ -582,7 +584,7 @@ PROD_TIMED = 3             # prefill ms: the median of 3 after a warm-up
 PROD_DECODE_B = 64
 PROD_REPLAYS = 20          # decode: graph replays timed, the eager step 3 times
 PROD_LONG_L = 16_384       # f32 kernel-route forward against the plain route, B = 1
-PROD_TWIN_LS = (32_768, 16_384, 8_192)   # the flash kernels against their twins, B = 1
+PROD_TWIN_LS = (32_768, 16_384, 8_192)   # the flash kernels against their twins
 # train_4k at client_rows = 4: K = 4 clients, client 0 byzantine (the train
 # CLI's attack), 4,096-token sequences.  The plain blocked attention the
 # clients train through saves every tile's scores and probabilities for its
@@ -3970,56 +3972,71 @@ def prod_long_context(torch, ops, smi, params16, launches):
 
 def prod_twins(torch, ops, ref, smi):
     """Both flash kernels against the twins of their arithmetic at smollm's
-    heads (9/3, D = 64, causal, B = 1) at the longest ``PROD_TWIN_LS``
-    length whose twin fits the free memory (f32: ``TF32_ATTN_RTOL``, bf16:
-    one output ulp, each at v's scale), bit-identical reruns, the kernel's
-    ms (median of 3).  Comparison launches: the counts are reset after."""
+    heads (9/3, D = 64, causal), each at the batch the main path gives it:
+    the f32 kernel at B = 1 (the long-context check's), the bf16 kernel at
+    B = ``PROD_PREFILL_B`` (``prefill_32k``'s grid), one launch over the
+    whole batch with its first and last rows each held to the twin run on
+    that row alone (f32: ``TF32_ATTN_RTOL``, bf16: one output ulp, each at
+    that row's v scale); at the longest ``PROD_TWIN_LS`` length whose twin
+    and tensors fit the free memory; a bit-identical rerun; the kernel's ms
+    (``time_ms``).  Comparison launches: the counts are reset after."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
     rows = []
-    for dt in (torch.float32, torch.bfloat16):
+    for dt, B in ((torch.float32, 1), (torch.bfloat16, PROD_PREFILL_B)):
         dname = str(dt).split(".")[-1]
+        esize = torch.finfo(dt).bits // 8
         torch.cuda.empty_cache()
         free = torch.cuda.mem_get_info()[0]
-        # the twins' largest transients: float64 (L, Hq, 64) slices, ~16 alive
-        L = next(l for l in PROD_TWIN_LS if 16 * l * 9 * 64 * 8 < free / 2)
+        # the twins' largest transients: float64 (L, Hq, 64) slices, ~16
+        # alive; the kernel's q, k, v, out and rerun: 9 + 3 + 3 + 9 + 9 heads
+        L = next(l for l in PROD_TWIN_LS
+                 if 16 * l * 9 * 64 * 8 + B * l * 33 * 64 * esize < free / 2)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(17)
-        q, k, v = (torch.randn((1, L, h, 64), generator=gen, device="cuda").to(dt)
+        q, k, v = (torch.randn((B, L, h, 64), generator=gen, device="cuda").to(dt)
                    for h in (9, 3, 3))
         out = ops.flash_attention(q, k, v, causal=True)
-        if dt == torch.float32:
-            twin = ref.flash_attention_3xtf32_ref(q, k, v, causal=True,
+        errs, tols = [], []
+        for b in sorted({0, B - 1}):
+            one = slice(b, b + 1)
+            if dt == torch.float32:
+                twin = ref.flash_attention_3xtf32_ref(q[one], k[one], v[one], causal=True,
+                                                      block_k=ops.ATTN_TC_BLOCK_K)
+                tol, what = TF32_ATTN_RTOL * float(v[one].abs().max()), "TF32_ATTN_RTOL"
+            else:
+                twin = ref.flash_attention_tc_ref(q[one], k[one], v[one], causal=True,
                                                   block_k=ops.ATTN_TC_BLOCK_K)
-            tol, what = TF32_ATTN_RTOL * float(v.abs().max()), "TF32_ATTN_RTOL"
-        else:
-            twin = ref.flash_attention_tc_ref(q, k, v, causal=True, block_k=ops.ATTN_TC_BLOCK_K)
-            tol, what = ATTN_TC_ULP[dname] * float(v.float().abs().max()), "one output ulp"
-        err = float((out.float() - twin.float()).abs().max())
-        del twin
-        times = []
-        for _ in range(3):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            again = ops.flash_attention(q, k, v, causal=True)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
+                tol = ATTN_TC_ULP[dname] * float(v[one].float().abs().max())
+                what = "one output ulp"
+            errs.append(float((out[one].float() - twin.float()).abs().max()))
+            tols.append(tol)
+            del twin
+        again = ops.flash_attention(q, k, v, causal=True)
         name = "flash_attn" if dt == torch.float32 else "flash_attn_tc"
-        if err > tol or not torch.isfinite(out).all() or not torch.equal(out, again):
-            raise AssertionError(f"prod [twins] {name} {dname} at L={L}: max |kernel - twin| "
-                                 f"{err} > {what} {tol}, or not finite, or reruns differ")
-        rows.append({"name": name, "dtype": dname, "L": L, "max_abs_err_arith_twin": err,
-                     "tol": tol, "ms": median_of(times)})
-        print(f"prod [twins] {name} {dname} (1, {L}, {L}, 9, 3, 64) causal ({smi}): max |kernel -"
-              f" arithmetic twin|={err:.3e} (tol {tol:.3e}, {what}) bit-identical, kernel_ms="
-              f"{rows[-1]['ms']:.3f}; the longest of {PROD_TWIN_LS} the twin fits")
+        ms = time_ms(torch, {name: lambda: ops.flash_attention(q, k, v, causal=True)},
+                     flush)[name]
+        if (any(e > t for e, t in zip(errs, tols)) or not torch.isfinite(out).all()
+                or not torch.equal(out, again)):
+            raise AssertionError(f"prod [twins] {name} {dname} at B={B} L={L}: max |kernel - "
+                                 f"twin| of rows 0 and {B - 1} {errs} > {what} {tols}, or not "
+                                 f"finite, or reruns differ")
+        rows.append({"name": name, "dtype": dname, "B": B, "L": L, "rows_compared":
+                     sorted({0, B - 1}), "max_abs_err_arith_twin": max(errs),
+                     "max_abs_err_rows": errs, "tol": min(tols), "ms": ms})
+        print(f"prod [twins] {name} {dname} ({B}, {L}, {L}, 9, 3, 64) causal ({smi}): rows "
+              f"{rows[-1]['rows_compared']} each against the twin on that row: max |kernel - "
+              f"arithmetic twin|={[f'{e:.3e}' for e in errs]} (tol "
+              f"{[f'{t:.3e}' for t in tols]}, {what}) bit-identical, kernel_ms={ms:.3f} "
+              f"(median of {N_TIMED}, L2 flushed); the longest of {PROD_TWIN_LS} that fits")
         del q, k, v, out, again
+    del flush
     ops.reset_launch_counts()
     return rows
 
 
 def prod_decode(torch, ops, smi, shape, global_batch=None):
     """``decode_32k`` or ``long_500k`` (bf16): the spec's cache filled from
-    the seed and adopted by a ``DecodeProgram``; the eager serve step
+    the seed and used in place as a ``DecodeProgram``'s buffer; the eager serve step
     (``build_step``) and one graph replay from the same state equal bit for
     bit (logits, the written cache slot of every layer, the next position);
     ms a step replayed (median of ``PROD_REPLAYS``, the state restored
@@ -4041,7 +4058,7 @@ def prod_decode(torch, ops, smi, shape, global_batch=None):
     p = INPUT_SHAPES[shape]["seq"] - 1
     slot = p % S if ring else p
     step = build_step(model, bundle)
-    prog = DecodeProgram(model, params, cache, ring=ring, greedy=True, adopt=True)
+    prog = DecodeProgram(model, params, cache, ring=ring, greedy=True)
     kv = cache["layers"]
     snap = [t[:, :, slot].clone() for t in kv]
 
@@ -4265,7 +4282,8 @@ def production_summary(smi, rows):
     print(f"production summary [f32 long context] ({smi}): kernel vs plain at "
           f"{lc['L_compared']} max diff {lc['max_abs_diff_kernel_vs_plain']:.3e}; prefill vs "
           f"forward at {lc['L_prefill']} {lc['max_abs_diff_prefill_last_vs_forward']:.3e}; "
-          + "; ".join(f"{r['name']} vs twin at L={r['L']} {r['max_abs_err_arith_twin']:.3e}"
+          + "; ".join(f"{r['name']} vs twin at B={r['B']} L={r['L']} (rows "
+                      f"{r['rows_compared']}) {r['max_abs_err_arith_twin']:.3e}"
                       for r in rows["twins"]))
     for r in (d, lg):
         print(f"production summary [{r['shape']} B={r['B']}] ({smi}): ms/step replayed="

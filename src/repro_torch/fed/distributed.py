@@ -121,6 +121,17 @@ def _clients_train(loss_fn, opt, params, batch, *, microbatch: int = 1):
     return tree_unflatten(tree_structure(params), list(p.values()))
 
 
+def client_train_calls(mode: str, num_clients: int) -> int:
+    """The client-training calls one round of ``mode`` makes with no client
+    blocked: ``vmap`` one ``_clients_train`` over the K clients, ``scan`` one
+    ``_client_train`` a client, ``remat`` one a client in each of its three
+    passes.  Each call runs the round's S local steps."""
+    calls = {"vmap": 1, "scan": num_clients, "remat": 3 * num_clients}
+    if mode not in calls:
+        raise ValueError(f"unknown fed mode {mode}")
+    return calls[mode]
+
+
 def _metrics(good_mask, rounds, similarities) -> dict:
     return {"good_frac": good_mask.float().mean(), "afa_rounds": rounds,
             "similarities": similarities}

@@ -19,9 +19,10 @@ record holds:
   reputation's ``betainc``) and cannot run on meta: its count is the
   clients' local training (``flops_scope: "local training"``), one
   ``_clients_train`` call under ``vmap``, else one client's
-  ``_client_train`` times the calls the mode makes (``flops_calls``: K
-  under ``scan``, 3K under ``remat``), each counted over one local step
-  and multiplied by the steps: every call and step has the same shapes;
+  ``_client_train`` times the calls the mode makes (``flops_calls``, from
+  ``fed.distributed.client_train_calls``), each counted over one local
+  step and multiplied by the steps: every call and step has the same
+  shapes;
 * ``analytic``: ``analytic.analytic_report(cfg, shape, client_rows)``.
 
 ``--device cuda`` also makes the arguments on the card, where they fit its
@@ -51,7 +52,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import resolve_device
 from repro_torch.configs import ALIASES, get_config
-from repro_torch.fed.distributed import _client_train, _clients_train
+from repro_torch.fed.distributed import _client_train, _clients_train, client_train_calls
 from repro_torch.launch.analytic import analytic_report
 from repro_torch.launch.specs import INPUT_SHAPES, input_specs
 from repro_torch.launch.steps import build_step, train_round_config
@@ -122,11 +123,10 @@ def count_step(model, bundle, train_kwargs: dict) -> dict:
     with FlopCounterMode(display=False) as fc:
         if fr.mode == "vmap":
             _clients_train(model.loss_fn, opt, params, first, microbatch=fr.microbatch)
-            calls = 1
         else:
             _client_train(model.loss_fn, opt, params, {n: v[0] for n, v in first.items()},
                           microbatch=fr.microbatch)
-            calls = K * (3 if fr.mode == "remat" else 1)
+    calls = client_train_calls(fr.mode, K)
     # (params', rep', metrics): the aggregate in the parameters' dtypes,
     # good_frac f32, afa_rounds int32, K f32 similarities
     return {"flops_counted": float(fc.get_total_flops()) * S * calls,

@@ -67,22 +67,20 @@ class DecodeProgram:
     """One decode step over static buffers, for one (batch, cache size,
     ring) and one set of parameters.
 
-    The program owns its buffers: the cache (any family's tree), the next
-    token and the step's logits.  ``load()`` copies a prefill's cache and
-    first token into them.  With ``adopt=True`` the given cache itself is
-    the program's cache buffer, not copied: a cache too large to hold twice
-    (a 32k-token batch) is filled in place by the caller.
+    The given cache (any family's tree) is the program's cache buffer, used
+    in place; the program adds the next token's and the step's logits'
+    buffers.  ``load()`` copies a prefill's cache and first token into them.
     ``step()`` runs ``decode_step`` on them (the cache and its ``pos``
     written in place), copies the logits out and, when greedy, writes the
     argmax into the token buffer.  ``capture()`` records ``step()`` as a
-    CUDA graph: one warm-up step on a side stream, then the capture (the
-    buffers are loaded afterwards, so the warm-up's writes do not matter).
+    CUDA graph: one warm-up step on a side stream, then the capture.  The
+    warm-up step writes into the cache buffer and advances its ``pos``, so a
+    caller loads the buffers after ``capture()``, or fills them again.
     ``run()`` replays the graph, or on the CPU calls ``step()``."""
 
-    def __init__(self, model, params, cache: dict, *, ring: bool, greedy: bool,
-                 adopt: bool = False):
+    def __init__(self, model, params, cache: dict, *, ring: bool, greedy: bool):
         self.model, self.params, self.ring, self.greedy = model, params, ring, greedy
-        self.cache = cache if adopt else tree_apply(torch.zeros_like, cache)
+        self.cache = cache
         b, dev = cache["pos"].shape[0], cache["pos"].device
         self.tok = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.logits = torch.zeros((b, model.config.vocab_size), dtype=torch.float32,
@@ -169,8 +167,9 @@ def generate(model, params, prompts: torch.Tensor, *, gen: int, ring: bool, cach
         key = (b, cache_size, ring, greedy)
         prog = programs.get(key)
         if prog is None or prog.params is not params or prog.model is not model:
-            prog = programs[key] = DecodeProgram(model, params, cache, ring=ring,
-                                                 greedy=greedy)
+            prog = programs[key] = DecodeProgram(model, params,
+                                                 tree_apply(torch.zeros_like, cache),
+                                                 ring=ring, greedy=greedy)
             if graph and dev.type == "cuda":
                 prog.capture()
                 times["capture_s"] = prog.capture_s

@@ -10,6 +10,10 @@ the CPU, on ``device="meta"``.
 * ``flops_counted`` of smollm-135m's and llama3-8b's ``decode_32k`` within
   1 % of ``analytic_flops``: on the plain route the counted projections,
   head and attention einsums are the analytic terms;
+* a train step's ``flops_counted`` is its mode's client-training calls
+  (``fed.distributed.client_train_calls``) times the local steps times one
+  client's step, counted apart; and ``client_train_calls`` is the number
+  of calls a round of each mode makes on the CPU;
 * ``--device cuda`` refuses without CUDA, and ``--help`` in a fresh process
   loads no ``jax`` and nothing of ``repro``.
 """
@@ -34,6 +38,7 @@ from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.utils.trees import tree_leaves  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -106,6 +111,62 @@ def test_decode_flops_counted_match_the_analytic_model(tmp_path, arch):
     mem = rec["memory"]
     assert mem["output_bytes"] == mem["argument_bytes"] - params - 2 * 128 * 4 \
         + 128 * cfg.vocab_size * 4
+
+
+def _reduced_counting(mode):
+    cfg = get_config("smollm-135m").reduced().with_(fed_mode=mode)
+    return build_model(cfg.with_(use_pallas_attention=False, block_q=dryrun.ONE_TILE,
+                                 block_k=dryrun.ONE_TILE))
+
+
+@pytest.mark.parametrize("mode,client_rows", [("vmap", 2), ("scan", 1), ("remat", 1)])
+def test_train_flops_counted_are_calls_times_one_client_step(mode, client_rows):
+    """On meta at ``train_4k``'s shapes: the count is K (vmap: the K clients
+    of one call; scan: K calls) or 3K (remat) times S times the FLOPs of one
+    client's gradient on one local step's batch."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.fed.distributed import client_train_calls
+
+    model = _reduced_counting(mode)
+    bundle = specs.input_specs(model, "train_4k", client_rows=client_rows)
+    rec = dryrun.count_step(model, bundle, {})
+    params, _, _, batch = bundle.args
+    K, S = batch["labels"].shape[:2]
+    one = {n: v[0, 0] for n, v in batch.items()}
+    leaves = [l.requires_grad_() for l in tree_leaves(params)]
+    with FlopCounterMode(display=False) as fc:
+        torch.autograd.grad(model.loss_fn(params, one)[0], leaves)
+    per_client = {"vmap": K, "scan": K, "remat": 3 * K}[mode]
+    assert rec["flops_calls"] == client_train_calls(mode, K)
+    assert rec["flops_counted"] == per_client * S * fc.get_total_flops() > 0
+
+
+@pytest.mark.parametrize("mode", ["vmap", "scan", "remat"])
+def test_client_train_calls_are_the_round_s(monkeypatch, mode):
+    """``client_train_calls`` = the ``_client_train`` / ``_clients_train``
+    calls one round of ``make_fed_round`` makes, no client blocked (CPU,
+    K = 3, one local step of one 8-token sequence)."""
+    from repro_torch.core import ReputationState
+    from repro_torch.fed import distributed
+    from repro_torch.launch.steps import build_step
+
+    calls = []
+    for name in ("_client_train", "_clients_train"):
+        real = getattr(distributed, name)
+        monkeypatch.setattr(distributed, name,
+                            lambda *a, _real=real, **kw: (calls.append(1), _real(*a, **kw))[1])
+    cfg = get_config("smollm-135m").reduced().with_(fed_mode=mode, fed_clients=3)
+    model = build_model(cfg)
+    bundle = specs.input_specs(model, "train_4k", client_rows=3, device="cpu",
+                               global_batch=3, local_steps=1)
+    params, rep, n_k, batch = bundle.args
+    batch = {n: v[..., :8] for n, v in batch.items()}
+    K = batch["labels"].shape[0]
+    step = build_step(model, bundle, local_steps=1)
+    step(params, ReputationState(rep.alpha, rep.beta, torch.zeros((K,), dtype=torch.bool)),
+         n_k, batch)
+    assert len(calls) == distributed.client_train_calls(mode, K) and K == 3
 
 
 def test_cuda_dry_run_refuses_without_cuda(monkeypatch, tmp_path):
