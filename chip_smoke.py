@@ -139,7 +139,9 @@
    forward's last position (30 ``flash_attn`` launches each), both flash
    kernels against the twins of their arithmetic at 32,768 tokens, the f32
    one at B = 1 and the bf16 one at the prefill's B = 32 (its first and
-   last rows each against the twin on that row);
+   last rows each against the twin on that row), each beside
+   ``F.scaled_dot_product_attention``'s time on the same inputs (GQA,
+   causal), or the bytes it asked for where it does not fit;
    ``decode_32k`` (cut to B = 64: 128 x 32,768 take 96.6 GB of cache) and
    ``long_500k`` (a ring of 8,192 at position 524,287) from seeded caches
    used in place by a ``DecodeProgram``: one graph-replayed step = the eager
@@ -236,11 +238,27 @@
    3's recorded proposals on the leaf and the tree layouts: AFA's good_mask
    equal and its aggregate within rtol 2e-5 / atol 2e-6, fa, mkrum and
    comed bit for bit, each launching its kernel on the leaf layout;
-19. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+19. runs the client-sharded fused engine (phase H, ``SHARD_SIM``: the paper
+   DNN at full width, 200 clients, 60 byzantine, 8 rounds in 4-round
+   segments with per-shard compaction, iterative AFA on the kernel route):
+   ``launch.shards.run_sharded`` on one NCCL rank = the unsharded
+   ``engine="fused"`` run bit for bit; 4 gloo ranks sharing the card
+   (``launch.shards.spawn``): every round's good_mask and the blocked
+   rounds equal the unsharded run's, test error within 1e-4, the 60
+   blocked in round 6 and no good client, 9 ``weighted_sum`` and 8
+   ``cosine_sim`` launches a round on every rank (wrapper counts, and rank
+   0's in a profiler trace), ms a round; the sharded ``afa_aggregate``
+   alone on seeded (200, 535,818) proposals against the unsharded call
+   (masks and rounds equal, aggregate within 1e-6 of its largest
+   magnitude), its median ms and one traced call split between the two
+   kernels, the other device work and the host time in the all-reduces;
+   with two cards or more, the run on one NCCL rank a card;
+20. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
    serve-LLM, families, production-shape (its kernel-route prefills and
-   forwards), sweep, serve, grid, looped and leaf phases (phase T runs no
-   kernel) and, for the fused engine's
+   forwards), sweep, serve, grid, looped, leaf and client-shard phases
+   (phase T runs no kernel; phase H's summed over its ranks) and, for the
+   fused engine's
    graph runs (the DNN's and LoRA's), the calls that step 14's traces
    executed.
 
@@ -252,6 +270,7 @@ Everything it measured also goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -595,6 +614,24 @@ PROD_TWIN_LS = (32_768, 16_384, 8_192)   # the flash kernels against their twins
 PROD_TRAIN = dict(client_rows=4, per_client_batch=2, local_steps=1, lr=0.05)
 BF16_DENSE_PEAK = 989.4e12   # H100 SXM dense bf16 tensor-core FLOP/s: model-FLOP share
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 bytes/s: the decode byte share
+
+
+# phase H (client shards): MAIN_SIM at 200 clients, 60 of them byzantine
+# (ROADMAP C.8: AFA blocks all of them in round 6 at this share), iterative
+# AFA on the kernel route, segmented by 4 rounds with per-shard compaction;
+# one NCCL rank against the unsharded run bit for bit, then 4 gloo ranks
+# sharing the card against it on decisions and within SHARD_ERR_TOL; the
+# sharded aggregate alone on seeded (200, D_PAPER) proposals
+SHARD_K = 200
+SHARD_S = 4
+SHARD_SIM = dict(MAIN_SIM, num_clients=SHARD_K, bad_frac=0.3, engine="fused", segment_rounds=4)
+SHARD_ERR_TOL = 1e-4    # percent: the JAX package's sharded test's bound
+SHARD_AGG_RTOL = 1e-6   # aggregate vs the unsharded call, of its largest magnitude
+SHARD_TIMED = 10        # sharded afa_aggregate calls timed (median)
+# wrapper calls a round of each rank: 8 unrolled passes (a weighted_sum and
+# a cosine_sim each) and the final weighted_sum
+SHARD_CALLS = {"weighted_sum": 9, "cosine_sim": 8}
+SHARD_DTYPES = ("float32", "float64", "uint8", "int32")  # what the mesh's all-reduces carry
 
 
 def fail(msg: str) -> None:
@@ -1329,9 +1366,11 @@ def device_spans(torch, prof, after=None):
     from torch.autograd import DeviceType
 
     from repro_torch.fed.engine import ROUNDS_RANGE
+    from repro_torch.launch.mesh import ALL_REDUCE_RANGE
 
     return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and e.name != ROUNDS_RANGE
+                  if e.device_type == DeviceType.CUDA
+                  and e.name not in (ROUNDS_RANGE, ALL_REDUCE_RANGE)
                   and (after is None or e.time_range.start >= after))
 
 
@@ -2949,7 +2988,7 @@ def segmented_compaction_phase(torch, ops):
     res = run(None, SimConfig(**C8_SHARE_SIM, engine="fused"),
               ServerConfig(num_clients=K, afa_variant=variant,
                            kernel_plan=resolve_kernel_plan(kernels, kernel_launch=launch)),
-              data=make_mnist_like(n_train=1000 * K), device="cuda")
+              data=mnist_like(1000 * K), device="cuda")
     share = {"route": "gram/fused", "num_clients": K, "byzantine": len(res.bad_clients),
              "blocked": int((res.blocked_round > 0).sum()), "test_error": res.test_error}
     rows.append(share)
@@ -3970,6 +4009,27 @@ def prod_long_context(torch, ops, smi, params16, launches):
     return row
 
 
+def prod_sdpa_ms(torch, q, k, v, flush):
+    """The library call's time on the flash kernels' (B, L, H, D) inputs:
+    ``F.scaled_dot_product_attention`` on (B, H, L, D) copies, causal, GQA
+    (``enable_gqa``), by ``time_ms``.  Where the backend SDPA picks cannot
+    hold its work in the card's memory, ``(None, "does not fit: <the
+    allocator's message>")``, the bytes it asked for in the message."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    try:
+        ms = time_ms(torch, {"library_ms": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)}, flush)["library_ms"]
+    except torch.OutOfMemoryError as e:  # the measurement's answer, not a failure
+        first = str(e).splitlines()[0]
+        del qt, kt, vt
+        torch.cuda.empty_cache()
+        return None, f"does not fit: {first}"
+    del qt, kt, vt
+    return ms, f"{ms:.3f} ms"
+
+
 def prod_twins(torch, ops, ref, smi):
     """Both flash kernels against the twins of their arithmetic at smollm's
     heads (9/3, D = 64, causal), each at the batch the main path gives it:
@@ -4015,6 +4075,7 @@ def prod_twins(torch, ops, ref, smi):
         name = "flash_attn" if dt == torch.float32 else "flash_attn_tc"
         ms = time_ms(torch, {name: lambda: ops.flash_attention(q, k, v, causal=True)},
                      flush)[name]
+        library_ms, library = prod_sdpa_ms(torch, q, k, v, flush)
         if (any(e > t for e, t in zip(errs, tols)) or not torch.isfinite(out).all()
                 or not torch.equal(out, again)):
             raise AssertionError(f"prod [twins] {name} {dname} at B={B} L={L}: max |kernel - "
@@ -4022,12 +4083,14 @@ def prod_twins(torch, ops, ref, smi):
                                  f"finite, or reruns differ")
         rows.append({"name": name, "dtype": dname, "B": B, "L": L, "rows_compared":
                      sorted({0, B - 1}), "max_abs_err_arith_twin": max(errs),
-                     "max_abs_err_rows": errs, "tol": min(tols), "ms": ms})
+                     "max_abs_err_rows": errs, "tol": min(tols), "ms": ms,
+                     "library_ms": library_ms, "library": library})
         print(f"prod [twins] {name} {dname} ({B}, {L}, {L}, 9, 3, 64) causal ({smi}): rows "
               f"{rows[-1]['rows_compared']} each against the twin on that row: max |kernel - "
               f"arithmetic twin|={[f'{e:.3e}' for e in errs]} (tol "
               f"{[f'{t:.3e}' for t in tols]}, {what}) bit-identical, kernel_ms={ms:.3f} "
-              f"(median of {N_TIMED}, L2 flushed); the longest of {PROD_TWIN_LS} that fits")
+              f"(median of {N_TIMED}, L2 flushed); the longest of {PROD_TWIN_LS} that fits; "
+              f"library (SDPA, GQA, causal): {library}")
         del q, k, v, out, again
     del flush
     ops.reset_launch_counts()
@@ -4247,6 +4310,293 @@ def prod_train(torch, smi):
     del bundle, params, batch, step, agg
     torch.cuda.empty_cache()
     return row
+
+
+@functools.lru_cache(maxsize=1)
+def mnist_like(n_train: int):
+    """``make_mnist_like(n_train=n_train)`` (seed 0), made once for the
+    phases that share it (the C.8 share run and phase H, 200,000 samples)."""
+    from repro_torch.data import make_mnist_like
+
+    return make_mnist_like(n_train=n_train)
+
+
+def shard_server():
+    from repro_torch.fed import ServerConfig
+    from repro_torch.kernels.policy import resolve_kernel_plan
+
+    return ServerConfig(num_clients=SHARD_K, afa_variant="iterative",
+                        kernel_plan=resolve_kernel_plan(True))
+
+
+def shard_afa_alone(torch, mesh, ops):
+    """The sharded ``afa_aggregate`` on this rank's rows of the seeded
+    ``screening_inputs`` (200, D_PAPER) matrix, against the unsharded call
+    on the whole matrix (on rank 0), in both loop forms; then the sharded
+    call's median ms over ``SHARD_TIMED`` calls (host clock around each
+    call, synchronized), and one call traced on rank 0: the device time of
+    the two kernels and of everything else, and the host time inside the
+    mesh's all-reduces (which waits for the device work before it: gloo
+    copies through the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import AFAConfig, afa_aggregate
+    from repro_torch.launch.mesh import ALL_REDUCE_RANGE
+
+    _, _, Us, pn, mask0 = screening_inputs(torch, SHARD_K, D_PAPER, 7)
+    ones = torch.ones_like(pn)
+    rows = SHARD_K // mesh.num_shards
+    blk = mesh.row_block(rows)
+    local = (Us[blk].contiguous(), pn[blk], ones[blk], mask0[blk])
+    sharded = AFAConfig(variant="iterative", use_kernels="cuda", client_mesh=mesh,
+                        client_shards=mesh.num_shards)
+    out = {"checks": []}
+    for unroll in (False, True):
+        got = afa_aggregate(*local, sharded, unroll=unroll)
+        good = mesh.gather_rows(got.good_mask.to(torch.uint8), SHARD_K).bool()
+        if mesh.rank == 0:
+            want = afa_aggregate(Us, pn, ones, mask0, AFAConfig(variant="iterative",
+                                                                use_kernels="cuda"),
+                                 unroll=unroll)
+            scale = float(want.aggregate.abs().max())
+            err = float((got.aggregate - want.aggregate).abs().max())
+            check = {"unroll": unroll, "rounds": int(got.rounds),
+                     "rounds_unsharded": int(want.rounds),
+                     "good_mask_equal": bool(torch.equal(good, want.good_mask)),
+                     "kept": int(good.sum()), "max_abs_err": err, "scale": scale}
+            out["checks"].append(check)
+            if not check["good_mask_equal"] or check["rounds"] != check["rounds_unsharded"]:
+                raise AssertionError(f"sharded afa_aggregate (unroll={unroll}): {check}")
+            if err > SHARD_AGG_RTOL * scale:
+                raise AssertionError(f"sharded afa_aggregate (unroll={unroll}): aggregate off "
+                                     f"by {err} > {SHARD_AGG_RTOL} * {scale}")
+
+    def call():
+        r = afa_aggregate(*local, sharded)
+        torch.cuda.synchronize()
+        return r
+
+    call()
+    times = []
+    for _ in range(SHARD_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = sorted(times)[len(times) // 2]
+    out["ms_all"] = times
+    calls = mesh.all_reduces
+    if mesh.rank == 0:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            wall = (time.perf_counter() - t0) * 1e3
+        spans = device_spans(torch, prof)
+        ours = {n: (sum(e - b for b, e, k in spans if f"{n}_kernel" in k),
+                    sum(1 for _, _, k in spans if f"{n}_kernel" in k)) for n in SHARD_CALLS}
+        reduce_us = [e.time_range.end - e.time_range.start for e in prof.events()
+                     if e.name == ALL_REDUCE_RANGE and e.device_type == DeviceType.CPU]
+        out["trace"] = {
+            "wall_ms": wall, "device_busy_ms": busy_us(spans) / 1e3,
+            "kernels": {n: {"ms": t / 1e3, "count": c} for n, (t, c) in ours.items()},
+            "other_device_ms": (busy_us(spans) - sum(t for t, _ in ours.values())) / 1e3,
+            "all_reduce_host_ms": sum(reduce_us) / 1e3, "all_reduces": len(reduce_us)}
+    else:
+        call()
+    out["all_reduces_a_call"] = mesh.all_reduces - calls
+    return out
+
+
+def shard_worker(data, server, traced_run: bool):
+    """One rank of phase H (run on every rank of the caller's group): the
+    all-reduce of each dtype the mesh carries on this backend; then
+    ``SHARD_SIM`` through ``repro_torch.fed.api.run`` with the wrapper
+    counts set to 0 just before and summed over the ranks just after; with
+    ``traced_run``, the same run again, traced on rank 0, its
+    ``weighted_sum`` / ``cosine_sim`` kernels counted in the trace against
+    rank 0's wrapper counts; and the sharded aggregate alone.  Returns
+    rank 0's numbers."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fed import SimConfig, run
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_client_mesh
+
+    t_worker = time.perf_counter()
+    S = dist.get_world_size()
+    mesh = make_client_mesh(S, "cuda", backend=dist.get_backend())
+    dtypes = {}
+    for name in SHARD_DTYPES:
+        t = mesh.psum(torch.ones((3,), dtype=getattr(torch, name), device=mesh.device))
+        dtypes[name] = t.tolist()
+    sim = SimConfig(**SHARD_SIM, client_shards=S)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(None, sim, server, data=data, device="cuda")
+    wall = time.perf_counter() - t0
+    mine = [ops.LAUNCH_COUNTS[n] for n in SHARD_CALLS]
+    total = mesh.psum(torch.tensor(mine, dtype=torch.float64, device=mesh.device)).tolist()
+    out = {"ranks": S, "backend": mesh.backend, "dtypes": dtypes, "result": res,
+           "wall_s": wall, "launches_rank0": dict(zip(SHARD_CALLS, mine)),
+           "launches": {n: int(c) for n, c in zip(SHARD_CALLS, total)}}
+    if traced_run:
+        ops.reset_launch_counts()
+        if mesh.rank == 0:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(None, sim, server, data=data, device="cuda")
+                torch.cuda.synchronize()
+            seen = our_kernels(device_spans(torch, prof))
+            out["traced"] = {n: seen.get(f"{n}_kernel", 0) for n in SHARD_CALLS}
+            out["traced_wrapper_counts"] = {n: ops.LAUNCH_COUNTS[n] for n in SHARD_CALLS}
+        else:
+            run(None, sim, server, data=data, device="cuda")
+        out["afa_alone"] = shard_afa_alone(torch, mesh, ops)
+    out["worker_s"] = time.perf_counter() - t_worker
+    return out
+
+
+def shard_phase(torch, ops, smi, min_rounds_to_block):
+    """Phase H: the client-sharded fused engine (``SimConfig.client_shards``).
+    ``SHARD_SIM`` unsharded (``engine="fused"``, the round graph replayed),
+    then through one NCCL rank (``launch.shards.run_sharded``): equal bit for
+    bit; then on ``SHARD_S`` gloo ranks sharing the card
+    (``launch.shards.spawn`` of ``shard_worker``), held to the unsharded run
+    by ``shard_ranks``, and the sharded aggregate alone against the
+    unsharded call.  With two cards or more, the same on one NCCL rank a
+    card.  Returns the phase's numbers and the launches of the sharded
+    runs' wrappers, summed over the ranks."""
+    from repro_torch.fed import SimConfig, run
+    from repro_torch.launch.shards import run_sharded, spawn
+
+    t_phase = time.perf_counter()
+    data = mnist_like(1000 * SHARD_K)
+    server = shard_server()
+    n_min = min_rounds_to_block()
+    t0 = time.perf_counter()
+    ref = run(None, SimConfig(**SHARD_SIM), server, data=data, device="cuda")
+    ref_wall = time.perf_counter() - t0
+    T = SHARD_SIM["rounds"]
+    row = {"config": {k: v for k, v in SHARD_SIM.items() if k != "hidden"},
+           "unsharded": {"wall_s": ref_wall, "capture_s": ref.capture_time,
+                         "ms_per_round_without_capture":
+                             (ref.round_time * T - ref.capture_time) / T * 1e3,
+                         "test_error": ref.test_error,
+                         "blocked_round": ref.blocked_round.tolist()}}
+    print(f"shards [unsharded, {SHARD_K} clients]: wall_s={ref_wall:.2f} capture_s="
+          f"{ref.capture_time:.2f} blocked={int((ref.blocked_round > 0).sum())} in rounds "
+          f"{sorted(set(ref.blocked_round.tolist()))} test_error="
+          f"{[round(e, 3) for e in ref.test_error]}")
+
+    t0 = time.perf_counter()
+    one = run_sharded(None, SimConfig(**SHARD_SIM, client_shards=1), server, data=data,
+                      device="cuda")
+    row["nccl_one_rank"] = {"wall_s": time.perf_counter() - t0,
+                            "bit_for_bit": same_trajectory(one, ref)}
+    print(f"shards [1 NCCL rank]: run_sharded = the unsharded run bit for bit: "
+          f"{row['nccl_one_rank']['bit_for_bit']} (wall_s={row['nccl_one_rank']['wall_s']:.2f})")
+    if not row["nccl_one_rank"]["bit_for_bit"]:
+        raise AssertionError("shards: one NCCL rank differs from the unsharded run")
+
+    t0 = time.perf_counter()
+    four = spawn(shard_worker, SHARD_S, backend="gloo", device="cuda:0",
+                 args=(data, server, True))
+    row["gloo"] = shard_ranks(f"{SHARD_S} gloo ranks on cuda:0", four,
+                              time.perf_counter() - t0, ref, n_min)
+    cards = torch.cuda.device_count()
+    if cards >= 2 and SHARD_K % cards == 0:
+        t0 = time.perf_counter()
+        many = spawn(shard_worker, cards, backend="nccl", device="cuda", args=(data, server, True))
+        row["nccl"] = shard_ranks(f"{cards} NCCL ranks, one a card", many,
+                                  time.perf_counter() - t0, ref, n_min)
+    else:
+        row["nccl"] = f"did not run: {cards} card(s)"
+        print(f"shards [NCCL, one rank a card]: did not run ({cards} card on this machine)")
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(f"shards: phase {row['phase_s']:.1f} s ({smi})")
+    launches = dict(four["launches"])
+    if isinstance(row["nccl"], dict):
+        for n, c in row["nccl"]["launches"].items():
+            launches[n] += c
+    return row, launches
+
+
+def shard_ranks(label, out, spawn_wall, ref, n_min):
+    """The gates and numbers of one sharded run of ``shard_worker`` (``out``,
+    rank 0's) against the unsharded run ``ref``: every round's good_mask and
+    the blocked rounds equal, test error within ``SHARD_ERR_TOL``, the
+    byzantine clients blocked in round ``n_min`` and no good one, each
+    rank's wrapper counts ``SHARD_CALLS`` a round, rank 0's trace the same;
+    ms a round by segment, the sharded aggregate alone."""
+    import numpy as np
+
+    res, S, T = out["result"], out["ranks"], SHARD_SIM["rounds"]
+    err = float(np.max(np.abs(np.asarray(res.test_error) - np.asarray(ref.test_error))))
+    bad = set(ref.bad_clients.tolist())
+    blocked = {k for k in range(SHARD_K) if res.blocked_round[k] > 0}
+    seg_ms = [float(np.mean(res.round_times[i:i + SHARD_SIM["segment_rounds"]])) * 1e3
+              for i in range(0, T, SHARD_SIM["segment_rounds"])]
+    row = {"ranks": S, "backend": out["backend"], "spawn_wall_s": spawn_wall,
+           "worker_s": out["worker_s"], "run_wall_s": out["wall_s"],
+           "ms_per_round_by_segment": seg_ms, "dtypes": out["dtypes"],
+           "good_mask_equal": bool(np.array_equal(np.stack(res.good_mask_history),
+                                                  np.stack(ref.good_mask_history))),
+           "blocked_round_equal": bool(np.array_equal(res.blocked_round, ref.blocked_round)),
+           "max_test_error_diff": err, "test_error": res.test_error,
+           "launches": out["launches"], "launches_rank0": out["launches_rank0"],
+           "traced_rank0": out["traced"], "traced_wrapper_counts": out["traced_wrapper_counts"],
+           "afa_alone": out["afa_alone"]}
+    print(f"shards [{label}]: spawn wall_s={spawn_wall:.2f} (rank 0's worker "
+          f"{out['worker_s']:.2f}), run wall_s={out['wall_s']:.2f}, ms/round by segment "
+          f"{[round(m, 3) for m in seg_ms]}; good_mask equal {row['good_mask_equal']}, blocked "
+          f"rounds equal {row['blocked_round_equal']}, max |test error diff| {err:.3g} pp; "
+          f"launches {out['launches']} (rank 0 {out['launches_rank0']}, traced on rank 0 "
+          f"{out['traced']}); all-reduce dtypes {out['dtypes']}")
+    a = out["afa_alone"]
+    t = a["trace"]
+    print(f"shards [afa_aggregate alone, ({SHARD_K}, {D_PAPER}) over {label}]: {a['checks']}; "
+          f"ms median={a['ms']:.3f} ({a['all_reduces_a_call']} all-reduces a call); traced "
+          f"call wall_ms={t['wall_ms']:.3f}: kernels "
+          + ", ".join(f"{n} {v['ms']:.3f} ms x{v['count']}" for n, v in t["kernels"].items())
+          + f", other device {t['other_device_ms']:.3f} ms, host in {t['all_reduces']} "
+          f"all-reduces {t['all_reduce_host_ms']:.3f} ms")
+    if not (row["good_mask_equal"] and row["blocked_round_equal"]):
+        raise AssertionError(f"shards [{label}]: differs from the unsharded run: {row}")
+    if err > SHARD_ERR_TOL:
+        raise AssertionError(f"shards [{label}]: test error off by {err} pp > {SHARD_ERR_TOL}")
+    if blocked != bad or set(res.blocked_round[sorted(bad)].tolist()) != {n_min}:
+        raise AssertionError(f"shards [{label}]: blocked {sorted(blocked)} in rounds "
+                             f"{res.blocked_round.tolist()}, expected the {len(bad)} byzantine "
+                             f"clients in round {n_min}")
+    want = {n: c * T * S for n, c in SHARD_CALLS.items()}
+    if out["launches"] != want:
+        raise AssertionError(f"shards [{label}]: wrapper counts {out['launches']}, expected "
+                             f"{want}")
+    if out["traced"] != out["traced_wrapper_counts"] or out["traced"] != {
+            n: c * T for n, c in SHARD_CALLS.items()}:
+        raise AssertionError(f"shards [{label}]: rank 0 traced {out['traced']} kernels, its "
+                             f"wrappers counted {out['traced_wrapper_counts']}")
+    return row
+
+
+def shard_summary(smi, row):
+    print(f"shards summary [{SHARD_K} clients, unsharded] ({smi}): "
+          f"{row['unsharded']['ms_per_round_without_capture']:.3f} ms a round of the segmented "
+          "run's wall without its captures (graphs replayed; compaction and copies included)")
+    for key in ("gloo", "nccl"):
+        g = row[key]
+        if not isinstance(g, dict):
+            print(f"shards summary [NCCL, one rank a card] ({smi}): {g}")
+            continue
+        a = g["afa_alone"]
+        print(f"shards summary [{SHARD_K} clients, {g['ranks']} {g['backend']} ranks] ({smi}): "
+              f"ms/round by segment {[round(m, 3) for m in g['ms_per_round_by_segment']]}; "
+              f"afa_aggregate alone ms={a['ms']:.3f}, traced {a['trace']['wall_ms']:.3f} ms: "
+              + ", ".join(f"{n} {v['ms']:.3f}" for n, v in a["trace"]["kernels"].items())
+              + f", all-reduce host {a['trace']['all_reduce_host_ms']:.3f}")
 
 
 def production_phase(torch, ops, ref, smi):
@@ -4484,13 +4834,14 @@ def main() -> None:
     grid, noisy, grid_launches, grid_wall = paper_grid_phase(torch, ops, min_rounds_to_block)
     looped, looped_launches = looped_phase(torch, ops)
     leaf, leaf_launches = leaf_layout_phase(torch, ops, min_rounds_to_block)
+    shards, shard_launches = shard_phase(torch, ops, smi, min_rounds_to_block)
     traces = [profile_phase(torch), lora_trace, *forward_profile_phase(torch), *fused_traces]
     traces += [serve_llm_trace, families_trace]
     for more in (serve_llm_launches, families_launches, production_launches,
                  baseline_launches, unmasked_launches,
                  lora_launches, lora_graph_launches,
                  eager_launches, graph_launches, sweep_launches, serve_launches,
-                 grid_launches, looped_launches, leaf_launches):
+                 grid_launches, looped_launches, leaf_launches, shard_launches):
         for kernel, count in more.items():
             launches[kernel] += count
 
@@ -4534,6 +4885,7 @@ def main() -> None:
         "segmented_compaction": segmented, "serve": serve, "paper_grid": grid,
         "paper_grid_noisy": noisy,
         "paper_grid_wall_s": grid_wall, "looped": looped, "leaf_layout": leaf,
+        "shards": shards,
         "launches": launches,
         "profile": traces,
     }, indent=1))
@@ -4545,6 +4897,7 @@ def main() -> None:
     families_summary(smi, families, families_trace)
     train_summary(smi, train)
     production_summary(smi, production)
+    shard_summary(smi, shards)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -142,8 +142,40 @@ def _benign_count(benign_mask):
     return torch.clamp(benign_mask.float().sum(), min=1.0)
 
 
-def alie_update_tree(proposals, bad_mask, benign_mask, *, z_max: float = 1.2):
-    """Bad rows <- mean - z_max * std of the benign rows (coordinate-wise)."""
+def _global_sums(mesh, parts, benign_mask):
+    """``(parts, benign count)`` summed over the client mesh in ONE
+    all-reduce of their concatenation (the count last)."""
+    flat = torch.cat([p.reshape(-1) for p in parts]
+                     + [benign_mask.float().sum().reshape(1)])
+    flat = mesh.psum(flat)
+    out, at = [], 0
+    for p in parts:
+        out.append(flat[at:at + p.numel()].reshape(p.shape))
+        at += p.numel()
+    return out, torch.clamp(flat[-1], min=1.0)
+
+
+def alie_update_tree(proposals, bad_mask, benign_mask, *, z_max: float = 1.2, mesh=None):
+    """Bad rows <- mean - z_max * std of the benign rows (coordinate-wise).
+
+    With ``mesh`` (a ``launch.mesh.ClientMesh``) the stack is this rank's
+    rows, and the benign moments go global in ONE all-reduce of every
+    leaf's partial sums and sums of squares and the benign count; the
+    variance is then the one-pass ``E[x^2] - E[x]^2``, clamped at 0, as in
+    the JAX package's sharded form."""
+    if mesh is not None:
+        leaves = tree_leaves(proposals)
+        w = [_row(benign_mask, l).float() for l in leaves]
+        s1 = [row_sum(wl * l.float()) for wl, l in zip(w, leaves)]
+        s2 = [row_sum(wl * l.float() * l.float()) for wl, l in zip(w, leaves)]
+        sums, cnt = _global_sums(mesh, s1 + s2, benign_mask)
+        out = []
+        for l, a, b in zip(leaves, sums[:len(leaves)], sums[len(leaves):]):
+            mu = a / cnt
+            var = torch.clamp(b / cnt - mu * mu, min=0.0)
+            adv = (mu - z_max * torch.sqrt(var)).to(l.dtype)
+            out.append(torch.where(_row(bad_mask, l), adv[None], l))
+        return tree_unflatten(tree_structure(proposals), out)
     cnt = _benign_count(benign_mask)
 
     def leaf(l):
@@ -157,8 +189,18 @@ def alie_update_tree(proposals, bad_mask, benign_mask, *, z_max: float = 1.2):
     return tree_map(leaf, proposals)
 
 
-def ipm_update_tree(proposals, bad_mask, benign_mask, *, eps: float = 0.5):
-    """Bad rows <- -eps * mean(benign rows): inner-product manipulation."""
+def ipm_update_tree(proposals, bad_mask, benign_mask, *, eps: float = 0.5, mesh=None):
+    """Bad rows <- -eps * mean(benign rows): inner-product manipulation.
+
+    With ``mesh`` the benign mean goes global in ONE all-reduce of the
+    leaves' partial sums and the benign count (see ``alie_update_tree``)."""
+    if mesh is not None:
+        leaves = tree_leaves(proposals)
+        s1 = [row_sum(_row(benign_mask, l).float() * l.float()) for l in leaves]
+        sums, cnt = _global_sums(mesh, s1, benign_mask)
+        out = [torch.where(_row(bad_mask, l), (-eps * (a / cnt)).to(l.dtype)[None], l)
+               for l, a in zip(leaves, sums)]
+        return tree_unflatten(tree_structure(proposals), out)
     cnt = _benign_count(benign_mask)
 
     def leaf(l):
@@ -171,15 +213,18 @@ def ipm_update_tree(proposals, bad_mask, benign_mask, *, eps: float = 0.5):
 
 def apply_update_attack(scenario: str, proposals, w_prev, bad_mask, benign_mask,
                         seed: int, *, byzantine_scale: float = 20.0,
-                        z_max: float = 1.2, eps: float = 0.5, client_ids=None):
+                        z_max: float = 1.2, eps: float = 0.5, client_ids=None, mesh=None):
     """Dispatch the update-level attacks on stacked proposals; data-level
     scenarios (clean/flipping/noisy) are a no-op here.  ``seed`` is the
-    round's attack seed (``fed.engine.attack_seed``)."""
+    round's attack seed (``fed.engine.attack_seed``).  ``mesh`` is the
+    client mesh when the stack is this rank's rows: alie and ipm then make
+    their benign moments global in one all-reduce each; byzantine is
+    row-local."""
     if scenario == "byzantine":
         return byzantine_update_tree(proposals, w_prev, bad_mask, seed,
                                      scale=byzantine_scale, client_ids=client_ids)
     if scenario == "alie":
-        return alie_update_tree(proposals, bad_mask, benign_mask, z_max=z_max)
+        return alie_update_tree(proposals, bad_mask, benign_mask, z_max=z_max, mesh=mesh)
     if scenario == "ipm":
-        return ipm_update_tree(proposals, bad_mask, benign_mask, eps=eps)
+        return ipm_update_tree(proposals, bad_mask, benign_mask, eps=eps, mesh=mesh)
     return proposals

@@ -11,7 +11,15 @@ Counterpart of ``repro/core/afa.py``, in two forms:
   says (the JAX tree form has no Pallas call), and it runs the stopping
   loop.
 
-The client-sharded form is not ported.
+The client-sharded form (``AFAConfig.client_mesh`` with ``client_shards``
+> 1, iterative variant only) runs on this rank's rows of the proposals and
+meets the other ranks in all-reduces: each pass sums the local weighted
+rows (a (d,) all-reduce), gathers the K similarities of the local rows
+against that aggregate (an O(K) all-reduce of zero-padded blocks), and
+shares the masked mean, median and std that rank 0 computes (a 3-scalar
+all-reduce to which the other ranks add zeros); the tail test then runs
+alike on every rank.  ``good_mask`` and ``similarities`` come back for the
+local rows, the aggregate whole on every rank.
 
 Two variants:
 
@@ -79,6 +87,12 @@ class AFAConfig(NamedTuple):
     use_kernels: bool | str = False
     # "fused" (one afa_screen call, gram variant only) | "chained"
     kernel_launch: str = "fused"
+    # hierarchical two-stage screening over a client mesh
+    # (repro_torch.launch.mesh.ClientMesh): with client_shards > 1 the
+    # inputs are this rank's K / client_shards rows; with client_shards <= 1
+    # the call takes the unsharded route unchanged
+    client_mesh: object = None
+    client_shards: int = 0
 
 
 class AFAResult(NamedTuple):
@@ -109,6 +123,43 @@ def _mark_bad(s, mask, xi, ddof):
     return bad & keep_floor
 
 
+def _screen(sims, mask, p, n, config: AFAConfig, unroll: bool, mark_bad=None):
+    """Algorithm 1's screening passes from the participation ``mask``:
+    ``sims(c)`` gives the K similarities against the aggregate of weights
+    ``c``, ``mark_bad(s, mask, xi)`` a pass's newly bad clients
+    (``_mark_bad`` by default).  Returns ``(similarities, mask, rounds)``;
+    ``unroll`` runs ``max_rounds`` passes under a device flag instead of
+    stopping."""
+    if mark_bad is None:
+        mark_bad = lambda s, mask, xi: _mark_bad(s, mask, xi, config.ddof)
+    dev = mask.device
+    # round-0 similarities, not zeros, when max_rounds=0: the loop never runs
+    s = (sims(_weights(mask, p, n)) if config.max_rounds == 0
+         else torch.zeros(mask.shape, dtype=torch.float32, device=dev))
+    xi = torch.full((), config.xi0, dtype=torch.float32, device=dev)
+    if unroll:
+        rounds = torch.zeros((), dtype=torch.int32, device=dev)
+        live = torch.ones((), dtype=torch.bool, device=dev)   # this pass runs
+        for _ in range(config.max_rounds):
+            s_pass = sims(_weights(mask, p, n))
+            bad = mark_bad(s_pass, mask, xi)
+            s = torch.where(live, s_pass, s)
+            mask = torch.where(live, mask & ~bad, mask)
+            xi = torch.where(live, xi + config.delta_xi, xi)
+            rounds = rounds + live.to(torch.int32)
+            live = live & bad.any()
+        return s, mask, rounds
+    n_passes, changed = 0, True
+    while changed and n_passes < config.max_rounds:
+        s = sims(_weights(mask, p, n))
+        bad = mark_bad(s, mask, xi)
+        mask = mask & ~bad
+        xi = xi + config.delta_xi
+        changed = bool(bad.any())
+        n_passes += 1
+    return s, mask, torch.full((), n_passes, dtype=torch.int32, device=dev)
+
+
 def afa_aggregate(
     updates: torch.Tensor,          # (K, d)
     n_k: torch.Tensor,              # (K,) data-point counts
@@ -136,6 +187,16 @@ def afa_aggregate(
     n32 = n_k.float()
     p32 = p_k.float()
     kernels = resolve_kernel_mode(config.use_kernels) == "cuda"
+
+    if config.client_mesh is not None and config.client_shards > 1:
+        if config.variant != "iterative":
+            raise ValueError(
+                "sharded AFA implements the iterative variant only: the gram variant needs "
+                "O(K_local * K) Gram rows a shard, which defeats the client sharding; set "
+                f"variant='iterative' (got {config.variant!r})"
+            )
+        return _afa_aggregate_sharded(updates.dtype, upd32, n32, p32, mask0, config, kernels,
+                                      unroll)
 
     if config.variant == "gram" and kernels and config.kernel_launch == "fused":
         agg, good, rounds, sims = kernel_ops.afa_screen(
@@ -169,37 +230,68 @@ def afa_aggregate(
                 torch.clamp(row_norms, min=EPS) * torch.clamp(agg_norm, min=EPS)
             )
 
-    mask = mask0
-    # round-0 similarities, not zeros, when max_rounds=0: the loop never runs
-    s = (sims(_weights(mask, p32, n32)) if config.max_rounds == 0
-         else torch.zeros((K,), dtype=torch.float32, device=dev))
-    xi = torch.full((), config.xi0, dtype=torch.float32, device=dev)
-    if unroll:
-        rounds = torch.zeros((), dtype=torch.int32, device=dev)
-        live = torch.ones((), dtype=torch.bool, device=dev)   # this pass runs
-        for _ in range(config.max_rounds):
-            s_pass = sims(_weights(mask, p32, n32))
-            bad = _mark_bad(s_pass, mask, xi, config.ddof)
-            s = torch.where(live, s_pass, s)
-            mask = torch.where(live, mask & ~bad, mask)
-            xi = torch.where(live, xi + config.delta_xi, xi)
-            rounds = rounds + live.to(torch.int32)
-            live = live & bad.any()
-    else:
-        n_passes, changed = 0, True
-        while changed and n_passes < config.max_rounds:
-            s = sims(_weights(mask, p32, n32))
-            bad = _mark_bad(s, mask, xi, config.ddof)
-            mask = mask & ~bad
-            xi = xi + config.delta_xi
-            changed = bool(bad.any())
-            n_passes += 1
-        rounds = torch.full((), n_passes, dtype=torch.int32, device=dev)
+    s, mask, rounds = _screen(sims, mask0, p32, n32, config, unroll)
     w = _weights(mask, p32, n32)
     agg = kernel_ops.weighted_sum(w, upd32) if kernels else row_sum(w[:, None] * upd32)
     return AFAResult(
         aggregate=agg.to(updates.dtype), good_mask=mask, rounds=rounds, similarities=s,
     )
+
+
+def _afa_aggregate_sharded(dtype, upd32, n32, p32, mask0, config, kernels, unroll):
+    """Algorithm 1 over the client mesh ``config.client_mesh`` (matrix form,
+    iterative).  The inputs are this rank's K_local rows; the screening
+    state (the mask, the p*n weights, the similarities) is K scalars, the
+    same on every rank.  On the kernel route the local weighted sum and the
+    local similarities run ``weighted_sum`` and ``cosine_sim`` on this
+    rank's rows."""
+    mesh = config.client_mesh
+    K_local = upd32.shape[0]
+    K = K_local * mesh.num_shards
+    local = mesh.row_block(K_local)
+    dev = upd32.device
+
+    # n, p and the mask of every rank, in one all-reduce
+    nps = mesh.gather_rows(torch.stack([n32, p32, mask0.float()], dim=1), K)
+    n_g, p_g, mask = nps[:, 0], nps[:, 1], nps[:, 2] > 0
+
+    if kernels:
+
+        def sims(c):
+            w_agg = mesh.psum(kernel_ops.weighted_sum(c[local].contiguous(), upd32))
+            return mesh.gather_rows(kernel_ops.cosine_sim(upd32, w_agg), K)
+
+    else:
+        row_norms_l = torch.linalg.vector_norm(upd32, dim=1)
+
+        def sims(c):
+            w_agg = mesh.psum(row_sum(c[local][:, None] * upd32))
+            agg_norm = torch.linalg.vector_norm(w_agg)
+            s_l = (upd32 @ w_agg) / (
+                torch.clamp(row_norms_l, min=EPS) * torch.clamp(agg_norm, min=EPS)
+            )
+            return mesh.gather_rows(s_l, K)
+
+    def mark_bad(s, mask, xi):
+        # _mark_bad's tail test with the statistics (a sort of the K
+        # similarities) on rank 0 only, shared as a 3-scalar all-reduce: the
+        # other ranks add exact zeros, so every rank reads rank 0's bits
+        if mesh.rank == 0:
+            stats = torch.stack([masked_mean(s, mask), masked_median(s, mask),
+                                 masked_std(s, mask, ddof=config.ddof)])
+        else:
+            stats = torch.zeros((3,), dtype=torch.float32, device=dev)
+        mu_hat, mu_bar, sigma = mesh.psum(stats)
+        low_tail = mask & (s < mu_bar - xi * sigma)
+        high_tail = mask & (s > mu_bar + xi * sigma)
+        bad = torch.where(mu_hat < mu_bar, low_tail, high_tail)
+        return bad & ((mask & ~bad).sum() >= 2)
+
+    s, mask, rounds = _screen(sims, mask, p_g, n_g, config, unroll, mark_bad)
+    w = _weights(mask, p_g, n_g)[local].contiguous()
+    part = kernel_ops.weighted_sum(w, upd32) if kernels else row_sum(w[:, None] * upd32)
+    return AFAResult(aggregate=mesh.psum(part).to(dtype), good_mask=mask[local],
+                     rounds=rounds, similarities=s[local])
 
 
 def _stacked_weighted_sum(stacked, c):
@@ -261,22 +353,9 @@ def afa_aggregate_tree(
             agg_norm = torch.sqrt(torch.clamp(tree_dot(agg, agg), min=EPS))
             return dots / (row_norms * agg_norm)
 
-    mask = mask0
-    s = (sims(_weights(mask, p32, n32)) if config.max_rounds == 0
-         else torch.zeros((K,), dtype=torch.float32, device=dev))
-    xi = torch.full((), config.xi0, dtype=torch.float32, device=dev)
-    n_passes, changed = 0, True
-    while changed and n_passes < config.max_rounds:
-        s = sims(_weights(mask, p32, n32))
-        bad = _mark_bad(s, mask, xi, config.ddof)
-        mask = mask & ~bad
-        xi = xi + config.delta_xi
-        changed = bool(bad.any())
-        n_passes += 1
+    s, mask, rounds = _screen(sims, mask0, p32, n32, config, False)
     agg = _stacked_weighted_sum(stacked_updates, _weights(mask, p32, n32))
-    return AFAResult(aggregate=agg, good_mask=mask,
-                     rounds=torch.full((), n_passes, dtype=torch.int32, device=dev),
-                     similarities=s)
+    return AFAResult(aggregate=agg, good_mask=mask, rounds=rounds, similarities=s)
 
 
 def _default_p(p_k, K, device):

@@ -240,13 +240,28 @@ def register_rule(
     return spec
 
 
-def _guard_all_blocked(res, mask):
+def _opts_client_mesh(opts: RuleOptions):
+    """The client mesh the options ask for, or None: the mesh matters only
+    when ``opts.afa`` both names one and spans more than one shard (a
+    one-shard mesh runs the unsharded code)."""
+    cfg = opts.afa
+    mesh = getattr(cfg, "client_mesh", None) if cfg is not None else None
+    shards = getattr(cfg, "client_shards", 0) if cfg is not None else 0
+    return mesh if (mesh is not None and shards > 1) else None
+
+
+def _guard_all_blocked(res, mask, mesh=None):
     """Empty participation: an explicit zero update (a vector, or a tree on
     the leaf layout's tree forms) plus ``all_blocked``; with any live client
-    the aggregate passes through unchanged."""
+    the aggregate passes through unchanged.  Under a client mesh ``mask`` is
+    this rank's rows, so the test sums the live flags over the ranks: a rank
+    whose own clients are all blocked keeps the aggregate the others keep."""
     if mask is None:
         return res._replace(all_blocked=False)
-    all_blocked = ~mask.any()
+    if mesh is not None:
+        all_blocked = mesh.psum(mask.any().to(torch.int32)) == 0
+    else:
+        all_blocked = ~mask.any()
     aggregate = tree_map(lambda l: torch.where(all_blocked, torch.zeros_like(l), l),
                          res.aggregate)
     return res._replace(aggregate=aggregate, all_blocked=all_blocked)
@@ -261,9 +276,15 @@ def _spec(name: str) -> RuleSpec:
 
 def dispatch_rule(name: str, updates, n_k, p_k=None, mask=None,
                   opts: RuleOptions = RuleOptions()):
-    """Matrix-form dispatch: ``updates`` is (K, d)."""
+    """Matrix-form dispatch: ``updates`` is (K, d).  With a client mesh in
+    ``opts.afa`` (the sharded fused engine) ``updates`` is this rank's
+    rows, and only AFA, which has a hierarchical form, may dispatch."""
     spec = _spec(name)
-    return _guard_all_blocked(spec.matrix_fn(updates, n_k, p_k, mask, opts), mask)
+    mesh = _opts_client_mesh(opts)
+    if mesh is not None and name != "afa":
+        raise ValueError(f"rule {name!r} has no client-sharded form; only 'afa' runs "
+                         "hierarchically over a client mesh")
+    return _guard_all_blocked(spec.matrix_fn(updates, n_k, p_k, mask, opts), mask, mesh)
 
 
 TREE_LAYOUTS = ("packed", "leaf")
@@ -282,6 +303,9 @@ def dispatch_rule_tree(name: str, stacked, n_k, p_k=None, mask=None,
     spec = _spec(name)
     if layout not in TREE_LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; expected {TREE_LAYOUTS}")
+    if _opts_client_mesh(opts) is not None:
+        raise ValueError("tree dispatch has no client-sharded form; the sharded engine packs "
+                         "once and calls dispatch_rule on this rank's (K_local, D) block")
     if layout == "leaf" and spec.tree_fn is not None:
         return _guard_all_blocked(spec.tree_fn(stacked, n_k, p_k, mask, opts), mask)
     pspec = pack_spec(stacked, stacked=True)

@@ -4,6 +4,7 @@ from repro_torch.data.sharding import (
     iid_shards,
     padded_stack,
     pow2_bucket,
+    shard_compact_plan,
 )
 from repro_torch.data.synthetic import (
     SyntheticClassification,

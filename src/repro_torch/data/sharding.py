@@ -1,7 +1,8 @@
 """Client shard construction: IID (the paper's equal split) and Dirichlet
 non-IID, the padded ``(K, n_max, ...)`` stacking of ragged shards, and its
 inverse ``compact_stack``, with which the segmented fused engine drops
-blocked clients between segments.  A numpy copy of those functions of
+blocked clients between segments, and ``shard_compact_plan``, its layout
+when the clients are sharded over ranks.  A numpy copy of those functions of
 ``repro/data/sharding.py``; the same seed gives the same shards."""
 
 from __future__ import annotations
@@ -96,6 +97,32 @@ def compact_stack(x_pad, y_pad, lengths, keep, pad_to: int | None = None):
         y_c = np.concatenate([y_c, np.zeros((extra,) + y_c.shape[1:], y_c.dtype)])
         len_c = np.concatenate([len_c, np.ones((extra,), len_c.dtype)])
     return x_c, y_c, len_c
+
+
+def shard_compact_plan(live_ids, num_shards: int, cap_per_shard: int):
+    """Per-shard compaction layout of the client-sharded fused engine.
+
+    Spreads the live client ids contiguously over ``num_shards`` equal
+    blocks of ``rows = pow2_bucket(ceil(n_live / num_shards),
+    cap_per_shard)`` rows, each block's tail padded with ``-1``.  Returns
+    ``(keep (num_shards * rows,) int64 with -1 pads, rows)``: every shard
+    holds the same row count, a power of two, so a run sees O(log K) layouts
+    a shard."""
+    live_ids = np.asarray(live_ids, np.int64)
+    n_live = len(live_ids)
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    rows = pow2_bucket(-(-max(n_live, 1) // num_shards), cap_per_shard)
+    if rows * num_shards < n_live:
+        raise ValueError(
+            f"{n_live} live clients do not fit {num_shards} shards of "
+            f"cap {cap_per_shard} rows"
+        )
+    keep = np.full((num_shards * rows,), -1, np.int64)
+    for s in range(num_shards):
+        chunk = live_ids[s * rows : (s + 1) * rows]
+        keep[s * rows : s * rows + len(chunk)] = chunk
+    return keep, rows
 
 
 def pow2_bucket(n_live: int, cap: int) -> int:

@@ -22,6 +22,11 @@ any other workload to ``simulate_llm`` (the fused engine, whatever
 ``sim.engine`` says), with extra keyword arguments (``local_steps``,
 ``samples_per_client``, ``seq``, ``n_test``, ``eager``, ...) passed through.
 The LLM route takes no ``seeds``, as in the JAX package.
+
+With ``sim.client_shards = S > 0`` (``engine="fused"``) ``run`` is one rank's
+call inside an initialized ``torch.distributed`` group of S ranks, and
+raises without one; ``repro_torch.launch.shards.run_sharded`` starts the
+ranks and returns rank 0's result.
 """
 
 from __future__ import annotations

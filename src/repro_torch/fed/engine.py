@@ -33,6 +33,18 @@ serving tier (``repro_torch.serve``).
 compacted to a power-of-two bucket of the still-live clients; one capture
 per bucket, so O(log K) captures a run.
 
+**Client-sharded** (``make_fused_sim`` / ``make_fused_segment`` with
+``client_mesh``, a ``launch.mesh.ClientMesh``): the counterpart of the JAX
+package's ``shard_map`` branches.  Each rank holds its K / S rows of the
+inputs, the server state, ``bad`` and ``client_ids``, and the parameters
+whole; it runs the same round body, with the full K as the stride of the
+keyed streams, AFA screening hierarchically over the mesh (``core/afa.py``)
+and alie/ipm taking their benign moments over it.  The rounds run eagerly,
+one body call a round, with AFA unrolled; the ``(T, K)`` ``good_mask`` and
+blocked trajectory is gathered over the ranks (``ClientMesh.gather_rows``),
+the state stays this rank's rows.  A one-shard mesh runs the unsharded
+code.
+
 **Seed sweeps** (``sweep_fused_sim``): ``scan_fn`` once per seed, every
 seed replaying the one captured program with its own seed loaded.
 
@@ -74,6 +86,11 @@ _CLIENT_STREAM = 0xC11E47
 _ROUND_ATTACK_STREAM = 0xA7
 _BATCH_STREAM = 0x0B47C4    # the fused engines' device minibatch draws
 ROUNDS_RANGE = "fused_rounds"  # profiler range around the fused rounds (no capture)
+
+
+# scenarios with a client-sharded form: the first four touch only their own
+# client row; alie/ipm make their benign moments global in one all-reduce
+SHARDABLE_SCENARIOS = ("clean", "flipping", "noisy", "byzantine", "alie", "ipm")
 
 
 class FusedData(NamedTuple):
@@ -149,11 +166,12 @@ class FusedTrajectory(NamedTuple):
 
 
 def _propose_round(workload, cfg: EngineConfig, num_clients_total, batch_s, batch_b,
-                   params, blocked, rnd, seed, data: FusedData, bad, client_ids):
+                   params, blocked, rnd, seed, data: FusedData, bad, client_ids, mesh=None):
     """One round's proposal phase: participation masks, the keyed device
     minibatch draw (per-client upper bound ``lengths[k]``; pad rows carry
     length 1), local training, non-trainers reset to ``w_t`` and the
-    update-level attack on the packed buffer.  Returns ``(packed (R, D),
+    update-level attack on the packed buffer (over the client ``mesh``
+    when the rows are one rank's of several).  Returns ``(packed (R, D),
     pack spec, mask0)``."""
     skip_bad = cfg.scenario in UPDATE_ATTACK_SCENARIOS
     mask0 = ~blocked
@@ -176,7 +194,7 @@ def _propose_round(workload, cfg: EngineConfig, num_clients_total, batch_s, batc
                                         scale=cfg.byzantine_scale)
     else:
         packed = apply_update_attack(cfg.scenario, packed, w_row, bad_live, mask0 & ~bad, 0,
-                                     z_max=cfg.alie_z_max, eps=cfg.ipm_eps)
+                                     z_max=cfg.alie_z_max, eps=cfg.ipm_eps, mesh=mesh)
     return packed, pspec, mask0
 
 
@@ -205,12 +223,13 @@ def make_packed_propose_fn(workload, cfg: EngineConfig, num_clients_total, batch
 
 
 def _round_body(workload, cfg: EngineConfig, rule, opts, delta_block, block_table,
-                num_clients_total, batch_s, batch_b, carry, rnd, seed, data: FusedData,
-                bad, client_ids):
+                num_clients_total, batch_s, batch_b, attack_mesh, carry, rnd, seed,
+                data: FusedData, bad, client_ids):
     """ONE fused round over a (possibly compacted) client layout of R rows:
     ``bad`` and ``client_ids`` are ``(R,)`` device tensors, ``rnd`` a 0-d
     int64 device tensor, ``seed`` a 0-d int64 device tensor, and
-    ``num_clients_total`` the full K, the stride of the keyed streams.  The
+    ``num_clients_total`` the full K, the stride of the keyed streams
+    (``attack_mesh``: the client mesh alie/ipm sum over, or None).  The
     packed ``(R, D)`` proposals go through ``server_step`` (blocking from
     ``block_table``); with no live client the aggregate keeps the previous
     proposal point (a ``torch.where``, not a host branch).  Returns
@@ -218,7 +237,7 @@ def _round_body(workload, cfg: EngineConfig, rule, opts, delta_block, block_tabl
     params, state = carry
     packed, pspec, mask0 = _propose_round(
         workload, cfg, num_clients_total, batch_s, batch_b, params,
-        state.reputation.blocked, rnd, seed, data, bad, client_ids,
+        state.reputation.blocked, rnd, seed, data, bad, client_ids, attack_mesh,
     )
     state, res = server_step(state, packed, data.n_k, mask0, rule=rule, opts=opts,
                              delta_block=delta_block, layout="matrix",
@@ -383,20 +402,71 @@ def _program_runner(body, num_rounds: int, device: torch.device):
 
 
 def _body(workload, cfg, rule, opts, delta_block, num_clients_total, batch_s, batch_b,
-          alpha0, beta0, num_rounds, device):
+          alpha0, beta0, num_rounds, device, client_mesh=None):
     """The round body with its static configuration bound: the rule asked
     for no host read (``RuleOptions.capturable``), its Gram kernels to plan
-    for the run's full K in every bucket (``RuleOptions.plan_rows``), and the
-    blocking table (counts up to ``num_rounds``) on ``device``."""
+    for the run's full K in every bucket (``RuleOptions.plan_rows``), the
+    blocking table (counts up to ``num_rounds``) on ``device``, and the
+    client mesh the attacks sum over when it has more than one shard (a
+    one-shard mesh runs the unsharded attacks bit for bit)."""
     table = torch.from_numpy(blocking_table(alpha0, beta0, delta_block, num_rounds)).to(device)
     block = (table, float(alpha0), float(beta0))
     opts = opts._replace(capturable=True, plan_rows=int(num_clients_total))
+    attack_mesh = client_mesh if client_mesh is not None and client_mesh.num_shards > 1 else None
 
     def body(carry, rnd, seed, data, bad, client_ids):
         return _round_body(workload, cfg, rule, opts, delta_block, block, num_clients_total,
-                           batch_s, batch_b, carry, rnd, seed, data, bad, client_ids)
+                           batch_s, batch_b, attack_mesh, carry, rnd, seed, data, bad,
+                           client_ids)
 
     return body
+
+
+def _validate_client_mesh(mesh, cfg: EngineConfig, rule: str, num_rows: int) -> None:
+    """The checks of the client-sharded fused engines."""
+    if mesh is None:
+        return
+    if mesh.num_shards > 1:
+        if cfg.scenario not in SHARDABLE_SCENARIOS:
+            raise ValueError(f"scenario {cfg.scenario!r} has no client-sharded form "
+                             f"(supported: {SHARDABLE_SCENARIOS})")
+        if rule != "afa":
+            raise ValueError(f"rule {rule!r} has no client-sharded form; only 'afa' screens "
+                             "hierarchically over the client mesh")
+    if num_rows % mesh.num_shards != 0:
+        raise ValueError(f"client rows ({num_rows}) must divide evenly over the "
+                         f"{mesh.num_shards} client shards")
+
+
+def _gather_trajectory(mesh, traj: FusedTrajectory, total: int) -> FusedTrajectory:
+    """The ``(T, total)`` trajectory from every rank's ``(T, total / S)``
+    rows, in one all-reduce; the test error is the same on every rank."""
+    local = torch.stack([traj.good_mask, traj.blocked], dim=-1).transpose(0, 1)
+    both = mesh.gather_rows(local.to(torch.uint8).contiguous(), total).transpose(0, 1)
+    return FusedTrajectory(traj.test_error, both[..., 0].bool(), both[..., 1].bool())
+
+
+def _sharded_runner(body, mesh, device: torch.device):
+    """``run(params, state, seed, data, bad, client_ids, start, count) ->
+    (params', state', traj)``: rounds ``start .. start + count`` of
+    ``body`` on this rank's rows, one body call a round; the trajectory is
+    gathered over the mesh.  Nothing is captured, so ``stats`` gets
+    nothing."""
+
+    def run(params, state, seed, data, bad, client_ids, start: int, count: int, *,
+            stats=None):
+        seed_t = _device_seed(seed, device)
+        carry, outs = (params, state), []
+        with torch.profiler.record_function(ROUNDS_RANGE):
+            for rnd in range(int(start), int(start) + int(count)):
+                carry, out = body(carry, torch.full((), rnd, dtype=torch.int64, device=device),
+                                  seed_t, data, bad, client_ids)
+                outs.append(out)
+        traj = FusedTrajectory(*[torch.stack(parts) for parts in zip(*outs)])
+        return carry[0], carry[1], _gather_trajectory(
+            mesh, traj, int(client_ids.shape[0]) * mesh.num_shards)
+
+    return run
 
 
 def make_fused_sim(
@@ -414,6 +484,7 @@ def make_fused_sim(
     alpha0: float = 3.0,
     beta0: float = 3.0,
     device="cuda",
+    client_mesh=None,
 ):
     """Build the fused T-round simulation on ``device``.
 
@@ -430,13 +501,31 @@ def make_fused_sim(
       ``fused_eager`` engine's step.
 
     Blocked clients keep their row and are excluded by mask; the segmented
-    form (:func:`make_fused_segment`) compacts them away."""
+    form (:func:`make_fused_segment`) compacts them away.
+
+    With ``client_mesh`` (``opts`` built with the same mesh,
+    ``fed.server.make_rule_options``) the simulation is this rank's: ``data``
+    holds its K / S rows (``bad_mask`` is the full K), ``scan_fn`` runs the
+    rounds eagerly and returns this rank's state rows and the gathered
+    ``(T, K)`` trajectory, and ``round_fn`` is None."""
     device = torch.device(device)
     K, T = int(num_clients), int(num_rounds)
+    _validate_client_mesh(client_mesh, cfg, rule, K)
     bad = torch.from_numpy(np.asarray(bad_mask, bool)).to(device)
     ids = torch.arange(K, dtype=torch.int64, device=device)
     body = _body(workload, cfg, rule, opts, delta_block, K, int(batch_s), int(batch_b),
-                 alpha0, beta0, T, device)
+                 alpha0, beta0, T, device, client_mesh)
+    if client_mesh is not None:
+        rows = K // client_mesh.num_shards
+        block = client_mesh.row_block(rows)
+        bad, ids = bad[block], ids[block]
+        runner = _sharded_runner(body, client_mesh, device)
+
+        def sharded_scan_fn(params0, seed, data: FusedData, *, stats=None):
+            state0 = fused_server_state(rows, alpha0, beta0, device)
+            return runner(params0, state0, seed, data, bad, ids, 0, T)
+
+        return sharded_scan_fn, None
     runner = _program_runner(body, T, device)
 
     def round_fn(carry, rnd, seed, data: FusedData):
@@ -516,6 +605,7 @@ def make_fused_segment(
     alpha0: float = 3.0,
     beta0: float = 3.0,
     device="cuda",
+    client_mesh=None,
 ):
     """Build the segments of the fused simulation on ``device``.
 
@@ -534,10 +624,18 @@ def make_fused_segment(
     Compaction contract (the simulator keeps it): ``client_ids[:K_live]``
     are the live original ids ascending; pad rows are blocked in ``state``,
     with zero shards of length 1 in ``data``.  The keyed streams then give
-    every live client the draws of the uncompacted run."""
+    every live client the draws of the uncompacted run.
+
+    With ``client_mesh`` the client layout is this rank's R / S rows of a
+    per-shard compaction (``data.shard_compact_plan``, whose ``-1`` pads
+    are blocked); the segment runs eagerly and returns this rank's state
+    rows and the ``(seg_len, R)`` trajectory gathered over the mesh."""
     device = torch.device(device)
+    _validate_client_mesh(client_mesh, cfg, rule, int(num_clients_total))
     body = _body(workload, cfg, rule, opts, delta_block, int(num_clients_total), int(batch_s),
-                 int(batch_b), alpha0, beta0, int(num_rounds), device)
+                 int(batch_b), alpha0, beta0, int(num_rounds), device, client_mesh)
+    if client_mesh is not None:
+        return _sharded_runner(body, client_mesh, device)
     runner = _program_runner(body, int(num_rounds), device)
 
     def segment_fn(params, state, seed, data: FusedData, bad, client_ids, seg_start: int,

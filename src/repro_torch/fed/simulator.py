@@ -25,6 +25,17 @@ by ``SimConfig.engine``:
 * ``fused_eager`` -- the fused round body called one round at a time, the
   reference the graph is held to.
 
+``SimConfig.client_shards = S > 0`` (``engine="fused"`` only) runs the
+fused engine client-sharded, as the JAX package's ``shard_map`` engine:
+the caller runs ``simulate`` on each of S ranks of an initialized
+``torch.distributed`` group (``repro_torch.launch.shards.run_sharded``
+starts one), each rank holds the rows of K / S clients, AFA screens
+hierarchically over the ranks, and every rank returns the whole result.
+Segmented, the blocked clients are compacted PER SHARD
+(``data.shard_compact_plan``): the live ids are spread over S equal
+power-of-two blocks, whose ``-1`` pad slots stay blocked; every rank
+gathers the blocked set and computes the same plan.
+
 ``_Setup`` consumes ONE numpy stream exactly as the JAX package does (the
 noisy-features poisoning first, then, on the batched and looped engines,
 the minibatch indices of the trainers in ascending order, byzantine clients
@@ -53,6 +64,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.attacks import (
@@ -68,6 +80,7 @@ from repro_torch.data import (
     iid_shards,
     padded_stack,
     pow2_bucket,
+    shard_compact_plan,
 )
 from repro_torch.fed.engine import (
     EngineConfig,
@@ -84,11 +97,14 @@ from repro_torch.fed.engine import (
 from repro_torch.fed.server import (
     FedServer,
     ServerConfig,
+    ServerState,
     gather_server_state,
     make_rule_options,
+    resolve_server_plan,
     scatter_server_state,
 )
 from repro_torch.fed.workload import DnnWorkload
+from repro_torch.launch.mesh import make_client_mesh
 from repro_torch.utils.trees import tree_map, tree_stack
 
 
@@ -114,8 +130,8 @@ class SimConfig:
     # when ``compact`` is set (0 = one run of T rounds, no compaction)
     segment_rounds: int = 0
     compact: bool = True
-    # the JAX package's client-sharded engine; not ported (ROADMAP queue A):
-    # > 0 raises
+    # fused engine only: > 0 splits the clients over this many ranks of the
+    # caller's process group (repro_torch.launch.shards.run_sharded)
     client_shards: int = 0
 
 
@@ -182,11 +198,13 @@ class _Setup:
         self.y_test = torch.from_numpy(data.y_test.astype(np.int64)).to(device)
 
         # shards as padded stacks, on the host (the segmented engine compacts
-        # them) and on the device, where each round gathers its minibatches
+        # them) and on the device, where each round gathers its minibatches;
+        # a sharded run moves only its rows there (``_compact_inputs``)
         lens = [len(x) for x, _ in self.poisoned]
         self.padded = padded_stack(self.poisoned)
-        self.x_pad = torch.from_numpy(self.padded[0]).to(device)
-        self.y_pad = torch.from_numpy(self.padded[1].astype(np.int64)).to(device)
+        if sim.client_shards <= 0:
+            self.x_pad = torch.from_numpy(self.padded[0]).to(device)
+            self.y_pad = torch.from_numpy(self.padded[1].astype(np.int64)).to(device)
 
         # uniform per-round minibatch geometry, keyed to the MEAN shard;
         # sampling is with replacement
@@ -270,11 +288,15 @@ def simulate(data: SyntheticClassification, sim: SimConfig, server_cfg: ServerCo
     """The classification simulator behind ``repro_torch.fed.api.run``."""
     if sim.engine not in _ENGINES:
         raise ValueError(f"unknown engine {sim.engine!r} (batched | looped | fused | fused_eager)")
-    if sim.client_shards > 0:
-        raise NotImplementedError("the client-sharded engine (SimConfig.client_shards) is not "
-                                  "ported to repro_torch (ROADMAP queue A)")
+    if sim.client_shards > 0 and sim.engine != "fused":
+        raise ValueError(f"client_shards requires engine='fused' (got {sim.engine!r})")
     dev = resolve_device(device)
-    setup = _Setup(data, sim, dev, workload=workload)
+    mesh = _client_mesh(sim, server_cfg, dev)
+    setup = _Setup(data, sim, dev if mesh is None else mesh.device, workload=workload)
+    if mesh is not None:
+        if sim.segment_rounds > 0:
+            return _run_fused_segmented_sharded(setup, server_cfg, eval_every, mesh)
+        return _run_fused_sharded(setup, server_cfg, eval_every, mesh)
     if sim.engine == "batched":
         return _run_batched(setup, server_cfg, eval_every)
     if sim.engine == "looped":
@@ -388,14 +410,36 @@ def _fused_data(setup: _Setup) -> FusedData:
     )
 
 
-def _make_setup_sim(setup: _Setup, server_cfg: ServerConfig):
+def _client_mesh(sim: SimConfig, server_cfg: ServerConfig, device):
+    """The client mesh of a sharded run (``sim.client_shards > 0``), on the
+    caller's process group, or None."""
+    if sim.client_shards <= 0:
+        return None
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"SimConfig.client_shards={sim.client_shards} runs one process a shard inside an "
+            "initialized torch.distributed group of that many ranks; start them with "
+            "repro_torch.launch.shards.run_sharded(workload, sim, server, data=..., device=...)")
+    layout = resolve_server_plan(server_cfg).layout
+    if layout != "packed":
+        raise ValueError("the client-sharded engine packs once a round and requires the "
+                         f"packed layout (got {layout!r})")
+    return make_client_mesh(sim.client_shards, device, backend=dist.get_backend())
+
+
+def _client_opts_kwargs(mesh) -> dict:
+    """``make_rule_options`` keywords marking the options for a client mesh."""
+    return {} if mesh is None else {"client_mesh": mesh, "client_shards": mesh.num_shards}
+
+
+def _make_setup_sim(setup: _Setup, server_cfg: ServerConfig, mesh=None):
     """Fused simulation for this experiment's static configuration; the rule
     options are built once, with K (MKRUM selects K - f - 2)."""
     sim = setup.sim
     return make_fused_sim(
         setup.workload, setup.engine_config(),
         rule=server_cfg.rule,
-        opts=make_rule_options(server_cfg, sim.num_clients),
+        opts=make_rule_options(server_cfg, sim.num_clients, **_client_opts_kwargs(mesh)),
         delta_block=server_cfg.delta_block,
         num_clients=sim.num_clients,
         num_rounds=sim.rounds,
@@ -405,6 +449,7 @@ def _make_setup_sim(setup: _Setup, server_cfg: ServerConfig):
         alpha0=server_cfg.alpha0,
         beta0=server_cfg.beta0,
         device=setup.device,
+        client_mesh=mesh,
     )
 
 
@@ -432,15 +477,19 @@ def fused_inputs(data: SyntheticClassification, sim: SimConfig, *, workload=None
     )
 
 
-def _fused_result(setup: _Setup, rounds_blocked, test_error, good_hist, total: float,
+def _even(total: float, T: int) -> list:
+    """A run's seconds spread evenly over its T rounds."""
+    return [total / max(T, 1)] * T
+
+
+def _fused_result(setup: _Setup, rounds_blocked, test_error, good_hist, round_times,
                   eval_every: int, capture_s: float) -> SimResult:
     T = setup.sim.rounds
     errs = np.asarray(test_error, np.float64) * 100.0
     kept = [float(errs[r]) for r in range(T) if r % eval_every == 0 or r == T - 1]
-    # one program covers the T rounds: no per-phase host timings exist, so
-    # only round_time is filled (uniformly spread)
-    res = setup.result(np.asarray(rounds_blocked), kept, good_hist, 0.0, 0.0,
-                       [total / max(T, 1)] * T)
+    # the rounds run as one program (or a segment's): no per-phase host
+    # timings exist, so only round_time is filled
+    res = setup.result(np.asarray(rounds_blocked), kept, good_hist, 0.0, 0.0, list(round_times))
     res.capture_time = capture_s
     return res
 
@@ -465,7 +514,7 @@ def _run_fused(setup: _Setup, server_cfg: ServerConfig, eval_every: int, *,
     total = time.perf_counter() - t_start
     return _fused_result(setup, state.rounds_blocked.cpu().numpy(),
                          traj.test_error.cpu().numpy(), list(traj.good_mask.cpu().numpy()),
-                         total, eval_every, stats["capture_s"])
+                         _even(total, sim.rounds), eval_every, stats["capture_s"])
 
 
 # ---------------------------------------------------------------------------
@@ -498,14 +547,14 @@ def _compact_inputs(setup: _Setup, kept: np.ndarray, bucket: int):
     return data, t(bad_c), t(ids_c)
 
 
-def _segment_fn(setup: _Setup, server_cfg: ServerConfig):
+def _segment_fn(setup: _Setup, server_cfg: ServerConfig, mesh=None):
     """The segments for this experiment's static configuration: one program
-    (one capture on the card) per bucket."""
+    (one capture on the card) per bucket, or this rank's eager rounds."""
     sim = setup.sim
     return make_fused_segment(
         setup.workload, setup.engine_config(),
         rule=server_cfg.rule,
-        opts=make_rule_options(server_cfg, sim.num_clients),
+        opts=make_rule_options(server_cfg, sim.num_clients, **_client_opts_kwargs(mesh)),
         delta_block=server_cfg.delta_block,
         num_clients_total=sim.num_clients,
         num_rounds=sim.rounds,
@@ -514,6 +563,7 @@ def _segment_fn(setup: _Setup, server_cfg: ServerConfig):
         alpha0=server_cfg.alpha0,
         beta0=server_cfg.beta0,
         device=setup.device,
+        client_mesh=mesh,
     )
 
 
@@ -597,8 +647,100 @@ def _run_fused_segmented(setup: _Setup, server_cfg: ServerConfig,
     rounds_blocked, test_error, good = _segmented_runs(setup, server_cfg, [setup.sim.seed],
                                                        stats)
     total = time.perf_counter() - t_start
-    return _fused_result(setup, rounds_blocked[0], test_error[0], list(good[0]), total,
-                         eval_every, stats["capture_s"])
+    return _fused_result(setup, rounds_blocked[0], test_error[0], list(good[0]),
+                         _even(total, setup.sim.rounds), eval_every, stats["capture_s"])
+
+
+# ---------------------------------------------------------------------------
+# client-sharded fused engine — this rank's rows of a client mesh
+# ---------------------------------------------------------------------------
+
+
+def _gather_state(mesh, state: ServerState, total: int) -> ServerState:
+    """Every rank's rows of the server state, stacked in rank order (one
+    all-reduce; float64 holds the posteriors, the flags and the rounds
+    exactly)."""
+    rep = state.reputation
+    parts = (rep.alpha, rep.beta, rep.blocked, state.rounds_blocked)
+    both = mesh.gather_rows(torch.stack([p.double() for p in parts], dim=1), total)
+    alpha, beta, blocked, rb = (both[:, i].to(p.dtype) for i, p in enumerate(parts))
+    return ServerState(rep._replace(alpha=alpha, beta=beta, blocked=blocked), rb, state.round)
+
+
+def _run_fused_sharded(setup: _Setup, server_cfg: ServerConfig, eval_every: int,
+                       mesh) -> SimResult:
+    """``engine="fused"`` on this rank's K / S clients; every rank returns
+    the whole result."""
+    sim, dev = setup.sim, setup.device
+    K = sim.num_clients
+    scan_fn, _ = _make_setup_sim(setup, server_cfg, mesh)
+    rows = K // mesh.num_shards
+    data, _, _ = _compact_inputs(setup, np.arange(K)[mesh.row_block(rows)], rows)
+    _sync(dev)
+    t_start = time.perf_counter()
+    _, state, traj = scan_fn(setup.params0, sim.seed, data)
+    rounds_blocked = mesh.gather_rows(state.rounds_blocked, K)
+    _sync(dev)
+    total = time.perf_counter() - t_start
+    return _fused_result(setup, rounds_blocked.cpu().numpy(), traj.test_error.cpu().numpy(),
+                         list(traj.good_mask.cpu().numpy()), _even(total, sim.rounds),
+                         eval_every, 0.0)
+
+
+def _run_fused_segmented_sharded(setup: _Setup, server_cfg: ServerConfig, eval_every: int,
+                                 mesh) -> SimResult:
+    """The sharded fused simulation in segments of ``segment_rounds``
+    rounds, compacted per shard between them.
+
+    Every rank keeps the full-K state (the frozen rows of clients dropped
+    at earlier compactions) alike; before a segment it reads the blocked
+    set of the bucket, gathered over the ranks with the last segment's
+    trajectory, and computes the same ``shard_compact_plan``.  When the
+    plan's bucket changes, the ranks gather their state rows into the
+    full-K state, and each takes its block of the new plan.  Each rank's
+    per-round times are its segments' wall times spread over their
+    rounds."""
+    sim, dev = setup.sim, setup.device
+    K, T, S = sim.num_clients, sim.rounds, sim.segment_rounds
+    n_shards = mesh.num_shards
+    seg_fn = _segment_fn(setup, server_cfg, mesh)
+    params = setup.params0
+    state_full = fused_server_state(K, server_cfg.alpha0, server_cfg.beta0, dev)
+    state_c = data_c = bad_c = ids_c = None
+    kept, bucket = np.arange(K), None
+    blocked_c = np.zeros(K, bool)
+    test_error = np.zeros((T,), np.float64)
+    good = np.zeros((T, K), bool)
+    round_times = np.zeros((T,), np.float64)
+    seg_start = 0
+    while seg_start < T:
+        t0 = time.perf_counter()
+        seg_len = min(S, T - seg_start)
+        # pad slots (kept == -1) are blocked and drop out
+        live = kept[~blocked_c & (kept >= 0)] if sim.compact else np.arange(K)
+        new_kept, new_rows = shard_compact_plan(live, n_shards, K // n_shards)
+        if bucket != new_rows * n_shards:
+            if bucket is not None:
+                state_full = scatter_server_state(
+                    state_full, _gather_state(mesh, state_c, bucket), kept)
+            kept, bucket = new_kept, new_rows * n_shards
+            mine = kept[mesh.row_block(new_rows)]
+            data_c, bad_c, ids_c = _compact_inputs(setup, mine, new_rows)
+            state_c = gather_server_state(state_full, mine, new_rows)
+        params, state_c, traj = seg_fn(params, state_c, sim.seed, data_c, bad_c, ids_c,
+                                       seg_start, seg_len)
+        end = seg_start + seg_len
+        valid = kept >= 0
+        test_error[seg_start:end] = traj.test_error.cpu().numpy()
+        # dropped clients keep good_mask = False, as the one-shot run gives
+        # them (they are blocked)
+        good[seg_start:end, kept[valid]] = traj.good_mask.cpu().numpy()[:, valid]
+        blocked_c = traj.blocked[-1].cpu().numpy()
+        round_times[seg_start:end] = (time.perf_counter() - t0) / seg_len
+        seg_start = end
+    state_full = scatter_server_state(state_full, _gather_state(mesh, state_c, bucket), kept)
+    return _fused_result(setup, state_full.rounds_blocked.cpu().numpy(), test_error,
+                         list(good), round_times, eval_every, 0.0)
 
 
 # ---------------------------------------------------------------------------

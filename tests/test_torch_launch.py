@@ -204,13 +204,21 @@ def test_real_specs_on_the_cpu_are_seeded_and_shaped_as_on_meta():
 
 
 @functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=None)
+def _reduced_params(arch):
+    """A reduced f32 config's parameters from seed 0, in both packages: one
+    init a module, shared by every step built on the arch (the fed-round
+    options do not change them)."""
+    jm = jax_build_model(jax_get_config(arch).reduced().with_(**F32))
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    return jp, model_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+
+
 def _reduced(arch, **over):
     jcfg = jax_get_config(arch).reduced().with_(**F32, **over)
     cfg = get_config(arch).reduced().with_(**F32, **over)
-    jm, m = jax_build_model(jcfg), build_model(cfg)
-    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
-    p = model_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
-    return jm, m, jp, p
+    jp, p = _reduced_params(arch)
+    return jax_build_model(jcfg), build_model(cfg), jp, p
 
 
 def _close(a, b, tol=1e-5):

@@ -197,9 +197,14 @@ def test_unported_routes_raise():
     sweep = run(None, sim, data=data, seeds=[0, 1], device="cpu")
     assert isinstance(sweep, SweepResult) and sweep.blocked_round.shape == (2, 2)
     assert sweep.test_error.shape == (2, 1) and list(sweep.seeds) == [0, 1]
-    with pytest.raises(NotImplementedError, match="client-sharded"):
+    # the client-sharded engine runs on the fused engine, inside a process
+    # group of client_shards ranks (tests/test_torch_client_shards.py)
+    with pytest.raises(ValueError, match="client_shards requires engine='fused'"):
         run(None, SimConfig(num_clients=2, rounds=1, hidden=(4,), client_shards=2),
             data=data, device="cpu")
+    with pytest.raises(RuntimeError, match="run_sharded"):
+        run(None, SimConfig(num_clients=2, rounds=1, hidden=(4,), client_shards=2,
+                            engine="fused"), data=data, device="cpu")
     looped = run(None, SimConfig(num_clients=2, rounds=1, hidden=(4,), engine="looped"),
                  data=data, device="cpu")
     assert isinstance(looped, SimResult) and looped.blocked_round.shape == (2,)
