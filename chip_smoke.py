@@ -239,19 +239,22 @@
    equal and its aggregate within rtol 2e-5 / atol 2e-6, fa, mkrum and
    comed bit for bit, each launching its kernel on the leaf layout;
 19. runs the client-sharded fused engine (phase H, ``SHARD_SIM``: the paper
-   DNN at full width, 200 clients, 60 byzantine, 8 rounds in 4-round
-   segments with per-shard compaction, iterative AFA on the kernel route):
+   DNN at full width, 160 clients, 48 byzantine, 8 rounds in 2-round
+   segments, iterative AFA on the kernel route; the last segment compacted
+   per shard, from 40 rows a shard to 32):
    ``launch.shards.run_sharded`` on one NCCL rank = the unsharded
    ``engine="fused"`` run bit for bit; 4 gloo ranks sharing the card
    (``launch.shards.spawn``): every round's good_mask and the blocked
-   rounds equal the unsharded run's, test error within 1e-4, the 60
-   blocked in round 6 and no good client, 9 ``weighted_sum`` and 8
-   ``cosine_sim`` launches a round on every rank (wrapper counts, and rank
-   0's in a profiler trace), ms a round; the sharded ``afa_aggregate``
-   alone on seeded (200, 535,818) proposals against the unsharded call
-   (masks and rounds equal, aggregate within 1e-6 of its largest
-   magnitude), its median ms and one traced call split between the two
-   kernels, the other device work and the host time in the all-reduces;
+   rounds equal the unsharded run's, test error within 1e-4, the 48
+   blocked in round 6 and no good client, the rows a shard 40 and then 32,
+   the same ``weighted_sum`` and ``cosine_sim`` launches on every rank, a
+   pair for each screening pass of AFA's stopping loop and one more
+   ``weighted_sum`` a round (wrapper counts, and rank 0's in a profiler
+   trace), ms a round; the sharded ``afa_aggregate`` alone on seeded
+   (200, 535,818) proposals against the unsharded call (masks and rounds
+   equal, aggregate within 1e-6 of its largest magnitude), its median ms
+   and one traced call split between the two kernels, the other device
+   work and the host time in the all-reduces;
    with two cards or more, the run on one NCCL rank a card;
 20. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
@@ -616,21 +619,26 @@ BF16_DENSE_PEAK = 989.4e12   # H100 SXM dense bf16 tensor-core FLOP/s: model-FLO
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 bytes/s: the decode byte share
 
 
-# phase H (client shards): MAIN_SIM at 200 clients, 60 of them byzantine
+# phase H (client shards): MAIN_SIM at 160 clients, 48 of them byzantine
 # (ROADMAP C.8: AFA blocks all of them in round 6 at this share), iterative
-# AFA on the kernel route, segmented by 4 rounds with per-shard compaction;
+# AFA on the kernel route, segmented by 2 rounds, so that the blocked set
+# read after round 6 compacts the last segment: the 112 live clients fit
+# 32 of the 40 rows a shard over 4 shards (128 of 160 rows unsharded);
 # one NCCL rank against the unsharded run bit for bit, then 4 gloo ranks
 # sharing the card against it on decisions and within SHARD_ERR_TOL; the
 # sharded aggregate alone on seeded (200, D_PAPER) proposals
-SHARD_K = 200
+SHARD_K = 160
 SHARD_S = 4
-SHARD_SIM = dict(MAIN_SIM, num_clients=SHARD_K, bad_frac=0.3, engine="fused", segment_rounds=4)
+SHARD_SIM = dict(MAIN_SIM, num_clients=SHARD_K, bad_frac=0.3, engine="fused", segment_rounds=2)
+SHARD_N_TRAIN = 200_000  # the C.8 share run's data: 1,250 samples a client
+SHARD_AFA_K = 200       # rows of the sharded aggregate alone
 SHARD_ERR_TOL = 1e-4    # percent: the JAX package's sharded test's bound
 SHARD_AGG_RTOL = 1e-6   # aggregate vs the unsharded call, of its largest magnitude
 SHARD_TIMED = 10        # sharded afa_aggregate calls timed (median)
-# wrapper calls a round of each rank: 8 unrolled passes (a weighted_sum and
-# a cosine_sim each) and the final weighted_sum
-SHARD_CALLS = {"weighted_sum": 9, "cosine_sim": 8}
+# the wrappers a sharded round calls on each rank: a weighted_sum and a
+# cosine_sim each screening pass (1 to AFA's max_rounds; the eager round
+# runs the stopping loop), and the final weighted_sum
+SHARD_CALLS = ("weighted_sum", "cosine_sim")
 SHARD_DTYPES = ("float32", "float64", "uint8", "int32")  # what the mesh's all-reduces carry
 
 
@@ -4344,17 +4352,16 @@ def shard_afa_alone(torch, mesh, ops):
     from repro_torch.core import AFAConfig, afa_aggregate
     from repro_torch.launch.mesh import ALL_REDUCE_RANGE
 
-    _, _, Us, pn, mask0 = screening_inputs(torch, SHARD_K, D_PAPER, 7)
+    _, _, Us, pn, mask0 = screening_inputs(torch, SHARD_AFA_K, D_PAPER, 7)
     ones = torch.ones_like(pn)
-    rows = SHARD_K // mesh.num_shards
+    rows = SHARD_AFA_K // mesh.num_shards
     blk = mesh.row_block(rows)
     local = (Us[blk].contiguous(), pn[blk], ones[blk], mask0[blk])
-    sharded = AFAConfig(variant="iterative", use_kernels="cuda", client_mesh=mesh,
-                        client_shards=mesh.num_shards)
+    sharded = AFAConfig(variant="iterative", use_kernels="cuda", client_mesh=mesh)
     out = {"checks": []}
     for unroll in (False, True):
         got = afa_aggregate(*local, sharded, unroll=unroll)
-        good = mesh.gather_rows(got.good_mask.to(torch.uint8), SHARD_K).bool()
+        good = mesh.gather_rows(got.good_mask.to(torch.uint8), SHARD_AFA_K).bool()
         if mesh.rank == 0:
             want = afa_aggregate(Us, pn, ones, mask0, AFAConfig(variant="iterative",
                                                                 use_kernels="cuda"),
@@ -4415,19 +4422,28 @@ def shard_worker(data, server, traced_run: bool):
     counts set to 0 just before and summed over the ranks just after; with
     ``traced_run``, the same run again, traced on rank 0, its
     ``weighted_sum`` / ``cosine_sim`` kernels counted in the trace against
-    rank 0's wrapper counts; and the sharded aggregate alone.  Returns
-    rank 0's numbers."""
+    rank 0's wrapper counts; and the sharded aggregate alone.  The rows a
+    shard of each layout the segmented run takes are recorded (around
+    ``fed.simulator._compact_inputs``).  Returns rank 0's numbers."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
+    import repro_torch.fed.simulator as simulator
     from repro_torch.fed import SimConfig, run
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_client_mesh
 
     t_worker = time.perf_counter()
     S = dist.get_world_size()
-    mesh = make_client_mesh(S, "cuda", backend=dist.get_backend())
+    mesh = make_client_mesh(S, "cuda")
+    layouts, compact = [], simulator._compact_inputs
+
+    def recording(setup, kept, rows):
+        layouts.append(int(rows))
+        return compact(setup, kept, rows)
+
+    simulator._compact_inputs = recording
     dtypes = {}
     for name in SHARD_DTYPES:
         t = mesh.psum(torch.ones((3,), dtype=getattr(torch, name), device=mesh.device))
@@ -4438,11 +4454,13 @@ def shard_worker(data, server, traced_run: bool):
     t0 = time.perf_counter()
     res = run(None, sim, server, data=data, device="cuda")
     wall = time.perf_counter() - t0
-    mine = [ops.LAUNCH_COUNTS[n] for n in SHARD_CALLS]
-    total = mesh.psum(torch.tensor(mine, dtype=torch.float64, device=mesh.device)).tolist()
+    simulator._compact_inputs = compact
+    mine = torch.tensor([[ops.LAUNCH_COUNTS[n] for n in SHARD_CALLS]], dtype=torch.float64,
+                        device=mesh.device)
+    by_rank = [dict(zip(SHARD_CALLS, map(int, r))) for r in mesh.gather_rows(mine, S).tolist()]
     out = {"ranks": S, "backend": mesh.backend, "dtypes": dtypes, "result": res,
-           "wall_s": wall, "launches_rank0": dict(zip(SHARD_CALLS, mine)),
-           "launches": {n: int(c) for n, c in zip(SHARD_CALLS, total)}}
+           "wall_s": wall, "rows_a_shard": layouts, "launches_by_rank": by_rank,
+           "launches": {n: sum(r[n] for r in by_rank) for n in SHARD_CALLS}}
     if traced_run:
         ops.reset_launch_counts()
         if mesh.rank == 0:
@@ -4473,7 +4491,7 @@ def shard_phase(torch, ops, smi, min_rounds_to_block):
     from repro_torch.launch.shards import run_sharded, spawn
 
     t_phase = time.perf_counter()
-    data = mnist_like(1000 * SHARD_K)
+    data = mnist_like(SHARD_N_TRAIN)
     server = shard_server()
     n_min = min_rounds_to_block()
     t0 = time.perf_counter()
@@ -4528,12 +4546,19 @@ def shard_ranks(label, out, spawn_wall, ref, n_min):
     """The gates and numbers of one sharded run of ``shard_worker`` (``out``,
     rank 0's) against the unsharded run ``ref``: every round's good_mask and
     the blocked rounds equal, test error within ``SHARD_ERR_TOL``, the
-    byzantine clients blocked in round ``n_min`` and no good one, each
-    rank's wrapper counts ``SHARD_CALLS`` a round, rank 0's trace the same;
-    ms a round by segment, the sharded aggregate alone."""
+    byzantine clients blocked in round ``n_min`` and no good one, the
+    segments on ``K / S`` rows a shard and then on the live clients'
+    smaller power-of-two bucket, every rank's wrapper counts the same (one
+    to AFA's ``max_rounds`` screening passes a round, a ``weighted_sum``
+    and a ``cosine_sim`` each, and one final ``weighted_sum``), rank 0's
+    trace the same; ms a round by segment, the sharded aggregate alone."""
     import numpy as np
 
+    from repro_torch.core import AFAConfig
+    from repro_torch.data import pow2_bucket
+
     res, S, T = out["result"], out["ranks"], SHARD_SIM["rounds"]
+    max_passes = AFAConfig().max_rounds
     err = float(np.max(np.abs(np.asarray(res.test_error) - np.asarray(ref.test_error))))
     bad = set(ref.bad_clients.tolist())
     blocked = {k for k in range(SHARD_K) if res.blocked_round[k] > 0}
@@ -4541,24 +4566,27 @@ def shard_ranks(label, out, spawn_wall, ref, n_min):
               for i in range(0, T, SHARD_SIM["segment_rounds"])]
     row = {"ranks": S, "backend": out["backend"], "spawn_wall_s": spawn_wall,
            "worker_s": out["worker_s"], "run_wall_s": out["wall_s"],
-           "ms_per_round_by_segment": seg_ms, "dtypes": out["dtypes"],
+           "ms_per_round_by_segment": seg_ms, "rows_a_shard": out["rows_a_shard"],
+           "dtypes": out["dtypes"],
            "good_mask_equal": bool(np.array_equal(np.stack(res.good_mask_history),
                                                   np.stack(ref.good_mask_history))),
            "blocked_round_equal": bool(np.array_equal(res.blocked_round, ref.blocked_round)),
            "max_test_error_diff": err, "test_error": res.test_error,
-           "launches": out["launches"], "launches_rank0": out["launches_rank0"],
+           "launches": out["launches"], "launches_by_rank": out["launches_by_rank"],
            "traced_rank0": out["traced"], "traced_wrapper_counts": out["traced_wrapper_counts"],
            "afa_alone": out["afa_alone"]}
     print(f"shards [{label}]: spawn wall_s={spawn_wall:.2f} (rank 0's worker "
           f"{out['worker_s']:.2f}), run wall_s={out['wall_s']:.2f}, ms/round by segment "
-          f"{[round(m, 3) for m in seg_ms]}; good_mask equal {row['good_mask_equal']}, blocked "
+          f"{[round(m, 3) for m in seg_ms]}, rows a shard {out['rows_a_shard']}; good_mask equal {row['good_mask_equal']}, blocked "
           f"rounds equal {row['blocked_round_equal']}, max |test error diff| {err:.3g} pp; "
-          f"launches {out['launches']} (rank 0 {out['launches_rank0']}, traced on rank 0 "
+          f"launches {out['launches']} (by rank {out['launches_by_rank']}, traced on rank 0 "
           f"{out['traced']}); all-reduce dtypes {out['dtypes']}")
     a = out["afa_alone"]
     t = a["trace"]
-    print(f"shards [afa_aggregate alone, ({SHARD_K}, {D_PAPER}) over {label}]: {a['checks']}; "
-          f"ms median={a['ms']:.3f} ({a['all_reduces_a_call']} all-reduces a call); traced "
+    print(f"shards [afa_aggregate alone, ({SHARD_AFA_K}, {D_PAPER}) over {label}]: "
+          f"{a['checks']}; "
+          f"ms median={a['ms']:.3f} "
+          f"({a['all_reduces_a_call']} all-reduces a call); traced "
           f"call wall_ms={t['wall_ms']:.3f}: kernels "
           + ", ".join(f"{n} {v['ms']:.3f} ms x{v['count']}" for n, v in t["kernels"].items())
           + f", other device {t['other_device_ms']:.3f} ms, host in {t['all_reduces']} "
@@ -4571,14 +4599,22 @@ def shard_ranks(label, out, spawn_wall, ref, n_min):
         raise AssertionError(f"shards [{label}]: blocked {sorted(blocked)} in rounds "
                              f"{res.blocked_round.tolist()}, expected the {len(bad)} byzantine "
                              f"clients in round {n_min}")
-    want = {n: c * T * S for n, c in SHARD_CALLS.items()}
-    if out["launches"] != want:
-        raise AssertionError(f"shards [{label}]: wrapper counts {out['launches']}, expected "
-                             f"{want}")
-    if out["traced"] != out["traced_wrapper_counts"] or out["traced"] != {
-            n: c * T for n, c in SHARD_CALLS.items()}:
+    rows = SHARD_K // S
+    live_rows = pow2_bucket(-(-(SHARD_K - len(bad)) // S), rows)
+    if live_rows >= rows or out["rows_a_shard"] != [rows, live_rows]:
+        raise AssertionError(f"shards [{label}]: rows a shard {out['rows_a_shard']}, expected "
+                             f"{rows} and then {live_rows} once the byzantine are blocked")
+    rank0 = out["launches_by_rank"][0]
+    passes = rank0["cosine_sim"]
+    if (any(r != rank0 for r in out["launches_by_rank"]) or rank0["weighted_sum"] != passes + T
+            or not T <= passes <= max_passes * T):
+        raise AssertionError(f"shards [{label}]: wrapper counts by rank "
+                             f"{out['launches_by_rank']}, expected the same on every rank, "
+                             f"{T} to {max_passes * T} passes and one more weighted_sum "
+                             "a round")
+    if out["traced"] != out["traced_wrapper_counts"] or out["traced"] != rank0:
         raise AssertionError(f"shards [{label}]: rank 0 traced {out['traced']} kernels, its "
-                             f"wrappers counted {out['traced_wrapper_counts']}")
+                             f"wrappers counted {out['traced_wrapper_counts']} and {rank0}")
     return row
 
 
@@ -4593,8 +4629,9 @@ def shard_summary(smi, row):
             continue
         a = g["afa_alone"]
         print(f"shards summary [{SHARD_K} clients, {g['ranks']} {g['backend']} ranks] ({smi}): "
-              f"ms/round by segment {[round(m, 3) for m in g['ms_per_round_by_segment']]}; "
-              f"afa_aggregate alone ms={a['ms']:.3f}, traced {a['trace']['wall_ms']:.3f} ms: "
+              f"ms/round by segment {[round(m, 3) for m in g['ms_per_round_by_segment']]} "
+              f"on {g['rows_a_shard']} rows a shard; afa_aggregate alone ({SHARD_AFA_K} rows) "
+              f"ms={a['ms']:.3f}, traced {a['trace']['wall_ms']:.3f} ms: "
               + ", ".join(f"{n} {v['ms']:.3f}" for n, v in a["trace"]["kernels"].items())
               + f", all-reduce host {a['trace']['all_reduce_host_ms']:.3f}")
 

@@ -11,8 +11,8 @@ Counterpart of ``repro/core/afa.py``, in two forms:
   says (the JAX tree form has no Pallas call), and it runs the stopping
   loop.
 
-The client-sharded form (``AFAConfig.client_mesh`` with ``client_shards``
-> 1, iterative variant only) runs on this rank's rows of the proposals and
+The client-sharded form (``AFAConfig.client_mesh`` over more than one
+shard, iterative variant only) runs on this rank's rows of the proposals and
 meets the other ranks in all-reduces: each pass sums the local weighted
 rows (a (d,) all-reduce), gathers the K similarities of the local rows
 against that aggregate (an O(K) all-reduce of zero-padded blocks), and
@@ -88,11 +88,10 @@ class AFAConfig(NamedTuple):
     # "fused" (one afa_screen call, gram variant only) | "chained"
     kernel_launch: str = "fused"
     # hierarchical two-stage screening over a client mesh
-    # (repro_torch.launch.mesh.ClientMesh): with client_shards > 1 the
-    # inputs are this rank's K / client_shards rows; with client_shards <= 1
-    # the call takes the unsharded route unchanged
+    # (repro_torch.launch.mesh.ClientMesh): over more than one shard the
+    # inputs are this rank's K / num_shards rows; a one-shard mesh takes the
+    # unsharded route unchanged
     client_mesh: object = None
-    client_shards: int = 0
 
 
 class AFAResult(NamedTuple):
@@ -188,7 +187,7 @@ def afa_aggregate(
     p32 = p_k.float()
     kernels = resolve_kernel_mode(config.use_kernels) == "cuda"
 
-    if config.client_mesh is not None and config.client_shards > 1:
+    if config.client_mesh is not None and config.client_mesh.num_shards > 1:
         if config.variant != "iterative":
             raise ValueError(
                 "sharded AFA implements the iterative variant only: the gram variant needs "

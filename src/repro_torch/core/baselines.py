@@ -204,8 +204,8 @@ class RuleOptions(NamedTuple):
     """Per-call rule knobs.  ``afa`` holds an ``AFAConfig`` when rule == afa;
     ``num_selected`` (MKRUM) comes from the participation count on the host
     (``fed.server.make_rule_options``).  ``capturable``, set by the fused
-    engines, asks a rule for no host read, so a CUDA graph can capture it
-    (AFA then unrolls its screening loop).  ``plan_rows``, also set by the
+    engines whose rounds are captured, asks a rule for no host read, so a
+    CUDA graph can capture it (AFA then unrolls its screening loop).  ``plan_rows``, also set by the
     fused engines, is the run's full K: AFA's Gram kernels plan their column
     splits for it, whatever bucket the rows were compacted into."""
 
@@ -246,8 +246,7 @@ def _opts_client_mesh(opts: RuleOptions):
     one-shard mesh runs the unsharded code)."""
     cfg = opts.afa
     mesh = getattr(cfg, "client_mesh", None) if cfg is not None else None
-    shards = getattr(cfg, "client_shards", 0) if cfg is not None else 0
-    return mesh if (mesh is not None and shards > 1) else None
+    return mesh if (mesh is not None and mesh.num_shards > 1) else None
 
 
 def _guard_all_blocked(res, mask, mesh=None):

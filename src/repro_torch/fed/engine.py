@@ -40,7 +40,9 @@ inputs, the server state, ``bad`` and ``client_ids``, and the parameters
 whole; it runs the same round body, with the full K as the stride of the
 keyed streams, AFA screening hierarchically over the mesh (``core/afa.py``)
 and alie/ipm taking their benign moments over it.  The rounds run eagerly,
-one body call a round, with AFA unrolled; the ``(T, K)`` ``good_mask`` and
+one body call a round, with AFA's stopping loop (nothing is captured, so a
+pass may read the host, and the passes after screening stops, three
+all-reduces each, are not run); the ``(T, K)`` ``good_mask`` and
 blocked trajectory is gathered over the ranks (``ClientMesh.gather_rows``),
 the state stays this rank's rows.  A one-shard mesh runs the unsharded
 code.
@@ -404,14 +406,15 @@ def _program_runner(body, num_rounds: int, device: torch.device):
 def _body(workload, cfg, rule, opts, delta_block, num_clients_total, batch_s, batch_b,
           alpha0, beta0, num_rounds, device, client_mesh=None):
     """The round body with its static configuration bound: the rule asked
-    for no host read (``RuleOptions.capturable``), its Gram kernels to plan
-    for the run's full K in every bucket (``RuleOptions.plan_rows``), the
-    blocking table (counts up to ``num_rounds``) on ``device``, and the
-    client mesh the attacks sum over when it has more than one shard (a
-    one-shard mesh runs the unsharded attacks bit for bit)."""
+    for no host read (``RuleOptions.capturable``) unless the body runs
+    eagerly over a client mesh, its Gram kernels to plan for the run's full
+    K in every bucket (``RuleOptions.plan_rows``), the blocking table
+    (counts up to ``num_rounds``) on ``device``, and the client mesh the
+    attacks sum over when it has more than one shard (a one-shard mesh runs
+    the unsharded attacks bit for bit)."""
     table = torch.from_numpy(blocking_table(alpha0, beta0, delta_block, num_rounds)).to(device)
     block = (table, float(alpha0), float(beta0))
-    opts = opts._replace(capturable=True, plan_rows=int(num_clients_total))
+    opts = opts._replace(capturable=client_mesh is None, plan_rows=int(num_clients_total))
     attack_mesh = client_mesh if client_mesh is not None and client_mesh.num_shards > 1 else None
 
     def body(carry, rnd, seed, data, bad, client_ids):

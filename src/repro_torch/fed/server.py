@@ -116,14 +116,14 @@ def scatter_server_state(full: ServerState, compact: ServerState, keep) -> Serve
                        compact.round)
 
 
-def make_rule_options(cfg: ServerConfig, num_participants: int, *, client_mesh=None,
-                      client_shards: int = 0) -> RuleOptions:
+def make_rule_options(cfg: ServerConfig, num_participants: int, *,
+                      client_mesh=None) -> RuleOptions:
     """Knob bundle for the registry, from the config's resolved plan.
 
     ``num_selected`` is set only for the rule that reads it (MKRUM), from
-    the round's live participant count.  ``client_mesh`` and
-    ``client_shards`` mark the options for this rank's rows of a client
-    mesh: AFA then screens hierarchically, and the all-blocked guard sums
+    the round's live participant count.  ``client_mesh`` marks the
+    options for this rank's rows of a client mesh: over more than one shard
+    AFA then screens hierarchically, and the all-blocked guard sums
     its flag over the ranks."""
     plan = resolve_server_plan(cfg)
     return RuleOptions(
@@ -136,7 +136,7 @@ def make_rule_options(cfg: ServerConfig, num_participants: int, *, client_mesh=N
         afa=AFAConfig(
             xi0=cfg.xi0, delta_xi=cfg.delta_xi, variant=cfg.afa_variant,
             use_kernels=plan.mode, kernel_launch=plan.launch,
-            client_mesh=client_mesh, client_shards=client_shards,
+            client_mesh=client_mesh,
         ),
     )
 

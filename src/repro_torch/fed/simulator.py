@@ -424,12 +424,12 @@ def _client_mesh(sim: SimConfig, server_cfg: ServerConfig, device):
     if layout != "packed":
         raise ValueError("the client-sharded engine packs once a round and requires the "
                          f"packed layout (got {layout!r})")
-    return make_client_mesh(sim.client_shards, device, backend=dist.get_backend())
+    return make_client_mesh(sim.client_shards, device)
 
 
 def _client_opts_kwargs(mesh) -> dict:
     """``make_rule_options`` keywords marking the options for a client mesh."""
-    return {} if mesh is None else {"client_mesh": mesh, "client_shards": mesh.num_shards}
+    return {} if mesh is None else {"client_mesh": mesh}
 
 
 def _make_setup_sim(setup: _Setup, server_cfg: ServerConfig, mesh=None):
@@ -524,20 +524,22 @@ def _run_fused(setup: _Setup, server_cfg: ServerConfig, eval_every: int, *,
 
 def _compact_inputs(setup: _Setup, kept: np.ndarray, bucket: int):
     """The kept clients' device inputs in a ``bucket``-row layout: ``kept``
-    holds the live original ids, ascending; pad rows carry zero shards of
-    length 1, zero ``n_k``, benign ``bad`` and id 0, all inert, since their
-    server-state rows are blocked."""
+    holds the live original ids, ascending, and -1 for a pad slot within it
+    (a block of ``shard_compact_plan``); pad rows, and the rows past
+    ``kept``, carry zero shards of length 1, zero ``n_k``, benign ``bad``
+    and id 0, all inert, since their server-state rows are blocked."""
     dev = setup.device
     x_pad, y_pad, lengths = setup.padded
     kept = np.asarray(kept, np.int64)
     x_c, y_c, len_c = compact_stack(x_pad, y_pad, lengths, kept, pad_to=bucket)
     n = len(kept)
+    valid = kept >= 0
     n_k_c = np.zeros((bucket,), np.float32)
-    n_k_c[:n] = setup.n_k[kept]
+    n_k_c[:n] = np.where(valid, setup.n_k[kept], 0.0)
     bad_c = np.zeros((bucket,), bool)
-    bad_c[:n] = setup.bad_mask[kept]
+    bad_c[:n] = valid & setup.bad_mask[kept]
     ids_c = np.zeros((bucket,), np.int64)
-    ids_c[:n] = kept
+    ids_c[:n] = np.where(valid, kept, 0)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)

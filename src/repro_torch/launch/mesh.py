@@ -74,13 +74,12 @@ class ClientMesh:
         return self._all_reduce_(full)
 
 
-def make_client_mesh(num_shards: int, device, backend: str | None = None) -> ClientMesh:
-    """The client mesh of the initialized default process group.
-
-    The group's world size must be ``num_shards`` and its backend
-    ``backend``: by default ``"nccl"`` for a CUDA ``device`` and ``"gloo"``
-    for the CPU.  S ranks on one card pass ``backend="gloo"``.  Under NCCL
-    rank r takes ``cuda:r``; under gloo every rank takes ``device``."""
+def make_client_mesh(num_shards: int, device) -> ClientMesh:
+    """The client mesh of the initialized default process group, whose
+    world size must be ``num_shards``.  The mesh runs on the group's own
+    backend: under NCCL rank r takes ``cuda:r`` (``device`` must be CUDA);
+    under gloo every rank takes ``device``, so S gloo ranks can share one
+    card."""
     if num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
     if not dist.is_available() or not dist.is_initialized():
@@ -88,16 +87,11 @@ def make_client_mesh(num_shards: int, device, backend: str | None = None) -> Cli
             f"a client mesh of {num_shards} shards needs an initialized default process "
             "group of that size (repro_torch.launch.shards.spawn starts one)")
     device = torch.device(device)
-    if backend is None:
-        backend = "nccl" if device.type == "cuda" else "gloo"
     world = dist.get_world_size()
     if world != num_shards:
         raise ValueError(f"client mesh wants {num_shards} shards but the process group has "
                          f"{world} ranks")
-    group_backend = dist.get_backend()
-    if group_backend != backend:
-        raise ValueError(f"client mesh wants backend {backend!r} but the process group runs "
-                         f"{group_backend!r}")
+    backend = dist.get_backend()
     rank = dist.get_rank()
     if backend == "nccl":
         if device.type != "cuda":

@@ -118,7 +118,7 @@ def _refusals(mesh):
                         kernel_plan=resolve_kernel_plan(False, "leaf"))
     U = torch.zeros((AFA_K // S, AFA_D))
     ones = torch.ones(AFA_K // S)
-    gram = AFAConfig(variant="gram", client_mesh=mesh, client_shards=S)
+    gram = AFAConfig(variant="gram", client_mesh=mesh)
     return {
         "rule": lambda: run(None, e2e_sim(S), fa, data=data, device="cpu"),
         "scenario": lambda: run(None, e2e_sim(S, scenario="sign_flip"), afa, data=data,
@@ -146,8 +146,7 @@ def _four_rank_worker(afa_in, attack_in):
     U, n, p, m = (torch.from_numpy(afa_in[k][blk]) for k in ("updates", "n_k", "p_k", "mask0"))
     for route in ROUTES:
         for unroll in (False, True):
-            cfg = AFAConfig(variant="iterative", use_kernels=route, client_mesh=mesh,
-                            client_shards=S)
+            cfg = AFAConfig(variant="iterative", use_kernels=route, client_mesh=mesh)
             before = mesh.all_reduces
             r = afa_aggregate(U, n, p, m, cfg, unroll=unroll)
             calls = mesh.all_reduces - before
@@ -370,6 +369,21 @@ def test_sharded_segments_compact_per_shard(four_ranks, unsharded):
     assert set(np.nonzero(want.blocked_round > 0)[0]) == set(want.bad_clients.tolist())
     assert four_ranks[("rows", "byzantine/segmented")] == [5, 4]
     assert four_ranks[("rows", "byzantine/one-shot")] == [K // S]
+
+
+def test_compacted_pad_slots_are_inert():
+    """A rank's block of ``shard_compact_plan`` ends in -1 pad slots: they
+    get a zero shard of length 1, zero n_k, a benign flag and id 0, never
+    the last client's."""
+    import repro_torch.fed.simulator as simulator
+
+    setup = simulator._Setup(e2e_data(), e2e_sim(0), torch.device("cpu"))
+    live = [int(np.nonzero(setup.bad_mask)[0][0]), K - 1]
+    data, bad, ids = simulator._compact_inputs(setup, np.array(live + [-1, -1]), 5)
+    np.testing.assert_array_equal(data.n_k.numpy(), np.r_[setup.n_k[live], 0, 0, 0])
+    assert bad.tolist() == setup.bad_mask[live].tolist() + [False] * 3
+    assert ids.tolist() == live + [0] * 3
+    assert data.lengths.tolist()[2:] == [1] * 3 and not data.x[2:].any()
 
 
 def test_one_shard_equals_the_unsharded_run_bit_for_bit(one_rank, unsharded):

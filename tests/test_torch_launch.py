@@ -204,7 +204,6 @@ def test_real_specs_on_the_cpu_are_seeded_and_shaped_as_on_meta():
 
 
 @functools.lru_cache(maxsize=None)
-@functools.lru_cache(maxsize=None)
 def _reduced_params(arch):
     """A reduced f32 config's parameters from seed 0, in both packages: one
     init a module, shared by every step built on the arch (the fed-round
