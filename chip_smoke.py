@@ -256,7 +256,20 @@
    and one traced call split between the two kernels, the other device
    work and the host time in the all-reduces;
    with two cards or more, the run on one NCCL rank a card;
-20. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+20. runs the vmap round of whole models on a (data 2, model 2) grid (phase
+   N, ``model_axis_phase``; alone with ``--phase N``): smollm-135m's phase T
+   round on 4 gloo ranks sharing the card, its 3 kv heads cut over 2 ranks,
+   against the one-card round (f32 within ``AXIS_F32``, bf16 within
+   ``TRAIN_ROUNDING``, the posteriors, blocked bits and good_frac equal on
+   every rank), every rank holding only its specs' blocks (shapes, and the
+   bytes its draw left allocated), the all-reduces a round on each group as
+   ``axis_all_reduces`` reckons them, no kernel launched; ms a round, peak
+   GB a rank; with four cards or more, llama3-8b at full width and depth on
+   one NCCL rank a card (``AXIS_BIG_RUN``: exactly client 0 screened out,
+   finite losses, ms a round, peak GB, the collectives' share of a traced
+   round) and one llama layer on a (data 1, model 1) grid = one card bit
+   for bit;
+21. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
    serve-LLM, families, production-shape (its kernel-route prefills and
    forwards), sweep, serve, grid, looped, leaf and client-shard phases
@@ -640,6 +653,26 @@ SHARD_TIMED = 10        # sharded afa_aggregate calls timed (median)
 # runs the stopping loop), and the final weighted_sum
 SHARD_CALLS = ("weighted_sum", "cosine_sim")
 SHARD_DTYPES = ("float32", "float64", "uint8", "int32")  # what the mesh's all-reduces carry
+
+# phase N (model axis): phase T's vmap round of smollm-135m at full width and
+# depth (bf16, seed 0; the train CLI's batches, K = 4, client 0 byzantine, 2
+# local steps of 2 x 128 tokens) on a (data 2, model 2) grid of 4 gloo ranks
+# sharing the card, 2 clients a data row; smollm's 9 q and 3 kv heads do not
+# split over 2 ranks, so its attention runs the gathered-heads route.  Held
+# to the one-card round: on an f32 copy of the weights at the reference's
+# sharded test's bounds, in bf16 within TRAIN_ROUNDING (a twentieth of a
+# leaf's largest update and two bf16 ulps: the row-parallel products are
+# rounded to bf16 on each rank before their sum, where one card rounds once),
+# the posteriors, blocked bits and good_frac equal.  With four cards or more,
+# llama3-8b at full width (bf16, seed 0) on one NCCL rank a card, the same
+# grid: K = 4 (client 0 byzantine), 2 local steps of 1 x 512 tokens, 3
+# rounds (the third traced on rank 0); and a (data 1, model 1) grid of one
+# NCCL rank = the one-card round bit for bit on one llama layer.
+AXIS_GRID = dict(data=2, model=2)
+AXIS_F32 = (2e-4, 2e-5)           # rtol, atol
+AXIS_BIG_ARCH = "llama3-8b"
+AXIS_BIG_RUN = dict(K=4, byzantine=1, local_steps=2, batch=1, seq=512, rounds=3, lr=0.05,
+                    layers=32)
 
 
 def fail(msg: str) -> None:
@@ -1374,11 +1407,11 @@ def device_spans(torch, prof, after=None):
     from torch.autograd import DeviceType
 
     from repro_torch.fed.engine import ROUNDS_RANGE
-    from repro_torch.launch.mesh import ALL_REDUCE_RANGE
+    from repro_torch.launch.mesh import ALL_REDUCE_RANGE, GRID_ALL_REDUCE_RANGE
 
     return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                   if e.device_type == DeviceType.CUDA
-                  and e.name not in (ROUNDS_RANGE, ALL_REDUCE_RANGE)
+                  and e.name not in (ROUNDS_RANGE, ALL_REDUCE_RANGE, GRID_ALL_REDUCE_RANGE)
                   and (after is None or e.time_range.start >= after))
 
 
@@ -4636,6 +4669,488 @@ def shard_summary(smi, row):
               + f", all-reduce host {a['trace']['all_reduce_host_ms']:.3f}")
 
 
+def axis_all_reduces(cfg, steps: int, passes: int) -> dict:
+    """The all-reduces one grid round issues on each group (the vmap round
+    of a dense model on (data 2, model 2), every 2-D leaf split): a local
+    step's forward sums the embedding, each layer's attention (whole heads:
+    wo's products; a cut head: also the gathers of q, k and v) and MLP, and
+    the loss's max and (sum of exponentials, gold logit); its backward the
+    gradient entering each layer's attention (a cut head: also its
+    output's) and MLP and the head.  AFA: the row norms, a pass's dots and
+    |agg|^2 over ``model``; a pass's weighted sum (a leaf each) and the
+    similarities' gather over ``data``, and the final weighted sum."""
+    whole = cfg.num_kv_heads % AXIS_GRID["model"] == 0
+    attn_fwd, attn_bwd = (1, 1) if whole else (4, 2)
+    L, leaves = cfg.num_layers, 12
+    step = 1 + L * (attn_fwd + 1) + 2 + L * (attn_bwd + 1) + 1
+    return {"model": steps * step + 1 + passes, "data": passes * (leaves + 1) + leaves}
+
+
+def axis_held(torch, model, cfg, grid, gen):
+    """This rank's blocks of the model's weights drawn from ``gen``: their
+    shapes against the specs (raises on any other), the bytes the draw
+    left allocated, and the bytes the specs give."""
+    from repro_torch.launch.sharding import shard_bytes, shard_params_tree
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves
+
+    full = build_model(cfg).init(None, "meta")
+    specs = shard_params_tree(full, grid)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = model.init(gen, "cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    want, whole = 0, 0
+    for leaf, f, spec in zip(tree_leaves(params), tree_leaves(full), tree_leaves(specs)):
+        shape = tuple(n // grid.size(e) if e is not None else n
+                      for n, e in zip(f.shape, spec + (None,) * (f.ndim - len(spec))))
+        if tuple(leaf.shape) != shape:
+            raise AssertionError(f"axis: rank {grid.rank} holds {tuple(leaf.shape)} of a "
+                                 f"{tuple(f.shape)} leaf, not its {spec} block {shape}")
+        want += shard_bytes(tuple(f.shape), f.element_size(), spec, grid)
+        whole += f.numel() * f.element_size()
+    # the caching allocator rounds each tensor up to 512 bytes
+    if not want <= held <= want + 512 * len(tree_leaves(params)):
+        raise AssertionError(f"axis: rank {grid.rank} holds {held} bytes after the draw; its "
+                             f"blocks take {want}")
+    return params, specs, {"held_bytes": held, "spec_bytes": want, "whole_bytes": whole}
+
+
+def axis_compare(torch, grid, got, ref, specs, start=None):
+    """How far this rank's blocks ``got`` lie outside their bound of the
+    one-card ``ref`` (whole leaves on the host, paths as ``specs``), the
+    largest over every rank (> 0: outside).  f32 (``start`` None):
+    ``AXIS_F32``; bf16: ``TRAIN_ROUNDING`` from the round's start
+    ``start``, each leaf's largest update read over its blocks."""
+    from repro_torch.launch.sharding import take_shard
+    from repro_torch.utils.trees import tree_leaves, tree_structure
+
+    frac, ulps = TRAIN_ROUNDING
+    worst, diff = float("-inf"), 0.0
+    paths = ["/".join(p) for p in tree_structure(got)]
+    starts = tree_leaves(start) if start is not None else [None] * len(paths)
+    for path, x, spec, z in zip(paths, tree_leaves(got), tree_leaves(specs), starts):
+        y = take_shard(ref[path], spec, grid).to(x.device).float()
+        x = x.float()
+        if start is None:
+            rtol, atol = AXIS_F32
+        else:
+            update = (y - z.float()).abs().max().reshape(1)
+            rtol, atol = ulps, frac * float(grid.pmax(update, "model")[0])
+        worst = max(worst, float(((x - y).abs() - atol - rtol * y.abs()).max()))
+        diff = max(diff, float((x - y).abs().max()))
+    both = torch.tensor([worst, diff], device=grid.device)
+    both = grid.pmax(grid.pmax(both, "data"), "model")
+    return float(both[0]), float(both[1])
+
+
+def axis_round(torch, grid, fed_round, params, rep, n_k, batch):
+    """One grid round, timed (host clock to a synchronise), with the
+    all-reduces it issued and this rank's peak of allocated memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grid.all_reduces.clear()
+    t0 = time.perf_counter()
+    agg, rep2, m = fed_round(params, rep, n_k, batch)
+    torch.cuda.synchronize()
+    return agg, rep2, m, {"ms": (time.perf_counter() - t0) * 1e3,
+                          "all_reduces": dict(grid.all_reduces),
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "good_frac": float(m["good_frac"]), "afa_rounds": int(m["afa_rounds"]),
+                          "alpha": rep2.alpha.tolist(), "beta": rep2.beta.tolist(),
+                          "blocked": rep2.blocked.tolist(),
+                          "similarities": m["similarities"].tolist()}
+
+
+def axis_worker(ref_path):
+    """One rank of phase N's gloo grid: smollm-135m's weights drawn as this
+    rank's blocks, then round 1 in bf16 and on an f32 copy (each against
+    the one-card round saved at ``ref_path``) and round 2 in bf16, timed.
+    Returns rank 0's numbers and every rank's own."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import FedRoundConfig, make_fed_round
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
+    from repro_torch.launch.sharding import batch_pspec, shard_tree
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_apply
+
+    t_worker = time.perf_counter()
+    grid = make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda:0")
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, grid=grid)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params, specs, held = axis_held(torch, model, cfg, grid, gen)
+    _, rounds = train_data(torch, cfg)
+    K, r = TRAIN_RUN["K"], TRAIN_RUN
+
+    def rows(batch):
+        return shard_tree(batch, grid, tree_apply(lambda t: batch_pspec(
+            tuple(t.shape), grid, client_axis=True, per_client_batch=True), batch))
+
+    ref = torch.load(ref_path, map_location="cpu", mmap=True)
+    fr_cfg = FedRoundConfig(num_clients=K, local_steps=r["local_steps"], lr=r["lr"],
+                            client_axes=("data",))
+    n_k = torch.ones((K,), dtype=torch.float32, device="cuda")
+    ops.reset_launch_counts()
+    out = {"rank": grid.rank, "coords": grid.coords, "held": held}
+    fed_round = make_fed_round(model, fr_cfg, grid=grid)
+    agg, rep, m, out["bf16"] = axis_round(torch, grid, fed_round, params,
+                                          init_reputation(K, device="cuda"), n_k, rows(rounds[0]))
+    out["bf16"]["outside"], out["bf16"]["max_abs_diff"] = axis_compare(
+        torch, grid, agg, ref["bfloat16"], specs, start=params)
+    _, _, _, out["bf16_round2"] = axis_round(torch, grid, fed_round, agg, rep, n_k,
+                                             rows(rounds[1]))
+    del agg
+    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    params32 = tree_apply(lambda t: t.float(), params)
+    del params
+    agg32, _, _, out["f32"] = axis_round(
+        torch, grid, make_fed_round(build_model(cfg32, grid=grid), fr_cfg, grid=grid),
+        params32, init_reputation(K, device="cuda"), n_k, rows(rounds[0]))
+    out["f32"]["outside"], out["f32"]["max_abs_diff"] = axis_compare(
+        torch, grid, agg32, ref["float32"], specs)
+    out["launches"] = dict(ops.LAUNCH_COUNTS)
+    mine = {k: out[k] for k in ("rank", "coords", "held")}
+    mine.update({f"{k}_{f}": out[k][f] for k in ("bf16", "f32")
+                 for f in ("alpha", "beta", "blocked", "good_frac", "all_reduces", "peak_gb")})
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    out["ranks"] = ranks
+    out["worker_s"] = time.perf_counter() - t_worker
+    return out
+
+
+def axis_one_card(torch, cfg, params, batch, label):
+    """Phase T's vmap round on one card (the grid round's reference): the
+    aggregate's leaves by path on the host, the decisions, ms."""
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import FedRoundConfig, make_fed_round
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves, tree_structure
+
+    K, r = TRAIN_RUN["K"], TRAIN_RUN
+    fed_round = make_fed_round(build_model(cfg), FedRoundConfig(
+        num_clients=K, local_steps=r["local_steps"], lr=r["lr"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agg, rep, m = fed_round(params, init_reputation(K, device="cuda"),
+                            torch.ones((K,), dtype=torch.float32, device="cuda"), batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    leaves = {"/".join(p): l.cpu() for p, l in zip(tree_structure(agg), tree_leaves(agg))}
+    row = {"ms": ms, "good_frac": float(m["good_frac"]), "afa_rounds": int(m["afa_rounds"]),
+           "alpha": rep.alpha.tolist(), "beta": rep.beta.tolist(),
+           "blocked": rep.blocked.tolist(), "similarities": m["similarities"].tolist()}
+    print(f"axis [one card, {label}]: {ms:.1f} ms good_frac={row['good_frac']:.2f} afa_rounds="
+          f"{row['afa_rounds']} alpha={row['alpha']}")
+    return leaves, row
+
+
+def model_axis_phase(torch, smi):
+    """Phase N: the vmap round on a data x model grid (``make_fed_round(...,
+    grid=)``).  smollm-135m on 4 gloo ranks sharing the card against the
+    one-card round (bf16 and an f32 copy): every rank's blocks as its specs
+    give them (shapes, and the bytes its draw left allocated), the
+    aggregates within their bounds, the decisions equal on every rank, the
+    all-reduces a round on each group as ``axis_all_reduces`` counts them,
+    no kernel launched; ms a round, peak GB a rank.  With four cards or
+    more, ``model_axis_cards``.  Returns the rows."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shards import spawn
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = build_model(cfg).init(gen, "cuda")
+    _, rounds = train_data(torch, cfg)
+    cfg32, params32 = as_f32(cfg, params)
+    rows = {"config": dict(arch=TRAIN_ARCH, grid=AXIS_GRID, **TRAIN_RUN)}
+    ref = {}
+    ref["bfloat16"], rows["one_card_bf16"] = axis_one_card(torch, cfg, params, rounds[0], "bf16")
+    ref["float32"], rows["one_card_f32"] = axis_one_card(torch, cfg32, params32, rounds[0], "f32")
+    del params, params32
+    torch.cuda.empty_cache()
+    reckoned = axis_all_reduces(cfg, TRAIN_RUN["local_steps"], rows["one_card_bf16"]["afa_rounds"])
+    print(f"axis: reckoned all-reduces a round on (data 2, model 2) gloo ranks: {reckoned} "
+          f"(smollm's 3 kv heads over 2 ranks: the gathered-heads route)")
+    with tempfile.TemporaryDirectory(prefix="axis_ref_") as tmp:
+        path = str(Path(tmp) / "ref.pt")
+        torch.save(ref, path)
+        del ref
+        t0 = time.perf_counter()
+        out = spawn(axis_worker, 4, backend="gloo", device="cuda:0", args=(path,))
+        rows["spawn_wall_s"] = time.perf_counter() - t0
+    rows["grid"] = out
+    for dtype, one in (("bf16", rows["one_card_bf16"]), ("f32", rows["one_card_f32"])):
+        got = out[dtype]
+        print(f"axis [{dtype}, 4 gloo ranks]: {got['ms']:.1f} ms a round (one card "
+              f"{one['ms']:.1f}), peak_GB rank 0 {got['peak_gb']:.3f}, outside its bound "
+              f"{got['outside']:.3e} (max |diff| {got['max_abs_diff']:.3e}), good_frac="
+              f"{got['good_frac']:.2f} afa_rounds={got['afa_rounds']} all-reduces "
+              f"{got['all_reduces']}")
+        for rank in out["ranks"]:
+            for key in ("alpha", "beta", "blocked", "good_frac"):
+                if rank[f"{dtype}_{key}"] != one[key]:
+                    raise AssertionError(f"axis [{dtype}]: rank {rank['rank']}'s {key} "
+                                         f"{rank[f'{dtype}_{key}']} != the one-card {one[key]}")
+            if rank[f"{dtype}_all_reduces"] != axis_all_reduces(cfg, TRAIN_RUN["local_steps"],
+                                                                 got["afa_rounds"]):
+                raise AssertionError(f"axis [{dtype}]: rank {rank['rank']} issued "
+                                     f"{rank[f'{dtype}_all_reduces']} all-reduces")
+        if got["outside"] > 0:
+            raise AssertionError(f"axis [{dtype}]: the grid's aggregate lies {got['outside']} "
+                                 "outside its bound of the one-card round")
+        if got["good_frac"] != 0.75 or got["alpha"] != [3.0] + [4.0] * 3:
+            raise AssertionError(f"axis [{dtype}]: not exactly client 0 screened out: {got}")
+    if any(out["launches"].values()):
+        raise AssertionError(f"axis: the grid round launched kernels: {out['launches']}")
+    for rank in out["ranks"]:
+        h = rank["held"]
+        print(f"axis: rank {rank['rank']} {rank['coords']} holds {h['held_bytes']} bytes of "
+              f"weights (its blocks {h['spec_bytes']}, the whole model {h['whole_bytes']}); "
+              f"peak_GB bf16 {rank['bf16_peak_gb']:.3f} f32 {rank['f32_peak_gb']:.3f}")
+    print(f"axis: round 2 (bf16) {out['bf16_round2']['ms']:.1f} ms, good_frac="
+          f"{out['bf16_round2']['good_frac']:.2f}; worker {out['worker_s']:.1f} s, spawn "
+          f"{rows['spawn_wall_s']:.1f} s ({smi})")
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        rows["cards"] = model_axis_cards(torch, smi)
+    else:
+        rows["cards"] = f"did not run: {cards} card(s)"
+        print(f"axis [{AXIS_BIG_ARCH}, NCCL, one rank a card]: did not run ({cards} card on "
+              "this machine)")
+    rows["phase_s"] = time.perf_counter() - t_phase
+    print(f"axis: phase {rows['phase_s']:.1f} s ({smi})")
+    return rows
+
+
+def axis_big_data(torch, cfg, device):
+    """``AXIS_BIG_RUN``'s batches as the train CLI draws them (seed 0): the
+    eval batch, then each round's K clients with client 0's attack."""
+    import numpy as np
+
+    from repro_torch.data import make_token_stream
+    from repro_torch.launch.train import byzantine_batches, make_fed_batches
+
+    r = AXIS_BIG_RUN
+    stream = make_token_stream(vocab=cfg.vocab_size, n=50_000)
+    rng = np.random.default_rng(0)
+    ev = make_fed_batches(cfg, stream, rng, K=1, S=1, b=r["batch"], seq=r["seq"], device=device)
+    rounds = []
+    for rnd in range(r["rounds"]):
+        batch = make_fed_batches(cfg, stream, rng, K=r["K"], S=r["local_steps"], b=r["batch"],
+                                 seq=r["seq"], device=device)
+        byzantine_batches(batch, r["byzantine"], rnd, cfg.vocab_size)
+        rounds.append(batch)
+    return {k: v[0, 0] for k, v in ev.items()}, rounds
+
+
+def axis_big_worker():
+    """One NCCL rank of llama3-8b's grid (one card a rank): this rank's
+    blocks drawn (seed 0), ``AXIS_BIG_RUN["rounds"]`` rounds, each with the
+    eval loss after it, the last traced on rank 0 (its all-reduces' share:
+    the device time of the collective kernels and the host time in the
+    grid's all-reduce ranges, against the round's wall)."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import FedRoundConfig, make_fed_round
+    from repro_torch.launch.mesh import GRID_ALL_REDUCE_RANGE, make_grid_mesh, make_test_mesh
+    from repro_torch.launch.sharding import batch_pspec, shard_tree
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_apply
+
+    t_worker = time.perf_counter()
+    r = AXIS_BIG_RUN
+    grid = make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda")
+    cfg = get_config(AXIS_BIG_ARCH).with_(num_layers=r["layers"])
+    model = build_model(cfg, grid=grid)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params, _, held = axis_held(torch, model, cfg, grid, gen)
+    held["draw_s"] = time.perf_counter() - t0
+    eval_batch, rounds = axis_big_data(torch, cfg, grid.device)
+
+    def rows(batch):
+        return shard_tree(batch, grid, tree_apply(lambda t: batch_pspec(
+            tuple(t.shape), grid, client_axis=True, per_client_batch=True), batch))
+
+    K = r["K"]
+    fed_round = make_fed_round(model, FedRoundConfig(
+        num_clients=K, local_steps=r["local_steps"], lr=r["lr"], client_axes=("data",)),
+        grid=grid)
+    rep = init_reputation(K, device=grid.device)
+    n_k = torch.ones((K,), dtype=torch.float32, device=grid.device)
+    out = {"held": held, "rounds": []}
+    for rnd, batch in enumerate(rounds):
+        local = rows(batch)
+        if rnd == len(rounds) - 1 and grid.rank == 0:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                params, rep, m, row = axis_round(torch, grid, fed_round, params, rep, n_k, local)
+            spans = device_spans(torch, prof)
+            nccl = [(b, e, k) for b, e, k in spans if "nccl" in k.lower()]
+            host = [e.time_range.end - e.time_range.start for e in prof.events()
+                    if e.name == GRID_ALL_REDUCE_RANGE and e.device_type == DeviceType.CPU]
+            row["trace"] = {"wall_ms": row["ms"], "device_busy_ms": busy_us(spans) / 1e3,
+                            "collective_device_ms": busy_us(nccl) / 1e3,
+                            "collective_kernels": len(nccl),
+                            "all_reduce_host_ms": sum(host) / 1e3, "all_reduce_ranges": len(host)}
+        else:
+            params, rep, m, row = axis_round(torch, grid, fed_round, params, rep, n_k, local)
+        with torch.no_grad():
+            row["eval_loss"] = float(model.loss_fn(params, eval_batch)[0])
+        out["rounds"].append(row)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, {"rank": grid.rank, "held": held, "rounds": [
+        {k: x[k] for k in ("alpha", "beta", "blocked", "good_frac", "eval_loss", "peak_gb",
+                           "ms")} for x in out["rounds"]]})
+    out["ranks"] = ranks
+    out["worker_s"] = time.perf_counter() - t_worker
+    return out
+
+
+def axis_one_layer_worker():
+    """One NCCL rank, a (data 1, model 1) grid: llama3-8b with one layer,
+    the grid's round and the one-card round on the same weights and
+    batches; True where every aggregate leaf and the posteriors are the
+    same bits."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import FedRoundConfig, make_fed_round
+    from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves
+
+    r = AXIS_BIG_RUN
+    grid = make_grid_mesh(make_test_mesh(data=1, model=1), "cuda")
+    cfg = get_config(AXIS_BIG_ARCH).with_(num_layers=1)
+    model = build_model(cfg, grid=grid)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen, "cuda")
+    _, rounds = axis_big_data(torch, cfg, grid.device)
+    cfg_round = FedRoundConfig(num_clients=r["K"], local_steps=r["local_steps"], lr=r["lr"])
+    runs = []
+    for g in (grid, None):
+        agg, rep, _ = make_fed_round(model, cfg_round, grid=g)(
+            params, init_reputation(r["K"], device="cuda"),
+            torch.ones((r["K"],), dtype=torch.float32, device="cuda"), rounds[0])
+        runs.append(([l.cpu() for l in tree_leaves(agg)], rep))
+        del agg
+    (a, ra), (b, rb) = runs
+    return (all(torch.equal(x, y) for x, y in zip(a, b)) and torch.equal(ra.alpha, rb.alpha)
+            and torch.equal(ra.beta, rb.beta) and torch.equal(ra.blocked, rb.blocked))
+
+
+def model_axis_cards(torch, smi):
+    """llama3-8b on a (data 2, model 2) grid of one NCCL rank a card: the
+    bytes reckoned first, then ``axis_big_worker``'s rounds: losses finite,
+    exactly client 0 screened out each round, the same posteriors on every
+    rank; ms a round, peak GB a rank, the traced round's all-reduce share;
+    and ``axis_one_layer_worker``'s bit-for-bit check."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.shards import spawn
+    from repro_torch.launch.sharding import shard_bytes, shard_params_tree
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves
+
+    r = AXIS_BIG_RUN
+    cfg = get_config(AXIS_BIG_ARCH).with_(num_layers=r["layers"])
+    grid = make_test_mesh(**AXIS_GRID)
+    full = build_model(cfg).init(None, "meta")
+    specs = shard_params_tree(full, grid)
+    base = sum(shard_bytes(tuple(f.shape), f.element_size(), s, grid)
+               for f, s in zip(tree_leaves(full), tree_leaves(specs)))
+    clients = r["K"] // grid.size("data")
+    # a client's proposal, momentum and gradient: three copies of the blocks
+    reckoned = base + clients * 3 * base
+    print(f"axis [{AXIS_BIG_ARCH}, {r['layers']} layers]: reckoned a rank: base weights "
+          f"{base / 1e9:.2f} GB + {clients} clients x 3 x {base / 1e9:.2f} GB = "
+          f"{reckoned / 1e9:.2f} GB before activations and AFA's transients")
+    t0 = time.perf_counter()
+    out = spawn(axis_big_worker, 4, backend="nccl", device="cuda")
+    row = {"layers": r["layers"], "reckoned_gb": reckoned / 1e9, "base_gb": base / 1e9,
+           "spawn_wall_s": time.perf_counter() - t0, "rank0": out}
+    K = r["K"]
+    for n, rr in enumerate(out["rounds"], start=1):
+        print(f"axis [{AXIS_BIG_ARCH} NCCL] round {n}: {rr['ms']:.1f} ms peak_GB rank 0 "
+              f"{rr['peak_gb']:.2f} eval_loss={rr['eval_loss']:.4f} good_frac="
+              f"{rr['good_frac']:.2f} afa_rounds={rr['afa_rounds']} all-reduces "
+              f"{rr['all_reduces']} similarities {[round(x, 4) for x in rr['similarities']]}")
+        for rank in out["ranks"]:
+            x = rank["rounds"][n - 1]
+            if (x["alpha"] != [3.0] + [3.0 + n] * (K - 1) or x["beta"] != [3.0 + n] + [3.0] * (K - 1)
+                    or any(x["blocked"]) or x["good_frac"] != 0.75):
+                raise AssertionError(f"axis [{AXIS_BIG_ARCH}]: rank {rank['rank']} round {n}: "
+                                     f"not exactly client 0 screened out: {x}")
+            if not all(map(lambda v: v == v and abs(v) != float("inf"),
+                           [x["eval_loss"]] + rr["similarities"])):
+                raise AssertionError(f"axis [{AXIS_BIG_ARCH}]: rank {rank['rank']} round {n}: "
+                                     f"a loss or similarity not finite: {x}")
+    t = out["rounds"][-1]["trace"]
+    print(f"axis [{AXIS_BIG_ARCH} NCCL] traced round on rank 0: wall {t['wall_ms']:.1f} ms, "
+          f"device busy {t['device_busy_ms']:.1f} ms, collective kernels {t['collective_kernels']}"
+          f" taking {t['collective_device_ms']:.1f} ms on the device (share of the wall "
+          f"{t['collective_device_ms'] / t['wall_ms']:.4f}), host in {t['all_reduce_ranges']} "
+          f"all-reduce ranges {t['all_reduce_host_ms']:.1f} ms ({smi})")
+    for rank in out["ranks"]:
+        h = rank["held"]
+        print(f"axis [{AXIS_BIG_ARCH} NCCL]: rank {rank['rank']} holds {h['held_bytes']} bytes "
+              f"(its blocks {h['spec_bytes']}, the model {h['whole_bytes']}), peak_GB "
+              f"{max(x['peak_gb'] for x in rank['rounds']):.2f}")
+    t0 = time.perf_counter()
+    row["one_layer_bit_for_bit"] = spawn(axis_one_layer_worker, 1, backend="nccl", device="cuda")
+    print(f"axis [{AXIS_BIG_ARCH}, 1 layer, (data 1, model 1) grid, one NCCL rank]: = the one-card "
+          f"round bit for bit: {row['one_layer_bit_for_bit']} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not row["one_layer_bit_for_bit"]:
+        raise AssertionError("axis: the (data 1, model 1) grid's round differs from one card's")
+    return row
+
+
+def model_axis_summary(smi, rows):
+    """phase N's lines with the card's name and power limit."""
+    g = rows["grid"]
+    for dtype in ("bf16", "f32"):
+        got, one = g[dtype], rows[f"one_card_{dtype}"]
+        print(f"axis summary [{TRAIN_ARCH} {dtype} K={TRAIN_RUN['K']}, (data 2, model 2) gloo "
+              f"ranks on one card] ({smi}): ms/round={got['ms']:.1f} (one card {one['ms']:.1f}) "
+              f"peak_GB a rank={max(r[f'{dtype}_peak_gb'] for r in g['ranks']):.3f} outside="
+              f"{got['outside']:.3e} all-reduces {got['all_reduces']}")
+    print(f"axis summary [{TRAIN_ARCH} bf16 round 2] ({smi}): ms/round="
+          f"{g['bf16_round2']['ms']:.1f}; phase {rows['phase_s']:.1f} s")
+    c = rows["cards"]
+    if not isinstance(c, dict):
+        print(f"axis summary [{AXIS_BIG_ARCH}, NCCL] ({smi}): {c}")
+        return
+    last = c["rank0"]["rounds"][-1]
+    print(f"axis summary [{AXIS_BIG_ARCH} bf16 {c['layers']} layers, (data 2, model 2) NCCL] "
+          f"({smi}): ms/round={[round(x['ms'], 1) for x in c['rank0']['rounds']]} peak_GB a rank="
+          f"{max(max(x['peak_gb'] for x in r['rounds']) for r in c['rank0']['ranks']):.2f} "
+          f"(reckoned {c['reckoned_gb']:.2f} before activations) all-reduce device share="
+          f"{last['trace']['collective_device_ms'] / last['trace']['wall_ms']:.4f}")
+
+
 def production_phase(torch, ops, ref, smi):
     """Phase D: smollm-135m at the reference's production input shapes.
     Returns the rows and the flash launches of its kernel-route runs (the
@@ -4812,6 +5327,20 @@ def families_summary(smi, rows, traced):
               f"{traced['device_busy_ms'] / graph_ms:.3f}; phase {rows['phase_s']:.1f} s")
 
 
+def model_axis_only(torch, smi, name) -> None:
+    """``--phase N``: phase N alone (its four-card half where there are four
+    cards), its numbers to ``chiprun_out/chip_smoke_axis.json``."""
+    rows = model_axis_phase(torch, smi)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_axis.json").write_text(json.dumps(
+        {"nvidia_smi": smi, "device": name, "torch": torch.__version__, "model_axis": rows},
+        indent=1))
+    model_axis_summary(smi, rows)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
@@ -4836,6 +5365,9 @@ def main() -> None:
           f"{peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} FP32 TFLOP/s, "
           f"{peaks[2] / 1e12} dense bf16 TFLOP/s, {peaks[3] / 1e12} dense TF32 TFLOP/s")
 
+    if sys.argv[1:] == ["--phase", "N"]:   # no kernel runs there
+        model_axis_only(torch, smi, name)
+        return
     t0 = time.perf_counter()
     path, log = build.build_library()
     print(f"build: {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
@@ -4872,6 +5404,7 @@ def main() -> None:
     looped, looped_launches = looped_phase(torch, ops)
     leaf, leaf_launches = leaf_layout_phase(torch, ops, min_rounds_to_block)
     shards, shard_launches = shard_phase(torch, ops, smi, min_rounds_to_block)
+    model_axis = model_axis_phase(torch, smi)
     traces = [profile_phase(torch), lora_trace, *forward_profile_phase(torch), *fused_traces]
     traces += [serve_llm_trace, families_trace]
     for more in (serve_llm_launches, families_launches, production_launches,
@@ -4923,6 +5456,7 @@ def main() -> None:
         "paper_grid_noisy": noisy,
         "paper_grid_wall_s": grid_wall, "looped": looped, "leaf_layout": leaf,
         "shards": shards,
+        "model_axis": model_axis,
         "launches": launches,
         "profile": traces,
     }, indent=1))
@@ -4935,6 +5469,7 @@ def main() -> None:
     train_summary(smi, train)
     production_summary(smi, production)
     shard_summary(smi, shards)
+    model_axis_summary(smi, model_axis)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -19,7 +19,13 @@ from repro_torch.core.baselines import (
     register_rule,
     trimmed_mean_aggregate,
 )
-from repro_torch.core.afa import AFAConfig, AFAResult, afa_aggregate, afa_aggregate_tree
+from repro_torch.core.afa import (
+    AFAConfig,
+    AFAResult,
+    TreeShards,
+    afa_aggregate,
+    afa_aggregate_tree,
+)
 from repro_torch.core.extra_rules import (
     centered_clip_aggregate,
     geometric_median_aggregate,

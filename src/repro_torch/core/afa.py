@@ -21,6 +21,19 @@ all-reduce to which the other ranks add zeros); the tail test then runs
 alike on every rank.  ``good_mask`` and ``similarities`` come back for the
 local rows, the aggregate whole on every rank.
 
+On a grid (``afa_aggregate_tree(..., shards=TreeShards(...))``, the vmap
+round of ``fed.distributed`` under a data x model mesh), the tree form runs
+on this rank's client rows and this rank's blocks of the leaves split over
+the ``model`` axis.  Each dot product is a leaf's partial sum, those of
+split leaves summed over ``model`` in one all-reduce a product, a
+replicated leaf counted once, then the leaves folded in leaf order; a
+weighted sum over the clients is a fold of the local rows and a sum over
+the client rows, a leaf at a time; the similarities of the local rows are
+gathered to all K (sums of zero-padded blocks), so every rank screens the
+same K scalars.  The aggregate comes back as this rank's blocks, the mask
+and the similarities whole.  The gram variant needs every client row's
+products, so it runs only when the clients are on one row.
+
 Two variants:
 
 * ``variant="iterative"`` — paper-faithful: every screening pass recomputes
@@ -71,7 +84,13 @@ import torch
 from repro_torch.core.stats import masked_mean, masked_median, masked_std, row_sum
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.policy import resolve_kernel_mode
-from repro_torch.utils.trees import tree_dot, tree_leaves, tree_map
+from repro_torch.utils.trees import (
+    tree_dot,
+    tree_leaves,
+    tree_map,
+    tree_structure,
+    tree_unflatten,
+)
 
 EPS = 1e-12
 
@@ -92,6 +111,16 @@ class AFAConfig(NamedTuple):
     # inputs are this rank's K / num_shards rows; a one-shard mesh takes the
     # unsharded route unchanged
     client_mesh: object = None
+
+
+class TreeShards(NamedTuple):
+    """Where the tree form's inputs lie on a grid (``launch.mesh.GridMesh``):
+    the client rows over ``rows`` (axes), and, in leaf order, whether each
+    leaf is split over the ``model`` axis."""
+
+    grid: object
+    rows: tuple
+    split: tuple
 
 
 class AFAResult(NamedTuple):
@@ -319,16 +348,23 @@ def afa_aggregate_tree(
     p_k: torch.Tensor,
     mask0: torch.Tensor | None = None,
     config: AFAConfig = AFAConfig(),
+    *,
+    shards: TreeShards | None = None,
 ) -> AFAResult:
     """Algorithm 1 on a stacked tree; the aggregate is a tree of one
     client's leaves.  The row norms are clamped inside the square root,
     and sums over the client axis are row-order folds, as in the matrix
-    form."""
+    form.  ``shards``: the leaves hold this rank's rows and blocks on a
+    grid (see the module docstring); ``n_k``, ``p_k`` and ``mask0`` are
+    whole."""
     if config.variant not in ("iterative", "gram"):
         raise ValueError(
             f"AFAConfig.variant={config.variant!r} invalid; "
             "expected 'iterative' or 'gram'"
         )
+    if shards is not None and (shards.grid.size(shards.rows) > 1 or any(shards.split)):
+        return _afa_tree_sharded(stacked_updates, n_k.float(), p_k.float(), mask0, config,
+                                 shards)
     leaves = tree_leaves(stacked_updates)
     K, dev = leaves[0].shape[0], leaves[0].device
     mask0 = torch.ones((K,), dtype=torch.bool, device=dev) if mask0 is None else mask0.bool()
@@ -354,6 +390,77 @@ def afa_aggregate_tree(
 
     s, mask, rounds = _screen(sims, mask0, p32, n32, config, False)
     agg = _stacked_weighted_sum(stacked_updates, _weights(mask, p32, n32))
+    return AFAResult(aggregate=agg, good_mask=mask, rounds=rounds, similarities=s)
+
+
+def _leaf_sums(parts: list, split: tuple, grid) -> torch.Tensor:
+    """Per-leaf partial sums (one shape), those of split leaves summed over
+    ``model`` in one all-reduce, then folded in leaf order."""
+    parts = torch.stack(parts)
+    idx = [i for i, sp in enumerate(split) if sp]
+    if idx:
+        at = torch.tensor(idx, device=parts.device)
+        parts = parts.index_copy(0, at, grid.psum(parts.index_select(0, at), "model"))
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def _afa_tree_sharded(stacked, n32, p32, mask0, config, shards: TreeShards) -> AFAResult:
+    grid, rows, split = shards
+    leaves = tree_leaves(stacked)
+    K_local = leaves[0].shape[0]
+    K = K_local * grid.size(rows)
+    mask0 = (torch.ones((K,), dtype=torch.bool, device=leaves[0].device) if mask0 is None
+             else mask0.bool())
+    if mask0.shape[0] != K:
+        raise ValueError(f"{K_local} client rows a rank x {grid.size(rows)} rows != the "
+                         f"{mask0.shape[0]} clients of the mask")
+    local = grid.block(K, rows)
+
+    def red(l):
+        return tuple(range(1, l.ndim))
+
+    row_norms = torch.sqrt(torch.clamp(_leaf_sums(
+        [(l.float() * l.float()).sum(dim=red(l)) for l in leaves], split, grid), min=EPS))
+
+    def weighted_sum(c):
+        """sum_k c_k u_k over all K clients, this rank's blocks, each leaf
+        in its dtype."""
+        cl = c[local].float()
+        out = []
+        for l in leaves:
+            part = row_sum(cl.reshape((-1,) + (1,) * (l.ndim - 1)) * l.float())
+            out.append(grid.psum(part, rows).to(l.dtype))
+        return out
+
+    if config.variant == "gram":
+        if grid.size(rows) > 1:
+            raise ValueError(
+                "the tree form's gram variant needs the Gram entries of every pair of clients, "
+                f"which lie on {grid.size(rows)} client rows; set variant='iterative'")
+        gram = _leaf_sums([l.reshape(K, -1).float() @ l.reshape(K, -1).float().T
+                           for l in leaves], split, grid)
+
+        def sims(c):
+            gc = row_sum(gram.T * c[:, None])
+            agg_norm = torch.sqrt(torch.clamp(row_sum(c * gc), min=EPS))
+            return gc / (row_norms * agg_norm)
+
+    else:
+
+        def sims(c):
+            agg = weighted_sum(c)
+            # each leaf's dots of the local rows and its |agg|^2, summed in one all-reduce
+            total = _leaf_sums([torch.cat([(l.float() * a.float()[None]).sum(dim=red(l)),
+                                           (a.float() * a.float()).sum()[None]])
+                                for l, a in zip(leaves, agg)], split, grid)
+            agg_norm = torch.sqrt(torch.clamp(total[K_local], min=EPS))
+            return grid.gather_rows(total[:K_local] / (row_norms * agg_norm), K, rows)
+
+    s, mask, rounds = _screen(sims, mask0, p32, n32, config, False)
+    agg = tree_unflatten(tree_structure(stacked), weighted_sum(_weights(mask, p32, n32)))
     return AFAResult(aggregate=agg, good_mask=mask, rounds=rounds, similarities=s)
 
 

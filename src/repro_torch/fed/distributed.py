@@ -1,4 +1,5 @@
-"""Federated round of whole-model proposals: the one-card modes.
+"""Federated round of whole-model proposals: the one-card modes, and the
+vmap round on a data x model grid.
 
 Counterpart of ``repro/fed/distributed.py``'s ``make_fed_round`` and
 ``compact_fed_batch``.  ``make_fed_round(model, cfg)`` returns
@@ -24,8 +25,24 @@ Beta reputation absorbs the outcome.  Three client-memory modes
 
 Every mode runs eagerly: AFA's stopping loop reads one bool from the host a
 pass, ``scan`` reads the blocked bits, and the reputation update tests
-``betainc`` on the host.  ``FedRoundConfig.client_axes`` names mesh axes in
-the reference and has no effect on one card.
+``betainc`` on the host.
+
+On a grid (``make_fed_round(model, cfg, grid=)``, a ``launch.mesh.GridMesh``;
+``vmap`` only): the K clients ride the grid's client rows,
+``cfg.client_axes`` (the reference's ``spmd_axis_name``; by default, and
+necessarily, ``client_row_axes(grid)``: the client axis when the grid has
+one, else the data axes), K / rows a row; a rank holds its row's clients'
+batches ``(K / rows, S, b, ...)`` and the parameters' blocks that
+``launch.sharding.shard_params_tree`` gives it, the model built over the same
+grid (``build_model(cfg, grid=grid)``).  Its clients train under
+``torch.func.vmap`` as on one card, the model's collectives over ``model``
+inside the loss; each optimizer step runs a leaf at a time, dropping a
+leaf's gradient and old values once its new ones exist, since a rank's
+clients fill its card.  AFA's tree form then runs on the grid
+(``core.afa.TreeShards``).  The round returns the aggregate as this rank's
+blocks, and the reputation and metrics whole.  ``n_k`` and ``rep`` are
+whole.  A grid of one rank runs the one-card round.  Without a grid,
+``client_axes`` has no effect, as the reference's names none on one device.
 """
 
 from __future__ import annotations
@@ -35,7 +52,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.afa import EPS, AFAConfig, _mark_bad, _weights, afa_aggregate_tree
+from repro_torch.core.afa import (
+    EPS,
+    AFAConfig,
+    TreeShards,
+    _mark_bad,
+    _weights,
+    afa_aggregate_tree,
+)
 from repro_torch.core.reputation import (
     ReputationState,
     gather_reputation,
@@ -43,7 +67,7 @@ from repro_torch.core.reputation import (
     update_reputation,
 )
 from repro_torch.models.config import torch_dtype
-from repro_torch.optim import sgd_momentum
+from repro_torch.optim import OptState, sgd_momentum
 from repro_torch.utils.trees import tree_dot, tree_leaves, tree_map, tree_structure, tree_unflatten
 
 
@@ -57,7 +81,7 @@ class FedRoundConfig(NamedTuple):
     proposal_dtype: str = "bfloat16"  # storage dtype in scan mode, or "int8"
     delta_block: float = 0.95
     microbatch: int = 1  # gradient-accumulation chunks per local step
-    client_axes: tuple | None = None  # mesh axes of the reference: no effect on one card
+    client_axes: tuple | None = None  # the grid axes the clients ride (vmap on a grid)
 
 
 def _flat(tree) -> dict:
@@ -88,14 +112,38 @@ def _grads(loss, p: dict, mb: dict, axis: int, microbatch: int) -> dict:
     return {path: (t / microbatch).to(p[path].dtype) for path, t in zip(treedef, total)}
 
 
-def _train(loss, opt, p: dict, batches: dict, *, axis: int, microbatch: int) -> dict:
+def _step_leafwise(opt, grads: dict, state: OptState, p: dict):
+    """One optimizer step a leaf at a time: each leaf's gradient and old
+    state are dropped once its new state exists, and its old value once its
+    new one does (``grads``, ``state`` and ``p`` are emptied)."""
+    new_p, mu, nu = {}, {}, None if state.nu is None else {}
+    for path in list(p):
+        one = OptState(state.step, {path: state.mu.pop(path)},
+                       None if nu is None else {path: state.nu.pop(path)})
+        upd, one = opt.update({path: grads.pop(path)}, one, {path: p[path]})
+        w = p.pop(path)
+        new_p[path] = w + upd.pop(path).to(w.dtype)
+        del w
+        mu[path] = one.mu[path]
+        if nu is not None:
+            nu[path] = one.nu[path]
+    return new_p, OptState(state.step + 1, mu, nu)
+
+
+def _train(loss, opt, p: dict, batches: dict, *, axis: int, microbatch: int,
+           leafwise: bool = False) -> dict:
     """Local SGD from the flat parameters ``p``: one step for each entry of
     the batches' step axis ``axis`` (0 for one client's ``(S, b, ...)``, 1
-    for K clients' ``(K, S, b, ...)``).  ``p`` is not written."""
+    for K clients' ``(K, S, b, ...)``).  ``p`` is not written.
+    ``leafwise``: each step a leaf at a time (``_step_leafwise``)."""
     state = opt.init(p)
     steps = next(iter(batches.values())).shape[axis]
     for t in range(steps):
         mb = {k: v.select(axis, t) for k, v in batches.items()}
+        if leafwise:  # from the second step on, p is this call's own dict to empty
+            p, state = _step_leafwise(opt, _grads(loss, p, mb, axis, microbatch), state,
+                                      p if t else dict(p))
+            continue
         upd, state = opt.update(_grads(loss, p, mb, axis, microbatch), state, p)
         p = {path: p[path] + upd[path].to(p[path].dtype) for path in p}
     return p
@@ -109,7 +157,8 @@ def _client_train(loss_fn, opt, params, cbatch, *, microbatch: int = 1):
     return tree_unflatten(tree_structure(params), list(p.values()))
 
 
-def _clients_train(loss_fn, opt, params, batch, *, microbatch: int = 1):
+def _clients_train(loss_fn, opt, params, batch, *, microbatch: int = 1,
+                   leafwise: bool = False):
     """The K clients' local SGD at once: ``batch`` leaves ``(K, S, b, ...)``;
     returns the stacked proposals, every leaf ``(K, ...)``."""
     K = next(iter(batch.values())).shape[0]
@@ -117,7 +166,7 @@ def _clients_train(loss_fn, opt, params, batch, *, microbatch: int = 1):
     stacked = {path: l.unsqueeze(0).expand((K,) + tuple(l.shape))
                for path, l in _flat(params).items()}
     p = _train(lambda q, mb: losses(q, mb).sum(), opt, stacked, batch, axis=1,
-               microbatch=microbatch)
+               microbatch=microbatch, leafwise=leafwise)
     return tree_unflatten(tree_structure(params), list(p.values()))
 
 
@@ -145,19 +194,57 @@ def _quantize(prop, w):
     return torch.clamp(torch.round(d / s), -127, 127).to(torch.int8), s
 
 
-def make_fed_round(model, cfg: FedRoundConfig):
+def _grid_shards(model, cfg: FedRoundConfig, grid) -> TreeShards | None:
+    """The round's place on ``grid`` (None: the one-card round); raises
+    for what the grid round does not run."""
+    if grid is None or grid.devices == 1:
+        return None
+    from repro_torch.launch.mesh import client_row_axes
+    from repro_torch.launch.sharding import shard_params_tree, uses_axis
+    from repro_torch.models import build_model
+
+    if cfg.mode != "vmap":
+        raise NotImplementedError(
+            f"fed mode {cfg.mode!r} on a grid of {dict(grid.shape)}: not ported (ROADMAP A, Open "
+            "item 1: FSDP for scan and remat); run it on one card")
+    rows = client_row_axes(grid)
+    if cfg.client_axes is not None and tuple(cfg.client_axes) != rows:
+        raise ValueError(f"client_axes={cfg.client_axes}: on a grid of {dict(grid.shape)} the "
+                         f"clients ride its client rows {rows}")
+    if cfg.num_clients % grid.size(rows):
+        raise ValueError(f"{cfg.num_clients} clients do not split over {grid.size(rows)} "
+                         f"client rows")
+    if grid.shape.get("model", 1) > 1 and getattr(model, "grid", None) is not grid:
+        raise ValueError("a grid with a model axis needs the model built over it: "
+                         "build_model(cfg, grid=grid)")
+    specs = shard_params_tree(build_model(model.config).init(None, "meta"), grid)
+    return TreeShards(grid, rows, tuple(uses_axis(spec, "model") for spec in tree_leaves(specs)))
+
+
+def make_fed_round(model, cfg: FedRoundConfig, grid=None):
     """Returns ``fed_round(params, rep_state, n_k, batch) -> (params',
     rep_state', metrics)``; ``batch`` leaves ``(K, S, b, ...)``, ``n_k`` the
-    (K,) float32 sample counts on the parameters' device."""
+    (K,) float32 sample counts on the parameters' device.  On ``grid`` (a
+    ``GridMesh``, ``vmap`` only) ``params`` and the aggregate are this
+    rank's blocks and ``batch`` its client rows (see the module
+    docstring)."""
     opt = sgd_momentum(cfg.lr, cfg.momentum)
     loss_fn = model.loss_fn
+    shards = _grid_shards(model, cfg, grid)
 
     if cfg.mode == "vmap":
 
         def fed_round(params, rep: ReputationState, n_k, batch):
             mask0 = ~rep.blocked
-            proposals = _clients_train(loss_fn, opt, params, batch, microbatch=cfg.microbatch)
-            res = afa_aggregate_tree(proposals, n_k, p_good(rep), mask0=mask0, config=cfg.afa)
+            if shards is not None:
+                want = cfg.num_clients // shards.grid.size(shards.rows)
+                got = next(iter(batch.values())).shape[0]
+                if got != want:
+                    raise ValueError(f"a rank trains its {want} client rows; the batch has {got}")
+            proposals = _clients_train(loss_fn, opt, params, batch, microbatch=cfg.microbatch,
+                                       leafwise=shards is not None)
+            res = afa_aggregate_tree(proposals, n_k, p_good(rep), mask0=mask0, config=cfg.afa,
+                                     shards=shards)
             rep2 = update_reputation(rep, res.good_mask, mask0, delta=cfg.delta_block)
             return res.aggregate, rep2, _metrics(res.good_mask, res.rounds, res.similarities)
 

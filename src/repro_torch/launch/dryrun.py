@@ -25,17 +25,29 @@ record holds:
   shapes;
 * ``analytic``: ``analytic.analytic_report(cfg, shape, client_rows)``.
 
+``--mesh pod|multipod|test`` (the reference's choices: (data 16, model 16),
+(pod 2, data 16, model 16), (data 2, model 2)) builds the arguments at that
+mesh's client rows (``num_client_rows``: the vmap round's K) and adds the
+port's counterpart of the reference's per-device ``memory_analysis``: the
+bytes one rank holds of the parameters and of all the arguments under the
+port's specs (``memory.per_rank_param_bytes``, ``per_rank_argument_bytes``;
+``specs.arg_specs``, ``specs.rank_bytes``), with ``mesh``, ``mesh_axes``
+and ``num_chips``; ``analytic`` is then at the mesh's client rows.  The
+mesh runs on meta only.
+
 ``--device cuda`` also makes the arguments on the card, where they fit its
 free memory (``torch.cuda.mem_get_info``), runs the step once and adds
 ``ms`` and ``peak_bytes`` (``max_memory_allocated`` after a reset); where
-they do not fit, the record is an ``error`` with their byte count.
+they do not fit, the record is an ``error`` with their byte count.  It runs
+one card.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh pod
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cuda
 
 One JSON a combo under ``experiments/dryrun_torch/``, named
-``<arch>__<shape>__<device>[__<variant>].json``.
+``<arch>__<shape>__<device>[__<mesh>][__<variant>].json``.
 """
 
 from __future__ import annotations
@@ -54,7 +66,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import ALIASES, get_config
 from repro_torch.fed.distributed import _client_train, _clients_train, client_train_calls
 from repro_torch.launch.analytic import analytic_report
-from repro_torch.launch.specs import INPUT_SHAPES, input_specs
+from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+from repro_torch.launch.specs import INPUT_SHAPES, arg_specs, input_specs, rank_bytes
 from repro_torch.launch.steps import build_step, train_round_config
 from repro_torch.models import build_model
 from repro_torch.optim import sgd_momentum
@@ -155,11 +168,19 @@ def run_on_card(cfg, shape_name: str, arg_bytes: int, local_steps, train_kwargs:
             "peak_bytes": int(torch.cuda.max_memory_allocated(dev))}
 
 
+MESHES = {"pod": lambda: make_production_mesh(),
+          "multipod": lambda: make_production_mesh(multi_pod=True),
+          "test": lambda: make_test_mesh(data=2, model=2)}
+
+
 def run_one(arch: str, shape_name: str, out_dir, *, device: str = "meta", force: bool = False,
-            variant: str = "baseline") -> dict:
+            variant: str = "baseline", mesh: str | None = None) -> dict:
+    if mesh is not None and device != "meta":
+        raise ValueError(f"--mesh {mesh} is reported on meta; --device {device} runs one card")
     os.makedirs(out_dir, exist_ok=True)
     vtag = "" if variant == "baseline" else f"__{variant}"
-    fname = os.path.join(out_dir, f"{arch}__{shape_name}__{device}{vtag}.json")
+    mtag = "" if mesh is None else f"__{mesh}"
+    fname = os.path.join(out_dir, f"{arch}__{shape_name}__{device}{mtag}{vtag}.json")
     if os.path.exists(fname) and not force:
         with open(fname) as f:
             return json.load(f)
@@ -169,12 +190,16 @@ def run_one(arch: str, shape_name: str, out_dir, *, device: str = "meta", force:
     if vspec.get("cfg"):
         cfg = cfg.with_(**vspec["cfg"])
     train_kwargs = vspec.get("train", {})
+    grid = None if mesh is None else MESHES[mesh]()
     rec = {"arch": arch, "shape": shape_name, "device": device, "variant": variant,
-           "num_chips": 1, "status": "error"}
+           "num_chips": 1 if grid is None else grid.devices, "status": "error"}
+    if grid is not None:
+        rec.update(mesh=mesh, mesh_axes=dict(grid.shape))
     try:
         counting = build_model(cfg.with_(use_pallas_attention=False, block_q=ONE_TILE,
                                          block_k=ONE_TILE))
-        bundle = input_specs(counting, shape_name, local_steps=vspec.get("local_steps"))
+        bundle = input_specs(counting, shape_name, 1 if grid is None else grid,
+                             local_steps=vspec.get("local_steps"))
         rec["meta"] = bundle.meta
         if bundle.step_kind == "skip":
             rec["status"] = "skip"
@@ -184,6 +209,10 @@ def run_one(arch: str, shape_name: str, out_dir, *, device: str = "meta", force:
         arg_bytes = nbytes(bundle.args)
         counted = count_step(counting, bundle, train_kwargs)
         rec["memory"] = {"argument_bytes": arg_bytes, "output_bytes": counted.pop("output_bytes")}
+        if grid is not None:
+            specs = arg_specs(cfg, bundle, grid)
+            rec["memory"].update(per_rank_param_bytes=rank_bytes(bundle.args[0], specs[0], grid),
+                                 per_rank_argument_bytes=rank_bytes(bundle.args, specs, grid))
         rec.update(counted)
         rec["analytic"] = analytic_report(cfg, shape_name, bundle.meta["client_rows"])
         if device == "cuda":
@@ -212,7 +241,11 @@ def main(argv=None):
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--device", default="meta", choices=["meta", "cuda"],
                     help="meta (default): shapes only; cuda: also run each step on the card")
+    ap.add_argument("--mesh", default=None, choices=list(MESHES),
+                    help="report a rank's bytes on the reference's mesh (meta only)")
     args = ap.parse_args(argv)
+    if args.mesh is not None and args.device != "meta":
+        ap.error("--mesh is reported on meta; --device cuda runs one card")
     if args.device == "cuda":
         resolve_device("cuda")  # raises without CUDA
 
@@ -224,10 +257,14 @@ def main(argv=None):
         for shape in shapes:
             t0 = time.perf_counter()
             rec = run_one(arch, shape, args.out, device=args.device, force=args.force,
-                          variant=args.variant)
+                          variant=args.variant, mesh=args.mesh)
             dt = time.perf_counter() - t0
             line = f"[{rec['status']:5s}] {arch:22s} {shape:12s} {args.device:5s} ({dt:6.1f}s)"
             if rec["status"] == "ok":
+                if args.mesh is not None:
+                    line += (f" {args.mesh} rank args="
+                             f"{rec['memory']['per_rank_argument_bytes'] / 2**30:.2f}GiB "
+                             f"params={rec['memory']['per_rank_param_bytes'] / 2**30:.2f}GiB")
                 line += (f" args={rec['memory']['argument_bytes'] / 2**30:.2f}GiB "
                          f"flops={rec['flops_counted']:.4g} "
                          f"analytic={rec['analytic']['analytic_flops']:.4g}")

@@ -1,12 +1,15 @@
-"""The client mesh: the ranks of a ``torch.distributed`` group over which the
-client-sharded fused engine splits its clients.
+"""Meshes of ``torch.distributed`` ranks: the client mesh of the
+client-sharded fused engine, and the data x model grid of whole-model
+training.
 
-Counterpart of ``make_client_mesh`` and ``client_axis`` in
-``repro/launch/mesh.py``.  The JAX package runs one controller over a
-``(client,)`` device mesh and ``shard_map``; the port runs one process a
-shard.  Each of the S ranks holds K / S client rows (their shards, server
-state and proposals), the model parameters are replicated, and the ranks
-meet only in ``all_reduce(SUM)``:
+Counterpart of ``repro/launch/mesh.py``.  The JAX package runs one
+controller over a device mesh; the port runs one process a device, and the
+ranks meet only in ``all_reduce``.
+
+The client mesh (``make_client_mesh``, ``ClientMesh``).  Each of the S
+ranks holds K / S client rows (their shards, server state and proposals),
+the model parameters are replicated, and the ranks meet in
+``all_reduce(SUM)``:
 
 * ``ClientMesh.psum(t)``: the sum of ``t`` over the ranks;
 * ``ClientMesh.gather_rows(local, total)``: the ``(total, ...)`` stack of
@@ -14,19 +17,48 @@ meet only in ``all_reduce(SUM)``:
   rank's rows.  That is exact (x + 0 = x), so every rank receives the same
   bits, whatever order the backend adds in.
 
-The group is the caller's: ``make_client_mesh`` reads the initialized
-default group and never picks a backend or a device on its own.  Under
-NCCL rank r works on ``cuda:r``; under gloo every rank works on the device
-it is given, so S gloo ranks can share one card (the collectives then pass
-through the host).  ``repro_torch.launch.shards`` starts such groups.
+The grid (``MeshShape``, ``GridMesh``).  ``make_production_mesh`` and
+``make_test_mesh`` give the reference's axis names and sizes as a
+``MeshShape``: a shape only, like ``jax.sharding.Mesh.shape``, so specs
+(``launch.sharding``) are computed with no process group.  ``client_axis``,
+``data_axes``, ``client_row_axes`` and ``num_client_rows`` read any mesh
+with ``axis_names`` and ``shape``, as the reference's do.  ``make_grid_mesh``
+lays a shape over the initialized default group
+(``torch.distributed.device_mesh.init_device_mesh``, rank = the row-major
+index of its coordinate) and gives each axis's process group and this
+rank's coordinate.  Its collectives are ``all_reduce`` over the group of
+some axes: ``psum``, ``pmax`` (``ReduceOp.MAX``, exact) and
+``gather_rows`` / ``gather_last`` (sums of zero-padded blocks, so every rank
+gets the same bits).  A floating tensor travels as float32: a bf16 partial
+product is summed in float32 and rounded once, and a gather is exact in any
+dtype.  The model's tensor parallelism differentiates through four
+``torch.autograd.Function``s over an axis (``copy_to``: identity forward,
+all-reduce backward, entering a column-parallel product; ``reduce_from``:
+all-reduce forward, identity backward, leaving a row-parallel product;
+``gather_from``: a gather of feature blocks whose backward takes this
+rank's block; ``max_over``: an exact max, not differentiated), each with a
+``vmap`` staticmethod: the collective is elementwise in the batch, so under
+``torch.func.vmap`` it acts on the batched tensor whole.
+
+Both meshes are over the caller's group: they read the initialized default
+group and never pick a backend or a device on their own.  Under NCCL rank r
+works on ``cuda:r``; under gloo every rank works on the device it is given,
+so several gloo ranks can share one card (the collectives then pass through
+the host).  ``repro_torch.launch.shards`` starts such groups.
 """
 
 from __future__ import annotations
+
+import itertools
+import math
+from collections import OrderedDict
 
 import torch
 import torch.distributed as dist
 
 ALL_REDUCE_RANGE = "client_mesh.all_reduce"   # profiler range around each collective
+GRID_ALL_REDUCE_RANGE = "grid_mesh.all_reduce"
+CLIENT_AXIS = "client"
 
 
 class ClientMesh:
@@ -99,3 +131,342 @@ def make_client_mesh(num_shards: int, device) -> ClientMesh:
         device = torch.device("cuda", rank)
     return ClientMesh(dist.group.WORLD, rank, num_shards, device, backend)
 
+
+
+# ---------------------------------------------------------------------------
+# the data x model grid
+# ---------------------------------------------------------------------------
+
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class MeshShape:
+    """Axis names and sizes, like ``jax.sharding.Mesh.shape``; ``coords``
+    (axis -> coordinate) places one rank on it, for ``index``."""
+
+    def __init__(self, axis_names, sizes, coords: dict | None = None):
+        if len(axis_names) != len(sizes) or len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"a mesh needs distinct names, one a size: {axis_names}, {sizes}")
+        self.axis_names = tuple(axis_names)
+        self.shape = OrderedDict((a, int(n)) for a, n in zip(axis_names, sizes))
+        self.coords = None if coords is None else {a: int(coords[a]) for a in self.axis_names}
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({dict(self.shape)}, coords={self.coords})"
+
+    @property
+    def devices(self) -> int:
+        return math.prod(self.shape.values())
+
+    def size(self, axes) -> int:
+        """The product of the sizes of ``axes`` (a name or a tuple)."""
+        return math.prod(self.shape[a] for a in _axes(axes))
+
+    def at(self, coords: dict) -> "MeshShape":
+        """The same shape with this rank at ``coords``."""
+        return MeshShape(self.axis_names, tuple(self.shape.values()), coords)
+
+    def index(self, axes) -> int:
+        """This rank's block of a dim split over ``axes``: its coordinate
+        over them, row-major, the first axis major (a PartitionSpec
+        entry's order)."""
+        i = 0
+        for a in _axes(axes):
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """Single pod: (data=16, model=16) = 256 devices.  Multi-pod: (pod=2,
+    data=16, model=16) = 512."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def make_test_mesh(data: int = 2, model: int = 2, pod: int = 0, client: int = 0) -> MeshShape:
+    """A small mesh: the non-zero axes in the order (client, pod, data,
+    model)."""
+    named = [(CLIENT_AXIS, client), ("pod", pod), ("data", data), ("model", model)]
+    named = [(a, n) for a, n in named if n]
+    if not named:
+        raise ValueError("make_test_mesh needs at least one non-zero axis")
+    return MeshShape(*zip(*named))
+
+
+def client_axis(mesh) -> str | None:
+    """The mesh's client axis name, or None when it has no client axis."""
+    return CLIENT_AXIS if CLIENT_AXIS in mesh.axis_names else None
+
+
+def data_axes(mesh) -> tuple:
+    """The batch-parallel axes of a mesh: ('pod','data') when present."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def client_row_axes(mesh) -> tuple:
+    """Mesh axes a leading client dimension shards over: the dedicated
+    client axis when the mesh has one, else the data axes."""
+    ca = client_axis(mesh)
+    return (ca,) if ca is not None else data_axes(mesh)
+
+
+def num_client_rows(mesh) -> int:
+    """Number of client rows the mesh spreads a leading client dimension
+    over: the client axis size when the mesh has one, else the product of
+    the data-like axis sizes."""
+    ca = client_axis(mesh)
+    if ca is not None:
+        return int(mesh.shape[ca])
+    return int(math.prod(mesh.shape[a] for a in data_axes(mesh)))
+
+
+def _wire(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a tensor is all-reduced in: floats as float32 (float64
+    kept), others as they are."""
+    return torch.float32 if dtype.is_floating_point and dtype != torch.float64 else dtype
+
+
+class GridMesh(MeshShape):
+    """A ``MeshShape`` over the ranks of the default process group, this
+    rank at ``coords``.  ``all_reduces`` counts the collectives this rank
+    has issued, by the axes they ran over (``"model"``, ``"data"``, ...)."""
+
+    def __init__(self, shape: MeshShape, device_mesh, groups: dict, rank: int,
+                 device: torch.device, backend: str):
+        coords = dict(zip(shape.axis_names, device_mesh.get_coordinate()))
+        super().__init__(shape.axis_names, tuple(shape.shape.values()), coords)
+        self.device_mesh = device_mesh
+        self.groups = groups
+        self.rank = rank
+        self.device = device
+        self.backend = backend
+        self.all_reduces: dict = {}
+
+    def __repr__(self) -> str:
+        return (f"GridMesh({dict(self.shape)}, rank={self.rank}, coords={self.coords}, "
+                f"device={self.device}, backend={self.backend!r})")
+
+    def _all_reduce_(self, t: torch.Tensor, axes: tuple, op) -> torch.Tensor:
+        label = "+".join(axes)
+        self.all_reduces[label] = self.all_reduces.get(label, 0) + 1
+        with torch.profiler.record_function(GRID_ALL_REDUCE_RANGE):
+            dist.all_reduce(t, op=op, group=self.groups[axes])
+        return t
+
+    def _reduce(self, t: torch.Tensor, axes, op) -> torch.Tensor:
+        axes = _axes(axes)
+        if self.size(axes) == 1:
+            return t.clone()
+        wire = t.to(_wire(t.dtype), copy=True, memory_format=torch.contiguous_format)
+        return self._all_reduce_(wire, axes, op).to(t.dtype)
+
+    def psum(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The sum of ``t`` over the ranks of ``axes`` (a new tensor)."""
+        return self._reduce(t, axes, dist.ReduceOp.SUM)
+
+    def pmax(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The elementwise max of ``t`` over the ranks of ``axes``."""
+        return self._reduce(t, axes, dist.ReduceOp.MAX)
+
+    def _gather(self, local: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        axes = _axes(axes)
+        n = self.size(axes)
+        if n == 1:
+            return local.clone()
+        dim = dim % local.ndim
+        w = local.shape[dim]
+        shape = list(local.shape)
+        shape[dim] = w * n
+        full = torch.zeros(shape, dtype=_wire(local.dtype), device=local.device)
+        full.narrow(dim, self.index(axes) * w, w).copy_(local)
+        return self._all_reduce_(full, axes, dist.ReduceOp.SUM).to(local.dtype)
+
+    def gather_rows(self, local: torch.Tensor, total: int, axes) -> torch.Tensor:
+        """``(total, ...)``: every rank's ``(total / n, ...)`` row block of
+        ``local`` in the order of ``axes``' coordinates, on every rank."""
+        if local.shape[0] * self.size(axes) != total:
+            raise ValueError(f"gather_rows: {local.shape[0]} rows a rank x {self.size(axes)} "
+                             f"ranks != {total}")
+        return self._gather(local, axes, 0)
+
+    def gather_last(self, local: torch.Tensor, axes) -> torch.Tensor:
+        """Every rank's block of the last dim, concatenated in order."""
+        return self._gather(local, axes, -1)
+
+    def block(self, n: int, axes) -> slice:
+        """This rank's slice of a dim of ``n`` split over ``axes``."""
+        w = n // self.size(axes)
+        return slice(self.index(axes) * w, (self.index(axes) + 1) * w)
+
+
+def _subgroup(shape: MeshShape, axes: tuple, rank: int, backend: str):
+    """The process group of the ranks that differ from ``rank`` only on
+    ``axes`` (several axes: ``init_device_mesh`` makes one a single axis).
+    Every rank creates every such group, in the same order."""
+    names = shape.axis_names
+    sizes = tuple(shape.shape.values())
+    others = [a for a in names if a not in axes]
+    mine = None
+    for fixed in itertools.product(*(range(shape.shape[a]) for a in others)):
+        pin = dict(zip(others, fixed))
+        ranks = []
+        for free in itertools.product(*(range(shape.shape[a]) for a in axes)):
+            coord = dict(pin, **dict(zip(axes, free)))
+            r = 0
+            for a, n in zip(names, sizes):
+                r = r * n + coord[a]
+            ranks.append(r)
+        group = dist.new_group(ranks=ranks, backend=backend)
+        if rank in ranks:
+            mine = group
+    return mine
+
+
+def make_grid_mesh(shape: MeshShape, device) -> GridMesh:
+    """``shape`` laid over the initialized default process group, whose
+    world size must be ``shape.devices``.  Under NCCL rank r takes
+    ``cuda:r`` (``device`` must be CUDA); under gloo every rank takes
+    ``device``."""
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"a grid of {dict(shape.shape)} needs an initialized default process group of "
+            f"{shape.devices} ranks (repro_torch.launch.shards.spawn starts one)")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device = torch.device(device)
+    world = dist.get_world_size()
+    if world != shape.devices:
+        raise ValueError(f"a grid of {dict(shape.shape)} wants {shape.devices} ranks but the "
+                         f"process group has {world}")
+    backend = dist.get_backend()
+    rank = dist.get_rank()
+    if backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError(f"the nccl backend needs a CUDA device, got {device}")
+        device = torch.device("cuda", rank)
+    if device.type == "cuda":
+        # before init_device_mesh, which otherwise picks rank % cards
+        torch.cuda.set_device(device)
+    device_mesh = init_device_mesh(
+        device.type, tuple(shape.shape.values()), mesh_dim_names=shape.axis_names,
+        backend_override={a: backend for a in shape.axis_names})
+    groups = {(a,): device_mesh.get_group(a) for a in shape.axis_names}
+    for axes in {client_row_axes(shape), data_axes(shape)}:
+        if len(axes) > 1:
+            groups[axes] = _subgroup(shape, axes, rank, backend)
+    return GridMesh(shape, device_mesh, groups, rank, device, backend)
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives over one axis of a grid
+# ---------------------------------------------------------------------------
+
+
+class _Collective(torch.autograd.Function):
+    """Base of the grid's differentiable collectives: ``apply(x, mesh,
+    axes)``; under ``torch.func.vmap`` the batched tensor is moved to dim 0
+    and the collective runs on it whole."""
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.axes = inputs[1], inputs[2]
+
+    @classmethod
+    def _vmap(cls, info, in_dims, x, mesh, axes):
+        bdim = in_dims[0]
+        if bdim is None:
+            return cls.apply(x, mesh, axes), None
+        return cls.apply(x.movedim(bdim, 0), mesh, axes), 0
+
+
+class _CopyTo(_Collective):
+    """Identity forward, sum over the axes backward."""
+
+    @staticmethod
+    def forward(x, mesh, axes):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.psum(g, ctx.axes), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes):
+        return _CopyTo._vmap(info, in_dims, x, mesh, axes)
+
+
+class _ReduceFrom(_Collective):
+    """Sum over the axes forward, identity backward."""
+
+    @staticmethod
+    def forward(x, mesh, axes):
+        return mesh.psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes):
+        return _ReduceFrom._vmap(info, in_dims, x, mesh, axes)
+
+
+class _GatherFrom(_Collective):
+    """The ranks' blocks of the last dim concatenated forward; this rank's
+    block of the gradient backward."""
+
+    @staticmethod
+    def forward(x, mesh, axes):
+        return mesh.gather_last(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.mesh.block(g.shape[-1], ctx.axes)], None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes):
+        return _GatherFrom._vmap(info, in_dims, x, mesh, axes)
+
+
+class _MaxOver(_Collective):
+    """The elementwise max over the axes; not differentiated (the shift of
+    a log-sum-exp)."""
+
+    @staticmethod
+    def forward(x, mesh, axes):
+        return mesh.pmax(x, axes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes):
+        return _MaxOver._vmap(info, in_dims, x, mesh, axes)
+
+
+def copy_to(x: torch.Tensor, mesh: GridMesh, axes) -> torch.Tensor:
+    """``x`` entering a column-parallel product over ``axes``."""
+    return _CopyTo.apply(x, mesh, _axes(axes))
+
+
+def reduce_from(x: torch.Tensor, mesh: GridMesh, axes) -> torch.Tensor:
+    """The sum of the ranks' partial products over ``axes``."""
+    return _ReduceFrom.apply(x, mesh, _axes(axes))
+
+
+def gather_from(x: torch.Tensor, mesh: GridMesh, axes) -> torch.Tensor:
+    """The ranks' blocks of the last dim over ``axes``, concatenated."""
+    return _GatherFrom.apply(x, mesh, _axes(axes))
+
+
+def max_over(x: torch.Tensor, mesh: GridMesh, axes) -> torch.Tensor:
+    """The elementwise max over ``axes`` (no gradient)."""
+    return _MaxOver.apply(x, mesh, _axes(axes))

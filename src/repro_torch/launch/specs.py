@@ -13,10 +13,14 @@ shardings; here the arguments are tensors made on ``device``:
   from one seeded 2 (normals); a decode step's ``pos`` is ``seq - 1``,
   every earlier position in the cache.
 
-The reference's mesh is replaced by ``client_rows``, the counterpart of
-``num_client_rows(mesh)`` (``repro/launch/mesh.py``): one card gives 1, as
-the reference's one-device mesh does, and other values stand for the rows
-of a larger mesh (the clients of a ``vmap`` round).
+Where the reference takes a mesh, ``client_rows`` is the number of its
+client rows (``num_client_rows(mesh)``, ``repro/launch/mesh.py``): one card
+gives 1, as the reference's one-device mesh does, and other values stand
+for the rows of a larger mesh (the clients of a ``vmap`` round).  A mesh
+(``launch.mesh.MeshShape`` or ``GridMesh``) may be passed in its place; the
+``meta`` then also records its axes, and ``arg_specs`` gives every
+argument's spec on it, as the reference's ``input_specs`` annotates them
+(``launch.sharding``), and ``rank_bytes`` the bytes one rank holds.
 """
 
 from __future__ import annotations
@@ -27,6 +31,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.reputation import ReputationState
+from repro_torch.launch.mesh import num_client_rows
+from repro_torch.launch.sharding import (
+    batch_pspec,
+    cache_pspec,
+    replicated,
+    shard_bytes,
+    shard_params_tree,
+)
 from repro_torch.models.model import tree_apply
 
 INPUT_SHAPES = {
@@ -86,8 +98,13 @@ def _token_batch(cfg, *, lead: tuple, seq: int, gen, device) -> dict:
     return out
 
 
-def fed_client_count(cfg, client_rows: int = 1) -> int:
-    return client_rows if cfg.fed_mode == "vmap" else cfg.fed_clients
+def client_row_count(client_rows) -> int:
+    """``client_rows`` as a number: an int, or a mesh's client rows."""
+    return client_rows if isinstance(client_rows, int) else num_client_rows(client_rows)
+
+
+def fed_client_count(cfg, client_rows=1) -> int:
+    return client_row_count(client_rows) if cfg.fed_mode == "vmap" else cfg.fed_clients
 
 
 def param_specs(model, *, device="meta", seed: int = 0):
@@ -119,11 +136,11 @@ def cache_specs(model, batch: int, cache_size: int, *, device="meta", seed: int 
     return cache
 
 
-def input_specs(model, shape_name: str, client_rows: int = 1, *, local_steps: int | None = None,
+def input_specs(model, shape_name: str, client_rows=1, *, local_steps: int | None = None,
                 device="meta", global_batch: int | None = None) -> SpecBundle:
     """The full argument list of the step this (arch, shape) runs.
     ``global_batch`` cuts the shape's batch to what one card holds (the
-    ``meta`` records the cut value)."""
+    ``meta`` records the cut value).  ``client_rows``: an int or a mesh."""
     cfg = model.config
     steps_per_round = local_steps or LOCAL_STEPS
     info = INPUT_SHAPES[shape_name]
@@ -137,7 +154,9 @@ def input_specs(model, shape_name: str, client_rows: int = 1, *, local_steps: in
         )
 
     meta = dict(arch=cfg.name, shape=shape_name, seq=seq, global_batch=gb,
-                client_rows=client_rows)
+                client_rows=client_row_count(client_rows))
+    if not isinstance(client_rows, int):
+        meta["mesh"] = dict(client_rows.shape)
     if kind == "long_decode" and cfg.family != "ssm" and not cfg.sliding_window:
         return SpecBundle(
             "skip", (), meta,
@@ -179,3 +198,40 @@ def input_specs(model, shape_name: str, client_rows: int = 1, *, local_steps: in
     cache["pos"].copy_(pos)
     meta.update(cache_size=cache_size, ring=ring)
     return SpecBundle("decode", (params, cache, tokens, pos), meta)
+
+
+def arg_specs(cfg, bundle: SpecBundle, mesh) -> tuple:
+    """The spec of every argument of ``bundle`` on ``mesh``, as the
+    reference's ``input_specs`` shards them: the parameters by
+    ``shard_params_tree`` (FSDP under ``scan`` and ``remat``), a federated
+    batch's client dim over the client rows, a plain batch and the tokens
+    over the data axes, a cache by ``cache_pspec`` (its ``pos`` as a plain
+    batch), the reputation and ``n_k`` replicated."""
+    def batch(tree, client):
+        return tree_apply(lambda t: batch_pspec(tuple(t.shape), mesh, client_axis=client,
+                                                per_client_batch=True), tree)
+
+    if bundle.step_kind == "skip":
+        return ()
+    params = shard_params_tree(bundle.args[0], mesh, fsdp=cfg.fed_mode in ("scan", "remat"))
+    if bundle.step_kind == "train":
+        _, rep, n_k, fed = bundle.args
+        return (params, tuple(replicated(mesh) for _ in rep), replicated(mesh),
+                batch(fed, True))
+    if bundle.step_kind in ("prefill", "forward"):
+        return params, batch(bundle.args[1], False)
+    _, cache, tokens, pos = bundle.args
+    cache_specs = {k: batch(v, False) if k == "pos" else
+                   tree_apply(lambda t: cache_pspec(tuple(t.shape), mesh, batch_dim=1), v)
+                   for k, v in cache.items()}
+    return params, cache_specs, batch(tokens, False), batch(pos, False)
+
+
+def rank_bytes(tree, specs, mesh) -> int:
+    """The bytes one rank of ``mesh`` holds of ``tree`` under ``specs``
+    (a tree of the same structure)."""
+    if isinstance(tree, torch.Tensor):
+        return shard_bytes(tuple(tree.shape), tree.element_size(), specs, mesh)
+    if isinstance(tree, dict):
+        return sum(rank_bytes(v, specs[k], mesh) for k, v in tree.items())
+    return sum(rank_bytes(v, s, mesh) for v, s in zip(tree, specs))

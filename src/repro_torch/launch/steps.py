@@ -2,23 +2,28 @@
 
 Counterpart of ``repro/launch/steps.py``.  One builder per step kind; each
 returns a function whose positional arguments follow
-``repro_torch.launch.specs.input_specs``.  The reference's mesh is replaced
-by ``client_rows`` (``specs.fed_client_count``); its ``client_axes`` name
-mesh axes and have no counterpart on one card.
+``repro_torch.launch.specs.input_specs``.  Where the reference takes a mesh,
+``client_rows`` is its number of client rows (``specs.fed_client_count``)
+or a mesh.  Under ``vmap`` a mesh sets ``client_axes`` to its client rows
+(``client_row_axes``), as the reference does; a ``GridMesh`` also runs the
+round on its ranks (``fed.distributed.make_fed_round(..., grid=)``).
 """
 
 from __future__ import annotations
 
 from repro_torch.core.afa import AFAConfig
 from repro_torch.fed.distributed import FedRoundConfig, make_fed_round
+from repro_torch.launch.mesh import GridMesh, client_row_axes
 from repro_torch.launch.specs import LOCAL_STEPS, fed_client_count
 
 
-def train_round_config(cfg, client_rows: int = 1, *, afa_variant: str = "iterative",
+def train_round_config(cfg, client_rows=1, *, afa_variant: str = "iterative",
                        lr: float = 0.02, proposal_dtype: str = "bfloat16",
                        local_steps: int = LOCAL_STEPS, microbatch: int = 1) -> FedRoundConfig:
     """The federated round ``make_train_step`` builds: one AFA screening
-    pass under ``remat``, else up to 4."""
+    pass under ``remat``, else up to 4; under ``vmap`` on a mesh, the
+    clients on its client rows."""
+    mesh = None if isinstance(client_rows, int) else client_rows
     return FedRoundConfig(
         num_clients=fed_client_count(cfg, client_rows),
         local_steps=local_steps,
@@ -27,17 +32,22 @@ def train_round_config(cfg, client_rows: int = 1, *, afa_variant: str = "iterati
         mode=cfg.fed_mode,
         proposal_dtype=proposal_dtype,
         microbatch=microbatch,
+        client_axes=(client_row_axes(mesh) or None)
+        if mesh is not None and cfg.fed_mode == "vmap" else None,
     )
 
 
-def make_train_step(model, client_rows: int = 1, *, afa_variant: str = "iterative",
+def make_train_step(model, client_rows=1, *, afa_variant: str = "iterative",
                     lr: float = 0.02, proposal_dtype: str = "bfloat16",
                     local_steps: int = LOCAL_STEPS, microbatch: int = 1):
     """``fed_round(params, rep, n_k, batch) -> (params', rep', metrics)``
-    (``fed.distributed.make_fed_round``)."""
+    (``fed.distributed.make_fed_round``); on a ``GridMesh`` over its
+    ranks."""
+    grid = client_rows if isinstance(client_rows, GridMesh) else None
     return make_fed_round(model, train_round_config(
         model.config, client_rows, afa_variant=afa_variant, lr=lr,
-        proposal_dtype=proposal_dtype, local_steps=local_steps, microbatch=microbatch))
+        proposal_dtype=proposal_dtype, local_steps=local_steps, microbatch=microbatch),
+        grid=grid)
 
 
 def make_prefill_step(model, *, cache_size: int, use_window: bool = False):

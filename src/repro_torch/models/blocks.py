@@ -16,6 +16,17 @@ C.2); the route changes, not the function, and with
 The windowed prefill and the decode step are plain torch, as in the
 reference.
 
+Under a model axis (``layers.ModelAxis``) the forward's attention is
+tensor-parallel: ``wq``, ``wk`` and ``wv`` hold this rank's out-features,
+``wo`` its in-features, and the partial products of ``wo`` are summed over
+the axis.  Where the split falls on whole heads with the GQA groups kept
+together (``num_kv_heads % model == 0``), attention runs on the local
+heads.  Where it cuts a head (smollm-135m's 9 q and 3 kv heads over 2
+ranks), q, k and v are gathered whole, every rank attends on every head,
+and ``wo`` takes this rank's features of the output.  ``seq_par_attention``
+and the reference's other mesh levers steer XLA's partitioner; the explicit
+split already keeps heads local, so they have no effect here.
+
 Caches.  An SSM or hybrid layer's is ``{"state", "conv"}``
 (``models/ssm.py``), an attention layer's ``(k, v)``.  Linear: slot =
 position, the prompt's keys padded to ``cache_size``.  Ring (windowed
@@ -37,6 +48,7 @@ from repro_torch.models.attention import (
     flash_attention,
     sliding_window_attention,
 )
+from repro_torch.launch.mesh import copy_to, gather_from, reduce_from
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp, rms_norm, rope
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.ssm import apply_mamba2, decode_mamba2, init_mamba2, init_ssm_cache
@@ -85,14 +97,52 @@ def _attention(cfg, q, k, v):
                            parallel_q=cfg.seq_par_attention)
 
 
-def apply_attn(p, cfg, x, *, positions, use_window: bool = False):
-    q, k, v = _qkv(p, cfg, x, positions)
+def _attend(cfg, q, k, v, use_window: bool):
     if use_window and cfg.sliding_window:
-        out = sliding_window_attention(q, k, v, window=cfg.sliding_window, block_q=cfg.block_q)
-    else:
-        out = _attention(cfg, q, k, v)
+        return sliding_window_attention(q, k, v, window=cfg.sliding_window, block_q=cfg.block_q)
+    return _attention(cfg, q, k, v)
+
+
+def apply_attn(p, cfg, x, *, positions, use_window: bool = False, tp=None):
+    if tp is not None:
+        return _apply_attn_tp(p, cfg, x, positions, use_window, tp)
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = _attend(cfg, q, k, v, use_window)
     b, l, _ = x.shape
     return out.reshape(b, l, -1) @ p["wo"]
+
+
+def _apply_attn_tp(p, cfg, x, positions, use_window: bool, tp):
+    """``apply_attn`` on this rank's blocks of the attention leaves (see the
+    module docstring)."""
+    mesh, m = tp.mesh, tp.size
+    b, l, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    split = {w: tp.has(f"attn/{w}") for w in ("wq", "wk", "wv", "wo")}
+    xin = copy_to(x, mesh, "model") if split["wq"] or split["wk"] or split["wv"] else x
+    if hkv % m == 0 and all(split.values()):  # whole heads, whole GQA groups
+        q = (xin @ p["wq"]).reshape(b, l, hq // m, hd)
+        k = (xin @ p["wk"]).reshape(b, l, hkv // m, hd)
+        v = (xin @ p["wv"]).reshape(b, l, hkv // m, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        out = _attend(cfg, q, k, v, use_window).reshape(b, l, -1)
+        return reduce_from(out @ p["wo"], mesh, "model")
+
+    def whole(w, heads):
+        y = gather_from(xin @ p[w], mesh, "model") if split[w] else x @ p[w]
+        return y.reshape(b, l, heads, hd)
+
+    q = rope(whole("wq", hq), positions, cfg.rope_theta)
+    k = rope(whole("wk", hkv), positions, cfg.rope_theta)
+    v = whole("wv", hkv)
+    out = _attend(cfg, q, k, v, use_window).reshape(b, l, -1)
+    if not split["wo"]:
+        return out @ p["wo"]
+    # every rank holds the whole output: wo's features of this rank, the
+    # gradient of the others' features summed in from their ranks
+    out = copy_to(out, mesh, "model")[..., mesh.block(out.shape[-1], "model")]
+    return reduce_from(out @ p["wo"], mesh, "model")
 
 
 def prefill_attn(p, cfg, x, *, positions, cache_size: int, use_window: bool):
@@ -168,18 +218,19 @@ def _moe(p, cfg, x):
                      capacity_factor=cfg.capacity_factor, activation=cfg.activation)
 
 
-def apply_block(p, cfg, h, *, positions, use_window: bool = False):
+def apply_block(p, cfg, h, *, positions, use_window: bool = False, tp=None):
     """Forward of one block (no cache) -> (h, (lb_loss, z_loss)); a block
-    with no router returns (h, None) (the reference's zeros)."""
+    with no router returns (h, None) (the reference's zeros).  ``tp``: the
+    model axis of a dense block's blocks of its leaves."""
     if cfg.family in _SSM:
         return h + apply_mamba2(p["mamba"], cfg, rms_norm(h, p["norm_ssm"])), None
     h = h + apply_attn(p["attn"], cfg, rms_norm(h, p["norm_attn"]), positions=positions,
-                       use_window=use_window)
+                       use_window=use_window, tp=tp)
     x = rms_norm(h, p["norm_ffn"])
     if cfg.family == "moe":
         y, aux = _moe(p, cfg, x)
         return h + y, aux
-    return h + apply_mlp(p["mlp"], x, cfg.activation), None
+    return h + apply_mlp(p["mlp"], x, cfg.activation, tp), None
 
 
 def init_block_cache(cfg, batch: int, cache_size: int, dtype, *, device=None):

@@ -4,9 +4,13 @@ Counterpart of ``repro/models/config.py``: the same fields and defaults, so
 a config of the JAX package and its port describe the same model.
 ``pdtype``/``cdtype`` are torch dtypes.  ``fed_mode`` and ``microbatch``
 pick the client-memory mode and the gradient-accumulation chunks of
-``repro_torch.launch.train``'s rounds (``fed.distributed``); the mesh levers
+``repro_torch.launch.train``'s rounds (``fed.distributed``).  The mesh levers
 (``activation_sharding``, ``fsdp_activations``, ``seq_par_attention``) are
-carried but have no effect on one card.
+carried and have no effect: in the reference they steer XLA's partitioner
+(sharding constraints on the activations, sequence-parallel attention
+blocks), and the port has no partitioner to steer.  On a grid its split is
+explicit (``build_model(cfg, grid=)``): the attention already runs on each
+rank's own heads, or on all heads gathered where the split cuts one.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ class ModelConfig:
     # fed-integration knobs
     fed_mode: str = "vmap"  # vmap | scan | remat (fed.distributed)
     fed_clients: int = 16
-    activation_sharding: bool = False  # a mesh lever: no effect on one card
+    activation_sharding: bool = False  # a mesh lever of the reference: no effect
     microbatch: int = 1  # gradient-accumulation chunks a local step (fed.distributed)
     fsdp_activations: bool = False
     seq_par_attention: bool = False

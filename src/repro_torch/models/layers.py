@@ -2,16 +2,43 @@
 
 Counterpart of ``repro/models/layers.py`` on plain dicts of tensors.  Layer
 stacks carry a leading L axis (``models/model.py`` builds them layer by
-layer and stacks them).  The JAX package's mesh helpers have no counterpart
-on one card.
+layer and stacks them).
+
+Under a grid whose ``model`` axis has more than one rank, a model holds
+this rank's blocks of the leaves ``launch.sharding`` splits over it
+(``ModelAxis``) and computes on them with the grid's collectives
+(``launch.mesh``): a split MLP is column-parallel in ``gate`` and ``up``
+and row-parallel in ``down``.  The reference's mesh levers
+(``with_sharding_constraint`` under ``activation_sharding`` and
+``fsdp_activations``) steer XLA's partitioner; the explicit split has no
+partitioner to steer, so they have no counterpart.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import copy_to, reduce_from
+
+
+class ModelAxis(NamedTuple):
+    """A grid's ``model`` axis of more than one rank, and the leaves split
+    over it: paths relative to a block (``"attn/wq"``, ``"mlp/down"``) or
+    the model (``"embed"``, ``"head"``)."""
+
+    mesh: object
+    sharded: frozenset
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape["model"]
+
+    def has(self, path: str) -> bool:
+        return path in self.sharded
 
 
 def dense_init(generator: torch.Generator, shape, dtype, *, scale: float | None = None,
@@ -21,8 +48,9 @@ def dense_init(generator: torch.Generator, shape, dtype, *, scale: float | None 
     fan_in = shape[0] if len(shape) >= 2 else 1
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    if t.device.type != "meta":
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    if t.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=t.device)  # the shape alone
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (s * t).to(dtype)
 
 
@@ -73,16 +101,24 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+def _mlp_hidden(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "swiglu":
-        h = F.silu(x @ p["gate"]) * (x @ p["up"])
-    elif activation == "geglu":
-        h = gelu(x @ p["gate"]) * (x @ p["up"])
-    elif activation == "squared_relu":
-        h = torch.square(F.relu(x @ p["up"]))
-    else:  # gelu
-        h = gelu(x @ p["up"])
-    return h @ p["down"]
+        return F.silu(x @ p["gate"]) * (x @ p["up"])
+    if activation == "geglu":
+        return gelu(x @ p["gate"]) * (x @ p["up"])
+    if activation == "squared_relu":
+        return torch.square(F.relu(x @ p["up"]))
+    return gelu(x @ p["up"])
+
+
+def apply_mlp(p: dict, x: torch.Tensor, activation: str, tp: ModelAxis | None = None):
+    """The MLP; under ``tp`` with the ff dim split (``gate``, ``up`` and
+    ``down`` split alike, by ``d_ff % model``), the partial products of
+    ``down`` are summed over the axis."""
+    if tp is not None and tp.has("mlp/down"):
+        x = copy_to(x, tp.mesh, "model")
+        return reduce_from(_mlp_hidden(p, x, activation) @ p["down"], tp.mesh, "model")
+    return _mlp_hidden(p, x, activation) @ p["down"]
 
 
 def mlp_param_count(d_model: int, d_ff: int, activation: str) -> int:

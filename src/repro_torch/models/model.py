@@ -31,6 +31,20 @@ window updated in place), advances ``cache["pos"]`` in place and returns the
 same dict: it reads nothing from the host, so a CUDA graph can replay it
 over static buffers (``repro_torch.launch.serve``).  A caller that keeps an
 earlier cache clones it first.
+
+Under a grid.  ``build_model(cfg, grid=)`` with a ``model`` axis of more
+than one rank (the dense family only; the others raise) gives a model whose
+``init`` draws the one-card weights leaf by leaf from the same stream and
+keeps this rank's block of each (``launch.sharding.shard_params_tree``),
+never holding a whole split leaf, and whose ``loss_fn`` and ``forward``
+compute on such blocks (``layers.ModelAxis``): the embedding's vocab rows
+split (tokens outside the local rows read zeros, then a sum over the axis),
+the blocks tensor-parallel (``models/blocks.py``), and the head's logits
+split over the vocabulary: ``loss_fn``'s log-sum-exp takes the max over the
+axis, then the sum of the exponentials, and the gold logit comes from the
+rank that holds it; ``forward`` gathers the logits whole.  Serving under a
+model axis raises.  With no grid, or ``model`` = 1, the model is the
+one-card one.
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.launch.mesh import copy_to, gather_from, max_over, reduce_from
 from repro_torch.models.blocks import (
     apply_block,
     decode_block,
@@ -49,7 +64,8 @@ from repro_torch.models.blocks import (
     prefill_block,
 )
 from repro_torch.models.config import ModelConfig, validate
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import ModelAxis, dense_init, rms_norm
+from repro_torch.utils.trees import tree_leaves, tree_structure
 
 
 class Model(NamedTuple):
@@ -60,6 +76,7 @@ class Model(NamedTuple):
     prefill: Any        # (params, batch, cache_size, use_window=False) -> (logits_last, cache)
     decode_step: Any    # (params, cache, tokens (B,), pos=None, ring=False) -> (logits, cache)
     init_cache: Any     # (batch, cache_size, dtype=None, device="cuda") -> cache
+    grid: Any = None    # the grid whose model axis splits the leaves, if any
 
 
 def tree_apply(fn, *trees):
@@ -71,6 +88,13 @@ def tree_apply(fn, *trees):
     if isinstance(first, (tuple, list)):
         return tuple(tree_apply(fn, *leaves) for leaves in zip(*trees))
     return fn(*trees)
+
+
+def tree_paths(tree: dict, fn, prefix: str = "") -> dict:
+    """``fn(path, leaf)`` over a dict of dicts of tensors, ``path`` the
+    ``/``-joined keys after ``prefix``."""
+    return {k: tree_paths(v, fn, f"{prefix}{k}/") if isinstance(v, dict) else fn(prefix + k, v)
+            for k, v in tree.items()}
 
 
 def layer(tree, i: int):
@@ -97,7 +121,9 @@ def hybrid_segments(cfg: ModelConfig):
     return nseg, every, tail
 
 
-def build_model(cfg: ModelConfig) -> Model:
+def build_model(cfg: ModelConfig, grid=None) -> Model:
+    """The model of ``cfg``; under ``grid`` with a ``model`` axis of more
+    than one rank, on this rank's blocks (see the module docstring)."""
     validate(cfg)
     L = cfg.num_layers
     is_hybrid = cfg.family == "hybrid" and cfg.shared_attn_every > 0
@@ -114,32 +140,69 @@ def build_model(cfg: ModelConfig) -> Model:
         device = torch.device(device)
         return device if device.type == "meta" else resolve_device(device)
 
+    def _init(generator, device, cut) -> dict:
+        """The parameters, each leaf passed through ``cut(path, leaf)`` as
+        it is drawn."""
+        params = {}
+        if cfg.frontend == "none" or cfg.family == "vlm":
+            params["embed"] = cut("embed", dense_init(
+                generator, (cfg.vocab_size, cfg.d_model), cfg.pdtype, scale=0.02, device=device))
+        if cfg.frontend != "none":
+            params["frontend_proj"] = cut("frontend_proj", dense_init(
+                generator, (cfg.frontend_dim, cfg.d_model), cfg.pdtype, device=device))
+        params["layers"] = stack_layers([
+            tree_paths(init_block(generator, cfg, device=device), cut, "layers/")
+            for _ in range(L)])
+        if is_hybrid:
+            params["shared"] = tree_paths(init_block(generator, attn_cfg, device=device), cut,
+                                          "shared/")
+        params["final_norm"] = cut("final_norm", torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
+                                                             device=device))
+        params["head"] = cut("head", dense_init(generator, (cfg.d_model, cfg.vocab_size),
+                                                cfg.pdtype, scale=0.02, device=device))
+        return params
+
+    def _whole(path, leaf):
+        return leaf
+
+    tp = None
+    if grid is not None and grid.shape.get("model", 1) > 1:
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}) under a model axis of {grid.shape['model']}: only the "
+                "dense family is tensor-parallel (ROADMAP A, Open item 1: MoE expert "
+                "parallelism, the SSM and hybrid projections)")
+        from repro_torch.launch.sharding import shard_params_tree, take_shard, uses_axis
+
+        specs = shard_params_tree(_init(None, torch.device("meta"), _whole), grid)
+        specs = {"/".join(p): s for p, s in zip(tree_structure(specs), tree_leaves(specs))}
+        tp = ModelAxis(grid, frozenset(path.removeprefix("layers/") for path, spec in
+                                       specs.items() if uses_axis(spec, "model")))
+
+        def _block(path, leaf):
+            # a layer's leaf is drawn alone: its stacked spec without the L axis
+            spec = specs[path][1:] if path.startswith("layers/") else specs[path]
+            return take_shard(leaf, spec, grid)
+
     def init(generator: torch.Generator | None, device="cuda") -> dict:
         """Random params on ``device`` (the card unless ``device="cpu"``;
         raises without CUDA), drawn from ``generator``, which must live on
-        that device.  ``device="meta"`` gives the shapes and draws nothing."""
-        device = _device(device)
-        params = {}
-        if cfg.frontend == "none" or cfg.family == "vlm":
-            params["embed"] = dense_init(generator, (cfg.vocab_size, cfg.d_model), cfg.pdtype,
-                                         scale=0.02, device=device)
-        if cfg.frontend != "none":
-            params["frontend_proj"] = dense_init(generator, (cfg.frontend_dim, cfg.d_model),
-                                                 cfg.pdtype, device=device)
-        params["layers"] = stack_layers([init_block(generator, cfg, device=device)
-                                         for _ in range(L)])
-        if is_hybrid:
-            params["shared"] = init_block(generator, attn_cfg, device=device)
-        params["final_norm"] = torch.zeros((cfg.d_model,), dtype=cfg.pdtype, device=device)
-        params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size), cfg.pdtype,
-                                    scale=0.02, device=device)
-        return params
+        that device.  ``device="meta"`` gives the shapes and draws nothing.
+        Under a model axis: this rank's blocks of the same draws."""
+        return _init(generator, _device(device), _whole if tp is None else _block)
 
     def _embed(params, tokens):
         # F.embedding, not params["embed"][tokens]: its backward sums each
         # row's gradients in a fixed order, where the indexing backward's
         # float scatter-add on the CPU adds in parallel in no fixed order; a
         # client retrained from the same start must give the same bits
+        if tp is not None and tp.has("embed"):
+            table = params["embed"]
+            rows = table.shape[0]
+            local = tokens.long() - grid.index("model") * rows
+            inside = (local >= 0) & (local < rows)
+            e = F.embedding(local.clamp(0, rows - 1), table) * inside[..., None].to(table.dtype)
+            return reduce_from(e, grid, "model").to(cfg.cdtype)
         return F.embedding(tokens.long(), params["embed"]).to(cfg.cdtype)
 
     def _embed_inputs(params, batch):
@@ -166,7 +229,7 @@ def build_model(cfg: ModelConfig) -> Model:
         for lo, hi, shared in segments:
             for i in range(lo, hi):
                 h, block_aux = apply_block(layer(params["layers"], i), cfg, h,
-                                           positions=positions, use_window=use_window)
+                                           positions=positions, use_window=use_window, tp=tp)
                 if block_aux is not None:
                     aux = torch.stack(block_aux) if aux is None else aux + torch.stack(block_aux)
             if shared is not None:
@@ -174,20 +237,45 @@ def build_model(cfg: ModelConfig) -> Model:
                                    use_window=use_window)
         return rms_norm(h, params["final_norm"]), aux
 
+    def _vocab_split() -> bool:
+        return tp is not None and tp.has("head")
+
+    def _logits(params, h):
+        """(.., V) f32 logits, or this rank's block of the vocabulary."""
+        if _vocab_split():
+            h = copy_to(h, grid, "model")
+        return (h @ params["head"]).float()
+
     def forward(params, batch, use_window: bool = False) -> torch.Tensor:
         h, _ = _hidden(params, batch, use_window)
-        return (h @ params["head"]).float()
+        logits = _logits(params, h)
+        return gather_from(logits, grid, "model") if _vocab_split() else logits
+
+    def _logz_gold(logits, labels):
+        """log-sum-exp and the gold logit of vocab-split logits."""
+        rows = logits.shape[-1]
+        m = max_over(logits.detach().amax(-1), grid, "model")
+        local = labels - grid.index("model") * rows
+        inside = (local >= 0) & (local < rows)
+        gold = torch.gather(logits, -1, local.clamp(0, rows - 1)[..., None])[..., 0]
+        parts = torch.stack([torch.exp(logits - m[..., None]).sum(-1),
+                             torch.where(inside, gold, 0.0)])
+        total, gold = reduce_from(parts, grid, "model").unbind(0)
+        return m + torch.log(total), gold
 
     def loss_fn(params, batch, use_window: bool = False):
         h, aux = _hidden(params, batch, use_window)
         if cfg.family == "vlm":
             h = h[:, cfg.prefix_len:]  # the loss on the text tokens only
-        logits = (h @ params["head"]).float()
+        logits = _logits(params, h)
         labels = batch["labels"].long()
         mask = (labels >= 0).float()
         labels = torch.clamp(labels, min=0)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        if _vocab_split():
+            logz, gold = _logz_gold(logits, labels)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         ce = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
         if aux is None:  # no router: the aux terms are zero
             zero = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -195,8 +283,15 @@ def build_model(cfg: ModelConfig) -> Model:
         loss = ce + cfg.router_aux_weight * aux[0] + cfg.router_z_weight * aux[1]
         return loss, {"ce": ce, "lb_loss": aux[0], "z_loss": aux[1]}
 
+    def _serving():
+        if tp is not None:
+            raise NotImplementedError(
+                f"serving {cfg.name} under a model axis of {tp.size}: not ported (ROADMAP A, "
+                "Open item 1: cache_pspec on prefill and decode)")
+
     def init_cache(batch_size: int, cache_size: int, dtype=None, device="cuda") -> dict:
         """An empty cache on ``device`` (the card unless ``device="cpu"``)."""
+        _serving()
         device = _device(device)
         dtype = dtype or cfg.cdtype
 
@@ -216,6 +311,7 @@ def build_model(cfg: ModelConfig) -> Model:
         (logits of its last position (B, V) f32, a new cache holding it).
         ``use_window`` takes the sliding window and the ring layout of
         ``cache_size`` slots for the attention layers."""
+        _serving()
         h = _embed_inputs(params, batch)
         positions = _positions(h)
         kw = dict(positions=positions, cache_size=cache_size, use_window=use_window)
@@ -242,6 +338,7 @@ def build_model(cfg: ModelConfig) -> Model:
         layers' caches (a hybrid model's shared blocks)."""
         if cfg.is_encoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+        _serving()
         pos = cache["pos"] if pos is None else pos
         h1 = _embed(params, tokens)
         for lo, hi, shared in segments:
@@ -255,4 +352,5 @@ def build_model(cfg: ModelConfig) -> Model:
         h1 = rms_norm(h1, params["final_norm"])
         return (h1 @ params["head"]).float(), cache
 
-    return Model(cfg, init, loss_fn, forward, prefill, decode_step, init_cache)
+    return Model(cfg, init, loss_fn, forward, prefill, decode_step, init_cache,
+                 grid if tp is not None else None)
