@@ -269,11 +269,32 @@
    finite losses, ms a round, peak GB, the collectives' share of a traced
    round) and one llama layer on a (data 1, model 1) grid = one card bit
    for bit;
-21. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+21. runs FSDP for the scan and remat rounds, and MoE expert parallelism, on
+   a (data 2, model 2) grid (phase E, ``fsdp_phase``; alone with ``--phase
+   E``): smollm-135m at full width and depth under FSDP in scan (bf16 and
+   int8 storage) and remat, and olmoe-1b-7b at full width (64 experts, 32
+   a rank) on an f32 copy cut to 1 layer in vmap (expert parallelism
+   alone) and scan (with FSDP), on 4 gloo ranks sharing the card against
+   the same mode's one-card round (``FSDP_MODES``, ``FSDP_MOE_MODES``):
+   decisions equal on every rank, the aggregate within ``TRAIN_ROUNDING``
+   (int8: one quantization step of the leaf's scale beyond; olmoe's f32
+   within ``AXIS_F32``), each int8 scale the same
+   bits on every rank and within ``FSDP_SCALE`` of one card's, every rank
+   holding only its specs' blocks, no kernel launched; ms a round, peak GB
+   a rank, the all-reduces, all-gathers and reduce-scatters a round by
+   group; with four cards or more, ``FSDP_BIG`` (nemotron-4-340b's remat
+   round, K = 4, and phi3.5-moe-42b's int8 scan round, K = 8, each at full
+   width with its depth cut by ``fsdp_reckoning``; phi's gated rounds with
+   its experts at their fan-in, after one reported round on the
+   reference's draw, ``FSDP_BIG_PROBE``) on one NCCL rank a card, 3 rounds:
+   exactly client 0 screened out on every rank, the eval losses finite and
+   falling, the scales the same on every rank, ms a round, peak GB a rank
+   against the reckoning, the collectives' share of the traced last round;
+22. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
    serve-LLM, families, production-shape (its kernel-route prefills and
    forwards), sweep, serve, grid, looped, leaf and client-shard phases
-   (phase T runs no kernel; phase H's summed over its ranks) and, for the
+   (phases T, N and E run no kernel; phase H's summed over its ranks) and, for the
    fused engine's
    graph runs (the DNN's and LoRA's), the calls that step 14's traces
    executed.
@@ -674,6 +695,51 @@ AXIS_BIG_ARCH = "llama3-8b"
 AXIS_BIG_RUN = dict(K=4, byzantine=1, local_steps=2, batch=1, seq=512, rounds=3, lr=0.05,
                     layers=32)
 
+# phase E (FSDP for scan and remat, MoE expert parallelism): on a (data 2,
+# model 2) grid of 4 gloo ranks sharing the card, phase T's round (K = 4,
+# client 0 byzantine, 2 local steps of 2 x 128 tokens, each client's 2 rows
+# split over data) of smollm-135m at full width and depth in bf16, under
+# FSDP (the reference's fsdp=True specs), in each FSDP_MODES mode against
+# the same mode's one-card round: the decisions equal on every rank, the
+# aggregate within TRAIN_ROUNDING (int8: one quantization step of the
+# leaf's scale beyond), each int8 scale the same bits on every rank and
+# within FSDP_SCALE of the one-card scale; then olmoe-1b-7b at full width
+# (64 experts, 32 a rank, top-8) on an f32 copy of its weights, cut to
+# FSDP_MOE_LAYERS of its 16 layers, in vmap (the clients on the data rows,
+# no FSDP) and scan (FSDP, f32 storage), against its one-card rounds within
+# AXIS_F32.  Not bf16: its top-8 routing with a capacity a row is decided
+# on the residual stream, whose bf16 rounding differs between the grid and
+# one card, so a near-tied choice can send a token to another expert (at 2
+# layers in bf16 the vmap round screened alike, its aggregate 1.4e-3 off in
+# places, ~12 bf16 ulps).  Not 2 layers: the one-card vmap round the grid is
+# held to keeps ~6 copies of K = 4 clients' weights, ~100 GB in f32.  With four cards or more, FSDP_BIG on one NCCL rank
+# a card, the same grid, FSDP_BIG_RUN's rounds; each config's depth is cut
+# to what fsdp_reckoning fits under ~70 GB a rank (PERF.md section 4).
+FSDP_MODES = {"scan/bfloat16": ("scan", "bfloat16", 8), "scan/int8": ("scan", "int8", 8),
+              "remat": ("remat", "bfloat16", 1)}
+FSDP_SCALE = (0.05, 2.0 ** -7)    # of the scale, and of the leaf's largest weight / 127
+FSDP_MOE_ARCH = "olmoe-1b-7b"
+FSDP_MOE_LAYERS = 1
+FSDP_MOE_MODES = {"vmap": ("vmap", "float32", 8), "scan": ("scan", "float32", 8)}
+FSDP_BIG = {   # arch -> (mode, proposal dtype, AFA max_rounds, K = fed_clients, layers)
+    "nemotron-4-340b": ("remat", "bfloat16", 1, 4, 1),
+    "phi3.5-moe-42b-a6.6b": ("scan", "int8", 8, 8, 8),
+}
+FSDP_BIG_RUN = dict(byzantine=1, local_steps=2, batch=2, seq=128, rounds=3, lr=0.05)
+# phi's experts: the reference's MoE init draws an expert matrix (E, d_in,
+# d_out) with fan-in E = 16 (repro/models/layers.py:59), std ~0.22, so each
+# MoE layer multiplies the residual stream by thousands and the experts make
+# ~all of the weights' norm (~2.2e4 at 8 layers, llama3-8b's ~1.2e3).  On
+# that draw the train CLI's attack lowers the byzantine proposal's cosine
+# with the aggregate by ~1.2e-7 at lr 0.05, two f32 ulps, below what AFA's
+# f32 mean, median and std resolve, so AFA keeps every client; at lr 0.15
+# and 0.2 it screens client 0 out, but the eval loss rises after round 2 at
+# both (PERF.md section 6, PR 30).  So one round on the reference's draw is
+# reported (FSDP_BIG_PROBE, ungated), and the gated rounds run on the same
+# draw with each expert matrix scaled to its own fan-in d_in, as a dense
+# leaf is drawn (by sqrt(E / d_in), on every rank's blocks alike).
+FSDP_BIG_PROBE = ("phi3.5-moe-42b-a6.6b",)
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
@@ -865,9 +931,15 @@ def kernel_phase(torch, ops, ref, peaks, lib):
             lambda: ref.coord_median_ref(U), lambda: torch.quantile(U, 0.5, dim=0),
             (kd + D) * f, kd, peaks, flush))
         md = (K - DEAD) * D
+        # the library's masked median: the dead rows as NaN, which
+        # torch.nanquantile skips; K - DEAD live rows is odd, so it selects
+        # the middle value, the reference's numpy convention, as the kernel
+        Unan = torch.where(live[:, None], Uq, float("nan"))
+        if not torch.equal(torch.nanquantile(Unan, 0.5, dim=0), ops.coord_median(Uq, live)):
+            raise AssertionError(f"coord_median_masked K={K}: torch.nanquantile differs")
         rows.append(check_kernel(
             torch, "coord_median_masked", K, lambda: ops.coord_median(Uq, live),
-            lambda: ref.coord_median_ref(Uq, live), None,
+            lambda: ref.coord_median_ref(Uq, live), lambda: torch.nanquantile(Unan, 0.5, dim=0),
             (md + D + K) * f, md, peaks, flush))
         rows.append(check_kernel(
             torch, "trimmed_mean", K, lambda: ops.trimmed_mean(U, live, trim=TRIM),
@@ -1407,11 +1479,17 @@ def device_spans(torch, prof, after=None):
     from torch.autograd import DeviceType
 
     from repro_torch.fed.engine import ROUNDS_RANGE
-    from repro_torch.launch.mesh import ALL_REDUCE_RANGE, GRID_ALL_REDUCE_RANGE
+    from repro_torch.launch.mesh import (
+        ALL_REDUCE_RANGE,
+        GRID_ALL_GATHER_RANGE,
+        GRID_ALL_REDUCE_RANGE,
+        GRID_REDUCE_SCATTER_RANGE,
+    )
 
+    ranges = (ROUNDS_RANGE, ALL_REDUCE_RANGE, GRID_ALL_REDUCE_RANGE, GRID_ALL_GATHER_RANGE,
+              GRID_REDUCE_SCATTER_RANGE)
     return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and e.name not in (ROUNDS_RANGE, ALL_REDUCE_RANGE, GRID_ALL_REDUCE_RANGE)
+                  if e.device_type == DeviceType.CUDA and e.name not in ranges
                   and (after is None or e.time_range.start >= after))
 
 
@@ -4688,19 +4766,27 @@ def axis_all_reduces(cfg, steps: int, passes: int) -> dict:
 
 def axis_held(torch, model, cfg, grid, gen):
     """This rank's blocks of the model's weights drawn from ``gen``: their
-    shapes against the specs (raises on any other), the bytes the draw
-    left allocated, and the bytes the specs give."""
+    shapes against the specs (FSDP as the model's; raises on any other),
+    the bytes the draw left allocated, and the bytes the specs give.  The
+    gate reads the bytes requested of the caching allocator, which keeps a
+    remainder of 1 MiB or less with the block it would split it from, so
+    that ``memory_allocated`` may exceed the tensors' bytes by up to 1 MiB
+    each."""
     from repro_torch.launch.sharding import shard_bytes, shard_params_tree
     from repro_torch.models import build_model
     from repro_torch.utils.trees import tree_leaves
 
     full = build_model(cfg).init(None, "meta")
-    specs = shard_params_tree(full, grid)
+    specs = shard_params_tree(full, grid, fsdp=model.fsdp)
+    def requested():
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
+    before, asked = torch.cuda.memory_allocated(), requested()
     params = model.init(gen, "cuda")
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() - before
+    asked = requested() - asked
     want, whole = 0, 0
     for leaf, f, spec in zip(tree_leaves(params), tree_leaves(full), tree_leaves(specs)):
         shape = tuple(n // grid.size(e) if e is not None else n
@@ -4710,19 +4796,21 @@ def axis_held(torch, model, cfg, grid, gen):
                                  f"{tuple(f.shape)} leaf, not its {spec} block {shape}")
         want += shard_bytes(tuple(f.shape), f.element_size(), spec, grid)
         whole += f.numel() * f.element_size()
-    # the caching allocator rounds each tensor up to 512 bytes
-    if not want <= held <= want + 512 * len(tree_leaves(params)):
-        raise AssertionError(f"axis: rank {grid.rank} holds {held} bytes after the draw; its "
-                             f"blocks take {want}")
-    return params, specs, {"held_bytes": held, "spec_bytes": want, "whole_bytes": whole}
+    if asked != want:
+        raise AssertionError(f"axis: rank {grid.rank} holds {asked} bytes after the draw "
+                             f"({held} allocated); its blocks take {want}")
+    return params, specs, {"held_bytes": asked, "allocated_bytes": held, "spec_bytes": want,
+                           "whole_bytes": whole}
 
 
-def axis_compare(torch, grid, got, ref, specs, start=None):
+def axis_compare(torch, grid, got, ref, specs, start=None, steps=None):
     """How far this rank's blocks ``got`` lie outside their bound of the
     one-card ``ref`` (whole leaves on the host, paths as ``specs``), the
     largest over every rank (> 0: outside).  f32 (``start`` None):
     ``AXIS_F32``; bf16: ``TRAIN_ROUNDING`` from the round's start
-    ``start``, each leaf's largest update read over its blocks."""
+    ``start``, each leaf's largest update read over its blocks; ``steps``
+    (path -> a length) widens a leaf's bound by it (int8: one quantization
+    step)."""
     from repro_torch.launch.sharding import take_shard
     from repro_torch.utils.trees import tree_leaves, tree_structure
 
@@ -4737,7 +4825,8 @@ def axis_compare(torch, grid, got, ref, specs, start=None):
             rtol, atol = AXIS_F32
         else:
             update = (y - z.float()).abs().max().reshape(1)
-            rtol, atol = ulps, frac * float(grid.pmax(update, "model")[0])
+            rtol, atol = ulps, frac * float(grid.pmax(grid.pmax(update, "data"), "model")[0])
+        atol += 0.0 if steps is None else steps[path]
         worst = max(worst, float(((x - y).abs() - atol - rtol * y.abs()).max()))
         diff = max(diff, float((x - y).abs().max()))
     both = torch.tensor([worst, diff], device=grid.device)
@@ -4936,15 +5025,15 @@ def model_axis_phase(torch, smi):
     return rows
 
 
-def axis_big_data(torch, cfg, device):
-    """``AXIS_BIG_RUN``'s batches as the train CLI draws them (seed 0): the
-    eval batch, then each round's K clients with client 0's attack."""
+def axis_big_data(torch, cfg, device, run=AXIS_BIG_RUN):
+    """``run``'s batches as the train CLI draws them (seed 0): the eval
+    batch, then each round's K clients with client 0's attack."""
     import numpy as np
 
     from repro_torch.data import make_token_stream
     from repro_torch.launch.train import byzantine_batches, make_fed_batches
 
-    r = AXIS_BIG_RUN
+    r = run
     stream = make_token_stream(vocab=cfg.vocab_size, n=50_000)
     rng = np.random.default_rng(0)
     ev = make_fed_batches(cfg, stream, rng, K=1, S=1, b=r["batch"], seq=r["seq"], device=device)
@@ -5149,6 +5238,531 @@ def model_axis_summary(smi, rows):
           f"{max(max(x['peak_gb'] for x in r['rounds']) for r in c['rank0']['ranks']):.2f} "
           f"(reckoned {c['reckoned_gb']:.2f} before activations) all-reduce device share="
           f"{last['trace']['collective_device_ms'] / last['trace']['wall_ms']:.4f}")
+
+
+def fsdp_runs():
+    """Phase E's one-card half: (key, config, modes, fsdp) of each model
+    run on the gloo grid."""
+    from repro_torch.configs import get_config
+
+    moe = get_config(FSDP_MOE_ARCH).with_(num_layers=FSDP_MOE_LAYERS, param_dtype="float32",
+                                          compute_dtype="float32")
+    return [(TRAIN_ARCH, get_config(TRAIN_ARCH).with_(fed_mode="scan"), FSDP_MODES, True),
+            (f"{FSDP_MOE_ARCH}/vmap", moe.with_(fed_mode="vmap"),
+             {"vmap": FSDP_MOE_MODES["vmap"]}, False),
+            (f"{FSDP_MOE_ARCH}/scan", moe.with_(fed_mode="scan"),
+             {"scan": FSDP_MOE_MODES["scan"]}, True)]
+
+
+def fsdp_reckoning(cfg, mode: str, pdt: str, K: int) -> dict:
+    """A rank's bytes (GB) in an FSDP round of ``cfg`` on a (data 2, model 2)
+    grid, from the specs (meta): ``blocks``, its blocks of the weights;
+    ``gathered``, the model's half of the leaves a forward saves for its
+    backward (each data-split leaf whole over data; the embedding's gather
+    is dropped after the lookup); ``store`` (scan: the K proposals' blocks
+    in the storage dtype) or ``acc`` (remat: a float32 accumulator of the
+    blocks); ``train``, a client's weights, momentum and gradient (three
+    copies of the blocks); ``transient``, three copies of the largest leaf
+    one use gathers (a layer's, not the stack's): the gathered vector, its
+    cut and a transposed copy.  ``peak`` is their sum with the round's
+    start weights."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sharding import shard_bytes, shard_params_tree, uses_axis
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves, tree_structure
+
+    grid = make_test_mesh(**AXIS_GRID)
+    full = build_model(cfg).init(None, "meta")
+    specs = shard_params_tree(full, grid, fsdp=True)
+    blocks = gathered = big = 0
+    for path, f, spec in zip(tree_structure(full), tree_leaves(full), tree_leaves(specs)):
+        b = shard_bytes(tuple(f.shape), f.element_size(), spec, grid)
+        g = b * (grid.size("data") if uses_axis(spec, "data") else 1)
+        blocks += b
+        big = max(big, g // (cfg.num_layers if path[0] == "layers" else 1))
+        if path != ("embed",):
+            gathered += g
+    if mode == "scan":
+        extra = {"store": K * blocks * {"int8": 1, "bfloat16": 2, "float32": 4}[pdt] // 2}
+    else:
+        extra = {"acc": 2 * blocks}
+    out = {"params": sum(f.numel() for f in tree_leaves(full)), "blocks": blocks,
+           "gathered": gathered, **extra, "train": 3 * blocks, "transient": 3 * big}
+    out = {k: v if k == "params" else v / 1e9 for k, v in out.items()}
+    out["peak"] = out["blocks"] + sum(v for k, v in out.items()
+                                      if k not in ("params", "blocks", "peak"))
+    return out
+
+
+def fsdp_round(torch, grid, fed_round, params, rep, n_k, batch):
+    """``axis_round`` with the grid's all-gathers and reduce-scatters."""
+    grid.clear_counts()
+    agg, rep2, m, row = axis_round(torch, grid, fed_round, params, rep, n_k, batch)
+    row.update(all_gathers=dict(grid.all_gathers), reduce_scatters=dict(grid.reduce_scatters))
+    return agg, rep2, m, row
+
+
+def fsdp_scales(torch, grid, scales, ref, w):
+    """The int8 scales of this rank: the same bits on every rank, and how
+    far they lie outside ``FSDP_SCALE`` of the one-card scales ``ref``
+    (``w``: this rank's blocks of the round's start, whose largest
+    magnitude over the leaf sets the ulp term); > 0: outside."""
+    from repro_torch.utils.trees import tree_leaves, tree_structure
+
+    frac, ulps = FSDP_SCALE
+    paths = list(scales)
+    s = torch.stack([scales[p] for p in paths])
+    hi = grid.pmax(grid.pmax(s, "data"), "model")
+    lo = -grid.pmax(grid.pmax(-s, "data"), "model")
+    same = bool(torch.equal(hi, s) and torch.equal(lo, s))
+    top = dict(zip(["/".join(p) for p in tree_structure(w)],
+                   [l.float().abs().max().reshape(1) for l in tree_leaves(w)]))
+    worst = float("-inf")
+    for path in paths:
+        wmax = float(grid.pmax(grid.pmax(top[path], "data"), "model")[0])
+        want = ref[path].to(s.device)
+        far = (scales[path] - want).abs() - frac * want - ulps * wmax / 127.0
+        worst = max(worst, float(far.max()))
+    return same, worst
+
+
+def fsdp_steps(scales) -> dict:
+    """One quantization step of each leaf: its largest scale."""
+    return {p: float(s.max()) for p, s in scales.items()}
+
+
+def fsdp_fed_config(mode, pdt, max_rounds, K, local_steps, lr, client_axes=None):
+    from repro_torch.core import AFAConfig
+    from repro_torch.fed.distributed import FedRoundConfig
+
+    return FedRoundConfig(num_clients=K, local_steps=local_steps, lr=lr,
+                          afa=AFAConfig(max_rounds=max_rounds), mode=mode, proposal_dtype=pdt,
+                          client_axes=client_axes)
+
+
+def fsdp_one_card(torch, model, params, batch, modes) -> tuple:
+    """The one-card rounds of ``modes`` (label -> (mode, proposal dtype, AFA
+    max_rounds)) on phase T's batch: each aggregate's leaves by path on the
+    host, the decisions, the int8 scales, ms."""
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import make_fed_round
+    from repro_torch.utils.trees import tree_leaves, tree_structure
+
+    K, r = TRAIN_RUN["K"], TRAIN_RUN
+    refs, rows = {}, {}
+    for label, (mode, pdt, max_rounds) in modes.items():
+        fed_round = make_fed_round(model, fsdp_fed_config(mode, pdt, max_rounds, K,
+                                                          r["local_steps"], r["lr"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        agg, rep, m = fed_round(params, init_reputation(K, device="cuda"),
+                                torch.ones((K,), dtype=torch.float32, device="cuda"), batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        refs[label] = {"agg": {"/".join(p): l.cpu() for p, l in
+                               zip(tree_structure(agg), tree_leaves(agg))},
+                       "scales": {p: v.cpu() for p, v in m.get("scales", {}).items()}}
+        rows[label] = {"ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "good_frac": float(m["good_frac"]), "afa_rounds": int(m["afa_rounds"]),
+                       "alpha": rep.alpha.tolist(), "beta": rep.beta.tolist(),
+                       "blocked": rep.blocked.tolist(),
+                       "similarities": m["similarities"].tolist()}
+        del agg, m
+        print(f"fsdp [one card, {model.config.name} {label}]: {ms:.1f} ms good_frac="
+              f"{rows[label]['good_frac']:.2f} afa_rounds={rows[label]['afa_rounds']} "
+              f"alpha={rows[label]['alpha']}")
+    return refs, rows
+
+
+def fsdp_grid_model(torch, grid, cfg, modes, ref, batch, rows_of, tag):
+    """This rank's blocks of ``cfg`` (drawn from seed 0; FSDP as its
+    ``fed_mode`` asks) and one grid round of each of ``modes`` against the
+    one-card round's ``ref``: the row of each, and every rank's
+    decisions."""
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import make_fed_round
+    from repro_torch.models import build_model
+
+    K, r = TRAIN_RUN["K"], TRAIN_RUN
+    model = build_model(cfg, grid=grid)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params, specs, held = axis_held(torch, model, cfg, grid, gen)
+    n_k = torch.ones((K,), dtype=torch.float32, device="cuda")
+    out, mine = {"held": held}, {"held": held}
+    for label, (mode, pdt, max_rounds) in modes.items():
+        axes = ("data",) if mode == "vmap" else None
+        fed_round = make_fed_round(model, fsdp_fed_config(mode, pdt, max_rounds, K,
+                                                          r["local_steps"], r["lr"], axes),
+                                   grid=grid)
+        agg, _, m, row = fsdp_round(torch, grid, fed_round, params,
+                                    init_reputation(K, device="cuda"), n_k, rows_of(batch, mode))
+        want = ref[label]
+        steps = fsdp_steps(want["scales"]) if want["scales"] else None
+        f32 = cfg.param_dtype == "float32"   # AXIS_F32, else TRAIN_ROUNDING from the start
+        row["outside"], row["max_abs_diff"] = axis_compare(
+            torch, grid, agg, want["agg"], specs, start=None if f32 else params, steps=steps)
+        if "scales" in m:
+            row["scales_same_on_every_rank"], row["scales_outside"] = fsdp_scales(
+                torch, grid, m["scales"], want["scales"], params)
+        del agg, m
+        out[label] = row
+        mine[label] = {k: row[k] for k in ("alpha", "beta", "blocked", "good_frac", "afa_rounds",
+                                           "peak_gb", "all_reduces", "all_gathers",
+                                           "reduce_scatters", "ms")}
+        if grid.rank == 0:
+            print(f"fsdp [{tag} {label}, rank 0]: {row['ms']:.1f} ms", flush=True)
+    return out, mine
+
+
+def fsdp_worker(ref_path):
+    """One rank of phase E's gloo grid: smollm-135m under FSDP in each of
+    ``FSDP_MODES``, then olmoe-1b-7b (cut) in each of ``FSDP_MOE_MODES``,
+    against the one-card rounds saved at ``ref_path``.  Returns rank 0's
+    rows and every rank's own."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
+    from repro_torch.launch.sharding import batch_pspec, shard_tree
+    from repro_torch.models.model import tree_apply
+
+    t_worker = time.perf_counter()
+    grid = make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda:0")
+    ref = torch.load(ref_path, map_location="cpu", mmap=True)
+
+    def rows_of(batch, mode):
+        # vmap: this rank's client rows; FSDP: the whole batch, whose rows
+        # the model splits over data
+        if mode != "vmap":
+            return batch
+        return shard_tree(batch, grid, tree_apply(lambda t: batch_pspec(
+            tuple(t.shape), grid, client_axis=True, per_client_batch=True), batch))
+
+    ops.reset_launch_counts()
+    out, mine = {"rank": grid.rank, "coords": grid.coords}, {"rank": grid.rank}
+    for key, cfg, modes, _ in fsdp_runs():
+        _, rounds = train_data(torch, cfg)
+        out[key], mine[key] = fsdp_grid_model(torch, grid, cfg, modes, ref[key], rounds[0],
+                                              rows_of, key)
+        del rounds
+        torch.cuda.empty_cache()
+    out["launches"] = dict(ops.LAUNCH_COUNTS)
+    mine["launches"] = out["launches"]
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    out["ranks"] = ranks
+    out["worker_s"] = time.perf_counter() - t_worker
+    return out
+
+
+def fsdp_phase(torch, smi):
+    """Phase E: FSDP for scan and remat, and MoE expert parallelism, on a
+    (data 2, model 2) grid.  smollm-135m and olmoe-1b-7b (cut) on 4 gloo
+    ranks sharing the card against their one-card rounds (``fsdp_runs``):
+    the decisions equal on every rank, every rank holding only its specs'
+    blocks (shapes, and the bytes its draw left allocated), the aggregates
+    within their bounds, the int8 scales the same on every rank and within
+    ``FSDP_SCALE`` of one card's, no kernel launched on any rank; ms a
+    round, peak GB a rank, the collectives a round by group.  With four
+    cards or more, ``fsdp_cards``.  Returns the rows."""
+    import tempfile
+
+    from repro_torch.launch.shards import spawn
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows = {"config": dict(grid=AXIS_GRID, moe_layers=FSDP_MOE_LAYERS, **TRAIN_RUN),
+            "one_card": {}}
+    ref = {}
+    for key, cfg, modes, _ in fsdp_runs():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        model = build_model(cfg)
+        params = model.init(gen, "cuda")
+        _, rounds = train_data(torch, cfg)
+        ref[key], rows["one_card"][key] = fsdp_one_card(torch, model, params, rounds[0], modes)
+        del params, rounds
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="fsdp_ref_") as tmp:
+        path = str(Path(tmp) / "ref.pt")
+        torch.save(ref, path)
+        del ref
+        t0 = time.perf_counter()
+        out = spawn(fsdp_worker, 4, backend="gloo", device="cuda:0", args=(path,))
+        rows["spawn_wall_s"] = time.perf_counter() - t0
+    rows["grid"] = out
+    for key, _, modes, fsdp in fsdp_runs():
+        for label in modes:
+            got, one = out[key][label], rows["one_card"][key][label]
+            print(f"fsdp [{key} {label}, 4 gloo ranks{', FSDP' if fsdp else ''}]: "
+                  f"{got['ms']:.1f} ms a round (one card {one['ms']:.1f}), peak_GB rank 0 "
+                  f"{got['peak_gb']:.3f}, outside its bound {got['outside']:.3e} (max |diff| "
+                  f"{got['max_abs_diff']:.3e}), good_frac={got['good_frac']:.2f} afa_rounds="
+                  f"{got['afa_rounds']}; all-reduces {got['all_reduces']} all-gathers "
+                  f"{got['all_gathers']} reduce-scatters {got['reduce_scatters']}")
+            for rank in out["ranks"]:
+                mine = rank[key][label]
+                for field in ("alpha", "beta", "blocked", "good_frac", "afa_rounds"):
+                    if mine[field] != one[field]:
+                        raise AssertionError(f"fsdp [{key} {label}]: rank {rank['rank']}'s "
+                                             f"{field} {mine[field]} != the one-card {one[field]}")
+            if got["outside"] > 0:
+                raise AssertionError(f"fsdp [{key} {label}]: the grid's aggregate lies "
+                                     f"{got['outside']} outside its bound of the one-card round")
+            if got["good_frac"] != 0.75 or got["alpha"] != [3.0] + [4.0] * 3:
+                raise AssertionError(f"fsdp [{key} {label}]: not exactly client 0 screened out: "
+                                     f"{got}")
+            if "scales_outside" in got:
+                print(f"fsdp [{key} {label}]: int8 scales the same bits on every rank: "
+                      f"{got['scales_same_on_every_rank']}, outside FSDP_SCALE of one card's "
+                      f"{got['scales_outside']:.3e}")
+                if not got["scales_same_on_every_rank"] or got["scales_outside"] > 0:
+                    raise AssertionError(f"fsdp [{key} {label}]: the int8 scales are not the "
+                                         "whole leaf's")
+            if fsdp and not got["all_gathers"]:
+                raise AssertionError(f"fsdp [{key} {label}]: no all-gather: nothing was FSDP'd")
+        for rank in out["ranks"]:
+            h = rank[key]["held"]
+            print(f"fsdp [{key}]: rank {rank['rank']} holds {h['held_bytes']} bytes of weights "
+                  f"(its blocks {h['spec_bytes']}, the whole model {h['whole_bytes']}), peak_GB "
+                  + " ".join(f"{label} {rank[key][label]['peak_gb']:.3f}" for label in modes))
+    for rank in out["ranks"]:
+        if any(rank["launches"].values()):
+            raise AssertionError(f"fsdp: rank {rank['rank']} launched kernels: "
+                                 f"{rank['launches']}")
+    print(f"fsdp: worker {out['worker_s']:.1f} s, spawn {rows['spawn_wall_s']:.1f} s ({smi})")
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        rows["cards"] = fsdp_cards(torch, smi)
+    else:
+        rows["cards"] = f"did not run: {cards} card(s)"
+        print(f"fsdp [{', '.join(FSDP_BIG)}, NCCL, one rank a card]: did not run ({cards} card "
+              "on this machine)")
+    rows["phase_s"] = time.perf_counter() - t_phase
+    print(f"fsdp: phase {rows['phase_s']:.1f} s ({smi})")
+    return rows
+
+
+def fsdp_big_worker(arch):
+    """One NCCL rank of ``arch``'s FSDP grid (one card a rank), cut to its
+    ``FSDP_BIG`` depth: this rank's blocks drawn (seed 0), the eval loss,
+    then ``FSDP_BIG_RUN["rounds"]`` rounds, each with the eval loss after
+    it, the last traced on rank 0 (the collectives' share: the device time
+    of the NCCL kernels and the host time in the grid's collective ranges,
+    against the round's wall)."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import make_fed_round
+    from repro_torch.launch.mesh import (
+        GRID_ALL_GATHER_RANGE,
+        GRID_ALL_REDUCE_RANGE,
+        GRID_REDUCE_SCATTER_RANGE,
+        make_grid_mesh,
+        make_test_mesh,
+    )
+    from repro_torch.models import build_model
+
+    t_worker = time.perf_counter()
+    mode, pdt, max_rounds, K, layers = FSDP_BIG[arch]
+    run = dict(FSDP_BIG_RUN, K=K)
+    grid = make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda")
+    cfg = get_config(arch).with_(num_layers=layers, fed_mode=mode)
+    model = build_model(cfg, grid=grid)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params, _, held = axis_held(torch, model, cfg, grid, gen)
+    held["draw_s"] = time.perf_counter() - t0
+    eval_batch, rounds = axis_big_data(torch, cfg, grid.device, run)
+    rep = init_reputation(K, device=grid.device)
+    n_k = torch.ones((K,), dtype=torch.float32, device=grid.device)
+    with torch.no_grad():
+        out = {"held": held, "eval_loss_0": float(model.loss_fn(params, eval_batch)[0]),
+               "rounds": []}
+    fed_round = make_fed_round(model, fsdp_fed_config(mode, pdt, max_rounds, K,
+                                                      run["local_steps"], run["lr"]), grid=grid)
+    if arch in FSDP_BIG_PROBE:   # reported, not gated; then the experts at their fan-in
+        agg, _, m, row = fsdp_round(torch, grid, fed_round, params, rep, n_k, rounds[0])
+        with torch.no_grad():
+            row["eval_loss"] = float(model.loss_fn(agg, eval_batch)[0])
+        row["eval_loss_0"] = out["eval_loss_0"]
+        out["probe"] = row
+        del agg, m
+        with torch.no_grad():
+            for name in ("gate", "up", "down"):
+                w = params["layers"]["moe"][name]   # (L, E / model, d_in, d_out / data)
+                w.mul_((cfg.num_experts / (cfg.d_ff if name == "down" else cfg.d_model)) ** 0.5)
+            out["eval_loss_0"] = float(model.loss_fn(params, eval_batch)[0])
+    ranges = (GRID_ALL_REDUCE_RANGE, GRID_ALL_GATHER_RANGE, GRID_REDUCE_SCATTER_RANGE)
+    for rnd, batch in enumerate(rounds):
+        if rnd == len(rounds) - 1 and grid.rank == 0:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                params, rep, m, row = fsdp_round(torch, grid, fed_round, params, rep, n_k, batch)
+            spans = device_spans(torch, prof)
+            nccl = [(b, e, k) for b, e, k in spans if "nccl" in k.lower()]
+            host = [e.time_range.end - e.time_range.start for e in prof.events()
+                    if e.name in ranges and e.device_type == DeviceType.CPU]
+            row["trace"] = {"wall_ms": row["ms"], "device_busy_ms": busy_us(spans) / 1e3,
+                            "collective_device_ms": busy_us(nccl) / 1e3,
+                            "collective_kernels": len(nccl),
+                            "collective_host_ms": sum(host) / 1e3, "collective_ranges": len(host)}
+            del prof
+        else:
+            params, rep, m, row = fsdp_round(torch, grid, fed_round, params, rep, n_k, batch)
+        if "scales" in m:
+            s = torch.stack(list(m["scales"].values()))
+            same = torch.equal(grid.pmax(grid.pmax(s, "data"), "model"), s) and torch.equal(
+                -grid.pmax(grid.pmax(-s, "data"), "model"), s)
+            row["scales_same_on_every_rank"] = bool(same)
+        del m
+        with torch.no_grad():
+            row["eval_loss"] = float(model.loss_fn(params, eval_batch)[0])
+        out["rounds"].append(row)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, {"rank": grid.rank, "held": held, "rounds": [
+        {k: x[k] for k in ("alpha", "beta", "blocked", "good_frac", "eval_loss", "peak_gb", "ms")
+         + (("scales_same_on_every_rank",) if "scales_same_on_every_rank" in x else ())}
+        for x in out["rounds"]]})
+    out["ranks"] = ranks
+    out["worker_s"] = time.perf_counter() - t_worker
+    return out
+
+
+def fsdp_cards(torch, smi):
+    """``FSDP_BIG`` on a (data 2, model 2) grid of one NCCL rank a card:
+    the bytes reckoned first (``fsdp_reckoning``), then ``fsdp_big_worker``'s
+    rounds: exactly client 0 screened out each round on every rank, the
+    eval losses finite and falling, the int8 scales the same on every rank;
+    ms a round, peak GB a rank, the collectives a round, the traced round's
+    collective share.  Returns the rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shards import spawn
+
+    rows, failed = {}, []
+    for arch, (mode, pdt, _, K, layers) in FSDP_BIG.items():
+        cfg = get_config(arch).with_(num_layers=layers)
+        reck = fsdp_reckoning(cfg, mode, pdt, K)
+        print(f"fsdp [{arch}, {layers} of {get_config(arch).num_layers} layers, {mode} {pdt}, "
+              f"K={K}]: reckoned a rank (GB): "
+              + ", ".join(f"{k} {v:.2f}" if k != "params" else f"{k} {v:,}"
+                          for k, v in reck.items()), flush=True)
+        t0 = time.perf_counter()
+        out = spawn(fsdp_big_worker, 4, backend="nccl", device="cuda", args=(arch,))
+        row = {"mode": mode, "proposal_dtype": pdt, "K": K, "layers": layers,
+               "reckoned": reck, "spawn_wall_s": time.perf_counter() - t0, "rank0": out}
+        losses = [out["eval_loss_0"]] + [x["eval_loss"] for x in out["rounds"]]
+        if "probe" in out:
+            p = out["probe"]
+            print(f"fsdp [{arch} NCCL] round 1 on the reference's draw, experts at fan-in E "
+                  f"(reported, not gated): {p['ms']:.1f} ms good_frac={p['good_frac']:.3f} "
+                  f"eval_loss {p['eval_loss_0']:.4f} -> {p['eval_loss']:.4f} similarities "
+                  f"{[f'{x:.9f}' for x in p['similarities']]}; then the experts at their "
+                  "fan-in:", flush=True)
+        for n, rr in enumerate(out["rounds"], start=1):
+            print(f"fsdp [{arch} NCCL] round {n}: {rr['ms']:.1f} ms peak_GB rank 0 "
+                  f"{rr['peak_gb']:.2f} eval_loss={rr['eval_loss']:.4f} good_frac="
+                  f"{rr['good_frac']:.3f} afa_rounds={rr['afa_rounds']} all-reduces "
+                  f"{rr['all_reduces']} all-gathers {rr['all_gathers']} reduce-scatters "
+                  f"{rr['reduce_scatters']} similarities "
+                  f"{[f'{x:.9f}' for x in rr['similarities']]}", flush=True)
+            for rank in out["ranks"]:
+                x = rank["rounds"][n - 1]
+                if (x["alpha"] != [3.0] + [3.0 + n] * (K - 1)
+                        or x["beta"] != [3.0 + n] + [3.0] * (K - 1) or any(x["blocked"])
+                        or x["good_frac"] != (K - 1) / K):
+                    failed.append(f"fsdp [{arch}]: rank {rank['rank']} round {n}: not exactly "
+                                  f"client 0 screened out: {x}")
+                if not x.get("scales_same_on_every_rank", True):
+                    failed.append(f"fsdp [{arch}]: rank {rank['rank']} round {n}: the int8 "
+                                  "scales differ between the ranks")
+        if not all(v == v and abs(v) != float("inf") for v in losses) or not losses[-1] < losses[0]:
+            failed.append(f"fsdp [{arch}]: eval losses not finite and falling: {losses}")
+        t = out["rounds"][-1]["trace"]
+        print(f"fsdp [{arch} NCCL] eval losses {[round(v, 4) for v in losses]}; traced round on "
+              f"rank 0: wall {t['wall_ms']:.1f} ms, device busy {t['device_busy_ms']:.1f} ms, "
+              f"{t['collective_kernels']} collective kernels taking "
+              f"{t['collective_device_ms']:.1f} ms on the device (share of the wall "
+              f"{t['collective_device_ms'] / t['wall_ms']:.4f}), host in "
+              f"{t['collective_ranges']} collective ranges {t['collective_host_ms']:.1f} ms "
+              f"({smi})", flush=True)
+        for rank in out["ranks"]:
+            h = rank["held"]
+            print(f"fsdp [{arch} NCCL]: rank {rank['rank']} holds {h['held_bytes']} bytes "
+                  f"(its blocks {h['spec_bytes']}, the model {h['whole_bytes']}), peak_GB "
+                  f"{max(x['peak_gb'] for x in rank['rounds']):.2f} (reckoned "
+                  f"{reck['peak']:.2f})")
+        rows[arch] = row
+    for msg in failed:
+        print(msg, flush=True)
+    if failed:   # each config ran and printed its rows; any gate missed fails the phase
+        raise AssertionError(f"fsdp: {len(failed)} four-card gate(s) missed: {failed[0]}")
+    return rows
+
+
+def fsdp_summary(smi, rows):
+    """phase E's lines with the card's name and power limit."""
+    g = rows["grid"]
+    for key, _, modes, _ in fsdp_runs():
+        for label in modes:
+            got, one = g[key][label], rows["one_card"][key][label]
+            print(f"fsdp summary [{key} {label} K={TRAIN_RUN['K']}, (data 2, model 2) gloo "
+                  f"ranks on one card] ({smi}): ms/round={got['ms']:.1f} (one card "
+                  f"{one['ms']:.1f}) peak_GB a rank="
+                  f"{max(r[key][label]['peak_gb'] for r in g['ranks']):.3f} outside="
+                  f"{got['outside']:.3e} all-reduces {got['all_reduces']} all-gathers "
+                  f"{got['all_gathers']} reduce-scatters {got['reduce_scatters']}")
+    print(f"fsdp summary: phase {rows['phase_s']:.1f} s")
+    fsdp_cards_summary(smi, rows["cards"])
+
+
+def fsdp_cards_summary(smi, c):
+    """phase E's four-card lines."""
+    if not isinstance(c, dict):
+        print(f"fsdp summary [{', '.join(FSDP_BIG)}, NCCL] ({smi}): {c}")
+        return
+    for arch, row in c.items():
+        r0 = row["rank0"]
+        t = r0["rounds"][-1]["trace"]
+        print(f"fsdp summary [{arch} {row['layers']} layers {row['mode']} {row['proposal_dtype']} "
+              f"K={row['K']}, (data 2, model 2) NCCL] ({smi}): ms/round="
+              f"{[round(x['ms'], 1) for x in r0['rounds']]} peak_GB a rank="
+              f"{max(max(x['peak_gb'] for x in r['rounds']) for r in r0['ranks']):.2f} "
+              f"(reckoned {row['reckoned']['peak']:.2f}) collective device share="
+              f"{t['collective_device_ms'] / t['wall_ms']:.4f} eval_loss "
+              f"{r0['eval_loss_0']:.4f} -> {r0['rounds'][-1]['eval_loss']:.4f}")
+
+
+def fsdp_only(torch, smi, name, cards_only: bool = False) -> None:
+    """``--phase E``: phase E alone (its four-card half where there are four
+    cards), its numbers to ``chiprun_out/chip_smoke_fsdp.json``;
+    ``--phase E4`` (``cards_only``): the four-card half alone, to
+    ``chip_smoke_fsdp_cards.json``."""
+    if cards_only:
+        if torch.cuda.device_count() < 4:
+            fail(f"--phase E4 needs four cards, this machine has {torch.cuda.device_count()}")
+        rows = {"cards": fsdp_cards(torch, smi)}
+    else:
+        rows = fsdp_phase(torch, smi)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"chip_smoke_fsdp{'_cards' if cards_only else ''}.json").write_text(json.dumps(
+        {"nvidia_smi": smi, "device": name, "torch": torch.__version__, "fsdp": rows},
+        indent=1))
+    if cards_only:
+        fsdp_cards_summary(smi, rows["cards"])
+    else:
+        fsdp_summary(smi, rows)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
 
 def production_phase(torch, ops, ref, smi):
@@ -5368,6 +5982,9 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "N"]:   # no kernel runs there
         model_axis_only(torch, smi, name)
         return
+    if sys.argv[1:] in (["--phase", "E"], ["--phase", "E4"]):   # no kernel runs there
+        fsdp_only(torch, smi, name, cards_only=sys.argv[2] == "E4")
+        return
     t0 = time.perf_counter()
     path, log = build.build_library()
     print(f"build: {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
@@ -5405,6 +6022,7 @@ def main() -> None:
     leaf, leaf_launches = leaf_layout_phase(torch, ops, min_rounds_to_block)
     shards, shard_launches = shard_phase(torch, ops, smi, min_rounds_to_block)
     model_axis = model_axis_phase(torch, smi)
+    fsdp = fsdp_phase(torch, smi)
     traces = [profile_phase(torch), lora_trace, *forward_profile_phase(torch), *fused_traces]
     traces += [serve_llm_trace, families_trace]
     for more in (serve_llm_launches, families_launches, production_launches,
@@ -5457,6 +6075,7 @@ def main() -> None:
         "paper_grid_wall_s": grid_wall, "looped": looped, "leaf_layout": leaf,
         "shards": shards,
         "model_axis": model_axis,
+        "fsdp": fsdp,
         "launches": launches,
         "profile": traces,
     }, indent=1))
@@ -5470,6 +6089,7 @@ def main() -> None:
     production_summary(smi, production)
     shard_summary(smi, shards)
     model_axis_summary(smi, model_axis)
+    fsdp_summary(smi, fsdp)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -21,18 +21,23 @@ all-reduce to which the other ranks add zeros); the tail test then runs
 alike on every rank.  ``good_mask`` and ``similarities`` come back for the
 local rows, the aggregate whole on every rank.
 
-On a grid (``afa_aggregate_tree(..., shards=TreeShards(...))``, the vmap
-round of ``fed.distributed`` under a data x model mesh), the tree form runs
-on this rank's client rows and this rank's blocks of the leaves split over
-the ``model`` axis.  Each dot product is a leaf's partial sum, those of
-split leaves summed over ``model`` in one all-reduce a product, a
-replicated leaf counted once, then the leaves folded in leaf order; a
-weighted sum over the clients is a fold of the local rows and a sum over
-the client rows, a leaf at a time; the similarities of the local rows are
-gathered to all K (sums of zero-padded blocks), so every rank screens the
-same K scalars.  The aggregate comes back as this rank's blocks, the mask
-and the similarities whole.  The gram variant needs every client row's
-products, so it runs only when the clients are on one row.
+On a grid (``afa_aggregate_tree(..., shards=TreeShards(...))``: the vmap
+round of ``fed.distributed`` under a data x model mesh, or its ``scan`` and
+``remat`` rounds under FSDP), the tree form runs on this rank's client rows
+(all K under FSDP, where ``rows`` is ``()``) and this rank's blocks of the
+leaves, each split over its own axes (``TreeShards.split``: none, ``model``,
+the data axes, or both).  Each dot product is a leaf's float32 partial sum
+over its block, summed over exactly that leaf's axes in one all-reduce a
+product and group of axes (a replicated leaf counted once), then the leaves
+folded in leaf order; a weighted sum over the clients is a fold of the
+local rows, a row at a time, summed over the client rows; the similarities
+of the local rows are gathered to all K (sums of zero-padded blocks), so
+every rank screens the same K scalars.  A leaf is read a client row at a
+time (``Dequantized``: the ``scan`` round's int8 store, dequantized a row
+at a time), so no stack of float32 rows is held.  The aggregate comes back
+as this rank's blocks, the mask and the similarities whole.  The gram
+variant needs every client row's products, so it runs only when the
+clients are on one row.
 
 Two variants:
 
@@ -115,12 +120,41 @@ class AFAConfig(NamedTuple):
 
 class TreeShards(NamedTuple):
     """Where the tree form's inputs lie on a grid (``launch.mesh.GridMesh``):
-    the client rows over ``rows`` (axes), and, in leaf order, whether each
-    leaf is split over the ``model`` axis."""
+    the client rows over ``rows`` (axes; ``()``: every rank holds all K),
+    and, in leaf order, the axes each leaf's blocks split over (``()``,
+    ``("model",)``, the data axes, or both, in the grid's order)."""
 
     grid: object
     rows: tuple
     split: tuple
+
+
+class Dequantized:
+    """A stacked leaf stored as int8 deltas from ``base`` with one scale a
+    row (``fed.distributed``'s int8 ``scan`` store): row k reads ``q[k] *
+    scales[k] + base`` in float32, the one-card dequantization's
+    elementwise ops, one row at a time."""
+
+    dtype = torch.float32
+
+    def __init__(self, q: torch.Tensor, scales: torch.Tensor, base: torch.Tensor):
+        self.q, self.scales, self.base = q, scales, base
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def row(self, k: int) -> torch.Tensor:
+        return self.q[k].float() * self.scales[k] + self.base.float()
+
+
+def _row(leaf, k: int) -> torch.Tensor:
+    """Client row ``k`` of a stacked leaf, in float32."""
+    return leaf.row(k) if isinstance(leaf, Dequantized) else leaf[k].float()
 
 
 class AFAResult(NamedTuple):
@@ -394,54 +428,71 @@ def afa_aggregate_tree(
 
 
 def _leaf_sums(parts: list, split: tuple, grid) -> torch.Tensor:
-    """Per-leaf partial sums (one shape), those of split leaves summed over
-    ``model`` in one all-reduce, then folded in leaf order."""
+    """Per-leaf float32 partial sums (one shape), each group of leaves with
+    the same axes summed over them in one all-reduce, then folded in leaf
+    order."""
     parts = torch.stack(parts)
-    idx = [i for i, sp in enumerate(split) if sp]
-    if idx:
-        at = torch.tensor(idx, device=parts.device)
-        parts = parts.index_copy(0, at, grid.psum(parts.index_select(0, at), "model"))
+    for axes in sorted(set(split) - {()}):
+        at = torch.tensor([i for i, a in enumerate(split) if a == axes], device=parts.device)
+        parts = parts.index_copy(0, at, grid.psum(parts.index_select(0, at), axes))
     total = parts[0]
     for part in parts[1:]:
         total = total + part
     return total
 
 
+def _dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return (x * y).sum()
+
+
 def _afa_tree_sharded(stacked, n32, p32, mask0, config, shards: TreeShards) -> AFAResult:
     grid, rows, split = shards
+    if config.variant == "gram" and grid.size(rows) > 1:
+        raise ValueError(
+            "the tree form's gram variant needs the Gram entries of every pair of clients, "
+            f"which lie on {grid.size(rows)} client rows; set variant='iterative'")
     leaves = tree_leaves(stacked)
     K_local = leaves[0].shape[0]
     K = K_local * grid.size(rows)
-    mask0 = (torch.ones((K,), dtype=torch.bool, device=leaves[0].device) if mask0 is None
+    dev = leaves[0].device
+    mask0 = (torch.ones((K,), dtype=torch.bool, device=dev) if mask0 is None
              else mask0.bool())
     if mask0.shape[0] != K:
         raise ValueError(f"{K_local} client rows a rank x {grid.size(rows)} rows != the "
                          f"{mask0.shape[0]} clients of the mask")
     local = grid.block(K, rows)
 
-    def red(l):
-        return tuple(range(1, l.ndim))
+    def norms2(l):
+        return torch.stack([_dot(u, u) for u in (_row(l, k) for k in range(K_local))])
 
-    row_norms = torch.sqrt(torch.clamp(_leaf_sums(
-        [(l.float() * l.float()).sum(dim=red(l)) for l in leaves], split, grid), min=EPS))
+    row_norms = torch.sqrt(torch.clamp(_leaf_sums([norms2(l) for l in leaves], split, grid),
+                                       min=EPS))
 
     def weighted_sum(c):
         """sum_k c_k u_k over all K clients, this rank's blocks, each leaf
-        in its dtype."""
+        in its dtype: a fold of the local rows, summed over the rows."""
         cl = c[local].float()
         out = []
         for l in leaves:
-            part = row_sum(cl.reshape((-1,) + (1,) * (l.ndim - 1)) * l.float())
-            out.append(grid.psum(part, rows).to(l.dtype))
+            part = cl[0] * _row(l, 0)
+            for k in range(1, K_local):
+                part = part + cl[k] * _row(l, k)
+            if grid.size(rows) > 1:
+                part = grid.psum(part, rows)
+            out.append(part.to(l.dtype))
         return out
 
     if config.variant == "gram":
-        if grid.size(rows) > 1:
-            raise ValueError(
-                "the tree form's gram variant needs the Gram entries of every pair of clients, "
-                f"which lie on {grid.size(rows)} client rows; set variant='iterative'")
-        gram = _leaf_sums([l.reshape(K, -1).float() @ l.reshape(K, -1).float().T
-                           for l in leaves], split, grid)
+
+        def gram_leaf(l):
+            g = torch.zeros((K, K), dtype=torch.float32, device=dev)
+            for i in range(K):
+                ui = _row(l, i)
+                for j in range(i, K):
+                    g[i, j] = g[j, i] = _dot(ui, _row(l, j))
+            return g
+
+        gram = _leaf_sums([gram_leaf(l) for l in leaves], split, grid)
 
         def sims(c):
             gc = row_sum(gram.T * c[:, None])
@@ -451,13 +502,16 @@ def _afa_tree_sharded(stacked, n32, p32, mask0, config, shards: TreeShards) -> A
     else:
 
         def sims(c):
-            agg = weighted_sum(c)
-            # each leaf's dots of the local rows and its |agg|^2, summed in one all-reduce
-            total = _leaf_sums([torch.cat([(l.float() * a.float()[None]).sum(dim=red(l)),
-                                           (a.float() * a.float()).sum()[None]])
+            agg = [a.float() for a in weighted_sum(c)]
+            # each leaf's dots of the local rows and its |agg|^2, summed in one
+            # all-reduce a group of axes
+            total = _leaf_sums([torch.cat([torch.stack([_dot(_row(l, k), a)
+                                                        for k in range(K_local)]),
+                                           _dot(a, a)[None]])
                                 for l, a in zip(leaves, agg)], split, grid)
             agg_norm = torch.sqrt(torch.clamp(total[K_local], min=EPS))
-            return grid.gather_rows(total[:K_local] / (row_norms * agg_norm), K, rows)
+            s_local = total[:K_local] / (row_norms * agg_norm)
+            return grid.gather_rows(s_local, K, rows) if grid.size(rows) > 1 else s_local
 
     s, mask, rounds = _screen(sims, mask0, p32, n32, config, False)
     agg = tree_unflatten(tree_structure(stacked), weighted_sum(_weights(mask, p32, n32)))

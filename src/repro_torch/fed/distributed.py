@@ -27,22 +27,42 @@ Every mode runs eagerly: AFA's stopping loop reads one bool from the host a
 pass, ``scan`` reads the blocked bits, and the reputation update tests
 ``betainc`` on the host.
 
-On a grid (``make_fed_round(model, cfg, grid=)``, a ``launch.mesh.GridMesh``;
-``vmap`` only): the K clients ride the grid's client rows,
-``cfg.client_axes`` (the reference's ``spmd_axis_name``; by default, and
-necessarily, ``client_row_axes(grid)``: the client axis when the grid has
-one, else the data axes), K / rows a row; a rank holds its row's clients'
-batches ``(K / rows, S, b, ...)`` and the parameters' blocks that
-``launch.sharding.shard_params_tree`` gives it, the model built over the same
-grid (``build_model(cfg, grid=grid)``).  Its clients train under
-``torch.func.vmap`` as on one card, the model's collectives over ``model``
-inside the loss; each optimizer step runs a leaf at a time, dropping a
-leaf's gradient and old values once its new ones exist, since a rank's
-clients fill its card.  AFA's tree form then runs on the grid
-(``core.afa.TreeShards``).  The round returns the aggregate as this rank's
-blocks, and the reputation and metrics whole.  ``n_k`` and ``rep`` are
-whole.  A grid of one rank runs the one-card round.  Without a grid,
-``client_axes`` has no effect, as the reference's names none on one device.
+On a grid (``make_fed_round(model, cfg, grid=)``, a
+``launch.mesh.GridMesh``), the model built over the same grid
+(``build_model(cfg, grid=grid)``), each rank holds the parameters' blocks
+that ``launch.sharding.shard_params_tree`` gives it and AFA's tree form runs
+on the grid (``core.afa.TreeShards``); the round returns the aggregate as
+this rank's blocks, and the reputation and metrics whole.  ``n_k`` and
+``rep`` are whole.  A grid of one rank runs the one-card round.
+
+* ``vmap``: the K clients ride the grid's client rows, ``cfg.client_axes``
+  (the reference's ``spmd_axis_name``; by default, and necessarily,
+  ``client_row_axes(grid)``: the client axis when the grid has one, else
+  the data axes), K / rows a row; a rank holds its row's clients' batches
+  ``(K / rows, S, b, ...)``.  Its clients train under ``torch.func.vmap``
+  as on one card, the model's collectives over ``model`` inside the loss;
+  each optimizer step runs a leaf at a time, dropping a leaf's gradient and
+  old values once its new ones exist, since a rank's clients fill its card.
+* ``scan`` and ``remat``: FSDP, as the reference's specs choose for them
+  (``fsdp=True``: the largest dim no other rule splits goes over the data
+  axes; the model built from a config of that mode).  The
+  clients train one at a time over the whole grid: every rank is given the
+  whole batch ``(K, S, b, ...)`` and the model keeps its block of each
+  client's ``b`` rows, gathering each leaf's data-split dim at its use
+  (``models/layers.py``), a step a leaf at a time.  A blocked client still
+  skips its local SGD under ``scan`` (every rank reads the same blocked
+  bits).  ``scan``'s store holds this rank's blocks of the K proposals (the
+  reference's "sharded over the full mesh"); its int8 scale is the whole
+  leaf's ``max|w_k - w_t| / 127``, the blocks' maxima taken over the leaf's
+  axes (one all-reduce a group of axes) before the blocks are quantized, and
+  AFA reads the store a client row at a time (``core.afa.Dequantized``).
+  ``remat`` keeps its three passes and single screening pass; its norms,
+  dots and float32 accumulators are over this rank's blocks, the scalars
+  summed over each leaf's axes.
+
+Without a grid, ``client_axes`` has no effect, as the reference's names
+none on one device.  Under ``scan`` with int8 storage the metrics also
+hold each leaf's K scales (``"scales"``, by leaf path).
 """
 
 from __future__ import annotations
@@ -55,7 +75,9 @@ import torch
 from repro_torch.core.afa import (
     EPS,
     AFAConfig,
+    Dequantized,
     TreeShards,
+    _leaf_sums,
     _mark_bad,
     _weights,
     afa_aggregate_tree,
@@ -149,11 +171,12 @@ def _train(loss, opt, p: dict, batches: dict, *, axis: int, microbatch: int,
     return p
 
 
-def _client_train(loss_fn, opt, params, cbatch, *, microbatch: int = 1):
+def _client_train(loss_fn, opt, params, cbatch, *, microbatch: int = 1,
+                  leafwise: bool = False):
     """One client's local SGD: ``cbatch`` leaves ``(S, b, ...)``; returns the
     proposed tree."""
     p = _train(lambda q, mb: loss_fn(q, mb)[0], opt, _flat(params), cbatch, axis=0,
-               microbatch=microbatch)
+               microbatch=microbatch, leafwise=leafwise)
     return tree_unflatten(tree_structure(params), list(p.values()))
 
 
@@ -186,12 +209,30 @@ def _metrics(good_mask, rounds, similarities) -> dict:
             "similarities": similarities}
 
 
-def _quantize(prop, w):
-    """int8 storage of the delta ``prop - w``: one symmetric scale
-    ``max|d| / 127``, rounded half to even and clipped to +-127."""
-    d = prop.float() - w.float()
-    s = torch.clamp(d.abs().max(), min=EPS) / 127.0
-    return torch.clamp(torch.round(d / s), -127, 127).to(torch.int8), s
+def _quantize(prop: dict, w: dict, shards: TreeShards | None = None) -> dict:
+    """int8 storage of each leaf's delta ``prop - w``: ``(q, scale)``, one
+    symmetric scale ``max|d| / 127`` a leaf, rounded half to even and
+    clipped to +-127.  On a grid the max is the whole leaf's: the blocks'
+    maxima taken over each leaf's axes (``shards.split``), one all-reduce a
+    group of axes."""
+    top = {path: (prop[path].float() - w[path].float()).abs().max() for path in prop}
+    if shards is not None:
+        paths = list(prop)
+        for axes in sorted(set(shards.split) - {()}):
+            these = [path for path, a in zip(paths, shards.split) if a == axes]
+            top.update(zip(these, shards.grid.pmax(torch.stack([top[p] for p in these]), axes)))
+    out = {}
+    for path in prop:
+        d = prop[path].float() - w[path].float()
+        s = torch.clamp(top[path], min=EPS) / 127.0
+        out[path] = torch.clamp(torch.round(d / s), -127, 127).to(torch.int8), s
+    return out
+
+
+def _leaf_axes(spec: tuple, grid) -> tuple:
+    """The axes a leaf's spec splits it over, in the grid's order."""
+    used = {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
+    return tuple(a for a in grid.axis_names if a in used)
 
 
 def _grid_shards(model, cfg: FedRoundConfig, grid) -> TreeShards | None:
@@ -200,34 +241,46 @@ def _grid_shards(model, cfg: FedRoundConfig, grid) -> TreeShards | None:
     if grid is None or grid.devices == 1:
         return None
     from repro_torch.launch.mesh import client_row_axes
-    from repro_torch.launch.sharding import shard_params_tree, uses_axis
+    from repro_torch.launch.sharding import shard_params_tree
     from repro_torch.models import build_model
 
-    if cfg.mode != "vmap":
-        raise NotImplementedError(
-            f"fed mode {cfg.mode!r} on a grid of {dict(grid.shape)}: not ported (ROADMAP A, Open "
-            "item 1: FSDP for scan and remat); run it on one card")
-    rows = client_row_axes(grid)
-    if cfg.client_axes is not None and tuple(cfg.client_axes) != rows:
-        raise ValueError(f"client_axes={cfg.client_axes}: on a grid of {dict(grid.shape)} the "
-                         f"clients ride its client rows {rows}")
-    if cfg.num_clients % grid.size(rows):
-        raise ValueError(f"{cfg.num_clients} clients do not split over {grid.size(rows)} "
-                         f"client rows")
-    if grid.shape.get("model", 1) > 1 and getattr(model, "grid", None) is not grid:
-        raise ValueError("a grid with a model axis needs the model built over it: "
-                         "build_model(cfg, grid=grid)")
-    specs = shard_params_tree(build_model(model.config).init(None, "meta"), grid)
-    return TreeShards(grid, rows, tuple(uses_axis(spec, "model") for spec in tree_leaves(specs)))
+    fsdp = cfg.mode in ("scan", "remat")
+    built = getattr(model, "grid", None) is grid
+    if fsdp:
+        if cfg.client_axes is not None:
+            raise ValueError(f"client_axes={cfg.client_axes}: a {cfg.mode} round trains its "
+                             "clients one at a time over the whole grid")
+        if not (built and model.fsdp):
+            raise ValueError(f"a {cfg.mode} round on a grid of {dict(grid.shape)} needs the "
+                             "model built over it with FSDP: build_model(cfg.with_(fed_mode="
+                             f"{cfg.mode!r}), grid=grid)")
+        rows = ()
+    else:
+        rows = client_row_axes(grid)
+        if cfg.client_axes is not None and tuple(cfg.client_axes) != rows:
+            raise ValueError(f"client_axes={cfg.client_axes}: on a grid of {dict(grid.shape)} "
+                             f"the clients ride its client rows {rows}")
+        if cfg.num_clients % grid.size(rows):
+            raise ValueError(f"{cfg.num_clients} clients do not split over {grid.size(rows)} "
+                             f"client rows")
+        if getattr(model, "fsdp", False):
+            raise ValueError("a vmap round's clients ride the data axes, which FSDP's specs "
+                             "split the leaves over: build_model(cfg.with_(fed_mode='vmap'), "
+                             "grid=grid)")
+        if grid.shape.get("model", 1) > 1 and not built:
+            raise ValueError("a grid with a model axis needs the model built over it: "
+                             "build_model(cfg, grid=grid)")
+    specs = shard_params_tree(build_model(model.config).init(None, "meta"), grid, fsdp=fsdp)
+    return TreeShards(grid, rows, tuple(_leaf_axes(spec, grid) for spec in tree_leaves(specs)))
 
 
 def make_fed_round(model, cfg: FedRoundConfig, grid=None):
     """Returns ``fed_round(params, rep_state, n_k, batch) -> (params',
     rep_state', metrics)``; ``batch`` leaves ``(K, S, b, ...)``, ``n_k`` the
     (K,) float32 sample counts on the parameters' device.  On ``grid`` (a
-    ``GridMesh``, ``vmap`` only) ``params`` and the aggregate are this
-    rank's blocks and ``batch`` its client rows (see the module
-    docstring)."""
+    ``GridMesh``) ``params`` and the aggregate are this rank's blocks, and
+    ``batch`` its client rows under ``vmap``, the whole batch under ``scan``
+    and ``remat`` (see the module docstring)."""
     opt = sgd_momentum(cfg.lr, cfg.momentum)
     loss_fn = model.loss_fn
     shards = _grid_shards(model, cfg, grid)
@@ -264,23 +317,41 @@ def make_fed_round(model, cfg: FedRoundConfig, grid=None):
                 # a blocked client's local SGD never runs: it proposes w_t
                 prop = w if is_blocked else _flat(_client_train(
                     loss_fn, opt, params, {n: v[k] for n, v in batch.items()},
-                    microbatch=cfg.microbatch))
-                for path, leaf in prop.items():
-                    if int8:
-                        store[path][k], scales[path][k] = _quantize(leaf, w[path])
-                    else:
+                    microbatch=cfg.microbatch, leafwise=shards is not None))
+                if int8:
+                    for path, (q, sc) in _quantize(prop, w, shards).items():
+                        store[path][k], scales[path][k] = q, sc
+                else:
+                    for path, leaf in prop.items():
                         store[path][k] = leaf
                 del prop
-            if int8:
-                store = {path: q.float() * scales[path].reshape((K,) + (1,) * (q.ndim - 1))
-                         + w[path].float()[None] for path, q in store.items()}
-            res = afa_aggregate_tree(tree_unflatten(tuple(w), list(store.values())), n_k,
-                                     p_good(rep), mask0=mask0, config=cfg.afa)
+            if shards is not None:   # the store read a client row at a time
+                stacked = [Dequantized(store[path], scales[path], w[path]) if int8
+                           else store[path] for path in w]
+            elif int8:
+                stacked = [q.float() * scales[path].reshape((K,) + (1,) * (q.ndim - 1))
+                           + w[path].float()[None] for path, q in store.items()]
+            else:
+                stacked = list(store.values())
+            res = afa_aggregate_tree(tree_unflatten(tuple(w), stacked), n_k, p_good(rep),
+                                     mask0=mask0, config=cfg.afa, shards=shards)
+            del stacked, store
             agg = tree_map(lambda a, t: a.to(t.dtype), res.aggregate, params)
             rep2 = update_reputation(rep, res.good_mask, mask0, delta=cfg.delta_block)
-            return agg, rep2, _metrics(res.good_mask, res.rounds, res.similarities)
+            metrics = _metrics(res.good_mask, res.rounds, res.similarities)
+            if int8:
+                metrics["scales"] = {"/".join(path): sc for path, sc in scales.items()}
+            return agg, rep2, metrics
 
     elif cfg.mode == "remat":
+
+        def dot(a: dict, b: dict):
+            """sum <a, b> over the leaves; on a grid the blocks' partial
+            sums, summed over each leaf's axes."""
+            if shards is None:
+                return tree_dot(a, b)
+            return _leaf_sums([(a[path].float() * b[path].float()).sum() for path in a],
+                              shards.split, shards.grid)
 
         def fed_round(params, rep: ReputationState, n_k, batch):
             mask0 = ~rep.blocked
@@ -291,7 +362,8 @@ def make_fed_round(model, cfg: FedRoundConfig, grid=None):
             def train(k):
                 return _flat(_client_train(loss_fn, opt, params,
                                            {n: v[k] for n, v in batch.items()},
-                                           microbatch=cfg.microbatch))
+                                           microbatch=cfg.microbatch,
+                                           leafwise=shards is not None))
 
             def weighted_sum(c, norms=None):
                 """sum_k c_k u_k in f32 over the retrained clients; each
@@ -303,16 +375,17 @@ def make_fed_round(model, cfg: FedRoundConfig, grid=None):
                     for path in acc:
                         acc[path] += c[k] * u[path].float()
                     if norms is not None:
-                        norms.append(torch.sqrt(torch.clamp(tree_dot(u, u), min=EPS)))
+                        norms.append(torch.sqrt(torch.clamp(dot(u, u), min=EPS)))
+                    del u
                 return acc
 
             # pass 1: the plain weighted aggregate and each client's norm
             norms = []
             w_agg = weighted_sum(_weights(mask0, p_k, n_k.float()), norms)
             norms = torch.stack(norms)
-            agg_norm = torch.sqrt(torch.clamp(tree_dot(w_agg, w_agg), min=EPS))
+            agg_norm = torch.sqrt(torch.clamp(dot(w_agg, w_agg), min=EPS))
             # pass 2: the similarities, the clients retrained
-            dots = torch.stack([tree_dot(train(k), w_agg) for k in range(K)])
+            dots = torch.stack([dot(train(k), w_agg) for k in range(K)])
             sims = dots / (norms * agg_norm)
             del w_agg
             # one Algorithm-1 screening pass on the K scalars
@@ -320,7 +393,7 @@ def make_fed_round(model, cfg: FedRoundConfig, grid=None):
             mask = mask0 & ~_mark_bad(sims, mask0, xi, cfg.afa.ddof)
             # pass 3: the masked weighted sum, the clients retrained again
             acc = weighted_sum(_weights(mask, p_k, n_k.float()))
-            agg = tree_unflatten(tuple(w), [acc[path].to(l.dtype) for path, l in w.items()])
+            agg = tree_unflatten(tuple(w), [acc.pop(path).to(l.dtype) for path, l in w.items()])
             rep2 = update_reputation(rep, mask, mask0, delta=cfg.delta_block)
             rounds = torch.ones((), dtype=torch.int32, device=sims.device)
             return agg, rep2, _metrics(mask, rounds, sims)

@@ -40,6 +40,19 @@ rank's block; ``max_over``: an exact max, not differentiated), each with a
 ``vmap`` staticmethod: the collective is elementwise in the batch, so under
 ``torch.func.vmap`` it acts on the batched tensor whole.
 
+FSDP (the ``scan`` and ``remat`` rounds) adds ``fsdp_gather``: the ranks'
+blocks of dim 0 gathered whole over the data axes (``GridMesh.all_gather``:
+``all_gather`` in the leaf's own dtype, exact), whose backward sums the
+gradient over those axes and keeps this rank's block
+(``GridMesh.reduce_scatter``: in float32, rounded once; ``reduce_scatter``
+under NCCL, ``all_reduce(SUM)`` then this rank's slice under gloo; for two
+ranks both add the same two numbers, so they give the same bits).  A
+reduce-scatter runs in chunks of at most ``SCATTER_CHUNK`` elements, so its
+float32 copy of a large gradient (nemotron's embedding) stays small.  It
+trains one client at a time, so it needs no vmap rule.  ``all_gathers`` and
+``reduce_scatters`` count these by axes, as ``all_reduces`` counts the
+others.
+
 Both meshes are over the caller's group: they read the initialized default
 group and never pick a backend or a device on their own.  Under NCCL rank r
 works on ``cuda:r``; under gloo every rank works on the device it is given,
@@ -58,7 +71,10 @@ import torch.distributed as dist
 
 ALL_REDUCE_RANGE = "client_mesh.all_reduce"   # profiler range around each collective
 GRID_ALL_REDUCE_RANGE = "grid_mesh.all_reduce"
+GRID_ALL_GATHER_RANGE = "grid_mesh.all_gather"
+GRID_REDUCE_SCATTER_RANGE = "grid_mesh.reduce_scatter"
 CLIENT_AXIS = "client"
+SCATTER_CHUNK = 1 << 26   # elements of one reduce-scatter call (256 MB in float32)
 
 
 class ClientMesh:
@@ -231,8 +247,9 @@ def _wire(dtype: torch.dtype) -> torch.dtype:
 
 class GridMesh(MeshShape):
     """A ``MeshShape`` over the ranks of the default process group, this
-    rank at ``coords``.  ``all_reduces`` counts the collectives this rank
-    has issued, by the axes they ran over (``"model"``, ``"data"``, ...)."""
+    rank at ``coords``.  ``all_reduces``, ``all_gathers`` and
+    ``reduce_scatters`` count the collectives this rank has issued, by the
+    axes they ran over (``"model"``, ``"data"``, ``"data+model"``, ...)."""
 
     def __init__(self, shape: MeshShape, device_mesh, groups: dict, rank: int,
                  device: torch.device, backend: str):
@@ -244,14 +261,24 @@ class GridMesh(MeshShape):
         self.device = device
         self.backend = backend
         self.all_reduces: dict = {}
+        self.all_gathers: dict = {}
+        self.reduce_scatters: dict = {}
+
+    def clear_counts(self) -> None:
+        for counts in (self.all_reduces, self.all_gathers, self.reduce_scatters):
+            counts.clear()
 
     def __repr__(self) -> str:
         return (f"GridMesh({dict(self.shape)}, rank={self.rank}, coords={self.coords}, "
                 f"device={self.device}, backend={self.backend!r})")
 
-    def _all_reduce_(self, t: torch.Tensor, axes: tuple, op) -> torch.Tensor:
+    @staticmethod
+    def _count(counts: dict, axes: tuple) -> None:
         label = "+".join(axes)
-        self.all_reduces[label] = self.all_reduces.get(label, 0) + 1
+        counts[label] = counts.get(label, 0) + 1
+
+    def _all_reduce_(self, t: torch.Tensor, axes: tuple, op) -> torch.Tensor:
+        self._count(self.all_reduces, axes)
         with torch.profiler.record_function(GRID_ALL_REDUCE_RANGE):
             dist.all_reduce(t, op=op, group=self.groups[axes])
         return t
@@ -300,6 +327,46 @@ class GridMesh(MeshShape):
         """This rank's slice of a dim of ``n`` split over ``axes``."""
         w = n // self.size(axes)
         return slice(self.index(axes) * w, (self.index(axes) + 1) * w)
+
+    def all_gather(self, local: torch.Tensor, axes) -> torch.Tensor:
+        """Every rank's block of dim 0 over ``axes``, concatenated in the
+        order of their coordinates (``all_gather`` in ``local``'s dtype:
+        exact)."""
+        axes = _axes(axes)
+        n = self.size(axes)
+        x = local.contiguous()
+        out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        self._count(self.all_gathers, axes)
+        with torch.profiler.record_function(GRID_ALL_GATHER_RANGE):
+            if self.backend == "nccl":
+                dist.all_gather_into_tensor(out, x, group=self.groups[axes])
+            else:   # gloo: into the n row blocks of out
+                dist.all_gather(list(out.chunk(n)), x, group=self.groups[axes])
+        return out
+
+    def reduce_scatter(self, full: torch.Tensor, axes) -> torch.Tensor:
+        """This rank's block of dim 0 of the sum of ``full`` over ``axes``,
+        summed in float32 and rounded once to ``full``'s dtype;
+        ``SCATTER_CHUNK`` elements a call (see the module docstring)."""
+        axes = _axes(axes)
+        n, i = self.size(axes), self.index(axes)
+        w = full.shape[0] // n
+        g = full.reshape(n, -1)
+        out = torch.empty((g.shape[1],), dtype=full.dtype, device=full.device)
+        cols = max(1, SCATTER_CHUNK // n)
+        self._count(self.reduce_scatters, axes)
+        group = self.groups[axes]
+        with torch.profiler.record_function(GRID_REDUCE_SCATTER_RANGE):
+            for c0 in range(0, g.shape[1], cols):
+                part = g[:, c0:c0 + cols].float().contiguous()
+                if self.backend == "nccl":   # part's n rows -> this rank's
+                    mine = torch.empty((1, part.shape[1]), dtype=part.dtype, device=part.device)
+                    dist.reduce_scatter_tensor(mine, part, group=group)
+                else:   # gloo: the whole sum, then this rank's row
+                    dist.all_reduce(part, group=group)
+                    mine = part[i:i + 1]
+                out[c0:c0 + cols] = mine[0]
+        return out.reshape((w,) + tuple(full.shape[1:]))
 
 
 def _subgroup(shape: MeshShape, axes: tuple, rank: int, backend: str):
@@ -354,10 +421,20 @@ def make_grid_mesh(shape: MeshShape, device) -> GridMesh:
         device.type, tuple(shape.shape.values()), mesh_dim_names=shape.axis_names,
         backend_override={a: backend for a in shape.axis_names})
     groups = {(a,): device_mesh.get_group(a) for a in shape.axis_names}
-    for axes in {client_row_axes(shape), data_axes(shape)}:
+    # the groups of several axes: the client rows, the data axes, and the
+    # data axes with model (an FSDP leaf split over both), in mesh order
+    both = tuple(a for a in shape.axis_names if a in data_axes(shape) or a == "model")
+    for axes in sorted({client_row_axes(shape), data_axes(shape), both}):
         if len(axes) > 1:
             groups[axes] = _subgroup(shape, axes, rank, backend)
-    return GridMesh(shape, device_mesh, groups, rank, device, backend)
+    grid = GridMesh(shape, device_mesh, groups, rank, device, backend)
+    for axes, group in groups.items():
+        # the gathers place a block by its group rank: it must be the
+        # rank's coordinate over the axes
+        if axes and dist.get_rank(group) != grid.index(axes):
+            raise RuntimeError(f"group {axes}: rank {rank} is group rank "
+                               f"{dist.get_rank(group)}, not its coordinate {grid.index(axes)}")
+    return grid
 
 
 # ---------------------------------------------------------------------------
@@ -470,3 +547,25 @@ def gather_from(x: torch.Tensor, mesh: GridMesh, axes) -> torch.Tensor:
 def max_over(x: torch.Tensor, mesh: GridMesh, axes) -> torch.Tensor:
     """The elementwise max over ``axes`` (no gradient)."""
     return _MaxOver.apply(x, mesh, _axes(axes))
+
+
+class _FsdpGather(_Collective):
+    """Every rank's block of dim 0 gathered forward; the gradient summed
+    over the axes, this rank's block, backward (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(x, mesh, axes):
+        return mesh.all_gather(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g, ctx.axes), None, None
+
+
+def fsdp_gather(x: torch.Tensor, mesh: GridMesh, axes) -> torch.Tensor:
+    """The ranks' blocks of dim 0 of ``x`` over ``axes`` gathered whole;
+    the gradient reduce-scattered back to this rank's block."""
+    axes = _axes(axes)
+    if mesh.size(axes) == 1:
+        return x
+    return _FsdpGather.apply(x, mesh, axes)

@@ -16,7 +16,9 @@ C.2); the route changes, not the function, and with
 The windowed prefill and the decode step are plain torch, as in the
 reference.
 
-Under a model axis (``layers.ModelAxis``) the forward's attention is
+Under a grid (``layers.ModelAxis``) a block's leaves pass through
+``ModelAxis.use`` first (FSDP's gathers over the data axes).  Over a
+``model`` axis of more than one rank the forward's attention is
 tensor-parallel: ``wq``, ``wk`` and ``wv`` hold this rank's out-features,
 ``wo`` its in-features, and the partial products of ``wo`` are summed over
 the axis.  Where the split falls on whole heads with the GQA groups kept
@@ -25,7 +27,9 @@ heads.  Where it cuts a head (smollm-135m's 9 q and 3 kv heads over 2
 ranks), q, k and v are gathered whole, every rank attends on every head,
 and ``wo`` takes this rank's features of the output.  ``seq_par_attention``
 and the reference's other mesh levers steer XLA's partitioner; the explicit
-split already keeps heads local, so they have no effect here.
+split already keeps heads local, so they have no effect here.  An MoE
+block's experts split over ``model`` (expert parallelism,
+``models/moe.py``).
 
 Caches.  An SSM or hybrid layer's is ``{"state", "conv"}``
 (``models/ssm.py``), an attention layer's ``(k, v)``.  Linear: slot =
@@ -104,7 +108,7 @@ def _attend(cfg, q, k, v, use_window: bool):
 
 
 def apply_attn(p, cfg, x, *, positions, use_window: bool = False, tp=None):
-    if tp is not None:
+    if tp is not None and tp.size > 1:
         return _apply_attn_tp(p, cfg, x, positions, use_window, tp)
     q, k, v = _qkv(p, cfg, x, positions)
     out = _attend(cfg, q, k, v, use_window)
@@ -213,22 +217,25 @@ def init_block(generator: torch.Generator, cfg, *, device=None) -> dict:
     return p
 
 
-def _moe(p, cfg, x):
+def _moe(p, cfg, x, tp=None):
     return apply_moe(p["moe"], x, num_experts=cfg.num_experts, top_k=cfg.top_k,
-                     capacity_factor=cfg.capacity_factor, activation=cfg.activation)
+                     capacity_factor=cfg.capacity_factor, activation=cfg.activation, tp=tp)
 
 
 def apply_block(p, cfg, h, *, positions, use_window: bool = False, tp=None):
     """Forward of one block (no cache) -> (h, (lb_loss, z_loss)); a block
     with no router returns (h, None) (the reference's zeros).  ``tp``: the
-    model axis of a dense block's blocks of its leaves."""
+    grid's placement of a dense or MoE block's leaves, ``p`` this rank's
+    blocks of them."""
+    if tp is not None:
+        p = tp.use_tree(p)
     if cfg.family in _SSM:
         return h + apply_mamba2(p["mamba"], cfg, rms_norm(h, p["norm_ssm"])), None
     h = h + apply_attn(p["attn"], cfg, rms_norm(h, p["norm_attn"]), positions=positions,
                        use_window=use_window, tp=tp)
     x = rms_norm(h, p["norm_ffn"])
     if cfg.family == "moe":
-        y, aux = _moe(p, cfg, x)
+        y, aux = _moe(p, cfg, x, tp)
         return h + y, aux
     return h + apply_mlp(p["mlp"], x, cfg.activation, tp), None
 

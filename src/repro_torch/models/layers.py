@@ -4,11 +4,21 @@ Counterpart of ``repro/models/layers.py`` on plain dicts of tensors.  Layer
 stacks carry a leading L axis (``models/model.py`` builds them layer by
 layer and stacks them).
 
-Under a grid whose ``model`` axis has more than one rank, a model holds
-this rank's blocks of the leaves ``launch.sharding`` splits over it
-(``ModelAxis``) and computes on them with the grid's collectives
-(``launch.mesh``): a split MLP is column-parallel in ``gate`` and ``up``
-and row-parallel in ``down``.  The reference's mesh levers
+Under a grid, a model holds this rank's blocks of the leaves
+``launch.sharding`` splits (``ModelAxis``: the grid's placement of each
+leaf) and computes on them with the grid's collectives (``launch.mesh``).
+Over a ``model`` axis of more than one rank a split MLP is column-parallel
+in ``gate`` and ``up`` and row-parallel in ``down``.  Under FSDP
+(``fsdp=True`` specs, the ``scan`` and ``remat`` rounds) a leaf's dim split
+over the data axes is gathered just before the leaf's use
+(``ModelAxis.use_tree``: ``launch.mesh.fsdp_gather``, whose backward
+reduce-scatters the gradient) and dropped after it; the batch's rows split
+over the same axes, so a leaf no data axis splits enters through
+``copy_to``, its gradient summed over them.  A block's leaves travel
+together: those of one dtype in one flat all-gather of up to
+``FSDP_BUCKET`` gathered elements (a larger leaf alone), and its unsplit
+leaves in one ``copy_to``, so a local step issues a few collectives a layer,
+not one a leaf.  The reference's mesh levers
 (``with_sharding_constraint`` under ``activation_sharding`` and
 ``fsdp_activations``) steer XLA's partitioner; the explicit split has no
 partitioner to steer, so they have no counterpart.
@@ -22,23 +32,109 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import copy_to, reduce_from
+from repro_torch.launch.mesh import copy_to, fsdp_gather, reduce_from
+
+FSDP_BUCKET = 1 << 28   # gathered elements of one all-gather of several leaves
 
 
 class ModelAxis(NamedTuple):
-    """A grid's ``model`` axis of more than one rank, and the leaves split
-    over it: paths relative to a block (``"attn/wq"``, ``"mlp/down"``) or
-    the model (``"embed"``, ``"head"``)."""
+    """A grid's placement of a model's leaves: ``specs`` maps a path
+    relative to a block (``"attn/wq"``, ``"moe/up"``) or the model
+    (``"embed"``, ``"head"``) to its spec, a layer's without the L axis;
+    ``batch_axes`` are the data axes a batch's rows split over under FSDP,
+    ``()`` where every rank takes the whole batch."""
 
     mesh: object
-    sharded: frozenset
+    specs: dict
+    batch_axes: tuple = ()
 
     @property
     def size(self) -> int:
-        return self.mesh.shape["model"]
+        """The ranks of the ``model`` axis."""
+        return self.mesh.shape.get("model", 1)
 
     def has(self, path: str) -> bool:
-        return path in self.sharded
+        """Whether a ``model`` axis of more than one rank splits the leaf."""
+        return self.size > 1 and any(e == "model" for e in self.specs.get(path, ()))
+
+    def _data_dim(self, path: str):
+        """The dim of the leaf the data axes split, or None."""
+        for dim, e in enumerate(self.specs[path]):
+            if e is not None and e != "model":
+                return dim
+        return None
+
+    def use(self, path: str, leaf: torch.Tensor) -> torch.Tensor:
+        """``use_tree`` of one model-level leaf."""
+        return self.use_tree({path: leaf})[path]
+
+    def use_tree(self, tree: dict, prefix: str = "") -> dict:
+        """The leaves of a dict of dicts (a block's, paths after
+        ``prefix``) as a forward uses them: each dim split over the data
+        axes gathered (backward: this rank's block of the gradient summed
+        over them); under a split batch a leaf no data axis splits enters
+        through ``copy_to`` (backward: its gradient summed over them)."""
+        if not self.batch_axes:
+            return tree
+        flat = _flatten(tree, prefix, {})
+        split, whole = {}, {}
+        for path, leaf in flat.items():
+            dim = self._data_dim(path)
+            if dim is None:
+                whole.setdefault(leaf.dtype, []).append(path)
+            else:
+                split.setdefault(leaf.dtype, [[]])
+                bucket = split[leaf.dtype][-1]
+                if bucket and self._gathered(flat, bucket + [path]) > FSDP_BUCKET:
+                    split[leaf.dtype].append(bucket := [])
+                bucket.append(path)
+        used = {}
+        for buckets in split.values():
+            for bucket in buckets:
+                used.update(self._gather(flat, bucket))
+        for paths in whole.values():
+            parts = copy_to(torch.cat([flat[p].reshape(-1) for p in paths]), self.mesh,
+                            self.batch_axes).split([flat[p].numel() for p in paths])
+            used.update({p: part.view_as(flat[p]) for p, part in zip(paths, parts)})
+        return _rebuild(tree, prefix, used)
+
+    def _gathered(self, flat: dict, paths: list) -> int:
+        return sum(flat[p].numel() for p in paths) * self.mesh.size(self.batch_axes)
+
+    def _gather(self, flat: dict, paths: list) -> dict:
+        """One all-gather of the leaves ``paths`` (one dtype): their blocks,
+        the split dim first, flattened into one vector; each leaf cut back
+        out of every rank's vector and its dim put back."""
+        n = self.mesh.size(self.batch_axes)
+        blocks = [flat[p].movedim(self._data_dim(p), 0) for p in paths]
+        vec = torch.cat([b.reshape(-1) for b in blocks]) if len(blocks) > 1 else \
+            blocks[0].reshape(-1)
+        full = fsdp_gather(vec, self.mesh, self.batch_axes).view(n, -1)
+        out = {}
+        for p, b, part in zip(paths, blocks, full.split([b.numel() for b in blocks], dim=1)):
+            d = self._data_dim(p)
+            w = part.reshape((n * b.shape[0],) + tuple(b.shape[1:])).movedim(0, d)
+            out[p] = w.contiguous() if d else w
+        return out
+
+
+def _flatten(tree: dict, prefix: str, out: dict) -> dict:
+    """path -> leaf of a dict of dicts, the paths after ``prefix``.  (A
+    module-level function: a nested one that calls itself is a reference
+    cycle through its closure, which would keep the gathered leaves of
+    ``use_tree`` alive until the cyclic collector runs.)"""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flatten(v, f"{prefix}{k}/", out)
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _rebuild(tree: dict, prefix: str, leaves: dict) -> dict:
+    """``tree``'s structure with each leaf taken from ``leaves`` by path."""
+    return {k: _rebuild(v, f"{prefix}{k}/", leaves) if isinstance(v, dict) else leaves[prefix + k]
+            for k, v in tree.items()}
 
 
 def dense_init(generator: torch.Generator, shape, dtype, *, scale: float | None = None,

@@ -32,19 +32,30 @@ same dict: it reads nothing from the host, so a CUDA graph can replay it
 over static buffers (``repro_torch.launch.serve``).  A caller that keeps an
 earlier cache clones it first.
 
-Under a grid.  ``build_model(cfg, grid=)`` with a ``model`` axis of more
-than one rank (the dense family only; the others raise) gives a model whose
+Under a grid.  ``build_model(cfg, grid=)`` on a grid of more than
+one rank (the dense and MoE families; the others raise) gives a model whose
 ``init`` draws the one-card weights leaf by leaf from the same stream and
-keeps this rank's block of each (``launch.sharding.shard_params_tree``),
-never holding a whole split leaf, and whose ``loss_fn`` and ``forward``
-compute on such blocks (``layers.ModelAxis``): the embedding's vocab rows
-split (tokens outside the local rows read zeros, then a sum over the axis),
-the blocks tensor-parallel (``models/blocks.py``), and the head's logits
-split over the vocabulary: ``loss_fn``'s log-sum-exp takes the max over the
-axis, then the sum of the exponentials, and the gold logit comes from the
-rank that holds it; ``forward`` gathers the logits whole.  Serving under a
-model axis raises.  With no grid, or ``model`` = 1, the model is the
-one-card one.
+keeps this rank's block of each (``launch.sharding.shard_params_tree``, with
+FSDP under the ``scan`` and ``remat`` modes of ``cfg.fed_mode``, as the
+reference's ``launch/specs.py`` chooses), never holding a whole split leaf
+past its draw, and whose ``loss_fn`` and ``forward`` compute on such blocks
+(``layers.ModelAxis``, the placement of each leaf).  Over a ``model`` axis
+of more than one rank: the embedding's vocab rows split (tokens outside the
+local rows read zeros, then a sum over the axis), the blocks
+tensor-parallel (``models/blocks.py``) and an MoE block's experts split
+(``models/moe.py``), and the head's logits split over the vocabulary:
+``loss_fn``'s log-sum-exp takes the max over the axis, then the sum of the
+exponentials, and the gold logit comes from the rank that holds it;
+``forward`` gathers the logits whole.  Under FSDP each leaf's dim split
+over the data axes is gathered at its use (``ModelAxis.use``), and every
+rank is given the whole batch and keeps its block of the rows (the batch's
+first dim), which must split over the data axes (else ``ValueError``); the
+cross-entropy divides the sum over every rank's unmasked labels by their
+global count (one ``reduce_from`` over the data axes), so the loss and its
+gradient are the one-card ones however the masks fall; ``forward`` gathers
+the rows back (not differentiated).  Serving under a grid raises.  With no
+grid, or nothing split (one rank; or ``model`` = 1 without FSDP), the model
+is the one-card one.
 """
 
 from __future__ import annotations
@@ -55,7 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.launch.mesh import copy_to, gather_from, max_over, reduce_from
+from repro_torch.launch.mesh import copy_to, data_axes, gather_from, max_over, reduce_from
 from repro_torch.models.blocks import (
     apply_block,
     decode_block,
@@ -76,7 +87,8 @@ class Model(NamedTuple):
     prefill: Any        # (params, batch, cache_size, use_window=False) -> (logits_last, cache)
     decode_step: Any    # (params, cache, tokens (B,), pos=None, ring=False) -> (logits, cache)
     init_cache: Any     # (batch, cache_size, dtype=None, device="cuda") -> cache
-    grid: Any = None    # the grid whose model axis splits the leaves, if any
+    grid: Any = None    # the grid whose axes split the leaves, if any
+    fsdp: bool = False  # the leaves split over the grid's data axes too (FSDP)
 
 
 def tree_apply(fn, *trees):
@@ -122,8 +134,9 @@ def hybrid_segments(cfg: ModelConfig):
 
 
 def build_model(cfg: ModelConfig, grid=None) -> Model:
-    """The model of ``cfg``; under ``grid`` with a ``model`` axis of more
-    than one rank, on this rank's blocks (see the module docstring)."""
+    """The model of ``cfg``; under ``grid``, on this rank's blocks, the
+    leaves split by the reference's specs, FSDP under ``cfg.fed_mode``
+    ``scan`` and ``remat`` (see the module docstring)."""
     validate(cfg)
     L = cfg.num_layers
     is_hybrid = cfg.family == "hybrid" and cfg.shared_attn_every > 0
@@ -166,18 +179,25 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         return leaf
 
     tp = None
-    if grid is not None and grid.shape.get("model", 1) > 1:
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) under a model axis of {grid.shape['model']}: only the "
-                "dense family is tensor-parallel (ROADMAP A, Open item 1: MoE expert "
-                "parallelism, the SSM and hybrid projections)")
+    fsdp = cfg.fed_mode in ("scan", "remat")
+    if grid is not None and grid.devices > 1:
         from repro_torch.launch.sharding import shard_params_tree, take_shard, uses_axis
 
-        specs = shard_params_tree(_init(None, torch.device("meta"), _whole), grid)
+        specs = shard_params_tree(_init(None, torch.device("meta"), _whole), grid, fsdp=fsdp)
         specs = {"/".join(p): s for p, s in zip(tree_structure(specs), tree_leaves(specs))}
-        tp = ModelAxis(grid, frozenset(path.removeprefix("layers/") for path, spec in
-                                       specs.items() if uses_axis(spec, "model")))
+        daxes = data_axes(grid)
+        batch_axes = daxes if fsdp and grid.size(daxes) > 1 else ()
+        split = grid.shape.get("model", 1) > 1 and any(uses_axis(s, "model")
+                                                        for s in specs.values())
+        if split or batch_axes:
+            if cfg.family not in ("dense", "moe"):
+                raise NotImplementedError(
+                    f"{cfg.name} ({cfg.family}) on a grid of {dict(grid.shape)}: only the dense "
+                    "and MoE families split their leaves (ROADMAP A, Open item 1: the SSM and "
+                    "hybrid projections, the VLM and audio frontends)")
+            tp = ModelAxis(grid, {path.removeprefix("layers/"):
+                                  spec[1:] if path.startswith("layers/") else spec
+                                  for path, spec in specs.items()}, batch_axes)
 
         def _block(path, leaf):
             # a layer's leaf is drawn alone: its stacked spec without the L axis
@@ -188,8 +208,24 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         """Random params on ``device`` (the card unless ``device="cpu"``;
         raises without CUDA), drawn from ``generator``, which must live on
         that device.  ``device="meta"`` gives the shapes and draws nothing.
-        Under a model axis: this rank's blocks of the same draws."""
+        Under a grid: this rank's blocks of the same draws."""
         return _init(generator, _device(device), _whole if tp is None else _block)
+
+    def _leaf(params, path):
+        """A model-level leaf as the forward uses it (FSDP's gather)."""
+        return params[path] if tp is None else tp.use(path, params[path])
+
+    def _rows(batch):
+        """This rank's rows of the batch under FSDP, else the batch."""
+        if tp is None or not tp.batch_axes:
+            return batch
+        n = grid.size(tp.batch_axes)
+        b = next(iter(batch.values())).shape[0]
+        if b % n:
+            raise ValueError(f"a batch of {b} rows does not split over the data axes "
+                             f"{tp.batch_axes} ({n} ranks): under FSDP each rank takes its block "
+                             "of a client's rows")
+        return {k: v[grid.block(b, tp.batch_axes)] for k, v in batch.items()}
 
     def _embed(params, tokens):
         # F.embedding, not params["embed"][tokens]: its backward sums each
@@ -197,13 +233,13 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         # float scatter-add on the CPU adds in parallel in no fixed order; a
         # client retrained from the same start must give the same bits
         if tp is not None and tp.has("embed"):
-            table = params["embed"]
+            table = _leaf(params, "embed")
             rows = table.shape[0]
             local = tokens.long() - grid.index("model") * rows
             inside = (local >= 0) & (local < rows)
             e = F.embedding(local.clamp(0, rows - 1), table) * inside[..., None].to(table.dtype)
             return reduce_from(e, grid, "model").to(cfg.cdtype)
-        return F.embedding(tokens.long(), params["embed"]).to(cfg.cdtype)
+        return F.embedding(tokens.long(), _leaf(params, "embed")).to(cfg.cdtype)
 
     def _embed_inputs(params, batch):
         """The input sequence (B, L, d_model): token embeddings, projected
@@ -235,7 +271,7 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
             if shared is not None:
                 h, _ = apply_block(params["shared"], attn_cfg, h, positions=positions,
                                    use_window=use_window)
-        return rms_norm(h, params["final_norm"]), aux
+        return rms_norm(h, _leaf(params, "final_norm")), aux
 
     def _vocab_split() -> bool:
         return tp is not None and tp.has("head")
@@ -244,12 +280,17 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         """(.., V) f32 logits, or this rank's block of the vocabulary."""
         if _vocab_split():
             h = copy_to(h, grid, "model")
-        return (h @ params["head"]).float()
+        return (h @ _leaf(params, "head")).float()
 
     def forward(params, batch, use_window: bool = False) -> torch.Tensor:
-        h, _ = _hidden(params, batch, use_window)
+        whole = next(iter(batch.values())).shape[0]
+        h, _ = _hidden(params, _rows(batch), use_window)
         logits = _logits(params, h)
-        return gather_from(logits, grid, "model") if _vocab_split() else logits
+        if _vocab_split():
+            logits = gather_from(logits, grid, "model")
+        if tp is not None and tp.batch_axes:
+            logits = grid.gather_rows(logits, whole, tp.batch_axes)
+        return logits
 
     def _logz_gold(logits, labels):
         """log-sum-exp and the gold logit of vocab-split logits."""
@@ -264,6 +305,7 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         return m + torch.log(total), gold
 
     def loss_fn(params, batch, use_window: bool = False):
+        batch = _rows(batch)
         h, aux = _hidden(params, batch, use_window)
         if cfg.family == "vlm":
             h = h[:, cfg.prefix_len:]  # the loss on the text tokens only
@@ -276,7 +318,11 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         else:
             logz = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-        ce = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        total, count = torch.sum((logz - gold) * mask), torch.sum(mask)
+        if tp is not None and tp.batch_axes:  # over every data rank's rows
+            total, count = reduce_from(torch.stack([total, count]), grid,
+                                       tp.batch_axes).unbind(0)
+        ce = total / torch.clamp(count, min=1.0)
         if aux is None:  # no router: the aux terms are zero
             zero = torch.zeros((), dtype=torch.float32, device=logits.device)
             return ce, {"ce": ce, "lb_loss": zero, "z_loss": zero}
@@ -286,8 +332,8 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
     def _serving():
         if tp is not None:
             raise NotImplementedError(
-                f"serving {cfg.name} under a model axis of {tp.size}: not ported (ROADMAP A, "
-                "Open item 1: cache_pspec on prefill and decode)")
+                f"serving {cfg.name} on a grid of {dict(grid.shape)}: not ported (ROADMAP A, "
+                "Open item 2: cache_pspec on prefill and decode)")
 
     def init_cache(batch_size: int, cache_size: int, dtype=None, device="cuda") -> dict:
         """An empty cache on ``device`` (the card unless ``device="cpu"``)."""
@@ -353,4 +399,4 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         return (h1 @ params["head"]).float(), cache
 
     return Model(cfg, init, loss_fn, forward, prefill, decode_step, init_cache,
-                 grid if tp is not None else None)
+                 grid if tp is not None else None, tp is not None and fsdp)

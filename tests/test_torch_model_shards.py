@@ -19,8 +19,10 @@ a data x model mesh) against the JAX package, on the CPU (gloo ranks):
   blocks; the all-reduces a round on each group, as counted;
 * the sharded loss's gradient, gathered, equals the one-card gradient;
 * a (data 1, model 1) grid runs the one-card round bit for bit; the grid
-  refuses scan, remat, the MoE family, serving, the gram variant over
-  several rows, foreign client axes and K not divisible by the rows;
+  refuses scan and remat on a model built without FSDP, the SSM family,
+  serving, the gram variant over several rows, foreign client axes and K
+  not divisible by the rows (``tests/test_torch_fsdp_experts.py`` runs
+  scan, remat and the MoE family on the grid);
 * the dry run's ``--mesh``: a rank's bytes under the specs.
 
 The ranks are spawned once a module (the fixtures); they import this
@@ -345,18 +347,18 @@ def _refusals(grid):
 
     model = build_model(ModelConfig(**ALIGNED), grid=grid)
     plain = build_model(ModelConfig(**ALIGNED))
-    moe = get_config("olmoe-1b-7b").reduced()
+    ssm = get_config("mamba2-1.3b").reduced()
     calls = {
         "scan": lambda: make_fed_round(model, FedRoundConfig(num_clients=2, mode="scan"),
                                        grid=grid),
         "remat": lambda: make_fed_round(model, FedRoundConfig(num_clients=2, mode="remat"),
                                         grid=grid),
-        "moe": lambda: build_model(moe, grid=grid),
+        "ssm": lambda: build_model(ssm, grid=grid),
         "serving": lambda: model.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
                                          cache_size=4),
         "gram_rows": lambda: afa_aggregate_tree(
             {"w": torch.ones((1, 3))}, torch.ones(2), torch.ones(2),
-            config=AFAConfig(variant="gram"), shards=TreeShards(grid, ("data",), (False,))),
+            config=AFAConfig(variant="gram"), shards=TreeShards(grid, ("data",), ((),))),
         "client_axes": lambda: make_fed_round(model, FedRoundConfig(
             num_clients=2, client_axes=("model",)), grid=grid),
         "divisible": lambda: make_fed_round(model, FedRoundConfig(num_clients=3), grid=grid),
@@ -527,8 +529,8 @@ def test_all_reduces_a_round(four_ranks, name, K):
 
 def test_grid_refusals(four_ranks):
     assert four_ranks["refusals"] == {
-        "scan": "NotImplementedError", "remat": "NotImplementedError",
-        "moe": "NotImplementedError", "serving": "NotImplementedError",
+        "scan": "ValueError", "remat": "ValueError",
+        "ssm": "NotImplementedError", "serving": "NotImplementedError",
         "gram_rows": "ValueError", "client_axes": "ValueError", "divisible": "ValueError",
         "unsharded_model": "ValueError"}
 
