@@ -271,7 +271,7 @@
    for bit;
 21. runs FSDP for the scan and remat rounds, and MoE expert parallelism, on
    a (data 2, model 2) grid (phase E, ``fsdp_phase``; alone with ``--phase
-   E``): smollm-135m at full width and depth under FSDP in scan (bf16 and
+   E``): smollm-135m at full width (``FSDP_LAYERS`` of its 30 layers) under FSDP in scan (bf16 and
    int8 storage) and remat, and olmoe-1b-7b at full width (64 experts, 32
    a rank) on an f32 copy cut to 1 layer in vmap (expert parallelism
    alone) and scan (with FSDP), on 4 gloo ranks sharing the card against
@@ -290,11 +290,28 @@
    exactly client 0 screened out on every rank, the eval losses finite and
    falling, the scales the same on every rank, ms a round, peak GB a rank
    against the reckoning, the collectives' share of the traced last round;
-22. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+22. serves on a (data 2, model 2) grid (phase R, ``serve_grid_phase``;
+   alone with ``--phase R``): smollm-135m at full width and depth in bf16
+   (3 kv heads: every head on every rank, the cache split by slot) through
+   ``launch.serve.generate`` on 4 gloo ranks sharing the card (B = 4,
+   prompt 2,048, 64 greedy tokens, eager: gloo cannot be captured), its
+   tokens one card's up to a near-tie and ``GRID_TF_STEPS`` teacher-forced
+   steps within ``bf16_bound`` of one card's; an f32 copy within
+   ``FWD_TOL`` / ``SERVE_TF_TOL``; olmoe-1b-7b (f32, 1 layer, heads and
+   experts split) the same; every rank L flash launches a prefill and its
+   cache exactly ``rank_bytes`` of its ``cache_pspec`` blocks; with four
+   cards or more (alone with ``--phase R4``), ``serve_cards``:
+   smollm-135m's uncut ``decode_32k`` and llama3-8b's at 32 sequences from
+   ``input_specs(model, "decode_32k", grid, device="cuda")`` on one NCCL
+   rank a card, each step captured = eager bit for bit and held to one
+   card's decode on ``SERVE_CARDS``' rows, and llama3-8b's captured
+   ``generate``;
+23. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
    serve-LLM, families, production-shape (its kernel-route prefills and
-   forwards), sweep, serve, grid, looped, leaf and client-shard phases
-   (phases T, N and E run no kernel; phase H's summed over its ranks) and, for the
+   forwards), sweep, serve, grid, looped, leaf, client-shard and grid-serving
+   phases (phases T, N and E run no kernel; phases H and R summed over
+   their ranks) and, for the
    fused engine's
    graph runs (the DNN's and LoRA's), the calls that step 14's traces
    executed.
@@ -698,7 +715,9 @@ AXIS_BIG_RUN = dict(K=4, byzantine=1, local_steps=2, batch=1, seq=512, rounds=3,
 # phase E (FSDP for scan and remat, MoE expert parallelism): on a (data 2,
 # model 2) grid of 4 gloo ranks sharing the card, phase T's round (K = 4,
 # client 0 byzantine, 2 local steps of 2 x 128 tokens, each client's 2 rows
-# split over data) of smollm-135m at full width and depth in bf16, under
+# split over data) of smollm-135m at full width in bf16, cut to FSDP_LAYERS
+# of its 30 layers (so that the whole script stays within its time with
+# phase R after it: the full depth took ~200 s of the phase), under
 # FSDP (the reference's fsdp=True specs), in each FSDP_MODES mode against
 # the same mode's one-card round: the decisions equal on every rank, the
 # aggregate within TRAIN_ROUNDING (int8: one quantization step of the
@@ -715,6 +734,7 @@ AXIS_BIG_RUN = dict(K=4, byzantine=1, local_steps=2, batch=1, seq=512, rounds=3,
 # held to keeps ~6 copies of K = 4 clients' weights, ~100 GB in f32.  With four cards or more, FSDP_BIG on one NCCL rank
 # a card, the same grid, FSDP_BIG_RUN's rounds; each config's depth is cut
 # to what fsdp_reckoning fits under ~70 GB a rank (PERF.md section 4).
+FSDP_LAYERS = 15
 FSDP_MODES = {"scan/bfloat16": ("scan", "bfloat16", 8), "scan/int8": ("scan", "int8", 8),
               "remat": ("remat", "bfloat16", 1)}
 FSDP_SCALE = (0.05, 2.0 ** -7)    # of the scale, and of the leaf's largest weight / 127
@@ -739,6 +759,41 @@ FSDP_BIG_RUN = dict(byzantine=1, local_steps=2, batch=2, seq=128, rounds=3, lr=0
 # draw with each expert matrix scaled to its own fan-in d_in, as a dense
 # leaf is drawn (by sqrt(E / d_in), on every rank's blocks alike).
 FSDP_BIG_PROBE = ("phi3.5-moe-42b-a6.6b",)
+
+# phase R (serving on the grid): on a (data 2, model 2) grid of 4 gloo
+# ranks sharing the card, smollm-135m at full width and depth (3 kv heads:
+# every head gathered, the cache split by slot) served by phase V's
+# generate on the kernel route, every rank given the 4 prompts and keeping
+# its 2 rows, its tokens one card's up to the first step where one card's
+# top-2 margin is a near-tie (a free-running greedy run follows its own
+# near-ties); the grid teacher-forced with one card's generated tokens for
+# GRID_TF_STEPS decode steps: its bf16 logits within GRID_BF16_REL of each
+# row's largest one-card logit (16 bf16 ulps: the grid sums each layer's
+# partial products in f32 and rounds once where one card rounds each
+# product, and 30-32 layers of random weights compound the difference; an
+# absolute 0.125, 4.5x phase V's kernel-vs-plain route difference on
+# smollm's logit scale, held smollm but not llama3-8b's larger logits, 0.234
+# apart), its greedy decisions one card's wherever one card's top-2 margin
+# exceeds twice that bound (a near-tie below it);
+# an f32 copy's logits_last within FWD_TOL and GRID_F32_STEPS decode steps
+# within SERVE_TF_TOL[1], decisions equal; olmoe-1b-7b at full width on an
+# f32 draw cut to FSDP_MOE_LAYERS (heads and experts split) at phase V's
+# olmoe shape, the same f32 gates.  Every rank: L flash launches a
+# prefill and none in decode, its cache exactly rank_bytes of the
+# reference's cache_pspec blocks.  gloo's collectives cannot be captured:
+# the grid decodes eagerly.  With four cards (--phase R4): SERVE_CARDS'
+# decode_32k (input_specs on the grid, one NCCL rank a card) and
+# SERVE_CARDS_GEN's captured generate, each held to one card on
+# SERVE_CARDS' sampled rows.
+GRID_BF16_REL = 2.0 ** -4
+GRID_TF_STEPS = 16    # bf16 decode steps teacher-forced (gloo: ~0.83 s a step on one card)
+GRID_F32_STEPS = 4
+SERVE_CARDS = {   # arch -> (decode_32k's global batch, the rows one card decodes)
+    "smollm-135m": (128, (0, 1, 126, 127)),   # uncut: 96.64 GB of cache, split by slot
+    "llama3-8b": (32, (0, 1, 30, 31)),        # cut from 128: 137.4 GB, split by head
+}
+SERVE_CARDS_GEN = dict(arch="llama3-8b", B=4, P=2048, gen=64)
+SERVE_CARDS_REPLAYS = 10
 
 
 def fail(msg: str) -> None:
@@ -4751,14 +4806,14 @@ def axis_all_reduces(cfg, steps: int, passes: int) -> dict:
     """The all-reduces one grid round issues on each group (the vmap round
     of a dense model on (data 2, model 2), every 2-D leaf split): a local
     step's forward sums the embedding, each layer's attention (whole heads:
-    wo's products; a cut head: also the gathers of q, k and v) and MLP, and
+    wo's products; a cut head: also the one gather of q, k and v) and MLP, and
     the loss's max and (sum of exponentials, gold logit); its backward the
     gradient entering each layer's attention (a cut head: also its
     output's) and MLP and the head.  AFA: the row norms, a pass's dots and
     |agg|^2 over ``model``; a pass's weighted sum (a leaf each) and the
     similarities' gather over ``data``, and the final weighted sum."""
     whole = cfg.num_kv_heads % AXIS_GRID["model"] == 0
-    attn_fwd, attn_bwd = (1, 1) if whole else (4, 2)
+    attn_fwd, attn_bwd = (1, 1) if whole else (2, 2)
     L, leaves = cfg.num_layers, 12
     step = 1 + L * (attn_fwd + 1) + 2 + L * (attn_bwd + 1) + 1
     return {"model": steps * step + 1 + passes, "data": passes * (leaves + 1) + leaves}
@@ -5247,7 +5302,8 @@ def fsdp_runs():
 
     moe = get_config(FSDP_MOE_ARCH).with_(num_layers=FSDP_MOE_LAYERS, param_dtype="float32",
                                           compute_dtype="float32")
-    return [(TRAIN_ARCH, get_config(TRAIN_ARCH).with_(fed_mode="scan"), FSDP_MODES, True),
+    return [(TRAIN_ARCH, get_config(TRAIN_ARCH).with_(fed_mode="scan", num_layers=FSDP_LAYERS),
+             FSDP_MODES, True),
             (f"{FSDP_MOE_ARCH}/vmap", moe.with_(fed_mode="vmap"),
              {"vmap": FSDP_MOE_MODES["vmap"]}, False),
             (f"{FSDP_MOE_ARCH}/scan", moe.with_(fed_mode="scan"),
@@ -5475,7 +5531,8 @@ def fsdp_phase(torch, smi):
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    rows = {"config": dict(grid=AXIS_GRID, moe_layers=FSDP_MOE_LAYERS, **TRAIN_RUN),
+    rows = {"config": dict(grid=AXIS_GRID, layers=FSDP_LAYERS, moe_layers=FSDP_MOE_LAYERS,
+                           **TRAIN_RUN),
             "one_card": {}}
     ref = {}
     for key, cfg, modes, _ in fsdp_runs():
@@ -5765,6 +5822,686 @@ def fsdp_only(torch, smi, name, cards_only: bool = False) -> None:
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
 
+def serve_reckoning(arch: str, global_batch: int) -> dict:
+    """A rank's bytes (GB) serving ``arch``'s ``decode_32k`` cut to
+    ``global_batch`` sequences on a (data 2, model 2) grid, from the specs
+    (meta): ``weights``, its blocks of the weights (no FSDP); ``cache``, its
+    ``cache_pspec`` blocks; ``widen``, a decode step's f32 copies of one
+    layer's k and v blocks (the step's largest transient); ``logits``, its
+    rows' f32 logits over the whole vocabulary and their vocab block.
+    ``peak`` is their sum."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sharding import block_shape
+    from repro_torch.launch.specs import arg_specs, input_specs, rank_bytes
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    grid = make_test_mesh(**AXIS_GRID)
+    bundle = input_specs(build_model(cfg), "decode_32k", grid, global_batch=global_batch)
+    specs = arg_specs(cfg, bundle, grid)
+    k = bundle.args[1]["layers"][0]
+    block = block_shape(tuple(k.shape), specs[1]["layers"][0], grid)
+    layer = 1
+    for n in block[1:]:
+        layer *= n
+    out = {"weights": rank_bytes(bundle.args[0], specs[0], grid),
+           "cache": rank_bytes(bundle.args[1], specs[1], grid),
+           "widen": 2 * layer * 4, "logits": block[1] * cfg.vocab_size * 4 * 3 // 2}
+    out = {key: v / 1e9 for key, v in out.items()}
+    out["peak"] = sum(out.values())
+    out["cache_whole"] = sum(t.numel() * t.element_size() for t in leaves(bundle.args[1])) / 1e9
+    return out
+
+
+def teacher_logits(torch, model, params, prompts, tokens, size: int, steps: int):
+    """(B, 1 + steps, V) f32 on the host: the prefill's last logits, then
+    ``steps`` decode steps fed ``tokens[:, t]`` (the whole batch's; a grid
+    model keeps its rows), a linear cache of ``size`` slots."""
+    logits, cache = model.prefill(params, {"tokens": prompts}, cache_size=size)
+    out = [logits.cpu()]
+    for t in range(steps):
+        logits, cache = model.decode_step(params, cache, tokens[:, t], cache_size=size)
+        out.append(logits.cpu())
+    return torch.stack(out, dim=1)
+
+
+def top2_margin(torch, logits):
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def bf16_bound(torch, want):
+    """The bound of bf16 logits held to one card's ``want`` (.., V): each
+    row's ``GRID_BF16_REL`` of its largest |logit|; twice it is a
+    near-tie."""
+    return GRID_BF16_REL * want.abs().amax(-1)
+
+
+def leaves_one_card_at(torch, label, got, want, margins, bounds) -> list:
+    """Each row's first step where greedy tokens ``got`` leave one card's
+    ``want`` (None: never); there one card's top-2 margin (``margins``,
+    rows x steps) must be below twice its ``bounds``, a near-tie that bf16
+    rounding may decide either way (after it each run follows its own
+    tokens)."""
+    out = []
+    for i in range(got.shape[0]):
+        differ = (got[i] != want[i]).nonzero()
+        at = int(differ[0]) if len(differ) else None
+        if at is not None and float(margins[i, at]) > 2 * float(bounds[i, at]):
+            raise AssertionError(f"serve [{label}]: row {i} leaves one card's tokens at step {at}"
+                                 f" past one card's margin {float(margins[i, at])}")
+        out.append(at)
+    return out
+
+
+def grid_olmoe_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config(FSDP_MOE_ARCH).with_(num_layers=FSDP_MOE_LAYERS, param_dtype="float32",
+                                           compute_dtype="float32", use_pallas_attention=True)
+
+
+def grid_serve_one_card(torch):
+    """Phase R's one-card references: smollm-135m bf16 served by
+    ``generate`` (its tokens) and teacher-forced with them (every step's
+    logits), the f32 copy teacher-forced for ``GRID_F32_STEPS``, olmoe (cut,
+    f32) served and teacher-forced."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    cfg16, p16, _ = smollm_forward_inputs(torch)
+    cfg16 = cfg16.with_(use_pallas_attention=True)
+    b, p, gen = SERVE_LLM.values()
+    prompts = serve_prompts(torch, cfg16.vocab_size, b, p, 2)
+    refs = {"prompts": prompts.cpu()}
+    with torch.no_grad():
+        model = build_model(cfg16)
+        res = generate(model, p16, prompts, gen=gen, ring=False, cache_size=p + gen)
+        refs["bf16_tokens"], refs["bf16_ms"] = res.tokens.cpu(), res.times
+        del res
+        refs["bf16"] = teacher_logits(torch, model, p16, prompts, refs["bf16_tokens"].cuda(),
+                                      p + gen, gen - 1)
+        cfg32, p32 = as_f32(cfg16, p16)
+        del p16
+        refs["f32"] = teacher_logits(torch, build_model(cfg32), p32, prompts,
+                                     refs["bf16_tokens"].cuda(), p + gen, GRID_F32_STEPS)
+        del p32
+        torch.cuda.empty_cache()
+        cfg = grid_olmoe_cfg()
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        model = build_model(cfg)
+        params = model.init(g, "cuda")
+        ob, op, og = OLMOE_SERVE.values()
+        oprompts = serve_prompts(torch, cfg.vocab_size, ob, op, 4)
+        res = generate(model, params, oprompts, gen=og, ring=False, cache_size=op + og)
+        refs["olmoe_prompts"], refs["olmoe_tokens"] = oprompts.cpu(), res.tokens.cpu()
+        refs["olmoe"] = teacher_logits(torch, model, params, oprompts, res.tokens, op + og,
+                                       og - 1)
+        del params, model, res
+    torch.cuda.empty_cache()
+    return refs
+
+
+def grid_served(torch, ops, grid, model, params, prompts, gen: int, size: int, key: str,
+                **generate_kw):
+    """``generate`` on this rank of the grid: the flash launches (this
+    rank's, all in the prefill), the cache's bytes against ``rank_bytes`` of
+    the reference's ``cache_pspec`` blocks, the collectives, ms, peak GB."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.sharding import cache_tree_pspecs
+    from repro_torch.launch.specs import rank_bytes
+    from repro_torch.models import build_model
+
+    cfg = model.config
+    ops.reset_launch_counts()
+    grid.clear_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = generate(model, params, prompts, gen=gen, ring=False, cache_size=size, **generate_kw)
+    torch.cuda.synchronize()
+    whole = build_model(cfg).init_cache(prompts.shape[0], size, device="meta")
+    t = res.times
+    return res, {
+        "tokens": res.tokens.cpu(), "launches": {n: c for n, c in ops.LAUNCH_COUNTS.items() if c},
+        "want_launches": {key: cfg.num_layers},
+        "cache_bytes": sum(x.numel() * x.element_size() for x in leaves(res.cache)),
+        "rank_bytes": rank_bytes(whole, cache_tree_pspecs(whole, grid), grid),
+        "all_reduces": dict(grid.all_reduces), "prefill_ms": t["prefill_s"] * 1e3,
+        "decode_ms_per_token": t["decode_s"] / t["decode_steps"] * 1e3,
+        "capture_s": t["capture_s"], "tokens_per_s": res.tokens.numel() / (
+            t["prefill_s"] + t["decode_s"]), "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def grid_teacher(torch, ops, grid, model, params, prompts, tokens, size, steps, key, path):
+    """``teacher_logits`` on this rank of the grid, saved to ``path``;
+    exactly L launches of ``key`` (the prefill's)."""
+    ops.reset_launch_counts()
+    logits = teacher_logits(torch, model, params, prompts, tokens, size, steps)
+    counts = {n: c for n, c in ops.LAUNCH_COUNTS.items() if c}
+    torch.save(logits, path)
+    return {"launches": counts, "want_launches": {key: model.config.num_layers}}
+
+
+def grid_serve_worker(tmp):
+    """One rank of phase R's gloo grid: smollm-135m bf16 served and
+    teacher-forced, its f32 copy teacher-forced, olmoe (cut, f32) served and
+    teacher-forced, fed the one-card tokens saved in ``tmp``; each run's
+    logits to ``tmp``.  Returns every rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
+    from repro_torch.models import build_model
+
+    t_worker = time.perf_counter()
+    grid = make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda:0")
+    ref = torch.load(Path(tmp) / "ref.pt")
+    dev = grid.device
+    b, p, gen = SERVE_LLM.values()
+    prompts, tokens = ref["prompts"].to(dev), ref["bf16_tokens"].to(dev)
+    mine = {"rank": grid.rank, "coords": dict(grid.coords), "runs": {}, "teacher": {}}
+
+    def saved(name):
+        return str(Path(tmp) / f"{name}.rank{grid.rank}.pt")
+
+    with torch.no_grad():
+        cfg16 = get_config("smollm-135m").with_(use_pallas_attention=True)
+        model = build_model(cfg16, grid=grid)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        params = model.init(g, dev)
+        res, mine["runs"]["smollm-135m bf16"] = grid_served(
+            torch, ops, grid, model, params, prompts, gen, p + gen, "flash_attn_tc")
+        del res
+        mine["teacher"]["bf16"] = grid_teacher(torch, ops, grid, model, params, prompts, tokens,
+                                               p + gen, GRID_TF_STEPS, "flash_attn_tc",
+                                               saved("bf16"))
+        cfg32, params = as_f32(cfg16, params)
+        mine["teacher"]["f32"] = grid_teacher(
+            torch, ops, grid, build_model(cfg32, grid=grid), params, prompts, tokens, p + gen,
+            GRID_F32_STEPS, "flash_attn", saved("f32"))
+        del params
+        torch.cuda.empty_cache()
+        cfg = grid_olmoe_cfg()
+        model = build_model(cfg, grid=grid)
+        g.manual_seed(0)
+        params = model.init(g, dev)
+        ob, op, og = OLMOE_SERVE.values()
+        oprompts = ref["olmoe_prompts"].to(dev)
+        res, mine["runs"]["olmoe-1b-7b f32"] = grid_served(
+            torch, ops, grid, model, params, oprompts, og, op + og, "flash_attn")
+        del res
+        mine["teacher"]["olmoe"] = grid_teacher(
+            torch, ops, grid, model, params, oprompts, ref["olmoe_tokens"].to(dev), op + og,
+            og - 1, "flash_attn", saved("olmoe"))
+        del params
+    mine["worker_s"] = time.perf_counter() - t_worker
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return ranks
+
+
+def grid_decisions(torch, label, got, want, f32: bool) -> dict:
+    """One rank's teacher-forced logits ``got`` (rows, steps, V) against
+    one card's ``want`` on the same rows: how far outside their bound (f32:
+    the prefill's at ``FWD_TOL``, each step's at ``SERVE_TF_TOL[1]``; bf16:
+    ``bf16_bound``), and the greedy decisions, which must agree wherever
+    one card's top-2 margin exceeds twice the bf16 bound (f32:
+    everywhere)."""
+    diff = (got - want).abs().amax(-1)
+    margin = top2_margin(torch, want)
+    differ = got.argmax(-1) != want.argmax(-1)
+    if f32:
+        outside = max(beyond(torch, got[:, 0], want[:, 0], FWD_TOL),
+                      beyond(torch, got[:, 1:], want[:, 1:], SERVE_TF_TOL[1]))
+        wrong = differ
+    else:
+        bound = bf16_bound(torch, want)
+        outside = float((diff - bound).max())
+        wrong = differ & (margin > 2 * bound)
+    row = {"max_abs_diff": float((got - want).abs().max()), "outside": outside,
+           "decisions": differ.numel(), "differ": int(differ.sum()), "wrong": int(wrong.sum()),
+           "min_margin": float(margin.min())}
+    if outside > 0 or row["wrong"]:
+        raise AssertionError(f"serve grid [{label}]: teacher-forced logits {outside:.3e} outside "
+                             f"their bound of one card's, or {row['wrong']} decisions differ "
+                             f"beyond a near-tie: {row}")
+    return row
+
+
+def serve_grid_phase(torch, ops, smi):
+    """Phase R: serving on a (data 2, model 2) grid (see ``GRID_BF16_REL``).
+    Returns the rows and the flash launches the ranks counted (summed over
+    them).  With four cards or more, ``serve_cards``."""
+    import tempfile
+
+    from repro_torch.launch.shards import spawn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    refs = grid_serve_one_card(torch)
+    rows = {"config": {"smollm": SERVE_LLM, "olmoe": dict(OLMOE_SERVE, layers=FSDP_MOE_LAYERS),
+                       "grid": AXIS_GRID}}
+    b1 = refs["bf16_ms"]
+    rows["one_card_bf16"] = {"prefill_ms": b1["prefill_s"] * 1e3,
+                             "decode_ms_per_token": b1["decode_s"] / b1["decode_steps"] * 1e3}
+    launches = {"flash_attn": 0, "flash_attn_tc": 0}
+    with tempfile.TemporaryDirectory(prefix="serve_grid_") as tmp:
+        torch.save({k: refs[k] for k in ("prompts", "bf16_tokens", "olmoe_prompts",
+                                         "olmoe_tokens")}, Path(tmp) / "ref.pt")
+        t0 = time.perf_counter()
+        ranks = spawn(grid_serve_worker, 4, backend="gloo", device="cuda:0", args=(tmp,))
+        rows["spawn_wall_s"] = time.perf_counter() - t0
+        rows["ranks"] = []
+        for rank in ranks:
+            d = rank["coords"]["data"]
+
+            def mine(t):   # this rank's rows of one card's (B, ...) tensor
+                half = t.shape[0] // AXIS_GRID["data"]
+                return t[d * half:(d + 1) * half]
+
+            sel = {name: rank["runs"][name] for name in ("smollm-135m bf16", "olmoe-1b-7b f32")}
+            bf16, moe = sel["smollm-135m bf16"], sel["olmoe-1b-7b f32"]
+            toks = bf16.pop("tokens")
+            bf16["tokens_equal_one_card"] = bool(torch.equal(toks, mine(refs["bf16_tokens"])))
+            bf16["first_differing_step"] = leaves_one_card_at(
+                torch, f"smollm-135m bf16 generate rank {rank['rank']}", toks,
+                mine(refs["bf16_tokens"]), top2_margin(torch, mine(refs["bf16"])),
+                bf16_bound(torch, mine(refs["bf16"])))
+            moe["tokens_equal_one_card"] = bool(torch.equal(moe.pop("tokens"),
+                                                            mine(refs["olmoe_tokens"])))
+            if not moe["tokens_equal_one_card"]:
+                raise AssertionError(f"serve grid [olmoe f32]: rank {rank['rank']}'s generated "
+                                     "tokens differ from one card's")
+            for name, run in list(sel.items()) + list(rank["teacher"].items()):
+                if run["launches"] != run["want_launches"]:
+                    raise AssertionError(f"serve grid [{name}]: rank {rank['rank']} launched "
+                                         f"{run['launches']}, expected {run['want_launches']}")
+                for key, n in run["launches"].items():
+                    launches[key] += n
+            for name, run in sel.items():
+                if run["cache_bytes"] != run["rank_bytes"]:
+                    raise AssertionError(f"serve grid [{name}]: rank {rank['rank']} holds "
+                                         f"{run['cache_bytes']} bytes of cache, its cache_pspec "
+                                         f"blocks {run['rank_bytes']}")
+            checks = {}
+            for name, f32 in (("bf16", False), ("f32", True), ("olmoe", True)):
+                got = torch.load(Path(tmp) / f"{name}.rank{rank['rank']}.pt")
+                checks[name] = grid_decisions(torch, f"{name} rank {rank['rank']}", got,
+                                              mine(refs[name])[:, :got.shape[1]], f32)
+            rows["ranks"].append({"rank": rank["rank"], "coords": rank["coords"], "runs": sel,
+                                  "teacher": checks, "worker_s": rank["worker_s"]})
+    for r in rows["ranks"]:
+        for name, run in r["runs"].items():
+            print(f"serve grid [{name}, rank {r['rank']} {r['coords']}, 4 gloo ranks on one card] "
+                  f"({smi}): prefill_ms={run['prefill_ms']:.1f} decode ms/token (eager)="
+                  f"{run['decode_ms_per_token']:.2f} tokens/s={run['tokens_per_s']:.1f} "
+                  f"cache {run['cache_bytes']} bytes = rank_bytes; launches {run['launches']}; "
+                  f"all-reduces {run['all_reduces']}; peak_GB={run['peak_gb']:.3f}; tokens = one "
+                  f"card's {run['tokens_equal_one_card']}"
+                  + (f" (each row leaves them at step {run['first_differing_step']}, a "
+                     "near-tie; None: never)" if "first_differing_step" in run else ""))
+        for name, c in r["teacher"].items():
+            beyond_tie = " beyond a near-tie" if name == "bf16" else ""
+            print(f"serve grid [{name} teacher-forced, rank {r['rank']}]: max |logit diff| "
+                  f"{c['max_abs_diff']:.3e} (outside its bound by {c['outside']:.3e}), "
+                  f"{c['differ']} of {c['decisions']} decisions differ, none{beyond_tie} (min "
+                  f"margin {c['min_margin']:.3e})")
+    rows["launches"] = launches
+    cards = torch.cuda.device_count()
+    rows["cards"] = serve_cards(torch, smi) if cards >= 4 else f"did not run: {cards} card(s)"
+    rows["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve grid: phase {rows['phase_s']:.1f} s, spawn {rows['spawn_wall_s']:.1f} s; "
+          f"flash launches {launches} ({smi})")
+    return rows, launches
+
+
+def cards_one_card(torch, arch: str, params, rows: tuple, global_batch: int):
+    """One card's ``decode_32k`` step on ``rows`` of the seeded bundle
+    (``input_specs``' cache slabs and tokens, drawn for those rows alone):
+    (B, V) f32 logits on the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import INPUT_SHAPES, cache_slab
+    from repro_torch.models import build_model
+
+    model = build_model(get_config(arch))
+    seq = INPUT_SHAPES["decode_32k"]["seq"]
+    cache = model.init_cache(len(rows), seq, device="cuda")
+    for n, t in enumerate(cache["layers"]):
+        for layer in range(t.shape[0]):
+            for i, r in enumerate(rows):
+                t[layer, i].copy_(cache_slab(tuple(t.shape[2:]), t.dtype, t.device, seed=2,
+                                             leaf=n, layer=layer, row=r))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    tokens = torch.randint(0, model.config.vocab_size, (global_batch,), generator=g,
+                           dtype=torch.int32, device="cuda")[list(rows)]
+    pos = torch.full((len(rows),), seq - 1, dtype=torch.int32, device="cuda")
+    cache["pos"].copy_(pos)
+    with torch.no_grad():
+        logits = model.decode_step(params, cache, tokens, pos)[0].cpu()
+    del cache
+    torch.cuda.empty_cache()
+    return logits
+
+
+def cards_refs(torch):
+    """The four-card half's one-card references on card 0: each
+    ``SERVE_CARDS`` arch's decode step on its sampled rows, and
+    ``SERVE_CARDS_GEN``'s greedy tokens with every step's logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    refs = {"decode": {}}
+    for arch, (gb, rows) in SERVE_CARDS.items():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        params = build_model(get_config(arch)).init(g, "cuda")
+        t0 = time.perf_counter()
+        refs["decode"][arch] = cards_one_card(torch, arch, params, rows, gb)
+        print(f"serve cards [{arch}, one card]: decode_32k on rows {rows} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if arch == SERVE_CARDS_GEN["arch"]:
+            model = build_model(get_config(arch).with_(use_pallas_attention=True))
+            b, p, n = (SERVE_CARDS_GEN[k] for k in ("B", "P", "gen"))
+            prompts = serve_prompts(torch, model.config.vocab_size, b, p, 6)
+            with torch.no_grad():
+                res = generate(model, params, prompts, gen=n, ring=False, cache_size=p + n)
+                refs["gen_prompts"], refs["gen_tokens"] = prompts.cpu(), res.tokens.cpu()
+                del res
+                logits = teacher_logits(torch, model, params, prompts, refs["gen_tokens"].cuda(),
+                                        p + n, n - 1)
+                refs["gen_margins"] = top2_margin(torch, logits)
+                refs["gen_bounds"] = bf16_bound(torch, logits)
+                del logits
+        del params
+        torch.cuda.empty_cache()
+    return refs
+
+
+def cards_decode(torch, grid, arch: str, global_batch: int, sample: tuple):
+    """One NCCL rank's ``decode_32k`` of ``arch`` on the grid: the bundle
+    from ``input_specs(model, "decode_32k", grid, device="cuda")``, its
+    cache's bytes against ``rank_bytes``, the eager ``build_step`` step and
+    a captured ``DecodeProgram`` replay from the same state equal bit for
+    bit, ms a step (replays, the state restored before each), a traced
+    replay's collective share (rank 0), peak GB; the logits of the sampled
+    rows this rank holds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import DecodeProgram
+    from repro_torch.launch.specs import INPUT_SHAPES, arg_specs, input_specs, rank_bytes
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    model = build_model(cfg, grid=grid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = input_specs(model, "decode_32k", grid, device=grid.device, global_batch=global_batch)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    params, cache, tokens, pos = bundle.args
+    whole = input_specs(build_model(cfg), "decode_32k", grid, global_batch=global_batch)
+    want = rank_bytes(whole.args[1], arg_specs(cfg, whole, grid)[1], grid)
+    held = sum(t.numel() * t.element_size() for t in leaves(cache))
+    S, p = bundle.meta["cache_size"], INPUT_SHAPES["decode_32k"]["seq"] - 1
+    kv = cache["layers"]
+    slots = kv[0].shape[2]
+    at = p - (grid.index("model") * slots if slots < S else 0)
+    at = min(max(at, 0), slots - 1)
+    snap = [t[:, :, at].clone() for t in kv]
+    step = build_step(model, bundle)
+    prog = DecodeProgram(model, params, cache, ring=False, greedy=True, cache_size=S)
+
+    def restore():
+        for t, s in zip(kv, snap):
+            t[:, :, at].copy_(s)
+        cache["pos"].copy_(pos)
+        prog.tok.copy_(tokens)
+
+    def state(logits):
+        return [logits.clone(), *(t[:, :, at].clone() for t in kv), cache["pos"].clone()]
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    with torch.no_grad():
+        restore()
+        grid.clear_counts()
+        logits, _ = step(params, cache, tokens, pos)
+        eager, collectives = state(logits), dict(grid.all_reduces)
+        eager_ms = []
+        for _ in range(3):
+            restore()
+            eager_ms.append(timed(lambda: step(params, cache, tokens, pos)))
+        restore()
+        prog.capture()
+        restore()
+        prog.run()
+        graph = state(prog.logits)
+        replay_ms = []
+        for _ in range(SERVE_CARDS_REPLAYS):
+            restore()
+            replay_ms.append(timed(prog.run))
+        restore()
+        torch.cuda.synchronize()
+        trace_row = None
+        if grid.rank == 0:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                w0 = time.perf_counter()
+                prog.run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - w0) * 1e3
+            spans = device_spans(torch, prof)
+            nccl = [s for s in spans if "nccl" in s[2].lower()]
+            trace_row = {"wall_ms": wall, "device_busy_ms": busy_us(spans) / 1e3,
+                         "collective_device_ms": busy_us(nccl) / 1e3,
+                         "collective_kernels": len(nccl)}
+        else:
+            prog.run()
+            torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(eager, graph))
+    r0 = grid.index("data") * tokens.shape[0]
+    mine = {r: eager[0][r - r0].cpu() for r in sample if r0 <= r < r0 + tokens.shape[0]}
+    ms = median_of(replay_ms)
+    row = {"B": global_batch, "rows": tokens.shape[0], "cache_slots_held": slots,
+           "cache_bytes": held, "rank_bytes": want, "draw_s": draw_s,
+           "graph_equals_eager": same, "finite": bool(torch.isfinite(eager[0]).all()),
+           "pos_after": eager[-1].tolist()[:2], "graph_ms_per_step": ms,
+           "eager_ms_per_step": median_of(eager_ms), "tokens_per_s": global_batch / (ms / 1e3),
+           "capture_s": prog.capture_s, "all_reduces_a_step": collectives,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "trace": trace_row}
+    del prog, step, bundle, cache, kv, snap, params, eager, graph
+    torch.cuda.empty_cache()
+    return row, mine
+
+
+def serve_cards_worker(ref_path):
+    """One NCCL rank of the four-card half: ``cards_decode`` for each
+    ``SERVE_CARDS`` arch, then ``SERVE_CARDS_GEN``'s ``generate`` with its
+    decode step captured under NCCL.  Returns every rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
+    from repro_torch.models import build_model
+
+    t_worker = time.perf_counter()
+    grid = make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda")
+    ref = torch.load(ref_path)
+    mine = {"rank": grid.rank, "coords": dict(grid.coords), "decode": {}, "sampled": {}}
+    for arch, (gb, sample) in SERVE_CARDS.items():
+        mine["decode"][arch], mine["sampled"][arch] = cards_decode(torch, grid, arch, gb, sample)
+    s = SERVE_CARDS_GEN
+    model = build_model(get_config(s["arch"]).with_(use_pallas_attention=True), grid=grid)
+    g = torch.Generator(device=grid.device)
+    g.manual_seed(0)
+    params = model.init(g, grid.device)
+    with torch.no_grad():
+        res, row = grid_served(torch, ops, grid, model, params, ref["gen_prompts"].to(grid.device),
+                               s["gen"], s["P"] + s["gen"], "flash_attn_tc")
+    row["captured"] = res.times["capture_s"] > 0
+    mine["generate"] = row
+    del res, params
+    mine["worker_s"] = time.perf_counter() - t_worker
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return ranks
+
+
+def serve_cards(torch, smi):
+    """The four-card half of phase R: the per-rank reckoning
+    (``serve_reckoning``), one card's references (``cards_refs``), then
+    ``serve_cards_worker`` on one NCCL rank a card: every rank's cache
+    exactly its ``cache_pspec`` blocks, each decode step graph = eager bit
+    for bit and finite, the sampled rows' logits within ``bf16_bound`` of
+    one card's and their greedy decisions equal beyond a near-tie;
+    ``generate``'s step captured, L flash launches a rank, its tokens one
+    card's up to a near-tie.  Returns the rows."""
+    import tempfile
+
+    from repro_torch.launch.shards import spawn
+
+    rows = {"reckoning": {arch: serve_reckoning(arch, gb) for arch, (gb, _) in
+                          SERVE_CARDS.items()}}
+    for arch, r in rows["reckoning"].items():
+        print(f"serve cards [{arch} decode_32k B={SERVE_CARDS[arch][0]}]: reckoned a rank (GB): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in r.items()), flush=True)
+    t0 = time.perf_counter()
+    refs = cards_refs(torch)
+    rows["refs_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="serve_cards_") as tmp:
+        path = str(Path(tmp) / "ref.pt")
+        torch.save({k: refs[k] for k in ("gen_prompts",)}, path)
+        t0 = time.perf_counter()
+        ranks = spawn(serve_cards_worker, 4, backend="nccl", device="cuda", args=(path,))
+        rows["spawn_wall_s"] = time.perf_counter() - t0
+    rows["ranks"] = ranks
+    for arch, (gb, sample) in SERVE_CARDS.items():
+        reck = rows["reckoning"][arch]
+        for rank in ranks:
+            d = rank["decode"][arch]
+            if d["cache_bytes"] != d["rank_bytes"] or not d["graph_equals_eager"] or \
+                    not d["finite"] or d["pos_after"] != [32768] * 2:
+                raise AssertionError(f"serve cards [{arch}]: rank {rank['rank']}: {d}")
+            print(f"serve cards [{arch} decode_32k B={gb}, rank {rank['rank']} {rank['coords']}, "
+                  f"NCCL] ({smi}): {d['rows']} rows x {d['cache_slots_held']} slots, cache "
+                  f"{d['cache_bytes'] / 1e9:.2f} GB = rank_bytes; ms/step replayed="
+                  f"{d['graph_ms_per_step']:.2f} eager={d['eager_ms_per_step']:.2f} "
+                  f"tokens/s={d['tokens_per_s']:.0f} capture_s={d['capture_s']:.2f} draw_s="
+                  f"{d['draw_s']:.1f} peak_GB={d['peak_gb']:.2f} (reckoned {reck['peak']:.2f}) "
+                  f"all-reduces a step {d['all_reduces_a_step']}; graph = eager bit for bit")
+            for r, got in rank["sampled"][arch].items():
+                want = refs["decode"][arch][sample.index(r)]
+                diff = float((got - want).abs().max())
+                margin = float(top2_margin(torch, want))
+                bound = float(bf16_bound(torch, want))
+                agree = int(got.argmax()) == int(want.argmax())
+                if diff > bound or (not agree and margin > 2 * bound):
+                    raise AssertionError(f"serve cards [{arch}]: row {r} on rank {rank['rank']}: "
+                                         f"max |logit diff| {diff} to one card, decision equal "
+                                         f"{agree} at margin {margin}")
+                print(f"serve cards [{arch}]: row {r} (rank {rank['rank']}) vs one card: max "
+                      f"|logit diff| {diff:.3e} (bound {bound:.3e}), greedy decision equal "
+                      f"{agree} (margin {margin:.3e})")
+        for rank in ranks:
+            rank["sampled"].pop(arch)
+        t = ranks[0]["decode"][arch]["trace"]
+        print(f"serve cards [{arch}] traced replay on rank 0: wall {t['wall_ms']:.2f} ms, device "
+              f"busy {t['device_busy_ms']:.2f} ms, {t['collective_kernels']} collective kernels "
+              f"{t['collective_device_ms']:.3f} ms (share of the wall "
+              f"{t['collective_device_ms'] / t['wall_ms']:.4f}) ({smi})")
+    s = SERVE_CARDS_GEN
+    want = refs["gen_tokens"]
+    for rank in ranks:
+        gr = rank["generate"]
+        d, half = rank["coords"]["data"], want.shape[0] // AXIS_GRID["data"]
+        gr["first_differing_step"] = leaves_one_card_at(
+            torch, f"{s['arch']} generate rank {rank['rank']}", gr.pop("tokens"),
+            want[d * half:(d + 1) * half], refs["gen_margins"][d * half:(d + 1) * half],
+            refs["gen_bounds"][d * half:(d + 1) * half])
+        if gr["launches"] != gr["want_launches"] or gr["cache_bytes"] != gr["rank_bytes"] \
+                or not gr["captured"]:
+            raise AssertionError(f"serve cards [{s['arch']} generate]: rank {rank['rank']}: {gr}")
+        print(f"serve cards [{s['arch']} generate B={s['B']} prompt={s['P']} gen={s['gen']}, rank "
+              f"{rank['rank']}, NCCL, decode captured] ({smi}): prefill_ms={gr['prefill_ms']:.1f} "
+              f"decode ms/token (graph)={gr['decode_ms_per_token']:.3f} tokens/s="
+              f"{gr['tokens_per_s']:.1f} capture_s={gr['capture_s']:.2f} launches "
+              f"{gr['launches']} peak_GB={gr['peak_gb']:.2f}; tokens leave one card's at steps "
+              f"{gr['first_differing_step']} (None: never)")
+    return rows
+
+
+def serve_grid_summary(smi, rows):
+    """Phase R's lines with the card's name and power limit."""
+    for r in rows["ranks"][:1]:
+        for name, run in r["runs"].items():
+            print(f"serve grid summary [{name}, (data 2, model 2) gloo ranks on one card] ({smi}): "
+                  f"prefill_ms={run['prefill_ms']:.1f} decode ms/token (eager)="
+                  f"{run['decode_ms_per_token']:.2f} tokens/s={run['tokens_per_s']:.1f} "
+                  f"(one card bf16 decode {rows['one_card_bf16']['decode_ms_per_token']:.3f} "
+                  f"ms/token, graph); phase {rows['phase_s']:.1f} s")
+    serve_cards_summary(smi, rows["cards"])
+
+
+def serve_cards_summary(smi, c):
+    """Phase R's four-card lines."""
+    if not isinstance(c, dict):
+        print(f"serve grid summary [4 cards, NCCL] ({smi}): {c}")
+        return
+    for arch in SERVE_CARDS:
+        d = c["ranks"][0]["decode"][arch]
+        t = d["trace"]
+        print(f"serve grid summary [{arch} decode_32k B={SERVE_CARDS[arch][0]}, (data 2, model 2) "
+              f"NCCL] ({smi}): ms/step={d['graph_ms_per_step']:.2f} tokens/s="
+              f"{d['tokens_per_s']:.0f} peak_GB a rank="
+              f"{max(r['decode'][arch]['peak_gb'] for r in c['ranks']):.2f} (reckoned "
+              f"{c['reckoning'][arch]['peak']:.2f}) collective device share="
+              f"{t['collective_device_ms'] / t['wall_ms']:.4f}")
+    gr = c["ranks"][0]["generate"]
+    print(f"serve grid summary [{SERVE_CARDS_GEN['arch']} generate, NCCL, captured] ({smi}): "
+          f"decode ms/token={gr['decode_ms_per_token']:.3f} tokens/s={gr['tokens_per_s']:.1f}")
+
+
+def serve_grid_only(torch, ops, smi, name, cards_only: bool = False) -> None:
+    """``--phase R``: phase R alone (its four-card half where there are
+    four cards), its numbers to ``chiprun_out/chip_smoke_serve_grid.json``;
+    ``--phase R4`` (``cards_only``): the four-card half alone, to
+    ``chip_smoke_serve_cards.json``."""
+    if cards_only:
+        if torch.cuda.device_count() < 4:
+            fail(f"--phase R4 needs four cards, this machine has {torch.cuda.device_count()}")
+        rows = {"cards": serve_cards(torch, smi)}
+    else:
+        rows, _ = serve_grid_phase(torch, ops, smi)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"chip_smoke_serve_{'cards' if cards_only else 'grid'}.json").write_text(
+        json.dumps({"nvidia_smi": smi, "device": name, "torch": torch.__version__,
+                    "serve_grid": rows}, indent=1, default=str))
+    if cards_only:
+        serve_cards_summary(smi, rows["cards"])
+    else:
+        serve_grid_summary(smi, rows)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
 def production_phase(torch, ops, ref, smi):
     """Phase D: smollm-135m at the reference's production input shapes.
     Returns the rows and the flash launches of its kernel-route runs (the
@@ -5988,6 +6725,9 @@ def main() -> None:
     t0 = time.perf_counter()
     path, log = build.build_library()
     print(f"build: {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] in (["--phase", "R"], ["--phase", "R4"]):   # the flash kernels run there
+        serve_grid_only(torch, ops, smi, name, cards_only=sys.argv[2] == "R4")
+        return
     for line in log.splitlines():
         if "Compiling entry function" in line:  # the mangled kernel name, template args
             print("  " + line.split("'")[1].split("_cu_")[-1].lstrip("0123456789")[:72])
@@ -6023,13 +6763,15 @@ def main() -> None:
     shards, shard_launches = shard_phase(torch, ops, smi, min_rounds_to_block)
     model_axis = model_axis_phase(torch, smi)
     fsdp = fsdp_phase(torch, smi)
+    serve_grid, serve_grid_launches = serve_grid_phase(torch, ops, smi)
     traces = [profile_phase(torch), lora_trace, *forward_profile_phase(torch), *fused_traces]
     traces += [serve_llm_trace, families_trace]
     for more in (serve_llm_launches, families_launches, production_launches,
                  baseline_launches, unmasked_launches,
                  lora_launches, lora_graph_launches,
                  eager_launches, graph_launches, sweep_launches, serve_launches,
-                 grid_launches, looped_launches, leaf_launches, shard_launches):
+                 grid_launches, looped_launches, leaf_launches, shard_launches,
+                 serve_grid_launches):
         for kernel, count in more.items():
             launches[kernel] += count
 
@@ -6076,6 +6818,7 @@ def main() -> None:
         "shards": shards,
         "model_axis": model_axis,
         "fsdp": fsdp,
+        "serve_grid": serve_grid,
         "launches": launches,
         "profile": traces,
     }, indent=1))
@@ -6090,6 +6833,7 @@ def main() -> None:
     shard_summary(smi, shards)
     model_axis_summary(smi, model_axis)
     fsdp_summary(smi, fsdp)
+    serve_grid_summary(smi, serve_grid)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -16,6 +16,15 @@ and replayed for every token: the counterpart of the reference's
 ``jax.jit(decode)``.  On the CPU, or with ``graph=False``,
 the same step runs eagerly.
 
+A model built on a grid (``build_model(cfg, grid=)``, dense or MoE) serves
+on it: every rank is given the whole batch of prompts, its prefill keeps
+the rank's rows over the data axes and its block of the cache, and the
+program's buffers hold that block and those rows; ``Generation.tokens``
+and ``.logits`` are this rank's rows.  Under NCCL the step is captured
+with its collectives as one CUDA graph; gloo's collectives cannot be
+captured, so under gloo (chosen by the group's backend) every step runs
+eagerly.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --requests 8 --batch 4 --prompt-len 2048 --gen 64 [--ring]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --reduced \\
@@ -76,11 +85,19 @@ class DecodeProgram:
     CUDA graph: one warm-up step on a side stream, then the capture.  The
     warm-up step writes into the cache buffer and advances its ``pos``, so a
     caller loads the buffers after ``capture()``, or fills them again.
-    ``run()`` replays the graph, or on the CPU calls ``step()``."""
+    ``run()`` replays the graph, or on the CPU calls ``step()``.
 
-    def __init__(self, model, params, cache: dict, *, ring: bool, greedy: bool):
+    On a grid model the buffers are this rank's block of the cache and its
+    rows, and ``cache_size`` the whole cache's slots.  ``capture()`` records
+    the step's collectives with it under NCCL and raises under gloo, whose
+    collectives cannot be captured (``run()`` then calls ``step()``).  The
+    grid's Python-side counters (``GridMesh.all_reduces``, ...) count the
+    collectives once, at capture; a replay does not count them again."""
+
+    def __init__(self, model, params, cache: dict, *, ring: bool, greedy: bool,
+                 cache_size: int | None = None):
         self.model, self.params, self.ring, self.greedy = model, params, ring, greedy
-        self.cache = cache
+        self.cache, self.cache_size = cache, cache_size
         b, dev = cache["pos"].shape[0], cache["pos"].device
         self.tok = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.logits = torch.zeros((b, model.config.vocab_size), dtype=torch.float32,
@@ -89,7 +106,8 @@ class DecodeProgram:
         self.capture_s = 0.0
 
     def step(self) -> None:
-        logits, _ = self.model.decode_step(self.params, self.cache, self.tok, ring=self.ring)
+        logits, _ = self.model.decode_step(self.params, self.cache, self.tok, ring=self.ring,
+                                           cache_size=self.cache_size)
         self.logits.copy_(logits)
         if self.greedy:
             self.tok.copy_(torch.argmax(logits, dim=-1))
@@ -99,6 +117,11 @@ class DecodeProgram:
         self.tok.copy_(tok)
 
     def capture(self) -> None:
+        grid = self.model.grid
+        if grid is not None and getattr(grid, "backend", None) != "nccl":
+            raise ValueError(f"a decode step on a {getattr(grid, 'backend', None)} grid cannot "
+                             "be captured: its "
+                             "collectives run on the host; run() steps it eagerly")
         dev = self.tok.device
         t0 = time.perf_counter()
         side = torch.cuda.Stream(device=dev)
@@ -107,7 +130,10 @@ class DecodeProgram:
             self.step()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        # on a grid the NCCL watchdog thread keeps querying its events while
+        # this thread captures: the capture restricts this thread alone
+        mode = "global" if grid is None else "thread_local"
+        with torch.cuda.graph(graph, stream=side, capture_error_mode=mode):
             self.step()
         torch.cuda.synchronize(dev)
         self.graph = graph
@@ -135,7 +161,8 @@ def generate(model, params, prompts: torch.Tensor, *, gen: int, ring: bool, cach
     ``gen - 1`` positions.
     ``temperature > 0`` samples with ``generator`` (on the prompts' device),
     else decoding is greedy.  On the card with ``graph=True`` each step is a
-    replay of one captured ``DecodeProgram``; ``programs`` (a dict the
+    replay of one captured ``DecodeProgram`` (on a grid model, under NCCL
+    only: a gloo grid steps eagerly); ``programs`` (a dict the
     caller keeps) holds the programs by (batch, cache size, ring, greedy) so
     that later batches of the same shape replay the same capture.  The
     returned cache is the program's buffers: a later call with the same
@@ -169,8 +196,9 @@ def generate(model, params, prompts: torch.Tensor, *, gen: int, ring: bool, cach
         if prog is None or prog.params is not params or prog.model is not model:
             prog = programs[key] = DecodeProgram(model, params,
                                                  tree_apply(torch.zeros_like, cache),
-                                                 ring=ring, greedy=greedy)
-            if graph and dev.type == "cuda":
+                                                 ring=ring, greedy=greedy, cache_size=cache_size)
+            if graph and dev.type == "cuda" and (
+                    model.grid is None or getattr(model.grid, "backend", None) == "nccl"):
                 prog.capture()
                 times["capture_s"] = prog.capture_s
         prog.load(cache, tok)

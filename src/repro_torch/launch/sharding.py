@@ -15,6 +15,12 @@ Parameter rules (name-based, applied per leaf):
   * FSDP (scan/remat modes): the largest remaining unsharded dim
     additionally -> ('pod','data')
 
+Cache rules (``cache_pspec``, ``cache_tree_pspecs``): a serving cache's
+stacked leaves (L or nseg, B, ...) split their batch over the data axes,
+and the kv heads (an SSM state's heads) over *model* where they divide it,
+else the slots where they do; its ``pos`` is a plain batch.
+``block_shape`` and ``block_start`` give a rank's block of a leaf.
+
 A dim is only sharded if its size divides the mesh-axis size; otherwise it
 is replicated.
 
@@ -182,6 +188,33 @@ def cache_pspec(shape: tuple, mesh, *, batch_dim: int = 1) -> tuple:
     return P(*spec)
 
 
+def cache_tree_pspecs(cache: dict, mesh) -> dict:
+    """The spec of every leaf of a serving cache (``model.init_cache``'s
+    tree, whole shapes): its ``pos`` as a plain batch (``batch_pspec``), the
+    stacked leaves (L or nseg, B, ...) by ``cache_pspec``, the batch at dim
+    1, as the reference's ``cache_specs`` lays them out."""
+    def one(pstr, leaf):
+        if pstr == "pos":
+            return batch_pspec(_shape(leaf), mesh, client_axis=False, per_client_batch=False)
+        return cache_pspec(_shape(leaf), mesh, batch_dim=1)
+
+    return _walk(cache, one)
+
+
+def block_shape(shape: tuple, spec: tuple, mesh) -> tuple:
+    """The shape of one rank's block of a leaf of ``shape`` under
+    ``spec``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n if e is None else n // _axis_size(mesh, e) for n, e in zip(shape, spec))
+
+
+def block_start(dim: int, shape: tuple, spec: tuple, mesh) -> int:
+    """Where this rank's block of dim ``dim`` starts (``mesh.coords``
+    placing the rank): 0 where the spec does not split it."""
+    e = spec[dim] if dim < len(spec) else None
+    return 0 if e is None else mesh.index(e) * (shape[dim] // _axis_size(mesh, e))
+
+
 def replicated(mesh) -> tuple:
     """The replicated spec."""
     del mesh
@@ -220,7 +253,8 @@ def take_shard(leaf: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 def shard_tree(tree, mesh, specs=None):
     """This rank's block of every leaf (``take_shard``); ``specs`` default
-    to the tree's parameter specs (``shard_params_tree``)."""
+    to the tree's parameter specs (``shard_params_tree``); a serving cache
+    takes ``cache_tree_pspecs``."""
     specs = shard_params_tree(tree, mesh) if specs is None else specs
     return _map2(tree, specs, lambda leaf, spec: take_shard(leaf, spec, mesh))
 

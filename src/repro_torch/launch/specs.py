@@ -10,8 +10,10 @@ shardings; here the arguments are tensors made on ``device``:
 * a real device (``"cuda"``, or ``"cpu"`` for tests) makes real tensors:
   the weights through ``model.init`` with a ``torch.Generator`` seeded 0,
   the tokens and embeddings from one seeded 1, a cache's float leaves
-  from one seeded 2 (normals); a decode step's ``pos`` is ``seq - 1``,
-  every earlier position in the cache.
+  normals from seed 2, one generator for each (leaf, layer, row) slab
+  (``cache_slab``), so that any block of rows, heads or slots is drawn
+  alone; a decode step's ``pos`` is ``seq - 1``, every earlier position in
+  the cache.
 
 Where the reference takes a mesh, ``client_rows`` is the number of its
 client rows (``num_client_rows(mesh)``, ``repro/launch/mesh.py``): one card
@@ -21,6 +23,17 @@ for the rows of a larger mesh (the clients of a ``vmap`` round).  A mesh
 ``meta`` then also records its axes, and ``arg_specs`` gives every
 argument's spec on it, as the reference's ``input_specs`` annotates them
 (``launch.sharding``), and ``rank_bytes`` the bytes one rank holds.
+
+A model built on a grid (``build_model(cfg, grid=)``, a ``GridMesh``, or
+a ``MeshShape`` placed by ``at`` on ``meta``) gives this rank's blocks:
+its weights (``model.init``), its block of a cache (its rows over the data
+axes, its kv heads or slots over ``model``: ``cache_tree_pspecs``), each
+slab drawn alone so that no whole leaf is held (llama3-8b's stacked k leaf
+at ``decode_32k`` is 68.7 GB), holding the values of the same rows of a
+one-card cache of the same seed, and its rows of a decode step's tokens
+and positions.  A prefill's or a training round's batch stays whole: the
+model keeps its rows (``models/model.py``).  ``client_rows`` is then the
+model's grid or its shape.
 """
 
 from __future__ import annotations
@@ -34,10 +47,12 @@ from repro_torch.core.reputation import ReputationState
 from repro_torch.launch.mesh import num_client_rows
 from repro_torch.launch.sharding import (
     batch_pspec,
-    cache_pspec,
+    block_start,
+    cache_tree_pspecs,
     replicated,
     shard_bytes,
     shard_params_tree,
+    take_shard,
 )
 from repro_torch.models.model import tree_apply
 
@@ -125,14 +140,67 @@ def reputation_specs(K: int, device="meta") -> ReputationState:
     )
 
 
+def _slab_seed(seed: int, leaf: int, layer: int, row: int) -> int:
+    """The seed of one (leaf, layer, row) slab of a seeded cache."""
+    return (((seed * 1_000_003 + leaf) * 1_000_003 + layer) * 1_000_003 + row) % (1 << 63)
+
+
+def cache_slab(shape: tuple, dtype, device, *, seed: int, leaf: int, layer: int,
+               row: int) -> torch.Tensor:
+    """Row ``row`` of layer ``layer`` of the ``leaf``-th float leaf of a
+    seeded cache: normals of ``shape`` (the leaf's dims after its row) from
+    their own generator."""
+    gen = _generator(device, _slab_seed(seed, leaf, layer, row))
+    return torch.empty(shape, dtype=dtype, device=device).normal_(generator=gen)
+
+
+def _float_leaves(tree, path=()):
+    """(path, leaf) of a cache tree's float leaves, in tree order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _float_leaves(v, path + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _float_leaves(v, path + (i,))
+    elif tree.is_floating_point():
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def cache_specs(model, batch: int, cache_size: int, *, device="meta", seed: int = 2) -> dict:
     """``model.init_cache`` on ``device``; on a real device every float
-    leaf is filled with normals from ``seed``."""
+    leaf (stacked: layer, row, ...) is filled with ``cache_slab``'s normals
+    of ``seed``.  On a grid model: this rank's block, each slab drawn whole
+    and cut to the block alone."""
     dev = _device(device)
     cache = model.init_cache(batch, cache_size, model.config.cdtype, device=dev)
-    gen = _generator(dev, seed)
-    if gen is not None:
-        tree_apply(lambda t: t.normal_(generator=gen) if t.is_floating_point() else t, cache)
+    grid = model.grid
+    if dev.type == "meta":
+        return cache
+    if grid is not None:
+        from repro_torch.models import build_model
+
+        whole = build_model(model.config).init_cache(batch, cache_size, model.config.cdtype,
+                                                     device="meta")
+        specs = cache_tree_pspecs(whole, grid)
+    for n, (path, block) in enumerate(_float_leaves(cache)):
+        full = tuple(block.shape) if grid is None else tuple(_at(whole, path).shape)
+        spec = () if grid is None else _at(specs, path)
+        # this rank's rows, and its slice of each later dim a spec splits
+        r0 = 0 if grid is None else block_start(1, full, spec, grid)
+        cut = tuple(slice(None) if grid is None else
+                    slice(block_start(d, full, spec, grid),
+                          block_start(d, full, spec, grid) + block.shape[d])
+                    for d in range(2, len(full)))
+        for layer in range(block.shape[0]):
+            for r in range(block.shape[1]):
+                block[layer, r].copy_(cache_slab(full[2:], block.dtype, dev, seed=seed, leaf=n,
+                                                 layer=layer, row=r0 + r)[cut])
     return cache
 
 
@@ -153,6 +221,10 @@ def input_specs(model, shape_name: str, client_rows=1, *, local_steps: int | Non
             skip_reason=f"{cfg.name} is encoder-only: no decode step (DESIGN.md)",
         )
 
+    if model.grid is not None and (isinstance(client_rows, int)
+                                   or dict(client_rows.shape) != dict(model.grid.shape)):
+        raise ValueError(f"{cfg.name} is built on a grid of {dict(model.grid.shape)}: pass "
+                         "that grid in place of client_rows")
     meta = dict(arch=cfg.name, shape=shape_name, seq=seq, global_batch=gb,
                 client_rows=client_row_count(client_rows))
     if not isinstance(client_rows, int):
@@ -194,7 +266,11 @@ def input_specs(model, shape_name: str, client_rows=1, *, local_steps: int | Non
         cache_size, ring = seq, False
     cache = cache_specs(model, gb, cache_size, device=dev, seed=2)
     tokens = _ints((gb,), cfg.vocab_size, gen, dev)
-    pos = torch.full((gb,), seq - 1, dtype=torch.int32, device=dev)
+    rows = cache["pos"].shape[0]
+    if rows != gb:   # a grid model: this rank's rows of the tokens
+        tokens = take_shard(tokens, batch_pspec((gb,), model.grid, client_axis=False,
+                                                per_client_batch=False), model.grid)
+    pos = torch.full((rows,), seq - 1, dtype=torch.int32, device=dev)
     cache["pos"].copy_(pos)
     meta.update(cache_size=cache_size, ring=ring)
     return SpecBundle("decode", (params, cache, tokens, pos), meta)
@@ -221,10 +297,7 @@ def arg_specs(cfg, bundle: SpecBundle, mesh) -> tuple:
     if bundle.step_kind in ("prefill", "forward"):
         return params, batch(bundle.args[1], False)
     _, cache, tokens, pos = bundle.args
-    cache_specs = {k: batch(v, False) if k == "pos" else
-                   tree_apply(lambda t: cache_pspec(tuple(t.shape), mesh, batch_dim=1), v)
-                   for k, v in cache.items()}
-    return params, cache_specs, batch(tokens, False), batch(pos, False)
+    return params, cache_tree_pspecs(cache, mesh), batch(tokens, False), batch(pos, False)
 
 
 def rank_bytes(tree, specs, mesh) -> int:

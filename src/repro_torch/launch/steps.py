@@ -7,6 +7,12 @@ returns a function whose positional arguments follow
 or a mesh.  Under ``vmap`` a mesh sets ``client_axes`` to its client rows
 (``client_row_axes``), as the reference does; a ``GridMesh`` also runs the
 round on its ranks (``fed.distributed.make_fed_round(..., grid=)``).
+
+A model built on a grid serves on it: the prefill, forward and decode
+steps of its bundle (``input_specs(model, shape, grid)``) run on this
+rank's blocks, the decode step told the whole cache's slots
+(``bundle.meta["cache_size"]``), as the reference's
+``build_step(model, bundle, mesh)`` lowers them on its mesh.
 """
 
 from __future__ import annotations
@@ -64,9 +70,9 @@ def make_forward_step(model):
     return forward_step
 
 
-def make_serve_step(model, *, ring: bool = False):
+def make_serve_step(model, *, ring: bool = False, cache_size: int | None = None):
     def serve_step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos, ring=ring)
+        return model.decode_step(params, cache, tokens, pos, ring=ring, cache_size=cache_size)
 
     return serve_step
 
@@ -80,5 +86,6 @@ def build_step(model, bundle, **train_kwargs):
     if bundle.step_kind == "forward":
         return make_forward_step(model)
     if bundle.step_kind == "decode":
-        return make_serve_step(model, ring=bundle.meta["ring"])
+        return make_serve_step(model, ring=bundle.meta["ring"],
+                               cache_size=bundle.meta["cache_size"])
     raise ValueError(bundle.step_kind)

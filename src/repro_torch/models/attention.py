@@ -12,6 +12,12 @@ Counterparts of ``repro/models/attention.py``:
 * ``decode_attention`` (``:180``): one query token against a KV cache in
   the linear or the ring layout.
 
+``decode_attention_parts`` is ``decode_attention`` on one rank's block of a
+cache's slots (a cache split over a grid's ``model`` axis by slot, as
+``launch.sharding.cache_pspec`` splits a cache whose kv heads do not divide
+the axis): this rank's softmax statistics, which ``merge_decode_parts``
+combines over the axis by a log-sum-exp.
+
 The reference computes the last two outside any Pallas kernel, so they are
 plain torch here, in f32 with the reference's masking (no
 ``F.scaled_dot_product_attention``, whose masking and accumulation differ).
@@ -128,6 +134,17 @@ def sliding_window_attention(q, k, v, *, window: int, q_offset: int = 0, block_q
     return out[:, :lq].to(q.dtype)
 
 
+def _valid_slots(slot, cache_len, slots: int, window: int, ring: bool):
+    """(B, S) mask of the slots ``slot`` (global numbers) a decode step
+    reads in a cache of ``slots`` slots holding ``cache_len`` positions."""
+    if ring:
+        return slot[None, :] < torch.clamp(cache_len, max=slots)[:, None]
+    valid = slot[None, :] < cache_len[:, None]
+    if window:
+        valid = valid & (slot[None, :] >= cache_len[:, None] - window)
+    return valid
+
+
 def decode_attention(q1, k_cache, v_cache, cache_len, *, window: int = 0, ring: bool = False):
     """Single-step attention.  q1: (B, Hq, D); caches: (B, S, Hkv, D);
     ``cache_len`` (B,) int, the positions the cache holds after this step.
@@ -142,14 +159,43 @@ def decode_attention(q1, k_cache, v_cache, cache_len, *, window: int = 0, ring: 
     qs = q1.reshape(b, hkv, hq // hkv, d)
     scale = 1.0 / (d ** 0.5)
     scores = torch.einsum("bhgd,bshd->bhgs", qs.float(), k_cache.float()) * scale
-    slot = torch.arange(s, device=k_cache.device)
-    if ring:
-        valid = slot[None, :] < torch.clamp(cache_len, max=s)[:, None]
-    else:
-        valid = slot[None, :] < cache_len[:, None]
-        if window:
-            valid = valid & (slot[None, :] >= cache_len[:, None] - window)
+    valid = _valid_slots(torch.arange(s, device=k_cache.device), cache_len, s, window, ring)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
     return out.reshape(b, hq, d).to(q1.dtype)
+
+
+def decode_attention_parts(q1, k_block, v_block, cache_len, *, slot0, slots: int,
+                           window: int = 0, ring: bool = False):
+    """``decode_attention`` on a block of a cache's slots: ``k_block`` and
+    ``v_block`` (B, S_r, Hkv, D) hold the slots ``slot0 .. slot0 + S_r - 1``
+    of a cache of ``slots`` slots, and the masks read those global numbers
+    (the linear layout, with or without a window, and the ring).  Returns
+    this block's f32 (max (B, Hkv, G), sum (B, Hkv, G), unnormalised output
+    (B, Hkv, G, D)) for ``merge_decode_parts``.  A masked slot weighs
+    exactly 0, so a block whose slots are all masked gives max ``NEG_INF``,
+    sum 0 and output 0.  It reads nothing from the host."""
+    b, s, hkv, d = k_block.shape
+    hq = q1.shape[1]
+    qs = q1.reshape(b, hkv, hq // hkv, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qs.float(), k_block.float()) * (1.0 / (d ** 0.5))
+    valid = _valid_slots(slot0 + torch.arange(s, device=k_block.device), cache_len, slots,
+                         window, ring)[:, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    m = torch.amax(scores, dim=-1)
+    p = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
+    return m, p.sum(dim=-1), torch.einsum("bhgs,bshd->bhgd", p, v_block.float())
+
+
+def merge_decode_parts(m, l, o, mesh, axes, dtype):
+    """The attention output (B, Hq, D) in ``dtype`` from every rank's
+    ``decode_attention_parts`` over ``axes`` of ``mesh``: the global max
+    (one ``pmax``), then each rank's sum and output rescaled to it and
+    summed in one packed ``psum``.  A block with no valid slot has weight
+    ``exp(NEG_INF - max) = 0``."""
+    b, hkv, g, d = o.shape
+    w = torch.exp(m - mesh.pmax(m, axes))
+    total = mesh.psum(torch.cat([(l * w)[..., None], o * w[..., None]], dim=-1), axes)
+    out = total[..., 1:] / torch.clamp(total[..., :1], min=1e-30)
+    return out.reshape(b, hkv * g, d).to(dtype)

@@ -29,7 +29,13 @@ and ``wo`` takes this rank's features of the output.  ``seq_par_attention``
 and the reference's other mesh levers steer XLA's partitioner; the explicit
 split already keeps heads local, so they have no effect here.  An MoE
 block's experts split over ``model`` (expert parallelism,
-``models/moe.py``).
+``models/moe.py``).  Serving follows the same two paths: on whole heads
+the prefill runs ``_attention`` (the flash kernel) on this rank's heads and
+the cache holds its kv heads; where a head is cut, every rank attends on
+every head, keeps its block of the cache's slots (``cache_pspec``), and a
+decode step writes its key and value on the rank that holds the slot and
+merges the ranks' softmax statistics over ``model``
+(``attention.decode_attention_parts``, ``merge_decode_parts``).
 
 Caches.  An SSM or hybrid layer's is ``{"state", "conv"}``
 (``models/ssm.py``), an attention layer's ``(k, v)``.  Linear: slot =
@@ -49,7 +55,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.policy import requested_policy
 from repro_torch.models.attention import (
     decode_attention,
+    decode_attention_parts,
     flash_attention,
+    merge_decode_parts,
     sliding_window_attention,
 )
 from repro_torch.launch.mesh import copy_to, gather_from, reduce_from
@@ -109,38 +117,52 @@ def _attend(cfg, q, k, v, use_window: bool):
 
 def apply_attn(p, cfg, x, *, positions, use_window: bool = False, tp=None):
     if tp is not None and tp.size > 1:
-        return _apply_attn_tp(p, cfg, x, positions, use_window, tp)
+        q, k, v, local, split = _qkv_tp(p, cfg, x, positions, tp)
+        out = _attend(cfg, q, k, v, use_window).reshape(*x.shape[:2], -1)
+        return _out_tp(out, p, tp, local, split)
     q, k, v = _qkv(p, cfg, x, positions)
     out = _attend(cfg, q, k, v, use_window)
     b, l, _ = x.shape
     return out.reshape(b, l, -1) @ p["wo"]
 
 
-def _apply_attn_tp(p, cfg, x, positions, use_window: bool, tp):
-    """``apply_attn`` on this rank's blocks of the attention leaves (see the
-    module docstring)."""
+def _qkv_tp(p, cfg, x, positions, tp):
+    """``_qkv`` on this rank's blocks of the attention leaves (see the
+    module docstring): (q, k, v, local, split), the heads this rank's where
+    ``local`` (whole heads, whole GQA groups), else every head gathered
+    (those of the leaves the axis splits in one all-reduce); ``split`` says
+    which leaves the axis splits."""
     mesh, m = tp.mesh, tp.size
     b, l, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     split = {w: tp.has(f"attn/{w}") for w in ("wq", "wk", "wv", "wo")}
     xin = copy_to(x, mesh, "model") if split["wq"] or split["wk"] or split["wv"] else x
-    if hkv % m == 0 and all(split.values()):  # whole heads, whole GQA groups
+    local = hkv % m == 0 and all(split.values())
+    if local:
         q = (xin @ p["wq"]).reshape(b, l, hq // m, hd)
         k = (xin @ p["wk"]).reshape(b, l, hkv // m, hd)
         v = (xin @ p["wv"]).reshape(b, l, hkv // m, hd)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        out = _attend(cfg, q, k, v, use_window).reshape(b, l, -1)
+        return (rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v,
+                local, split)
+
+    # the leaves the axis splits gathered in one all-reduce, the others whole
+    cut = [w for w in ("wq", "wk", "wv") if split[w]]
+    out = {w: x @ p[w] for w in ("wq", "wk", "wv") if not split[w]}
+    if cut:
+        parts = [xin @ p[w] for w in cut]
+        full = gather_from(torch.cat(parts, dim=-1), mesh, "model").reshape(b, l, m, -1)
+        out.update((w, t.reshape(b, l, -1)) for w, t in
+                   zip(cut, full.split([t.shape[-1] for t in parts], dim=-1)))
+    q, k, v = (out[w].reshape(b, l, heads, hd) for w, heads in (("wq", hq), ("wk", hkv),
+                                                                   ("wv", hkv)))
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v, local, split
+
+
+def _out_tp(out, p, tp, local: bool, split: dict):
+    """``out @ wo`` of ``_qkv_tp``'s heads, summed over the axis."""
+    mesh = tp.mesh
+    if local:
         return reduce_from(out @ p["wo"], mesh, "model")
-
-    def whole(w, heads):
-        y = gather_from(xin @ p[w], mesh, "model") if split[w] else x @ p[w]
-        return y.reshape(b, l, heads, hd)
-
-    q = rope(whole("wq", hq), positions, cfg.rope_theta)
-    k = rope(whole("wk", hkv), positions, cfg.rope_theta)
-    v = whole("wv", hkv)
-    out = _attend(cfg, q, k, v, use_window).reshape(b, l, -1)
     if not split["wo"]:
         return out @ p["wo"]
     # every rank holds the whole output: wo's features of this rank, the
@@ -149,9 +171,15 @@ def _apply_attn_tp(p, cfg, x, positions, use_window: bool, tp):
     return reduce_from(out @ p["wo"], mesh, "model")
 
 
-def prefill_attn(p, cfg, x, *, positions, cache_size: int, use_window: bool):
-    """Attention over the prompt, and its KV cache (linear or ring layout)."""
-    q, k, v = _qkv(p, cfg, x, positions)
+def prefill_attn(p, cfg, x, *, positions, cache_size: int, use_window: bool, tp=None):
+    """Attention over the prompt, and its KV cache (linear or ring layout).
+    Under ``tp``: this rank's block of the cache, its kv heads (whole-head
+    path) or its block of the slots (``cache_pspec``)."""
+    grid = tp is not None and tp.size > 1
+    if grid:
+        q, k, v, local, split = _qkv_tp(p, cfg, x, positions, tp)
+    else:
+        q, k, v = _qkv(p, cfg, x, positions)
     b, l = x.shape[:2]
     if use_window and cfg.sliding_window:
         out = sliding_window_attention(q, k, v, window=cfg.sliding_window, block_q=cfg.block_q)
@@ -168,29 +196,63 @@ def prefill_attn(p, cfg, x, *, positions, cache_size: int, use_window: bool):
         out = _attention(cfg, q, k, v)
         k_cache = F.pad(k, (0, 0, 0, 0, 0, cache_size - l))
         v_cache = F.pad(v, (0, 0, 0, 0, 0, cache_size - l))
-    return out.reshape(b, l, -1) @ p["wo"], (k_cache, v_cache)
+    out = out.reshape(b, l, -1)
+    if not grid:
+        return out @ p["wo"], (k_cache, v_cache)
+    if not local and cache_size % tp.size == 0:   # this rank's block of the slots
+        block = tp.mesh.block(cache_size, "model")
+        k_cache, v_cache = k_cache[:, block].clone(), v_cache[:, block].clone()
+    return _out_tp(out, p, tp, local, split), (k_cache, v_cache)
 
 
-def decode_attn(p, cfg, x1, cache_kv, pos, *, ring: bool):
+def decode_attn(p, cfg, x1, cache_kv, pos, *, ring: bool, tp=None, slots: int | None = None):
     """x1: (B, d); cache_kv = (k_cache, v_cache), each (B, S, Hkv, D); pos
     (B,).  Writes the step's key and value into the cache in place, at slot
     ``pos % S`` (ring) or ``pos`` (linear, which needs ``pos < S``); the
-    linear layout masks the config's window, the ring its valid slots."""
+    linear layout masks the config's window, the ring its valid slots.
+    Under ``tp`` the cache is this rank's block: its kv heads, or its
+    ``S / model`` slots of a cache of ``slots`` slots, the step's key and
+    value written on the rank that holds slot ``pos`` (``pos % slots``)
+    alone and the rank's softmax statistics merged over the axis
+    (``attention.merge_decode_parts``); nothing is read from the host."""
     b = x1.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = (x1 @ p["wq"]).reshape(b, 1, hq, hd)
-    k = (x1 @ p["wk"]).reshape(b, 1, hkv, hd)
-    v = (x1 @ p["wv"]).reshape(b, hkv, hd)
-    q = rope(q, pos[:, None], cfg.rope_theta)[:, 0]
-    k = rope(k, pos[:, None], cfg.rope_theta)[:, 0]
+    grid = tp is not None and tp.size > 1
+    if grid:
+        q, k, v, local, split = _qkv_tp(p, cfg, x1[:, None], pos[:, None], tp)
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]
+    else:
+        q = (x1 @ p["wq"]).reshape(b, 1, hq, hd)
+        k = (x1 @ p["wk"]).reshape(b, 1, hkv, hd)
+        v = (x1 @ p["wv"]).reshape(b, hkv, hd)
+        q = rope(q, pos[:, None], cfg.rope_theta)[:, 0]
+        k = rope(k, pos[:, None], cfg.rope_theta)[:, 0]
     k_cache, v_cache = cache_kv
-    slot = torch.remainder(pos, k_cache.shape[1]) if ring else pos
+    held = k_cache.shape[1]
+    slots = slots or held
+    slot = torch.remainder(pos, slots) if ring else pos
     bidx = torch.arange(b, device=x1.device)
-    k_cache.index_put_((bidx, slot.long()), k.to(k_cache.dtype))
-    v_cache.index_put_((bidx, slot.long()), v.to(v_cache.dtype))
-    out = decode_attention(q, k_cache, v_cache, pos + 1,
-                           window=0 if ring else cfg.sliding_window, ring=ring)
-    return out.reshape(b, -1) @ p["wo"]
+    window = 0 if ring else cfg.sliding_window
+    if held == slots:
+        k_cache.index_put_((bidx, slot.long()), k.to(k_cache.dtype))
+        v_cache.index_put_((bidx, slot.long()), v.to(v_cache.dtype))
+        out = decode_attention(q, k_cache, v_cache, pos + 1, window=window, ring=ring)
+    else:   # this rank's block of the slots: written where it holds slot
+        if not grid or local or held * tp.size != slots:
+            raise ValueError(f"a cache block of {held} slots is not a model-axis block of "
+                             f"{slots} slots")
+        slot0 = tp.mesh.index("model") * held
+        at = slot - slot0
+        inside = ((at >= 0) & (at < held))[:, None, None]
+        at = at.clamp(0, held - 1).long()
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            cache.index_put_((bidx, at), torch.where(inside, new.to(cache.dtype),
+                                                     cache[bidx, at]))
+        parts = decode_attention_parts(q, k_cache, v_cache, pos + 1, slot0=slot0, slots=slots,
+                                       window=window, ring=ring)
+        out = merge_decode_parts(*parts, tp.mesh, "model", q.dtype)
+    out = out.reshape(b, -1)
+    return _out_tp(out, p, tp, local, split) if grid else out @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -250,28 +312,35 @@ def init_block_cache(cfg, batch: int, cache_size: int, dtype, *, device=None):
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def prefill_block(p, cfg, h, *, positions, cache_size: int, use_window: bool):
+def prefill_block(p, cfg, h, *, positions, cache_size: int, use_window: bool, tp=None):
+    """The prompt through one block -> (h, the layer's cache); under ``tp``
+    on this rank's blocks of the leaves, as ``apply_block``, the cache this
+    rank's block (``prefill_attn``)."""
+    if tp is not None:
+        p = tp.use_tree(p)
     if cfg.family in _SSM:
         out, cache = apply_mamba2(p["mamba"], cfg, rms_norm(h, p["norm_ssm"]),
                                   return_state=True)
         return h + out, cache
     a, cache = prefill_attn(p["attn"], cfg, rms_norm(h, p["norm_attn"]), positions=positions,
-                            cache_size=cache_size, use_window=use_window)
+                            cache_size=cache_size, use_window=use_window, tp=tp)
     h = h + a
     x = rms_norm(h, p["norm_ffn"])
     if cfg.family == "moe":
-        return h + _moe(p, cfg, x)[0], cache
-    return h + apply_mlp(p["mlp"], x, cfg.activation), cache
+        return h + _moe(p, cfg, x, tp)[0], cache
+    return h + apply_mlp(p["mlp"], x, cfg.activation, tp), cache
 
 
-def decode_block(p, cfg, h1, cache, pos, *, ring: bool):
+def decode_block(p, cfg, h1, cache, pos, *, ring: bool, tp=None, slots: int | None = None):
     """One token through one block, h1 (B, d); the layer's cache is written
-    in place."""
+    in place.  ``tp`` and ``slots`` as ``decode_attn``'s."""
+    if tp is not None:
+        p = tp.use_tree(p)
     if cfg.family in _SSM:
         return h1 + decode_mamba2(p["mamba"], cfg, rms_norm(h1, p["norm_ssm"]), cache)
     h1 = h1 + decode_attn(p["attn"], cfg, rms_norm(h1, p["norm_attn"]), cache, pos,
-                          ring=ring)
+                          ring=ring, tp=tp, slots=slots)
     x = rms_norm(h1, p["norm_ffn"])
     if cfg.family == "moe":
-        return h1 + _moe(p, cfg, x[:, None, :])[0][:, 0]
-    return h1 + apply_mlp(p["mlp"], x, cfg.activation)
+        return h1 + _moe(p, cfg, x[:, None, :], tp)[0][:, 0]
+    return h1 + apply_mlp(p["mlp"], x, cfg.activation, tp)

@@ -53,9 +53,24 @@ first dim), which must split over the data axes (else ``ValueError``); the
 cross-entropy divides the sum over every rank's unmasked labels by their
 global count (one ``reduce_from`` over the data axes), so the loss and its
 gradient are the one-card ones however the masks fall; ``forward`` gathers
-the rows back (not differentiated).  Serving under a grid raises.  With no
-grid, or nothing split (one rank; or ``model`` = 1 without FSDP), the model
-is the one-card one.
+the rows back (not differentiated).  With no grid, or nothing split (one
+rank; or ``model`` = 1 without FSDP), the model is the one-card one.
+
+Serving under a grid (dense and MoE).  A rank holds its blocks of the
+weights and of the cache, as the reference's specs lay them out
+(``launch.sharding.cache_tree_pspecs``: the rows over the data axes where
+they split, the kv heads over ``model`` where they divide it, else the
+slots where they do).  ``prefill`` takes the whole batch and keeps this
+rank's rows wherever ``batch_pspec`` splits them, under every ``fed_mode``;
+``init_cache`` makes this rank's block; ``decode_step`` takes this rank's
+block of the cache and its rows of the tokens and positions (or the whole
+batch, whose rows it keeps).  Each returns its rows' logits over the whole
+vocabulary (the vocab-split head's blocks gathered over ``model``).  The
+blocks compute tensor-parallel (``models/blocks.py``: each rank's heads, or
+every head gathered and the cache split by slot, the softmax merged over
+``model``).  A slot-split cache's block does not say how many slots the
+whole cache has when ``model`` does not divide the block's: ``decode_step``
+then needs ``cache_size``, which ``launch.serve`` and ``launch.steps`` pass.
 """
 
 from __future__ import annotations
@@ -329,15 +344,57 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         loss = ce + cfg.router_aux_weight * aux[0] + cfg.router_z_weight * aux[1]
         return loss, {"ce": ce, "lb_loss": aux[0], "z_loss": aux[1]}
 
-    def _serving():
-        if tp is not None:
-            raise NotImplementedError(
-                f"serving {cfg.name} on a grid of {dict(grid.shape)}: not ported (ROADMAP A, "
-                "Open item 2: cache_pspec on prefill and decode)")
+    def _serve_axes(rows: int) -> tuple:
+        """The data axes a serving batch of ``rows`` rows splits over
+        (``batch_pspec``), or ``()``."""
+        daxes = data_axes(grid) if tp is not None else ()
+        n = grid.size(daxes) if daxes else 1
+        return daxes if n > 1 and rows % n == 0 else ()
+
+    def _serve_rows(x: torch.Tensor, held: int | None = None) -> torch.Tensor:
+        """This rank's rows of ``x`` where they split (``held``: the rows a
+        rank's cache holds, which ``x`` may already be)."""
+        if held is not None and x.shape[0] == held:
+            return x
+        axes = _serve_axes(x.shape[0])
+        out = x[grid.block(x.shape[0], axes)] if axes else x
+        if held is not None and out.shape[0] != held:
+            raise ValueError(f"{x.shape[0]} rows are neither this rank's {held} rows of the "
+                             "cache nor the whole batch")
+        return out
+
+    def _slots(cache, cache_size):
+        """The slot count of the whole attention cache whose block
+        ``cache`` holds (see the module docstring)."""
+        held = cache["layers"][0].shape[2]   # (L, B, S, Hkv, D)
+        m = tp.size if tp is not None else 1
+        by_slot = m > 1 and cfg.num_kv_heads % m != 0
+        if cache_size is None:
+            if not by_slot:
+                return held
+            if held % m:
+                raise ValueError(
+                    f"a cache block of {held} slots on a model axis of {m}: whole ({held} "
+                    f"slots) or split ({held * m}); pass decode_step's cache_size")
+            return held * m
+        if cache_size != held and not (by_slot and cache_size == held * m):
+            raise ValueError(f"a cache block of {held} slots is not a block of {cache_size}")
+        return cache_size
 
     def init_cache(batch_size: int, cache_size: int, dtype=None, device="cuda") -> dict:
-        """An empty cache on ``device`` (the card unless ``device="cpu"``)."""
-        _serving()
+        """An empty cache on ``device`` (the card unless ``device="cpu"``);
+        under a grid this rank's block of it."""
+        if tp is None:
+            return _init_cache(batch_size, cache_size, dtype, device)
+        from repro_torch.launch.sharding import block_shape, cache_tree_pspecs
+
+        whole = _init_cache(batch_size, cache_size, dtype, "meta")
+        device = _device(device)
+        return tree_apply(lambda t, spec: torch.zeros(block_shape(tuple(t.shape), spec, grid),
+                                                      dtype=t.dtype, device=device),
+                          whole, cache_tree_pspecs(whole, grid))
+
+    def _init_cache(batch_size: int, cache_size: int, dtype, device) -> dict:
         device = _device(device)
         dtype = dtype or cfg.cdtype
 
@@ -356,15 +413,18 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         """The prompt (and a VLM's patches before it) through every layer ->
         (logits of its last position (B, V) f32, a new cache holding it).
         ``use_window`` takes the sliding window and the ring layout of
-        ``cache_size`` slots for the attention layers."""
-        _serving()
+        ``cache_size`` slots for the attention layers.  Under a grid: this
+        rank's rows of the whole ``batch``, their logits and this rank's
+        block of the cache."""
+        if tp is not None:
+            batch = {k: _serve_rows(v) for k, v in batch.items()}
         h = _embed_inputs(params, batch)
         positions = _positions(h)
         kw = dict(positions=positions, cache_size=cache_size, use_window=use_window)
         caches, shared_caches = [], []
         for lo, hi, shared in segments:
             for i in range(lo, hi):
-                h, c = prefill_block(layer(params["layers"], i), cfg, h, **kw)
+                h, c = prefill_block(layer(params["layers"], i), cfg, h, tp=tp, **kw)
                 caches.append(c)
             if shared is not None:
                 h, c = prefill_block(params["shared"], attn_cfg, h, **kw)
@@ -374,29 +434,42 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
                  "pos": torch.full((b,), l, dtype=torch.int32, device=h.device)}
         if is_hybrid:
             cache["shared"] = tree_apply(lambda *ts: torch.stack(ts), *shared_caches)
-        h = rms_norm(h, params["final_norm"])
-        return (h[:, -1] @ params["head"]).float(), cache
+        h = rms_norm(h, _leaf(params, "final_norm"))
+        return _whole_logits(params, h[:, -1]), cache
 
-    def decode_step(params, cache, tokens, pos=None, *, ring: bool = False):
+    def _whole_logits(params, h):
+        """(B, V) f32 logits of final-normed hidden states (B, d), the whole
+        vocabulary on every rank."""
+        logits = _logits(params, h)
+        return gather_from(logits, grid, "model") if _vocab_split() else logits
+
+    def decode_step(params, cache, tokens, pos=None, *, ring: bool = False,
+                    cache_size: int | None = None):
         """tokens (B,) int at positions ``pos`` (default ``cache["pos"]``) ->
         (logits (B, V) f32, cache): the cache is written in place and its
         ``pos`` becomes ``pos + 1``.  ``ring`` applies to the attention
-        layers' caches (a hybrid model's shared blocks)."""
+        layers' caches (a hybrid model's shared blocks).  Under a grid
+        ``cache`` is this rank's block and ``cache_size`` the whole cache's
+        slots (see the module docstring)."""
         if cfg.is_encoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-        _serving()
+        slots = None
+        if tp is not None:
+            held = cache["pos"].shape[0]
+            tokens = _serve_rows(tokens, held)
+            pos = None if pos is None else _serve_rows(pos, held)
+            slots = _slots(cache, cache_size)
         pos = cache["pos"] if pos is None else pos
         h1 = _embed(params, tokens)
         for lo, hi, shared in segments:
             for i in range(lo, hi):
                 h1 = decode_block(layer(params["layers"], i), cfg, h1,
-                                  layer(cache["layers"], i), pos, ring=ring)
+                                  layer(cache["layers"], i), pos, ring=ring, tp=tp, slots=slots)
             if shared is not None:
                 h1 = decode_block(params["shared"], attn_cfg, h1, layer(cache["shared"], shared),
                                   pos, ring=ring)
         cache["pos"].copy_(pos + 1)
-        h1 = rms_norm(h1, params["final_norm"])
-        return (h1 @ params["head"]).float(), cache
+        return _whole_logits(params, rms_norm(h1, _leaf(params, "final_norm"))), cache
 
     return Model(cfg, init, loss_fn, forward, prefill, decode_step, init_cache,
                  grid if tp is not None else None, tp is not None and fsdp)

@@ -52,6 +52,14 @@ ROUTES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _proposals(K, D, n_bad, seed, spread=0.3, scale=20.0):
     rng = np.random.default_rng(seed)
     base = rng.normal(size=D).astype(np.float32)

@@ -41,6 +41,14 @@ BASE = 1 << 20   # a 256-byte aligned address
 # --- the cosine kernel's plan -------------------------------------------------------
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("sms", [114, SM_COUNT])  # H100 PCIe, H100 SXM
 @pytest.mark.parametrize("K,D", [(1, 1), (1, 7), (2, 64), (3, 1001), (10, 513), (6, D_ADAPTER),
                                  (10, D_PAPER), (200, D_PAPER), (1536, 50_000)])

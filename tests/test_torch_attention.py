@@ -36,6 +36,14 @@ KERNEL_SHAPES = [  # (b, lq, lk, hq, hkv, d), tests/test_kernels.py:200-205
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(b, lq, lk, hq, hkv, d, seed):
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(b, lq, hq, d)).astype(np.float32)

@@ -41,6 +41,14 @@ LOW = {"bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2, 2.0 ** -7),
        "float16": (jnp.float16, torch.float16, 2.5e-3, 2.0 ** -10)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(b, lq, lk, hq, hkv, d, seed):
     rng = np.random.default_rng(seed)
     return tuple(rng.normal(size=s).astype(np.float32)

@@ -40,6 +40,14 @@ ELEMENT_LOADS = [((1, 77, 77, 4, 2, d), causal) for d in (20, 18) for causal in 
 TF32_ATTN_RTOL = 3e-6   # chip_smoke.py's TF32_ATTN_RTOL
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(b, lq, lk, hq, hkv, d, seed):
     rng = np.random.default_rng(seed)
     return tuple(rng.normal(size=s).astype(np.float32)

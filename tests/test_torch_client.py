@@ -26,6 +26,14 @@ from repro_torch.fed.client import local_sgd  # noqa: E402
 from repro_torch.fed.dnn import dnn_error, dnn_loss  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _params(sizes, rng):
     p = {}
     for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):

@@ -52,6 +52,14 @@ ERR_TOL = 1e-4                 # percent, as the JAX package's sharded test hold
 K = 20
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def afa_inputs():
     """Seeded (16, 300) f32 proposals, the first 4 outlying; one client
     masked out."""

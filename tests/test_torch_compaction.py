@@ -63,6 +63,14 @@ RNG = np.random.default_rng(20)
 # ------------------------- layout helpers ------------------------------------
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _shards(lengths, feat=(4,)):
     return [(RNG.normal(size=(n,) + feat).astype(np.float32), RNG.integers(0, 5, n))
             for n in lengths]

@@ -21,6 +21,14 @@ from repro_torch.kernels import policy  # noqa: E402
 from repro_torch.utils import trees  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _dnn_tree(K, rng):
     shapes = {"w0": (6, 5), "b0": (5,), "w1": (5, 4), "b1": (4,), "w2": (4, 3), "b2": (3,)}
     return {k: rng.normal(size=(K,) + s).astype(np.float32) for k, s in shapes.items()}

@@ -51,6 +51,14 @@ DATA_KW = dict(n_train=1000, n_test=300, dim=196)
 ENGINE_TOL_PP = 15.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def eq_data():
     return make_mnist_like(**DATA_KW)

@@ -28,6 +28,14 @@ D_ADAPTER = 460_800
 SM_COUNT = 132
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _parts(g):
     g = np.asarray(g, np.float64)
     off = ~np.eye(g.shape[0], dtype=bool)

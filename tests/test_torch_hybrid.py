@@ -45,6 +45,14 @@ TOL = 1e-5
 W = 16   # the ring layouts' window: 40 % 16 = 8, the roll runs
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

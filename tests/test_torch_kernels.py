@@ -22,6 +22,14 @@ RTOL = 1e-5
 SHAPES = [(1, 7), (8, 300), (13, 517)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(K, D, seed):
     rng = np.random.default_rng(seed)
     u = rng.normal(size=(K, D)).astype(np.float32)

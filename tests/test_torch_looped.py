@@ -55,6 +55,14 @@ SIM_TOL = 1e-6
 # ------------------------------ looped engine --------------------------------
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def eq_data():
     return make_mnist_like(n_train=1000, n_test=300, dim=196)

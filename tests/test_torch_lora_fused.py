@@ -63,6 +63,14 @@ E2E = dict(clients=6, byzantine=2, rounds=7, local_steps=2, batch=2, samples_per
            seq=16, n_test=8, seed=0, scenario="byzantine")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=1)
 def _workloads():
     return (jw.get_workload("lora", model_cfg=JaxModelConfig(**TINY), rank=2),

@@ -20,9 +20,10 @@ a data x model mesh) against the JAX package, on the CPU (gloo ranks):
 * the sharded loss's gradient, gathered, equals the one-card gradient;
 * a (data 1, model 1) grid runs the one-card round bit for bit; the grid
   refuses scan and remat on a model built without FSDP, the SSM family,
-  serving, the gram variant over several rows, foreign client axes and K
-  not divisible by the rows (``tests/test_torch_fsdp_experts.py`` runs
-  scan, remat and the MoE family on the grid);
+  serving an SSM model, the gram variant over several rows, foreign client
+  axes and K not divisible by the rows (``tests/test_torch_fsdp_experts.py``
+  runs scan, remat and the MoE family on the grid,
+  ``tests/test_torch_grid_serving.py`` serves dense and MoE models on it);
 * the dry run's ``--mesh``: a rank's bytes under the specs.
 
 The ranks are spawned once a module (the fixtures); they import this
@@ -354,8 +355,8 @@ def _refusals(grid):
         "remat": lambda: make_fed_round(model, FedRoundConfig(num_clients=2, mode="remat"),
                                         grid=grid),
         "ssm": lambda: build_model(ssm, grid=grid),
-        "serving": lambda: model.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                                         cache_size=4),
+        "serving": lambda: build_model(ssm, grid=grid).prefill(
+            {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, cache_size=4),
         "gram_rows": lambda: afa_aggregate_tree(
             {"w": torch.ones((1, 3))}, torch.ones(2), torch.ones(2),
             config=AFAConfig(variant="gram"), shards=TreeShards(grid, ("data",), ((),))),
@@ -507,15 +508,15 @@ def test_each_rank_holds_its_blocks(four_ranks, name):
 def _all_reduces_a_round(name, passes):
     """The collectives of one round (L = 2 layers, S = 2 steps, 12 leaves,
     every leaf but the 5 norms split): a local step's forward sums the
-    embedding, each layer's attention (whole heads: 1; a cut head: the 3
-    gathers of q, k, v and wo's sum) and MLP, and the loss's max and
+    embedding, each layer's attention (whole heads: 1; a cut head: one
+    gather of q, k and v together and wo's sum) and MLP, and the loss's max and
     (sum of exponentials, gold logit); its backward sums the gradient
     entering each layer's attention (whole heads: 1; a cut head: also the
     output's), its MLP and the head.  AFA: the row norms, then a pass's dots
     and |agg|^2 over ``model``; a pass's 12 leaves of the weighted sum and
     the similarities' gather over ``data``, and the final 12."""
     L, S, leaves = 2, 2, 12
-    attn_fwd, attn_bwd = (1, 1) if name == "aligned" else (4, 2)
+    attn_fwd, attn_bwd = (1, 1) if name == "aligned" else (2, 2)
     step = 1 + L * (attn_fwd + 1) + 2 + L * (attn_bwd + 1) + 1
     return {"model": S * step + 1 + passes, "data": passes * (leaves + 1) + leaves}
 

@@ -33,6 +33,14 @@ TINY = dict(name="t-dense", family="dense", num_layers=2, d_model=32, vocab_size
 ACTIVATIONS = ["swiglu", "geglu", "squared_relu", "gelu"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

@@ -34,6 +34,14 @@ TINY = dict(name="t-moe", family="moe", num_layers=2, d_model=32, vocab_size=64,
 B, L = 2, 24
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

@@ -58,6 +58,14 @@ ROUTES = [(False, False), (True, "interpret")]  # (port use_kernels, JAX use_ker
 MASKS = [(10, ()), (10, (2, 5)), (7, (0,)), (4, (0, 1, 2, 3))]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_the_port_registers_every_rule_of_the_jax_package():
     assert sorted(tcore.RULES) == RULES
     assert "zeno" not in tcore.RULES

@@ -56,6 +56,14 @@ DATASETS = {  # name -> (port maker, JAX maker, kwargs, output units)
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _recording_server(monkeypatch, module, store):
     """Replace ``module.FedServer`` by a subclass recording each round's
     final screening similarities."""

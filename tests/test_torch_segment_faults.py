@@ -44,6 +44,14 @@ ROUND = 6          # the round run on both layouts
 DROPPED = 2        # rows 0-1: blocked, and compacted away
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sim(scenario):
     return SimConfig(num_clients=K, bad_frac=0.3, scenario=scenario, rounds=8, local_epochs=2,
                      batch_size=100, hidden=(64, 32), dropout=True, seed=1, engine="fused")

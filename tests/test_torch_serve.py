@@ -85,6 +85,14 @@ DECAY = 0.7
 MARGIN = 1e-5   # blocking compared where |I_0.5(alpha, beta) - delta| exceeds it
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data():
     return make_mnist_like(**DATA_KW)

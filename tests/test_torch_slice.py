@@ -59,6 +59,14 @@ SIM_KW = dict(num_clients=6, bad_frac=1 / 3, rounds=4, local_epochs=1,
 DATA_KW = dict(n_train=600, n_test=200, dim=64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_synthetic_data_is_byte_identical():
     a = make_mnist_like(seed=4, **DATA_KW)
     b = jax_make_mnist_like(seed=4, **DATA_KW)

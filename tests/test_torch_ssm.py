@@ -39,6 +39,14 @@ TOL = 1e-5
 LENGTHS = {"l=3chunks": 48, "l%chunk!=0": 40, "l<cw-1": 2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

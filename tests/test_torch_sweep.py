@@ -53,6 +53,14 @@ DATA_KW = dict(n_train=1000, n_test=300, dim=196)
 SEEDS = [3, 4, 5]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data():
     return make_mnist_like(**DATA_KW)
