@@ -258,7 +258,8 @@
    with two cards or more, the run on one NCCL rank a card;
 20. runs the vmap round of whole models on a (data 2, model 2) grid (phase
    N, ``model_axis_phase``; alone with ``--phase N``): smollm-135m's phase T
-   round on 4 gloo ranks sharing the card, its 3 kv heads cut over 2 ranks,
+   round, cut to ``AXIS_LAYERS`` of its 30 layers, on 4 gloo ranks sharing
+   the card, its 3 kv heads cut over 2 ranks,
    against the one-card round (f32 within ``AXIS_F32``, bf16 within
    ``TRAIN_ROUNDING``, the posteriors, blocked bits and good_frac equal on
    every rank), every rank holding only its specs' blocks (shapes, and the
@@ -306,12 +307,30 @@
    rank a card, each step captured = eager bit for bit and held to one
    card's decode on ``SERVE_CARDS``' rows, and llama3-8b's captured
    ``generate``;
-23. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+23. runs the SSM, hybrid, VLM and audio families on a (data 2, model 2)
+   grid (phase Q, ``family_grid_phase``; alone with ``--phase Q``):
+   mamba2-1.3b, zamba2-1.2b, paligemma-3b and hubert-xlarge at full width
+   with their depth cut (``FAMILY_LAYERS``) on 4 gloo ranks sharing the
+   card: a vmap round of each against one card's (decisions equal, the
+   aggregate within ``TRAIN_ROUNDING``) and a scan round of mamba2 and
+   zamba2; mamba2's, zamba2's and paligemma's prefill and teacher-forced
+   decode steps, and hubert's forward, against one card's in bf16 and on an
+   f32 copy; every rank its spec blocks' bytes, L flash launches a
+   kernel-route prefill or forward and its cache exactly ``rank_bytes`` of
+   its ``cache_pspec`` blocks; with four cards or more (alone with
+   ``--phase Q4``), ``family_cards``: ``decode_32k`` of paligemma-3b,
+   zamba2-1.2b and mamba2-1.3b from ``input_specs(model, "decode_32k",
+   grid, device="cuda")`` on one NCCL rank a card, each step captured =
+   eager bit for bit and held to one card's decode on sampled rows, and
+   mamba2-1.3b's vmap and zamba2-1.2b's scan rounds at full width and depth,
+   exactly client 0 screened out on every rank;
+24. prints each phase's seconds on a line of its own, a ``{"kernels":
+   [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
    serve-LLM, families, production-shape (its kernel-route prefills and
-   forwards), sweep, serve, grid, looped, leaf, client-shard and grid-serving
-   phases (phases T, N and E run no kernel; phases H and R summed over
-   their ranks) and, for the
+   forwards), sweep, serve, grid, looped, leaf, client-shard, grid-serving
+   and family-grid phases (phases T, N and E run no kernel; phases H, R and
+   Q summed over their ranks) and, for the
    fused engine's
    graph runs (the DNN's and LoRA's), the calls that step 14's traces
    executed.
@@ -692,9 +711,11 @@ SHARD_TIMED = 10        # sharded afa_aggregate calls timed (median)
 SHARD_CALLS = ("weighted_sum", "cosine_sim")
 SHARD_DTYPES = ("float32", "float64", "uint8", "int32")  # what the mesh's all-reduces carry
 
-# phase N (model axis): phase T's vmap round of smollm-135m at full width and
-# depth (bf16, seed 0; the train CLI's batches, K = 4, client 0 byzantine, 2
-# local steps of 2 x 128 tokens) on a (data 2, model 2) grid of 4 gloo ranks
+# phase N (model axis): phase T's vmap round of smollm-135m at full width,
+# cut to AXIS_LAYERS of its 30 layers so that the whole script stays within
+# its time with phase Q after it (bf16, seed 0; the train CLI's batches,
+# K = 4, client 0 byzantine, 2 local steps of 2 x 128 tokens) on a (data 2,
+# model 2) grid of 4 gloo ranks
 # sharing the card, 2 clients a data row; smollm's 9 q and 3 kv heads do not
 # split over 2 ranks, so its attention runs the gathered-heads route.  Held
 # to the one-card round: on an f32 copy of the weights at the reference's
@@ -707,6 +728,7 @@ SHARD_DTYPES = ("float32", "float64", "uint8", "int32")  # what the mesh's all-r
 # rounds (the third traced on rank 0); and a (data 1, model 1) grid of one
 # NCCL rank = the one-card round bit for bit on one llama layer.
 AXIS_GRID = dict(data=2, model=2)
+AXIS_LAYERS = 15
 AXIS_F32 = (2e-4, 2e-5)           # rtol, atol
 AXIS_BIG_ARCH = "llama3-8b"
 AXIS_BIG_RUN = dict(K=4, byzantine=1, local_steps=2, batch=1, seq=512, rounds=3, lr=0.05,
@@ -717,7 +739,8 @@ AXIS_BIG_RUN = dict(K=4, byzantine=1, local_steps=2, batch=1, seq=512, rounds=3,
 # client 0 byzantine, 2 local steps of 2 x 128 tokens, each client's 2 rows
 # split over data) of smollm-135m at full width in bf16, cut to FSDP_LAYERS
 # of its 30 layers (so that the whole script stays within its time with
-# phase R after it: the full depth took ~200 s of the phase), under
+# phases R and Q after it: the full depth took ~200 s of the phase, 15
+# layers 122-152 s), under
 # FSDP (the reference's fsdp=True specs), in each FSDP_MODES mode against
 # the same mode's one-card round: the decisions equal on every rank, the
 # aggregate within TRAIN_ROUNDING (int8: one quantization step of the
@@ -734,7 +757,7 @@ AXIS_BIG_RUN = dict(K=4, byzantine=1, local_steps=2, batch=1, seq=512, rounds=3,
 # held to keeps ~6 copies of K = 4 clients' weights, ~100 GB in f32.  With four cards or more, FSDP_BIG on one NCCL rank
 # a card, the same grid, FSDP_BIG_RUN's rounds; each config's depth is cut
 # to what fsdp_reckoning fits under ~70 GB a rank (PERF.md section 4).
-FSDP_LAYERS = 15
+FSDP_LAYERS = 8
 FSDP_MODES = {"scan/bfloat16": ("scan", "bfloat16", 8), "scan/int8": ("scan", "int8", 8),
               "remat": ("remat", "bfloat16", 1)}
 FSDP_SCALE = (0.05, 2.0 ** -7)    # of the scale, and of the leaf's largest weight / 127
@@ -794,6 +817,49 @@ SERVE_CARDS = {   # arch -> (decode_32k's global batch, the rows one card decode
 }
 SERVE_CARDS_GEN = dict(arch="llama3-8b", B=4, P=2048, gen=64)
 SERVE_CARDS_REPLAYS = 10
+
+# phase Q (the SSM, hybrid, VLM and audio families on the grid): on a (data
+# 2, model 2) grid of 4 gloo ranks sharing the card, each family at full
+# width with its depth cut to FAMILY_LAYERS (a gloo all-reduce costs ~4 ms on
+# one card, and a Mamba-2 layer issues 4 a decode step and 5 a local step),
+# random weights from seed 0 drawn as each rank's blocks (its blocks of the
+# one-card draw): a vmap round of each family (FAMILY_RUN: K = 4, client 0
+# byzantine by the train CLI's attack, 2 local steps of 2 x 128 tokens, the
+# blocked attention: training takes no kernel, C.5) against one card's, on an
+# f32 copy too for FAMILY_F32, and a scan round (FSDP) of FAMILY_SCAN: the
+# decisions equal on every rank, an f32 aggregate within AXIS_F32, a bf16 one
+# within TRAIN_ROUNDING or, leaf by leaf, twice one card's own bf16 error
+# (the distance of its bf16 vmap round from its f32 one: the Mamba-2 layers
+# carry a rounding difference from layer to layer, ROADMAP C.19); mamba2,
+# zamba2 and paligemma prefilled on the kernel route (FAMILY_SERVE: 4
+# prompts of 512 tokens, paligemma's 256 patches before them, a linear cache
+# below zamba2's window, C.10) and fed GRID_TF_STEPS seeded tokens, bf16
+# within bf16_bound of one card's, or a row's twice one card's own bf16
+# error where larger, its decisions beyond a near-tie equal, an f32 copy's
+# prefill within FWD_TOL and GRID_F32_STEPS steps within SERVE_TF_TOL[1];
+# hubert-xlarge's forward (FAMILY_HUBERT frames) in bf16 and f32 the same
+# (FWD_TOL).  Every rank:
+# its weights exactly its spec blocks' bytes, L flash launches a kernel-route
+# prefill or forward (zamba2: one a shared application; paligemma none: its
+# prefix-LM mask takes the plain route), none in decode, its cache exactly
+# rank_bytes of its cache_pspec blocks.  With four cards (--phase Q4):
+# FAMILY_CARDS' decode_32k from input_specs on the grid, one NCCL rank a
+# card, the batch cut by 16 sequences at a time only while serve_reckoning's
+# peak with a second copy of the step's transients (the captured graph's own
+# pool beside the eager step's) passes FAMILY_CARD_GB of the card, each step
+# captured = eager bit for bit and held to one card's
+# decode on the sampled rows; FAMILY_CARDS_TRAIN's rounds at full width and
+# depth (FAMILY_CARDS_RUN), exactly client 0 screened out on every rank.
+FAMILY_LAYERS = {"mamba2-1.3b": 2, "zamba2-1.2b": 6, "paligemma-3b": 2, "hubert-xlarge": 4}
+FAMILY_RUN = dict(K=4, byzantine=1, local_steps=2, batch=2, seq=128, rounds=1, lr=0.05)
+FAMILY_SCAN = ("mamba2-1.3b", "zamba2-1.2b")
+FAMILY_F32 = ("mamba2-1.3b", "zamba2-1.2b", "hubert-xlarge")   # vmap on an f32 copy too
+FAMILY_SERVE = dict(B=4, P=512)
+FAMILY_HUBERT = dict(B=2, L=2048)
+FAMILY_CARDS = {"paligemma-3b": 128, "zamba2-1.2b": 128, "mamba2-1.3b": 128}  # decode_32k B
+FAMILY_CARD_GB = 0.9
+FAMILY_CARDS_TRAIN = {"mamba2-1.3b": "vmap", "zamba2-1.2b": "scan"}
+FAMILY_CARDS_RUN = dict(K=4, byzantine=1, local_steps=2, batch=2, seq=128, rounds=3, lr=0.05)
 
 
 def fail(msg: str) -> None:
@@ -4858,14 +4924,15 @@ def axis_held(torch, model, cfg, grid, gen):
                            "whole_bytes": whole}
 
 
-def axis_compare(torch, grid, got, ref, specs, start=None, steps=None):
+def axis_compare(torch, grid, got, ref, specs, start=None, steps=None, per_leaf=None):
     """How far this rank's blocks ``got`` lie outside their bound of the
     one-card ``ref`` (whole leaves on the host, paths as ``specs``), the
     largest over every rank (> 0: outside).  f32 (``start`` None):
     ``AXIS_F32``; bf16: ``TRAIN_ROUNDING`` from the round's start
     ``start``, each leaf's largest update read over its blocks; ``steps``
     (path -> a length) widens a leaf's bound by it (int8: one quantization
-    step)."""
+    step).  ``per_leaf`` (a dict) takes this rank's (outside, max |diff|,
+    largest |ref|) of each leaf."""
     from repro_torch.launch.sharding import take_shard
     from repro_torch.utils.trees import tree_leaves, tree_structure
 
@@ -4882,8 +4949,11 @@ def axis_compare(torch, grid, got, ref, specs, start=None, steps=None):
             update = (y - z.float()).abs().max().reshape(1)
             rtol, atol = ulps, frac * float(grid.pmax(grid.pmax(update, "data"), "model")[0])
         atol += 0.0 if steps is None else steps[path]
-        worst = max(worst, float(((x - y).abs() - atol - rtol * y.abs()).max()))
+        out = float(((x - y).abs() - atol - rtol * y.abs()).max())
+        worst = max(worst, out)
         diff = max(diff, float((x - y).abs().max()))
+        if per_leaf is not None:
+            per_leaf[path] = (out, float((x - y).abs().max()), float(y.abs().max()))
     both = torch.tensor([worst, diff], device=grid.device)
     both = grid.pmax(grid.pmax(both, "data"), "model")
     return float(both[0]), float(both[1])
@@ -4926,7 +4996,7 @@ def axis_worker(ref_path):
 
     t_worker = time.perf_counter()
     grid = make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda:0")
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).with_(num_layers=AXIS_LAYERS)
     model = build_model(cfg, grid=grid)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -5014,13 +5084,13 @@ def model_axis_phase(torch, smi):
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).with_(num_layers=AXIS_LAYERS)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = build_model(cfg).init(gen, "cuda")
     _, rounds = train_data(torch, cfg)
     cfg32, params32 = as_f32(cfg, params)
-    rows = {"config": dict(arch=TRAIN_ARCH, grid=AXIS_GRID, **TRAIN_RUN)}
+    rows = {"config": dict(arch=TRAIN_ARCH, layers=AXIS_LAYERS, grid=AXIS_GRID, **TRAIN_RUN)}
     ref = {}
     ref["bfloat16"], rows["one_card_bf16"] = axis_one_card(torch, cfg, params, rounds[0], "bf16")
     ref["float32"], rows["one_card_f32"] = axis_one_card(torch, cfg32, params32, rounds[0], "f32")
@@ -5827,9 +5897,10 @@ def serve_reckoning(arch: str, global_batch: int) -> dict:
     ``global_batch`` sequences on a (data 2, model 2) grid, from the specs
     (meta): ``weights``, its blocks of the weights (no FSDP); ``cache``, its
     ``cache_pspec`` blocks; ``widen``, a decode step's f32 copies of one
-    layer's k and v blocks (the step's largest transient); ``logits``, its
-    rows' f32 logits over the whole vocabulary and their vocab block.
-    ``peak`` is their sum."""
+    layer's (a hybrid model's one shared application's) k and v blocks (the
+    step's largest transient; an SSM stack's state is f32 already, its
+    update a layer's block); ``logits``, its rows' f32 logits over the whole
+    vocabulary and their vocab block.  ``peak`` is their sum."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.sharding import block_shape
@@ -5840,14 +5911,17 @@ def serve_reckoning(arch: str, global_batch: int) -> dict:
     grid = make_test_mesh(**AXIS_GRID)
     bundle = input_specs(build_model(cfg), "decode_32k", grid, global_batch=global_batch)
     specs = arg_specs(cfg, bundle, grid)
-    k = bundle.args[1]["layers"][0]
-    block = block_shape(tuple(k.shape), specs[1]["layers"][0], grid)
+    key = "shared" if "shared" in bundle.args[1] else "layers"
+    kv, kv_specs = bundle.args[1][key], specs[1][key]
+    if isinstance(kv, dict):   # an SSM stack: a layer's state block
+        kv, kv_specs = (kv["state"],), (kv_specs["state"],)
+    block = block_shape(tuple(kv[0].shape), kv_specs[0], grid)
     layer = 1
     for n in block[1:]:
         layer *= n
     out = {"weights": rank_bytes(bundle.args[0], specs[0], grid),
            "cache": rank_bytes(bundle.args[1], specs[1], grid),
-           "widen": 2 * layer * 4, "logits": block[1] * cfg.vocab_size * 4 * 3 // 2}
+           "widen": len(kv) * layer * 4, "logits": block[1] * cfg.vocab_size * 4 * 3 // 2}
     out = {key: v / 1e9 for key, v in out.items()}
     out["peak"] = sum(out.values())
     out["cache_whole"] = sum(t.numel() * t.element_size() for t in leaves(bundle.args[1])) / 1e9
@@ -5857,8 +5931,10 @@ def serve_reckoning(arch: str, global_batch: int) -> dict:
 def teacher_logits(torch, model, params, prompts, tokens, size: int, steps: int):
     """(B, 1 + steps, V) f32 on the host: the prefill's last logits, then
     ``steps`` decode steps fed ``tokens[:, t]`` (the whole batch's; a grid
-    model keeps its rows), a linear cache of ``size`` slots."""
-    logits, cache = model.prefill(params, {"tokens": prompts}, cache_size=size)
+    model keeps its rows), a linear cache of ``size`` slots.  ``prompts``:
+    the tokens, or a VLM's batch with its patches."""
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+    logits, cache = model.prefill(params, batch, cache_size=size)
     out = [logits.cpu()]
     for t in range(steps):
         logits, cache = model.decode_step(params, cache, tokens[:, t], cache_size=size)
@@ -6045,13 +6121,13 @@ def grid_serve_worker(tmp):
     return ranks
 
 
-def grid_decisions(torch, label, got, want, f32: bool) -> dict:
+def grid_decisions(torch, label, got, want, f32: bool, floor=None) -> dict:
     """One rank's teacher-forced logits ``got`` (rows, steps, V) against
     one card's ``want`` on the same rows: how far outside their bound (f32:
     the prefill's at ``FWD_TOL``, each step's at ``SERVE_TF_TOL[1]``; bf16:
-    ``bf16_bound``), and the greedy decisions, which must agree wherever
-    one card's top-2 margin exceeds twice the bf16 bound (f32:
-    everywhere)."""
+    ``bf16_bound``, or each row's ``floor`` where larger), and the greedy
+    decisions, which must agree wherever one card's top-2 margin exceeds
+    twice the bf16 bound (f32: everywhere)."""
     diff = (got - want).abs().amax(-1)
     margin = top2_margin(torch, want)
     differ = got.argmax(-1) != want.argmax(-1)
@@ -6061,11 +6137,16 @@ def grid_decisions(torch, label, got, want, f32: bool) -> dict:
         wrong = differ
     else:
         bound = bf16_bound(torch, want)
+        alone = float((diff - bound).max())
+        if floor is not None:
+            bound = torch.maximum(bound, floor[:, None])
         outside = float((diff - bound).max())
         wrong = differ & (margin > 2 * bound)
     row = {"max_abs_diff": float((got - want).abs().max()), "outside": outside,
            "decisions": differ.numel(), "differ": int(differ.sum()), "wrong": int(wrong.sum()),
            "min_margin": float(margin.min())}
+    if floor is not None and not f32:   # how far outside bf16_bound alone
+        row["outside_bf16_bound"] = alone
     if outside > 0 or row["wrong"]:
         raise AssertionError(f"serve grid [{label}]: teacher-forced logits {outside:.3e} outside "
                              f"their bound of one card's, or {row['wrong']} decisions differ "
@@ -6162,8 +6243,9 @@ def serve_grid_phase(torch, ops, smi):
 
 def cards_one_card(torch, arch: str, params, rows: tuple, global_batch: int):
     """One card's ``decode_32k`` step on ``rows`` of the seeded bundle
-    (``input_specs``' cache slabs and tokens, drawn for those rows alone):
-    (B, V) f32 logits on the host."""
+    (``input_specs``' cache slabs and tokens, drawn for those rows alone;
+    every float leaf of the cache, numbered as ``cache_specs`` numbers
+    them): (B, V) f32 logits on the host."""
     from repro_torch.configs import get_config
     from repro_torch.launch.specs import INPUT_SHAPES, cache_slab
     from repro_torch.models import build_model
@@ -6171,7 +6253,7 @@ def cards_one_card(torch, arch: str, params, rows: tuple, global_batch: int):
     model = build_model(get_config(arch))
     seq = INPUT_SHAPES["decode_32k"]["seq"]
     cache = model.init_cache(len(rows), seq, device="cuda")
-    for n, t in enumerate(cache["layers"]):
+    for n, t in enumerate(t for t in leaves(cache) if t.is_floating_point()):
         for layer in range(t.shape[0]):
             for i, r in enumerate(rows):
                 t[layer, i].copy_(cache_slab(tuple(t.shape[2:]), t.dtype, t.device, seed=2,
@@ -6253,22 +6335,19 @@ def cards_decode(torch, grid, arch: str, global_batch: int, sample: tuple):
     want = rank_bytes(whole.args[1], arg_specs(cfg, whole, grid)[1], grid)
     held = sum(t.numel() * t.element_size() for t in leaves(cache))
     S, p = bundle.meta["cache_size"], INPUT_SHAPES["decode_32k"]["seq"] - 1
-    kv = cache["layers"]
-    slots = kv[0].shape[2]
-    at = p - (grid.index("model") * slots if slots < S else 0)
-    at = min(max(at, 0), slots - 1)
-    snap = [t[:, :, at].clone() for t in kv]
+    written, slots = decode_written(cache, S, p, grid)
+    snap = [t[at].clone() for t, at in written]
     step = build_step(model, bundle)
     prog = DecodeProgram(model, params, cache, ring=False, greedy=True, cache_size=S)
 
     def restore():
-        for t, s in zip(kv, snap):
-            t[:, :, at].copy_(s)
+        for (t, at), s in zip(written, snap):
+            t[at].copy_(s)
         cache["pos"].copy_(pos)
         prog.tok.copy_(tokens)
 
     def state(logits):
-        return [logits.clone(), *(t[:, :, at].clone() for t in kv), cache["pos"].clone()]
+        return [logits.clone(), *(t[at].clone() for t, at in written), cache["pos"].clone()]
 
     def timed(fn):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -6324,9 +6403,28 @@ def cards_decode(torch, grid, arch: str, global_batch: int, sample: tuple):
            "eager_ms_per_step": median_of(eager_ms), "tokens_per_s": global_batch / (ms / 1e3),
            "capture_s": prog.capture_s, "all_reduces_a_step": collectives,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "trace": trace_row}
-    del prog, step, bundle, cache, kv, snap, params, eager, graph
+    del prog, step, bundle, cache, written, snap, params, eager, graph
     torch.cuda.empty_cache()
     return row, mine
+
+
+def decode_written(cache, size: int, pos: int, grid):
+    """What a decode step at ``pos`` writes in this rank's block of
+    ``cache``, as (tensor, index) pairs: each attention cache's slot of
+    ``pos`` in the block (clamped into it where another rank holds that
+    slot), an SSM stack's state and conv window whole; and the attention
+    blocks' slots (None: no attention cache)."""
+    out, slots = [], None
+    for key in ("layers", "shared"):
+        node = cache.get(key)
+        if isinstance(node, dict):
+            out += [(t, ...) for t in node.values()]
+        elif node is not None:
+            slots = node[0].shape[2]
+            at = pos - (grid.index("model") * slots if slots < size else 0)
+            at = min(max(at, 0), slots - 1)
+            out += [(t, (slice(None), slice(None), at)) for t in node]
+    return out, slots
 
 
 def serve_cards_worker(ref_path):
@@ -6498,6 +6596,704 @@ def serve_grid_only(torch, ops, smi, name, cards_only: bool = False) -> None:
         serve_cards_summary(smi, rows["cards"])
     else:
         serve_grid_summary(smi, rows)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def family_cfg(arch: str, *, pallas: bool, mode: str = "vmap"):
+    """``arch`` at full width with phase Q's depth (``FAMILY_LAYERS``), in
+    ``mode``; the flash kernel asked for where ``pallas``."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch).with_(num_layers=FAMILY_LAYERS[arch], fed_mode=mode,
+                                  use_pallas_attention=pallas)
+
+
+def family_round_config(cfg, run: dict, client_axes=None):
+    """``run``'s round in ``cfg.fed_mode``, a scan round storing its
+    proposals in the weights' dtype."""
+    from repro_torch.fed.distributed import FedRoundConfig
+
+    return FedRoundConfig(num_clients=run["K"], local_steps=run["local_steps"], lr=run["lr"],
+                          mode=cfg.fed_mode, proposal_dtype=cfg.param_dtype,
+                          client_axes=client_axes)
+
+
+def family_serve_batch(torch, cfg):
+    """``FAMILY_SERVE``'s seeded prompts (a VLM's patches with them), the
+    ``GRID_TF_STEPS`` tokens fed after them, and the linear cache's slots
+    (the prefix, the prompt and the steps)."""
+    b, p = FAMILY_SERVE["B"], FAMILY_SERVE["P"]
+    batch = {"tokens": serve_prompts(torch, cfg.vocab_size, b, p, 31)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = patch_embeds(torch, cfg, b, 32)
+    tokens = serve_prompts(torch, cfg.vocab_size, b, GRID_TF_STEPS, 33)
+    return batch, tokens, cfg.prefix_len + p + GRID_TF_STEPS
+
+
+def family_frames(torch, cfg):
+    """``FAMILY_HUBERT``'s seeded frame embeddings."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    b, l = FAMILY_HUBERT["B"], FAMILY_HUBERT["L"]
+    return {"frame_embeds": torch.randn((b, l, cfg.frontend_dim), generator=gen, device="cuda")}
+
+
+def family_flash_launches(cfg) -> int:
+    """The flash launches of a kernel-route prefill or forward of ``cfg``:
+    a hybrid model's shared applications, an encoder's layers; none for an
+    SSM or a prefix-LM (its mask takes the plain route)."""
+    from repro_torch.models.model import hybrid_segments
+
+    if cfg.family == "hybrid":
+        return hybrid_segments(cfg)[0]
+    return cfg.num_layers if cfg.family == "audio" else 0
+
+
+def family_train_cases(arch: str) -> list:
+    """(mode, dtype) of ``arch``'s rounds in phase Q: vmap in bf16, and on
+    an f32 copy for ``FAMILY_F32`` (paligemma's one-card f32 vmap round
+    would hold its 257,216-row embedding and head for 4 clients ~5 times
+    over, past the card); scan in bf16 for ``FAMILY_SCAN`` (an f32 scan
+    round takes ~18 s on the gloo grid; the CPU tests hold it at 2e-4)."""
+    return ([("vmap", "bf16")] + ([("vmap", "f32")] if arch in FAMILY_F32 else [])
+            + ([("scan", "bf16")] if arch in FAMILY_SCAN else []))
+
+
+def family_round_one_card(torch, cfg, params, batch, mode: str):
+    """One card's round of ``mode`` (phase Q's reference): the aggregate's
+    leaves by path on the host, the decisions, ms."""
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import make_fed_round
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves, tree_structure
+
+    K = FAMILY_RUN["K"]
+    fed_round = make_fed_round(build_model(cfg), family_round_config(cfg.with_(fed_mode=mode),
+                                                                     FAMILY_RUN))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agg, rep, m = fed_round(params, init_reputation(K, device="cuda"),
+                            torch.ones((K,), dtype=torch.float32, device="cuda"), batch)
+    torch.cuda.synchronize()
+    row = {"ms": (time.perf_counter() - t0) * 1e3, "good_frac": float(m["good_frac"]),
+           "afa_rounds": int(m["afa_rounds"]), "alpha": rep.alpha.tolist(),
+           "beta": rep.beta.tolist(), "blocked": rep.blocked.tolist(),
+           "similarities": m["similarities"].tolist()}
+    leaves_ = {"/".join(p): l.cpu() for p, l in zip(tree_structure(agg), tree_leaves(agg))}
+    print(f"family grid [{cfg.name} {mode} {cfg.param_dtype}, one card]: {row['ms']:.1f} ms "
+          f"good_frac="
+          f"{row['good_frac']:.2f} afa_rounds={row['afa_rounds']} similarities "
+          f"{[round(x, 4) for x in row['similarities']]}", flush=True)
+    return leaves_, row
+
+
+def family_one_card(torch):
+    """Phase Q's one-card references, on the host: each family's vmap round
+    (and ``FAMILY_SCAN``'s scan round): the aggregate and the decisions;
+    mamba2's, zamba2's and paligemma's teacher-forced logits in bf16 and on
+    an f32 copy; hubert's forward in bf16 and f32."""
+    from repro_torch.models import build_model
+
+    refs = {"train": {}, "rows": {}, "serve": {}, "forward": {}, "bf16_error": {}}
+    for arch in FAMILY_LAYERS:
+        cfg = family_cfg(arch, pallas=False)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = build_model(cfg).init(gen, "cuda")
+        _, rounds = axis_big_data(torch, cfg, "cuda", FAMILY_RUN)
+        for mode, dname in family_train_cases(arch):
+            c, p = (cfg, params) if dname == "bf16" else as_f32(cfg, params)
+            case = f"{arch} {mode} {dname}"
+            refs["train"][case], refs["rows"][case] = family_round_one_card(
+                torch, c, p, rounds[0], mode)
+            del c, p
+            torch.cuda.empty_cache()
+            if dname == "f32":   # one card's own bf16 error: its bf16 round against this
+                bf16 = refs["train"][f"{arch} {mode} bf16"]
+                refs["bf16_error"][f"{arch} train"] = {
+                    path: float((bf16[path].float() - w).abs().max())
+                    for path, w in refs["train"][case].items()}
+        del rounds
+        cfg = cfg.with_(use_pallas_attention=True)
+        cfg32, p32 = as_f32(cfg, params)
+        with torch.no_grad():
+            if cfg.is_encoder:
+                frames = family_frames(torch, cfg)
+                out = refs["forward"][arch] = {
+                    "bf16": build_model(cfg).forward(params, frames).cpu(),
+                    "f32": build_model(cfg32).forward(p32, frames).cpu()}
+            else:
+                batch, tokens, size = family_serve_batch(torch, cfg)
+                out = refs["serve"][arch] = {
+                    "bf16": teacher_logits(torch, build_model(cfg), params, batch, tokens, size,
+                                           GRID_TF_STEPS),
+                    "f32": teacher_logits(torch, build_model(cfg32), p32, batch, tokens, size,
+                                          GRID_F32_STEPS)}
+            # one card's own bf16 error, a row's largest over the positions both ran
+            n = out["f32"].shape[1]
+            refs["bf16_error"][arch] = (out["bf16"][:, :n] - out["f32"]).abs().amax(
+                dim=tuple(range(1, out["f32"].ndim)))
+        del params, p32
+        torch.cuda.empty_cache()
+    return refs
+
+
+def family_grid_serve(torch, ops, grid, model, params, tmp) -> dict:
+    """One rank's prefill and teacher forcing of phase Q in bf16 and on the
+    f32 copy (its logits to ``tmp``): the flash launches (all in the
+    prefill), the cache's bytes against ``rank_bytes`` of its
+    ``cache_pspec`` blocks, a decode step's all-reduces, ms, peak GB."""
+    from repro_torch.launch.sharding import cache_tree_pspecs
+    from repro_torch.launch.specs import rank_bytes
+    from repro_torch.models import build_model
+
+    cfg = model.config
+    batch, tokens, size = family_serve_batch(torch, cfg)
+    cfg32, p32 = as_f32(cfg, params)
+    n = family_flash_launches(cfg)
+    out = {}
+    for dname, m, p, steps in (("bf16", model, params, GRID_TF_STEPS),
+                               ("f32", build_model(cfg32, grid=grid), p32, GRID_F32_STEPS)):
+        key = "flash_attn_tc" if dname == "bf16" else "flash_attn"
+        whole = build_model(m.config).init_cache(FAMILY_SERVE["B"], size, device="meta")
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = m.prefill(p, batch, cache_size=size)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        got, counts = [logits.cpu()], None
+        t0 = time.perf_counter()
+        for t in range(steps):
+            grid.clear_counts()
+            logits, cache = m.decode_step(p, cache, tokens[:, t], cache_size=size)
+            counts = counts or dict(grid.all_reduces)
+            got.append(logits.cpu())
+        decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+        torch.save(torch.stack(got, dim=1), Path(tmp) / f"{cfg.name}.{dname}.rank{grid.rank}.pt")
+        out[dname] = {
+            "launches": {k: c for k, c in ops.LAUNCH_COUNTS.items() if c},
+            "want_launches": {key: n} if n else {},
+            "cache_bytes": sum(x.numel() * x.element_size() for x in leaves(cache)),
+            "rank_bytes": rank_bytes(whole, cache_tree_pspecs(whole, grid), grid),
+            "all_reduces_a_step": counts, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del cache, logits
+    return out
+
+
+def family_grid_forward(torch, ops, grid, model, params, tmp) -> dict:
+    """One rank's forward of hubert in bf16 and on the f32 copy (its logits
+    to ``tmp``): the flash launches, ms."""
+    from repro_torch.models import build_model
+
+    cfg = model.config
+    frames = family_frames(torch, cfg)
+    cfg32, p32 = as_f32(cfg, params)
+    out = {}
+    for dname, m, p in (("bf16", model, params), ("f32", build_model(cfg32, grid=grid), p32)):
+        key = "flash_attn_tc" if dname == "bf16" else "flash_attn"
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = m.forward(p, frames)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.save(logits.cpu(), Path(tmp) / f"{cfg.name}.{dname}.rank{grid.rank}.pt")
+        n = family_flash_launches(cfg)
+        out[dname] = {"launches": {k: c for k, c in ops.LAUNCH_COUNTS.items() if c},
+                      "want_launches": {key: n} if n else {}, "ms": ms}
+    return out
+
+
+def family_grid_worker(tmp):
+    """One rank of phase Q's gloo grid: each family's weights drawn as this
+    rank's blocks, its vmap (and scan) round held to one card's aggregate
+    (``axis_compare``), its serving or forward runs (``family_grid_serve``,
+    ``family_grid_forward``).  Returns every rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import make_fed_round
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
+    from repro_torch.launch.sharding import batch_pspec, shard_tree
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_apply
+
+    t_worker = time.perf_counter()
+    grid = make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda:0")
+    ref = torch.load(Path(tmp) / "ref.pt", map_location="cpu", mmap=True)
+    K = FAMILY_RUN["K"]
+    n_k = torch.ones((K,), dtype=torch.float32, device="cuda")
+    mine = {"rank": grid.rank, "coords": dict(grid.coords), "train": {}, "serve": {},
+            "forward": {}}
+
+    def rows(batch):   # the clients of this rank's data row
+        return shard_tree(batch, grid, tree_apply(lambda t: batch_pspec(
+            tuple(t.shape), grid, client_axis=True, per_client_batch=True), batch))
+
+    gen = torch.Generator(device="cuda")
+    for arch in FAMILY_LAYERS:
+        for mode, dname in family_train_cases(arch):
+            case = f"{arch} {mode} {dname}"
+            cfg = family_cfg(arch, pallas=False, mode=mode)
+            model = build_model(cfg, grid=grid)
+            gen.manual_seed(0)
+            params, specs, held = axis_held(torch, model, cfg, grid, gen)
+            if dname == "f32":
+                cfg, params = as_f32(cfg, params)
+                model = build_model(cfg, grid=grid)
+            _, rounds = axis_big_data(torch, cfg, "cuda", FAMILY_RUN)
+            vmap = mode == "vmap"
+            fed_round = make_fed_round(model, family_round_config(
+                cfg, FAMILY_RUN, ("data",) if vmap else None), grid=grid)
+            ops.reset_launch_counts()
+            agg, _, _, row = fsdp_round(torch, grid, fed_round, params,
+                                        init_reputation(K, device="cuda"), n_k,
+                                        rows(rounds[0]) if vmap else rounds[0])
+            per_leaf = {}
+            row["outside"], row["max_abs_diff"] = axis_compare(
+                torch, grid, agg, ref["train"][case], specs,
+                start=params if dname == "bf16" else None, per_leaf=per_leaf)
+            row["per_leaf"] = per_leaf
+            row["worst_leaves"] = sorted(per_leaf.items(), key=lambda kv: -kv[1][0])[:3]
+            row["held"] = held
+            row["launches"] = {k: c for k, c in ops.LAUNCH_COUNTS.items() if c}
+            mine["train"][case] = row
+            del agg, params, rounds, fed_round
+            torch.cuda.empty_cache()
+        model = build_model(family_cfg(arch, pallas=True), grid=grid)
+        gen.manual_seed(0)
+        params = model.init(gen, "cuda")
+        with torch.no_grad():
+            if model.config.is_encoder:
+                mine["forward"][arch] = family_grid_forward(torch, ops, grid, model, params, tmp)
+            else:
+                mine["serve"][arch] = family_grid_serve(torch, ops, grid, model, params, tmp)
+        del params, model
+        torch.cuda.empty_cache()
+    mine["worker_s"] = time.perf_counter() - t_worker
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return ranks
+
+
+def family_grid_phase(torch, ops, smi):
+    """Phase Q: the SSM, hybrid, VLM and audio families on a (data 2, model
+    2) grid of 4 gloo ranks sharing the card (see ``FAMILY_LAYERS``).
+    Returns the rows and the flash launches the ranks counted (summed over
+    them).  With four cards or more, ``family_cards``."""
+    import tempfile
+
+    from repro_torch.launch.shards import spawn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows = {"config": {"layers": FAMILY_LAYERS, "run": FAMILY_RUN, "serve": FAMILY_SERVE,
+                       "hubert": FAMILY_HUBERT, "tf_steps": [GRID_TF_STEPS, GRID_F32_STEPS],
+                       "grid": AXIS_GRID}}
+    t0 = time.perf_counter()
+    refs = family_one_card(torch)
+    rows["one_card_s"] = time.perf_counter() - t0
+    rows["one_card"] = refs["rows"]
+    rows["bf16_error"] = {k: v for k, v in refs["bf16_error"].items()
+                          if not isinstance(v, torch.Tensor)}
+    launches = {"flash_attn": 0, "flash_attn_tc": 0}
+    problems = []
+    with tempfile.TemporaryDirectory(prefix="family_grid_") as tmp:
+        torch.save({"train": refs["train"]}, Path(tmp) / "ref.pt")
+        t0 = time.perf_counter()
+        ranks = spawn(family_grid_worker, 4, backend="gloo", device="cuda:0", args=(tmp,))
+        rows["spawn_wall_s"] = time.perf_counter() - t0
+        rows["ranks"] = []
+        for rank in ranks:
+            d = rank["coords"]["data"]
+
+            def mine(t):   # this rank's rows of one card's (B, ...) tensor
+                half = t.shape[0] // AXIS_GRID["data"]
+                return t[d * half:(d + 1) * half]
+
+            for case, row in rank["train"].items():
+                one = rows["one_card"][case]
+                label = f"{case} rank {rank['rank']}"
+                for key in ("alpha", "beta", "blocked", "good_frac"):
+                    if row[key] != one[key]:
+                        problems.append(f"family grid [{label}]: {key} {row[key]} != the "
+                                        f"one-card {one[key]}")
+                # bf16: within TRAIN_ROUNDING, or within twice one card's own
+                # bf16 error of its vmap round (each run's distance from the f32
+                # round: two bf16 runs lie up to twice it apart)
+                err = (refs["bf16_error"].get(f"{case.split()[0]} train", {})
+                       if case.endswith("bf16") else {})
+                row["beyond"] = {path: (out, diff, err.get(path))
+                                 for path, (out, diff, _) in row.pop("per_leaf").items()
+                                 if out > 0 and not diff <= 2 * err.get(path, -1.0)}
+                if row["beyond"] or row["launches"]:
+                    problems.append(f"family grid [{label}]: leaves outside their bound of one "
+                                    f"card's (outside, max |diff|, one card's bf16 error): "
+                                    f"{row['beyond']}, or the round launched {row['launches']}")
+            checks = {}
+            for arch, runs in list(rank["serve"].items()) + list(rank["forward"].items()):
+                for dname, run in runs.items():
+                    label = f"{arch} {dname} rank {rank['rank']}"
+                    if run["launches"] != run["want_launches"]:
+                        problems.append(f"family grid [{label}]: launched {run['launches']}, "
+                                        f"expected {run['want_launches']}")
+                    for key, n in run["launches"].items():
+                        launches[key] += n
+                    if run.get("cache_bytes", 0) != run.get("rank_bytes", 0):
+                        problems.append(f"family grid [{label}]: holds {run['cache_bytes']} "
+                                        f"bytes of cache, its cache_pspec blocks "
+                                        f"{run['rank_bytes']}")
+                    got = torch.load(Path(tmp) / f"{family_cfg(arch, pallas=True).name}."
+                                                 f"{dname}.rank{rank['rank']}.pt")
+                    try:
+                        err = refs["bf16_error"][arch]
+                        if arch in rank["serve"]:
+                            want = mine(refs["serve"][arch][dname])[:, :got.shape[1]]
+                            checks[f"{arch} {dname}"] = grid_decisions(
+                                torch, label, got, want, dname == "f32", floor=2 * mine(err))
+                        else:
+                            want = refs["forward"][arch][dname]
+                            checks[f"{arch} {dname}"] = family_forward_check(
+                                torch, label, got, want, dname == "f32", floor=2 * err)
+                        checks[f"{arch} {dname}"]["one_card_bf16_error"] = float(err.max())
+                    except AssertionError as e:
+                        problems.append(str(e))
+                        checks[f"{arch} {dname}"] = {"max_abs_diff": float("nan"),
+                                                     "outside": float("nan")}
+            rows["ranks"].append({k: rank[k] for k in ("rank", "coords", "train", "serve",
+                                                       "forward", "worker_s")})
+            rows["ranks"][-1]["checks"] = checks
+    for r in rows["ranks"]:
+        for case, row in r["train"].items():
+            one = rows["one_card"][case]
+            err = rows["bf16_error"].get(case.split()[0] + " train", {})
+            print(f"family grid [{case}, rank {r['rank']} {r['coords']}, 4 gloo ranks on "
+                  f"one card] ({smi}): {row['ms']:.1f} ms a round (one card {one['ms']:.1f}), "
+                  f"peak_GB={row['peak_gb']:.3f}, weights {row['held']['held_bytes']} bytes = "
+                  f"its blocks, outside {row['outside']:.3e} (max |diff| "
+                  f"{row['max_abs_diff']:.3e}; worst leaves (outside, max |diff|, max |w|) "
+                  f"{row['worst_leaves']}; one card's bf16 error there "
+                  f"{[err.get(p) for p, _ in row['worst_leaves']]}"
+                  f"), good_frac={row['good_frac']:.2f} all-reduces "
+                  f"{row['all_reduces']} all-gathers {row['all_gathers']}")
+        for arch, runs in list(r["serve"].items()) + list(r["forward"].items()):
+            for dname, run in runs.items():
+                c = r["checks"][f"{arch} {dname}"]
+                timing = (f"prefill_ms={run['prefill_ms']:.1f} decode ms/step (eager)="
+                          f"{run['decode_ms_per_step']:.1f} all-reduces a step "
+                          f"{run['all_reduces_a_step']} cache {run['cache_bytes']} bytes = "
+                          f"rank_bytes; peak_GB={run['peak_gb']:.3f}" if "prefill_ms" in run
+                          else f"forward ms={run['ms']:.1f}")
+                print(f"family grid [{arch} {dname}, rank {r['rank']}] ({smi}): {timing}; "
+                      f"launches {run['launches']}; max |logit diff| to one card "
+                      f"{c['max_abs_diff']:.3e} (outside its bound by {c['outside']:.3e}"
+                      + (f"; bf16_bound alone by {c['outside_bf16_bound']:.3e}, one card's own "
+                         f"bf16 error {c['one_card_bf16_error']:.3e}"
+                         if "outside_bf16_bound" in c else "") + ")"
+                      + (f", {c['differ']} of {c['decisions']} decisions differ, none beyond a "
+                         f"near-tie (min margin {c['min_margin']:.3e})" if "differ" in c else ""))
+    rows["launches"] = launches
+    if problems:
+        raise AssertionError("family grid: " + "\n".join(problems))
+    cards = torch.cuda.device_count()
+    rows["cards"] = family_cards(torch, smi) if cards >= 4 else f"did not run: {cards} card(s)"
+    rows["phase_s"] = time.perf_counter() - t_phase
+    print(f"family grid: phase {rows['phase_s']:.1f} s (one card's references "
+          f"{rows['one_card_s']:.1f} s, spawn {rows['spawn_wall_s']:.1f} s); flash launches "
+          f"{launches} ({smi})")
+    return rows, launches
+
+
+def family_forward_check(torch, label, got, want, f32: bool, floor=None) -> dict:
+    """hubert's logits (B, L, V) on a rank against one card's: f32 within
+    ``FWD_TOL``, bf16 within ``bf16_bound`` of each position's largest
+    logit, or its row's ``floor`` where larger."""
+    diff = (got - want).abs().amax(-1)
+    bound = bf16_bound(torch, want)
+    alone = float((diff - bound).max())
+    if floor is not None:
+        bound = torch.maximum(bound, floor[:, None])
+    outside = beyond(torch, got, want, FWD_TOL) if f32 else float((diff - bound).max())
+    row = {"max_abs_diff": float((got - want).abs().max()), "outside": outside}
+    if not f32:   # how far outside bf16_bound alone
+        row["outside_bf16_bound"] = alone
+    if outside > 0:
+        raise AssertionError(f"family grid [{label}]: forward logits {outside:.3e} outside their "
+                             f"bound of one card's: {row}")
+    return row
+
+
+def family_train_reckoning(arch: str, mode: str) -> dict:
+    """A rank's bytes (GB) in a full-depth round of ``arch`` on a (data 2,
+    model 2) grid, from the specs (meta): vmap as ``model_axis_cards``
+    reckons it (the weights' blocks, then a client's proposal, momentum and
+    gradient for each of the data row's clients), scan by
+    ``fsdp_reckoning``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sharding import shard_bytes, shard_params_tree
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_config(arch).with_(fed_mode=mode)
+    K = FAMILY_CARDS_RUN["K"]
+    if mode != "vmap":
+        return fsdp_reckoning(cfg, mode, "bfloat16", K)
+    grid = make_test_mesh(**AXIS_GRID)
+    full = build_model(cfg).init(None, "meta")
+    base = sum(shard_bytes(tuple(f.shape), f.element_size(), s, grid)
+               for f, s in zip(tree_leaves(full), tree_leaves(shard_params_tree(full, grid))))
+    clients = K // grid.size("data")
+    return {"blocks": base / 1e9, "train": clients * 3 * base / 1e9,
+            "peak": (base + clients * 3 * base) / 1e9}
+
+
+def family_train_cards(torch, grid, arch: str, mode: str) -> dict:
+    """One NCCL rank's ``FAMILY_CARDS_RUN`` rounds of ``arch`` at full
+    width and depth in ``mode``: this rank's blocks drawn (seed 0), each
+    round's decisions, ms, peak GB and the eval loss after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import make_fed_round
+    from repro_torch.launch.sharding import batch_pspec, shard_tree
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_apply
+
+    run, K = FAMILY_CARDS_RUN, FAMILY_CARDS_RUN["K"]
+    cfg = get_config(arch).with_(fed_mode=mode)
+    model = build_model(cfg, grid=grid)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params, _, held = axis_held(torch, model, cfg, grid, gen)
+    eval_batch, rounds = axis_big_data(torch, cfg, grid.device, run)
+    vmap = mode == "vmap"
+    fed_round = make_fed_round(model, family_round_config(cfg, run, ("data",) if vmap else None),
+                               grid=grid)
+    rep = init_reputation(K, device=grid.device)
+    n_k = torch.ones((K,), dtype=torch.float32, device=grid.device)
+    out = {"held": held, "rounds": []}
+    for batch in rounds:
+        if vmap:
+            batch = shard_tree(batch, grid, tree_apply(lambda t: batch_pspec(
+                tuple(t.shape), grid, client_axis=True, per_client_batch=True), batch))
+        params, rep, m, row = fsdp_round(torch, grid, fed_round, params, rep, n_k, batch)
+        del m
+        with torch.no_grad():
+            row["eval_loss"] = float(model.loss_fn(params, eval_batch)[0])
+        out["rounds"].append({k: row[k] for k in (
+            "alpha", "beta", "blocked", "good_frac", "afa_rounds", "eval_loss", "peak_gb", "ms",
+            "all_reduces", "all_gathers", "reduce_scatters", "similarities")})
+    del params, fed_round
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_cards_worker(ref_path):
+    """One NCCL rank of phase Q's four-card half: ``cards_decode`` for each
+    ``FAMILY_CARDS`` arch at its batch, then ``family_train_cards`` for each
+    ``FAMILY_CARDS_TRAIN`` arch.  Returns every rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
+
+    t_worker = time.perf_counter()
+    grid = make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda")
+    ref = torch.load(ref_path)
+    mine = {"rank": grid.rank, "coords": dict(grid.coords), "decode": {}, "sampled": {},
+            "train": {}}
+    for arch, gb in ref["batch"].items():
+        mine["decode"][arch], mine["sampled"][arch] = cards_decode(torch, grid, arch, gb,
+                                                                   ref["samples"][arch])
+    for arch, mode in FAMILY_CARDS_TRAIN.items():
+        mine["train"][arch] = family_train_cards(torch, grid, arch, mode)
+    mine["worker_s"] = time.perf_counter() - t_worker
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return ranks
+
+
+def family_cards(torch, smi):
+    """The four-card half of phase Q: each ``FAMILY_CARDS`` arch's batch
+    (cut by 16 sequences at a time only while ``serve_reckoning``'s peak with
+    a second copy of the step's transients passes ``FAMILY_CARD_GB`` of the
+    card), one card's decode on the sampled
+    rows (``cards_one_card``), then ``family_cards_worker`` on one NCCL rank
+    a card: every rank's cache exactly its ``cache_pspec`` blocks, each
+    decode step graph = eager bit for bit and finite, the sampled rows'
+    logits within ``bf16_bound`` of one card's and their greedy decisions
+    equal beyond a near-tie; each training round exactly client 0 screened
+    out on every rank, the eval losses finite.  Returns the rows."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shards import spawn
+    from repro_torch.models import build_model
+
+    budget = FAMILY_CARD_GB * torch.cuda.get_device_properties(0).total_memory / 1e9
+    rows = {"budget_gb": budget, "batch": {}, "reckoning": {}, "samples": {},
+            "train_reckoning": {a: family_train_reckoning(a, m)
+                                for a, m in FAMILY_CARDS_TRAIN.items()}}
+    for arch, gb in FAMILY_CARDS.items():
+        reck = serve_reckoning(arch, gb)
+        # the captured step's transients in the graph's own pool, beside the
+        # eager step's cached ones (a rank of zamba2-1.2b at 128 sequences
+        # ran out of the card there: its 17 GB were held twice)
+        while reck["peak"] + reck["widen"] > budget and gb > 16:
+            gb -= 16
+            reck = serve_reckoning(arch, gb)
+        reck["captured"] = reck["peak"] + reck["widen"]
+        rows["batch"][arch], rows["reckoning"][arch] = gb, reck
+        rows["samples"][arch] = (0, 1, gb - 2, gb - 1)
+        cut = "" if gb == FAMILY_CARDS[arch] else f" (cut from {FAMILY_CARDS[arch]})"
+        print(f"family cards [{arch} decode_32k B={gb}{cut}]: reckoned a rank (GB): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in reck.items())
+              + f"; budget {budget:.2f}", flush=True)
+    for arch, reck in rows["train_reckoning"].items():
+        print(f"family cards [{arch} {FAMILY_CARDS_TRAIN[arch]} K={FAMILY_CARDS_RUN['K']}]: "
+              "reckoned a rank (GB): " + ", ".join(f"{k} {v:.2f}" for k, v in reck.items()
+                                                    if k != "params"), flush=True)
+    t0 = time.perf_counter()
+    refs = {}
+    for arch, gb in rows["batch"].items():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        params = build_model(get_config(arch)).init(g, "cuda")
+        refs[arch] = cards_one_card(torch, arch, params, rows["samples"][arch], gb)
+        del params
+        torch.cuda.empty_cache()
+    rows["refs_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="family_cards_") as tmp:
+        path = str(Path(tmp) / "ref.pt")
+        torch.save({"batch": rows["batch"], "samples": rows["samples"]}, path)
+        t0 = time.perf_counter()
+        ranks = spawn(family_cards_worker, 4, backend="nccl", device="cuda", args=(path,))
+        rows["spawn_wall_s"] = time.perf_counter() - t0
+    for arch, gb in rows["batch"].items():
+        sample = rows["samples"][arch]
+        for rank in ranks:
+            d = rank["decode"][arch]
+            if d["cache_bytes"] != d["rank_bytes"] or not d["graph_equals_eager"] or \
+                    not d["finite"] or d["pos_after"] != [32768] * 2:
+                raise AssertionError(f"family cards [{arch}]: rank {rank['rank']}: {d}")
+            print(f"family cards [{arch} decode_32k B={gb}, rank {rank['rank']} "
+                  f"{rank['coords']}, NCCL] ({smi}): {d['rows']} rows, cache "
+                  f"{d['cache_bytes'] / 1e9:.2f} GB = rank_bytes; ms/step replayed="
+                  f"{d['graph_ms_per_step']:.2f} eager={d['eager_ms_per_step']:.2f} tokens/s="
+                  f"{d['tokens_per_s']:.0f} capture_s={d['capture_s']:.2f} draw_s="
+                  f"{d['draw_s']:.1f} peak_GB={d['peak_gb']:.2f} (reckoned "
+                  f"{rows['reckoning'][arch]['peak']:.2f}) all-reduces a step "
+                  f"{d['all_reduces_a_step']}; graph = eager bit for bit")
+            for r, got in rank["sampled"].pop(arch).items():
+                want = refs[arch][sample.index(r)]
+                diff = float((got - want).abs().max())
+                margin = float(top2_margin(torch, want))
+                bound = float(bf16_bound(torch, want))
+                agree = int(got.argmax()) == int(want.argmax())
+                if diff > bound or (not agree and margin > 2 * bound):
+                    raise AssertionError(f"family cards [{arch}]: row {r} on rank {rank['rank']}: "
+                                         f"max |logit diff| {diff} to one card, decision equal "
+                                         f"{agree} at margin {margin}")
+                print(f"family cards [{arch}]: row {r} (rank {rank['rank']}) vs one card: max "
+                      f"|logit diff| {diff:.3e} (bound {bound:.3e}), greedy decision equal "
+                      f"{agree} (margin {margin:.3e})")
+        t = ranks[0]["decode"][arch]["trace"]
+        print(f"family cards [{arch}] traced replay on rank 0: wall {t['wall_ms']:.2f} ms, device "
+              f"busy {t['device_busy_ms']:.2f} ms, {t['collective_kernels']} collective kernels "
+              f"{t['collective_device_ms']:.3f} ms ({smi})")
+    K = FAMILY_CARDS_RUN["K"]
+    for arch, mode in FAMILY_CARDS_TRAIN.items():
+        for rank in ranks:
+            tr = rank["train"][arch]
+            for n, x in enumerate(tr["rounds"], start=1):
+                if (x["alpha"] != [3.0] + [3.0 + n] * (K - 1)
+                        or x["beta"] != [3.0 + n] + [3.0] * (K - 1) or any(x["blocked"])
+                        or x["good_frac"] != 0.75 or x["eval_loss"] != x["eval_loss"]):
+                    raise AssertionError(f"family cards [{arch} {mode}]: rank {rank['rank']} "
+                                         f"round {n}: not exactly client 0 screened out, or the "
+                                         f"eval loss not finite: {x}")
+            h = tr["held"]
+            print(f"family cards [{arch} {mode} K={K}, full depth, rank {rank['rank']}, NCCL] "
+                  f"({smi}): weights {h['held_bytes']} bytes = its blocks (whole "
+                  f"{h['whole_bytes']}); ms/round {[round(x['ms'], 1) for x in tr['rounds']]} "
+                  f"peak_GB {max(x['peak_gb'] for x in tr['rounds']):.2f} (reckoned "
+                  f"{rows['train_reckoning'][arch]['peak']:.2f}) eval_loss "
+                  f"{[round(x['eval_loss'], 4) for x in tr['rounds']]}")
+        x = ranks[0]["train"][arch]["rounds"][-1]
+        print(f"family cards [{arch} {mode}] round {len(ranks[0]['train'][arch]['rounds'])} on "
+              f"rank 0: good_frac={x['good_frac']:.2f} afa_rounds={x['afa_rounds']} all-reduces "
+              f"{x['all_reduces']} all-gathers {x['all_gathers']} reduce-scatters "
+              f"{x['reduce_scatters']} similarities {[round(v, 4) for v in x['similarities']]}")
+    rows["ranks"] = ranks
+    return rows
+
+
+def family_grid_summary(smi, rows):
+    """Phase Q's lines with the card's name and power limit."""
+    r = rows["ranks"][0]
+    for case, row in r["train"].items():
+        arch = case.split()[0]
+        print(f"family grid summary [{case}, {FAMILY_LAYERS[arch]} layers, (data 2, model 2) "
+              f"gloo ranks on one card] ({smi}): ms/round={row['ms']:.1f} (one card "
+              f"{rows['one_card'][case]['ms']:.1f}) peak_GB rank 0="
+              f"{row['peak_gb']:.3f} outside={row['outside']:.3e}")
+    for arch, runs in r["serve"].items():
+        run = runs["bf16"]
+        print(f"family grid summary [{arch} bf16 serving] ({smi}): prefill_ms="
+              f"{run['prefill_ms']:.1f} decode ms/step (eager)={run['decode_ms_per_step']:.1f} "
+              f"all-reduces a step {run['all_reduces_a_step']}")
+    for arch, runs in r["forward"].items():
+        print(f"family grid summary [{arch} forward] ({smi}): bf16 {runs['bf16']['ms']:.1f} ms, "
+              f"f32 {runs['f32']['ms']:.1f} ms; phase {rows['phase_s']:.1f} s")
+    family_cards_summary(smi, rows["cards"])
+
+
+def family_cards_summary(smi, c):
+    """Phase Q's four-card lines."""
+    if not isinstance(c, dict):
+        print(f"family grid summary [4 cards, NCCL] ({smi}): {c}")
+        return
+    for arch, gb in c["batch"].items():
+        d = c["ranks"][0]["decode"][arch]
+        print(f"family grid summary [{arch} decode_32k B={gb}, (data 2, model 2) NCCL] ({smi}): "
+              f"ms/step={d['graph_ms_per_step']:.2f} tokens/s={d['tokens_per_s']:.0f} cache a "
+              f"rank {d['cache_bytes'] / 1e9:.2f} GB peak_GB a rank="
+              f"{max(r['decode'][arch]['peak_gb'] for r in c['ranks']):.2f} (reckoned "
+              f"{c['reckoning'][arch]['peak']:.2f})")
+    for arch, mode in FAMILY_CARDS_TRAIN.items():
+        rr = c["ranks"][0]["train"][arch]["rounds"]
+        peak = max(x["peak_gb"] for r in c["ranks"] for x in r["train"][arch]["rounds"])
+        print(f"family grid summary [{arch} {mode} full depth K={FAMILY_CARDS_RUN['K']}, NCCL] "
+              f"({smi}): ms/round={[round(x['ms'], 1) for x in rr]} peak_GB a rank={peak:.2f}"
+              f" (reckoned {c['train_reckoning'][arch]['peak']:.2f})")
+
+
+def family_grid_only(torch, ops, smi, name, cards_only: bool = False) -> None:
+    """``--phase Q``: phase Q alone (its four-card half where there are
+    four cards), its numbers to ``chiprun_out/chip_smoke_family_grid.json``;
+    ``--phase Q4`` (``cards_only``): the four-card half alone, to
+    ``chip_smoke_family_cards.json``."""
+    if cards_only:
+        if torch.cuda.device_count() < 4:
+            fail(f"--phase Q4 needs four cards, this machine has {torch.cuda.device_count()}")
+        rows = {"cards": family_cards(torch, smi)}
+    else:
+        rows, _ = family_grid_phase(torch, ops, smi)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"chip_smoke_family_{'cards' if cards_only else 'grid'}.json").write_text(
+        json.dumps({"nvidia_smi": smi, "device": name, "torch": torch.__version__,
+                    "family_grid": rows}, indent=1, default=str))
+    if cards_only:
+        family_cards_summary(smi, rows["cards"])
+    else:
+        family_grid_summary(smi, rows)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
@@ -6722,12 +7518,26 @@ def main() -> None:
     if sys.argv[1:] in (["--phase", "E"], ["--phase", "E4"]):   # no kernel runs there
         fsdp_only(torch, smi, name, cards_only=sys.argv[2] == "E4")
         return
+    seconds = {}
+
+    def phase(label, fn, *args):
+        """``fn(*args)``, its seconds printed on a line of their own."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t0
+        print(f"phase seconds [{label}]: {seconds[label]:.1f}", flush=True)
+        return out
+
     t0 = time.perf_counter()
     path, log = build.build_library()
     print(f"build: {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
     if sys.argv[1:] in (["--phase", "R"], ["--phase", "R4"]):   # the flash kernels run there
         serve_grid_only(torch, ops, smi, name, cards_only=sys.argv[2] == "R4")
         return
+    if sys.argv[1:] in (["--phase", "Q"], ["--phase", "Q4"]):   # the flash kernels run there
+        family_grid_only(torch, ops, smi, name, cards_only=sys.argv[2] == "Q4")
+        return
+    seconds["build"] = time.perf_counter() - t0
     for line in log.splitlines():
         if "Compiling entry function" in line:  # the mangled kernel name, template args
             print("  " + line.split("'")[1].split("_cu_")[-1].lstrip("0123456789")[:72])
@@ -6735,43 +7545,56 @@ def main() -> None:
             print("    " + line.strip())
     lib = build.load_library()
 
-    kernel_rows, one_launch = kernel_phase(torch, ops, ref, peaks, lib)
-    rank_edges = rank_edge_checks(torch, ops, ref, lib)
-    gram_buckets = gram_bucket_checks(torch, ops)
-    runs, launches = main_path_phase(torch, ops, min_rounds_to_block)
-    baseline_runs, baseline_launches = baselines_phase(torch, ops)
-    unmasked_rows, unmasked_launches = unmasked_phase(torch, ops)
-    attn_rows = flash_attn_phase(torch, ops, ref, peaks)
-    forward_rows, forward_launches = forward_phase(torch, ops)
+    kernel_rows, one_launch = phase("kernels", kernel_phase, torch, ops, ref, peaks, lib)
+    rank_edges = phase("rank edges", rank_edge_checks, torch, ops, ref, lib)
+    gram_buckets = phase("gram buckets (C.8)", gram_bucket_checks, torch, ops)
+    runs, launches = phase("M main path", main_path_phase, torch, ops, min_rounds_to_block)
+    baseline_runs, baseline_launches = phase("B baselines", baselines_phase, torch, ops)
+    unmasked_rows, unmasked_launches = phase("U unmasked", unmasked_phase, torch, ops)
+    attn_rows = phase("A attention", flash_attn_phase, torch, ops, ref, peaks)
+    forward_rows, forward_launches = phase("A forwards", forward_phase, torch, ops)
     launches.update(forward_launches)
-    serve_llm, serve_llm_trace, serve_llm_launches = serve_llm_phase(torch, ops)
-    families, families_trace, families_launches = families_phase(torch, ops)
-    train = train_phase(torch)
-    production, production_launches = production_phase(torch, ops, ref, smi)
-    lora_runs, lora_launches, lora_dump = lora_phase(torch, ops, min_rounds_to_block)
-    fused_runs, eager_launches, fused_results = fused_phase(torch, ops, min_rounds_to_block)
-    segmented = segmented_compaction_phase(torch, ops)
-    fused_sync_free_round(torch)
-    keyed = keyed_stream_check(torch)
-    fused_traces, graph_launches = fused_trace_phase(torch, ops)
-    sweeps, sweep_launches = sweep_phase(torch, ops, fused_results, min_rounds_to_block)
-    lora_trace, lora_graph_launches = lora_profile_phase(torch, ops)
-    serve, serve_launches = serve_phase(torch, ops, fused_results, smi, min_rounds_to_block)
-    grid, noisy, grid_launches, grid_wall = paper_grid_phase(torch, ops, min_rounds_to_block)
-    looped, looped_launches = looped_phase(torch, ops)
-    leaf, leaf_launches = leaf_layout_phase(torch, ops, min_rounds_to_block)
-    shards, shard_launches = shard_phase(torch, ops, smi, min_rounds_to_block)
-    model_axis = model_axis_phase(torch, smi)
-    fsdp = fsdp_phase(torch, smi)
-    serve_grid, serve_grid_launches = serve_grid_phase(torch, ops, smi)
-    traces = [profile_phase(torch), lora_trace, *forward_profile_phase(torch), *fused_traces]
+    serve_llm, serve_llm_trace, serve_llm_launches = phase("V serve-LLM", serve_llm_phase,
+                                                           torch, ops)
+    families, families_trace, families_launches = phase("Y families", families_phase, torch,
+                                                        ops)
+    train = phase("T train", train_phase, torch)
+    production, production_launches = phase("D production shapes", production_phase, torch,
+                                            ops, ref, smi)
+    lora_runs, lora_launches, lora_dump = phase("L LoRA", lora_phase, torch, ops,
+                                                min_rounds_to_block)
+    fused_runs, eager_launches, fused_results = phase("F fused", fused_phase, torch, ops,
+                                                      min_rounds_to_block)
+    segmented = phase("F segmented (C.8)", segmented_compaction_phase, torch, ops)
+    phase("F sync-free round", fused_sync_free_round, torch)
+    keyed = phase("F keyed streams", keyed_stream_check, torch)
+    fused_traces, graph_launches = phase("F traces", fused_trace_phase, torch, ops)
+    sweeps, sweep_launches = phase("W sweeps", sweep_phase, torch, ops, fused_results,
+                                   min_rounds_to_block)
+    lora_trace, lora_graph_launches = phase("L trace", lora_profile_phase, torch, ops)
+    serve, serve_launches = phase("S serve tier", serve_phase, torch, ops, fused_results, smi,
+                                  min_rounds_to_block)
+    grid, noisy, grid_launches, grid_wall = phase("G paper grid", paper_grid_phase, torch, ops,
+                                                  min_rounds_to_block)
+    looped, looped_launches = phase("O looped", looped_phase, torch, ops)
+    leaf, leaf_launches = phase("P leaf layout", leaf_layout_phase, torch, ops,
+                                min_rounds_to_block)
+    shards, shard_launches = phase("H client shards", shard_phase, torch, ops, smi,
+                                   min_rounds_to_block)
+    model_axis = phase("N model axis", model_axis_phase, torch, smi)
+    fsdp = phase("E FSDP", fsdp_phase, torch, smi)
+    serve_grid, serve_grid_launches = phase("R grid serving", serve_grid_phase, torch, ops, smi)
+    family_grid, family_grid_launches = phase("Q family grid", family_grid_phase, torch, ops,
+                                              smi)
+    traces = phase("traces", lambda: [profile_phase(torch), lora_trace,
+                                      *forward_profile_phase(torch), *fused_traces])
     traces += [serve_llm_trace, families_trace]
     for more in (serve_llm_launches, families_launches, production_launches,
                  baseline_launches, unmasked_launches,
                  lora_launches, lora_graph_launches,
                  eager_launches, graph_launches, sweep_launches, serve_launches,
                  grid_launches, looped_launches, leaf_launches, shard_launches,
-                 serve_grid_launches):
+                 serve_grid_launches, family_grid_launches):
         for kernel, count in more.items():
             launches[kernel] += count
 
@@ -6819,9 +7642,11 @@ def main() -> None:
         "model_axis": model_axis,
         "fsdp": fsdp,
         "serve_grid": serve_grid,
+        "family_grid": family_grid,
+        "phase_seconds": seconds,
         "launches": launches,
         "profile": traces,
-    }, indent=1))
+    }, indent=1, default=str))
     # the summaries last, where the end of the output keeps them
     fused_summary(smi, fused_runs, fused_traces)
     lora_summary(smi, lora_runs, lora_trace, sweeps)
@@ -6834,6 +7659,9 @@ def main() -> None:
     model_axis_summary(smi, model_axis)
     fsdp_summary(smi, fsdp)
     serve_grid_summary(smi, serve_grid)
+    family_grid_summary(smi, family_grid)
+    for label, t in seconds.items():
+        print(f"phase seconds [{label}]: {t:.1f} ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

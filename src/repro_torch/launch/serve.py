@@ -16,9 +16,10 @@ and replayed for every token: the counterpart of the reference's
 ``jax.jit(decode)``.  On the CPU, or with ``graph=False``,
 the same step runs eagerly.
 
-A model built on a grid (``build_model(cfg, grid=)``, dense or MoE) serves
-on it: every rank is given the whole batch of prompts, its prefill keeps
-the rank's rows over the data axes and its block of the cache, and the
+A model built on a grid (``build_model(cfg, grid=)``, any decoder family)
+serves on it: every rank is given the whole batch of prompts (and a VLM's
+whole batch of patch embeddings), its prefill keeps the rank's rows over
+the data axes and its block of the cache, and the
 program's buffers hold that block and those rows; ``Generation.tokens``
 and ``.logits`` are this rank's rows.  Under NCCL the step is captured
 with its collectives as one CUDA graph; gloo's collectives cannot be
@@ -82,9 +83,10 @@ class DecodeProgram:
     ``step()`` runs ``decode_step`` on them (the cache and its ``pos``
     written in place), copies the logits out and, when greedy, writes the
     argmax into the token buffer.  ``capture()`` records ``step()`` as a
-    CUDA graph: one warm-up step on a side stream, then the capture.  The
-    warm-up step writes into the cache buffer and advances its ``pos``, so a
-    caller loads the buffers after ``capture()``, or fills them again.
+    CUDA graph: one warm-up step on a side stream, then the capture, the
+    cached blocks released to the card before each.  The warm-up step
+    writes into the cache buffer and advances its ``pos``, so a caller
+    loads the buffers after ``capture()``, or fills them again.
     ``run()`` replays the graph, or on the CPU calls ``step()``.
 
     On a grid model the buffers are this rank's block of the cache and its
@@ -124,11 +126,19 @@ class DecodeProgram:
                              "collectives run on the host; run() steps it eagerly")
         dev = self.tok.device
         t0 = time.perf_counter()
+        # the blocks cached for the current stream back to the card before
+        # the warm-up (on a side stream, which cannot take them) and after
+        # it (the capture draws from the graph's own pool): a zamba2-1.2b
+        # decode_32k step widens 17 GB of cache a rank
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self.step()
         torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         # on a grid the NCCL watchdog thread keeps querying its events while
         # this thread captures: the capture restricts this thread alone

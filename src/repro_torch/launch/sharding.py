@@ -17,8 +17,11 @@ Parameter rules (name-based, applied per leaf):
 
 Cache rules (``cache_pspec``, ``cache_tree_pspecs``): a serving cache's
 stacked leaves (L or nseg, B, ...) split their batch over the data axes,
-and the kv heads (an SSM state's heads) over *model* where they divide it,
-else the slots where they do; its ``pos`` is a plain batch.
+and their last-but-one dim over *model* where it divides it, else dim 2
+where that does: an attention cache's kv heads, else its slots; an SSM
+state's (L, B, H, N, P) N, else its heads; an SSM conv window's (L, B, cw
+- 1, D) rows where *model* divides cw - 1, else nothing (cw - 1 = 3 at
+model 2 or 4: whole); its ``pos`` is a plain batch.
 ``block_shape`` and ``block_start`` give a rank's block of a leaf.
 
 A dim is only sharded if its size divides the mesh-axis size; otherwise it
@@ -171,15 +174,16 @@ def batch_pspec(shape: tuple, mesh, *, client_axis: bool, per_client_batch: bool
 
 def cache_pspec(shape: tuple, mesh, *, batch_dim: int = 1) -> tuple:
     """KV/SSM cache leaves: (L, B, ...) stacked or (B, ...) unstacked.
-    Shard batch over data axes; shard a heads-like dim over model when
-    divisible."""
+    Shard batch over data axes; shard the last-but-one dim over model when
+    divisible, else dim 2 (see the module docstring)."""
     daxes = data_axes(mesh)
     spec: list = [None] * len(shape)
     if (len(shape) > batch_dim and _divisible(shape[batch_dim], mesh, daxes)
             and shape[batch_dim] > 1):
         spec[batch_dim] = daxes
     # a model-sharding on the last-but-one dim (kv heads for attention
-    # caches (L,B,S,H,hd); state heads for ssm (L,B,h,n,p) -> dim 2)
+    # caches (L,B,S,H,hd); the state dim N for ssm (L,B,h,n,p): dim 3),
+    # else dim 2 (the slots; the ssm heads)
     for cand in (len(shape) - 2, 2):
         if 0 <= cand < len(shape) and spec[cand] is None and cand != batch_dim:
             if shape[cand] >= 2 and _divisible(shape[cand], mesh, "model"):

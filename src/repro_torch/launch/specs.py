@@ -27,7 +27,8 @@ argument's spec on it, as the reference's ``input_specs`` annotates them
 A model built on a grid (``build_model(cfg, grid=)``, a ``GridMesh``, or
 a ``MeshShape`` placed by ``at`` on ``meta``) gives this rank's blocks:
 its weights (``model.init``), its block of a cache (its rows over the data
-axes, its kv heads or slots over ``model``: ``cache_tree_pspecs``), each
+axes, its kv heads or slots, or an SSM state's N, over ``model``:
+``cache_tree_pspecs``), each
 slab drawn alone so that no whole leaf is held (llama3-8b's stacked k leaf
 at ``decode_32k`` is 68.7 GB), holding the values of the same rows of a
 one-card cache of the same seed, and its rows of a decode step's tokens

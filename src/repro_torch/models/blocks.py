@@ -35,7 +35,13 @@ the cache holds its kv heads; where a head is cut, every rank attends on
 every head, keeps its block of the cache's slots (``cache_pspec``), and a
 decode step writes its key and value on the rank that holds the slot and
 merges the ranks' softmax statistics over ``model``
-(``attention.decode_attention_parts``, ``merge_decode_parts``).
+(``attention.decode_attention_parts``, ``merge_decode_parts``).  The paths
+serve every family with attention: hubert-xlarge's 16 whole heads
+(non-causal) run the flash kernel on each rank's heads, paligemma-3b's one
+kv head takes the cut-head path with its cache split by slot and its
+prefix-LM mask on the plain blocked attention, and a hybrid model's shared
+block its own placement (``models/model.py``).  A Mamba-2 block computes
+on its blocks as ``models/ssm.py`` sets out.
 
 Caches.  An SSM or hybrid layer's is ``{"state", "conv"}``
 (``models/ssm.py``), an attention layer's ``(k, v)``.  Linear: slot =
@@ -287,12 +293,12 @@ def _moe(p, cfg, x, tp=None):
 def apply_block(p, cfg, h, *, positions, use_window: bool = False, tp=None):
     """Forward of one block (no cache) -> (h, (lb_loss, z_loss)); a block
     with no router returns (h, None) (the reference's zeros).  ``tp``: the
-    grid's placement of a dense or MoE block's leaves, ``p`` this rank's
-    blocks of them."""
+    grid's placement of the block's leaves, ``p`` this rank's blocks of
+    them."""
     if tp is not None:
         p = tp.use_tree(p)
     if cfg.family in _SSM:
-        return h + apply_mamba2(p["mamba"], cfg, rms_norm(h, p["norm_ssm"])), None
+        return h + apply_mamba2(p["mamba"], cfg, rms_norm(h, p["norm_ssm"]), tp=tp), None
     h = h + apply_attn(p["attn"], cfg, rms_norm(h, p["norm_attn"]), positions=positions,
                        use_window=use_window, tp=tp)
     x = rms_norm(h, p["norm_ffn"])
@@ -320,7 +326,7 @@ def prefill_block(p, cfg, h, *, positions, cache_size: int, use_window: bool, tp
         p = tp.use_tree(p)
     if cfg.family in _SSM:
         out, cache = apply_mamba2(p["mamba"], cfg, rms_norm(h, p["norm_ssm"]),
-                                  return_state=True)
+                                  return_state=True, tp=tp)
         return h + out, cache
     a, cache = prefill_attn(p["attn"], cfg, rms_norm(h, p["norm_attn"]), positions=positions,
                             cache_size=cache_size, use_window=use_window, tp=tp)
@@ -337,7 +343,7 @@ def decode_block(p, cfg, h1, cache, pos, *, ring: bool, tp=None, slots: int | No
     if tp is not None:
         p = tp.use_tree(p)
     if cfg.family in _SSM:
-        return h1 + decode_mamba2(p["mamba"], cfg, rms_norm(h1, p["norm_ssm"]), cache)
+        return h1 + decode_mamba2(p["mamba"], cfg, rms_norm(h1, p["norm_ssm"]), cache, tp)
     h1 = h1 + decode_attn(p["attn"], cfg, rms_norm(h1, p["norm_attn"]), cache, pos,
                           ring=ring, tp=tp, slots=slots)
     x = rms_norm(h1, p["norm_ffn"])

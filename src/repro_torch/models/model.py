@@ -33,7 +33,7 @@ over static buffers (``repro_torch.launch.serve``).  A caller that keeps an
 earlier cache clones it first.
 
 Under a grid.  ``build_model(cfg, grid=)`` on a grid of more than
-one rank (the dense and MoE families; the others raise) gives a model whose
+one rank (every family) gives a model whose
 ``init`` draws the one-card weights leaf by leaf from the same stream and
 keeps this rank's block of each (``launch.sharding.shard_params_tree``, with
 FSDP under the ``scan`` and ``remat`` modes of ``cfg.fed_mode``, as the
@@ -43,7 +43,11 @@ past its draw, and whose ``loss_fn`` and ``forward`` compute on such blocks
 of more than one rank: the embedding's vocab rows split (tokens outside the
 local rows read zeros, then a sum over the axis), the blocks
 tensor-parallel (``models/blocks.py``) and an MoE block's experts split
-(``models/moe.py``), and the head's logits split over the vocabulary:
+(``models/moe.py``), a Mamba-2 block's projections split and its
+projection's output gathered (``models/ssm.py``), a hybrid model's shared
+block placed by its own ``shared/...`` specs, a frontend's projection split
+by columns and its output gathered, and the head's logits split over the
+vocabulary:
 ``loss_fn``'s log-sum-exp takes the max over the axis, then the sum of the
 exponentials, and the gold logit comes from the rank that holds it;
 ``forward`` gathers the logits whole.  Under FSDP each leaf's dim split
@@ -56,12 +60,14 @@ gradient are the one-card ones however the masks fall; ``forward`` gathers
 the rows back (not differentiated).  With no grid, or nothing split (one
 rank; or ``model`` = 1 without FSDP), the model is the one-card one.
 
-Serving under a grid (dense and MoE).  A rank holds its blocks of the
-weights and of the cache, as the reference's specs lay them out
+Serving under a grid (every decoder family).  A rank holds its blocks of
+the weights and of the cache, as the reference's specs lay them out
 (``launch.sharding.cache_tree_pspecs``: the rows over the data axes where
 they split, the kv heads over ``model`` where they divide it, else the
-slots where they do).  ``prefill`` takes the whole batch and keeps this
-rank's rows wherever ``batch_pspec`` splits them, under every ``fed_mode``;
+slots where they do; an SSM state's N over ``model``, its conv window
+whole; a hybrid model's shared caches by kv head).  ``prefill`` takes the
+whole batch and keeps this rank's rows wherever ``batch_pspec`` splits
+them, under every ``fed_mode``;
 ``init_cache`` makes this rank's block; ``decode_step`` takes this rank's
 block of the cache and its rows of the tokens and positions (or the whole
 batch, whose rows it keeps).  Each returns its rows' logits over the whole
@@ -91,6 +97,7 @@ from repro_torch.models.blocks import (
 )
 from repro_torch.models.config import ModelConfig, validate
 from repro_torch.models.layers import ModelAxis, dense_init, rms_norm
+from repro_torch.models.ssm import state_split
 from repro_torch.utils.trees import tree_leaves, tree_structure
 
 
@@ -193,7 +200,7 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
     def _whole(path, leaf):
         return leaf
 
-    tp = None
+    tp = shared_tp = None
     fsdp = cfg.fed_mode in ("scan", "remat")
     if grid is not None and grid.devices > 1:
         from repro_torch.launch.sharding import shard_params_tree, take_shard, uses_axis
@@ -205,14 +212,16 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         split = grid.shape.get("model", 1) > 1 and any(uses_axis(s, "model")
                                                         for s in specs.values())
         if split or batch_axes:
-            if cfg.family not in ("dense", "moe"):
-                raise NotImplementedError(
-                    f"{cfg.name} ({cfg.family}) on a grid of {dict(grid.shape)}: only the dense "
-                    "and MoE families split their leaves (ROADMAP A, Open item 1: the SSM and "
-                    "hybrid projections, the VLM and audio frontends)")
             tp = ModelAxis(grid, {path.removeprefix("layers/"):
                                   spec[1:] if path.startswith("layers/") else spec
-                                  for path, spec in specs.items()}, batch_axes)
+                                  for path, spec in specs.items()
+                                  if not path.startswith("shared/")}, batch_axes)
+            if is_hybrid:   # the shared block's own placement
+                shared_tp = ModelAxis(grid, {path.removeprefix("shared/"): spec
+                                             for path, spec in specs.items()
+                                             if path.startswith("shared/")}, batch_axes)
+            if cfg.family in ("ssm", "hybrid"):
+                state_split(cfg, tp)   # raises for a serving layout the port does not run
 
         def _block(path, leaf):
             # a layer's leaf is drawn alone: its stacked spec without the L axis
@@ -256,15 +265,23 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
             return reduce_from(e, grid, "model").to(cfg.cdtype)
         return F.embedding(tokens.long(), _leaf(params, "embed")).to(cfg.cdtype)
 
+    def _frontend(params, embeds):
+        """Frames or patches (B, L, frontend_dim) through ``frontend_proj``:
+        under a column split over ``model`` this rank's columns, gathered
+        (the embeddings are data: no gradient to sum into them)."""
+        out = embeds.to(cfg.cdtype) @ _leaf(params, "frontend_proj")
+        if tp is not None and tp.has("frontend_proj"):
+            out = gather_from(out, grid, "model")
+        return out.to(cfg.cdtype)
+
     def _embed_inputs(params, batch):
         """The input sequence (B, L, d_model): token embeddings, projected
         frames (audio), or projected patches before the tokens (vlm)."""
         if cfg.family == "audio":
-            return (batch["frame_embeds"].to(cfg.cdtype) @ params["frontend_proj"]).to(cfg.cdtype)
+            return _frontend(params, batch["frame_embeds"])
         h = _embed(params, batch["tokens"])
         if cfg.family == "vlm":
-            patch = batch["patch_embeds"].to(cfg.cdtype) @ params["frontend_proj"]
-            h = torch.cat([patch.to(cfg.cdtype), h], dim=1)
+            h = torch.cat([_frontend(params, batch["patch_embeds"]), h], dim=1)
         return h
 
     def _positions(h):
@@ -285,7 +302,7 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
                     aux = torch.stack(block_aux) if aux is None else aux + torch.stack(block_aux)
             if shared is not None:
                 h, _ = apply_block(params["shared"], attn_cfg, h, positions=positions,
-                                   use_window=use_window)
+                                   use_window=use_window, tp=shared_tp)
         return rms_norm(h, _leaf(params, "final_norm")), aux
 
     def _vocab_split() -> bool:
@@ -365,8 +382,12 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
 
     def _slots(cache, cache_size):
         """The slot count of the whole attention cache whose block
-        ``cache`` holds (see the module docstring)."""
-        held = cache["layers"][0].shape[2]   # (L, B, S, Hkv, D)
+        ``cache`` holds (see the module docstring); None for a model
+        without one (an SSM's)."""
+        kv = cache["shared"] if is_hybrid else cache["layers"]
+        if isinstance(kv, dict):   # an SSM stack's {"state", "conv"}
+            return None
+        held = kv[0].shape[2]   # (L or nseg, B, S, Hkv, D)
         m = tp.size if tp is not None else 1
         by_slot = m > 1 and cfg.num_kv_heads % m != 0
         if cache_size is None:
@@ -427,7 +448,7 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
                 h, c = prefill_block(layer(params["layers"], i), cfg, h, tp=tp, **kw)
                 caches.append(c)
             if shared is not None:
-                h, c = prefill_block(params["shared"], attn_cfg, h, **kw)
+                h, c = prefill_block(params["shared"], attn_cfg, h, tp=shared_tp, **kw)
                 shared_caches.append(c)
         b, l = h.shape[:2]
         cache = {"layers": tree_apply(lambda *ts: torch.stack(ts), *caches),
@@ -467,7 +488,7 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
                                   layer(cache["layers"], i), pos, ring=ring, tp=tp, slots=slots)
             if shared is not None:
                 h1 = decode_block(params["shared"], attn_cfg, h1, layer(cache["shared"], shared),
-                                  pos, ring=ring)
+                                  pos, ring=ring, tp=shared_tp, slots=slots)
         cache["pos"].copy_(pos + 1)
         return _whole_logits(params, rms_norm(h1, _leaf(params, "final_norm"))), cache
 

@@ -19,6 +19,24 @@ Serving carries a state (B, H, N, P) f32 and the last ``cw - 1`` raw
 (pre-conv) rows of ``[x, B, C]``.  ``decode_mamba2`` writes both in place:
 the conv window is shifted (its rows move up one, the new row goes last),
 so a step reads nothing from the host and a CUDA graph can replay it.
+
+Under a grid (``layers.ModelAxis`` ``tp``, a ``model`` axis of more than
+one rank) a layer holds its column block of ``in_proj`` and ``conv_w`` and
+its block of ``out_proj``'s d_inner rows; ``A_log``, ``dt_bias``, ``D``,
+``conv_b`` and ``gate_norm_w`` are whole.  ``in_proj``'s column block does
+not fall on a boundary of z, [x, B, C] and dt (at model 2 mamba2-1.3b's
+falls at column 4,256, inside [x, B, C]), so the projection's output is
+gathered whole over ``model`` (one all-reduce), ``conv_w`` too (4 rows),
+and every rank runs the conv, the SSD on every head and the gated RMSNorm
+whole, as one card does; the norm's output enters ``out_proj`` through
+``copy_to`` (its gradient summed over the axis), each rank multiplies its
+d_inner block by its rows and the partial products are summed
+(``reduce_from``): 3 all-reduces a layer forward, 2 backward.  The serving
+cache is this rank's ``cache_pspec`` block: the state split over N (dim 2
+of a layer's (B, H, N, P)), the conv window whole.  The prefill keeps the
+N block of the final state; a decode step updates its N block (the update
+is elementwise in N, with B's columns of the block) and sums ``y = sum_N
+C state`` over the axis: 4 all-reduces a layer.
 """
 
 from __future__ import annotations
@@ -26,6 +44,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import copy_to, gather_from, reduce_from
+from repro_torch.launch.sharding import cache_pspec
 from repro_torch.models.layers import dense_init
 
 
@@ -113,30 +133,70 @@ def _split_proj(cfg, proj):
     return torch.split(proj, [di, di + 2 * n, cfg.ssm_heads], dim=-1)
 
 
-def _gated_out(p, y, z, dtype):
-    """The gated RMSNorm of mamba2, then ``out_proj``."""
+def _split(tp, leaf: str) -> bool:
+    return tp is not None and tp.has(f"mamba/{leaf}")
+
+
+def _in_proj(p, u, tp):
+    """``u @ in_proj``, whole: under ``tp`` this rank's columns gathered
+    over ``model``."""
+    if not _split(tp, "in_proj"):
+        return u @ p["in_proj"]
+    return gather_from(copy_to(u, tp.mesh, "model") @ p["in_proj"], tp.mesh, "model")
+
+
+def _conv_w(p, tp):
+    """``conv_w`` whole: under ``tp`` its column blocks gathered."""
+    return gather_from(p["conv_w"], tp.mesh, "model") if _split(tp, "conv_w") else p["conv_w"]
+
+
+def _gated_out(p, y, z, dtype, tp=None):
+    """The gated RMSNorm of mamba2, then ``out_proj`` (under ``tp`` on this
+    rank's d_inner block, summed over ``model``)."""
     g = y.float() * F.silu(z.float())
     var = torch.mean(g * g, dim=-1, keepdim=True)
     g = g * torch.rsqrt(var + 1e-6) * (1.0 + p["gate_norm_w"].float())
-    return g.to(dtype) @ p["out_proj"]
+    if not _split(tp, "out_proj"):
+        return g.to(dtype) @ p["out_proj"]
+    g = copy_to(g, tp.mesh, "model")[..., tp.mesh.block(g.shape[-1], "model")]
+    return reduce_from(g.to(dtype) @ p["out_proj"], tp.mesh, "model")
 
 
-def apply_mamba2(p, cfg, u, *, return_state: bool = False):
+def state_split(cfg, tp) -> bool:
+    """Whether this rank's serving state holds a block of N (the
+    reference's ``cache_pspec`` of a state (L, B, H, N, P) splits N over
+    ``model`` where it divides it); raises for the layouts the port does
+    not run: the heads split in N's place, or the conv window's rows."""
+    if tp is None or tp.size == 1:
+        return False
+    h, n, pdim, cw = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_conv_width
+    state = cache_pspec((1, 1, h, n, pdim), tp.mesh)
+    conv = cache_pspec((1, 1, cw - 1, cfg.d_inner + 2 * n), tp.mesh)
+    if state[2] is not None or conv[2] is not None:
+        raise ValueError(f"{cfg.name} on a model axis of {tp.size}: the serving cache would "
+                         "split the SSM heads or the conv window's rows "
+                         f"(state {state}, conv {conv}); the port splits the state's N alone")
+    return state[3] is not None
+
+
+def apply_mamba2(p, cfg, u, *, return_state: bool = False, tp=None):
     """u: (B, L, d_model) -> (B, L, d_model); with ``return_state`` also the
     serving cache ``{"state": (B, H, N, P) f32, "conv": (B, cw - 1, d_inner +
-    2N)}``.  The reference's ``activation_sharding`` lever has no effect on
-    one card."""
+    2N)}`` (under ``tp`` this rank's block: the state's N block).  The
+    reference's ``activation_sharding`` lever has no effect."""
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    z, xbc_raw, dt_raw = _split_proj(cfg, u @ p["in_proj"])
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    z, xbc_raw, dt_raw = _split_proj(cfg, _in_proj(p, u, tp))
+    xbc = _causal_conv(xbc_raw, _conv_w(p, tp), p["conv_b"])
     x, B, C = torch.split(xbc, [di, n, n], dim=-1)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = x.reshape(*x.shape[:2], h, cfg.ssm_head_dim)
     y, state = _ssd_chunked(xh, dt, A, B, C, p["D"], cfg.ssm_chunk)
-    out = _gated_out(p, y.reshape(*u.shape[:2], di), z, u.dtype)
+    out = _gated_out(p, y.reshape(*u.shape[:2], di), z, u.dtype, tp)
     if not return_state:
         return out
+    if state_split(cfg, tp):   # this rank's block of N
+        state = state[:, :, tp.mesh.block(n, "model")].clone()
     # the cache keeps the RAW (pre-conv) xbc tail, as decode_mamba2 reads it
     cw = cfg.ssm_conv_width
     tail = xbc_raw[:, -(cw - 1):]
@@ -152,15 +212,20 @@ def init_ssm_cache(cfg, batch: int, dtype, *, device=None) -> dict:
     }
 
 
-def decode_mamba2(p, cfg, u1, cache: dict) -> torch.Tensor:
+def decode_mamba2(p, cfg, u1, cache: dict, tp=None) -> torch.Tensor:
     """One token, u1: (B, d_model) -> (B, d_model).  ``cache``'s state and
-    conv window are written in place."""
+    conv window are written in place; under ``tp`` the state is this rank's
+    N block, ``y``'s partial sums over it summed over ``model``."""
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    z, xbc_new, dt_raw = _split_proj(cfg, u1 @ p["in_proj"])
+    z, xbc_new, dt_raw = _split_proj(cfg, _in_proj(p, u1, tp))
     window = torch.cat([cache["conv"], xbc_new[:, None]], dim=1)
-    conv = torch.sum(window.float() * p["conv_w"].float(), dim=1)
+    conv = torch.sum(window.float() * _conv_w(p, tp).float(), dim=1)
     xbc = F.silu(conv + p["conv_b"].float()).to(u1.dtype)
     x, B, C = torch.split(xbc, [di, n, n], dim=-1)
+    split = state_split(cfg, tp)
+    if split:   # B's and C's columns of this rank's N block
+        block = tp.mesh.block(n, "model")
+        B, C = B[:, block], C[:, block]
     dt = F.softplus(dt_raw.float() + p["dt_bias"])          # (B,h)
     A = -torch.exp(p["A_log"])
     xh = x.reshape(-1, h, cfg.ssm_head_dim).float()
@@ -169,6 +234,8 @@ def decode_mamba2(p, cfg, u1, cache: dict) -> torch.Tensor:
     state = cache["state"]
     state.mul_(decay[:, :, None, None]).add_(inp)
     y = (C.float()[:, None, None, :] @ state)[:, :, 0]     # (B,h,p)
+    if split:
+        y = reduce_from(y, tp.mesh, "model")
     y = y + p["D"][:, None] * xh
     cache["conv"].copy_(window[:, 1:])
-    return _gated_out(p, y.reshape(-1, di), z, u1.dtype)
+    return _gated_out(p, y.reshape(-1, di), z, u1.dtype, tp)

@@ -19,8 +19,11 @@ ranks of a (data 2, model 2) grid, spawned once for the module):
 * the int8 scales are the same bits on every rank and equal the one-card
   round's within 1e-6 (a scale of the rank's block alone would not be);
 * a (data 1, model 1) grid runs the one-card ``scan`` round bit for bit;
-* the refusals: SSM and hybrid models on a grid, a batch whose rows do not
-  split over data, and rounds whose model was built for another mode;
+* the refusals: an encoder's decode step and an SSM scan round given
+  client axes on the grid, a batch whose rows do not split over data, and
+  rounds whose model was built for another mode
+  (``tests/test_torch_grid_families.py`` runs the SSM, hybrid, VLM and audio
+  families on the grid);
 * the dry run's ``--mesh test`` report of a rank's parameter bytes at
   ``train_4k`` for phi3.5-moe and nemotron-4-340b equals the bytes under the
   reference's FSDP specs.
@@ -193,9 +196,13 @@ def _refusals(grid, params, moe_model):
     dense_scan = build_model(ModelConfig(**DENSE).with_(fed_mode="scan"), grid=grid)
     three = {"tokens": torch.zeros((3, SEQ), dtype=torch.int32),
              "labels": torch.zeros((3, SEQ), dtype=torch.int32)}
+    audio = build_model(get_config("hubert-xlarge").reduced().with_(fed_mode="scan"), grid=grid)
     calls = {
-        "ssm": lambda: build_model(get_config("mamba2-1.3b").reduced(), grid=grid),
-        "hybrid": lambda: build_model(get_config("zamba2-1.2b").reduced(), grid=grid),
+        "encoder_decode": lambda: audio.decode_step(
+            {}, {"pos": torch.zeros(1, dtype=torch.int32)}, torch.zeros(1, dtype=torch.int64)),
+        "ssm_scan_client_axes": lambda: make_fed_round(
+            build_model(get_config("mamba2-1.3b").reduced().with_(fed_mode="scan"), grid=grid),
+            _round_config("scan", "float32", ("data",)), grid=grid),
         "rows_do_not_split": lambda: moe_model.loss_fn(params, three),
         "scan_without_fsdp": lambda: make_fed_round(dense_vmap, _round_config("scan", "int8"),
                                                     grid=grid),
@@ -416,7 +423,7 @@ def test_fsdp_gathers_and_scatters_each_split_leaf(runs):
 def test_grid_refusals(runs):
     for rank in runs["four"]["ranks"]:
         assert rank["refusals"] == {
-            "ssm": "NotImplementedError", "hybrid": "NotImplementedError",
+            "encoder_decode": "ValueError", "ssm_scan_client_axes": "ValueError",
             "rows_do_not_split": "ValueError", "scan_without_fsdp": "ValueError",
             "remat_without_fsdp": "ValueError", "vmap_with_fsdp": "ValueError",
             "scan_client_axes": "ValueError"}

@@ -25,7 +25,9 @@ once for the module):
 * a (data 1, model 1) grid serves as one card, bit for bit;
 * a rank's blocks at ``decode_32k`` on ``meta`` for smollm-135m (slots
   split) and llama3-8b (heads split) are ``rank_bytes(arg_specs)``;
-* the SSM, hybrid, VLM and audio families still raise on a grid.
+* the SSM, hybrid, VLM and audio families build on a grid, each rank
+  holding its spec blocks (``tests/test_torch_grid_families.py`` serves
+  and trains them there).
 
 The reference's steps and the one-rank group run in a pool of their own
 processes beside the 4 ranks.
@@ -429,6 +431,24 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize("arch", OTHER_FAMILIES)
-def test_other_families_still_raise_on_a_grid(arch):
-    with pytest.raises(NotImplementedError, match="Open item 1"):
-        build_model(get_config(arch).reduced(), grid=_placed({"data": 0, "model": 0}))
+def test_other_families_build_on_a_grid(arch):
+    """The SSM, hybrid, VLM and audio families build on the grid (rank
+    (1, 1), on ``meta``), every leaf this rank's block under the
+    reference's specs (``tests/test_torch_grid_families.py`` runs them)."""
+    cfg = get_config(arch).reduced()
+    mesh = _placed({"data": 1, "model": 1})
+    held = tsharding._walk(build_model(cfg, grid=mesh).init(None, "meta"), lambda p, t: t)
+    whole = build_model(cfg).init(None, "meta")
+    specs = tsharding.shard_params_tree(whole, mesh)
+    split = []
+    for (path, t), w, spec in zip(_paths(held).items(), _leaves(whole), _leaves_of(specs)):
+        assert tuple(t.shape) == tsharding.block_shape(tuple(w.shape), spec, mesh), path
+        split += [path] if tsharding.uses_axis(spec, "model") else []
+    assert "head" in split and any(p.endswith(("in_proj", "frontend_proj", "wq")) for p in split)
+
+
+def _leaves_of(specs):
+    """The specs of a spec tree in leaf order (a spec is a tuple)."""
+    if isinstance(specs, dict):
+        return [s for v in specs.values() for s in _leaves_of(v)]
+    return [specs]

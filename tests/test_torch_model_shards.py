@@ -19,11 +19,13 @@ a data x model mesh) against the JAX package, on the CPU (gloo ranks):
   blocks; the all-reduces a round on each group, as counted;
 * the sharded loss's gradient, gathered, equals the one-card gradient;
 * a (data 1, model 1) grid runs the one-card round bit for bit; the grid
-  refuses scan and remat on a model built without FSDP, the SSM family,
-  serving an SSM model, the gram variant over several rows, foreign client
-  axes and K not divisible by the rows (``tests/test_torch_fsdp_experts.py``
-  runs scan, remat and the MoE family on the grid,
-  ``tests/test_torch_grid_serving.py`` serves dense and MoE models on it);
+  refuses scan and remat on a model built without FSDP, an encoder's decode
+  step, an SSM round of K not divisible by the rows, the gram variant over
+  several rows, foreign client axes and K not divisible by the rows
+  (``tests/test_torch_fsdp_experts.py`` runs scan, remat and the MoE family
+  on the grid, ``tests/test_torch_grid_serving.py`` serves dense and MoE
+  models on it, ``tests/test_torch_grid_families.py`` trains and serves the
+  SSM, hybrid, VLM and audio families there);
 * the dry run's ``--mesh``: a rank's bytes under the specs.
 
 The ranks are spawned once a module (the fixtures); they import this
@@ -348,15 +350,16 @@ def _refusals(grid):
 
     model = build_model(ModelConfig(**ALIGNED), grid=grid)
     plain = build_model(ModelConfig(**ALIGNED))
-    ssm = get_config("mamba2-1.3b").reduced()
+    audio = build_model(get_config("hubert-xlarge").reduced(), grid=grid)
+    ssm = build_model(get_config("mamba2-1.3b").reduced(), grid=grid)
     calls = {
         "scan": lambda: make_fed_round(model, FedRoundConfig(num_clients=2, mode="scan"),
                                        grid=grid),
         "remat": lambda: make_fed_round(model, FedRoundConfig(num_clients=2, mode="remat"),
                                         grid=grid),
-        "ssm": lambda: build_model(ssm, grid=grid),
-        "serving": lambda: build_model(ssm, grid=grid).prefill(
-            {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, cache_size=4),
+        "encoder_decode": lambda: audio.decode_step(
+            {}, {"pos": torch.zeros(1, dtype=torch.int32)}, torch.zeros(1, dtype=torch.int64)),
+        "ssm_divisible": lambda: make_fed_round(ssm, FedRoundConfig(num_clients=3), grid=grid),
         "gram_rows": lambda: afa_aggregate_tree(
             {"w": torch.ones((1, 3))}, torch.ones(2), torch.ones(2),
             config=AFAConfig(variant="gram"), shards=TreeShards(grid, ("data",), ((),))),
@@ -531,7 +534,7 @@ def test_all_reduces_a_round(four_ranks, name, K):
 def test_grid_refusals(four_ranks):
     assert four_ranks["refusals"] == {
         "scan": "ValueError", "remat": "ValueError",
-        "ssm": "NotImplementedError", "serving": "NotImplementedError",
+        "encoder_decode": "ValueError", "ssm_divisible": "ValueError",
         "gram_rows": "ValueError", "client_axes": "ValueError", "divisible": "ValueError",
         "unsharded_model": "ValueError"}
 
