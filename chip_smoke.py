@@ -324,13 +324,29 @@
    eager bit for bit and held to one card's decode on sampled rows, and
    mamba2-1.3b's vmap and zamba2-1.2b's scan rounds at full width and depth,
    exactly client 0 screened out on every rank;
-24. prints each phase's seconds on a line of its own, a ``{"kernels":
+24. runs the client axis beside the model axis on a (client 2, data 2,
+   model 2) grid (phase X, ``cross_phase``; alone with ``--phase X``):
+   smollm-135m at full width (``CROSS_LAYERS`` of its 30 layers) on 8 gloo
+   ranks sharing the card, K = 4 over the client rows, a rank given its
+   row's 2 clients: vmap (bf16 and an f32 copy), scan with bf16 and int8
+   storage, and remat against the same mode's one-card round (decisions
+   equal on every rank, the aggregate within its bound), every rank its
+   spec blocks and its row's clients, no kernel in the rounds; a bf16
+   prefill and ``GRID_TF_STEPS`` teacher-forced steps on the same grid (the
+   client axis idle) within ``bf16_bound`` of one card's, L flash launches
+   a rank, its cache exactly ``rank_bytes``; with four cards or more (alone
+   with ``--phase X4``), ``cross_cards``: llama3-8b at full width and depth
+   on one NCCL rank a card, the vmap round on (client 2, model 2) (its
+   first round the same bits as on (data 2, model 2)) and the scan round on
+   (client 2, data 2, model 1), 3 rounds each, exactly client 0 screened
+   out on every rank, each rank's peak near its reckoning;
+25. prints each phase's seconds on a line of its own, a ``{"kernels":
    [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
    serve-LLM, families, production-shape (its kernel-route prefills and
-   forwards), sweep, serve, grid, looped, leaf, client-shard, grid-serving
-   and family-grid phases (phases T, N and E run no kernel; phases H, R and
-   Q summed over their ranks) and, for the
+   forwards), sweep, serve, grid, looped, leaf, client-shard, grid-serving,
+   family-grid and client-grid phases (phases T, N and E run no kernel;
+   phases H, R, Q and X summed over their ranks) and, for the
    fused engine's
    graph runs (the DNN's and LoRA's), the calls that step 14's traces
    executed.
@@ -861,6 +877,48 @@ FAMILY_CARD_GB = 0.9
 FAMILY_CARDS_TRAIN = {"mamba2-1.3b": "vmap", "zamba2-1.2b": "scan"}
 FAMILY_CARDS_RUN = dict(K=4, byzantine=1, local_steps=2, batch=2, seq=128, rounds=3, lr=0.05)
 
+
+# phase X (the client axis beside the model axis): on a (client 2, data 2,
+# model 2) grid of 8 gloo ranks sharing the card, phase T's round (K = 4,
+# client 0 byzantine, 2 local steps of 2 x 128 tokens) of smollm-135m at
+# full width in bf16, cut to CROSS_LAYERS of its 30 layers (so that the phase
+# stays near 150 s with 8 ranks on the card), K over the client rows: a
+# rank is given its row's 2 clients.  vmap trains them under
+# torch.func.vmap over model alone (the data ranks of a row alike), scan
+# (bf16 and int8 storage) and remat one at a time under FSDP over data
+# (each client's 2 rows split over the data ranks).  Each round against the
+# same mode's one-card round: the decisions equal on every rank, the
+# aggregate within TRAIN_ROUNDING (int8: one quantization step of the
+# leaf's scale beyond) or, leaf by leaf, twice one card's own bf16 error
+# (its bf16 vmap aggregate's distance from the f32 one, ROADMAP C.19), the
+# vmap round on an f32 copy (CROSS_F32) within AXIS_F32, the int8 scales
+# the same bits on every rank and within FSDP_SCALE of one card's; every
+# rank exactly its spec blocks and its client row's clients; no kernel in
+# the rounds (the blocked attention, C.5).  Then the bf16 weights serve on
+# the same grid, the client axis idle: CROSS_SERVE's prompts prefilled on
+# the kernel route (L flash_attn_tc launches a rank) and GRID_TF_STEPS
+# seeded tokens teacher-forced, each rank's rows within bf16_bound of one
+# card's, its cache exactly rank_bytes of its cache_pspec blocks.  With four
+# cards (--phase X4), one NCCL rank a card, llama3-8b at full width and
+# depth in bf16, K = 4, 3 rounds: the vmap round on (client 2, model 2)
+# (AXIS_BIG_RUN; its first round the same bits on every rank as the same
+# draw's round on phase N's (data 2, model 2) grid: a rank holds the same
+# blocks and sums over the same ranks), and the scan round on (client 2,
+# data 2, model 1) (CROSS_SCAN_RUN: each client's 2 rows split over a
+# row's 2 cards), each rank's peak within CROSS_PEAK_GB of its reckoning
+# (the vmap reckoning leaves out activations: on an H100 the round peaks
+# 10.7 GB above it).
+CROSS_GRID = dict(client=2, data=2, model=2)
+CROSS_GRID_RANKS = CROSS_GRID["client"] * CROSS_GRID["data"] * CROSS_GRID["model"]
+CROSS_LAYERS = 4
+CROSS_MODES = {"vmap": ("vmap", "bfloat16", 8), "scan/bfloat16": ("scan", "bfloat16", 8),
+               "scan/int8": ("scan", "int8", 8), "remat": ("remat", "bfloat16", 1)}
+CROSS_F32 = {"vmap/f32": ("vmap", "float32", 8)}
+CROSS_SERVE = dict(B=4, P=512)
+CROSS_BIG = {"vmap": dict(client=2, data=0, model=2), "scan": dict(client=2, data=2, model=1)}
+CROSS_SCAN_RUN = dict(K=4, byzantine=1, local_steps=2, batch=2, seq=256, rounds=3, lr=0.05,
+                      layers=32)
+CROSS_PEAK_GB = 12.0
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
@@ -4885,6 +4943,25 @@ def axis_all_reduces(cfg, steps: int, passes: int) -> dict:
     return {"model": steps * step + 1 + passes, "data": passes * (leaves + 1) + leaves}
 
 
+def client_block(grid, batch):
+    """This rank's block of a federated batch under ``batch_pspec``: its
+    client row's clients (the client axis's, else the data axes'), each with
+    its whole ``b``."""
+    from repro_torch.launch.sharding import batch_pspec, shard_tree
+    from repro_torch.models.model import tree_apply
+
+    return shard_tree(batch, grid, tree_apply(lambda t: batch_pspec(
+        tuple(t.shape), grid, client_axis=True, per_client_batch=True), batch))
+
+
+def grid_max(grid, t):
+    """The elementwise max of ``t`` over every rank of the grid: a ``pmax``
+    over each of its axes in turn (exact)."""
+    for axis in grid.axis_names:
+        t = grid.pmax(t, axis)
+    return t
+
+
 def axis_held(torch, model, cfg, grid, gen):
     """This rank's blocks of the model's weights drawn from ``gen``: their
     shapes against the specs (FSDP as the model's; raises on any other),
@@ -4947,7 +5024,7 @@ def axis_compare(torch, grid, got, ref, specs, start=None, steps=None, per_leaf=
             rtol, atol = AXIS_F32
         else:
             update = (y - z.float()).abs().max().reshape(1)
-            rtol, atol = ulps, frac * float(grid.pmax(grid.pmax(update, "data"), "model")[0])
+            rtol, atol = ulps, frac * float(grid_max(grid, update)[0])
         atol += 0.0 if steps is None else steps[path]
         out = float(((x - y).abs() - atol - rtol * y.abs()).max())
         worst = max(worst, out)
@@ -4955,7 +5032,7 @@ def axis_compare(torch, grid, got, ref, specs, start=None, steps=None, per_leaf=
         if per_leaf is not None:
             per_leaf[path] = (out, float((x - y).abs().max()), float(y.abs().max()))
     both = torch.tensor([worst, diff], device=grid.device)
-    both = grid.pmax(grid.pmax(both, "data"), "model")
+    both = grid_max(grid, both)
     return float(both[0]), float(both[1])
 
 
@@ -4990,7 +5067,6 @@ def axis_worker(ref_path):
     from repro_torch.fed.distributed import FedRoundConfig, make_fed_round
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
-    from repro_torch.launch.sharding import batch_pspec, shard_tree
     from repro_torch.models import build_model
     from repro_torch.models.model import tree_apply
 
@@ -5004,10 +5080,6 @@ def axis_worker(ref_path):
     _, rounds = train_data(torch, cfg)
     K, r = TRAIN_RUN["K"], TRAIN_RUN
 
-    def rows(batch):
-        return shard_tree(batch, grid, tree_apply(lambda t: batch_pspec(
-            tuple(t.shape), grid, client_axis=True, per_client_batch=True), batch))
-
     ref = torch.load(ref_path, map_location="cpu", mmap=True)
     fr_cfg = FedRoundConfig(num_clients=K, local_steps=r["local_steps"], lr=r["lr"],
                             client_axes=("data",))
@@ -5016,18 +5088,18 @@ def axis_worker(ref_path):
     out = {"rank": grid.rank, "coords": grid.coords, "held": held}
     fed_round = make_fed_round(model, fr_cfg, grid=grid)
     agg, rep, m, out["bf16"] = axis_round(torch, grid, fed_round, params,
-                                          init_reputation(K, device="cuda"), n_k, rows(rounds[0]))
+                                          init_reputation(K, device="cuda"), n_k, client_block(grid, rounds[0]))
     out["bf16"]["outside"], out["bf16"]["max_abs_diff"] = axis_compare(
         torch, grid, agg, ref["bfloat16"], specs, start=params)
     _, _, _, out["bf16_round2"] = axis_round(torch, grid, fed_round, agg, rep, n_k,
-                                             rows(rounds[1]))
+                                             client_block(grid, rounds[1]))
     del agg
     cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
     params32 = tree_apply(lambda t: t.float(), params)
     del params
     agg32, _, _, out["f32"] = axis_round(
         torch, grid, make_fed_round(build_model(cfg32, grid=grid), fr_cfg, grid=grid),
-        params32, init_reputation(K, device="cuda"), n_k, rows(rounds[0]))
+        params32, init_reputation(K, device="cuda"), n_k, client_block(grid, rounds[0]))
     out["f32"]["outside"], out["f32"]["max_abs_diff"] = axis_compare(
         torch, grid, agg32, ref["float32"], specs)
     out["launches"] = dict(ops.LAUNCH_COUNTS)
@@ -5186,9 +5258,7 @@ def axis_big_worker():
     from repro_torch.core import init_reputation
     from repro_torch.fed.distributed import FedRoundConfig, make_fed_round
     from repro_torch.launch.mesh import GRID_ALL_REDUCE_RANGE, make_grid_mesh, make_test_mesh
-    from repro_torch.launch.sharding import batch_pspec, shard_tree
     from repro_torch.models import build_model
-    from repro_torch.models.model import tree_apply
 
     t_worker = time.perf_counter()
     r = AXIS_BIG_RUN
@@ -5202,10 +5272,6 @@ def axis_big_worker():
     held["draw_s"] = time.perf_counter() - t0
     eval_batch, rounds = axis_big_data(torch, cfg, grid.device)
 
-    def rows(batch):
-        return shard_tree(batch, grid, tree_apply(lambda t: batch_pspec(
-            tuple(t.shape), grid, client_axis=True, per_client_batch=True), batch))
-
     K = r["K"]
     fed_round = make_fed_round(model, FedRoundConfig(
         num_clients=K, local_steps=r["local_steps"], lr=r["lr"], client_axes=("data",)),
@@ -5214,7 +5280,7 @@ def axis_big_worker():
     n_k = torch.ones((K,), dtype=torch.float32, device=grid.device)
     out = {"held": held, "rounds": []}
     for rnd, batch in enumerate(rounds):
-        local = rows(batch)
+        local = client_block(grid, batch)
         if rnd == len(rounds) - 1 and grid.rank == 0:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 params, rep, m, row = axis_round(torch, grid, fed_round, params, rep, n_k, local)
@@ -5380,24 +5446,27 @@ def fsdp_runs():
              {"scan": FSDP_MOE_MODES["scan"]}, True)]
 
 
-def fsdp_reckoning(cfg, mode: str, pdt: str, K: int) -> dict:
-    """A rank's bytes (GB) in an FSDP round of ``cfg`` on a (data 2, model 2)
-    grid, from the specs (meta): ``blocks``, its blocks of the weights;
-    ``gathered``, the model's half of the leaves a forward saves for its
-    backward (each data-split leaf whole over data; the embedding's gather
-    is dropped after the lookup); ``store`` (scan: the K proposals' blocks
-    in the storage dtype) or ``acc`` (remat: a float32 accumulator of the
-    blocks); ``train``, a client's weights, momentum and gradient (three
-    copies of the blocks); ``transient``, three copies of the largest leaf
-    one use gathers (a layer's, not the stack's): the gathered vector, its
-    cut and a transposed copy.  ``peak`` is their sum with the round's
-    start weights."""
-    from repro_torch.launch.mesh import make_test_mesh
+def fsdp_reckoning(cfg, mode: str, pdt: str, K: int, shape=AXIS_GRID) -> dict:
+    """A rank's bytes (GB) in an FSDP round of ``cfg`` on a grid of
+    ``shape`` (by default (data 2, model 2)), from the specs (meta):
+    ``blocks``, its blocks of the weights; ``gathered``, the model's half of
+    the leaves a forward saves for its backward (each data-split leaf whole
+    over data; the embedding's gather is dropped after the lookup);
+    ``store`` (scan: the blocks of the K proposals, or of the K / rows of a
+    client row, in the storage dtype) or ``acc`` (remat: a float32
+    accumulator of the blocks); ``train``, a client's weights, momentum and
+    gradient (three copies of the blocks); ``transient``, three copies of
+    the largest leaf one use gathers (a layer's, not the stack's): the
+    gathered vector, its cut and a transposed copy.  ``peak`` is their sum
+    with the round's start weights."""
+    from repro_torch.launch.mesh import make_test_mesh, num_client_rows
     from repro_torch.launch.sharding import shard_bytes, shard_params_tree, uses_axis
     from repro_torch.models import build_model
     from repro_torch.utils.trees import tree_leaves, tree_structure
 
-    grid = make_test_mesh(**AXIS_GRID)
+    grid = make_test_mesh(**shape)
+    if "client" in shape:   # a client row stores its own clients' proposals
+        K //= num_client_rows(grid)
     full = build_model(cfg).init(None, "meta")
     specs = shard_params_tree(full, grid, fsdp=True)
     blocks = gathered = big = 0
@@ -5428,6 +5497,36 @@ def fsdp_round(torch, grid, fed_round, params, rep, n_k, batch):
     return agg, rep2, m, row
 
 
+def cards_round(torch, grid, fed_round, params, rep, n_k, batch, traced: bool):
+    """``fsdp_round``, traced when ``traced`` (the collectives' share: the
+    device time of the NCCL kernels and the host time in the grid's
+    collective ranges, against the round's wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.mesh import (
+        GRID_ALL_GATHER_RANGE,
+        GRID_ALL_REDUCE_RANGE,
+        GRID_REDUCE_SCATTER_RANGE,
+    )
+
+    if not traced:
+        return fsdp_round(torch, grid, fed_round, params, rep, n_k, batch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fsdp_round(torch, grid, fed_round, params, rep, n_k, batch)
+    row = out[3]
+    spans = device_spans(torch, prof)
+    nccl = [(b, e, k) for b, e, k in spans if "nccl" in k.lower()]
+    ranges = (GRID_ALL_REDUCE_RANGE, GRID_ALL_GATHER_RANGE, GRID_REDUCE_SCATTER_RANGE)
+    host = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.name in ranges and e.device_type == DeviceType.CPU]
+    row["trace"] = {"wall_ms": row["ms"], "device_busy_ms": busy_us(spans) / 1e3,
+                    "collective_device_ms": busy_us(nccl) / 1e3,
+                    "collective_kernels": len(nccl),
+                    "collective_host_ms": sum(host) / 1e3, "collective_ranges": len(host)}
+    return out
+
+
 def fsdp_scales(torch, grid, scales, ref, w):
     """The int8 scales of this rank: the same bits on every rank, and how
     far they lie outside ``FSDP_SCALE`` of the one-card scales ``ref``
@@ -5438,14 +5537,14 @@ def fsdp_scales(torch, grid, scales, ref, w):
     frac, ulps = FSDP_SCALE
     paths = list(scales)
     s = torch.stack([scales[p] for p in paths])
-    hi = grid.pmax(grid.pmax(s, "data"), "model")
-    lo = -grid.pmax(grid.pmax(-s, "data"), "model")
+    hi = grid_max(grid, s)
+    lo = -grid_max(grid, -s)
     same = bool(torch.equal(hi, s) and torch.equal(lo, s))
     top = dict(zip(["/".join(p) for p in tree_structure(w)],
                    [l.float().abs().max().reshape(1) for l in tree_leaves(w)]))
     worst = float("-inf")
     for path in paths:
-        wmax = float(grid.pmax(grid.pmax(top[path], "data"), "model")[0])
+        wmax = float(grid_max(grid, top[path])[0])
         want = ref[path].to(s.device)
         far = (scales[path] - want).abs() - frac * want - ulps * wmax / 127.0
         worst = max(worst, float(far.max()))
@@ -5552,8 +5651,6 @@ def fsdp_worker(ref_path):
 
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
-    from repro_torch.launch.sharding import batch_pspec, shard_tree
-    from repro_torch.models.model import tree_apply
 
     t_worker = time.perf_counter()
     grid = make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda:0")
@@ -5562,10 +5659,7 @@ def fsdp_worker(ref_path):
     def rows_of(batch, mode):
         # vmap: this rank's client rows; FSDP: the whole batch, whose rows
         # the model splits over data
-        if mode != "vmap":
-            return batch
-        return shard_tree(batch, grid, tree_apply(lambda t: batch_pspec(
-            tuple(t.shape), grid, client_axis=True, per_client_batch=True), batch))
+        return batch if mode != "vmap" else client_block(grid, batch)
 
     ops.reset_launch_counts()
     out, mine = {"rank": grid.rank, "coords": grid.coords}, {"rank": grid.rank}
@@ -5678,24 +5772,14 @@ def fsdp_big_worker(arch):
     """One NCCL rank of ``arch``'s FSDP grid (one card a rank), cut to its
     ``FSDP_BIG`` depth: this rank's blocks drawn (seed 0), the eval loss,
     then ``FSDP_BIG_RUN["rounds"]`` rounds, each with the eval loss after
-    it, the last traced on rank 0 (the collectives' share: the device time
-    of the NCCL kernels and the host time in the grid's collective ranges,
-    against the round's wall)."""
+    it, the last traced on rank 0 (``cards_round``)."""
     import torch
     import torch.distributed as dist
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.core import init_reputation
     from repro_torch.fed.distributed import make_fed_round
-    from repro_torch.launch.mesh import (
-        GRID_ALL_GATHER_RANGE,
-        GRID_ALL_REDUCE_RANGE,
-        GRID_REDUCE_SCATTER_RANGE,
-        make_grid_mesh,
-        make_test_mesh,
-    )
+    from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
     from repro_torch.models import build_model
 
     t_worker = time.perf_counter()
@@ -5729,26 +5813,12 @@ def fsdp_big_worker(arch):
                 w = params["layers"]["moe"][name]   # (L, E / model, d_in, d_out / data)
                 w.mul_((cfg.num_experts / (cfg.d_ff if name == "down" else cfg.d_model)) ** 0.5)
             out["eval_loss_0"] = float(model.loss_fn(params, eval_batch)[0])
-    ranges = (GRID_ALL_REDUCE_RANGE, GRID_ALL_GATHER_RANGE, GRID_REDUCE_SCATTER_RANGE)
     for rnd, batch in enumerate(rounds):
-        if rnd == len(rounds) - 1 and grid.rank == 0:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                params, rep, m, row = fsdp_round(torch, grid, fed_round, params, rep, n_k, batch)
-            spans = device_spans(torch, prof)
-            nccl = [(b, e, k) for b, e, k in spans if "nccl" in k.lower()]
-            host = [e.time_range.end - e.time_range.start for e in prof.events()
-                    if e.name in ranges and e.device_type == DeviceType.CPU]
-            row["trace"] = {"wall_ms": row["ms"], "device_busy_ms": busy_us(spans) / 1e3,
-                            "collective_device_ms": busy_us(nccl) / 1e3,
-                            "collective_kernels": len(nccl),
-                            "collective_host_ms": sum(host) / 1e3, "collective_ranges": len(host)}
-            del prof
-        else:
-            params, rep, m, row = fsdp_round(torch, grid, fed_round, params, rep, n_k, batch)
+        params, rep, m, row = cards_round(torch, grid, fed_round, params, rep, n_k, batch,
+                                          rnd == len(rounds) - 1 and grid.rank == 0)
         if "scales" in m:
             s = torch.stack(list(m["scales"].values()))
-            same = torch.equal(grid.pmax(grid.pmax(s, "data"), "model"), s) and torch.equal(
-                -grid.pmax(grid.pmax(-s, "data"), "model"), s)
+            same = torch.equal(grid_max(grid, s), s) and torch.equal(-grid_max(grid, -s), s)
             row["scales_same_on_every_rank"] = bool(same)
         del m
         with torch.no_grad():
@@ -6820,9 +6890,7 @@ def family_grid_worker(tmp):
     from repro_torch.fed.distributed import make_fed_round
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
-    from repro_torch.launch.sharding import batch_pspec, shard_tree
     from repro_torch.models import build_model
-    from repro_torch.models.model import tree_apply
 
     t_worker = time.perf_counter()
     grid = make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda:0")
@@ -6831,10 +6899,6 @@ def family_grid_worker(tmp):
     n_k = torch.ones((K,), dtype=torch.float32, device="cuda")
     mine = {"rank": grid.rank, "coords": dict(grid.coords), "train": {}, "serve": {},
             "forward": {}}
-
-    def rows(batch):   # the clients of this rank's data row
-        return shard_tree(batch, grid, tree_apply(lambda t: batch_pspec(
-            tuple(t.shape), grid, client_axis=True, per_client_batch=True), batch))
 
     gen = torch.Generator(device="cuda")
     for arch in FAMILY_LAYERS:
@@ -6854,7 +6918,7 @@ def family_grid_worker(tmp):
             ops.reset_launch_counts()
             agg, _, _, row = fsdp_round(torch, grid, fed_round, params,
                                         init_reputation(K, device="cuda"), n_k,
-                                        rows(rounds[0]) if vmap else rounds[0])
+                                        client_block(grid, rounds[0]) if vmap else rounds[0])
             per_leaf = {}
             row["outside"], row["max_abs_diff"] = axis_compare(
                 torch, grid, agg, ref["train"][case], specs,
@@ -7061,9 +7125,7 @@ def family_train_cards(torch, grid, arch: str, mode: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core import init_reputation
     from repro_torch.fed.distributed import make_fed_round
-    from repro_torch.launch.sharding import batch_pspec, shard_tree
     from repro_torch.models import build_model
-    from repro_torch.models.model import tree_apply
 
     run, K = FAMILY_CARDS_RUN, FAMILY_CARDS_RUN["K"]
     cfg = get_config(arch).with_(fed_mode=mode)
@@ -7080,8 +7142,7 @@ def family_train_cards(torch, grid, arch: str, mode: str) -> dict:
     out = {"held": held, "rounds": []}
     for batch in rounds:
         if vmap:
-            batch = shard_tree(batch, grid, tree_apply(lambda t: batch_pspec(
-                tuple(t.shape), grid, client_axis=True, per_client_batch=True), batch))
+            batch = client_block(grid, batch)
         params, rep, m, row = fsdp_round(torch, grid, fed_round, params, rep, n_k, batch)
         del m
         with torch.no_grad():
@@ -7294,6 +7355,533 @@ def family_grid_only(torch, ops, smi, name, cards_only: bool = False) -> None:
         family_cards_summary(smi, rows["cards"])
     else:
         family_grid_summary(smi, rows)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def cross_cfg(mode: str, *, pallas: bool = False):
+    """smollm-135m at full width, cut to ``CROSS_LAYERS`` layers, built for
+    ``mode`` (FSDP under scan and remat)."""
+    from repro_torch.configs import get_config
+
+    return get_config(TRAIN_ARCH).with_(num_layers=CROSS_LAYERS, fed_mode=mode,
+                                        use_pallas_attention=pallas)
+
+
+def cross_one_card(torch):
+    """Phase X's one-card references, on the host: each ``CROSS_MODES``
+    round in bf16 and the vmap round on an f32 copy (``fsdp_one_card``),
+    one card's own bf16 error of each leaf (its bf16 vmap aggregate against
+    the f32 one), the prompts and tokens of the serving check and one
+    card's teacher-forced bf16 logits on the kernel route."""
+    from repro_torch.models import build_model
+
+    cfg = cross_cfg("vmap")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = build_model(cfg).init(gen, "cuda")
+    _, rounds = train_data(torch, cfg)
+    refs, rows = fsdp_one_card(torch, build_model(cfg), params, rounds[0], CROSS_MODES)
+    cfg32, p32 = as_f32(cfg, params)
+    ref32, row32 = fsdp_one_card(torch, build_model(cfg32), p32, rounds[0], CROSS_F32)
+    refs.update(ref32)
+    rows.update(row32)
+    del p32, rounds
+    bf16, f32 = refs["vmap"]["agg"], refs["vmap/f32"]["agg"]
+    error = {path: float((bf16[path].float() - w).abs().max()) for path, w in f32.items()}
+    b, p = CROSS_SERVE["B"], CROSS_SERVE["P"]
+    prompts = serve_prompts(torch, cfg.vocab_size, b, p, 41)
+    tokens = serve_prompts(torch, cfg.vocab_size, b, GRID_TF_STEPS, 42)
+    with torch.no_grad():
+        logits = teacher_logits(torch, build_model(cfg.with_(use_pallas_attention=True)), params,
+                                prompts, tokens, p + GRID_TF_STEPS, GRID_TF_STEPS)
+    del params
+    torch.cuda.empty_cache()
+    return {"train": refs, "rows": rows, "bf16_error": error, "prompts": prompts.cpu(),
+            "tokens": tokens.cpu(), "logits": logits}
+
+
+def cross_serve(torch, ops, grid, cfg, params, ref, tmp) -> dict:
+    """This rank's bf16 prefill of the prompts on the kernel route and
+    ``GRID_TF_STEPS`` teacher-forced decode steps (its logits to ``tmp``):
+    its flash launches (all in the prefill), its cache's bytes against
+    ``rank_bytes`` of the ``cache_pspec`` blocks, a step's all-reduces, ms."""
+    from repro_torch.launch.sharding import cache_tree_pspecs
+    from repro_torch.launch.specs import rank_bytes
+    from repro_torch.models import build_model
+
+    model = build_model(cfg.with_(use_pallas_attention=True), grid=grid)
+    prompts, tokens = ref["prompts"].to(grid.device), ref["tokens"].to(grid.device)
+    size = CROSS_SERVE["P"] + GRID_TF_STEPS
+    whole = build_model(model.config).init_cache(CROSS_SERVE["B"], size, device="meta")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompts}, cache_size=size)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    got, counts = [logits.cpu()], None
+    t0 = time.perf_counter()
+    for t in range(GRID_TF_STEPS):
+        grid.clear_counts()
+        logits, cache = model.decode_step(params, cache, tokens[:, t], cache_size=size)
+        counts = counts or dict(grid.all_reduces)
+        got.append(logits.cpu())
+    decode_ms = (time.perf_counter() - t0) * 1e3 / GRID_TF_STEPS
+    torch.save(torch.stack(got, dim=1), Path(tmp) / f"serve.rank{grid.rank}.pt")
+    return {"launches": {k: c for k, c in ops.LAUNCH_COUNTS.items() if c},
+            "want_launches": {"flash_attn_tc": cfg.num_layers},
+            "cache_bytes": sum(x.numel() * x.element_size() for x in leaves(cache)),
+            "rank_bytes": rank_bytes(whole, cache_tree_pspecs(whole, grid), grid),
+            "all_reduces_a_step": counts, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_ms}
+
+
+def cross_worker(tmp):
+    """One rank of phase X's gloo grid: smollm-135m (cut) drawn as this
+    rank's blocks without FSDP, its serving check, the vmap round in bf16
+    and on an f32 copy; then drawn again under FSDP, the scan and remat
+    rounds; each round on this rank's client row's clients, held to one
+    card's (``axis_compare``).  Returns every rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import make_fed_round
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
+    from repro_torch.models import build_model
+
+    t_worker = time.perf_counter()
+    grid = make_grid_mesh(make_test_mesh(**CROSS_GRID), "cuda:0")
+    ref = torch.load(Path(tmp) / "ref.pt", map_location="cpu", mmap=True)
+    K, r = TRAIN_RUN["K"], TRAIN_RUN
+    n_k = torch.ones((K,), dtype=torch.float32, device="cuda")
+    mine = {"rank": grid.rank, "coords": dict(grid.coords), "train": {}, "held": {}}
+    gen = torch.Generator(device="cuda")
+    _, rounds = train_data(torch, cross_cfg("vmap"))
+    local = client_block(grid, rounds[0])
+    row_ids = grid.block(K, "client")
+    mine["batch"] = {"clients": int(local["tokens"].shape[0]),
+                     "is_the_row": all(torch.equal(local[k], v[row_ids])
+                                       for k, v in rounds[0].items())}
+    del rounds
+    for fsdp, labels in ((False, ("vmap", "vmap/f32")),
+                         (True, ("scan/bfloat16", "scan/int8", "remat"))):
+        cfg = cross_cfg("scan" if fsdp else "vmap")
+        model = build_model(cfg, grid=grid)
+        gen.manual_seed(0)
+        params, specs, mine["held"]["fsdp" if fsdp else "model"] = axis_held(
+            torch, model, cfg, grid, gen)
+        if not fsdp:
+            with torch.no_grad():
+                mine["serve"] = cross_serve(torch, ops, grid, cfg, params, ref, tmp)
+        for label in labels:
+            mode, pdt, max_rounds = {**CROSS_MODES, **CROSS_F32}[label]
+            m, p = model, params
+            if label.endswith("f32"):
+                cfg32, p = as_f32(cfg, params)
+                m = build_model(cfg32, grid=grid)
+            fed_round = make_fed_round(m, fsdp_fed_config(mode, pdt, max_rounds, K,
+                                                          r["local_steps"], r["lr"]), grid=grid)
+            ops.reset_launch_counts()
+            agg, _, met, row = fsdp_round(torch, grid, fed_round, p,
+                                          init_reputation(K, device="cuda"), n_k, local)
+            want = ref["train"][label]
+            steps = fsdp_steps(want["scales"]) if want["scales"] else None
+            per_leaf = {}
+            row["outside"], row["max_abs_diff"] = axis_compare(
+                torch, grid, agg, want["agg"], specs,
+                start=None if label.endswith("f32") else p, steps=steps, per_leaf=per_leaf)
+            row["per_leaf"] = per_leaf
+            if "scales" in met:
+                row["scales_same_on_every_rank"], row["scales_outside"] = fsdp_scales(
+                    torch, grid, met["scales"], want["scales"], p)
+            row["launches"] = {k: c for k, c in ops.LAUNCH_COUNTS.items() if c}
+            mine["train"][label] = row
+            del agg, met, fed_round
+            if grid.rank == 0:
+                print(f"cross [{label}, rank 0]: {row['ms']:.1f} ms", flush=True)
+        del params, model
+        torch.cuda.empty_cache()
+    mine["worker_s"] = time.perf_counter() - t_worker
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return ranks
+
+
+def cross_phase(torch, ops, smi):
+    """Phase X: the client axis beside the model axis (see ``CROSS_GRID``).
+    Returns the rows and the flash launches the ranks counted (summed over
+    them).  With four cards or more, ``cross_cards``."""
+    import tempfile
+
+    from repro_torch.launch.shards import spawn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    K = TRAIN_RUN["K"]
+    rows = {"config": dict(grid=CROSS_GRID, layers=CROSS_LAYERS, serve=CROSS_SERVE,
+                           tf_steps=GRID_TF_STEPS, **TRAIN_RUN)}
+    t0 = time.perf_counter()
+    refs = cross_one_card(torch)
+    rows["one_card_s"] = time.perf_counter() - t0
+    rows["one_card"], rows["bf16_error"] = refs["rows"], refs["bf16_error"]
+    launches = {"flash_attn": 0, "flash_attn_tc": 0}
+    problems = []
+    with tempfile.TemporaryDirectory(prefix="cross_") as tmp:
+        torch.save({k: refs[k] for k in ("train", "prompts", "tokens")}, Path(tmp) / "ref.pt")
+        t0 = time.perf_counter()
+        ranks = spawn(cross_worker, CROSS_GRID_RANKS, backend="gloo", device="cuda:0",
+                      args=(tmp,))
+        rows["spawn_wall_s"] = time.perf_counter() - t0
+        rows["ranks"] = []
+        for rank in ranks:
+            label0 = f"rank {rank['rank']} {rank['coords']}"
+            if rank["batch"] != {"clients": K // CROSS_GRID["client"], "is_the_row": True}:
+                problems.append(f"cross [{label0}]: its batch is not its client row's "
+                                f"{K // CROSS_GRID['client']} clients: {rank['batch']}")
+            for label, row in rank["train"].items():
+                one = rows["one_card"][label]
+                for key in ("alpha", "beta", "blocked", "good_frac", "afa_rounds"):
+                    if row[key] != one[key]:
+                        problems.append(f"cross [{label} {label0}]: {key} {row[key]} != the "
+                                        f"one-card {one[key]}")
+                # bf16: within TRAIN_ROUNDING, or within twice one card's own
+                # bf16 error (C.19); f32: AXIS_F32
+                err = {} if label.endswith("f32") else rows["bf16_error"]
+                row["beyond"] = {path: (out, diff, err.get(path))
+                                 for path, (out, diff, _) in row.pop("per_leaf").items()
+                                 if out > 0 and not diff <= 2 * err.get(path, -1.0)}
+                if row["beyond"] or row["launches"]:
+                    problems.append(f"cross [{label} {label0}]: leaves outside their bound of "
+                                    f"one card's (outside, max |diff|, one card's bf16 error): "
+                                    f"{row['beyond']}, or the round launched {row['launches']}")
+                if "scales_outside" in row and (not row["scales_same_on_every_rank"]
+                                                or row["scales_outside"] > 0):
+                    problems.append(f"cross [{label} {label0}]: the int8 scales are not the "
+                                    f"whole leaf's: {row['scales_outside']}")
+                if label != "vmap" and not label.endswith("f32") and not row["all_gathers"]:
+                    problems.append(f"cross [{label} {label0}]: no all-gather: nothing FSDP'd")
+            serve = rank["serve"]
+            if serve["launches"] != serve["want_launches"]:
+                problems.append(f"cross [serve {label0}]: launched {serve['launches']}, "
+                                f"expected {serve['want_launches']}")
+            for key, n in serve["launches"].items():
+                launches[key] += n
+            if serve["cache_bytes"] != serve["rank_bytes"]:
+                problems.append(f"cross [serve {label0}]: holds {serve['cache_bytes']} bytes of "
+                                f"cache, its cache_pspec blocks {serve['rank_bytes']}")
+            d = rank["coords"]["data"]
+            half = CROSS_SERVE["B"] // CROSS_GRID["data"]
+            got = torch.load(Path(tmp) / f"serve.rank{rank['rank']}.pt")
+            try:
+                serve["check"] = grid_decisions(torch, f"cross bf16 {label0}", got,
+                                                refs["logits"][d * half:(d + 1) * half], False)
+            except AssertionError as e:
+                problems.append(str(e))
+                serve["check"] = {"max_abs_diff": float("nan"), "outside": float("nan")}
+            rows["ranks"].append(rank)
+    for rank in rows["ranks"]:
+        for label, row in rank["train"].items():
+            one = rows["one_card"][label]
+            print(f"cross [{label}, rank {rank['rank']} {rank['coords']}, 8 gloo ranks on one "
+                  f"card] ({smi}): {row['ms']:.1f} ms a round (one card {one['ms']:.1f}), "
+                  f"peak_GB={row['peak_gb']:.3f}, outside {row['outside']:.3e} (max |diff| "
+                  f"{row['max_abs_diff']:.3e}), good_frac={row['good_frac']:.2f} afa_rounds="
+                  f"{row['afa_rounds']}; all-reduces {row['all_reduces']} all-gathers "
+                  f"{row['all_gathers']} reduce-scatters {row['reduce_scatters']}")
+        h, s = rank["held"], rank["serve"]
+        print(f"cross [rank {rank['rank']}]: weights {h['model']['held_bytes']} bytes (model "
+              f"split) and {h['fsdp']['held_bytes']} (FSDP) = its blocks; {rank['batch']['clients']}"
+              f" clients, its row's; serve prefill_ms={s['prefill_ms']:.1f} decode ms/step "
+              f"(eager)={s['decode_ms_per_step']:.1f} all-reduces a step "
+              f"{s['all_reduces_a_step']} cache {s['cache_bytes']} bytes = rank_bytes; launches "
+              f"{s['launches']}; max |logit diff| {s['check']['max_abs_diff']:.3e} (outside "
+              f"bf16_bound by {s['check']['outside']:.3e}); worker {rank['worker_s']:.1f} s")
+    rows["launches"] = launches
+    if problems:
+        raise AssertionError("cross: " + "\n".join(problems))
+    cards = torch.cuda.device_count()
+    rows["cards"] = cross_cards(torch, smi) if cards >= 4 else f"did not run: {cards} card(s)"
+    rows["phase_s"] = time.perf_counter() - t_phase
+    print(f"cross: phase {rows['phase_s']:.1f} s (one card's references "
+          f"{rows['one_card_s']:.1f} s, spawn {rows['spawn_wall_s']:.1f} s); flash launches "
+          f"{launches} ({smi})")
+    return rows, launches
+
+
+def cross_big_rounds(torch, grid, model, fed_round, start: dict, rows_of, run,
+                     keep_first: bool = False) -> tuple:
+    """``run``'s rounds of llama3-8b on ``grid`` from the weights
+    ``start["params"]`` (popped, so that each round's start is freed once
+    the round returns), the last traced on rank 0, the eval loss after each;
+    returns (rank 0's rows, every rank's decisions, the first round's
+    aggregate on the host if ``keep_first``)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import init_reputation
+    from repro_torch.utils.trees import tree_leaves
+
+    K = run["K"]
+    params = start.pop("params")
+    eval_batch, rounds = axis_big_data(torch, model.config, grid.device, run)
+    rep = init_reputation(K, device=grid.device)
+    n_k = torch.ones((K,), dtype=torch.float32, device=grid.device)
+    out, first = [], None
+    for rnd, batch in enumerate(rounds):
+        traced = rnd == len(rounds) - 1 and grid.rank == 0
+        params, rep, m, row = cards_round(torch, grid, fed_round, params, rep, n_k,
+                                          rows_of(batch), traced)
+        if keep_first and first is None:
+            first = [l.cpu() for l in tree_leaves(params)]
+        del m
+        with torch.no_grad():
+            row["eval_loss"] = float(model.loss_fn(params, eval_batch)[0])
+        out.append(row)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, {"rank": grid.rank, "coords": dict(grid.coords), "rounds": [
+        {k: x[k] for k in ("alpha", "beta", "blocked", "good_frac", "eval_loss", "peak_gb", "ms",
+                           "similarities")} for x in out]})
+    return out, ranks, first
+
+
+def cross_vmap_worker():
+    """One NCCL rank of llama3-8b's vmap rounds on (client 2, model 2): this
+    rank's blocks drawn (seed 0, the model split alone), round 1 on phase
+    N's (data 2, model 2) grid from them (its aggregate kept on the host), then
+    ``AXIS_BIG_RUN``'s rounds on the client grid; whether its round 1 is
+    the (data 2, model 2) round's bits on this rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import FedRoundConfig, make_fed_round
+    from repro_torch.launch.mesh import client_row_axes, make_grid_mesh, make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves
+
+    t_worker = time.perf_counter()
+    r = AXIS_BIG_RUN
+    K = r["K"]
+    cfg = get_config(AXIS_BIG_ARCH).with_(num_layers=r["layers"], fed_mode="vmap")
+    grids = {"data": make_grid_mesh(make_test_mesh(**AXIS_GRID), "cuda"),
+             "client": make_grid_mesh(make_test_mesh(**CROSS_BIG["vmap"]), "cuda")}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params, _, held = axis_held(torch, build_model(cfg, grid=grids["client"]), cfg,
+                                grids["client"], gen)
+
+    def round_of(grid):
+        return make_fed_round(build_model(cfg, grid=grid), FedRoundConfig(
+            num_clients=K, local_steps=r["local_steps"], lr=r["lr"],
+            client_axes=client_row_axes(grid)), grid=grid)
+
+    _, rounds = axis_big_data(torch, cfg, grids["data"].device, r)
+    agg, _, m, first_d = fsdp_round(torch, grids["data"], round_of(grids["data"]), params,
+                                    init_reputation(K, device="cuda"),
+                                    torch.ones((K,), dtype=torch.float32, device="cuda"),
+                                    client_block(grids["data"], rounds[0]))
+    on_data = [l.cpu() for l in tree_leaves(agg)]
+    del agg, m, rounds
+    torch.cuda.empty_cache()
+    grid, start = grids["client"], {"params": params}
+    del params
+    out, ranks, first = cross_big_rounds(torch, grid, build_model(cfg, grid=grid),
+                                         round_of(grid), start, lambda b: client_block(grid, b), r,
+                                         keep_first=True)
+    same = (all(torch.equal(a, b) for a, b in zip(first, on_data))
+            and all(first_d[k] == out[0][k] for k in ("alpha", "beta", "blocked",
+                                                       "similarities")))
+    flags = [None] * dist.get_world_size()
+    dist.all_gather_object(flags, same)
+    return {"held": held, "rounds": out, "ranks": ranks, "data_grid_round": first_d,
+            "equals_data_grid": flags, "worker_s": time.perf_counter() - t_worker}
+
+
+def cross_scan_worker():
+    """One NCCL rank of llama3-8b's scan rounds on (client 2, data 2, model
+    1): this rank's FSDP blocks drawn (seed 0), ``CROSS_SCAN_RUN``'s rounds,
+    each client row training its 2 clients one at a time over its 2 cards."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.fed.distributed import make_fed_round
+    from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
+    from repro_torch.models import build_model
+
+    t_worker = time.perf_counter()
+    r = CROSS_SCAN_RUN
+    grid = make_grid_mesh(make_test_mesh(**CROSS_BIG["scan"]), "cuda")
+    cfg = get_config(AXIS_BIG_ARCH).with_(num_layers=r["layers"], fed_mode="scan")
+    model = build_model(cfg, grid=grid)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    start = {}
+    start["params"], _, held = axis_held(torch, model, cfg, grid, gen)
+    fed_round = make_fed_round(model, fsdp_fed_config("scan", "bfloat16", 8, r["K"],
+                                                      r["local_steps"], r["lr"]), grid=grid)
+    out, ranks, _ = cross_big_rounds(torch, grid, model, fed_round, start,
+                                     lambda b: client_block(grid, b), r)
+    return {"held": held, "rounds": out, "ranks": ranks,
+            "worker_s": time.perf_counter() - t_worker}
+
+
+def cross_big_gates(label, out, K, reckoned_gb, failed) -> None:
+    """Exactly client 0 screened out every round on every rank, finite
+    losses and similarities, and each rank's peak within ``CROSS_PEAK_GB``
+    of the reckoning; misses appended to ``failed``."""
+    for rank in out["ranks"]:
+        for n, x in enumerate(rank["rounds"], start=1):
+            if (x["alpha"] != [3.0] + [3.0 + n] * (K - 1)
+                    or x["beta"] != [3.0 + n] + [3.0] * (K - 1) or any(x["blocked"])
+                    or x["good_frac"] != (K - 1) / K):
+                failed.append(f"cross [{label}]: rank {rank['rank']} round {n}: not exactly "
+                              f"client 0 screened out: {x}")
+            if not all(v == v and abs(v) != float("inf")
+                       for v in [x["eval_loss"]] + x["similarities"]):
+                failed.append(f"cross [{label}]: rank {rank['rank']} round {n}: a loss or "
+                              f"similarity not finite: {x}")
+        peak = max(x["peak_gb"] for x in rank["rounds"])
+        if peak > reckoned_gb + CROSS_PEAK_GB:
+            failed.append(f"cross [{label}]: rank {rank['rank']} peaks at {peak:.2f} GB, more "
+                          f"than {CROSS_PEAK_GB} GB above the reckoned {reckoned_gb:.2f}")
+
+
+def cross_big_lines(label, out, smi) -> None:
+    for n, rr in enumerate(out["rounds"], start=1):
+        print(f"cross [{label}] round {n}: {rr['ms']:.1f} ms peak_GB rank 0 {rr['peak_gb']:.2f} "
+              f"eval_loss={rr['eval_loss']:.4f} good_frac={rr['good_frac']:.3f} afa_rounds="
+              f"{rr['afa_rounds']} all-reduces {rr['all_reduces']} all-gathers "
+              f"{rr['all_gathers']} reduce-scatters {rr['reduce_scatters']} similarities "
+              f"{[f'{x:.6f}' for x in rr['similarities']]}", flush=True)
+    t = out["rounds"][-1]["trace"]
+    print(f"cross [{label}] traced round on rank 0: wall {t['wall_ms']:.1f} ms, device busy "
+          f"{t['device_busy_ms']:.1f} ms, {t['collective_kernels']} collective kernels taking "
+          f"{t['collective_device_ms']:.1f} ms on the device (share of the wall "
+          f"{t['collective_device_ms'] / t['wall_ms']:.4f}), host in {t['collective_ranges']} "
+          f"collective ranges {t['collective_host_ms']:.1f} ms ({smi})", flush=True)
+    h = out["held"]
+    print(f"cross [{label}]: rank 0 holds {h['held_bytes']} bytes (its blocks "
+          f"{h['spec_bytes']}, the model {h['whole_bytes']}), peak_GB a rank "
+          f"{[round(max(x['peak_gb'] for x in rk['rounds']), 2) for rk in out['ranks']]}; worker "
+          f"{out['worker_s']:.1f} s", flush=True)
+
+
+def cross_cards(torch, smi):
+    """llama3-8b at full width and depth on one NCCL rank a card (bytes
+    reckoned first): the vmap rounds on (client 2, model 2), round 1 the
+    same bits on every rank as on phase N's (data 2, model 2) grid; the scan
+    rounds on (client 2, data 2, model 1) (``CROSS_SCAN_RUN``); gates in
+    ``cross_big_gates``.  Returns the rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.shards import spawn
+    from repro_torch.launch.sharding import shard_bytes, shard_params_tree
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves
+
+    failed, rows = [], {}
+    cfg = get_config(AXIS_BIG_ARCH)
+    shape = make_test_mesh(**CROSS_BIG["vmap"])
+    full = build_model(cfg).init(None, "meta")
+    base = sum(shard_bytes(tuple(f.shape), f.element_size(), s, shape)
+               for f, s in zip(tree_leaves(full), tree_leaves(shard_params_tree(full, shape))))
+    clients = AXIS_BIG_RUN["K"] // CROSS_BIG["vmap"]["client"]
+    # a client's proposal, momentum and gradient: three copies of the blocks
+    reckoned = (base + clients * 3 * base) / 1e9
+    print(f"cross [{AXIS_BIG_ARCH} vmap, {dict(shape.shape)}]: reckoned a rank: base weights "
+          f"{base / 1e9:.2f} GB + {clients} clients x 3 x {base / 1e9:.2f} GB = {reckoned:.2f} "
+          "GB before activations and AFA's transients", flush=True)
+    t0 = time.perf_counter()
+    out = spawn(cross_vmap_worker, 4, backend="nccl", device="cuda")
+    label = f"{AXIS_BIG_ARCH} vmap (client 2, model 2)"
+    rows["vmap"] = {"grid": CROSS_BIG["vmap"], "run": AXIS_BIG_RUN, "reckoned_gb": reckoned,
+                    "spawn_wall_s": time.perf_counter() - t0, "rank0": out}
+    cross_big_lines(label, out, smi)
+    d = out["data_grid_round"]
+    print(f"cross [{label}]: round 1 on (data 2, model 2) {d['ms']:.1f} ms; the client grid's "
+          f"round 1 the same bits on each rank: {out['equals_data_grid']}", flush=True)
+    if not all(out["equals_data_grid"]):
+        failed.append(f"cross [{label}]: round 1 differs from the (data 2, model 2) round's on "
+                      f"ranks {[i for i, f in enumerate(out['equals_data_grid']) if not f]}")
+    cross_big_gates(label, out, AXIS_BIG_RUN["K"], reckoned, failed)
+    r = CROSS_SCAN_RUN
+    reck = fsdp_reckoning(cfg.with_(num_layers=r["layers"]), "scan", "bfloat16", r["K"],
+                          CROSS_BIG["scan"])
+    label = f"{AXIS_BIG_ARCH} scan bf16 (client 2, data 2, model 1)"
+    print(f"cross [{label}, K={r['K']}]: reckoned a rank (GB): "
+          + ", ".join(f"{k} {v:.2f}" if k != "params" else f"{k} {v:,}" for k, v in reck.items()),
+          flush=True)
+    t0 = time.perf_counter()
+    out = spawn(cross_scan_worker, 4, backend="nccl", device="cuda")
+    rows["scan"] = {"grid": CROSS_BIG["scan"], "run": r, "reckoned": reck,
+                    "spawn_wall_s": time.perf_counter() - t0, "rank0": out}
+    cross_big_lines(label, out, smi)
+    cross_big_gates(label, out, r["K"], reck["peak"], failed)
+    for msg in failed:
+        print(msg, flush=True)
+    if failed:   # both grids ran and printed their rows; any gate missed fails the phase
+        raise AssertionError(f"cross: {len(failed)} four-card gate(s) missed: {failed[0]}")
+    return rows
+
+
+def cross_summary(smi, rows):
+    """Phase X's lines with the card's name and power limit."""
+    r = rows["ranks"][0]
+    for label, row in r["train"].items():
+        peak = max(rk["train"][label]["peak_gb"] for rk in rows["ranks"])
+        print(f"cross summary [{label} K={TRAIN_RUN['K']}, {CROSS_LAYERS} layers, (client 2, "
+              f"data 2, model 2) gloo ranks on one card] ({smi}): ms/round={row['ms']:.1f} (one "
+              f"card {rows['one_card'][label]['ms']:.1f}) peak_GB a rank={peak:.3f} outside="
+              f"{row['outside']:.3e} all-reduces {row['all_reduces']} all-gathers "
+              f"{row['all_gathers']} reduce-scatters {row['reduce_scatters']}")
+    s = r["serve"]
+    print(f"cross summary [bf16 serving, B={CROSS_SERVE['B']} P={CROSS_SERVE['P']}] ({smi}): "
+          f"prefill_ms={s['prefill_ms']:.1f} decode ms/step (eager)={s['decode_ms_per_step']:.1f}"
+          f" all-reduces a step {s['all_reduces_a_step']}; phase {rows['phase_s']:.1f} s")
+    cross_cards_summary(smi, rows["cards"])
+
+
+def cross_cards_summary(smi, c):
+    """Phase X's four-card lines."""
+    if not isinstance(c, dict):
+        print(f"cross summary [{AXIS_BIG_ARCH}, NCCL] ({smi}): {c}")
+        return
+    for key, row in c.items():
+        r0 = row["rank0"]
+        t = r0["rounds"][-1]["trace"]
+        reck = row["reckoned"]["peak"] if key == "scan" else row["reckoned_gb"]
+        print(f"cross summary [{AXIS_BIG_ARCH} {key} {row['run']['layers']} layers K="
+              f"{row['run']['K']}, {row['grid']} NCCL] ({smi}): ms/round="
+              f"{[round(x['ms'], 1) for x in r0['rounds']]} peak_GB a rank="
+              f"{max(max(x['peak_gb'] for x in rk['rounds']) for rk in r0['ranks']):.2f} "
+              f"(reckoned {reck:.2f}) collective device share="
+              f"{t['collective_device_ms'] / t['wall_ms']:.4f} eval_loss "
+              f"{[round(x['eval_loss'], 4) for x in r0['rounds']]}")
+
+
+def cross_only(torch, ops, smi, name, cards_only: bool = False) -> None:
+    """``--phase X``: phase X alone (its four-card half where there are four
+    cards), its numbers to ``chiprun_out/chip_smoke_client_grid.json``;
+    ``--phase X4`` (``cards_only``): the four-card half alone, to
+    ``chip_smoke_client_grid_cards.json``."""
+    if cards_only:
+        if torch.cuda.device_count() < 4:
+            fail(f"--phase X4 needs four cards, this machine has {torch.cuda.device_count()}")
+        rows = {"cards": cross_cards(torch, smi)}
+    else:
+        rows, _ = cross_phase(torch, ops, smi)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"chip_smoke_client_grid{'_cards' if cards_only else ''}.json").write_text(
+        json.dumps({"nvidia_smi": smi, "device": name, "torch": torch.__version__,
+                    "client_grid": rows}, indent=1, default=str))
+    if cards_only:
+        cross_cards_summary(smi, rows["cards"])
+    else:
+        cross_summary(smi, rows)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
@@ -7518,6 +8106,9 @@ def main() -> None:
     if sys.argv[1:] in (["--phase", "E"], ["--phase", "E4"]):   # no kernel runs there
         fsdp_only(torch, smi, name, cards_only=sys.argv[2] == "E4")
         return
+    if sys.argv[1:] == ["--phase", "X4"]:   # no kernel runs there
+        cross_only(torch, ops, smi, name, cards_only=True)
+        return
     seconds = {}
 
     def phase(label, fn, *args):
@@ -7536,6 +8127,9 @@ def main() -> None:
         return
     if sys.argv[1:] in (["--phase", "Q"], ["--phase", "Q4"]):   # the flash kernels run there
         family_grid_only(torch, ops, smi, name, cards_only=sys.argv[2] == "Q4")
+        return
+    if sys.argv[1:] == ["--phase", "X"]:   # the flash kernel runs in its serving check
+        cross_only(torch, ops, smi, name)
         return
     seconds["build"] = time.perf_counter() - t0
     for line in log.splitlines():
@@ -7586,6 +8180,7 @@ def main() -> None:
     serve_grid, serve_grid_launches = phase("R grid serving", serve_grid_phase, torch, ops, smi)
     family_grid, family_grid_launches = phase("Q family grid", family_grid_phase, torch, ops,
                                               smi)
+    client_grid, client_grid_launches = phase("X client grid", cross_phase, torch, ops, smi)
     traces = phase("traces", lambda: [profile_phase(torch), lora_trace,
                                       *forward_profile_phase(torch), *fused_traces])
     traces += [serve_llm_trace, families_trace]
@@ -7594,7 +8189,7 @@ def main() -> None:
                  lora_launches, lora_graph_launches,
                  eager_launches, graph_launches, sweep_launches, serve_launches,
                  grid_launches, looped_launches, leaf_launches, shard_launches,
-                 serve_grid_launches, family_grid_launches):
+                 serve_grid_launches, family_grid_launches, client_grid_launches):
         for kernel, count in more.items():
             launches[kernel] += count
 
@@ -7643,6 +8238,7 @@ def main() -> None:
         "fsdp": fsdp,
         "serve_grid": serve_grid,
         "family_grid": family_grid,
+        "client_grid": client_grid,
         "phase_seconds": seconds,
         "launches": launches,
         "profile": traces,
@@ -7660,6 +8256,7 @@ def main() -> None:
     fsdp_summary(smi, fsdp)
     serve_grid_summary(smi, serve_grid)
     family_grid_summary(smi, family_grid)
+    cross_summary(smi, client_grid)
     for label, t in seconds.items():
         print(f"phase seconds [{label}]: {t:.1f} ({smi})")
     print(json.dumps({"kernels": kernels}))

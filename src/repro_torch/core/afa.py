@@ -22,9 +22,10 @@ alike on every rank.  ``good_mask`` and ``similarities`` come back for the
 local rows, the aggregate whole on every rank.
 
 On a grid (``afa_aggregate_tree(..., shards=TreeShards(...))``: the vmap
-round of ``fed.distributed`` under a data x model mesh, or its ``scan`` and
-``remat`` rounds under FSDP), the tree form runs on this rank's client rows
-(all K under FSDP, where ``rows`` is ``()``) and this rank's blocks of the
+round of ``fed.distributed`` under a data x model mesh, or its ``scan``
+round under FSDP), the tree form runs on this rank's client rows (under
+FSDP all K where the grid has no client axis and ``rows`` is ``()``, else
+its client row's, ``rows`` ``("client",)``) and this rank's blocks of the
 leaves, each split over its own axes (``TreeShards.split``: none, ``model``,
 the data axes, or both).  Each dot product is a leaf's float32 partial sum
 over its block, summed over exactly that leaf's axes in one all-reduce a

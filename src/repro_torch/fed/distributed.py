@@ -43,22 +43,32 @@ this rank's blocks, and the reputation and metrics whole.  ``n_k`` and
   as on one card, the model's collectives over ``model`` inside the loss;
   each optimizer step runs a leaf at a time, dropping a leaf's gradient and
   old values once its new ones exist, since a rank's clients fill its card.
+  On a grid with a client axis the data ranks of a client row hold the same
+  clients with the whole ``b`` (the reference's specs split neither ``b``
+  nor the leaves over ``data`` there), so they train alike.
 * ``scan`` and ``remat``: FSDP, as the reference's specs choose for them
   (``fsdp=True``: the largest dim no other rule splits goes over the data
-  axes; the model built from a config of that mode).  The
-  clients train one at a time over the whole grid: every rank is given the
-  whole batch ``(K, S, b, ...)`` and the model keeps its block of each
-  client's ``b`` rows, gathering each leaf's data-split dim at its use
-  (``models/layers.py``), a step a leaf at a time.  A blocked client still
-  skips its local SGD under ``scan`` (every rank reads the same blocked
-  bits).  ``scan``'s store holds this rank's blocks of the K proposals (the
-  reference's "sharded over the full mesh"); its int8 scale is the whole
-  leaf's ``max|w_k - w_t| / 127``, the blocks' maxima taken over the leaf's
-  axes (one all-reduce a group of axes) before the blocks are quantized, and
-  AFA reads the store a client row at a time (``core.afa.Dequantized``).
+  axes; the model built from a config of that mode).  On a grid without a
+  client axis the clients train one at a time over the whole grid: every
+  rank is given the whole batch ``(K, S, b, ...)``.  On a grid with one
+  (``(client, data, model)``) K rides the client rows, as the reference's
+  train batch spec puts it (``batch_pspec``): a rank is given its row's
+  clients ``(K / rows, S, b, ...)``, and each row trains its clients one at
+  a time over its own data and model ranks.  Either way the model keeps its
+  block of each client's ``b`` rows over the data axes, gathering each
+  leaf's data-split dim at its use (``models/layers.py``), a step a leaf at
+  a time.  A blocked client still skips its local SGD under ``scan`` (every
+  rank reads the same blocked bits).  ``scan``'s store holds this rank's
+  blocks of its row's proposals (the reference's "sharded over the full
+  mesh"); its int8 scale is the whole leaf's ``max|w_k - w_t| / 127``, the
+  blocks' maxima taken over the leaf's axes (one all-reduce a group of
+  axes) before the blocks are quantized, and AFA reads the store a client
+  at a time (``core.afa.Dequantized``), summing over the client rows.
   ``remat`` keeps its three passes and single screening pass; its norms,
   dots and float32 accumulators are over this rank's blocks, the scalars
-  summed over each leaf's axes.
+  summed over each leaf's axes, the accumulators summed over the client
+  rows and the norms and dots gathered over them, so that every rank
+  screens the same K scalars.
 
 Without a grid, ``client_axes`` has no effect, as the reference's names
 none on one device.  Under ``scan`` with int8 storage the metrics also
@@ -240,38 +250,71 @@ def _grid_shards(model, cfg: FedRoundConfig, grid) -> TreeShards | None:
     for what the grid round does not run."""
     if grid is None or grid.devices == 1:
         return None
-    from repro_torch.launch.mesh import client_row_axes
+    from repro_torch.launch.mesh import client_axis, client_row_axes
     from repro_torch.launch.sharding import shard_params_tree
     from repro_torch.models import build_model
 
     fsdp = cfg.mode in ("scan", "remat")
     built = getattr(model, "grid", None) is grid
     if fsdp:
-        if cfg.client_axes is not None:
-            raise ValueError(f"client_axes={cfg.client_axes}: a {cfg.mode} round trains its "
-                             "clients one at a time over the whole grid")
+        # K over the grid's own client axis, else every rank trains all K
+        rows = () if client_axis(grid) is None else (client_axis(grid),)
+        if cfg.client_axes is not None and tuple(cfg.client_axes) != rows:
+            raise ValueError(f"client_axes={cfg.client_axes}: a {cfg.mode} round on a grid of "
+                             f"{dict(grid.shape)} trains its clients one at a time over "
+                             + (f"its client rows {rows}" if rows else "the whole grid"))
         if not (built and model.fsdp):
             raise ValueError(f"a {cfg.mode} round on a grid of {dict(grid.shape)} needs the "
                              "model built over it with FSDP: build_model(cfg.with_(fed_mode="
                              f"{cfg.mode!r}), grid=grid)")
-        rows = ()
     else:
         rows = client_row_axes(grid)
         if cfg.client_axes is not None and tuple(cfg.client_axes) != rows:
             raise ValueError(f"client_axes={cfg.client_axes}: on a grid of {dict(grid.shape)} "
                              f"the clients ride its client rows {rows}")
-        if cfg.num_clients % grid.size(rows):
-            raise ValueError(f"{cfg.num_clients} clients do not split over {grid.size(rows)} "
-                             f"client rows")
         if getattr(model, "fsdp", False):
-            raise ValueError("a vmap round's clients ride the data axes, which FSDP's specs "
-                             "split the leaves over: build_model(cfg.with_(fed_mode='vmap'), "
-                             "grid=grid)")
+            raise ValueError("a vmap round's specs split no leaf over the data axes, where "
+                             "FSDP's do: build_model(cfg.with_(fed_mode='vmap'), grid=grid)")
         if grid.shape.get("model", 1) > 1 and not built:
             raise ValueError("a grid with a model axis needs the model built over it: "
                              "build_model(cfg, grid=grid)")
+    if cfg.num_clients % grid.size(rows):
+        raise ValueError(f"{cfg.num_clients} clients do not split over {grid.size(rows)} "
+                         f"client rows")
+    if grid.size(rows) > 1 and cfg.mode != "remat" and cfg.afa.variant == "gram":
+        raise ValueError("the tree form's gram variant needs the Gram entries of every pair of "
+                         f"clients, which lie on {grid.size(rows)} client rows; set "
+                         "variant='iterative'")
     specs = shard_params_tree(build_model(model.config).init(None, "meta"), grid, fsdp=fsdp)
     return TreeShards(grid, rows, tuple(_leaf_axes(spec, grid) for spec in tree_leaves(specs)))
+
+
+def _client_ids(shards: TreeShards | None, cfg: FedRoundConfig, batch) -> range:
+    """The ids of the clients whose batches ``batch`` holds: all of them on
+    one card, this rank's client row's block on a grid (raises where the
+    batch holds another number of clients)."""
+    got = next(iter(batch.values())).shape[0]
+    if shards is None:
+        return range(got)
+    n = shards.grid.size(shards.rows)
+    if got != cfg.num_clients // n:
+        raise ValueError(f"a rank trains the {cfg.num_clients // n} clients of its client row; "
+                         f"the batch has {got}")
+    if n == 1:
+        return range(got)
+    block = shards.grid.block(cfg.num_clients, shards.rows)
+    return range(block.start, block.stop)
+
+
+def _gather_clients(shards: TreeShards | None, parts: list) -> list:
+    """Each of ``parts`` (this rank's clients first, equal shapes) with every
+    client row's block in row order: one gather over the client rows (exact)
+    for all of them; the parts as they are where there is one row."""
+    if shards is None or shards.grid.size(shards.rows) == 1:
+        return parts
+    n = shards.grid.size(shards.rows)
+    local = torch.stack(parts, dim=1)
+    return list(shards.grid.gather_rows(local, n * local.shape[0], shards.rows).unbind(1))
 
 
 def make_fed_round(model, cfg: FedRoundConfig, grid=None):
@@ -279,8 +322,9 @@ def make_fed_round(model, cfg: FedRoundConfig, grid=None):
     rep_state', metrics)``; ``batch`` leaves ``(K, S, b, ...)``, ``n_k`` the
     (K,) float32 sample counts on the parameters' device.  On ``grid`` (a
     ``GridMesh``) ``params`` and the aggregate are this rank's blocks, and
-    ``batch`` its client rows under ``vmap``, the whole batch under ``scan``
-    and ``remat`` (see the module docstring)."""
+    ``batch`` holds its client row's clients, or under ``scan`` and
+    ``remat`` on a grid without a client axis the whole batch (see the
+    module docstring)."""
     opt = sgd_momentum(cfg.lr, cfg.momentum)
     loss_fn = model.loss_fn
     shards = _grid_shards(model, cfg, grid)
@@ -289,11 +333,7 @@ def make_fed_round(model, cfg: FedRoundConfig, grid=None):
 
         def fed_round(params, rep: ReputationState, n_k, batch):
             mask0 = ~rep.blocked
-            if shards is not None:
-                want = cfg.num_clients // shards.grid.size(shards.rows)
-                got = next(iter(batch.values())).shape[0]
-                if got != want:
-                    raise ValueError(f"a rank trains its {want} client rows; the batch has {got}")
+            _client_ids(shards, cfg, batch)
             proposals = _clients_train(loss_fn, opt, params, batch, microbatch=cfg.microbatch,
                                        leafwise=shards is not None)
             res = afa_aggregate_tree(proposals, n_k, p_good(rep), mask0=mask0, config=cfg.afa,
@@ -308,24 +348,26 @@ def make_fed_round(model, cfg: FedRoundConfig, grid=None):
         def fed_round(params, rep: ReputationState, n_k, batch):
             mask0 = ~rep.blocked
             w = _flat(params)
-            K = next(iter(batch.values())).shape[0]
+            ids = _client_ids(shards, cfg, batch)
+            K = len(ids)   # this rank's clients
             store = {path: torch.empty((K,) + tuple(l.shape), dtype=pdt, device=l.device)
                      for path, l in w.items()}
             scales = {path: torch.empty((K,), dtype=torch.float32, device=l.device)
                       for path, l in w.items()} if int8 else None
-            for k, is_blocked in enumerate(rep.blocked.tolist()):
+            blocked = rep.blocked.tolist()
+            for i, k in enumerate(ids):
                 # a blocked client's local SGD never runs: it proposes w_t
-                prop = w if is_blocked else _flat(_client_train(
-                    loss_fn, opt, params, {n: v[k] for n, v in batch.items()},
+                prop = w if blocked[k] else _flat(_client_train(
+                    loss_fn, opt, params, {n: v[i] for n, v in batch.items()},
                     microbatch=cfg.microbatch, leafwise=shards is not None))
                 if int8:
                     for path, (q, sc) in _quantize(prop, w, shards).items():
-                        store[path][k], scales[path][k] = q, sc
+                        store[path][i], scales[path][i] = q, sc
                 else:
                     for path, leaf in prop.items():
-                        store[path][k] = leaf
+                        store[path][i] = leaf
                 del prop
-            if shards is not None:   # the store read a client row at a time
+            if shards is not None:   # the store read a client at a time
                 stacked = [Dequantized(store[path], scales[path], w[path]) if int8
                            else store[path] for path in w]
             elif int8:
@@ -340,7 +382,8 @@ def make_fed_round(model, cfg: FedRoundConfig, grid=None):
             rep2 = update_reputation(rep, res.good_mask, mask0, delta=cfg.delta_block)
             metrics = _metrics(res.good_mask, res.rounds, res.similarities)
             if int8:
-                metrics["scales"] = {"/".join(path): sc for path, sc in scales.items()}
+                metrics["scales"] = dict(zip(("/".join(path) for path in scales),
+                                             _gather_clients(shards, list(scales.values()))))
             return agg, rep2, metrics
 
     elif cfg.mode == "remat":
@@ -357,35 +400,41 @@ def make_fed_round(model, cfg: FedRoundConfig, grid=None):
             mask0 = ~rep.blocked
             p_k = p_good(rep)
             w = _flat(params)
-            K = next(iter(batch.values())).shape[0]
+            ids = _client_ids(shards, cfg, batch)
 
-            def train(k):
+            def train(i):
                 return _flat(_client_train(loss_fn, opt, params,
-                                           {n: v[k] for n, v in batch.items()},
+                                           {n: v[i] for n, v in batch.items()},
                                            microbatch=cfg.microbatch,
                                            leafwise=shards is not None))
 
             def weighted_sum(c, norms=None):
-                """sum_k c_k u_k in f32 over the retrained clients; each
-                client's norm appended to ``norms`` if given."""
+                """sum_k c_k u_k in f32 over the retrained clients (on a grid
+                of client rows, each row's sum summed over the rows); each
+                of this rank's clients' norm appended to ``norms`` if
+                given."""
                 acc = {path: torch.zeros(l.shape, dtype=torch.float32, device=l.device)
                        for path, l in w.items()}
-                for k in range(K):
-                    u = train(k)
+                for i, k in enumerate(ids):
+                    u = train(i)
                     for path in acc:
                         acc[path] += c[k] * u[path].float()
                     if norms is not None:
                         norms.append(torch.sqrt(torch.clamp(dot(u, u), min=EPS)))
                     del u
+                if shards is not None and shards.grid.size(shards.rows) > 1:
+                    for path in acc:
+                        acc[path] = shards.grid.psum(acc[path], shards.rows)
                 return acc
 
             # pass 1: the plain weighted aggregate and each client's norm
             norms = []
             w_agg = weighted_sum(_weights(mask0, p_k, n_k.float()), norms)
-            norms = torch.stack(norms)
+            norms = _gather_clients(shards, [torch.stack(norms)])[0]
             agg_norm = torch.sqrt(torch.clamp(dot(w_agg, w_agg), min=EPS))
             # pass 2: the similarities, the clients retrained
-            dots = torch.stack([dot(train(k), w_agg) for k in range(K)])
+            dots = _gather_clients(shards, [torch.stack([dot(train(i), w_agg)
+                                                         for i in range(len(ids))])])[0]
             sims = dots / (norms * agg_norm)
             del w_agg
             # one Algorithm-1 screening pass on the K scalars

@@ -1,6 +1,6 @@
 """Meshes of ``torch.distributed`` ranks: the client mesh of the
-client-sharded fused engine, and the data x model grid of whole-model
-training.
+client-sharded fused engine, and the grid of whole-model training and
+serving (data x model, with a client axis before them or without).
 
 Counterpart of ``repro/launch/mesh.py``.  The JAX package runs one
 controller over a device mesh; the port runs one process a device, and the
@@ -26,8 +26,12 @@ with ``axis_names`` and ``shape``, as the reference's do.  ``make_grid_mesh``
 lays a shape over the initialized default group
 (``torch.distributed.device_mesh.init_device_mesh``, rank = the row-major
 index of its coordinate) and gives each axis's process group and this
-rank's coordinate.  Its collectives are ``all_reduce`` over the group of
-some axes: ``psum``, ``pmax`` (``ReduceOp.MAX``, exact) and
+rank's coordinate, and the groups of the several axes the rounds reduce
+over (the data axes, and the data axes with ``model``), each group's rank
+checked to be the rank's coordinate over its axes.  On a ``(client, data,
+model)`` grid the client axis is a group of its own: the rounds sum and
+gather over it (the client rows), the model's collectives never touch it.
+Its collectives are ``all_reduce`` over the group of some axes: ``psum``, ``pmax`` (``ReduceOp.MAX``, exact) and
 ``gather_rows`` / ``gather_last`` (sums of zero-padded blocks, so every rank
 gets the same bits).  A floating tensor travels as float32: a bf16 partial
 product is summed in float32 and rounded once, and a gather is exact in any
@@ -150,7 +154,7 @@ def make_client_mesh(num_shards: int, device) -> ClientMesh:
 
 
 # ---------------------------------------------------------------------------
-# the data x model grid
+# the grid: (client,) (pod,) data, model
 # ---------------------------------------------------------------------------
 
 
@@ -249,7 +253,8 @@ class GridMesh(MeshShape):
     """A ``MeshShape`` over the ranks of the default process group, this
     rank at ``coords``.  ``all_reduces``, ``all_gathers`` and
     ``reduce_scatters`` count the collectives this rank has issued, by the
-    axes they ran over (``"model"``, ``"data"``, ``"data+model"``, ...)."""
+    axes they ran over (``"model"``, ``"data"``, ``"data+model"``,
+    ``"client"``, ...)."""
 
     def __init__(self, shape: MeshShape, device_mesh, groups: dict, rank: int,
                  device: torch.device, backend: str):
@@ -421,8 +426,9 @@ def make_grid_mesh(shape: MeshShape, device) -> GridMesh:
         device.type, tuple(shape.shape.values()), mesh_dim_names=shape.axis_names,
         backend_override={a: backend for a in shape.axis_names})
     groups = {(a,): device_mesh.get_group(a) for a in shape.axis_names}
-    # the groups of several axes: the client rows, the data axes, and the
-    # data axes with model (an FSDP leaf split over both), in mesh order
+    # the groups of several axes: the client rows (one axis on a grid with a
+    # client axis, else the data axes), the data axes, and the data axes with
+    # model (an FSDP leaf split over both), in mesh order
     both = tuple(a for a in shape.axis_names if a in data_axes(shape) or a == "model")
     for axes in sorted({client_row_axes(shape), data_axes(shape), both}):
         if len(axes) > 1:

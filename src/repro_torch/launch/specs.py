@@ -32,9 +32,12 @@ axes, its kv heads or slots, or an SSM state's N, over ``model``:
 slab drawn alone so that no whole leaf is held (llama3-8b's stacked k leaf
 at ``decode_32k`` is 68.7 GB), holding the values of the same rows of a
 one-card cache of the same seed, and its rows of a decode step's tokens
-and positions.  A prefill's or a training round's batch stays whole: the
-model keeps its rows (``models/model.py``).  ``client_rows`` is then the
-model's grid or its shape.
+and positions.  A prefill's batch stays whole: the model keeps its rows
+(``models/model.py``); so does a training round's on a grid without a
+client axis.  On a grid with one (``(client, data, model)``) a training
+round's batch is this rank's ``batch_pspec`` block: its client row's K /
+rows clients, each with its whole ``b`` (``fed.distributed``).
+``client_rows`` is then the model's grid or its shape.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.reputation import ReputationState
-from repro_torch.launch.mesh import num_client_rows
+from repro_torch.launch.mesh import client_axis, num_client_rows
 from repro_torch.launch.sharding import (
     batch_pspec,
     block_start,
@@ -245,6 +248,11 @@ def input_specs(model, shape_name: str, client_rows=1, *, local_steps: int | Non
         K = fed_client_count(cfg, client_rows)
         b = max(gb // K, 1) if cfg.fed_mode == "vmap" else gb
         batch = _token_batch(cfg, lead=(K, steps_per_round, b), seq=seq, gen=gen, device=dev)
+        if model.grid is not None and client_axis(model.grid) is not None:
+            # this rank's client row's clients (batch_pspec's block)
+            batch = {k: take_shard(v, batch_pspec(tuple(v.shape), model.grid, client_axis=True,
+                                                  per_client_batch=True), model.grid)
+                     for k, v in batch.items()}
         rep = reputation_specs(K, dev)
         n_k = torch.ones((K,), dtype=torch.float32, device=dev)
         meta.update(num_clients=K, local_steps=steps_per_round, per_client_batch=b,

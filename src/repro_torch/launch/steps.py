@@ -8,11 +8,11 @@ or a mesh.  Under ``vmap`` a mesh sets ``client_axes`` to its client rows
 (``client_row_axes``), as the reference does; a ``GridMesh`` also runs the
 round on its ranks (``fed.distributed.make_fed_round(..., grid=)``).
 
-A model built on a grid serves on it: the prefill, forward and decode
-steps of its bundle (``input_specs(model, shape, grid)``) run on this
-rank's blocks, the decode step told the whole cache's slots
-(``bundle.meta["cache_size"]``), as the reference's
-``build_step(model, bundle, mesh)`` lowers them on its mesh.
+A model built on a grid runs on it: the train step of its bundle
+(``input_specs(model, shape, grid)``) is the grid's round, and its
+prefill, forward and decode steps run on this rank's blocks, the decode
+step told the whole cache's slots (``bundle.meta["cache_size"]``), as the
+reference's ``build_step(model, bundle, mesh)`` lowers them on its mesh.
 """
 
 from __future__ import annotations
@@ -80,7 +80,8 @@ def make_serve_step(model, *, ring: bool = False, cache_size: int | None = None)
 def build_step(model, bundle, **train_kwargs):
     """SpecBundle -> its step function."""
     if bundle.step_kind == "train":
-        return make_train_step(model, bundle.meta["client_rows"], **train_kwargs)
+        grid = model.grid if isinstance(model.grid, GridMesh) else None
+        return make_train_step(model, grid or bundle.meta["client_rows"], **train_kwargs)
     if bundle.step_kind == "prefill":
         return make_prefill_step(model, cache_size=bundle.meta["cache_size"])
     if bundle.step_kind == "forward":

@@ -5,10 +5,14 @@ a data x model mesh) against the JAX package, on the CPU (gloo ranks):
 * the mesh helpers equal ``repro/launch/mesh.py``'s; ``param_pspec`` over
   every registry arch's parameters (built on the meta device) equals the
   reference's ``shard_params_tree`` over ``jax.eval_shape`` of its init, at
-  (2, 2), (1, 4), (16, 16) and (2, 16, 16), with ``client_axis`` and
-  ``fsdp`` on and off; ``specs.arg_specs`` (``batch_pspec``,
-  ``cache_pspec``) equals the shardings of the reference's ``input_specs``
-  on every arch and shape at those meshes (shape-only ``AbstractMesh``es);
+  (data, model) (2, 2), (1, 4), (16, 16), (pod, data, model) (2, 16, 16)
+  and (client, data, model) (2, 2, 2), (4, 1, 4), (16, 16, 16), with
+  ``client_axis`` and ``fsdp`` on and off; ``specs.arg_specs``
+  (``batch_pspec``, ``cache_pspec``) equals the shardings of the
+  reference's ``input_specs`` on every arch and shape at those meshes
+  (shape-only ``AbstractMesh``es), ``specs.fed_client_count`` the
+  reference's, and ``specs.rank_bytes`` the bytes of the reference's shard
+  shapes (``NamedSharding.shard_shape``);
 * the vmap round on 4 gloo ranks of a (data 2, model 2) grid equals the
   reference's single-device jitted ``make_fed_round``: its own test's tiny
   dense config (whole heads a rank) and a variant whose split cuts a head
@@ -33,6 +37,7 @@ module, so the JAX package is imported only inside the tests that use it.
 """
 
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -50,7 +55,11 @@ from repro_torch.models.model import tree_apply  # noqa: E402
 ARCHS = list(ALIASES)
 MESHES = {"2x2": (("data", "model"), (2, 2)), "1x4": (("data", "model"), (1, 4)),
           "pod": (("data", "model"), (16, 16)),
-          "multipod": (("pod", "data", "model"), (2, 16, 16))}
+          "multipod": (("pod", "data", "model"), (2, 16, 16)),
+          # a dedicated client axis before data and model
+          "c2x2x2": (("client", "data", "model"), (2, 2, 2)),
+          "c4x1x4": (("client", "data", "model"), (4, 1, 4)),
+          "c16x16x16": (("client", "data", "model"), (16, 16, 16))}
 # the reference test's tiny dense config (tests/test_distributed_equivalence.py)
 ALIGNED = dict(name="eq", family="dense", num_layers=2, d_model=32, vocab_size=64,
                num_heads=4, num_kv_heads=2, d_ff=64, block_q=16, block_k=16,
@@ -175,21 +184,30 @@ def _flat_specs(args, specs):
     return [x for a, s in zip(args, specs) for x in _flat_specs(a, s)]
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_input_specs(mesh):
+    """The reference's ``input_specs`` of every arch and shape on ``mesh``."""
+    from repro.configs import get_config as jget
+    from repro.launch.specs import input_specs as jax_input_specs
+    from repro.models import build_model as jbuild
+
+    amesh = _abstract(mesh)
+    return {(arch, shape): jax_input_specs(jbuild(jget(arch)), shape, amesh)
+            for arch in ARCHS for shape in tspecs.INPUT_SHAPES}
+
+
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_arg_specs_equal_the_reference_input_specs(mesh):
     """Every arch and shape: ``batch_pspec``, ``cache_pspec`` and the
     parameter specs as the reference's ``input_specs`` annotates them."""
     import jax
 
-    from repro.configs import get_config as jget
-    from repro.launch.specs import input_specs as jax_input_specs
-    from repro.models import build_model as jbuild
-
-    amesh, smesh = _abstract(mesh), _shape_mesh(mesh)
+    smesh = _shape_mesh(mesh)
+    refs = _jax_input_specs(mesh)
     for arch in ARCHS:
-        jmodel, model = jbuild(jget(arch)), build_model(get_config(arch))
+        model = build_model(get_config(arch))
         for shape in tspecs.INPUT_SHAPES:
-            ref = jax_input_specs(jmodel, shape, amesh)
+            ref = refs[(arch, shape)]
             got = tspecs.input_specs(model, shape, smesh)
             assert got.step_kind == ref.step_kind, (arch, shape)
             want = [(tuple(l.shape), tuple(l.sharding.spec))
@@ -197,6 +215,33 @@ def test_arg_specs_equal_the_reference_input_specs(mesh):
             have = _flat_specs(got.args, tspecs.arg_specs(model.config, got, smesh))
             assert have == want, (arch, shape, mesh)
             assert got.meta.get("mesh") == ref.meta.get("mesh"), (arch, shape)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_client_count_and_rank_bytes_equal_the_reference(mesh):
+    """Every arch: ``fed_client_count`` in each fed mode equals the
+    reference's on the mesh; at every shape ``rank_bytes`` of the arguments
+    under ``arg_specs`` equals the bytes of the reference's shard shapes."""
+    import jax
+
+    from repro.configs import get_config as jget
+    from repro.launch.specs import fed_client_count as jax_fed_client_count
+
+    amesh, smesh = _abstract(mesh), _shape_mesh(mesh)
+    refs = _jax_input_specs(mesh)
+    for arch in ARCHS:
+        for mode in ("vmap", "scan", "remat"):
+            assert (tspecs.fed_client_count(get_config(arch).with_(fed_mode=mode), smesh)
+                    == jax_fed_client_count(jget(arch).with_(fed_mode=mode), amesh)), (arch, mode)
+        model = build_model(get_config(arch))
+        for shape in tspecs.INPUT_SHAPES:
+            got = tspecs.input_specs(model, shape, smesh)
+            want = sum(math.prod(l.sharding.shard_shape(l.shape)) * l.dtype.itemsize
+                       for l in jax.tree_util.tree_leaves(refs[(arch, shape)].args))
+            have = tspecs.rank_bytes(got.args, tspecs.arg_specs(model.config, got, smesh), smesh)
+            assert have == want, (arch, shape, mesh)
+            if got.step_kind == "train":
+                assert got.meta["num_clients"] == refs[(arch, shape)].meta["num_clients"]
 
 
 def test_train_config_on_a_mesh():
