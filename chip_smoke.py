@@ -22,7 +22,8 @@
    also bit for bit against the twin of its row-order sum
    (``ref.trimmed_mean_rowsum_ref``); then a profiler trace of one call of
    each: cosine_sim is one device operation, afa_screen three and each
-   rank wrapper one, none from the wrappers (``DEVICE_OPS_PER_CALL``); and
+   rank wrapper one, none from the wrappers (``kernels.meta.DEVICE_OPS_PER_CALL``,
+   the table the linter reads too); and
    calls back to back on different inputs, and on a side stream beside the
    current one, each held to its own twin (their partials are summed by
    the launch's last block, which draws a per-stream ticket); the rank
@@ -340,7 +341,24 @@
    first round the same bits as on (data 2, model 2)) and the scan round on
    (client 2, data 2, model 1), 3 rounds each, exactly client 0 screened
    out on every rank, each rank's peak near its reckoning;
-25. prints each phase's seconds on a line of its own, a ``{"kernels":
+25. lints the port on the card (phase Z, ``lint_phase``, run right after
+   the kernel checks of step 3; alone with ``--phase Z``): ``repro_torch.analysis.registry.run_lint(device="cuda",
+   ranks=LINT_RANKS)`` with 2 gloo ranks sharing the card, at the card's SM
+   count and real pointers (launch budgets by wrapper and, expanded by
+   ``kernels.meta.DEVICE_OPS_PER_CALL``, by a profiler trace's device
+   kernels; grid races; host reads, also under sync debug mode 'error';
+   programs and captures within the pow2 bound; the sharded screening's
+   collectives a pass), then every kernel at the edge shapes
+   (``GRAM_EDGES``, ``RANK_EDGE_KS``, one short causal flash call a dtype)
+   on NaN-filled buffers, the elements written held to the declared write
+   maps (``analysis.sanitize.sentinel_checks``), and ``compute-sanitizer``
+   (racecheck and initcheck, then memcheck and synccheck while the phase's
+   budget lasts) over the same cases in a child process; an error finding,
+   an element off the declarations or a sanitizer hazard raises, a missing
+   ``compute-sanitizer`` raises, and where it refuses the device the
+   ``lint`` line names each tool NOT RUN, with the sanitizer's version and
+   message;
+26. prints each phase's seconds on a line of its own, a ``{"kernels":
    [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
    serve-LLM, families, production-shape (its kernel-route prefills and
@@ -349,7 +367,7 @@
    phases H, R, Q and X summed over their ranks) and, for the
    fused engine's
    graph runs (the DNN's and LoRA's), the calls that step 14's traces
-   executed.
+   executed (phase Z's calls are not counted).
 
 Any failure raises and exits non-zero.  Without CUDA, or without the repo's
 ``src/repro_torch`` beside it, the script exits 1 before printing a result.
@@ -419,22 +437,6 @@ BASELINES = {
     ("trimmed_mean", False): (),
 }
 SELECTING = ("mkrum", "bulyan")  # rules whose good_mask is a selection
-# device-side names of this repository's kernels
-OUR_KERNEL_NAMES = ("weighted_sum_kernel", "cosine_sim_kernel", "gram_tf32x3_kernel",
-                    "gram_reduce_kernel", "afa_reduce_screen_kernel", "rank_regs_kernel",
-                    "rank_select_kernel", "flash_attn_tf32x3_kernel", "flash_attn_tc_kernel")
-# device operations of one wrapper call at the main path's K, all this
-# repository's kernels: cosine_sim one launch (its partials summed by the
-# last block), afa_screen three (the Gram partials; their reduce with the
-# screen in its last block; the aggregate), each rank wrapper one (the
-# register path; a bool mask read in place), with no copy, fill or
-# elementwise op from the wrappers
-DEVICE_OPS_PER_CALL = {"cosine_sim": ("cosine_sim_kernel",),
-                       "afa_screen": ("gram_tf32x3_kernel", "afa_reduce_screen_kernel",
-                                      "weighted_sum_kernel"),
-                       "coord_median": ("rank_regs_kernel",),
-                       "coord_median_masked": ("rank_regs_kernel",),
-                       "trimmed_mean": ("rank_regs_kernel",)}
 # published peaks: (HBM bytes/s, FP32 non-tensor FLOP/s, dense bf16 tensor
 # FLOP/s, dense TF32 tensor FLOP/s), NVIDIA data sheets (the dense rates are
 # half the sparse ones)
@@ -551,10 +553,8 @@ FUSED_ROUTES = {
     "comed": ("comed", "iterative", "fused", True, {"coord_median_masked": 1}),
     "trimmed_mean": ("trimmed_mean", "iterative", "fused", True, {"trimmed_mean": 1}),
 }
-# the device kernels of one call of each wrapper the fused routes call, at
-# MAIN_K, and the kernel that marks one call in a trace
-CALL_OPS = {**DEVICE_OPS_PER_CALL, "weighted_sum": ("weighted_sum_kernel",),
-            "gram": ("gram_tf32x3_kernel", "gram_reduce_kernel")}
+# the kernel that marks one call of each wrapper the fused routes call in a
+# trace (the device kernels of one call at MAIN_K: kernel_tables())
 CALL_MARK = {"weighted_sum": "weighted_sum_kernel", "cosine_sim": "cosine_sim_kernel",
              "gram": "gram_reduce_kernel", "afa_screen": "afa_reduce_screen_kernel",
              "coord_median_masked": "rank_regs_kernel", "trimmed_mean": "rank_regs_kernel"}
@@ -920,6 +920,15 @@ CROSS_SCAN_RUN = dict(K=4, byzantine=1, local_steps=2, batch=2, seq=256, rounds=
                       layers=32)
 CROSS_PEAK_GB = 12.0
 
+def kernel_tables():
+    """``kernels.meta``'s tables, which the linter reads too: this
+    repository's device kernel names, and the device kernels one wrapper
+    call launches at the main path's K."""
+    from repro_torch.kernels import meta
+
+    return meta.KERNEL_NAMES, meta.DEVICE_OPS_PER_CALL
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -1209,7 +1218,7 @@ def device_ops(torch, fn, tries: int = 3):
 def one_launch_checks(torch, ops, ref):
     """The device operations of one call of ``cosine_sim``, ``afa_screen`` and
     the three rank wrappers at the main path's K are exactly
-    ``DEVICE_OPS_PER_CALL``'s (a profiler trace; the first profiler run of a
+    ``kernels.meta.DEVICE_OPS_PER_CALL``'s (a profiler trace; the first profiler run of a
     process records none, so one runs first).  For the two one-launch
     reductions, two calls back to back on different inputs, and a call on
     a side stream after one on the current stream, each held to its own
@@ -1234,7 +1243,7 @@ def one_launch_checks(torch, ops, ref):
     report = {"device_ops_per_call": {}, "within_twin": []}
     for name, fn in calls.items():
         names = device_ops(torch, fn)
-        want = DEVICE_OPS_PER_CALL[name]
+        want = kernel_tables()[1][name]
         if len(names) != len(want) or not all(k in n for k, n in zip(want, names)):
             raise AssertionError(f"{name}: one call made the device operations {names}, "
                                  f"expected exactly {want}")
@@ -1709,7 +1718,7 @@ def trace(torch, label: str, fn, rounds: int):
     by_name = by_kernel(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     ours = sorted((n, tc) for n, tc in by_name.items()
-                  if any(k in n for k in OUR_KERNEL_NAMES))
+                  if any(k in n for k in kernel_tables()[0]))
     out = {
         "label": label, "rounds": rounds, "wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
         "device_events": len(spans), **numbers,
@@ -3026,10 +3035,11 @@ def keyed_stream_check(torch):
 
 
 def round_ops(calls: dict) -> dict:
-    """The device kernels of one round: each wrapper call's ``CALL_OPS``."""
+    """The device kernels of one round: each wrapper call's device kernels at
+    MAIN_K (``kernels.meta.DEVICE_OPS_PER_CALL``)."""
     ops_ = {}
     for name, n in calls.items():
-        for kname in CALL_OPS[name]:
+        for kname in kernel_tables()[1][name]:
             ops_[kname] = ops_.get(kname, 0) + n
     return ops_
 
@@ -3038,7 +3048,7 @@ def our_kernels(spans) -> dict:
     """kernel name -> its launches in the spans, this repository's kernels."""
     counts = {}
     for _, _, name in spans:
-        for kname in OUR_KERNEL_NAMES:
+        for kname in kernel_tables()[0]:
             if kname in name:
                 counts[kname] = counts.get(kname, 0) + 1
     return counts
@@ -8062,6 +8072,84 @@ def families_summary(smi, rows, traced):
               f"{traced['device_busy_ms'] / graph_ms:.3f}; phase {rows['phase_s']:.1f} s")
 
 
+# phase Z: the linter's gloo ranks, and the seconds the sanitizer's optional
+# tools (memcheck, synccheck) may start within
+LINT_RANKS = 2
+LINT_SANITIZER_BUDGET_S = 45.0
+
+
+def lint_phase(torch, smi) -> dict:
+    """Phase Z: the port's linter on the card, the kernels' write maps on
+    NaN-filled buffers, and ``compute-sanitizer`` (see the module docstring,
+    step 25).  Raises on an error finding, an element off the declarations,
+    a sanitizer hazard or error, or a missing sanitizer."""
+    from repro_torch.analysis import sanitize
+    from repro_torch.analysis.registry import known_bad_kernels, run_lint
+
+    t0 = time.perf_counter()
+    report = run_lint(device="cuda", ranks=LINT_RANKS)
+    lint_s = time.perf_counter() - t0
+    counts = report.counts()
+    if not report.ok:
+        raise AssertionError("lint on the card: " + "; ".join(
+            f"{f.check} {f.target}: {f.message}" for f in report.errors[:8]))
+    cases = sanitize.edge_cases(GRAM_EDGES, RANK_EDGE_KS, RANK_EDGE_LAYOUTS)
+    t1 = time.perf_counter()
+    rows = sanitize.sentinel_checks(torch, cases)
+    sentinel_s = time.perf_counter() - t1
+    off = [(name, p, f) for name, p, f in rows if f]
+    if off:
+        raise AssertionError(f"{len(off)} case(s) wrote off the declared write maps: {off[:4]}")
+    # the check's teeth: the known-bad Gram declaration (the split index
+    # dropped) must disagree with what the kernel writes
+    seeded = sanitize.sentinel_checks(torch, [("gram", dict(K=17, D=4098, offset=0))],
+                                      kernels=known_bad_kernels())
+    if not seeded[0][2]:
+        raise AssertionError("the known-bad Gram declaration matched the kernel's stores")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    t2 = time.perf_counter()
+    san = sanitize.run_sanitizer(cases, budget_s=LINT_SANITIZER_BUDGET_S, workdir=str(out_dir))
+    san_s = time.perf_counter() - t2
+    hazards = {t: r for t, r in san["tools"].items() if r["rc"] != 0 or r["hazards"] or r["errors"]}
+    missing = set(sanitize.TOOLS) & set(san["not_run"])
+    if hazards or (missing and san["refused"] is None):
+        raise AssertionError(f"compute-sanitizer: hazards or errors {hazards}, tools not run "
+                             f"{sorted(missing)}")
+    said = ", ".join([f"{t} {r['hazards']} hazard(s) {r['errors']} error(s)"
+                      for t, r in san["tools"].items()] + [f"{t} NOT RUN" for t in san["not_run"]])
+    if san["refused"] is not None:
+        said += f" (compute-sanitizer {san['version']} refused the device: {san['refused']!r})"
+    seconds = time.perf_counter() - t0
+    print(f"lint: {counts['error']} error(s), {counts['warning']} warning(s), "
+          f"{counts['info']} info over {len(report.checks_run)} checks ({lint_s:.1f} s); "
+          f"{len(rows)} kernel cases on NaN-filled buffers, 0 elements off the declared write "
+          f"maps, the known-bad Gram map {len(seeded[0][2])} finding(s) off "
+          f"({sentinel_s:.1f} s); sanitizer: {said} ({san_s:.1f} s); "
+          f"phase {seconds:.1f} s ({smi})", flush=True)
+    return {"counts": counts, "checks_run": report.checks_run, "meta": report.meta,
+            "findings": [f.as_dict() for f in report.findings], "lint_s": lint_s,
+            "sentinel_cases": [[n, p] for n, p, _ in rows], "sentinel_s": sentinel_s,
+            "sentinel_known_bad": seeded[0][2],
+            "sanitizer": {**san, "tools": {t: {k: v for k, v in r.items() if k != "tail"}
+                                           for t, r in san["tools"].items()}},
+            "sanitizer_tails": {t: r.get("tail", "") for t, r in san["tools"].items()},
+            "sanitizer_s": san_s, "seconds": seconds}
+
+
+def lint_only(torch, smi, name) -> None:
+    """``--phase Z``: phase Z alone, its numbers to
+    ``chiprun_out/chip_smoke_lint.json``."""
+    row = lint_phase(torch, smi)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_lint.json").write_text(json.dumps(
+        {"nvidia_smi": smi, "device": name, "torch": torch.__version__, "lint": row},
+        indent=1, default=str))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
 def model_axis_only(torch, smi, name) -> None:
     """``--phase N``: phase N alone (its four-card half where there are four
     cards), its numbers to ``chiprun_out/chip_smoke_axis.json``."""
@@ -8131,6 +8219,9 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "X"]:   # the flash kernel runs in its serving check
         cross_only(torch, ops, smi, name)
         return
+    if sys.argv[1:] == ["--phase", "Z"]:   # every kernel runs there
+        lint_only(torch, smi, name)
+        return
     seconds["build"] = time.perf_counter() - t0
     for line in log.splitlines():
         if "Compiling entry function" in line:  # the mangled kernel name, template args
@@ -8142,6 +8233,9 @@ def main() -> None:
     kernel_rows, one_launch = phase("kernels", kernel_phase, torch, ops, ref, peaks, lib)
     rank_edges = phase("rank edges", rank_edge_checks, torch, ops, ref, lib)
     gram_buckets = phase("gram buckets (C.8)", gram_bucket_checks, torch, ops)
+    # early, while the process has run few profiler traces (late in a long
+    # run the profiler drops some device events)
+    lint = phase("Z lint", lint_phase, torch, smi)
     runs, launches = phase("M main path", main_path_phase, torch, ops, min_rounds_to_block)
     baseline_runs, baseline_launches = phase("B baselines", baselines_phase, torch, ops)
     unmasked_rows, unmasked_launches = phase("U unmasked", unmasked_phase, torch, ops)
@@ -8239,6 +8333,7 @@ def main() -> None:
         "serve_grid": serve_grid,
         "family_grid": family_grid,
         "client_grid": client_grid,
+        "lint": lint,
         "phase_seconds": seconds,
         "launches": launches,
         "profile": traces,

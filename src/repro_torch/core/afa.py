@@ -71,6 +71,8 @@ outputs equal the stopping loop's bit for bit with no host read
 (``lax.while_loop`` in the JAX package).  The fused engines ask for it,
 since they capture the round as a CUDA graph; the batched engine keeps the
 stopping loop, whose fewer passes launch fewer operations from the host.
+Each pass runs inside ``utils.regions.region("screen-pass")``, from which
+``analysis.collectives`` reads the sharded form's collectives a pass.
 
 ``plan_rows`` reaches the Gram kernels (``gram``, ``afa_screen``): their
 column splits are planned for that many rows, so the fused engines pass the
@@ -90,6 +92,7 @@ import torch
 from repro_torch.core.stats import masked_mean, masked_median, masked_std, row_sum
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.policy import resolve_kernel_mode
+from repro_torch.utils.regions import SCREEN_PASS, region
 from repro_torch.utils.trees import (
     tree_dot,
     tree_leaves,
@@ -204,21 +207,23 @@ def _screen(sims, mask, p, n, config: AFAConfig, unroll: bool, mark_bad=None):
         rounds = torch.zeros((), dtype=torch.int32, device=dev)
         live = torch.ones((), dtype=torch.bool, device=dev)   # this pass runs
         for _ in range(config.max_rounds):
-            s_pass = sims(_weights(mask, p, n))
-            bad = mark_bad(s_pass, mask, xi)
-            s = torch.where(live, s_pass, s)
-            mask = torch.where(live, mask & ~bad, mask)
-            xi = torch.where(live, xi + config.delta_xi, xi)
-            rounds = rounds + live.to(torch.int32)
-            live = live & bad.any()
+            with region(SCREEN_PASS):
+                s_pass = sims(_weights(mask, p, n))
+                bad = mark_bad(s_pass, mask, xi)
+                s = torch.where(live, s_pass, s)
+                mask = torch.where(live, mask & ~bad, mask)
+                xi = torch.where(live, xi + config.delta_xi, xi)
+                rounds = rounds + live.to(torch.int32)
+                live = live & bad.any()
         return s, mask, rounds
     n_passes, changed = 0, True
     while changed and n_passes < config.max_rounds:
-        s = sims(_weights(mask, p, n))
-        bad = mark_bad(s, mask, xi)
-        mask = mask & ~bad
-        xi = xi + config.delta_xi
-        changed = bool(bad.any())
+        with region(SCREEN_PASS):
+            s = sims(_weights(mask, p, n))
+            bad = mark_bad(s, mask, xi)
+            mask = mask & ~bad
+            xi = xi + config.delta_xi
+            changed = bool(bad.any())
         n_passes += 1
     return s, mask, torch.full((), n_passes, dtype=torch.int32, device=dev)
 

@@ -31,7 +31,8 @@ serving tier (``repro_torch.serve``).
 **Segmented** (``make_fused_segment``): the same round graph replayed
 ``seg_len`` times from ``seg_start``, over a client axis the simulator has
 compacted to a power-of-two bucket of the still-live clients; one capture
-per bucket, so O(log K) captures a run.
+per bucket, so O(log K) captures a run (``make_fused_segment(...).programs``
+holds them; ``analysis.retrace`` audits the bound).
 
 **Client-sharded** (``make_fused_sim`` / ``make_fused_segment`` with
 ``client_mesh``, a ``launch.mesh.ClientMesh``): the counterpart of the JAX
@@ -76,6 +77,7 @@ from repro_torch.attacks import (
 from repro_torch.core import blocking_table
 from repro_torch.fed.server import ServerState, init_server_state, server_step
 from repro_torch.utils.philox import keyed_randint
+from repro_torch.utils.regions import ROUND_BODY, region
 from repro_torch.utils.trees import (
     pack_stack,
     tree_broadcast_clients,
@@ -383,7 +385,9 @@ def _program_runner(body, num_rounds: int, device: torch.device):
     ((params', state', traj), capture_s)``: rounds ``start .. start + count``
     of ``body`` over the layout the arguments carry, on one program per
     row count R, built (and on the card captured) at its first run;
-    ``capture_s`` is the seconds of a capture made in the call, else 0."""
+    ``capture_s`` is the seconds of a capture made in the call, else 0.
+    ``run.programs`` holds the programs by R (``analysis.retrace`` counts
+    them)."""
     programs: dict = {}
 
     def run(params, state, seed, data, bad, client_ids, start: int, count: int):
@@ -400,6 +404,7 @@ def _program_runner(body, num_rounds: int, device: torch.device):
         prog.run(int(count))
         return prog.outputs(int(start), int(count)), capture_s
 
+    run.programs = programs
     return run
 
 
@@ -418,9 +423,10 @@ def _body(workload, cfg, rule, opts, delta_block, num_clients_total, batch_s, ba
     attack_mesh = client_mesh if client_mesh is not None and client_mesh.num_shards > 1 else None
 
     def body(carry, rnd, seed, data, bad, client_ids):
-        return _round_body(workload, cfg, rule, opts, delta_block, block, num_clients_total,
-                           batch_s, batch_b, attack_mesh, carry, rnd, seed, data, bad,
-                           client_ids)
+        with region(ROUND_BODY):
+            return _round_body(workload, cfg, rule, opts, delta_block, block, num_clients_total,
+                               batch_s, batch_b, attack_mesh, carry, rnd, seed, data, bad,
+                               client_ids)
 
     return body
 
@@ -648,4 +654,5 @@ def make_fused_segment(
             stats["capture_s"] = stats.get("capture_s", 0.0) + capture_s
         return out
 
+    segment_fn.programs = runner.programs
     return segment_fn

@@ -592,10 +592,15 @@ def _segmented_runs(setup: _Setup, server_cfg: ServerConfig, seeds, stats: dict)
     client-axis sum adds the live rows in order, so each seed's stitched
     trajectory equals its one-shot run's.  Returns ``(rounds_blocked (n, K),
     test_error (n, T), good_mask (n, T, K))`` as host arrays."""
+    return _run_segments(_segment_fn(setup, server_cfg), setup, server_cfg, seeds, stats)
+
+
+def _run_segments(seg_fn, setup: _Setup, server_cfg: ServerConfig, seeds, stats: dict):
+    """``_segmented_runs`` on the segments ``seg_fn`` (``_segment_fn``'s),
+    whose programs outlive the call."""
     sim, dev = setup.sim, setup.device
     K, T, S = sim.num_clients, sim.rounds, sim.segment_rounds
     n = len(seeds)
-    seg_fn = _segment_fn(setup, server_cfg)
     params = [_seed_params(setup, s) for s in seeds]
     # each seed's full-K state holds the frozen rows of clients dropped at
     # earlier compactions; its live rows' state is in ``state_c``, scattered

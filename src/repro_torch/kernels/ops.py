@@ -19,18 +19,32 @@ stream, which runs after them.  ``cosine_sim`` and ``afa_screen`` sum their
 partials in the launch that wrote them: the block that draws the last
 ticket from an integer counter does it, and leaves the counter at 0
 (``_ticket``).  The ``_*_cuda`` functions take the bound library and the
-stream explicitly.
+stream explicitly, and allocate their outputs and scratch with ``alloc``
+(``torch.empty``; ``analysis.sanitize`` passes one that fills each buffer
+with a sentinel, to see which elements the kernels store).
+
+``recording()`` logs every wrapper call made inside it as a
+``WrapperCall`` (name, device and the geometry the call's kernels take), on
+the twin route and on the card alike, for ``repro_torch.analysis``;
+``LAUNCH_COUNTS`` keeps counting the card's launches only.  Next to each
+wrapper, its kernels and the wrapper itself register their declared
+geometry in ``kernels/meta.py``: the grid, the blocks' write maps on the
+outputs and the partial scratch, and the accumulation kind.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.meta import Intervals, Launch
+from repro_torch.utils.regions import TWIN, region
 
 LAUNCH_COUNTS = {"weighted_sum": 0, "cosine_sim": 0, "gram": 0, "afa_screen": 0,
                  "coord_median": 0, "coord_median_masked": 0, "trimmed_mean": 0,
@@ -40,6 +54,48 @@ LAUNCH_COUNTS = {"weighted_sum": 0, "cosine_sim": 0, "gram": 0, "afa_screen": 0,
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+
+
+class WrapperCall(NamedTuple):
+    """One wrapper call: the wrapper's launch-count name, the operands'
+    device, and the geometry its kernels take (``kernels/meta.py``); on the
+    card also the multiprocessor count (``sms``)."""
+
+    name: str
+    device: torch.device
+    params: dict
+
+
+_RECORDINGS: list = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Log every wrapper call made inside the block: yields a list that
+    receives one ``WrapperCall`` a call, whatever its route (the twin on the
+    CPU, the kernel on the card, a call recorded into a CUDA graph)."""
+    log: list = []
+    _RECORDINGS.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDINGS[:] = [other for other in _RECORDINGS if other is not log]
+
+
+def _record(name: str, t: torch.Tensor, **params) -> None:
+    if not _RECORDINGS:
+        return
+    if t.device.type == "cuda":
+        params["sms"] = _sm_count(t.device.index)
+    call = WrapperCall(name, t.device, params)
+    for log in _RECORDINGS:
+        log.append(call)
+
+
+def _twin():
+    """The span of a twin's operations (``utils.regions.TWIN``): the card
+    launches the kernel in their place, so host reads there do not count."""
+    return region(TWIN)
 
 
 def _count_launch(name: str) -> None:
@@ -125,19 +181,52 @@ def weighted_sum(weights: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"weighted_sum: {weights.shape[0]} weights for {updates.shape[0]} rows"
         )
+    _record("weighted_sum", updates, K=updates.shape[0], D=updates.shape[1],
+            ptr=updates.data_ptr())
     if not _on_card("weighted_sum", weights, updates):
-        return ref.weighted_sum_ref(updates, weights)
+        with _twin():
+            return ref.weighted_sum_ref(updates, weights)
     out = _weighted_sum_cuda(load_library(), _stream(updates), weights, updates)
     _count_launch("weighted_sum")
     return out
 
 
-def _weighted_sum_cuda(lib, stream, weights, updates):
+def _weighted_sum_cuda(lib, stream, weights, updates, alloc=torch.empty):
     K, D = updates.shape
-    out = torch.empty((D,), dtype=torch.float32, device=updates.device)
+    out = alloc((D,), dtype=torch.float32, device=updates.device)
     _check_rc("weighted_sum", lib.repro_weighted_sum(
         weights.data_ptr(), updates.data_ptr(), out.data_ptr(), K, D, stream))
     return out
+
+
+def _copy_width(ptr: int, D: int) -> int:
+    """The widest load (16, 8 or 4 bytes) that ``ptr`` and a row of ``D``
+    floats allow (a fresh output is at least 256-byte aligned)."""
+    return next(w for w in (16, 8, 4) if ptr % w == 0 and (4 * D) % w == 0)
+
+
+def _resident_grid(items: int, p: dict) -> int:
+    """``resident_grid`` of ``afa_kernels.cu``: blocks of 256 threads that
+    cover ``items`` once, at most ``meta.RESIDENT_BLOCKS_PER_SM`` an SM (the
+    most the occupancy calculator can return for 256-thread blocks)."""
+    return max(1, min(_ceil_div(items, 256), int(p["sms"]) * meta.RESIDENT_BLOCKS_PER_SM))
+
+
+def _ws_groups(p: dict) -> tuple:
+    v = _copy_width(p["ptr"], p["D"]) // 4
+    return p["D"] // v, v
+
+
+meta.register_kernel_geometry(
+    "weighted_sum_kernel", "per-block",
+    grid=lambda p: _resident_grid(_ws_groups(p)[0], p),
+    writes=lambda p, grid: {p.get("out", "out"): meta.grid_stride(
+        _ws_groups(p)[0], grid, 256, _ws_groups(p)[1], p["D"])},
+    reads=lambda p: {p["weights"]: Intervals.span(0, p["K"])} if "weights" in p else {},
+    notes="a grid-stride loop over column groups; each thread walks k in order")
+meta.register_wrapper_geometry(
+    "weighted_sum", buffers=lambda p: {"out": (p["D"], "out")},
+    launches=lambda p: [Launch("weighted_sum_kernel", p)])
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +245,11 @@ def cosine_sim(updates: torch.Tensor, agg: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"cosine_sim: agg width {agg.shape[0]} != updates width {updates.shape[1]}"
         )
+    _record("cosine_sim", updates, K=updates.shape[0], D=updates.shape[1],
+            ptr=updates.data_ptr() | agg.data_ptr())
     if not _on_card("cosine_sim", updates, agg):
-        return ref.cosine_sim_ref(updates, agg)
+        with _twin():
+            return ref.cosine_sim_ref(updates, agg)
     out = _cosine_sim_cuda(load_library(), _stream(updates), updates, agg)
     _count_launch("cosine_sim")
     return out
@@ -195,18 +287,53 @@ def cosine_geometry(K: int, D: int, ptr: int, sms: int) -> CosineGeometry:
     return CosineGeometry(_ceil_div(D, chunk), chunk, width)
 
 
-def _cosine_sim_cuda(lib, stream, updates, agg):
+def _cosine_sim_cuda(lib, stream, updates, agg, alloc=torch.empty):
     K, D = updates.shape
     geo = cosine_geometry(K, D, updates.data_ptr() | agg.data_ptr(),
                           _sm_count(updates.device.index))
     npart = (2 * K + 1) * _ceil_div(geo.nsplit, 4) * 4   # rows padded for float4 reads
-    buf = torch.empty((npart + K,), dtype=torch.float32, device=updates.device)
+    buf = alloc((npart + K,), dtype=torch.float32, device=updates.device)
     part, sims = torch.split(buf, (npart, K))
     _check_rc("cosine_sim", lib.repro_cosine_sim(
         updates.data_ptr(), agg.data_ptr(), part.data_ptr(), sims.data_ptr(),
         _ticket(updates.device, stream).data_ptr(),
         K, D, geo.nsplit, geo.chunk, geo.width, stream))
     return sims
+
+
+def _cosine_rows(p: dict) -> tuple:
+    """(blocks, the partial rows' stride, rows 2 K + 1)."""
+    geo = cosine_geometry(p["K"], p["D"], p["ptr"], p["sms"])
+    return geo.nsplit, _ceil_div(geo.nsplit, 4) * 4, 2 * p["K"] + 1
+
+
+def _cosine_writes(p: dict, grid: int) -> dict:
+    nsplit, pstride, rows = _cosine_rows(p)
+    b = np.arange(grid, dtype=np.int64)
+    r = np.arange(rows, dtype=np.int64)
+    slots = r[None, :] * pstride + b[:, None]              # row r's slot b, each block
+    pad = Intervals.of(r * pstride + nsplit, (r + 1) * pstride, grid - 1)
+    return {"part": Intervals.cat([Intervals.of(slots, slots + 1, b[:, None]), pad])}
+
+
+def _cosine_last_writes(p: dict) -> dict:
+    _, pstride, rows = _cosine_rows(p)
+    first = np.arange(rows, dtype=np.int64) * pstride      # each row's sum, in its slot 0
+    return {"part": Intervals.of(first, first + 1, meta.TICKET_STAGE),
+            "sims": Intervals.span(0, p["K"])}
+
+
+meta.register_kernel_geometry(
+    "cosine_sim_kernel", "ticket",
+    grid=lambda p: _cosine_rows(p)[0], writes=_cosine_writes,
+    reads=lambda p: {"part": Intervals.span(0, _cosine_rows(p)[2] * _cosine_rows(p)[1])},
+    last_writes=_cosine_last_writes,
+    notes="block b owns slot b of every partial row; the last block pads the rows")
+meta.register_wrapper_geometry(
+    "cosine_sim",
+    buffers=lambda p: {"part": (_cosine_rows(p)[2] * _cosine_rows(p)[1], "scratch"),
+                       "sims": (p["K"], "out")},
+    launches=lambda p: [Launch("cosine_sim_kernel", p)])
 
 
 # ---------------------------------------------------------------------------
@@ -290,22 +417,104 @@ def gram(updates: torch.Tensor, *, plan_rows: int | None = None) -> torch.Tensor
     twin), the column splits planned for ``plan_rows`` rows
     (``gram_geometry``); on the CPU: the f32 twin ``ref.gram_ref``."""
     _check_tensor("gram", "updates", updates, 2)
+    _record("gram", updates, K=updates.shape[0], D=updates.shape[1], ptr=updates.data_ptr(),
+            plan_rows=plan_rows)
     if not _on_card("gram", updates):
-        return ref.gram_ref(updates)
+        with _twin():
+            return ref.gram_ref(updates)
     out = _gram_cuda(load_library(), _stream(updates), updates, plan_rows)
     _count_launch("gram")
     return out
 
 
-def _gram_cuda(lib, stream, updates, plan_rows=None):
+def _gram_cuda(lib, stream, updates, plan_rows=None, alloc=torch.empty):
     K, D = updates.shape
     geo = _gram_geometry_for(updates, plan_rows)
-    pg = torch.empty((geo.nsplit * geo.entries,), dtype=torch.float32, device=updates.device)
-    g = torch.empty((K, K), dtype=torch.float32, device=updates.device)
+    pg = alloc((geo.nsplit * geo.entries,), dtype=torch.float32, device=updates.device)
+    g = alloc((K, K), dtype=torch.float32, device=updates.device)
     _check_rc("gram", lib.repro_gram(
         updates.data_ptr(), pg.data_ptr(), g.data_ptr(), K, D,
         geo.tile_rows, geo.nsplit, geo.chunk, geo.width, stream))
     return g
+
+
+def _gram_geo(p: dict) -> GramGeometry:
+    return gram_geometry(p["K"], p["D"], p["ptr"], p["sms"], plan_rows=p.get("plan_rows"))
+
+
+def _upper_entries(K: int, bt: int):
+    """Rows, columns and tile pair of the upper-triangle entries of a K x K
+    Gram, in ``tri_index`` order; pair ``(ti, tj)`` is numbered as the
+    kernel's ``blockIdx.x`` walks them."""
+    i, j = np.triu_indices(K)
+    ntiles = _ceil_div(K, bt)
+    ti, tj = i // bt, j // bt
+    return i, j, ti * ntiles - ti * (ti - 1) // 2 + (tj - ti)
+
+
+def _gram_partial_writes(p: dict, grid: int) -> dict:
+    """Block (pair, split), numbered ``split * npairs + pair``, stores the
+    split's partial of every entry of its tile pair (and, on a diagonal pair
+    with ``norms``, of its rows' squared norms)."""
+    geo = _gram_geo(p)
+    i, _, pair = _upper_entries(p["K"], geo.tile_rows)
+    s = np.arange(geo.nsplit, dtype=np.int64)[:, None]
+    pos = np.arange(i.shape[0], dtype=np.int64)[None, :] * geo.nsplit + s
+    out = {"pg": Intervals.of(pos, pos + 1, s * geo.npairs + pair[None, :])}
+    if p.get("norms"):
+        rows = np.arange(p["K"], dtype=np.int64)
+        ti = rows // geo.tile_rows
+        diag = ti * geo.ntiles - ti * (ti - 1) // 2
+        pos = rows[None, :] * geo.nsplit + s
+        out["pun"] = Intervals.of(pos, pos + 1, s * geo.npairs + diag[None, :])
+    return out
+
+
+meta.register_kernel_geometry(
+    "gram_tf32x3_kernel", "split-partials",
+    grid=lambda p: _gram_geo(p).npairs * _gram_geo(p).nsplit,
+    writes=_gram_partial_writes,
+    notes="entry-major partials: entry e's split s at e * nsplit + s")
+
+
+def _reduce_writes(p: dict, grid: int) -> dict:
+    """Warp w of the grid-stride loop (block ``(w mod 8 grid) / 8``) writes
+    G[i, j] and G[j, i] of upper entry w, then the row norms."""
+    K = p["K"]
+    i, j, _ = _upper_entries(K, 16)
+    w = np.arange(i.shape[0], dtype=np.int64)
+    block = (w % (8 * grid)) // 8
+    off = i != j
+    lower = (j * K + i)[off]
+    g = Intervals.cat([Intervals.of(i * K + j, i * K + j + 1, block),
+                       Intervals.of(lower, lower + 1, block[off])])
+    out = {p["g"]: g}
+    if p.get("norms"):
+        k = np.arange(K, dtype=np.int64)
+        out["rn"] = Intervals.of(k, k + 1, ((w.shape[0] + k) % (8 * grid)) // 8)
+    return out
+
+
+def _reduce_reads(p: dict) -> dict:
+    ne = p["K"] * (p["K"] + 1) // 2
+    nsplit = _gram_geo(p).nsplit
+    reads = {"pg": Intervals.span(0, ne * nsplit)}
+    if p.get("norms"):
+        reads["pun"] = Intervals.span(0, p["K"] * nsplit)
+    return reads
+
+
+meta.register_kernel_geometry(
+    "gram_reduce_kernel", "per-block",
+    grid=lambda p: _resident_grid(p["K"] * (p["K"] + 1) // 2 * 32, p),
+    writes=_reduce_writes, reads=_reduce_reads,
+    notes="one warp an entry, in a grid-stride loop; the splits summed in order")
+meta.register_wrapper_geometry(
+    "gram",
+    buffers=lambda p: {"pg": (_gram_geo(p).nsplit * _gram_geo(p).entries, "scratch"),
+                       "g": (p["K"] * p["K"], "out")},
+    launches=lambda p: [Launch("gram_tf32x3_kernel", p),
+                        Launch("gram_reduce_kernel", dict(p, g="g"))])
 
 
 # ---------------------------------------------------------------------------
@@ -332,8 +541,11 @@ def afa_screen(updates: torch.Tensor, pn: torch.Tensor, mask0: torch.Tensor, *,
         raise ValueError(f"afa_screen: pn length {pn.shape[0]} != K={K}")
     kw = dict(xi0=float(xi0), delta_xi=float(delta_xi),
               max_rounds=int(max_rounds), ddof=int(ddof))
+    _record("afa_screen", updates, K=K, D=updates.shape[1], ptr=updates.data_ptr(),
+            plan_rows=plan_rows)
     if not _on_card("afa_screen", updates, pn, mask0):
-        return ref.afa_screen_ref(updates, pn, mask0, **kw)
+        with _twin():
+            return ref.afa_screen_ref(updates, pn, mask0, **kw)
     out = _afa_screen_cuda(load_library(), _stream(updates), updates, pn, mask0,
                            plan_rows=plan_rows, **kw)
     _count_launch("afa_screen")
@@ -341,7 +553,7 @@ def afa_screen(updates: torch.Tensor, pn: torch.Tensor, mask0: torch.Tensor, *,
 
 
 def _afa_screen_cuda(lib, stream, updates, pn, mask0, *, xi0, delta_xi,
-                     max_rounds, ddof, plan_rows=None):
+                     max_rounds, ddof, plan_rows=None, alloc=torch.empty):
     """Three launches: the Gram partials, their reduce with the screen in
     its last block, and the aggregate.  The kernels read ``mask0`` and write
     ``good`` as one byte per client, torch.bool's storage, so a bool mask
@@ -363,7 +575,7 @@ def _afa_screen_cuda(lib, stream, updates, pn, mask0, *, xi0, delta_xi,
     # stores), the int32 round count, then one byte per client for good
     sizes = (D, K, K, geo.nsplit * geo.entries, geo.nsplit * K, K * K, K, 1)
     nfloat = sum(sizes)
-    buf = torch.empty((4 * nfloat + K,), dtype=torch.uint8, device=updates.device)
+    buf = alloc((4 * nfloat + K,), dtype=torch.uint8, device=updates.device)
     agg, sims, weights, pg, pun, G, rn, rounds = torch.split(
         buf[:4 * nfloat].view(torch.float32), sizes)
     rounds = rounds.view(torch.int32)
@@ -375,6 +587,32 @@ def _afa_screen_cuda(lib, stream, updates, pn, mask0, *, xi0, delta_xi,
         K, D, geo.tile_rows, geo.nsplit, geo.chunk, geo.width, xi0, delta_xi, max_rounds,
         ddof, stream))
     return agg, good, rounds[0], sims
+
+
+def _screen_reads(p: dict) -> dict:
+    K = p["K"]
+    return {**_reduce_reads(p), "G": Intervals.span(0, K * K), "rn": Intervals.span(0, K)}
+
+
+meta.register_kernel_geometry(
+    "afa_reduce_screen_kernel", "ticket",
+    grid=lambda p: _resident_grid((p["K"] * (p["K"] + 1) // 2 + p["K"]) * 32, p),
+    writes=_reduce_writes, reads=_screen_reads,
+    last_writes=lambda p: {name: Intervals.span(0, n) for name, n in
+                           (("weights", p["K"]), ("good", p["K"]), ("rounds", 1),
+                            ("sims", p["K"]))},
+    notes="the Gram reduce; the block that draws the last ticket screens")
+meta.register_wrapper_geometry(
+    "afa_screen",
+    buffers=lambda p: {"pg": (_gram_geo(p).nsplit * _gram_geo(p).entries, "scratch"),
+                       "pun": (_gram_geo(p).nsplit * p["K"], "scratch"),
+                       "G": (p["K"] * p["K"], "scratch"), "rn": (p["K"], "scratch"),
+                       "weights": (p["K"], "scratch"), "agg": (p["D"], "out"),
+                       "good": (p["K"], "out"), "rounds": (1, "out"),
+                       "sims": (p["K"], "out")},
+    launches=lambda p: [Launch("gram_tf32x3_kernel", dict(p, norms=True)),
+                        Launch("afa_reduce_screen_kernel", dict(p, norms=True, g="G")),
+                        Launch("weighted_sum_kernel", dict(p, out="agg", weights="weights"))])
 
 
 # ---------------------------------------------------------------------------
@@ -395,8 +633,11 @@ def coord_median(updates: torch.Tensor, mask: torch.Tensor | None = None) -> tor
     if mask is not None:
         _check_mask("coord_median", "mask", mask, updates.shape[0])
         operands = (updates, mask)
+    _record("coord_median" if mask is None else "coord_median_masked", updates,
+            K=updates.shape[0], D=updates.shape[1], ptr=updates.data_ptr())
     if not _on_card("coord_median", *operands):
-        return ref.coord_median_ref(updates, mask)
+        with _twin():
+            return ref.coord_median_ref(updates, mask)
     out = _rank_cuda("coord_median", load_library(), _stream(updates), updates, mask)
     _count_launch("coord_median" if mask is None else "coord_median_masked")
     return out
@@ -420,8 +661,11 @@ def trimmed_mean(updates: torch.Tensor, mask: torch.Tensor, *, trim: int) -> tor
     trim = int(trim)
     if trim < 0:
         raise ValueError(f"trimmed_mean: trim={trim} must be >= 0")
+    _record("trimmed_mean", updates, K=updates.shape[0], D=updates.shape[1],
+            ptr=updates.data_ptr())
     if not _on_card("trimmed_mean", updates, mask):
-        return ref.trimmed_mean_ref(updates, mask, trim=trim)
+        with _twin():
+            return ref.trimmed_mean_ref(updates, mask, trim=trim)
     out = _rank_cuda("trimmed_mean", load_library(), _stream(updates), updates, mask, trim=trim)
     _count_launch("trimmed_mean")
     return out
@@ -472,7 +716,7 @@ def rank_geometry(K: int, D: int, ptr: int, sms: int) -> RankGeometry:
     return RankGeometry(bucket, blocks, width)
 
 
-def _rank_cuda(op, lib, stream, updates, mask, *, trim=None):
+def _rank_cuda(op, lib, stream, updates, mask, *, trim=None, alloc=torch.empty):
     """One launch of the median (``trim`` None) or the trimmed mean, on
     ``rank_geometry``'s plan.  The kernel reads the mask as one byte per
     client, torch.bool's storage, so a bool mask costs no device operation
@@ -483,7 +727,7 @@ def _rank_cuda(op, lib, stream, updates, mask, *, trim=None):
     if K > max_k:
         raise ValueError(f"{op}: K={K} clients exceed the {max_k} a 32-column "
                          "shared-memory tile holds")
-    out = torch.empty((D,), dtype=torch.float32, device=updates.device)
+    out = alloc((D,), dtype=torch.float32, device=updates.device)
     if mask is not None:
         if mask.dtype != torch.bool:
             mask = mask != 0
@@ -498,6 +742,32 @@ def _rank_cuda(op, lib, stream, updates, mask, *, trim=None):
         rc = lib.repro_trimmed_mean(updates.data_ptr(), mptr, out.data_ptr(), K, D, trim, *plan)
     _check_rc(op, rc)
     return out
+
+
+def _rank_geo(p: dict) -> RankGeometry:
+    return rank_geometry(p["K"], p["D"], p["ptr"], p["sms"])
+
+
+meta.register_kernel_geometry(
+    "rank_regs_kernel", "per-block",
+    grid=lambda p: _rank_geo(p).blocks,
+    writes=lambda p, grid: {"out": meta.grid_stride(
+        p["D"] // (_rank_geo(p).width // 4), grid, RANK_THREADS, _rank_geo(p).width // 4,
+        p["D"])},
+    notes="a grid-stride loop over column groups, K <= RANK_REG_MAX_K")
+meta.register_kernel_geometry(
+    "rank_select_kernel", "per-block",
+    grid=lambda p: _ceil_div(p["D"], RANK_TILE),
+    writes=lambda p, grid: {"out": Intervals.of(
+        np.arange(grid, dtype=np.int64) * RANK_TILE,
+        np.minimum((np.arange(grid, dtype=np.int64) + 1) * RANK_TILE, p["D"]),
+        np.arange(grid, dtype=np.int64))},
+    notes="one block a tile of RANK_TILE columns, K > RANK_REG_MAX_K")
+for _name in ("coord_median", "coord_median_masked", "trimmed_mean"):
+    meta.register_wrapper_geometry(
+        _name, buffers=lambda p: {"out": (p["D"], "out")},
+        launches=lambda p: [Launch("rank_regs_kernel" if _rank_geo(p).bucket
+                                   else "rank_select_kernel", p)])
 
 
 # ---------------------------------------------------------------------------
@@ -575,8 +845,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "none; run it under torch.no_grad() or train through the plain blocked "
             "attention (use_pallas_attention=False)"
         )
+    _record("flash_attn" if q.dtype == torch.float32 else "flash_attn_tc", q, B=B, Lq=Lq,
+            Lk=Lk, Hq=Hq, Hkv=Hkv, D=D, causal=bool(causal))
     if not _on_card(op, q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+        with _twin():
+            return ref.flash_attention_ref(q, k, v, causal=causal)
     out = _flash_attention_cuda(load_library(), _stream(q), q, k, v, causal=causal)
     _count_launch("flash_attn" if q.dtype == torch.float32 else "flash_attn_tc")
     return out
@@ -591,15 +864,47 @@ def attn_flags(q, k, v, out, *, causal: bool) -> int:
     return int(bool(causal)) | (int(vec) << 1)
 
 
-def _flash_attention_cuda(lib, stream, q, k, v, *, causal):
+def _flash_attention_cuda(lib, stream, q, k, v, *, causal, alloc=torch.empty):
     B, Lq, Hq, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    out = alloc(q.shape, dtype=q.dtype, device=q.device)
     _check_rc("flash_attention", lib.repro_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ATTN_DTYPES[q.dtype],
         B, Lq, Lk, Hq, Hkv, D, 1.0 / D ** 0.5, attn_flags(q, k, v, out, causal=causal),
         stream))
     return out
+
+
+ATTN_BLOCK_Q = 64   # query rows of a block of both attention kernels (kBQ in attn_kernels.cu)
+
+
+def _attn_grid(p: dict) -> int:
+    return _ceil_div(p["Lq"], ATTN_BLOCK_Q) * p["B"] * p["Hq"]
+
+
+def _attn_writes(p: dict, grid: int) -> dict:
+    """Block x takes query block ``nq - 1 - x mod nq`` of (batch, head)
+    ``x / nq`` and stores its rows of that head: D floats a row of the
+    (B, Lq, Hq, D) output."""
+    B, Lq, Hq, D = p["B"], p["Lq"], p["Hq"], p["D"]
+    nq = _ceil_div(Lq, ATTN_BLOCK_Q)
+    x = np.arange(grid, dtype=np.int64)[:, None]
+    row = (nq - 1 - x % nq) * ATTN_BLOCK_Q + np.arange(ATTN_BLOCK_Q, dtype=np.int64)[None, :]
+    b, h = (x // nq) // Hq, (x // nq) % Hq
+    start = ((b * Lq + row) * Hq + h) * D
+    keep = np.broadcast_to(row < Lq, start.shape)
+    return {"out": Intervals.of(start[keep], start[keep] + D,
+                                np.broadcast_to(x, start.shape)[keep])}
+
+
+for _name, _kernel in (("flash_attn", "flash_attn_tf32x3_kernel"),
+                       ("flash_attn_tc", "flash_attn_tc_kernel")):
+    meta.register_kernel_geometry(
+        _kernel, "per-block", grid=_attn_grid, writes=_attn_writes,
+        notes="one block a (64-query block, batch x query head); the key loop in registers")
+    meta.register_wrapper_geometry(
+        _name, buffers=lambda p: {"out": (p["B"] * p["Lq"] * p["Hq"] * p["D"], "out")},
+        launches=lambda p, _kernel=_kernel: [Launch(_kernel, p)])
 
 
 def pairwise_sq_dists_from_gram(g: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,13 @@ record holds:
   ``fed.distributed.client_train_calls``), each counted over one local
   step and multiplied by the steps: every call and step has the same
   shapes;
+* ``costs``: ``repro_torch.analysis.costs.analyze`` of the same counted
+  call, recorded beside the FLOP counter: ``dot_flops`` (the counter's
+  matrix-product formulas), ``hbm_traffic_proxy_bytes`` (operand and result
+  bytes of each operation that moves data) and the collective bytes and
+  counts by kind (none on one card); the counterpart of the reference's
+  ``rec["hlo"]``.  For a train step they are one counted call's, which
+  ``flops_counted`` multiplies by the steps and calls;
 * ``analytic``: ``analytic.analytic_report(cfg, shape, client_rows)``.
 
 ``--mesh pod|multipod|test`` (the reference's choices: (data 16, model 16),
@@ -63,6 +70,8 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import resolve_device
+from repro_torch.analysis.costs import analyze
+from repro_torch.analysis.trace import recording
 from repro_torch.configs import ALIASES, get_config
 from repro_torch.fed.distributed import _client_train, _clients_train, client_train_calls
 from repro_torch.launch.analytic import analytic_report
@@ -124,16 +133,16 @@ def count_step(model, bundle, train_kwargs: dict) -> dict:
     arguments (for a train step: its local training, see the module)."""
     if bundle.step_kind != "train":
         step = build_step(model, bundle)
-        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        with torch.no_grad(), FlopCounterMode(display=False) as fc, recording() as rec:
             out = step(*bundle.args)
         return {"flops_counted": float(fc.get_total_flops()), "flops_scope": "step",
-                "output_bytes": nbytes(out)}
+                "output_bytes": nbytes(out), "costs": analyze(rec)}
     params, rep, n_k, batch = bundle.args
     K, S = batch["labels"].shape[:2]
     fr = train_round_config(model.config, bundle.meta["client_rows"], **train_kwargs)
     opt = sgd_momentum(fr.lr, fr.momentum)
     first = {n: v[:, :1] for n, v in batch.items()}  # one local step
-    with FlopCounterMode(display=False) as fc:
+    with FlopCounterMode(display=False) as fc, recording() as rec:
         if fr.mode == "vmap":
             _clients_train(model.loss_fn, opt, params, first, microbatch=fr.microbatch)
         else:
@@ -144,7 +153,7 @@ def count_step(model, bundle, train_kwargs: dict) -> dict:
     # good_frac f32, afa_rounds int32, K f32 similarities
     return {"flops_counted": float(fc.get_total_flops()) * S * calls,
             "flops_scope": "local training", "flops_calls": calls,
-            "output_bytes": nbytes(params) + nbytes(rep) + 4 + 4 + 4 * K}
+            "output_bytes": nbytes(params) + nbytes(rep) + 4 + 4 + 4 * K, "costs": analyze(rec)}
 
 
 def run_on_card(cfg, shape_name: str, arg_bytes: int, local_steps, train_kwargs: dict) -> dict:

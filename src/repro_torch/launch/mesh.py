@@ -57,6 +57,14 @@ trains one client at a time, so it needs no vmap rule.  ``all_gathers`` and
 ``reduce_scatters`` count these by axes, as ``all_reduces`` counts the
 others.
 
+While ``recording()`` is on, both meshes log each collective this rank
+sends as a ``CollectiveCall``: its kind (``psum``, ``pmax``, ``gather``
+for ``gather_rows`` / ``gather_last``, ``all_gather``, ``reduce_scatter``),
+its axes (``("client",)`` on the client mesh), the elements and bytes of
+what goes on the wire, and the ``repro_torch.utils.regions`` spans open
+at the call (``repro_torch.analysis.collectives`` reads the screening
+passes from them).  The counters above stay as they are.
+
 Both meshes are over the caller's group: they read the initialized default
 group and never pick a backend or a device on their own.  Under NCCL rank r
 works on ``cuda:r``; under gloo every rank works on the device it is given,
@@ -66,12 +74,16 @@ the host).  ``repro_torch.launch.shards`` starts such groups.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 from collections import OrderedDict
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.utils.regions import current_regions
 
 ALL_REDUCE_RANGE = "client_mesh.all_reduce"   # profiler range around each collective
 GRID_ALL_REDUCE_RANGE = "grid_mesh.all_reduce"
@@ -79,6 +91,44 @@ GRID_ALL_GATHER_RANGE = "grid_mesh.all_gather"
 GRID_REDUCE_SCATTER_RANGE = "grid_mesh.reduce_scatter"
 CLIENT_AXIS = "client"
 SCATTER_CHUNK = 1 << 26   # elements of one reduce-scatter call (256 MB in float32)
+
+
+class CollectiveCall(NamedTuple):
+    """One collective sent through a mesh (see the module docstring)."""
+
+    kind: str
+    axes: tuple
+    elements: int
+    bytes: int
+    regions: tuple
+
+
+_RECORDINGS: list = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Log every collective sent through a ``ClientMesh`` or ``GridMesh``
+    inside the block: yields a list that receives one ``CollectiveCall``
+    each."""
+    log: list = []
+    _RECORDINGS.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDINGS[:] = [other for other in _RECORDINGS if other is not log]
+
+
+def _record(kind: str, axes: tuple, wire: torch.Tensor, dtype=None) -> None:
+    """Log a collective of ``wire``'s elements, sent as ``dtype`` (``wire``'s
+    own when None)."""
+    if not _RECORDINGS:
+        return
+    size = (wire.dtype if dtype is None else dtype).itemsize
+    call = CollectiveCall(kind, tuple(axes), wire.numel(), wire.numel() * size,
+                          current_regions())
+    for log in _RECORDINGS:
+        log.append(call)
 
 
 class ClientMesh:
@@ -107,6 +157,7 @@ class ClientMesh:
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks (a new tensor; ``t`` is kept)."""
+        _record("psum", (CLIENT_AXIS,), t)
         return self._all_reduce_(t.clone())
 
     def row_block(self, rows: int) -> slice:
@@ -123,6 +174,7 @@ class ClientMesh:
         full = torch.zeros((total,) + tuple(local.shape[1:]), dtype=local.dtype,
                            device=local.device)
         full[self.row_block(rows)] = local
+        _record("gather", (CLIENT_AXIS,), full)
         return self._all_reduce_(full)
 
 
@@ -293,6 +345,7 @@ class GridMesh(MeshShape):
         if self.size(axes) == 1:
             return t.clone()
         wire = t.to(_wire(t.dtype), copy=True, memory_format=torch.contiguous_format)
+        _record("pmax" if op == dist.ReduceOp.MAX else "psum", axes, wire)
         return self._all_reduce_(wire, axes, op).to(t.dtype)
 
     def psum(self, t: torch.Tensor, axes) -> torch.Tensor:
@@ -314,6 +367,7 @@ class GridMesh(MeshShape):
         shape[dim] = w * n
         full = torch.zeros(shape, dtype=_wire(local.dtype), device=local.device)
         full.narrow(dim, self.index(axes) * w, w).copy_(local)
+        _record("gather", axes, full)
         return self._all_reduce_(full, axes, dist.ReduceOp.SUM).to(local.dtype)
 
     def gather_rows(self, local: torch.Tensor, total: int, axes) -> torch.Tensor:
@@ -342,6 +396,7 @@ class GridMesh(MeshShape):
         x = local.contiguous()
         out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
         self._count(self.all_gathers, axes)
+        _record("all_gather", axes, out)
         with torch.profiler.record_function(GRID_ALL_GATHER_RANGE):
             if self.backend == "nccl":
                 dist.all_gather_into_tensor(out, x, group=self.groups[axes])
@@ -360,6 +415,7 @@ class GridMesh(MeshShape):
         out = torch.empty((g.shape[1],), dtype=full.dtype, device=full.device)
         cols = max(1, SCATTER_CHUNK // n)
         self._count(self.reduce_scatters, axes)
+        _record("reduce_scatter", axes, g, torch.float32)
         group = self.groups[axes]
         with torch.profiler.record_function(GRID_REDUCE_SCATTER_RANGE):
             for c0 in range(0, g.shape[1], cols):
