@@ -341,7 +341,30 @@
    first round the same bits as on (data 2, model 2)) and the scan round on
    (client 2, data 2, model 1), 3 rounds each, exactly client 0 screened
    out on every rank, each rank's peak near its reckoning;
-25. lints the port on the card (phase Z, ``lint_phase``, run right after
+25. runs the reference's three mesh levers on a (data 1, model 2) grid
+   (phase K, ``lever_phase``; alone with ``--phase K``): on 2 gloo ranks
+   sharing the card, each ``LEVER_CASES`` case's vmap round (K = 4, 2 local
+   steps of 2 x 128 tokens) with its lever on against the same grid's round
+   with it off: smollm-135m (4 of 30 layers) with ``seq_par_attention``
+   (block_q 64: one query block a rank) and with ``fsdp_activations`` (one
+   row a rank, every leaf gathered), paligemma-3b (2 of 18) with
+   ``activation_sharding`` (4 of its 8 q heads a rank), mamba2-1.3b (2 of
+   48) with ``activation_sharding`` (32 of 64 SSD heads a rank): the
+   decisions equal on every rank, the first aggregate within
+   ``TRAIN_ROUNDING`` of the lever-off one (``LEVER_F32``'s cases, or within
+   twice the lever-off round's own bf16 error against its f32 copy, and
+   the lever-on round as near that f32 copy as twice the lever-off
+   round), each
+   rank's traced attention and SSD dot FLOPs equal to ``lever_reckoning``'s
+   (the lever's share cut by 2); ms a round, peak GB a rank, collectives by
+   kind; with four cards or more (alone with ``--phase K4``),
+   ``lever_cards``: ``LEVER_CARDS`` at full width and depth on (data 2,
+   model 2), one NCCL rank a card, 2 rounds each way (mamba2-1.3b on
+   seeds 0 and 1, its second rounds traced, and paligemma-3b in vmap,
+   smollm-135m in vmap at 2 x 2,048 tokens, llama3-8b under
+   ``fsdp_activations`` in scan at 4 x 512, its vmap round reckoned
+   first);
+26. lints the port on the card (phase Z, ``lint_phase``, run right after
    the kernel checks of step 3; alone with ``--phase Z``): ``repro_torch.analysis.registry.run_lint(device="cuda",
    ranks=LINT_RANKS)`` with 2 gloo ranks sharing the card, at the card's SM
    count and real pointers (launch budgets by wrapper and, expanded by
@@ -358,12 +381,12 @@
    ``compute-sanitizer`` raises, and where it refuses the device the
    ``lint`` line names each tool NOT RUN, with the sanitizer's version and
    message;
-26. prints each phase's seconds on a line of its own, a ``{"kernels":
+27. prints each phase's seconds on a line of its own, a ``{"kernels":
    [...]}`` line and, last, ``{"ok": true, ...}``.
    Its ``launches`` are the wrappers' counts of the eager runs and of the
    serve-LLM, families, production-shape (its kernel-route prefills and
    forwards), sweep, serve, grid, looped, leaf, client-shard, grid-serving,
-   family-grid and client-grid phases (phases T, N and E run no kernel;
+   family-grid and client-grid phases (phases T, N, E and K run no kernel;
    phases H, R, Q and X summed over their ranks) and, for the
    fused engine's
    graph runs (the DNN's and LoRA's), the calls that step 14's traces
@@ -919,6 +942,66 @@ CROSS_BIG = {"vmap": dict(client=2, data=0, model=2), "scan": dict(client=2, dat
 CROSS_SCAN_RUN = dict(K=4, byzantine=1, local_steps=2, batch=2, seq=256, rounds=3, lr=0.05,
                       layers=32)
 CROSS_PEAK_GB = 12.0
+
+# phase K (the reference's three mesh levers, ``lever_phase``; alone with
+# --phase K): on a (data 1, model 2) grid of 2 gloo ranks sharing the card,
+# each LEVER_CASES case's vmap round (LEVER_RUN: K = 4, client 0 byzantine,
+# 2 local steps of 2 x 128 tokens), each arch at full width in its published
+# dtype with its depth cut, the lever on against the same grid's round with
+# it off: the decisions equal on every rank, the aggregate within
+# TRAIN_ROUNDING of the lever-off round's; a traced forward of client 1's
+# first step on each rank, the dot FLOPs of its attention and SSD spans
+# equal to lever_reckoning's from the shapes (the lever's cut by 2); ms a
+# round, peak GB a rank, the collectives by kind.  smollm-135m's 9 q and 3
+# kv heads cut over 2 ranks: seq_par_attention with the reference's
+# block_q = L / model (64 of 128 tokens), fsdp_activations on each rank's 1
+# of 2 rows; paligemma-3b's 8 q heads and one kv head: activation_sharding's
+# 4 q heads a rank; mamba2-1.3b's 64 SSD heads: 32 a rank.  With four cards
+# (--phase K4), LEVER_CARDS at full width and depth on a (data 2, model 2)
+# grid of one NCCL rank a card, 2 rounds each way, each case's "seed" (0 by
+# default) drawing its weights and batches.  llama3-8b's lever runs in scan
+# (FSDP over data beside it, 4 rows a client); each client's gathered leaves
+# are saved for the backward as the rank's blocks and gathered again there
+# (models/layers.py), which lever_vmap_reckoning counts for its vmap round.
+LEVER_GRID = dict(data=1, model=2)
+LEVER_RUN = dict(K=4, byzantine=1, local_steps=2, batch=2, seq=128, rounds=1, lr=0.05)
+LEVER_CASES = {   # label -> (arch, layers (None: all), lever, mode, overrides, run)
+    "smollm-135m seq_par": ("smollm-135m", 4, "seq_par_attention", "vmap", {"block_q": 64},
+                            LEVER_RUN),
+    "paligemma-3b act_shard": ("paligemma-3b", 2, "activation_sharding", "vmap", {},
+                               LEVER_RUN),
+    "mamba2-1.3b act_shard": ("mamba2-1.3b", 2, "activation_sharding", "vmap", {}, LEVER_RUN),
+    "smollm-135m fsdp_act": ("smollm-135m", 4, "fsdp_activations", "vmap", {}, LEVER_RUN),
+}
+# the cases held through the lever-off round's own bf16 error where a leaf
+# lies outside TRAIN_ROUNDING (C.19): at full depth on 4 cards mamba2-1.3b's
+# 48 bf16 layers carried the two rounds 0.14 apart in one leaf, where in f32
+# on the CPU the lever moves no leaf past 1.2e-7.  Their lever-on round is
+# also held to the f32 copy directly: within twice the lever-off round's
+# distance from it, leaf by leaf (or TRAIN_ROUNDING of it)
+LEVER_F32 = ("mamba2-1.3b act_shard", "mamba2-1.3b act_shard seed 1")
+# the cases whose second round is traced on four cards (cards_round)
+LEVER_TRACED = ("mamba2-1.3b act_shard",)
+LEVER_CARDS_GRID = dict(data=2, model=2)
+LEVER_CARDS_RUN = dict(FAMILY_CARDS_RUN, rounds=2)
+LEVER_CARDS = {
+    "mamba2-1.3b act_shard": ("mamba2-1.3b", None, "activation_sharding", "vmap", {},
+                              LEVER_CARDS_RUN),
+    "mamba2-1.3b act_shard seed 1": ("mamba2-1.3b", None, "activation_sharding", "vmap", {},
+                                     dict(LEVER_CARDS_RUN, seed=1)),
+    "paligemma-3b act_shard": ("paligemma-3b", None, "activation_sharding", "vmap", {},
+                               LEVER_CARDS_RUN),
+    "smollm-135m seq_par": ("smollm-135m", None, "seq_par_attention", "vmap",
+                            {"block_q": 1024}, dict(LEVER_CARDS_RUN, seq=2048)),
+    "llama3-8b fsdp_act scan": ("llama3-8b", None, "fsdp_activations", "scan", {},
+                                dict(LEVER_CARDS_RUN, batch=4, seq=512)),
+}
+# llama3-8b's vmap round under fsdp_activations, phase N's four-card round
+# (K = 4) on (data 2, model 2) with a client's rows 2 (so that they split),
+# is reckoned and not run: on H100 80GB cards it ran out of memory at 2 x
+# 256 tokens (3.5 GiB asked, 72.8 GB allocated) and at 2 x 128 (3.5 GiB
+# asked, 66.4 GB allocated and 8.1 GB reserved unused)
+LEVER_VMAP_RUN = dict(LEVER_CARDS_RUN, batch=2, seq=128)
 
 def kernel_tables():
     """``kernels.meta``'s tables, which the linter reads too: this
@@ -5233,8 +5316,9 @@ def model_axis_phase(torch, smi):
 
 
 def axis_big_data(torch, cfg, device, run=AXIS_BIG_RUN):
-    """``run``'s batches as the train CLI draws them (seed 0): the eval
-    batch, then each round's K clients with client 0's attack."""
+    """``run``'s batches as the train CLI draws them (``run``'s "seed", 0 by
+    default): the eval batch, then each round's K clients with client 0's
+    attack."""
     import numpy as np
 
     from repro_torch.data import make_token_stream
@@ -5242,7 +5326,7 @@ def axis_big_data(torch, cfg, device, run=AXIS_BIG_RUN):
 
     r = run
     stream = make_token_stream(vocab=cfg.vocab_size, n=50_000)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(r.get("seed", 0))
     ev = make_fed_batches(cfg, stream, rng, K=1, S=1, b=r["batch"], seq=r["seq"], device=device)
     rounds = []
     for rnd in range(r["rounds"]):
@@ -7896,6 +7980,392 @@ def cross_only(torch, ops, smi, name, cards_only: bool = False) -> None:
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
 
+def lever_cfg(arch: str, layers, lever: str, mode: str, over: dict, on: bool):
+    """``arch`` at full width (``layers`` of its layers, or all) in ``mode``
+    with ``over``, the lever ``lever`` on or off."""
+    from repro_torch.configs import get_config
+
+    cut = {} if layers is None else {"num_layers": layers}
+    return get_config(arch).with_(fed_mode=mode, **cut, **over, **{lever: on})
+
+
+def lever_reckoning(cfg, m: int, b: int, seq: int) -> dict:
+    """The dot FLOPs of the attention and the SSD a rank's forward of ``b``
+    sequences of ``seq`` tokens does on a model axis of ``m`` ranks, the
+    lever of ``cfg`` off and on, from the shapes: the plain blocked
+    attention computes every (padded) tile, QK^T and PV, on every head
+    where the axis cuts one (on the rank's heads where the kv heads
+    divide); ``activation_sharding`` cuts the q heads by m,
+    ``seq_par_attention`` the query rows, ``fsdp_activations`` the rows;
+    the SSD's per-head products of a chunk (the intra-chunk product, the
+    chunk state and its output) by m under ``activation_sharding``, its
+    C . B products shared by the heads."""
+    out = {"attention": [0, 0], "ssd": [0, 0]}
+    rows = (b // m) if cfg.fsdp_activations and b % m == 0 else b
+    if cfg.has_attention and cfg.family != "hybrid":
+        hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        lq = cfg.prefix_len + seq
+        bq, bk = min(cfg.block_q, lq), min(cfg.block_k, lq)
+        lqp, lkp = -(-lq // bq) * bq, -(-lq // bk) * bk
+        heads = hq if hkv % m else hq // m
+        off = 4 * b * heads * lqp * lkp * hd * cfg.num_layers
+        on = off
+        if cfg.activation_sharding and hkv % m and hq % m == 0:
+            on = off // m
+        elif cfg.seq_par_attention and hkv % m and (lqp // bq) % m == 0:
+            on = off // m
+        elif rows != b:   # every head of the rank's rows
+            on = 4 * rows * hq * lqp * lkp * hd * cfg.num_layers
+        out["attention"] = [off, on]
+    if cfg.family in ("ssm", "hybrid"):
+        h, p, n, q = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+        nc = -(-seq // q)
+        per_head = 2 * b * nc * (q * q * p + n * q * p + q * n * p)
+        shared = 2 * b * nc * q * q * n
+        L = cfg.num_layers
+        off = L * (shared + h * per_head)
+        on = L * (shared + h // m * per_head) if cfg.activation_sharding and h % m == 0 else off
+        out["ssd"] = [off, on]
+    return out
+
+
+def lever_traced_flops(torch, model, params, batch) -> dict:
+    """The dot FLOPs of the attention and SSD spans of one forward of
+    ``batch`` on this rank (``repro_torch.analysis.trace``)."""
+    from repro_torch.analysis.trace import recording, region_label
+
+    with torch.no_grad(), recording() as rec:
+        model.forward(params, batch)
+    flops = {"attention": 0, "ssd": 0}
+    for op in rec.ops:
+        for label in {region_label(r) for r in op.regions} & set(flops):
+            flops[label] += op.flops
+    return flops
+
+
+def lever_kinds(log) -> dict:
+    """``"kind axes"`` -> the count of a round's recorded collectives."""
+    out = {}
+    for c in log:
+        key = f"{c.kind} {'+'.join(c.axes)}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def lever_outside(torch, grid, got, want, start, own=None) -> tuple:
+    """How far this rank's blocks ``got`` lie outside ``TRAIN_ROUNDING`` of
+    ``want`` (the lever-off round's blocks, a list in leaf order, from the
+    same ``start``), the largest over every rank (> 0: outside), the
+    largest |diff|, the leaves let through by ``own``, and how far ``got``
+    lies from ``own``.  ``own``: this rank's blocks of the lever-off round
+    on an f32 copy, where a leaf outside ``TRAIN_ROUNDING`` passes within
+    twice the lever-off round's own bf16 error, max |want - own| (ROADMAP
+    C.19, as phase Q allows); and ``got`` is held to ``own`` directly, each
+    leaf within twice that error or ``TRAIN_ROUNDING`` of ``own``: the
+    largest excess over every rank (> 0: outside), None without ``own``."""
+    from repro_torch.utils.trees import tree_leaves, tree_structure
+
+    frac, ulps = TRAIN_ROUNDING
+    paths = ["/".join(p) for p in tree_structure(start)]
+    worst, diff, passed, to_own = float("-inf"), 0.0, [], None
+    for i, (x, y, z) in enumerate(zip(tree_leaves(got), want, tree_leaves(start))):
+        x, y = x.float(), y.float()
+        update = grid_max(grid, (y - z.float()).abs().max().reshape(1))
+        o = y if own is None else own[i].float()
+        err = (y - o).abs().max()
+        out, d, err, far, err_on = grid_max(grid, torch.stack([
+            ((x - y).abs() - frac * update - ulps * y.abs()).max(), (x - y).abs().max(),
+            err, ((x - o).abs() - torch.maximum(2 * err, frac * update + ulps * o.abs())).max(),
+            (x - o).abs().max()])).tolist()
+        if own is not None:
+            to_own = max(far, float("-inf") if to_own is None else to_own)
+        if out > 0 and own is not None and d <= 2 * err:
+            passed.append((paths[i], out, d, err, err_on))
+            out = 0.0
+        worst, diff = max(worst, out), max(diff, d)
+    return worst, diff, passed, to_own
+
+
+def lever_case(torch, grid, label, case, traced: bool) -> dict:
+    """One ``LEVER_CASES`` / ``LEVER_CARDS`` case on this rank: its rounds
+    with the lever off, then on, from the same seeded blocks and batches;
+    each round's decisions, ms, peak GB and collectives by kind, the first
+    round's aggregate held to the lever-off one's (for ``LEVER_F32``'s
+    cases also through the lever-off round's own bf16 error, its first
+    round run first on an f32 copy); the traced FLOPs where ``traced``."""
+    from repro_torch.core import init_reputation
+    from repro_torch.fed.distributed import make_fed_round
+    from repro_torch.launch.mesh import recording
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves
+
+    arch, layers, lever, mode, over, run = case
+    K, vmap, seed = run["K"], mode == "vmap", run.get("seed", 0)
+    gen = torch.Generator(device="cuda")
+    n_k = torch.ones((K,), dtype=torch.float32, device=grid.device)
+    out, first, own = {}, None, None
+    if label in LEVER_F32:
+        cfg = lever_cfg(arch, layers, lever, mode, over, False)
+        gen.manual_seed(seed)
+        cfg32, params = as_f32(cfg, build_model(cfg, grid=grid).init(gen, grid.device))
+        model = build_model(cfg32, grid=grid)
+        _, rounds = axis_big_data(torch, cfg32, grid.device, run)
+        batch = client_block(grid, rounds[0]) if vmap else rounds[0]
+        fed_round = make_fed_round(model, family_round_config(cfg32, run, ("data",) if vmap
+                                                              else None), grid=grid)
+        agg, _, _, row = fsdp_round(torch, grid, fed_round, params,
+                                    init_reputation(K, device=grid.device), n_k, batch)
+        own = tree_leaves(agg)
+        out["f32_off"] = {k: row[k] for k in ("ms", "peak_gb", "good_frac", "afa_rounds")}
+        del agg, params, model, fed_round, rounds, batch
+        torch.cuda.empty_cache()
+    for on in (False, True):
+        cfg = lever_cfg(arch, layers, lever, mode, over, on)
+        model = build_model(cfg, grid=grid)
+        gen.manual_seed(seed)
+        params, _, held = axis_held(torch, model, cfg, grid, gen)
+        eval_batch, rounds = axis_big_data(torch, cfg, grid.device, run)
+        fed_round = make_fed_round(model, family_round_config(cfg, run, ("data",) if vmap
+                                                              else None), grid=grid)
+        rep, p, rows = init_reputation(K, device=grid.device), params, []
+        for rnd, batch in enumerate(rounds):
+            batch = client_block(grid, batch) if vmap else batch
+            if rnd == 0 and traced:
+                step = {k: v[1, 0] for k, v in batch.items()}
+                flops = lever_traced_flops(torch, model, params, step)
+            with recording() as log:
+                p, rep, m, row = cards_round(torch, grid, fed_round, p, rep, n_k, batch,
+                                             not traced and rnd == 1 and label in LEVER_TRACED)
+            del m
+            row["collectives"] = lever_kinds(log)
+            with torch.no_grad():
+                row["eval_loss"] = float(model.loss_fn(p, eval_batch)[0])
+            if rnd == 0 and not on:
+                first = [l.clone() for l in tree_leaves(p)]
+            if rnd == 0 and on:
+                (row["outside"], row["max_abs_diff"], row["within_own_bf16"],
+                 row["outside_f32"]) = lever_outside(torch, grid, p, first, params, own)
+            rows.append({k: row[k] for k in (
+                "alpha", "beta", "blocked", "good_frac", "afa_rounds", "eval_loss", "peak_gb",
+                "ms", "collectives", "similarities", "outside", "max_abs_diff",
+                "within_own_bf16", "outside_f32", "trace") if k in row})
+        out["on" if on else "off"] = {"rounds": rows, "held_bytes": held["held_bytes"],
+                                      "flops": flops if traced else None}
+        del p, params, fed_round, model, rounds
+        torch.cuda.empty_cache()
+    return out
+
+
+def lever_worker(cases: dict, shape: dict, device: str, traced: bool, tag: str, smi: str):
+    """One rank of phase K's grid (gloo ranks sharing the card, or one NCCL
+    rank a card): every case of ``cases``, each case's lines printed by rank
+    0 once every rank has run it (``lever_lines``).  Returns every rank's
+    numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_grid_mesh, make_test_mesh
+
+    t_worker = time.perf_counter()
+    grid = make_grid_mesh(make_test_mesh(**shape), device)
+    mine = {"rank": grid.rank, "coords": dict(grid.coords), "cases": {}}
+    for label, case in cases.items():
+        t0 = time.perf_counter()
+        mine["cases"][label] = lever_case(torch, grid, label, case, traced)
+        mine["cases"][label]["case_s"] = time.perf_counter() - t0
+        done = [None] * dist.get_world_size()
+        dist.all_gather_object(done, {"cases": {label: mine["cases"][label]}})
+        if grid.rank == 0:
+            print(f"lever [{label}, rank 0]: {mine['cases'][label]['case_s']:.1f} s", flush=True)
+            lever_lines(tag, {label: case}, done, shape, smi)
+    mine["worker_s"] = time.perf_counter() - t_worker
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return ranks
+
+
+def lever_gates(tag: str, cases: dict, ranks: list, shape: dict, traced: bool) -> list:
+    """Phase K's gates on every rank's rows: the lever-off and lever-on
+    rounds' decisions equal, their losses and similarities finite, the
+    first aggregate within ``TRAIN_ROUNDING``; where ``traced``, the traced
+    FLOPs equal to ``lever_reckoning``'s.  Returns the problems."""
+    problems = []
+    m = shape["model"]
+    for label, case in cases.items():
+        arch, layers, lever, mode, over, run = case
+        b = run["batch"] // (shape["data"] if mode != "vmap" else 1)
+        for rank in ranks:
+            row = rank["cases"][label]
+            where = f"{tag} [{label} rank {rank['rank']} {rank['coords']}]"
+            for off, on in zip(row["off"]["rounds"], row["on"]["rounds"]):
+                for key in ("alpha", "beta", "blocked", "good_frac", "afa_rounds"):
+                    if off[key] != on[key]:
+                        problems.append(f"{where}: {key} {on[key]} with the lever, {off[key]} "
+                                        "without")
+                for x in (off, on):
+                    if not all(v == v and abs(v) != float("inf")
+                               for v in [x["eval_loss"]] + x["similarities"]):
+                        problems.append(f"{where}: a loss or similarity not finite: {x}")
+            first = row["on"]["rounds"][0]
+            if not first["outside"] <= 0:
+                problems.append(f"{where}: the aggregate lies {first['outside']}"
+                                " outside TRAIN_ROUNDING of the lever-off round's")
+            if label in LEVER_F32 and not first["outside_f32"] <= 0:
+                problems.append(f"{where}: the aggregate lies {first['outside_f32']} farther from"
+                                " the lever-off round's f32 copy than twice the lever-off round")
+            if traced:
+                cfg = lever_cfg(arch, layers, lever, mode, over, True)
+                want = lever_reckoning(cfg, m, b, run["seq"])
+                got = {k: [row["off"]["flops"][k], row["on"]["flops"][k]] for k in want}
+                if got != want:
+                    problems.append(f"{where}: traced FLOPs (off, on) {got}, reckoned {want}")
+    return problems
+
+
+def lever_lines(tag: str, cases: dict, ranks: list, shape: dict, smi: str) -> None:
+    """Phase K's lines: each case's lever-off and lever-on rounds on rank 0,
+    the peak over the ranks."""
+    for label in cases:
+        row = ranks[0]["cases"][label]
+        for key in ("off", "on"):
+            x = row[key]
+            peak = max(max(r["peak_gb"] for r in rk["cases"][label][key]["rounds"])
+                       for rk in ranks)
+            first = x["rounds"][0]
+            print(f"{tag} [{label} lever {key}, {shape}] ({smi}): ms/round="
+                  f"{[round(r['ms'], 1) for r in x['rounds']]} peak_GB a rank={peak:.3f} "
+                  f"good_frac={first['good_frac']:.2f} afa_rounds={first['afa_rounds']} "
+                  f"eval_loss={[round(r['eval_loss'], 4) for r in x['rounds']]} collectives "
+                  f"{first['collectives']}"
+                  + (f" flops {x['flops']}" if x["flops"] else "")
+                  + (f" outside {first['outside']:.3e} (max |diff| "
+                     f"{first['max_abs_diff']:.3e}; leaves within twice the lever-off round's "
+                     f"own bf16 error (leaf, outside, diff, off's error, on's error): "
+                     f"{first['within_own_bf16']}; to the f32 copy {first['outside_f32']})"
+                     if "outside" in first else "")
+                  + "".join(f" trace (round {i + 1}) {r['trace']}"
+                            for i, r in enumerate(x["rounds"]) if "trace" in r), flush=True)
+        if "f32_off" in row:
+            print(f"{tag} [{label} lever off, f32 copy] ({smi}): {row['f32_off']}", flush=True)
+
+
+def lever_phase(torch, smi):
+    """Phase K: the three mesh levers on 2 gloo ranks sharing the card
+    (``LEVER_CASES``); with four cards or more, ``lever_cards``.  Returns
+    the rows."""
+    from repro_torch.launch.shards import spawn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ranks = spawn(lever_worker, LEVER_GRID["data"] * LEVER_GRID["model"], backend="gloo",
+                  device="cuda:0", args=(LEVER_CASES, LEVER_GRID, "cuda:0", True, "lever", smi))
+    rows = {"config": {"grid": LEVER_GRID, "run": LEVER_RUN,
+                       "cases": {k: list(v[:5]) for k, v in LEVER_CASES.items()}},
+            "ranks": ranks, "spawn_wall_s": time.perf_counter() - t_phase}
+    problems = lever_gates("lever", LEVER_CASES, ranks, LEVER_GRID, True)
+    if problems:
+        raise AssertionError("lever: " + "\n".join(problems))
+    cards = torch.cuda.device_count()
+    rows["cards"] = lever_cards(torch, smi) if cards >= 4 else f"did not run: {cards} card(s)"
+    rows["phase_s"] = time.perf_counter() - t_phase
+    print(f"lever: phase {rows['phase_s']:.1f} s (spawn {rows['spawn_wall_s']:.1f} s) ({smi})")
+    return rows
+
+
+def lever_vmap_reckoning(arch: str, run: dict, shape: dict) -> dict:
+    """A rank's bytes (GB) in a vmap round of ``arch`` at full depth on a
+    grid of ``shape``, from the specs (meta): the weights' blocks and a
+    client's proposal, momentum and gradient for each of the data row's
+    clients (``model_axis_cards``' reckoning), and under
+    ``fsdp_activations`` the largest leaf group gathered whole at once, a
+    layer's leaves (or the embedding or the head), for each client: the
+    backward keeps the rank's blocks and gathers them again
+    (``models/layers.py``), where saving them would keep every layer
+    whole (``saved``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sharding import shard_bytes, shard_params_tree
+    from repro_torch.models import build_model
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_config(arch)
+    grid = make_test_mesh(**shape)
+    full = build_model(cfg).init(None, "meta")
+    leaves = tree_leaves(full)
+    base = sum(shard_bytes(tuple(f.shape), f.element_size(), s, grid)
+               for f, s in zip(leaves, tree_leaves(shard_params_tree(full, grid))))
+    clients = run["K"] // grid.size("data")
+    layer = sum(f[0].numel() * f.element_size() for f in tree_leaves(full["layers"]))
+    top = max(full[k].numel() * full[k].element_size() for k in full if k != "layers")
+    gathered = clients * max(layer, top)
+    saved = clients * sum(f.numel() * f.element_size() for f in leaves)
+    return {"blocks": base / 1e9, "train": clients * 3 * base / 1e9,
+            "gathered": gathered / 1e9, "saved": saved / 1e9,
+            "peak_off": (base + clients * 3 * base) / 1e9,
+            "peak_on": (base + clients * 3 * base + gathered) / 1e9}
+
+
+def lever_cards(torch, smi):
+    """Phase K's four-card half: ``LEVER_CARDS`` on a (data 2, model 2) grid
+    of one NCCL rank a card, each lever off then on, 2 rounds each; the
+    vmap reckoning of llama3-8b's lever printed first."""
+    from repro_torch.launch.shards import spawn
+
+    reck = lever_vmap_reckoning("llama3-8b", LEVER_VMAP_RUN, LEVER_CARDS_GRID)
+    print(f"lever cards [llama3-8b vmap, K={LEVER_VMAP_RUN['K']}, {LEVER_CARDS_GRID}]: reckoned a"
+          f" rank (GB, weights and optimizer state, activations not counted): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in reck.items()), flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn(lever_worker, 4, backend="nccl", device="cuda",
+                  args=(LEVER_CARDS, LEVER_CARDS_GRID, "cuda", False, "lever cards", smi))
+    rows = {"grid": LEVER_CARDS_GRID, "cases": {k: list(v[:5]) + [v[5]]
+                                                 for k, v in LEVER_CARDS.items()},
+            "llama_vmap_reckoning": reck, "ranks": ranks,
+            "spawn_wall_s": time.perf_counter() - t0}
+    problems = lever_gates("lever cards", LEVER_CARDS, ranks, LEVER_CARDS_GRID, False)
+    for msg in problems:
+        print(msg, flush=True)
+    if problems:
+        raise AssertionError(f"lever cards: {len(problems)} gate(s) missed: {problems[0]}")
+    return rows
+
+
+def lever_summary(smi, rows):
+    """Phase K's lines with the card's name and power limit: each case's
+    first round with the lever off and on, rank 0's."""
+    ranks = rows["ranks"]
+    for label in LEVER_CASES:
+        off, on = (ranks[0]["cases"][label][k] for k in ("off", "on"))
+        peak = {k: max(max(r["peak_gb"] for r in rk["cases"][label][k]["rounds"]) for rk in ranks)
+                for k in ("off", "on")}
+        print(f"lever summary [{label}, {LEVER_GRID} gloo ranks on one card] ({smi}): ms/round "
+              f"off {off['rounds'][0]['ms']:.1f} on {on['rounds'][0]['ms']:.1f}; peak_GB a rank "
+              f"off {peak['off']:.3f} on {peak['on']:.3f}; flops off {off['flops']} on "
+              f"{on['flops']}; outside {on['rounds'][0]['outside']:.3e}")
+    print(f"lever summary: phase {rows['phase_s']:.1f} s; four cards: "
+          f"{'ran' if isinstance(rows['cards'], dict) else rows['cards']}")
+
+
+def lever_only(torch, smi, name, cards_only: bool = False) -> None:
+    """``--phase K``: phase K alone (its four-card half where there are four
+    cards), its numbers to ``chiprun_out/chip_smoke_levers.json``; ``--phase
+    K4`` (``cards_only``): the four-card half alone, to
+    ``chip_smoke_levers_cards.json``."""
+    if cards_only:
+        if torch.cuda.device_count() < 4:
+            fail(f"--phase K4 needs four cards, this machine has {torch.cuda.device_count()}")
+        rows = {"cards": lever_cards(torch, smi)}
+    else:
+        rows = lever_phase(torch, smi)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"chip_smoke_levers{'_cards' if cards_only else ''}.json").write_text(
+        json.dumps({"nvidia_smi": smi, "device": name, "torch": torch.__version__,
+                    "levers": rows}, indent=1, default=str))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
 def production_phase(torch, ops, ref, smi):
     """Phase D: smollm-135m at the reference's production input shapes.
     Returns the rows and the flash launches of its kernel-route runs (the
@@ -8197,6 +8667,9 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "X4"]:   # no kernel runs there
         cross_only(torch, ops, smi, name, cards_only=True)
         return
+    if sys.argv[1:] in (["--phase", "K"], ["--phase", "K4"]):   # no kernel runs there
+        lever_only(torch, smi, name, cards_only=sys.argv[2] == "K4")
+        return
     seconds = {}
 
     def phase(label, fn, *args):
@@ -8275,6 +8748,7 @@ def main() -> None:
     family_grid, family_grid_launches = phase("Q family grid", family_grid_phase, torch, ops,
                                               smi)
     client_grid, client_grid_launches = phase("X client grid", cross_phase, torch, ops, smi)
+    levers = phase("K levers", lever_phase, torch, smi)
     traces = phase("traces", lambda: [profile_phase(torch), lora_trace,
                                       *forward_profile_phase(torch), *fused_traces])
     traces += [serve_llm_trace, families_trace]
@@ -8333,6 +8807,7 @@ def main() -> None:
         "serve_grid": serve_grid,
         "family_grid": family_grid,
         "client_grid": client_grid,
+        "levers": levers,
         "lint": lint,
         "phase_seconds": seconds,
         "launches": launches,
@@ -8352,6 +8827,7 @@ def main() -> None:
     serve_grid_summary(smi, serve_grid)
     family_grid_summary(smi, family_grid)
     cross_summary(smi, client_grid)
+    lever_summary(smi, levers)
     for label, t in seconds.items():
         print(f"phase seconds [{label}]: {t:.1f} ({smi})")
     print(json.dumps({"kernels": kernels}))

@@ -390,13 +390,15 @@ def afa_aggregate_tree(
     config: AFAConfig = AFAConfig(),
     *,
     shards: TreeShards | None = None,
+    unroll: bool = False,
 ) -> AFAResult:
     """Algorithm 1 on a stacked tree; the aggregate is a tree of one
     client's leaves.  The row norms are clamped inside the square root,
     and sums over the client axis are row-order folds, as in the matrix
     form.  ``shards``: the leaves hold this rank's rows and blocks on a
     grid (see the module docstring); ``n_k``, ``p_k`` and ``mask0`` are
-    whole."""
+    whole.  ``unroll`` (one card): ``max_rounds`` screening passes under a
+    device flag, with no host read, as the matrix form's."""
     if config.variant not in ("iterative", "gram"):
         raise ValueError(
             f"AFAConfig.variant={config.variant!r} invalid; "
@@ -428,7 +430,7 @@ def afa_aggregate_tree(
             agg_norm = torch.sqrt(torch.clamp(tree_dot(agg, agg), min=EPS))
             return dots / (row_norms * agg_norm)
 
-    s, mask, rounds = _screen(sims, mask0, p32, n32, config, False)
+    s, mask, rounds = _screen(sims, mask0, p32, n32, config, unroll)
     agg = _stacked_weighted_sum(stacked_updates, _weights(mask, p32, n32))
     return AFAResult(aggregate=agg, good_mask=mask, rounds=rounds, similarities=s)
 
@@ -541,6 +543,7 @@ def _afa_tree_rule(stacked, n_k, p_k, mask, opts):
     leaf = tree_leaves(stacked)[0]
     return afa_aggregate_tree(
         stacked, n_k, _default_p(p_k, leaf.shape[0], leaf.device), mask0=mask, config=cfg,
+        unroll=opts.capturable,
     )
 
 

@@ -70,6 +70,12 @@ this rank's blocks, and the reputation and metrics whole.  ``n_k`` and
   rows and the norms and dots gathered over them, so that every rank
   screens the same K scalars.
 
+A model whose config sets one of the reference's mesh levers
+(``activation_sharding``, ``seq_par_attention``, ``fsdp_activations``)
+runs it inside its loss on the grid's ``model`` axis, under every mode
+(``models/model.py``); the round is otherwise the same, its specs and AFA's
+collectives too.
+
 Without a grid, ``client_axes`` has no effect, as the reference's names
 none on one device.  Under ``scan`` with int8 storage the metrics also
 hold each leaf's K scales (``"scales"``, by leaf path).

@@ -228,7 +228,7 @@ def make_packed_propose_fn(workload, cfg: EngineConfig, num_clients_total, batch
 
 def _round_body(workload, cfg: EngineConfig, rule, opts, delta_block, block_table,
                 num_clients_total, batch_s, batch_b, attack_mesh, carry, rnd, seed,
-                data: FusedData, bad, client_ids):
+                data: FusedData, bad, client_ids, layout: str = "packed"):
     """ONE fused round over a (possibly compacted) client layout of R rows:
     ``bad`` and ``client_ids`` are ``(R,)`` device tensors, ``rnd`` a 0-d
     int64 device tensor, ``seed`` a 0-d int64 device tensor, and
@@ -236,19 +236,31 @@ def _round_body(workload, cfg: EngineConfig, rule, opts, delta_block, block_tabl
     (``attack_mesh``: the client mesh alie/ipm sum over, or None).  The
     packed ``(R, D)`` proposals go through ``server_step`` (blocking from
     ``block_table``); with no live client the aggregate keeps the previous
-    proposal point (a ``torch.where``, not a host branch).  Returns
+    proposal point (a ``torch.where``, not a host branch).  ``layout`` is
+    the aggregation representation (``ServerConfig.agg_layout``, as the
+    reference's ``_round_body`` takes it): ``"packed"`` dispatches the
+    rule's matrix form on the packed buffer, ``"tree"`` hands the stacked
+    tree to the tree dispatch, which packs it again (the same bits), and
+    ``"leaf"`` runs AFA's tree form on the leaves.  Returns
     ``((params', state'), FusedTrajectory row)``."""
     params, state = carry
     packed, pspec, mask0 = _propose_round(
         workload, cfg, num_clients_total, batch_s, batch_b, params,
         state.reputation.blocked, rnd, seed, data, bad, client_ids, attack_mesh,
     )
-    state, res = server_step(state, packed, data.n_k, mask0, rule=rule, opts=opts,
-                             delta_block=delta_block, layout="matrix",
-                             block_table=block_table)
+    if layout == "packed":
+        state, res = server_step(state, packed, data.n_k, mask0, rule=rule, opts=opts,
+                                 delta_block=delta_block, layout="matrix",
+                                 block_table=block_table)
+        new = unpack_stack(res.aggregate, pspec)
+    else:
+        state, res = server_step(state, unpack_stack(packed, pspec), data.n_k, mask0,
+                                 rule=rule, opts=opts, delta_block=delta_block, layout=layout,
+                                 block_table=block_table)
+        new = res.aggregate
     w_prev = workload.codec.proposal_of(params)
     aggregate = tree_map(lambda prev, new: torch.where(res.all_blocked, prev, new),
-                         w_prev, unpack_stack(res.aggregate, pspec))
+                         w_prev, new)
     params = workload.codec.apply(params, aggregate)
     err = workload.eval_metric(params, data.x_test, data.y_test)
     return (params, state), FusedTrajectory(err, res.good_mask, state.reputation.blocked)
@@ -409,14 +421,14 @@ def _program_runner(body, num_rounds: int, device: torch.device):
 
 
 def _body(workload, cfg, rule, opts, delta_block, num_clients_total, batch_s, batch_b,
-          alpha0, beta0, num_rounds, device, client_mesh=None):
+          alpha0, beta0, num_rounds, device, client_mesh=None, layout: str = "packed"):
     """The round body with its static configuration bound: the rule asked
     for no host read (``RuleOptions.capturable``) unless the body runs
     eagerly over a client mesh, its Gram kernels to plan for the run's full
     K in every bucket (``RuleOptions.plan_rows``), the blocking table
     (counts up to ``num_rounds``) on ``device``, and the client mesh the
     attacks sum over when it has more than one shard (a one-shard mesh runs
-    the unsharded attacks bit for bit)."""
+    the unsharded attacks bit for bit), and the aggregation ``layout``."""
     table = torch.from_numpy(blocking_table(alpha0, beta0, delta_block, num_rounds)).to(device)
     block = (table, float(alpha0), float(beta0))
     opts = opts._replace(capturable=client_mesh is None, plan_rows=int(num_clients_total))
@@ -426,15 +438,20 @@ def _body(workload, cfg, rule, opts, delta_block, num_clients_total, batch_s, ba
         with region(ROUND_BODY):
             return _round_body(workload, cfg, rule, opts, delta_block, block, num_clients_total,
                                batch_s, batch_b, attack_mesh, carry, rnd, seed, data, bad,
-                               client_ids)
+                               client_ids, layout)
 
     return body
 
 
-def _validate_client_mesh(mesh, cfg: EngineConfig, rule: str, num_rows: int) -> None:
-    """The checks of the client-sharded fused engines."""
+def _validate_client_mesh(mesh, cfg: EngineConfig, rule: str, num_rows: int,
+                          layout: str = "packed") -> None:
+    """The checks of the client-sharded fused engines (``KernelPlan``
+    checks ``layout``'s name)."""
     if mesh is None:
         return
+    if layout != "packed":
+        raise ValueError("the client-sharded engine packs once a round and requires the "
+                         f"packed layout (got {layout!r})")
     if mesh.num_shards > 1:
         if cfg.scenario not in SHARDABLE_SCENARIOS:
             raise ValueError(f"scenario {cfg.scenario!r} has no client-sharded form "
@@ -494,6 +511,7 @@ def make_fused_sim(
     beta0: float = 3.0,
     device="cuda",
     client_mesh=None,
+    layout: str = "packed",
 ):
     """Build the fused T-round simulation on ``device``.
 
@@ -516,14 +534,15 @@ def make_fused_sim(
     ``fed.server.make_rule_options``) the simulation is this rank's: ``data``
     holds its K / S rows (``bad_mask`` is the full K), ``scan_fn`` runs the
     rounds eagerly and returns this rank's state rows and the gathered
-    ``(T, K)`` trajectory, and ``round_fn`` is None."""
+    ``(T, K)`` trajectory, and ``round_fn`` is None.  ``layout``: the
+    aggregation representation (``_round_body``; a client mesh packs)."""
     device = torch.device(device)
     K, T = int(num_clients), int(num_rounds)
-    _validate_client_mesh(client_mesh, cfg, rule, K)
+    _validate_client_mesh(client_mesh, cfg, rule, K, layout)
     bad = torch.from_numpy(np.asarray(bad_mask, bool)).to(device)
     ids = torch.arange(K, dtype=torch.int64, device=device)
     body = _body(workload, cfg, rule, opts, delta_block, K, int(batch_s), int(batch_b),
-                 alpha0, beta0, T, device, client_mesh)
+                 alpha0, beta0, T, device, client_mesh, layout)
     if client_mesh is not None:
         rows = K // client_mesh.num_shards
         block = client_mesh.row_block(rows)
@@ -615,6 +634,7 @@ def make_fused_segment(
     beta0: float = 3.0,
     device="cuda",
     client_mesh=None,
+    layout: str = "packed",
 ):
     """Build the segments of the fused simulation on ``device``.
 
@@ -638,11 +658,12 @@ def make_fused_segment(
     With ``client_mesh`` the client layout is this rank's R / S rows of a
     per-shard compaction (``data.shard_compact_plan``, whose ``-1`` pads
     are blocked); the segment runs eagerly and returns this rank's state
-    rows and the ``(seg_len, R)`` trajectory gathered over the mesh."""
+    rows and the ``(seg_len, R)`` trajectory gathered over the mesh.
+    ``layout`` as ``make_fused_sim``'s."""
     device = torch.device(device)
-    _validate_client_mesh(client_mesh, cfg, rule, int(num_clients_total))
+    _validate_client_mesh(client_mesh, cfg, rule, int(num_clients_total), layout)
     body = _body(workload, cfg, rule, opts, delta_block, int(num_clients_total), int(batch_s),
-                 int(batch_b), alpha0, beta0, int(num_rounds), device, client_mesh)
+                 int(batch_b), alpha0, beta0, int(num_rounds), device, client_mesh, layout)
     if client_mesh is not None:
         return _sharded_runner(body, client_mesh, device)
     runner = _program_runner(body, int(num_rounds), device)

@@ -450,6 +450,7 @@ def _make_setup_sim(setup: _Setup, server_cfg: ServerConfig, mesh=None):
         beta0=server_cfg.beta0,
         device=setup.device,
         client_mesh=mesh,
+        layout=resolve_server_plan(server_cfg).layout,
     )
 
 
@@ -566,6 +567,7 @@ def _segment_fn(setup: _Setup, server_cfg: ServerConfig, mesh=None):
         beta0=server_cfg.beta0,
         device=setup.device,
         client_mesh=mesh,
+        layout=resolve_server_plan(server_cfg).layout,
     )
 
 

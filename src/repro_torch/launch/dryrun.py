@@ -39,7 +39,13 @@ port's counterpart of the reference's per-device ``memory_analysis``: the
 bytes one rank holds of the parameters and of all the arguments under the
 port's specs (``memory.per_rank_param_bytes``, ``per_rank_argument_bytes``;
 ``specs.arg_specs``, ``specs.rank_bytes``), with ``mesh``, ``mesh_axes``
-and ``num_chips``; ``analytic`` is then at the mesh's client rows.  The
+and ``num_chips``; ``analytic`` is then at the mesh's client rows.  It also
+counts one rank's share of the step (``costs_per_rank``, ``count_rank``):
+the model built over a ``launch.mesh.MetaGrid`` of the mesh, so that its
+blocks, rows and collectives are a rank's and the reference's mesh levers
+(``act_shard``, ``fsdp_act``, ``seq_par`` and their combinations) act as
+on a grid: ``dot_flops`` of the rank's work, its collectives by kind (a
+vmap round's local training counts the rank's client row's clients).  The
 mesh runs on meta only.
 
 ``--device cuda`` also makes the arguments on the card, where they fit its
@@ -60,6 +66,7 @@ One JSON a combo under ``experiments/dryrun_torch/``, named
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -75,7 +82,7 @@ from repro_torch.analysis.trace import recording
 from repro_torch.configs import ALIASES, get_config
 from repro_torch.fed.distributed import _client_train, _clients_train, client_train_calls
 from repro_torch.launch.analytic import analytic_report
-from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+from repro_torch.launch.mesh import MetaGrid, make_production_mesh, make_test_mesh, num_client_rows
 from repro_torch.launch.specs import INPUT_SHAPES, arg_specs, input_specs, rank_bytes
 from repro_torch.launch.steps import build_step, train_round_config
 from repro_torch.models import build_model
@@ -86,8 +93,9 @@ ONE_TILE = 1 << 30  # block_q = block_k past any sequence: one tile a layer
 
 # The reference's named deviations from the baseline.  cfg: ModelConfig
 # overrides; train: make_train_step kwargs.  activation_sharding,
-# fsdp_activations and seq_par_attention are mesh levers with no effect on
-# one card; their variants keep their other knobs.
+# fsdp_activations and seq_par_attention are mesh levers: on one card they
+# change nothing, on a --mesh grid they act on a rank's work
+# (rec["costs_per_rank"]).
 VARIANTS = {
     "baseline": {},
     "afa_gram": {"train": {"afa_variant": "gram"}},
@@ -156,6 +164,35 @@ def count_step(model, bundle, train_kwargs: dict) -> dict:
             "output_bytes": nbytes(params) + nbytes(rep) + 4 + 4 + 4 * K, "costs": analyze(rec)}
 
 
+def counting_config(cfg, *, keep_block_q: bool = False):
+    """``cfg`` for counting: the plain attention route, one tile a layer
+    (``ONE_TILE``); ``keep_block_q`` keeps the query blocks
+    (``seq_par_attention`` splits them over ``model``)."""
+    return cfg.with_(use_pallas_attention=False, block_k=ONE_TILE,
+                     block_q=cfg.block_q if keep_block_q else ONE_TILE)
+
+
+def count_rank(cfg, shape_name: str, mesh, local_steps, train_kwargs: dict) -> dict:
+    """``count_step`` of one rank's share of the step on ``mesh`` (its first
+    coordinate): the model built over a ``launch.mesh.MetaGrid`` of the
+    mesh, so its blocks, its rows and the mesh levers act as on a grid, its
+    collectives logged by kind; a vmap round counts the rank's client row's
+    clients."""
+    grid = MetaGrid(mesh)
+    model = build_model(counting_config(cfg, keep_block_q=cfg.seq_par_attention), grid=grid)
+    bundle = input_specs(model, shape_name, grid, local_steps=local_steps)
+    if bundle.step_kind == "skip":
+        return {"skip_reason": bundle.skip_reason}
+    if bundle.step_kind == "train" and cfg.fed_mode == "vmap":
+        params, rep, n_k, batch = bundle.args
+        mine = next(iter(batch.values())).shape[0] // num_client_rows(mesh)
+        bundle = dataclasses.replace(bundle, args=(params, rep, n_k, {
+            k: v[:mine] for k, v in batch.items()}))
+    counted = count_step(model, bundle, train_kwargs)
+    counted.pop("output_bytes")
+    return counted
+
+
 def run_on_card(cfg, shape_name: str, arg_bytes: int, local_steps, train_kwargs: dict) -> dict:
     """The step once on the card with real arguments: ms and peak bytes, or
     an error when the arguments do not fit its free memory."""
@@ -205,8 +242,7 @@ def run_one(arch: str, shape_name: str, out_dir, *, device: str = "meta", force:
     if grid is not None:
         rec.update(mesh=mesh, mesh_axes=dict(grid.shape))
     try:
-        counting = build_model(cfg.with_(use_pallas_attention=False, block_q=ONE_TILE,
-                                         block_k=ONE_TILE))
+        counting = build_model(counting_config(cfg))
         bundle = input_specs(counting, shape_name, 1 if grid is None else grid,
                              local_steps=vspec.get("local_steps"))
         rec["meta"] = bundle.meta
@@ -222,6 +258,8 @@ def run_one(arch: str, shape_name: str, out_dir, *, device: str = "meta", force:
             specs = arg_specs(cfg, bundle, grid)
             rec["memory"].update(per_rank_param_bytes=rank_bytes(bundle.args[0], specs[0], grid),
                                  per_rank_argument_bytes=rank_bytes(bundle.args, specs, grid))
+            rec["costs_per_rank"] = count_rank(cfg, shape_name, grid, vspec.get("local_steps"),
+                                               train_kwargs)
         rec.update(counted)
         rec["analytic"] = analytic_report(cfg, shape_name, bundle.meta["client_rows"])
         if device == "cuda":

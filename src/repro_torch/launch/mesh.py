@@ -52,10 +52,14 @@ gradient over those axes and keeps this rank's block
 under NCCL, ``all_reduce(SUM)`` then this rank's slice under gloo; for two
 ranks both add the same two numbers, so they give the same bits).  A
 reduce-scatter runs in chunks of at most ``SCATTER_CHUNK`` elements, so its
-float32 copy of a large gradient (nemotron's embedding) stays small.  It
-trains one client at a time, so it needs no vmap rule.  ``all_gathers`` and
+float32 copy of a large gradient (nemotron's embedding) stays small.
+``all_gathers`` and
 ``reduce_scatters`` count these by axes, as ``all_reduces`` counts the
-others.
+others.  ``gather_dim`` is the same pair along any dim, or with the
+gradient's block taken as it is where every rank holds the same gradient;
+with a ``vmap`` rule, so a vmap round's clients gather their leaves
+together (the ``fsdp_activations`` lever, ``models/layers.py``) and a
+block's rows or heads come back whole (``models/blocks.py``).
 
 While ``recording()`` is on, both meshes log each collective this rank
 sends as a ``CollectiveCall``: its kind (``psum``, ``pmax``, ``gather``
@@ -64,6 +68,10 @@ its axes (``("client",)`` on the client mesh), the elements and bytes of
 what goes on the wire, and the ``repro_torch.utils.regions`` spans open
 at the call (``repro_torch.analysis.collectives`` reads the screening
 passes from them).  The counters above stay as they are.
+
+``MetaGrid`` is one rank's view of a grid with no group behind it: its
+collectives only shape and log their results, for the dry run's per-rank
+counts on ``meta``.
 
 Both meshes are over the caller's group: they read the initialized default
 group and never pick a backend or a device on their own.  Under NCCL rank r
@@ -387,10 +395,13 @@ class GridMesh(MeshShape):
         w = n // self.size(axes)
         return slice(self.index(axes) * w, (self.index(axes) + 1) * w)
 
-    def all_gather(self, local: torch.Tensor, axes) -> torch.Tensor:
-        """Every rank's block of dim 0 over ``axes``, concatenated in the
-        order of their coordinates (``all_gather`` in ``local``'s dtype:
-        exact)."""
+    def all_gather(self, local: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        """Every rank's block of dim ``dim`` over ``axes``, concatenated in
+        the order of their coordinates (``all_gather`` in ``local``'s dtype:
+        exact); contiguous (another dim than 0 is gathered as dim 0 and
+        copied back into place, so that what reads it is not strided)."""
+        if dim % local.ndim:
+            return self.all_gather(local.movedim(dim, 0), axes).movedim(0, dim).contiguous()
         axes = _axes(axes)
         n = self.size(axes)
         x = local.contiguous()
@@ -398,16 +409,22 @@ class GridMesh(MeshShape):
         self._count(self.all_gathers, axes)
         _record("all_gather", axes, out)
         with torch.profiler.record_function(GRID_ALL_GATHER_RANGE):
-            if self.backend == "nccl":
-                dist.all_gather_into_tensor(out, x, group=self.groups[axes])
-            else:   # gloo: into the n row blocks of out
-                dist.all_gather(list(out.chunk(n)), x, group=self.groups[axes])
+            self._gather_into(out, x, axes)
         return out
 
-    def reduce_scatter(self, full: torch.Tensor, axes) -> torch.Tensor:
-        """This rank's block of dim 0 of the sum of ``full`` over ``axes``,
-        summed in float32 and rounded once to ``full``'s dtype;
-        ``SCATTER_CHUNK`` elements a call (see the module docstring)."""
+    def _gather_into(self, out: torch.Tensor, x: torch.Tensor, axes: tuple) -> None:
+        if self.backend == "nccl":
+            dist.all_gather_into_tensor(out, x, group=self.groups[axes])
+        else:   # gloo: into the n row blocks of out
+            dist.all_gather(list(out.chunk(self.size(axes))), x, group=self.groups[axes])
+
+    def reduce_scatter(self, full: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+        """This rank's block of dim ``dim`` of the sum of ``full`` over
+        ``axes``, summed in float32 and rounded once to ``full``'s dtype;
+        ``SCATTER_CHUNK`` elements a call (see the module docstring);
+        contiguous, as ``all_gather``'s."""
+        if dim % full.ndim:
+            return self.reduce_scatter(full.movedim(dim, 0), axes).movedim(0, dim).contiguous()
         axes = _axes(axes)
         n, i = self.size(axes), self.index(axes)
         w = full.shape[0] // n
@@ -416,18 +433,51 @@ class GridMesh(MeshShape):
         cols = max(1, SCATTER_CHUNK // n)
         self._count(self.reduce_scatters, axes)
         _record("reduce_scatter", axes, g, torch.float32)
-        group = self.groups[axes]
         with torch.profiler.record_function(GRID_REDUCE_SCATTER_RANGE):
             for c0 in range(0, g.shape[1], cols):
-                part = g[:, c0:c0 + cols].float().contiguous()
-                if self.backend == "nccl":   # part's n rows -> this rank's
-                    mine = torch.empty((1, part.shape[1]), dtype=part.dtype, device=part.device)
-                    dist.reduce_scatter_tensor(mine, part, group=group)
-                else:   # gloo: the whole sum, then this rank's row
-                    dist.all_reduce(part, group=group)
-                    mine = part[i:i + 1]
-                out[c0:c0 + cols] = mine[0]
+                out[c0:c0 + cols] = self._scatter_part(g[:, c0:c0 + cols].float().contiguous(),
+                                                       axes, i)[0]
         return out.reshape((w,) + tuple(full.shape[1:]))
+
+    def _scatter_part(self, part: torch.Tensor, axes: tuple, i: int) -> torch.Tensor:
+        """Row ``i`` of the sum over ``axes`` of ``part``'s n rows."""
+        if self.backend == "nccl":
+            mine = torch.empty((1, part.shape[1]), dtype=part.dtype, device=part.device)
+            dist.reduce_scatter_tensor(mine, part, group=self.groups[axes])
+            return mine
+        dist.all_reduce(part, group=self.groups[axes])   # gloo: the whole sum, then row i
+        return part[i:i + 1]
+
+
+class MetaGrid(GridMesh):
+    """One rank's view of a grid with no process group, for counting a
+    call on ``meta``: this rank at ``coords`` (default the first), its
+    collectives shape-correct and unreduced (an all-reduce gives its
+    operand back, an all-gather and a reduce-scatter new tensors of the
+    gathered and the block's shape, nothing exchanged), each counted and
+    logged (``recording``) as a ``GridMesh`` logs its own.  Their values
+    are not the grid's: it serves the dry run's per-rank counts
+    (``launch.dryrun``), where tensors hold no values."""
+
+    def __init__(self, shape: MeshShape, coords: dict | None = None):
+        MeshShape.__init__(self, shape.axis_names, tuple(shape.shape.values()),
+                           coords or {a: 0 for a in shape.axis_names})
+        self.device_mesh, self.groups, self.rank = None, {}, 0
+        self.device, self.backend = torch.device("meta"), "meta"
+        self.all_reduces, self.all_gathers, self.reduce_scatters = {}, {}, {}
+
+    def __repr__(self) -> str:
+        return f"MetaGrid({dict(self.shape)}, coords={self.coords})"
+
+    def _all_reduce_(self, t: torch.Tensor, axes: tuple, op) -> torch.Tensor:
+        self._count(self.all_reduces, axes)
+        return t
+
+    def _gather_into(self, out: torch.Tensor, x: torch.Tensor, axes: tuple) -> None:
+        pass
+
+    def _scatter_part(self, part: torch.Tensor, axes: tuple, i: int) -> torch.Tensor:
+        return part[i:i + 1]
 
 
 def _subgroup(shape: MeshShape, axes: tuple, rank: int, backend: str):
@@ -611,23 +661,52 @@ def max_over(x: torch.Tensor, mesh: GridMesh, axes) -> torch.Tensor:
     return _MaxOver.apply(x, mesh, _axes(axes))
 
 
-class _FsdpGather(_Collective):
-    """Every rank's block of dim 0 gathered forward; the gradient summed
-    over the axes, this rank's block, backward (a reduce-scatter)."""
+class _GatherDim(torch.autograd.Function):
+    """Every rank's block of dim ``dim`` over the axes gathered forward
+    (``GridMesh.all_gather``); backward this rank's block of the gradient,
+    summed over the axes first where ``summed`` (a reduce-scatter: each
+    rank's gradient is a part of the whole), else taken as it is (the
+    gradient is the same on every rank).  Under ``torch.func.vmap`` the
+    batched tensor is moved to dim 0 and gathered along ``dim`` + 1."""
 
     @staticmethod
-    def forward(x, mesh, axes):
-        return mesh.all_gather(x, axes)
+    def forward(x, mesh, axes, dim, summed):
+        return mesh.all_gather(x, axes, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.summed = inputs[1:]
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.reduce_scatter(g, ctx.axes), None, None
+        if ctx.summed:
+            g = ctx.mesh.reduce_scatter(g, ctx.axes, ctx.dim)
+        else:
+            w = g.shape[ctx.dim] // ctx.mesh.size(ctx.axes)
+            g = g.narrow(ctx.dim, ctx.mesh.index(ctx.axes) * w, w)
+        return g, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, axes, dim, summed):
+        bdim = in_dims[0]
+        if bdim is None:
+            return _GatherDim.apply(x, mesh, axes, dim, summed), None
+        return _GatherDim.apply(x.movedim(bdim, 0), mesh, axes, dim % (x.ndim - 1) + 1,
+                                summed), 0
+
+
+def gather_dim(x: torch.Tensor, mesh: GridMesh, axes, dim: int, *,
+               summed: bool) -> torch.Tensor:
+    """The ranks' blocks of dim ``dim`` of ``x`` over ``axes``,
+    concatenated; backward this rank's block of the gradient, summed over
+    the axes where ``summed`` (see ``_GatherDim``)."""
+    axes = _axes(axes)
+    if mesh.size(axes) == 1:
+        return x
+    return _GatherDim.apply(x, mesh, axes, dim, summed)
 
 
 def fsdp_gather(x: torch.Tensor, mesh: GridMesh, axes) -> torch.Tensor:
     """The ranks' blocks of dim 0 of ``x`` over ``axes`` gathered whole;
     the gradient reduce-scattered back to this rank's block."""
-    axes = _axes(axes)
-    if mesh.size(axes) == 1:
-        return x
-    return _FsdpGather.apply(x, mesh, axes)
+    return gather_dim(x, mesh, axes, 0, summed=True)

@@ -13,6 +13,10 @@ A model built on a grid runs on it: the train step of its bundle
 prefill, forward and decode steps run on this rank's blocks, the decode
 step told the whole cache's slots (``bundle.meta["cache_size"]``), as the
 reference's ``build_step(model, bundle, mesh)`` lowers them on its mesh.
+The train step of a model whose config sets a mesh lever
+(``activation_sharding``, ``seq_par_attention``, ``fsdp_activations``: the
+dry run's ``act_shard``, ``seq_par`` and ``fsdp_act`` variants) runs it on
+the grid (``models/model.py``).
 """
 
 from __future__ import annotations

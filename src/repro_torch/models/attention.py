@@ -57,8 +57,9 @@ def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0, q_offs
     """Blocked attention with online softmax.  ``prefix_len`` makes the first
     ``prefix_len`` key positions visible to every query (prefix-LM / VLM);
     ``q_offset`` shifts the query positions of the causal mask; padded keys
-    are masked.  ``parallel_q`` (the JAX package's sequence-parallel lever,
-    a hint to XLA's partitioner) has no effect: the port has no partitioner."""
+    are masked.  ``parallel_q`` (the reference's sequence-parallel lever)
+    changes nothing here: on a grid ``models/blocks.py`` splits the query
+    blocks over ``model`` and calls this loop on each rank's block."""
     del parallel_q
     b, lq, hq, d = q.shape
     _, lk, hkv, _ = k.shape

@@ -25,9 +25,23 @@ the axis.  Where the split falls on whole heads with the GQA groups kept
 together (``num_kv_heads % model == 0``), attention runs on the local
 heads.  Where it cuts a head (smollm-135m's 9 q and 3 kv heads over 2
 ranks), q, k and v are gathered whole, every rank attends on every head,
-and ``wo`` takes this rank's features of the output.  ``seq_par_attention``
-and the reference's other mesh levers steer XLA's partitioner; the explicit
-split already keeps heads local, so they have no effect here.  An MoE
+and ``wo`` takes this rank's features of the output.  On that path the
+forward takes the reference's mesh levers (``attn_lever``), where its
+``maybe_shard_axis`` would act: ``activation_sharding`` (the reference
+repeats kv to every q head and pins the heads to ``model``), where
+``model`` divides the q heads (paligemma-3b's 8 over 2 or 4): q stays on
+this rank's heads, k and v are gathered whole and repeated to them, and the
+output feeds ``wo``'s row block, summed over the axis; else
+``seq_par_attention`` (the reference splits the query blocks over
+``model``), where ``model`` divides the query blocks of the plain blocked
+route (``block_q = L / model``): each rank attends with its block of them
+(``q_offset``, the causal and prefix masks kept) against the whole k and v,
+and the rows are gathered over ``model`` before ``wo``.  Each rank then
+does 1/m of the attention's products.  The gathers of q, k and v
+reduce-scatter their gradients there, since each rank uses them for its
+own heads or rows; elsewhere a lever changes nothing, bit for bit.  The
+flash-kernel route ignores ``seq_par_attention``, as the reference's does.
+The prefill and the decode step take no lever.  An MoE
 block's experts split over ``model`` (expert parallelism,
 ``models/moe.py``).  Serving follows the same two paths: on whole heads
 the prefill runs ``_attention`` (the flash kernel) on this rank's heads and
@@ -66,10 +80,11 @@ from repro_torch.models.attention import (
     merge_decode_parts,
     sliding_window_attention,
 )
-from repro_torch.launch.mesh import copy_to, gather_from, reduce_from
+from repro_torch.launch.mesh import copy_to, gather_dim, gather_from, reduce_from
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp, rms_norm, rope
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.ssm import apply_mamba2, decode_mamba2, init_mamba2, init_ssm_cache
+from repro_torch.utils.regions import ATTENTION, region
 
 _SSM = ("ssm", "hybrid")
 
@@ -121,23 +136,105 @@ def _attend(cfg, q, k, v, use_window: bool):
     return _attention(cfg, q, k, v)
 
 
+def attn_lever(cfg, tp, length: int, use_window: bool = False) -> str | None:
+    """The mesh lever the forward's attention takes on ``tp``'s ``model``
+    axis of m > 1 ranks, where the split cuts a head (``hkv % m != 0``):
+    ``"heads"`` under ``activation_sharding`` where ``hq % m == 0`` (each
+    rank attends on its q heads, k and v repeated to them); else
+    ``"rows"`` under ``seq_par_attention`` on the plain blocked route
+    where m divides the query blocks of ``length`` (each rank attends with
+    its block of them); else None (every rank attends on every head)."""
+    if tp is None or tp.size == 1 or cfg.num_kv_heads % tp.size == 0:
+        return None
+    m = tp.size
+    if (cfg.activation_sharding and cfg.num_heads % m == 0
+            and tp.has("attn/wq") and tp.has("attn/wo")):
+        return "heads"
+    bq = min(cfg.block_q, length)
+    if (cfg.seq_par_attention and not uses_flash_kernel(cfg)
+            and not (use_window and cfg.sliding_window) and (-(-length // bq)) % m == 0):
+        return "rows"
+    return None
+
+
 def apply_attn(p, cfg, x, *, positions, use_window: bool = False, tp=None):
     if tp is not None and tp.size > 1:
-        q, k, v, local, split = _qkv_tp(p, cfg, x, positions, tp)
-        out = _attend(cfg, q, k, v, use_window).reshape(*x.shape[:2], -1)
-        return _out_tp(out, p, tp, local, split)
+        lever = attn_lever(cfg, tp, x.shape[1], use_window)
+        if lever == "heads":
+            q, k, v, split = _qkv_heads(p, cfg, x, positions, tp)
+            with region(ATTENTION):
+                out = _attend(cfg, q, k, v, use_window)
+            return _out_tp(out.reshape(*x.shape[:2], -1), p, tp, True, split)
+        q, k, v, local, split = _qkv_tp(p, cfg, x, positions, tp, summed=lever == "rows")
+        with region(ATTENTION):
+            if lever == "rows":
+                out = _attend_rows(cfg, q, k, v, tp)
+            else:
+                out = _attend(cfg, q, k, v, use_window)
+        return _out_tp(out.reshape(*x.shape[:2], -1), p, tp, local, split)
     q, k, v = _qkv(p, cfg, x, positions)
-    out = _attend(cfg, q, k, v, use_window)
+    with region(ATTENTION):
+        out = _attend(cfg, q, k, v, use_window)
     b, l, _ = x.shape
     return out.reshape(b, l, -1) @ p["wo"]
 
 
-def _qkv_tp(p, cfg, x, positions, tp):
+def _attend_rows(cfg, q, k, v, tp):
+    """``seq_par_attention``: the plain blocked attention of this rank's
+    block of the query blocks (``q_offset`` its first position, the causal
+    and prefix masks kept) against the whole k and v; the ranks' rows
+    gathered over ``model`` (the gradient, the same on every rank, sliced
+    back)."""
+    mesh, m = tp.mesh, tp.size
+    b, l, hq, hd = q.shape
+    bq = min(cfg.block_q, l)
+    rows = (-(-l // bq)) // m * bq
+    r0 = mesh.index("model") * rows
+    mine = flash_attention(q[:, r0:r0 + rows], k, v, causal=cfg.causal,
+                           prefix_len=cfg.prefix_len, q_offset=r0, block_q=bq,
+                           block_k=cfg.block_k)
+    if mine.shape[1] < rows:   # the last rank's block past the sequence
+        mine = F.pad(mine, (0, 0, 0, 0, 0, rows - mine.shape[1]))
+    return gather_dim(mine, mesh, "model", 1, summed=False)[:, :l]
+
+
+def _qkv_heads(p, cfg, x, positions, tp):
+    """``activation_sharding`` on a cut head: (q on this rank's hq / m
+    heads, k and v gathered whole and repeated to them, split).  Every rank
+    uses all of k and v for its own heads only, so their gradients are
+    summed over ``model``: the gather of the split leaves' columns
+    reduce-scatters it, a whole leaf's product enters through
+    ``copy_to``."""
+    mesh, m = tp.mesh, tp.size
+    b, l, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    split = {w: tp.has(f"attn/{w}") for w in ("wq", "wk", "wv", "wo")}
+    xin = copy_to(x, mesh, "model")
+    q = rope((xin @ p["wq"]).reshape(b, l, hq // m, hd), positions, cfg.rope_theta)
+    kv = {w: copy_to(x @ p[w], mesh, "model") for w in ("wk", "wv") if not split[w]}
+    cut = [w for w in ("wk", "wv") if split[w]]
+    if cut:
+        parts = [xin @ p[w] for w in cut]
+        full = gather_dim(torch.cat(parts, dim=-1), mesh, "model", -1,
+                          summed=True).reshape(b, l, m, -1)
+        kv.update((w, t.reshape(b, l, -1)) for w, t in
+                  zip(cut, full.split([t.shape[-1] for t in parts], dim=-1)))
+    heads = mesh.index("model") * (hq // m) + torch.arange(hq // m, device=x.device)
+    group = heads // (hq // hkv)   # each local q head's kv head
+    k = rope(kv["wk"].reshape(b, l, hkv, hd), positions, cfg.rope_theta)[:, :, group]
+    v = kv["wv"].reshape(b, l, hkv, hd)[:, :, group]
+    return q, k, v, split
+
+
+def _qkv_tp(p, cfg, x, positions, tp, summed: bool = False):
     """``_qkv`` on this rank's blocks of the attention leaves (see the
     module docstring): (q, k, v, local, split), the heads this rank's where
     ``local`` (whole heads, whole GQA groups), else every head gathered
     (those of the leaves the axis splits in one all-reduce); ``split`` says
-    which leaves the axis splits."""
+    which leaves the axis splits.  ``summed``: each rank's use of the
+    gathered heads differs (``seq_par_attention``), so their gradients are
+    summed over ``model`` (the gather reduce-scatters it, a whole leaf's
+    product enters through ``copy_to``)."""
     mesh, m = tp.mesh, tp.size
     b, l, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -153,12 +250,15 @@ def _qkv_tp(p, cfg, x, positions, tp):
 
     # the leaves the axis splits gathered in one all-reduce, the others whole
     cut = [w for w in ("wq", "wk", "wv") if split[w]]
-    out = {w: x @ p[w] for w in ("wq", "wk", "wv") if not split[w]}
+    out = {w: copy_to(x @ p[w], mesh, "model") if summed else x @ p[w]
+           for w in ("wq", "wk", "wv") if not split[w]}
     if cut:
-        parts = [xin @ p[w] for w in cut]
-        full = gather_from(torch.cat(parts, dim=-1), mesh, "model").reshape(b, l, m, -1)
+        parts = torch.cat([xin @ p[w] for w in cut], dim=-1)
+        full = gather_dim(parts, mesh, "model", -1, summed=True) if summed else \
+            gather_from(parts, mesh, "model")
+        full = full.reshape(b, l, m, -1)
         out.update((w, t.reshape(b, l, -1)) for w, t in
-                   zip(cut, full.split([t.shape[-1] for t in parts], dim=-1)))
+                   zip(cut, full.split([p[w].shape[-1] for w in cut], dim=-1)))
     q, k, v = (out[w].reshape(b, l, heads, hd) for w, heads in (("wq", hq), ("wk", hkv),
                                                                    ("wv", hkv)))
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v, local, split

@@ -5,12 +5,16 @@ a config of the JAX package and its port describe the same model.
 ``pdtype``/``cdtype`` are torch dtypes.  ``fed_mode`` and ``microbatch``
 pick the client-memory mode and the gradient-accumulation chunks of
 ``repro_torch.launch.train``'s rounds (``fed.distributed``).  The mesh levers
-(``activation_sharding``, ``fsdp_activations``, ``seq_par_attention``) are
-carried and have no effect: in the reference they steer XLA's partitioner
-(sharding constraints on the activations, sequence-parallel attention
-blocks), and the port has no partitioner to steer.  On a grid its split is
-explicit (``build_model(cfg, grid=)``): the attention already runs on each
-rank's own heads, or on all heads gathered where the split cuts one.
+(``activation_sharding``, ``fsdp_activations``, ``seq_par_attention``) act
+on a grid's ``model`` axis of more than one rank (``build_model(cfg,
+grid=)``), where the reference's sharding constraints would, as explicit
+splits of the forward's work: ``activation_sharding`` the attention's q
+heads where the split cuts a kv head (``models/blocks.py``) and the
+Mamba-2 SSD's heads (``models/ssm.py``), ``seq_par_attention`` the query
+blocks of the plain blocked attention on a cut head, ``fsdp_activations``
+each client's rows, every leaf gathered whole at its use
+(``models/layers.py``).  On one card they change nothing, and the
+prefill and the decode step take none.
 """
 
 from __future__ import annotations
@@ -76,10 +80,10 @@ class ModelConfig:
     # fed-integration knobs
     fed_mode: str = "vmap"  # vmap | scan | remat (fed.distributed)
     fed_clients: int = 16
-    activation_sharding: bool = False  # a mesh lever of the reference: no effect
+    activation_sharding: bool = False  # mesh lever: heads over model (see the docstring)
     microbatch: int = 1  # gradient-accumulation chunks a local step (fed.distributed)
-    fsdp_activations: bool = False
-    seq_par_attention: bool = False
+    fsdp_activations: bool = False  # mesh lever: a client's rows over model
+    seq_par_attention: bool = False  # mesh lever: query blocks over model
     # attention through the hand-written flash kernel (kernels.ops
     # .flash_attention) for forward (causal or full, no prefix-LM);
     # $REPRO_TORCH_KERNELS=torch vetoes it

@@ -18,15 +18,30 @@ over the same axes, so a leaf no data axis splits enters through
 together: those of one dtype in one flat all-gather of up to
 ``FSDP_BUCKET`` gathered elements (a larger leaf alone), and its unsplit
 leaves in one ``copy_to``, so a local step issues a few collectives a layer,
-not one a leaf.  The reference's mesh levers
-(``with_sharding_constraint`` under ``activation_sharding`` and
-``fsdp_activations``) steer XLA's partitioner; the explicit split has no
-partitioner to steer, so they have no counterpart.
+not one a leaf.
+
+The reference's ``fsdp_activations`` lever pins the residual stream's batch
+to ``model`` (``repro/models/model.py:94``), so that per-layer gathers of
+the weights replace the tensor-parallel all-reduces of the activations.
+Here the batch's rows then split over ``model`` too (``batch_axes`` holds
+it, beside the data axes under FSDP): ``use_tree`` gathers each leaf's
+``model``-split dim with its data-split dim in one bucketed all-gather over
+both (a leaf split over one of them enters through ``copy_to`` over the
+other first), and ``size`` is 1, so each block computes as on one card, on
+this rank's rows.  Each client's whole leaves would then stay saved for
+the backward, a whole model of them a client; so, as FSDP frees its
+gathered weights after the forward, the loss runs under ``regathered()``:
+a tensor autograd saves that lies in a gathered leaf is kept as the rank's
+block of that leaf, gathered again when the backward reads it.  The
+model's other levers act in ``models/blocks.py`` and ``models/ssm.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -35,14 +50,24 @@ import torch.nn.functional as F
 from repro_torch.launch.mesh import copy_to, fsdp_gather, reduce_from
 
 FSDP_BUCKET = 1 << 28   # gathered elements of one all-gather of several leaves
+# fsdp_activations' gathered leaves alive: storage address -> [_Gathered]
+_GATHERED: dict = {}
+
+
+def _entry_axes(entry) -> tuple:
+    """The axes of one spec entry (``None``, a name or a tuple of names)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 class ModelAxis(NamedTuple):
     """A grid's placement of a model's leaves: ``specs`` maps a path
     relative to a block (``"attn/wq"``, ``"moe/up"``) or the model
     (``"embed"``, ``"head"``) to its spec, a layer's without the L axis;
-    ``batch_axes`` are the data axes a batch's rows split over under FSDP,
-    ``()`` where every rank takes the whole batch."""
+    ``batch_axes`` are the axes a batch's rows split over (the data axes
+    under FSDP, ``model`` under ``fsdp_activations``), ``()`` where every
+    rank takes the whole batch."""
 
     mesh: object
     specs: dict
@@ -50,19 +75,33 @@ class ModelAxis(NamedTuple):
 
     @property
     def size(self) -> int:
-        """The ranks of the ``model`` axis."""
-        return self.mesh.shape.get("model", 1)
+        """The ranks of the ``model`` axis that split a block's work: 1
+        where the rows split over ``model`` (each leaf gathered whole)."""
+        return 1 if "model" in self.batch_axes else self.mesh.shape.get("model", 1)
 
     def has(self, path: str) -> bool:
-        """Whether a ``model`` axis of more than one rank splits the leaf."""
+        """Whether a ``model`` axis of more than one rank splits the leaf's
+        work (its block computes tensor-parallel)."""
         return self.size > 1 and any(e == "model" for e in self.specs.get(path, ()))
 
-    def _data_dim(self, path: str):
-        """The dim of the leaf the data axes split, or None."""
+    def _splits(self, path: str) -> list:
+        """(dim, axes) of each dim of the leaf split over the batch's axes:
+        the dims gathered at its use."""
+        out = []
         for dim, e in enumerate(self.specs[path]):
-            if e is not None and e != "model":
-                return dim
-        return None
+            axes = _entry_axes(e)
+            if axes and set(axes) <= set(self.batch_axes):
+                out.append((dim, axes))
+        return out
+
+    def regathered(self):
+        """The context a loss runs in: under ``fsdp_activations`` (``model``
+        among ``batch_axes``) the gathered leaves are saved for the backward
+        as this rank's blocks and gathered again there (the module
+        docstring); else nothing."""
+        if "model" not in self.batch_axes:
+            return contextlib.nullcontext()
+        return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
 
     def use(self, path: str, leaf: torch.Tensor) -> torch.Tensor:
         """``use_tree`` of one model-level leaf."""
@@ -70,52 +109,163 @@ class ModelAxis(NamedTuple):
 
     def use_tree(self, tree: dict, prefix: str = "") -> dict:
         """The leaves of a dict of dicts (a block's, paths after
-        ``prefix``) as a forward uses them: each dim split over the data
+        ``prefix``) as a forward uses them: each dim split over the batch's
         axes gathered (backward: this rank's block of the gradient summed
-        over them); under a split batch a leaf no data axis splits enters
-        through ``copy_to`` (backward: its gradient summed over them)."""
+        over them); over the batch's other axes a leaf enters through
+        ``copy_to`` (backward: its gradient summed over them)."""
         if not self.batch_axes:
             return tree
         flat = _flatten(tree, prefix, {})
-        split, whole = {}, {}
+        groups: dict = {}   # (dtype, gathered axes, copied axes) -> buckets of paths
         for path, leaf in flat.items():
-            dim = self._data_dim(path)
-            if dim is None:
-                whole.setdefault(leaf.dtype, []).append(path)
-            else:
-                split.setdefault(leaf.dtype, [[]])
-                bucket = split[leaf.dtype][-1]
-                if bucket and self._gathered(flat, bucket + [path]) > FSDP_BUCKET:
-                    split[leaf.dtype].append(bucket := [])
-                bucket.append(path)
+            used = {a for _, axes in self._splits(path) for a in axes}
+            gathered = tuple(a for a in self.mesh.axis_names if a in used)
+            copied = tuple(a for a in self.batch_axes if a not in used)
+            buckets = groups.setdefault((leaf.dtype, gathered, copied), [[]])
+            bucket = buckets[-1]
+            if gathered and bucket and self._gathered(flat, bucket + [path],
+                                                      gathered) > FSDP_BUCKET:
+                buckets.append(bucket := [])
+            bucket.append(path)
         used = {}
-        for buckets in split.values():
-            for bucket in buckets:
-                used.update(self._gather(flat, bucket))
-        for paths in whole.values():
-            parts = copy_to(torch.cat([flat[p].reshape(-1) for p in paths]), self.mesh,
-                            self.batch_axes).split([flat[p].numel() for p in paths])
-            used.update({p: part.view_as(flat[p]) for p, part in zip(paths, parts)})
+        for (_, gathered, copied), buckets in groups.items():
+            for paths in buckets:
+                if gathered:
+                    used.update(self._gather(flat, paths, gathered, copied))
+                    continue
+                parts = copy_to(torch.cat([flat[p].reshape(-1) for p in paths]), self.mesh,
+                                copied).split([flat[p].numel() for p in paths])
+                used.update({p: part.view_as(flat[p]) for p, part in zip(paths, parts)})
         return _rebuild(tree, prefix, used)
 
-    def _gathered(self, flat: dict, paths: list) -> int:
-        return sum(flat[p].numel() for p in paths) * self.mesh.size(self.batch_axes)
+    def _gathered(self, flat: dict, paths: list, axes: tuple) -> int:
+        return sum(flat[p].numel() for p in paths) * self.mesh.size(axes)
 
-    def _gather(self, flat: dict, paths: list) -> dict:
-        """One all-gather of the leaves ``paths`` (one dtype): their blocks,
-        the split dim first, flattened into one vector; each leaf cut back
-        out of every rank's vector and its dim put back."""
-        n = self.mesh.size(self.batch_axes)
-        blocks = [flat[p].movedim(self._data_dim(p), 0) for p in paths]
+    def _gather(self, flat: dict, paths: list, axes: tuple, copied: tuple) -> dict:
+        """One all-gather over ``axes`` of the leaves ``paths`` (one dtype,
+        split over the same axes): their blocks, the split dims first,
+        flattened into one vector, which enters through ``copy_to`` over
+        ``copied``; each leaf cut back out of every rank's vector and its
+        dims put back."""
+        n = self.mesh.size(axes)
+        blocks = []
+        for p in paths:
+            dims = [d for d, _ in self._splits(p)]
+            blocks.append(flat[p].movedim(dims, list(range(len(dims)))))
         vec = torch.cat([b.reshape(-1) for b in blocks]) if len(blocks) > 1 else \
             blocks[0].reshape(-1)
-        full = fsdp_gather(vec, self.mesh, self.batch_axes).view(n, -1)
+        if copied:
+            vec = copy_to(vec, self.mesh, copied)
+        full = fsdp_gather(vec, self.mesh, axes).view(n, -1)
+        sizes = tuple(self.mesh.shape[a] for a in axes)
         out = {}
         for p, b, part in zip(paths, blocks, full.split([b.numel() for b in blocks], dim=1)):
-            d = self._data_dim(p)
-            w = part.reshape((n * b.shape[0],) + tuple(b.shape[1:])).movedim(0, d)
-            out[p] = w.contiguous() if d else w
+            splits = self._splits(p)
+            k = len(splits)
+            # (the gathered axes..., the block's dims): each split dim's axes
+            # before it, then merged into it
+            t = part.reshape(sizes + tuple(b.shape))
+            order = [i for j, (_, on) in enumerate(splits)
+                     for i in [axes.index(a) for a in on] + [len(axes) + j]]
+            order += list(range(len(axes) + k, t.ndim))
+            shape = [self.mesh.size(on) * b.shape[j] for j, (_, on) in enumerate(splits)]
+            w = t.permute(order).reshape(shape + list(b.shape[k:]))
+            out[p] = w.movedim(list(range(k)), [d for d, _ in splits]).contiguous()
+            if "model" in self.batch_axes and torch.is_grad_enabled():
+                _Gathered.keep(out[p], flat[p], functools.partial(self._regather, p, axes))
         return out
+
+    def _regather(self, path: str, axes: tuple, block: torch.Tensor) -> torch.Tensor:
+        """The leaf ``path`` gathered whole over ``axes`` from this rank's
+        ``block`` of it, as ``_gather`` gathers it (the backward's copy)."""
+        return self._gather({path: block}, [path], axes, ())[path]
+
+
+def _physical(t: torch.Tensor) -> tuple:
+    """(the tensor under ``t``'s vmap level, its batch dim), or (t, None)
+    outside vmap (the port vmaps over the clients alone)."""
+    f = torch._C._functorch
+    return (f.get_unwrapped(t), f.maybe_get_bdim(t)) if f.is_batchedtensor(t) else (t, None)
+
+
+class _Gathered:
+    """A gathered leaf's place in its storage (physical, under vmap) and
+    how to gather it again from this rank's block: what ``_pack`` keeps in
+    place of a saved tensor that lies in it."""
+
+    def __init__(self, phys, bdim, block, regather):
+        self.size, self.stride, self.offset = phys.shape, phys.stride(), phys.storage_offset()
+        self.span = (self.offset, self.offset + _extent(phys))
+        self.key = phys.untyped_storage().data_ptr()
+        self.bdim, (self.block, self.block_bdim) = bdim, _physical(block)
+        self.regather = regather
+
+    @staticmethod
+    def keep(leaf, block, regather) -> None:
+        """Register ``leaf`` for as long as its tensor lives, where it fills
+        its span of storage (a leaf cut from a bucket's gathered vector
+        under vmap may not: it stays saved whole)."""
+        phys, bdim = _physical(leaf)
+        if phys.device.type == "meta" or not _dense(phys):
+            return
+        entry = _Gathered(phys, bdim, block, regather)
+        _GATHERED.setdefault(entry.key, []).append(entry)
+        weakref.finalize(phys, _forget, entry)
+
+    def rebuild(self, size, stride, offset) -> torch.Tensor:
+        """The saved view (``size``, ``stride``, ``offset`` in the leaf's
+        storage) of the leaf gathered again."""
+        with torch.no_grad():
+            if self.bdim is None:
+                whole = self.regather(self.block)
+            else:
+                whole = torch.func.vmap(self.regather, in_dims=self.block_bdim,
+                                        out_dims=self.bdim)(self.block)
+            if whole.stride() != tuple(self.stride) or whole.storage_offset():
+                whole = torch.empty_strided(self.size, self.stride, dtype=whole.dtype,
+                                            device=whole.device).copy_(whole)
+        return whole.as_strided(size, stride, offset - self.offset)
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """Whether ``t`` fills its span of storage once: its dims, by stride,
+    each as far apart as the elements of the smaller ones."""
+    step = 1
+    for n, s in sorted(((n, s) for n, s in zip(t.shape, t.stride()) if n != 1),
+                       key=lambda ns: ns[1]):
+        if s != step:
+            return False
+        step *= n
+    return True
+
+
+def _extent(t: torch.Tensor) -> int:
+    """The elements of storage from ``t``'s first to one past its last."""
+    return 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride())) if t.numel() else 0
+
+
+def _forget(entry: _Gathered) -> None:
+    entries = _GATHERED.get(entry.key, [])
+    if entry in entries:
+        entries.remove(entry)
+    if not entries:
+        _GATHERED.pop(entry.key, None)
+
+
+def _pack(t: torch.Tensor):
+    """A saved tensor that lies in a gathered leaf: the leaf's entry and the
+    view's geometry; any other tensor: itself."""
+    if t.device.type == "meta" or not _GATHERED:
+        return t
+    start = t.storage_offset()
+    for entry in _GATHERED.get(t.untyped_storage().data_ptr(), ()):
+        if entry.span[0] <= start and start + _extent(t) <= entry.span[1]:
+            return entry, t.shape, t.stride(), start
+    return t
+
+
+def _unpack(saved):
+    return saved if isinstance(saved, torch.Tensor) else saved[0].rebuild(*saved[1:])
 
 
 def _flatten(tree: dict, prefix: str, out: dict) -> dict:

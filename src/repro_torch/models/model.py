@@ -60,6 +60,19 @@ gradient are the one-card ones however the masks fall; ``forward`` gathers
 the rows back (not differentiated).  With no grid, or nothing split (one
 rank; or ``model`` = 1 without FSDP), the model is the one-card one.
 
+The ``fsdp_activations`` lever (the reference pins the residual stream's
+batch to ``model``, ``repro/models/model.py:94``): where the rows of a
+forward's or loss's batch divide over the batch's axes and ``model``
+(``_axes``), every rank takes its block of them over both, each leaf is
+gathered whole at its use, embedding, head and MoE experts and the
+hybrid's shared block alike (``layers.ModelAxis`` with ``model`` among its
+``batch_axes``), the blocks compute as on one card on those rows, and the
+cross-entropy's global count runs over every rank's rows; a layer's forward
+then issues no all-reduce over ``model``, only its bucketed gathers (their
+reduce-scatters backward).  Where the rows do not divide, nothing changes.
+The other two levers act in the blocks (``models/blocks.py``,
+``models/ssm.py``).  Serving takes no lever.
+
 Serving under a grid (every decoder family).  A rank holds its blocks of
 the weights and of the cache, as the reference's specs lay them out
 (``launch.sharding.cache_tree_pspecs``: the rows over the data axes where
@@ -81,6 +94,7 @@ then needs ``cache_size``, which ``launch.serve`` and ``launch.steps`` pass.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple
 
 import torch
@@ -158,7 +172,8 @@ def hybrid_segments(cfg: ModelConfig):
 def build_model(cfg: ModelConfig, grid=None) -> Model:
     """The model of ``cfg``; under ``grid``, on this rank's blocks, the
     leaves split by the reference's specs, FSDP under ``cfg.fed_mode``
-    ``scan`` and ``remat`` (see the module docstring)."""
+    ``scan`` and ``remat``, and the mesh levers ``cfg`` sets (see the
+    module docstring)."""
     validate(cfg)
     L = cfg.num_layers
     is_hybrid = cfg.family == "hybrid" and cfg.shared_attn_every > 0
@@ -200,7 +215,7 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
     def _whole(path, leaf):
         return leaf
 
-    tp = shared_tp = None
+    tp = shared_tp = rows_tp = rows_shared = None
     fsdp = cfg.fed_mode in ("scan", "remat")
     if grid is not None and grid.devices > 1:
         from repro_torch.launch.sharding import shard_params_tree, take_shard, uses_axis
@@ -222,6 +237,11 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
                                              if path.startswith("shared/")}, batch_axes)
             if cfg.family in ("ssm", "hybrid"):
                 state_split(cfg, tp)   # raises for a serving layout the port does not run
+            if cfg.fsdp_activations and grid.shape.get("model", 1) > 1:
+                # the rows over model too, every leaf gathered whole at its use
+                rows_tp = tp._replace(batch_axes=batch_axes + ("model",))
+                if shared_tp is not None:
+                    rows_shared = shared_tp._replace(batch_axes=batch_axes + ("model",))
 
         def _block(path, leaf):
             # a layer's leaf is drawn alone: its stacked spec without the L axis
@@ -235,93 +255,105 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         Under a grid: this rank's blocks of the same draws."""
         return _init(generator, _device(device), _whole if tp is None else _block)
 
-    def _leaf(params, path):
-        """A model-level leaf as the forward uses it (FSDP's gather)."""
-        return params[path] if tp is None else tp.use(path, params[path])
+    def _axes(batch):
+        """(the layers' placement, the shared block's) that a forward or a
+        loss of ``batch`` computes on: under ``fsdp_activations`` the rows
+        split over ``model`` too where they divide over it (the
+        reference's ``maybe_shard_axis(h, 0)``), else ``tp``."""
+        if rows_tp is not None:
+            b = next(iter(batch.values())).shape[0]
+            if b % grid.size(rows_tp.batch_axes) == 0:
+                return rows_tp, rows_shared
+        return tp, shared_tp
 
-    def _rows(batch):
-        """This rank's rows of the batch under FSDP, else the batch."""
-        if tp is None or not tp.batch_axes:
+    def _leaf(params, path, ax):
+        """A model-level leaf as the forward uses it (FSDP's gather)."""
+        return params[path] if ax is None else ax.use(path, params[path])
+
+    def _rows(batch, ax):
+        """This rank's rows of the batch where they split, else the batch."""
+        if ax is None or not ax.batch_axes:
             return batch
-        n = grid.size(tp.batch_axes)
+        n = grid.size(ax.batch_axes)
         b = next(iter(batch.values())).shape[0]
         if b % n:
             raise ValueError(f"a batch of {b} rows does not split over the data axes "
-                             f"{tp.batch_axes} ({n} ranks): under FSDP each rank takes its block "
+                             f"{ax.batch_axes} ({n} ranks): under FSDP each rank takes its block "
                              "of a client's rows")
-        return {k: v[grid.block(b, tp.batch_axes)] for k, v in batch.items()}
+        return {k: v[grid.block(b, ax.batch_axes)] for k, v in batch.items()}
 
-    def _embed(params, tokens):
+    def _embed(params, tokens, ax):
         # F.embedding, not params["embed"][tokens]: its backward sums each
         # row's gradients in a fixed order, where the indexing backward's
         # float scatter-add on the CPU adds in parallel in no fixed order; a
         # client retrained from the same start must give the same bits
-        if tp is not None and tp.has("embed"):
-            table = _leaf(params, "embed")
+        if ax is not None and ax.has("embed"):
+            table = _leaf(params, "embed", ax)
             rows = table.shape[0]
             local = tokens.long() - grid.index("model") * rows
             inside = (local >= 0) & (local < rows)
             e = F.embedding(local.clamp(0, rows - 1), table) * inside[..., None].to(table.dtype)
             return reduce_from(e, grid, "model").to(cfg.cdtype)
-        return F.embedding(tokens.long(), _leaf(params, "embed")).to(cfg.cdtype)
+        return F.embedding(tokens.long(), _leaf(params, "embed", ax)).to(cfg.cdtype)
 
-    def _frontend(params, embeds):
+    def _frontend(params, embeds, ax):
         """Frames or patches (B, L, frontend_dim) through ``frontend_proj``:
         under a column split over ``model`` this rank's columns, gathered
         (the embeddings are data: no gradient to sum into them)."""
-        out = embeds.to(cfg.cdtype) @ _leaf(params, "frontend_proj")
-        if tp is not None and tp.has("frontend_proj"):
+        out = embeds.to(cfg.cdtype) @ _leaf(params, "frontend_proj", ax)
+        if ax is not None and ax.has("frontend_proj"):
             out = gather_from(out, grid, "model")
         return out.to(cfg.cdtype)
 
-    def _embed_inputs(params, batch):
+    def _embed_inputs(params, batch, ax):
         """The input sequence (B, L, d_model): token embeddings, projected
         frames (audio), or projected patches before the tokens (vlm)."""
         if cfg.family == "audio":
-            return _frontend(params, batch["frame_embeds"])
-        h = _embed(params, batch["tokens"])
+            return _frontend(params, batch["frame_embeds"], ax)
+        h = _embed(params, batch["tokens"], ax)
         if cfg.family == "vlm":
-            h = torch.cat([_frontend(params, batch["patch_embeds"]), h], dim=1)
+            h = torch.cat([_frontend(params, batch["patch_embeds"], ax), h], dim=1)
         return h
 
     def _positions(h):
         b, l = h.shape[:2]
         return torch.arange(l, device=h.device).expand(b, l)
 
-    def _hidden(params, batch, use_window):
+    def _hidden(params, batch, use_window, ax, shared_ax):
         """The final-normed hidden states and the layers' summed (lb, z),
         None for a model without a router."""
-        h = _embed_inputs(params, batch)
+        h = _embed_inputs(params, batch, ax)
         positions = _positions(h)
         aux = None
         for lo, hi, shared in segments:
             for i in range(lo, hi):
                 h, block_aux = apply_block(layer(params["layers"], i), cfg, h,
-                                           positions=positions, use_window=use_window, tp=tp)
+                                           positions=positions, use_window=use_window, tp=ax)
                 if block_aux is not None:
                     aux = torch.stack(block_aux) if aux is None else aux + torch.stack(block_aux)
             if shared is not None:
                 h, _ = apply_block(params["shared"], attn_cfg, h, positions=positions,
-                                   use_window=use_window, tp=shared_tp)
-        return rms_norm(h, _leaf(params, "final_norm")), aux
+                                   use_window=use_window, tp=shared_ax)
+        return rms_norm(h, _leaf(params, "final_norm", ax)), aux
 
-    def _vocab_split() -> bool:
-        return tp is not None and tp.has("head")
+    def _vocab_split(ax) -> bool:
+        return ax is not None and ax.has("head")
 
-    def _logits(params, h):
+    def _logits(params, h, ax):
         """(.., V) f32 logits, or this rank's block of the vocabulary."""
-        if _vocab_split():
+        if _vocab_split(ax):
             h = copy_to(h, grid, "model")
-        return (h @ _leaf(params, "head")).float()
+        return (h @ _leaf(params, "head", ax)).float()
 
     def forward(params, batch, use_window: bool = False) -> torch.Tensor:
         whole = next(iter(batch.values())).shape[0]
-        h, _ = _hidden(params, _rows(batch), use_window)
-        logits = _logits(params, h)
-        if _vocab_split():
+        ax, shared_ax = _axes(batch)
+        h, _ = _hidden(params, _rows(batch, ax), use_window, ax, shared_ax)
+        logits = _logits(params, h, ax)
+        if _vocab_split(ax):
             logits = gather_from(logits, grid, "model")
-        if tp is not None and tp.batch_axes:
-            logits = grid.gather_rows(logits, whole, tp.batch_axes)
+        if ax is not None and ax.batch_axes:
+            logits = grid.gather_rows(logits, whole, ax.batch_axes)
         return logits
 
     def _logz_gold(logits, labels):
@@ -337,23 +369,25 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         return m + torch.log(total), gold
 
     def loss_fn(params, batch, use_window: bool = False):
-        batch = _rows(batch)
-        h, aux = _hidden(params, batch, use_window)
-        if cfg.family == "vlm":
-            h = h[:, cfg.prefix_len:]  # the loss on the text tokens only
-        logits = _logits(params, h)
+        ax, shared_ax = _axes(batch)
+        batch = _rows(batch, ax)
+        with contextlib.nullcontext() if ax is None else ax.regathered():
+            h, aux = _hidden(params, batch, use_window, ax, shared_ax)
+            if cfg.family == "vlm":
+                h = h[:, cfg.prefix_len:]  # the loss on the text tokens only
+            logits = _logits(params, h, ax)
         labels = batch["labels"].long()
         mask = (labels >= 0).float()
         labels = torch.clamp(labels, min=0)
-        if _vocab_split():
+        if _vocab_split(ax):
             logz, gold = _logz_gold(logits, labels)
         else:
             logz = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         total, count = torch.sum((logz - gold) * mask), torch.sum(mask)
-        if tp is not None and tp.batch_axes:  # over every data rank's rows
+        if ax is not None and ax.batch_axes:  # over every rank's rows
             total, count = reduce_from(torch.stack([total, count]), grid,
-                                       tp.batch_axes).unbind(0)
+                                       ax.batch_axes).unbind(0)
         ce = total / torch.clamp(count, min=1.0)
         if aux is None:  # no router: the aux terms are zero
             zero = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -439,7 +473,7 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
         block of the cache."""
         if tp is not None:
             batch = {k: _serve_rows(v) for k, v in batch.items()}
-        h = _embed_inputs(params, batch)
+        h = _embed_inputs(params, batch, tp)
         positions = _positions(h)
         kw = dict(positions=positions, cache_size=cache_size, use_window=use_window)
         caches, shared_caches = [], []
@@ -455,14 +489,14 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
                  "pos": torch.full((b,), l, dtype=torch.int32, device=h.device)}
         if is_hybrid:
             cache["shared"] = tree_apply(lambda *ts: torch.stack(ts), *shared_caches)
-        h = rms_norm(h, _leaf(params, "final_norm"))
+        h = rms_norm(h, _leaf(params, "final_norm", tp))
         return _whole_logits(params, h[:, -1]), cache
 
     def _whole_logits(params, h):
         """(B, V) f32 logits of final-normed hidden states (B, d), the whole
         vocabulary on every rank."""
-        logits = _logits(params, h)
-        return gather_from(logits, grid, "model") if _vocab_split() else logits
+        logits = _logits(params, h, tp)
+        return gather_from(logits, grid, "model") if _vocab_split(tp) else logits
 
     def decode_step(params, cache, tokens, pos=None, *, ring: bool = False,
                     cache_size: int | None = None):
@@ -481,7 +515,7 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
             pos = None if pos is None else _serve_rows(pos, held)
             slots = _slots(cache, cache_size)
         pos = cache["pos"] if pos is None else pos
-        h1 = _embed(params, tokens)
+        h1 = _embed(params, tokens, tp)
         for lo, hi, shared in segments:
             for i in range(lo, hi):
                 h1 = decode_block(layer(params["layers"], i), cfg, h1,
@@ -490,7 +524,7 @@ def build_model(cfg: ModelConfig, grid=None) -> Model:
                 h1 = decode_block(params["shared"], attn_cfg, h1, layer(cache["shared"], shared),
                                   pos, ring=ring, tp=shared_tp, slots=slots)
         cache["pos"].copy_(pos + 1)
-        return _whole_logits(params, rms_norm(h1, _leaf(params, "final_norm"))), cache
+        return _whole_logits(params, rms_norm(h1, _leaf(params, "final_norm", tp))), cache
 
     return Model(cfg, init, loss_fn, forward, prefill, decode_step, init_cache,
                  grid if tp is not None else None, tp is not None and fsdp)

@@ -31,7 +31,16 @@ and every rank runs the conv, the SSD on every head and the gated RMSNorm
 whole, as one card does; the norm's output enters ``out_proj`` through
 ``copy_to`` (its gradient summed over the axis), each rank multiplies its
 d_inner block by its rows and the partial products are summed
-(``reduce_from``): 3 all-reduces a layer forward, 2 backward.  The serving
+(``reduce_from``): 3 all-reduces a layer forward, 2 backward.
+
+Under the reference's ``activation_sharding`` lever, which pins the SSD's
+heads to ``model`` (``repro/models/ssm.py:122``), the forward's SSD runs on
+this rank's H / m heads where m divides H (``ssd_heads``): B and C stay
+whole, the gated RMSNorm's mean square is summed over the axis, and
+``out_proj``'s d_inner rows are the rank's heads, so y is never gathered.  The gathers of the projection and of ``conv_w``
+then reduce-scatter their gradients, and the whole leaves a rank uses a
+part of enter through ``copy_to``: a rank's SSD work and its (q, q) f32
+tensors fall by m, all but the heads' shared C . B products.  The serving
 cache is this rank's ``cache_pspec`` block: the state split over N (dim 2
 of a layer's (B, H, N, P)), the conv window whole.  The prefill keeps the
 N block of the final state; a decode step updates its N block (the update
@@ -44,9 +53,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import copy_to, gather_from, reduce_from
+from repro_torch.launch.mesh import copy_to, gather_dim, gather_from, reduce_from
 from repro_torch.launch.sharding import cache_pspec
 from repro_torch.models.layers import dense_init
+from repro_torch.utils.regions import SSD, region
 
 
 def init_mamba2(generator: torch.Generator, cfg, *, device=None) -> dict:
@@ -137,25 +147,68 @@ def _split(tp, leaf: str) -> bool:
     return tp is not None and tp.has(f"mamba/{leaf}")
 
 
-def _in_proj(p, u, tp):
+def _gathered(t, tp, summed: bool):
+    """The column blocks ``t`` gathered whole over ``model``; ``summed``:
+    each rank uses a part of the whole, so the gradient is summed over the
+    axis (a reduce-scatter), else sliced."""
+    if summed:
+        return gather_dim(t, tp.mesh, "model", -1, summed=True)
+    return gather_from(t, tp.mesh, "model")
+
+
+def _in_proj(p, u, tp, summed: bool = False):
     """``u @ in_proj``, whole: under ``tp`` this rank's columns gathered
     over ``model``."""
     if not _split(tp, "in_proj"):
         return u @ p["in_proj"]
-    return gather_from(copy_to(u, tp.mesh, "model") @ p["in_proj"], tp.mesh, "model")
+    return _gathered(copy_to(u, tp.mesh, "model") @ p["in_proj"], tp, summed)
 
 
-def _conv_w(p, tp):
+def _conv_w(p, tp, summed: bool = False):
     """``conv_w`` whole: under ``tp`` its column blocks gathered."""
-    return gather_from(p["conv_w"], tp.mesh, "model") if _split(tp, "conv_w") else p["conv_w"]
+    return _gathered(p["conv_w"], tp, summed) if _split(tp, "conv_w") else p["conv_w"]
 
 
-def _gated_out(p, y, z, dtype, tp=None):
+def ssd_heads(cfg, tp) -> bool:
+    """Whether the forward's SSD runs on this rank's heads
+    (``activation_sharding`` on a ``model`` axis of m > 1 ranks that
+    divides the heads and splits ``out_proj``'s rows: the reference's
+    ``maybe_shard_axis(xh, 2)``)."""
+    return bool(cfg.activation_sharding and tp is not None and tp.size > 1
+                and cfg.ssm_heads % tp.size == 0 and _split(tp, "out_proj"))
+
+
+def _summed(p, names, mesh) -> dict:
+    """The whole leaves ``names`` through ``copy_to`` over ``model`` (each
+    rank uses a part of them, so their gradients are summed), those of one
+    dtype in one."""
+    by_dtype: dict = {}
+    for n in names:
+        by_dtype.setdefault(p[n].dtype, []).append(n)
+    out = {}
+    for ns in by_dtype.values():
+        parts = copy_to(torch.cat([p[n].reshape(-1) for n in ns]), mesh, "model").split(
+            [p[n].numel() for n in ns])
+        out.update({n: t.view_as(p[n]) for n, t in zip(ns, parts)})
+    return out
+
+
+def _gated_out(p, y, z, dtype, tp=None, heads: bool = False):
     """The gated RMSNorm of mamba2, then ``out_proj`` (under ``tp`` on this
-    rank's d_inner block, summed over ``model``)."""
+    rank's d_inner block, summed over ``model``).  ``heads``: y, z and
+    ``gate_norm_w`` are already this rank's d_inner block (the SSD on its
+    heads), the mean square's sum taken over ``model`` (``reduce_from``
+    then ``copy_to``: the sum both ways)."""
     g = y.float() * F.silu(z.float())
-    var = torch.mean(g * g, dim=-1, keepdim=True)
+    if heads:
+        mesh = tp.mesh
+        var = copy_to(reduce_from(torch.sum(g * g, dim=-1, keepdim=True), mesh, "model"), mesh,
+                      "model") / (g.shape[-1] * mesh.size("model"))
+    else:
+        var = torch.mean(g * g, dim=-1, keepdim=True)
     g = g * torch.rsqrt(var + 1e-6) * (1.0 + p["gate_norm_w"].float())
+    if heads:
+        return reduce_from(g.to(dtype) @ p["out_proj"], tp.mesh, "model")
     if not _split(tp, "out_proj"):
         return g.to(dtype) @ p["out_proj"]
     g = copy_to(g, tp.mesh, "model")[..., tp.mesh.block(g.shape[-1], "model")]
@@ -182,17 +235,30 @@ def state_split(cfg, tp) -> bool:
 def apply_mamba2(p, cfg, u, *, return_state: bool = False, tp=None):
     """u: (B, L, d_model) -> (B, L, d_model); with ``return_state`` also the
     serving cache ``{"state": (B, H, N, P) f32, "conv": (B, cw - 1, d_inner +
-    2N)}`` (under ``tp`` this rank's block: the state's N block).  The
-    reference's ``activation_sharding`` lever has no effect."""
+    2N)}`` (under ``tp`` this rank's block: the state's N block).  Under
+    ``ssd_heads`` the forward (not the prefill) runs the SSD on this rank's
+    heads: the projection and the conv whole, as without the lever, then
+    this rank's x and z columns, dt, A and D of its heads with B and C
+    whole, and ``out_proj`` on the rank's d_inner rows, which are its
+    heads' (no gather of y)."""
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    z, xbc_raw, dt_raw = _split_proj(cfg, _in_proj(p, u, tp))
-    xbc = _causal_conv(xbc_raw, _conv_w(p, tp), p["conv_b"])
+    heads = not return_state and ssd_heads(cfg, tp)
+    if heads:   # each rank uses a part of these whole leaves: their gradients summed
+        p = dict(p, **_summed(p, ("conv_b", "gate_norm_w", "A_log", "dt_bias", "D"), tp.mesh))
+    z, xbc_raw, dt_raw = _split_proj(cfg, _in_proj(p, u, tp, summed=heads))
+    xbc = _causal_conv(xbc_raw, _conv_w(p, tp, summed=heads), p["conv_b"])
     x, B, C = torch.split(xbc, [di, n, n], dim=-1)
+    if heads:
+        cols, mine = tp.mesh.block(di, "model"), tp.mesh.block(h, "model")
+        x, z, dt_raw = x[..., cols], z[..., cols], dt_raw[..., mine]
+        p = dict(p, gate_norm_w=p["gate_norm_w"][cols],
+                 **{k: p[k][mine] for k in ("A_log", "dt_bias", "D")})
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    xh = x.reshape(*x.shape[:2], h, cfg.ssm_head_dim)
-    y, state = _ssd_chunked(xh, dt, A, B, C, p["D"], cfg.ssm_chunk)
-    out = _gated_out(p, y.reshape(*u.shape[:2], di), z, u.dtype, tp)
+    xh = x.reshape(*x.shape[:2], -1, cfg.ssm_head_dim)
+    with region(SSD):
+        y, state = _ssd_chunked(xh, dt, A, B, C, p["D"], cfg.ssm_chunk)
+    out = _gated_out(p, y.reshape(*u.shape[:2], -1), z, u.dtype, tp, heads)
     if not return_state:
         return out
     if state_split(cfg, tp):   # this rank's block of N

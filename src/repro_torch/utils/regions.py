@@ -2,8 +2,9 @@
 
 ``region(label)`` marks a span (``"screen-pass"``: one pass of AFA's
 screening loop, ``"round-body"``: the fused engine's round body,
-``"twin"``: a kernel wrapper's plain twin on CPU operands); it costs a
-list append and pop.  Each span gets its own serial, ``"screen-pass#12"``,
+``"twin"``: a kernel wrapper's plain twin on CPU operands, ``"attention"``
+and ``"ssd"``: a layer's attention and SSD scan in a model's forward); it
+costs a list append and pop.  Each span gets its own serial, ``"screen-pass#12"``,
 so two passes in a row stay apart (``region_label`` strips it).  The
 engines, the meshes and the wrappers open spans here; the analysis package
 reads them, and nothing here imports it.
@@ -17,6 +18,8 @@ import itertools
 SCREEN_PASS = "screen-pass"
 ROUND_BODY = "round-body"
 TWIN = "twin"               # a kernel wrapper's plain twin (CPU operands)
+ATTENTION = "attention"     # a forward's attention of one layer (models/blocks.py)
+SSD = "ssd"                 # a Mamba-2 layer's chunked SSD scan (models/ssm.py)
 
 _REGIONS: list = []
 _SERIAL = itertools.count()
